@@ -1,0 +1,274 @@
+"""Design containers and the host->device packer (exact levels only).
+
+Port of ``prtp_tpu/graph.py``'s exact-levels packing. The pin DAG
+alternates strictly between *cell* levels (even: output pins / PIs,
+aggregated over ``cell`` edges) and *net* levels (odd: input pins,
+aggregated over ``net`` edges); levels are packed into **pairs**
+(cell level 2k, net level 2k+1). Nodes are renumbered
+level-contiguously, each level with its TRUE size (an empty level gets
+a 1-row block), so every level's update is one contiguous row write
+into the node-state matrix ``h`` of ``num_rows + 1`` rows (the last row
+is the gather dummy for padded mailbox slots).
+
+The JAX package also has padded and grouped packings; they exist to
+bound XLA recompiles and are numerically equal to this one, so the port
+has only the exact layout. The raster stays NCHW and no im2col patch
+table is built (serving runs Conv_0 as a plain convolution).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import resolve_device
+
+
+@dataclass
+class LeveledGraphExact:
+    """Per-pair tables with the TRUE level sizes, as tensors on a device.
+
+    Row layout: pair k's cell block starts at ``cell_off[k]``, its net
+    block at ``net_off[k]``. Index tables are int32; ``num_rows`` is the
+    dummy row of every mailbox table.
+    """
+
+    cell_feat_lvl: tuple  # P x (n_c_k, Fc) float32
+    net_feat_lvl: tuple   # P x (n_n_k, Fn) float32
+    cell_mail: tuple      # P x (n_c_k, md_c_k) int32, pad = num_rows
+    net_mail: tuple       # P x (n_n_k, md_n_k) int32, pad = num_rows
+    cell_rev_pos: tuple   # P x (e_c_k,) int32 flat mailbox positions
+    cell_rev_rows: tuple  # P x (e_c_k,) int32 source rows, ascending
+    net_rev_pos: tuple    # P x (e_n_k,)
+    net_rev_rows: tuple   # P x (e_n_k,)
+    # walk-backward tables: per pair, the prior-row contributions of both
+    # halves merged into one sorted unique-row scatter, plus the net edges
+    # whose source lies in the pair's own cell block
+    merged_pos: tuple     # P x (E_k,) flat pos into [cell|net] mailboxes
+    merged_seg: tuple     # P x (E_k,) segment id into merged_rows
+    merged_rows: tuple    # P x (U_k,) unique prior rows, sorted
+    intra_pos: tuple      # P x (I_k,) flat pos into the net mailbox
+    intra_slot: tuple     # P x (I_k,) local cell-block slot
+    # walk-forward tables: ONE global gather per pair serves both halves,
+    # gather_rows = [cell_mail.flat | net prior-row sources]; the net
+    # mailbox is then a LOCAL gather from buf = [new_cell | prior | 0]
+    gather_rows: tuple    # P x (n_c_k*md_c_k + n_prior_k,)
+    net_local_idx: tuple  # P x (n_n_k, md_n_k) into buf; pad = n_c_k + n_prior_k
+    cell_off: tuple       # P ints
+    net_off: tuple        # P ints
+    num_rows: int
+
+    @property
+    def num_pairs(self) -> int:
+        return len(self.cell_feat_lvl)
+
+
+@dataclass
+class DesignData:
+    """One packed design on a device. Node-indexed arrays use the
+    level-contiguous state-row numbering of :class:`LeveledGraphExact`."""
+
+    graph: LeveledGraphExact
+    arrival_time: torch.Tensor   # (num_rows+1,) float32
+    required_time: torch.Tensor  # (num_rows+1,) float32
+    is_critical: torch.Tensor    # (num_rows+1,) int32
+    path_endpoint: torch.Tensor  # (num_paths,) int32 state row of endpoint
+    path_level: torch.Tensor     # (num_paths,) float32 topo level of path
+    path_masks: torch.Tensor     # (num_paths, map_size^2) uint8
+    cnn_input: torch.Tensor      # (1, C, H, W) float32, NCHW
+
+    @property
+    def num_paths(self) -> int:
+        return self.path_endpoint.shape[0]
+
+
+def _sorted_level_tables(e_src, slot, pn, md, num_rows):
+    """dst-sorted edge tables for ONE level: the dense mailbox (``pos`` =
+    index within each destination's segment, ``num_rows`` = dummy) and
+    the transpose tables (flat mailbox positions + source rows, sorted by
+    source row ascending). Returns ``(e_src, slot, mail, rev_pos,
+    rev_rows)``."""
+    order = np.argsort(slot, kind="stable")
+    e_src = np.asarray(e_src)[order].astype(np.int32)
+    slot = np.asarray(slot)[order].astype(np.int32)
+    mail = np.full((pn, md), num_rows, np.int32)
+    pos = np.arange(len(slot)) - np.searchsorted(slot, slot)
+    mail[slot, pos] = e_src
+    flat = (slot.astype(np.int64) * md + pos).astype(np.int32)
+    order2 = np.argsort(e_src, kind="stable")
+    return e_src, slot, mail, flat[order2], e_src[order2]
+
+
+def _pack_exact_numpy(parsed):
+    """The exact-levels tables as numpy arrays.
+
+    Returns ``(tables, node_row, num_rows)``; ``tables`` maps each
+    per-pair field of :class:`LeveledGraphExact` to a list of arrays
+    (and ``cell_off``/``net_off`` to lists of ints)."""
+    levels = parsed["levels"]
+    n = int(parsed["num_nodes"])
+    n_levels = len(levels)
+    n_pairs = (n_levels + 1) // 2
+
+    def level_ids(li):
+        return (np.asarray(levels[li][0], dtype=np.int64)
+                if li < n_levels else np.zeros(0, np.int64))
+
+    # exact row layout
+    node_row = np.full(n, -1, dtype=np.int64)
+    node_level = np.full(n, -1, dtype=np.int64)
+    cell_off, net_off = [], []
+    off = 0
+    for li in range(2 * n_pairs):
+        ids = level_ids(li)
+        (cell_off if li % 2 == 0 else net_off).append(off)
+        node_row[ids] = off + np.arange(len(ids))
+        node_level[ids] = li
+        off += max(len(ids), 1)
+    num_rows = off
+
+    fc = parsed["cell_feat"].shape[1]
+    fn = parsed["net_feat"].shape[1]
+    cell_feat_l, net_feat_l = [], []
+    for li in range(2 * n_pairs):
+        ids = level_ids(li)
+        feat_key = "cell_feat" if li % 2 == 0 else "net_feat"
+        width = fc if li % 2 == 0 else fn
+        block = np.zeros((max(len(ids), 1), width), np.float32)
+        if len(ids):
+            block[: len(ids)] = parsed[feat_key][ids]
+        (cell_feat_l if li % 2 == 0 else net_feat_l).append(block)
+
+    def per_level_tables(parity, edges):
+        src, dst = (np.asarray(edges[0], np.int64),
+                    np.asarray(edges[1], np.int64))
+        lev = node_level[dst]
+        mails, rposs, rrows = [], [], []
+        offsets = cell_off if parity == 0 else net_off
+        blocks = cell_feat_l if parity == 0 else net_feat_l
+        for k in range(n_pairs):
+            sel = lev == 2 * k + parity
+            slot0 = node_row[dst[sel]] - offsets[k]
+            pn = blocks[k].shape[0]
+            md = max(1, int(np.bincount(slot0).max())) if len(slot0) else 1
+            _src, _slot, mail, rp, rr = _sorted_level_tables(
+                node_row[src[sel]], slot0, pn, md, num_rows)
+            mails.append(mail)
+            rposs.append(rp)
+            rrows.append(rr)
+        return mails, rposs, rrows
+
+    cm, crp, crr = per_level_tables(0, parsed["cell_edges"])
+    nm, nrp, nrr = per_level_tables(1, parsed["net_edges"])
+
+    m_pos, m_seg, m_rows, i_pos, i_slot = [], [], [], [], []
+    g_rows, n_local = [], []
+    for k in range(n_pairs):
+        pn_c, md_c = cm[k].shape
+        flat_c, src_c = crp[k].astype(np.int64), crr[k].astype(np.int64)
+        flat_n, src_n = nrp[k].astype(np.int64), nrr[k].astype(np.int64)
+        c0 = cell_off[k]
+        if not ((src_c < c0).all() and (src_n < net_off[k]).all()):
+            raise ValueError(f"pair {k}: an edge source lies at or after "
+                             "its destination's level")
+        # backward tables: merged prior-row scatter + intra-pair net edges
+        prior = src_n < c0
+        intra = ~prior
+        cat_pos = np.concatenate([flat_c, pn_c * md_c + flat_n[prior]])
+        rows = np.concatenate([src_c, src_n[prior]])
+        order = np.argsort(rows, kind="stable")
+        cat_pos, rows = cat_pos[order], rows[order]
+        uniq, seg = np.unique(rows, return_inverse=True)
+        m_pos.append(cat_pos.astype(np.int32))
+        m_seg.append(seg.astype(np.int32))
+        m_rows.append(uniq.astype(np.int32))
+        fi, si = flat_n[intra], (src_n[intra] - c0)
+        o2 = np.argsort(si, kind="stable")
+        i_pos.append(fi[o2].astype(np.int32))
+        i_slot.append(si[o2].astype(np.int32))
+        # forward tables: one global gather for both halves
+        flat_nm = nm[k].reshape(-1).astype(np.int64)
+        validm = flat_nm != num_rows
+        prior_m = validm & (flat_nm < c0)
+        intra_m = validm & ~(flat_nm < c0)
+        n_prior = int(prior_m.sum())
+        local = np.full(flat_nm.shape, pn_c + n_prior, np.int64)  # dummy
+        local[intra_m] = flat_nm[intra_m] - c0
+        local[prior_m] = pn_c + np.arange(n_prior)
+        g_rows.append(np.concatenate(
+            [cm[k].reshape(-1).astype(np.int32),
+             flat_nm[prior_m].astype(np.int32)]))
+        n_local.append(local.reshape(nm[k].shape).astype(np.int32))
+
+    tables = dict(
+        cell_feat_lvl=cell_feat_l, net_feat_lvl=net_feat_l,
+        cell_mail=cm, net_mail=nm,
+        cell_rev_pos=crp, cell_rev_rows=crr,
+        net_rev_pos=nrp, net_rev_rows=nrr,
+        merged_pos=m_pos, merged_seg=m_seg, merged_rows=m_rows,
+        intra_pos=i_pos, intra_slot=i_slot,
+        gather_rows=g_rows, net_local_idx=n_local,
+        cell_off=cell_off, net_off=net_off)
+    return tables, node_row, num_rows
+
+
+def pack_leveled_graph_exact(parsed, device="cuda"):
+    """Exact-shape packer. Returns ``(graph, node_row, num_rows)``."""
+    dev = resolve_device(device)
+    tables, node_row, num_rows = _pack_exact_numpy(parsed)
+    fields = {}
+    for key, arrs in tables.items():
+        if key in ("cell_off", "net_off"):
+            fields[key] = tuple(int(o) for o in arrs)
+        else:
+            fields[key] = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                                .to(dev) for a in arrs)
+    return LeveledGraphExact(num_rows=num_rows, **fields), node_row, num_rows
+
+
+def pack_design(parsed, map_size=128, device="cuda"):
+    """Pack a host-side parsed design (dict of numpy arrays) into
+    :class:`DesignData` on ``device``.
+
+    ``parsed`` keys: num_nodes, cell_feat (N,Fc), net_feat (N,Fn),
+    levels, cell_edges (2,Ec), net_edges (2,En), arrival_time (N,),
+    required_time (N,), is_critical (N,), path_endpoint (num_paths,),
+    path_level (num_paths,), mask_coo (2, nnz), num_paths, cnn_input
+    (C,H,W).
+    """
+    dev = resolve_device(device)
+    graph, node_row, num_rows = pack_leveled_graph_exact(parsed, dev)
+
+    def remap(key, dtype=np.float32):
+        vals = np.asarray(parsed[key], dtype=dtype).reshape(-1)
+        out = np.zeros(num_rows + 1, dtype=dtype)
+        valid = node_row < num_rows
+        out[node_row[valid]] = vals[: len(node_row)][valid]
+        return torch.from_numpy(out).to(dev)
+
+    num_paths = int(parsed["num_paths"])
+    masks = np.zeros((num_paths, map_size * map_size), dtype=np.uint8)
+    coo = np.asarray(parsed["mask_coo"], dtype=np.int64)
+    if coo.size:
+        masks[coo[0], coo[1]] = 1
+    path_endpoint = node_row[
+        np.asarray(parsed["path_endpoint"], np.int64)].astype(np.int32)
+    path_level = np.asarray(parsed["path_level"], np.float32)[:num_paths]
+    cnn_input = np.asarray(parsed["cnn_input"], dtype=np.float32)
+    if cnn_input.ndim != 3:
+        raise ValueError("pack_design takes one (C, H, W) raster; merged "
+                         f"super-graph rasters {cnn_input.shape} are not "
+                         "ported yet")
+    return DesignData(
+        graph=graph,
+        arrival_time=remap("arrival_time"),
+        required_time=remap("required_time"),
+        is_critical=remap("is_critical", np.int32),
+        path_endpoint=torch.from_numpy(path_endpoint).to(dev),
+        path_level=torch.from_numpy(np.ascontiguousarray(path_level)).to(dev),
+        path_masks=torch.from_numpy(masks).to(dev),
+        cnn_input=torch.from_numpy(np.ascontiguousarray(cnn_input[None]))
+        .to(dev),
+    )

@@ -1,0 +1,6 @@
+from .fusion import PathModel
+from .gnn import TimeGNN
+from .layoutnet import LayoutNet
+from .mlp import MLP
+
+__all__ = ["MLP", "LayoutNet", "PathModel", "TimeGNN"]

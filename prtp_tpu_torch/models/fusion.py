@@ -1,0 +1,94 @@
+"""PathModel — the multimodal fusion head.
+
+Port of ``prtp_tpu/models/fusion.py::PathModel``: the effective
+reference model ``(gnn, fcn, mlp_fuse, mlp_alpha)`` with one global
+embedding width (64 by default). Forward, batched over path ids:
+
+  h_gnn    = gnn(graph)[endpoints]
+  h_cnn    = fcn(mask[p] * flatten(cnn(layout)))
+  h_global = mlp_alpha(level_of_path)
+  out      = mlp_fuse(concat(h_gnn, h_cnn, h_global))
+
+``fcn`` is applied through the algebra ``fcn(mask * f) = mask @ (f ⊙ W)
++ b``, a plain product. Parameters follow flax's initialisers (lecun
+normal kernels, zero biases, a xavier-uniform ``fcn_kernel``), drawn
+from the ``generator`` given. This slice ports the float32 regression
+model; the U-Net branch, ``--attn`` and bfloat16 compute raise.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .gnn import TimeGNN
+from .layoutnet import LayoutNet
+from .mlp import MLP
+
+
+class PathModel(nn.Module):
+    def __init__(self, cell_feat_dim: int, net_feat_dim: int, *,
+                 use_gnn: bool = True, use_cnn: bool = True,
+                 unet: bool = False, pooling: str = "max",
+                 out_dim: int = 128, hidden_dim: int = 256,
+                 cnn_outdim: int = 128, map_size: int = 128,
+                 global_dim: int = 64, nlabels: int = 1,
+                 flag_attn: bool = False, dgl_parity: bool = True,
+                 compute_dtype=None, generator: torch.Generator | None = None):
+        super().__init__()
+        if not (use_gnn or use_cnn):
+            raise ValueError("GNN and CNN model can not be both None!")
+        if unet:
+            raise NotImplementedError("the U-Net branch is ported in a later "
+                                      "slice (variants)")
+        if flag_attn:
+            raise NotImplementedError("--attn is ported in a later slice "
+                                      "(variants)")
+        if compute_dtype not in (None, torch.float32, "float32"):
+            raise NotImplementedError("bfloat16 compute is ported in a later "
+                                      "slice (variants)")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.use_gnn = use_gnn
+        self.use_cnn = use_cnn
+        self.map_size = map_size
+        self.nlabels = nlabels
+        if use_gnn:
+            self.gnn = TimeGNN(cell_feat_dim, net_feat_dim, generator,
+                               out_dim=out_dim, hidden_dim=hidden_dim,
+                               dgl_parity=dgl_parity)
+        if use_cnn:
+            self.cnn = LayoutNet(generator, pooling)
+            # Linear(map^2 -> cnn_outdim) applied via the mask-row algebra
+            msq = map_size * map_size
+            self.fcn_kernel = nn.Parameter(torch.empty(msq, cnn_outdim))
+            nn.init.xavier_uniform_(self.fcn_kernel, generator=generator)
+            self.fcn_bias = nn.Parameter(torch.zeros(cnn_outdim))
+        self.mlp_alpha = MLP(1, (global_dim * 2, global_dim), generator)
+        fuse_in = ((out_dim if use_gnn else 0)
+                   + (cnn_outdim if use_cnn else 0) + global_dim)
+        self.mlp_fuse = MLP(fuse_in, (fuse_in * 2, nlabels), generator)
+
+    def forward(self, design, path_ids: torch.Tensor) -> torch.Tensor:
+        """Predict for a batch of path ids (any integer dtype).
+
+        Returns ``(B,)`` for ``nlabels == 1``, else ``(B, nlabels)``."""
+        endpoints = design.path_endpoint[path_ids]
+        levels = design.path_level[path_ids]
+        parts = []
+        if self.use_gnn:
+            h = self.gnn(design.graph)
+            parts.append(h.index_select(0, endpoints))
+        if self.use_cnn:
+            feat_map = self.cnn(design.cnn_input)
+            if feat_map.shape[0] != 1:
+                raise ValueError("merged super-graph designs (K CNN rasters) "
+                                 "are not ported yet")
+            rows = design.path_masks[path_ids].to(feat_map.dtype)
+            fw = feat_map.reshape(-1)[:, None] * self.fcn_kernel
+            parts.append(rows @ fw + self.fcn_bias)
+        parts.append(self.mlp_alpha(levels[:, None].float()))
+        out = self.mlp_fuse(torch.cat(parts, dim=-1))
+        if self.nlabels == 1:
+            out = out.squeeze(-1)
+        return out.float()

@@ -1,0 +1,48 @@
+"""TimeGNN — the levelized message-passing GNN (exact-levels walk).
+
+Port of ``prtp_tpu/models/gnn.py::TimeGNN`` on its exact-levels path.
+Reference semantics per topological level:
+
+- net levels (odd):  ``h[v] = ReLU(fc_net_self(net_feat[v]) +
+  mean_{u->v, net} h[u])``
+- cell levels (even>0): mailbox softmax-weighted sum of incoming ``h``,
+  then ``h[v] = ReLU(fc_cell_self(cell_feat[v]) + fc_cell_neigh(agg))``
+- level 0 (PIs): ``h[v] = ReLU(fc_cell_self(cell_feat[v]))``
+
+The walk itself is :func:`prtp_tpu_torch.ops.fused_gnn.exact_gnn_forward`.
+The node-state carry is float32, ``(num_rows + 1, out_dim)``; the last
+row is the gather dummy.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.fused_gnn import exact_gnn_forward
+from .mlp import MLP
+
+PAIR_STEP_MLPS = ("fc_cell_self", "fc_cell_neigh", "fc_net_self")
+
+
+class TimeGNN(nn.Module):
+    def __init__(self, cell_feat_dim: int, net_feat_dim: int,
+                 generator: torch.Generator, out_dim: int = 128,
+                 hidden_dim: int = 256, dgl_parity: bool = True):
+        super().__init__()
+        self.out_dim = out_dim
+        self.dgl_parity = dgl_parity
+        # widths mirror the reference (256-wide single hidden layer)
+        in_dims = {"fc_cell_self": cell_feat_dim, "fc_cell_neigh": out_dim,
+                   "fc_net_self": net_feat_dim}
+        for name in PAIR_STEP_MLPS:
+            self.add_module(name, MLP(in_dims[name], (hidden_dim, out_dim),
+                                      generator))
+
+    def forward(self, g, h0: torch.Tensor | None = None) -> torch.Tensor:
+        if h0 is None:
+            dev = g.cell_feat_lvl[0].device
+            h0 = torch.zeros((g.num_rows + 1, self.out_dim),
+                             dtype=torch.float32, device=dev)
+        params = {name: getattr(self, name) for name in PAIR_STEP_MLPS}
+        return exact_gnn_forward(params, h0, g, self.dgl_parity)

@@ -1,0 +1,62 @@
+"""Variadic MLP block and flax's initialisers.
+
+Port of ``prtp_tpu/models/mlp.py`` (reference ``MLP``): a stack of
+Linear layers with ReLU (the reference's LeakyReLU at its default slope
+0) between layers and none after the last. Layers are named ``fc0, fc1,
+...`` as the flax ``Dense`` layers are, so ``utils/convert.py`` maps
+them by name.
+
+Parameters are created uninitialised and drawn from an explicit
+``torch.Generator`` with flax's distributions (lecun-normal kernels,
+zero biases), never from the global RNG.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+# flax lecun_normal = variance_scaling(1, "fan_in", "truncated_normal"):
+# a standard normal truncated to [-2, 2], rescaled to unit variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std,
+                                     2.0 * std, generator=generator)
+
+
+def linear(in_dim: int, out_dim: int,
+           generator: torch.Generator) -> nn.Linear:
+    """``nn.Linear`` initialised as flax's ``Dense``."""
+    layer = nn.utils.skip_init(nn.Linear, in_dim, out_dim)
+    lecun_normal_(layer.weight, in_dim, generator)
+    with torch.no_grad():
+        layer.bias.zero_()
+    return layer
+
+
+class MLP(nn.Module):
+    """Linear stack; ``features`` are the per-layer output sizes."""
+
+    def __init__(self, in_dim: int, features: Sequence[int],
+                 generator: torch.Generator):
+        super().__init__()
+        self.num_layers = len(features)
+        for i, f in enumerate(features):
+            self.add_module(f"fc{i}", linear(in_dim, f, generator))
+            in_dim = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"fc{i}")(x)
+            if i < self.num_layers - 1:
+                x = F.relu(x)
+        return x

@@ -1,0 +1,27 @@
+"""Reshape-based 2x2/stride-2 pooling on NCHW tensors.
+
+Port of ``prtp_tpu/ops/pool.py``. The reshape + axis reduction gives the
+same forward values as a windowed pool; its gradient splits among EXACT
+ties inside a window, as JAX's does, where ``F.max_pool2d`` routes to
+one element — so the later backward keeps JAX's tie routing.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def pool_2x2(x: torch.Tensor, pooling: str, what: str = "pool") -> torch.Tensor:
+    """2x2/stride-2 max or avg pool on NCHW ``x``."""
+    if pooling not in ("max", "avg"):
+        raise ValueError(f"wrong pooling type for {what}: {pooling}")
+    n, c, h, w = x.shape
+    if h % 2 or w % 2:  # odd extent: the windowed form (floors the edge)
+        if pooling == "max":
+            return F.max_pool2d(x, 2)
+        return F.avg_pool2d(x, 2)
+    x6 = x.reshape(n, c, h // 2, 2, w // 2, 2)
+    if pooling == "max":
+        return x6.amax(dim=(3, 5))
+    return x6.mean(dim=(3, 5))
