@@ -9,21 +9,28 @@ Phases, each failing loudly (nonzero exit) on any error:
    CUDA versions; turn TF32 off for matmuls and convolutions (the slice
    is float32).
 2. Build every CUDA kernel of the path from ``prtp_tpu_torch/csrc``.
-3. Build and pack the bench headline design (80k nodes, 20 levels,
-   seed 7) and hold each kernel against its plain PyTorch version on the
-   card at every shape the walk gives it (an all-invalid mailbox row
-   added), timing kernel, plain version, and the one PyTorch call that
-   computes the same function where there is one. Then the kernels'
-   other code paths at edge shapes, and the row gather at the TPU probe's
-   shapes (160,000 x 128 bf16, 129,202 rows).
+3. Build and pack two designs: the bench headline (80k nodes, 20
+   levels, seed 7), whose net drivers all lie in the pair's own cell
+   level, and the same design with 10% of each net level's drivers moved
+   to an earlier cell level (prior rows). On each, hold every kernel
+   against its plain PyTorch version on the card at every shape the walk
+   gives it (an all-invalid mailbox row added), timing kernel, plain
+   version, and the one PyTorch call that computes the same function
+   where there is one. Then each kernel's per-call floor (a one-row call,
+   same timer), the kernels' other code paths at edge shapes, and the
+   row gather at the TPU probe's shapes (160,000 x 128 bf16, 129,202
+   rows).
 4. The slice: the full-width float32 regression fusion model, random
-   weights from a seed, answers three evaluation requests over all 597
-   paths through ``evaluate_design``; the launch counters (zeroed just
-   before) must show every kernel ran; the predictions must match the
-   same model and design on the CPU (plain versions) at rtol/atol 1e-4.
+   weights from a seed, answers three evaluation requests on the
+   headline and one on the prior-row design through ``evaluate_design``;
+   the launch counters, zeroed just before each design's requests, must
+   show every kernel of that design's walk ran as often as its tables
+   say; the predictions must match the same model and design on the CPU
+   (plain versions) at rtol/atol 1e-4.
 5. Where one request's time goes: device time of the forward, the walk
-   and LayoutNet (CUDA events), and the device's busy and idle share of
-   an evaluate call (torch.profiler).
+   and LayoutNet (CUDA events), the device's busy and idle share of an
+   evaluate call, and each kernel's in-walk time and count on both
+   designs (torch.profiler).
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -42,6 +49,7 @@ import time
 # bench.py's headline design (build_design)
 NODES, LEVELS, DECAY, SEED = 80_000, 20, 0.8, 7
 CELL_FEAT, NET_FEAT, MAP_SIZE, CNN_HW, MASK_NNZ = 36, 3, 128, 512, 96
+PRIOR_SHARE = 0.1  # share of each net level's drivers moved to prior rows
 REQUESTS = 3
 # H100 SXM peak rates (dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -49,6 +57,16 @@ F32_OPS_PER_S = 67e12
 REPS, WARMUP = 10, 2
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
 DEVICE = "cuda:0"
+D = 128  # the walk's row width (out_dim)
+# kernel: (source, TPU kernel or JAX op it replaces, design of its row)
+KERNEL_INFO = {
+    "gather_rows": ("prtp_tpu_torch/csrc/gather_rows.cu",
+                    "scripts/gather_roofline.py:142", "prior_rows"),
+    "softmax_sum": ("prtp_tpu_torch/csrc/softmax_sum.cu",
+                    "prtp_tpu/ops/fused_gnn.py:72", "headline"),
+    "local_mean": ("prtp_tpu_torch/csrc/local_mean.cu",
+                   "prtp_tpu/ops/fused_gnn.py:194", "headline"),
+}
 
 
 def log(msg=""):
@@ -102,15 +120,19 @@ def bound(nbytes: float, ops: float):
 
 
 class KernelRecord:
-    """Sums one kernel's numbers over the calls of one forward."""
+    """Sums one kernel's numbers over the calls of one forward of one
+    design."""
 
-    def __init__(self, name, source, replaces):
-        self.name, self.source, self.replaces = name, source, replaces
+    def __init__(self, name, design):
+        self.name, self.design = name, design
+        self.source, self.replaces, _ = KERNEL_INFO[name]
         self.ms = self.plain_ms = 0.0
         self.library_ms = None
         self.bytes = self.ops = 0.0
         self.max_abs_err = 0.0
-        self.launches = None
+        self.calls = 0
+        self.floor_ms = None
+        self.launches = {}
 
     def add(self, ms, plain_ms, library_ms, nbytes, ops, err):
         self.ms += ms
@@ -120,86 +142,112 @@ class KernelRecord:
         self.bytes += nbytes
         self.ops += ops
         self.max_abs_err = max(self.max_abs_err, err)
+        self.calls += 1
+
+    def summary(self) -> str:
+        b = bound(self.bytes, self.ops)[0]
+        return (f"{self.name} ({self.design}): {self.calls} calls, "
+                f"{self.ms:.4f} ms per forward; less {self.calls} x floor "
+                f"{self.floor_ms:.4f} ms: {self.ms - self.calls * self.floor_ms:.4f}"
+                f" ms; bound {b:.4f} ms; plain {self.plain_ms:.4f} ms; "
+                f"library {self.library_ms}")
 
     def as_json(self):
         bound_ms, bound_by = bound(self.bytes, self.ops)
         return {"name": self.name, "ok": True, "route": "cuda",
                 "source": self.source, "replaces": self.replaces,
-                "launches": self.launches,
-                "launches_per_request": self.launches // REQUESTS,
+                "launches": sum(self.launches.values()),
+                "launches_by_design": self.launches,
+                "design": self.design, "calls_per_forward": self.calls,
                 "max_abs_err": self.max_abs_err, "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": self.library_ms}
+                "bound_by": bound_by, "library_ms": self.library_ms,
+                "floor_ms": self.floor_ms,
+                "ms_less_floor": self.ms - self.calls * self.floor_ms}
 
 
-def check_kernels(torch, F, graph, dev, timer):
+def launches_per_forward(graph) -> dict:
+    """Each kernel's launches in one walk of ``graph``: the prior-row
+    gather only for pairs with prior rows, the cell reduce for pairs
+    k > 0, the net mean for every pair."""
+    return {
+        "gather_rows": sum(
+            1 for k in range(graph.num_pairs)
+            if graph.gather_rows[k].numel() > graph.cell_mail[k].numel()),
+        "softmax_sum": graph.num_pairs - 1,
+        "local_mean": graph.num_pairs,
+    }
+
+
+def check_kernels(torch, F, graph, dev, timer, design):
     """Phase 3: every kernel against its plain version at the walk's
-    shapes. Returns the three KernelRecords."""
+    shapes on ``graph``, with a random state ``h``. Bytes count what a
+    call must move: the distinct valid rows it reads, its indices and
+    its output. Returns ``{name: KernelRecord}``."""
     from prtp_tpu_torch.ops.fused_gnn import (local_mean, local_mean_plain,
                                               softmax_sum, softmax_sum_plain)
     from prtp_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 
-    d = 128
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    h = torch.randn((graph.num_rows + 1, d), generator=gen, device=dev)
-    rec_g = KernelRecord("gather_rows", "prtp_tpu_torch/csrc/gather_rows.cu",
-                         "scripts/gather_roofline.py:142")
-    rec_s = KernelRecord("softmax_sum", "prtp_tpu_torch/csrc/softmax_sum.cu",
-                         "prtp_tpu/ops/fused_gnn.py:72")
-    rec_m = KernelRecord("local_mean", "prtp_tpu_torch/csrc/local_mean.cu",
-                         "prtp_tpu/ops/fused_gnn.py:194")
+    num_rows = graph.num_rows
+    h = torch.randn((num_rows + 1, D), generator=gen, device=dev)
+    row_b = D * 4
+    recs = {name: KernelRecord(name, design) for name in KERNEL_INFO}
     for k in range(graph.num_pairs):
-        pn_c, md_c = graph.cell_mail[k].shape
-        idx = graph.gather_rows[k]
-        gat = gather_rows_plain(h, idx)
-        # ---- gather_rows: exact equality ----
-        if k > 0 or idx.shape[0] > pn_c * md_c:
-            out = gather_rows(h, idx)
+        cell_mail = graph.cell_mail[k]
+        pn_c, md_c = cell_mail.shape
+        # ---- gather_rows: the prior rows only, exact ----
+        prior_rows = graph.gather_rows[k][pn_c * md_c:]
+        prior = gather_rows_plain(h, prior_rows)
+        if prior_rows.numel():
+            out = gather_rows(h, prior_rows)
             torch.cuda.synchronize()
-            if not torch.equal(out, gat):
+            if not torch.equal(out, prior):
                 raise AssertionError(f"gather_rows differs at pair {k}")
-            row_b = d * h.element_size()
-            nbytes = (torch.unique(idx).numel() * row_b
-                      + idx.numel() * (row_b + 4))
-            ms = timer.ms(lambda: gather_rows(h, idx))
-            pms = timer.ms(lambda: gather_rows_plain(h, idx))
-            lms = timer.ms(lambda: torch.index_select(h, 0, idx))
-            rec_g.add(ms, pms, lms, nbytes, 0.0, 0.0)
-            log(f"  gather_rows pair {k}: {idx.numel()} x {d} f32  kernel "
-                f"{ms:.4f} ms  plain {pms:.4f}  index_select {lms:.4f}  "
-                f"bound {bound(nbytes, 0)[0]:.4f}  exact")
-        # ---- softmax_sum: the cell mailbox, row 0 made all-invalid ----
+            nbytes = (torch.unique(prior_rows).numel() * row_b
+                      + prior_rows.numel() * (row_b + 4))
+            ms = timer.ms(lambda: gather_rows(h, prior_rows))
+            pms = timer.ms(lambda: gather_rows_plain(h, prior_rows))
+            lms = timer.ms(lambda: torch.index_select(h, 0, prior_rows))
+            recs["gather_rows"].add(ms, pms, lms, nbytes, 0.0, 0.0)
+            log(f"  gather_rows pair {k}: {prior_rows.numel()} prior rows x "
+                f"{D} f32  kernel {ms:.4f} ms  plain {pms:.4f}  index_select "
+                f"{lms:.4f}  bound {bound(nbytes, 0)[0]:.4f}  exact")
+        # ---- softmax_sum: the cell mailbox from h, row 0 all-invalid ----
         if k > 0:
-            m = gat[: pn_c * md_c].view(pn_c, md_c, d)
-            valid = graph.cell_mail[k] != graph.num_rows
-            valid[0] = False
-            out = softmax_sum(m, valid)
-            want = softmax_sum_plain(m, valid)
+            idx = cell_mail.clone()
+            idx[0] = num_rows
+            out = softmax_sum(h, idx, num_rows)
+            want = softmax_sum_plain(h, idx, num_rows)
             err = float((out - want).abs().max())
             if not (torch.allclose(out, want, rtol=1e-5, atol=1e-6)
                     and bool(torch.isfinite(out).all())
                     and not bool(out[0].any())):
                 raise AssertionError(f"softmax_sum differs at pair {k}: "
                                      f"max abs err {err}")
-            nbytes = m.numel() * 4 + valid.numel() + pn_c * d * 4
-            ops = 6.0 * m.numel()
-            ms = timer.ms(lambda: softmax_sum(m, valid))
-            pms = timer.ms(lambda: softmax_sum_plain(m, valid))
-            rec_s.add(ms, pms, None, nbytes, ops, err)
-            log(f"  softmax_sum pair {k}: ({pn_c}, {md_c}, {d})  kernel "
-                f"{ms:.4f} ms  plain {pms:.4f}  bound "
-                f"{bound(nbytes, ops)[0]:.4f}  max abs err {err:.3g}")
-        # ---- local_mean: [new | prior | 0], row 0 made all-invalid ----
-        new = torch.randn((pn_c, d), generator=gen, device=dev)
-        prior = gat[pn_c * md_c:]
-        buf = torch.cat([new, prior, new.new_zeros((1, d))])
+            used = idx[idx != num_rows]
+            nbytes = (torch.unique(used).numel() * row_b + idx.numel() * 4
+                      + pn_c * row_b)
+            ops = 6.0 * used.numel() * D
+            ms = timer.ms(lambda: softmax_sum(h, idx, num_rows))
+            pms = timer.ms(lambda: softmax_sum_plain(h, idx, num_rows))
+            recs["softmax_sum"].add(ms, pms, None, nbytes, ops, err)
+            log(f"  softmax_sum pair {k}: ({pn_c}, {md_c}) of {D} f32, "
+                f"{used.numel()} valid slots  kernel {ms:.4f} ms  plain "
+                f"{pms:.4f}  bound {bound(nbytes, ops)[0]:.4f}  "
+                f"({nbytes / ms / 1e9:.3f} TB/s)  max abs err {err:.3g}")
+        # ---- local_mean: new | prior, row 0 all-invalid ----
+        new = torch.randn((pn_c, D), generator=gen, device=dev)
         num_valid = pn_c + prior.shape[0]
         idx_n = graph.net_local_idx[k].clone()
         idx_n[0] = num_valid
-        out = local_mean(buf, idx_n, num_valid)
-        want = local_mean_plain(buf, idx_n, num_valid)
-        lib = F.embedding_bag(idx_n.long(), buf, mode="mean",
-                              padding_idx=num_valid)
+        out = local_mean(new, prior, idx_n)
+        want = local_mean_plain(new, prior, idx_n)
+        # the library yardstick needs the [new | prior | 0] buffer, built
+        # outside its timed call
+        buf = torch.cat([new, prior, new.new_zeros((1, D))])
+        idx_l = idx_n.long()
+        lib = F.embedding_bag(idx_l, buf, mode="mean", padding_idx=num_valid)
         err = float((out - want).abs().max())
         if not (torch.allclose(out, want, rtol=1e-5, atol=1e-6)
                 and torch.allclose(lib, want, rtol=1e-5, atol=1e-6)
@@ -207,27 +255,46 @@ def check_kernels(torch, F, graph, dev, timer):
             raise AssertionError(f"local_mean differs at pair {k}: max abs "
                                  f"err {err}")
         used = idx_n[idx_n < num_valid]
-        nbytes = (torch.unique(used).numel() * d * 4 + idx_n.numel() * 4
-                  + idx_n.shape[0] * d * 4)
-        ops = float(idx_n.numel() * d)
-        idx_l = idx_n.long()
-        ms = timer.ms(lambda: local_mean(buf, idx_n, num_valid))
-        pms = timer.ms(lambda: local_mean_plain(buf, idx_n, num_valid))
+        nbytes = (torch.unique(used).numel() * row_b + idx_n.numel() * 4
+                  + idx_n.shape[0] * row_b)
+        ops = float(used.numel() * D)
+        ms = timer.ms(lambda: local_mean(new, prior, idx_n))
+        pms = timer.ms(lambda: local_mean_plain(new, prior, idx_n))
         lms = timer.ms(lambda: F.embedding_bag(idx_l, buf, mode="mean",
                                                padding_idx=num_valid))
-        rec_m.add(ms, pms, lms, nbytes, ops, err)
-        log(f"  local_mean pair {k}: {tuple(idx_n.shape)} from "
-            f"{buf.shape[0]} rows  kernel {ms:.4f} ms  plain {pms:.4f}  "
-            f"embedding_bag {lms:.4f}  bound {bound(nbytes, ops)[0]:.4f}  "
-            f"max abs err {err:.3g}")
-    return rec_g, rec_s, rec_m
+        recs["local_mean"].add(ms, pms, lms, nbytes, ops, err)
+        log(f"  local_mean pair {k}: {tuple(idx_n.shape)} from {pn_c} new + "
+            f"{prior.shape[0]} prior rows  kernel {ms:.4f} ms  plain "
+            f"{pms:.4f}  embedding_bag {lms:.4f}  bound "
+            f"{bound(nbytes, ops)[0]:.4f}  max abs err {err:.3g}")
+    return recs
+
+
+def call_floors(torch, graph, dev, timer) -> dict:
+    """Each kernel timed on a one-row call with the phase's timer: what a
+    call costs whatever its size."""
+    from prtp_tpu_torch.ops.fused_gnn import local_mean, softmax_sum
+    from prtp_tpu_torch.ops.gather import gather_rows
+
+    h = torch.randn((graph.num_rows + 1, D), device=dev)
+    one_row = graph.cell_mail[1][:1]
+    new = torch.randn((1, D), device=dev)
+    idx_n = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    return {
+        "gather_rows": timer.ms(lambda: gather_rows(h, one_row[0, :1])),
+        "softmax_sum": timer.ms(
+            lambda: softmax_sum(h, one_row, graph.num_rows)),
+        "local_mean": timer.ms(lambda: local_mean(new, new[:0], idx_n)),
+    }
 
 
 def check_edge_shapes(torch, dev):
-    """The kernels' other code paths, which the headline does not reach:
-    every vector width of the gather (row sizes and a misaligned base
-    pointer), long mailboxes (the generic softmax path), narrow and wide
-    rows, and empty inputs — each against its plain version."""
+    """The kernels' other code paths, which the headline does not reach,
+    each against its plain version: every vector width of the gather
+    (row sizes and a misaligned base pointer); for the reductions one
+    slot, long mailboxes (k > 8: the generic path), rows of D % 4 != 0
+    and misaligned views (the scalar path), narrow and wide rows, no
+    prior rows, all-invalid rows, a NaN in a valid slot, empty inputs."""
     from prtp_tpu_torch.ops.fused_gnn import (local_mean, local_mean_plain,
                                               softmax_sum, softmax_sum_plain)
     from prtp_tpu_torch.ops.gather import gather_rows, gather_rows_plain
@@ -237,9 +304,31 @@ def check_edge_shapes(torch, dev):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def ints(hi, *shape):
-        return torch.randint(0, hi, shape, generator=gen, device=dev,
-                             dtype=torch.int32)
+    def rows(n, d, misaligned=False):
+        """(n, d) float32 rows; misaligned: a contiguous view 4 bytes off
+        16-byte alignment."""
+        if misaligned:
+            return randn(n * d + 1)[1:].view(n, d)
+        return randn(n, d) * 4
+
+    def mailbox(p, k, invalid):
+        """(p, k) int32 slots in [0, invalid]; about a third invalid, row
+        0 all-invalid."""
+        idx = torch.randint(0, invalid, (p, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        idx[torch.rand((p, k), generator=gen, device=dev) < 0.35] = invalid
+        if p:
+            idx[0] = invalid
+        return idx
+
+    def same(out, want, p, nan_at=None):
+        ok = (out.shape == want.shape
+              and torch.allclose(out, want, rtol=1e-5, atol=1e-6,
+                                 equal_nan=True)
+              and (p == 0 or not bool(out[0].any())))
+        if nan_at is None:
+            return ok and bool(torch.isfinite(out).all())
+        return ok and bool(out[nan_at].isnan())
 
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -247,35 +336,64 @@ def check_edge_shapes(torch, dev):
             for offset in (0, 1):  # 1: base pointer off 16-byte alignment
                 h = randn(1000 * d + offset).to(dtype)[offset:].view(1000, d)
                 for m in (0, 777):
-                    idx = ints(1000, m)
+                    idx = torch.randint(0, 1000, (m,), generator=gen,
+                                        device=dev, dtype=torch.int32)
                     if not torch.equal(gather_rows(h, idx),
                                        gather_rows_plain(h, idx)):
                         raise AssertionError(f"gather_rows differs: {dtype} "
                                              f"d={d} offset={offset} m={m}")
                     cases += 1
-    for p, md, d in ((0, 4, 128), (300, 1, 20), (300, 8, 300), (300, 11, 128),
-                     (50, 40, 7)):
-        m = randn(p, md, d) * 4
-        valid = torch.rand((p, md), generator=gen, device=dev) < 0.6
-        if p:
-            valid[0] = False
-        out, want = softmax_sum(m, valid), softmax_sum_plain(m, valid)
-        if not (torch.allclose(out, want, rtol=1e-5, atol=1e-6)
-                and bool(torch.isfinite(out).all())):
-            raise AssertionError(f"softmax_sum differs at {(p, md, d)}")
+    # softmax_sum: (P, K, D, rows of h, case)
+    for p, k, d, r, case in ((0, 4, 128, 50, "empty"),
+                             (300, 1, 20, 500, "k=1, 5 lanes a row"),
+                             (300, 2, 4, 500, "D=4, 16 rows a warp"),
+                             (300, 8, 300, 900, "k=8, 75 float4s a row"),
+                             (300, 11, 128, 900, "k>8"),
+                             (50, 40, 7, 200, "k>8, D%4!=0"),
+                             (300, 3, 7, 500, "D%4!=0"),
+                             (300, 4, 128, 500, "misaligned h"),
+                             (300, 4, 128, 500, "NaN")):
+        h = rows(r, d, misaligned=case == "misaligned h")
+        idx = mailbox(p, k, r - 1)
+        nan_at = None
+        if case == "NaN":
+            idx[1, 0] = 5
+            h[5, 2] = float("nan")
+            nan_at = (1, 2)
+        out, want = softmax_sum(h, idx, r - 1), softmax_sum_plain(h, idx, r - 1)
+        if not same(out, want, p, nan_at):
+            raise AssertionError(f"softmax_sum differs at {(p, k, d)} {case}")
         cases += 1
-    for p, md, d, n in ((0, 1, 128, 10), (300, 5, 20, 90), (300, 1, 300, 40),
-                        (64, 33, 128, 500)):
-        buf = torch.cat([randn(n, d), torch.zeros((1, d), device=dev)])
-        idx = ints(n + 1, p, md)
-        if p:
-            idx[0] = n
-        out, want = local_mean(buf, idx, n), local_mean_plain(buf, idx, n)
-        if not torch.allclose(out, want, rtol=1e-5, atol=1e-6):
-            raise AssertionError(f"local_mean differs at {(p, md, d, n)}")
+    # local_mean: (P, K, D, new rows, prior rows, case)
+    for p, k, d, n, n_prior, case in (
+            (0, 1, 128, 10, 0, "empty"),
+            (300, 1, 128, 200, 0, "k=1, no prior rows"),
+            (300, 1, 128, 200, 60, "k=1"),
+            (300, 5, 20, 60, 30, "k=5, 5 lanes a row"),
+            (300, 1, 300, 40, 0, "k=1, 75 float4s a row"),
+            (300, 3, 7, 50, 20, "D%4!=0"),
+            (64, 33, 128, 300, 200, "k>8"),
+            (64, 33, 7, 300, 0, "k>8, D%4!=0, no prior rows"),
+            (300, 2, 128, 50, 20, "misaligned new"),
+            (300, 2, 128, 50, 20, "misaligned prior"),
+            (300, 2, 128, 50, 20, "NaN")):
+        new = rows(n, d, misaligned=case == "misaligned new")
+        prior = rows(n_prior, d, misaligned=case == "misaligned prior")
+        idx = mailbox(p, k, n + n_prior)
+        nan_at = None
+        if case == "NaN":
+            idx[1, 0] = 3
+            new[3, 2] = float("nan")
+            nan_at = (1, 2)
+        out = local_mean(new, prior, idx)
+        want = local_mean_plain(new, prior, idx)
+        if not same(out, want, p, nan_at):
+            raise AssertionError(f"local_mean differs at {(p, k, d, n, n_prior)}"
+                                 f" {case}")
         cases += 1
     log(f"  edge shapes: {cases} cases of the three kernels match their "
-        "plain versions (gather exact; reductions rtol 1e-5, atol 1e-6)")
+        "plain versions (gather exact; reductions rtol 1e-5, atol 1e-6, "
+        "NaN where the plain version has it)")
 
 
 def gather_probe(torch, dev, timer):
@@ -298,6 +416,88 @@ def gather_probe(torch, dev, timer):
         f"{bound(nbytes, 0)[0]:.4f}  ({nbytes / ms / 1e6:.1f} GB/s)  exact")
 
 
+def serve(torch, np, model, model_cpu, parsed, design, per_forward,
+          requests):
+    """Phase 4 for one design: ``requests`` evaluation requests on the
+    card with the launch counters zeroed just before and read just after
+    (each must equal ``requests`` x its per-forward count, and every
+    kernel of the walk must have run), then the same model on the CPU.
+    Returns the launch counts."""
+    from prtp_tpu_torch.ops import KERNELS
+    from prtp_tpu_torch.test import evaluate_design
+
+    torch.cuda.synchronize()
+    for kern in KERNELS:
+        kern.launches = 0
+    outs = []
+    for req in range(requests):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds, mets = evaluate_design(model, parsed, device=DEVICE,
+                                      case_idx=req)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs.append(preds)
+        log(f"  {design} request {req}: wall {wall * 1e3:.2f} ms (pack "
+            f"{mets['pack_s'] * 1e3:.2f} ms, evaluate "
+            f"{mets['runtime'] * 1e3:.2f} ms)  loss {mets['loss']:.6f}  "
+            f"r2 {mets['r2']:.6f}  tp {mets['tp']:.0f} fp {mets['fp']:.0f} "
+            f"tn {mets['tn']:.0f} fn {mets['fn']:.0f}")
+    counts = {kern.__name__: kern.launches for kern in KERNELS}
+    log(f"  {design}: launches in {requests} request(s): {counts}; per "
+        f"forward expected {per_forward}")
+    for name, n in per_forward.items():
+        if counts[name] != requests * n:
+            raise AssertionError(f"{design}: {name} launched {counts[name]} "
+                                 f"times, expected {requests * n}")
+        if n == 0 and name != "gather_rows":
+            raise AssertionError(f"{design}: {name} is not on the walk")
+    num_paths = int(parsed["num_paths"])
+    for preds in outs:
+        if preds.shape != (num_paths,) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"bad predictions {preds.shape}")
+    t0 = time.perf_counter()
+    preds_cpu, mets_cpu = evaluate_design(model_cpu, parsed, device="cpu",
+                                          case_idx=requests)
+    log(f"  {design} on the cpu (plain versions): "
+        f"{time.perf_counter() - t0:.2f} s  loss {mets_cpu['loss']:.6f}  "
+        f"r2 {mets_cpu['r2']:.6f}")
+    for req, preds in enumerate(outs):
+        diff = float(np.abs(preds - preds_cpu).max())
+        np.testing.assert_allclose(preds, preds_cpu, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{design} request {req} vs cpu")
+        log(f"  {design} request {req} vs cpu: max abs diff {diff:.3g} "
+            "(rtol/atol 1e-4): ok")
+    return counts
+
+
+def device_kernels(torch, fn):
+    """Device time (us) and count of each kernel name in one run of
+    ``fn`` under torch.profiler (warm L2)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            tot, cnt = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + ev.time_range.elapsed_us(), cnt + 1)
+    return by_name
+
+
+def log_port_kernels(by_name, what):
+    """Every kernel of the port by name, summed over its instantiations."""
+    for name in KERNEL_INFO:
+        hits = [v for k, v in by_name.items() if f"{name}_kernel" in k]
+        tot = sum(t for t, _ in hits)
+        cnt = sum(c for _, c in hits)
+        log(f"    {what}: {name}: {tot / 1e3:.4f} ms x{cnt}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -308,13 +508,12 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
     from prtp_tpu_torch.data.random_design import (bench_level_sizes,
-                                                   make_random_design)
+                                                   make_random_design,
+                                                   with_prior_net_drivers)
     from prtp_tpu_torch.graph import pack_design
     from prtp_tpu_torch.models import PathModel
-    from prtp_tpu_torch.ops import KERNELS, _build
-    from prtp_tpu_torch.test import evaluate, evaluate_design, pad_batch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from prtp_tpu_torch.ops import _build
+    from prtp_tpu_torch.test import evaluate, pad_batch
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -335,92 +534,77 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for name, info in report.items():
         usage = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
         log(f"  {name}: {info['seconds']:.1f} s; " + " | ".join(usage))
 
-    # ---- phase 3: design, pack, kernels against plain versions ----
+    # ---- phase 3: designs, pack, kernels against plain versions ----
     t0 = time.perf_counter()
     sizes = bench_level_sizes(NODES, LEVELS, decay=DECAY)
-    parsed = make_random_design(sizes, cell_feat_dim=CELL_FEAT,
-                                net_feat_dim=NET_FEAT, map_size=MAP_SIZE,
-                                cnn_hw=CNN_HW, mask_nnz_per_path=MASK_NNZ,
-                                seed=SEED)
-    design = pack_design(parsed, map_size=MAP_SIZE, device=dev)
-    graph = design.graph
-    n_edges = len(parsed["cell_edges"][0]) + len(parsed["net_edges"][0])
-    log(f"phase 3: design {parsed['num_nodes']} nodes, {n_edges} edges, "
-        f"{graph.num_pairs} level pairs, {parsed['num_paths']} paths; built "
-        f"and packed in {time.perf_counter() - t0:.2f} s")
+    parsed = {"headline": make_random_design(
+        sizes, cell_feat_dim=CELL_FEAT, net_feat_dim=NET_FEAT,
+        map_size=MAP_SIZE, cnn_hw=CNN_HW, mask_nnz_per_path=MASK_NNZ,
+        seed=SEED)}
+    parsed["prior_rows"] = with_prior_net_drivers(
+        parsed["headline"], share=PRIOR_SHARE, seed=SEED)
+    graphs = {name: pack_design(p, map_size=MAP_SIZE, device=dev).graph
+              for name, p in parsed.items()}
+    per_forward = {name: launches_per_forward(g)
+                   for name, g in graphs.items()}
+    p0 = parsed["headline"]
+    n_edges = len(p0["cell_edges"][0]) + len(p0["net_edges"][0])
+    log(f"phase 3: headline design {p0['num_nodes']} nodes, {n_edges} edges, "
+        f"{graphs['headline'].num_pairs} level pairs, {p0['num_paths']} "
+        f"paths; the prior-row design moves {PRIOR_SHARE:.0%} of each net "
+        f"level's drivers below the pair; both built and packed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if per_forward["prior_rows"]["gather_rows"] == 0:
+        raise AssertionError("the prior-row design has no prior rows")
     timer = Timer(torch, dev)
-    records = check_kernels(torch, F, graph, dev, timer)
+    recs = {}
+    for name, g in graphs.items():
+        log(f"  -- {name} --")
+        recs[name] = check_kernels(torch, F, g, dev, timer, name)
+    floors = call_floors(torch, graphs["headline"], dev, timer)
+    log("  per-call floor (one-row call, same timer): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in floors.items()))
+    records = []
+    for name, (_src, _rep, design) in KERNEL_INFO.items():
+        rec = recs[design][name]
+        rec.floor_ms = floors[name]
+        rec.max_abs_err = max(r[name].max_abs_err for r in recs.values())
+        records.append(rec)
+        log(f"  {rec.summary()}")
     check_edge_shapes(torch, dev)
     gather_probe(torch, dev, timer)
-    del timer
+    del timer, graphs
 
     # ---- phase 4: the slice ----
-    log("phase 4: full-width PathModel, 3 evaluation requests")
+    log("phase 4: full-width PathModel, 3 evaluation requests on the "
+        "headline and 1 on the prior-row design")
     model_cpu = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
                           generator=torch.Generator().manual_seed(SEED))
     model = copy.deepcopy(model_cpu).to(dev)
-    per_forward = {
-        "gather_rows": sum(
-            1 for k in range(graph.num_pairs)
-            if k > 0 or graph.gather_rows[k].shape[0]
-            > graph.cell_mail[k].numel()),
-        "softmax_sum": graph.num_pairs - 1,
-        "local_mean": graph.num_pairs,
-    }
-    del design, graph
-    torch.cuda.synchronize()
-    for kern in KERNELS:
-        kern.launches = 0
-    outs = []
-    for req in range(REQUESTS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        preds, mets = evaluate_design(model, parsed, device=dev,
-                                      case_idx=req)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        outs.append(preds)
-        log(f"  request {req}: wall {wall * 1e3:.2f} ms (pack "
-            f"{mets['pack_s'] * 1e3:.2f} ms, evaluate "
-            f"{mets['runtime'] * 1e3:.2f} ms)  loss {mets['loss']:.6f}  "
-            f"r2 {mets['r2']:.6f}  tp {mets['tp']:.0f} fp {mets['fp']:.0f} "
-            f"tn {mets['tn']:.0f} fn {mets['fn']:.0f}")
-    counts = {kern.__name__: kern.launches for kern in KERNELS}
-    log(f"  launches in the 3 requests: {counts}; per forward expected "
-        f"{per_forward}")
+    launches = {name: serve(torch, np, model, model_cpu, p, name,
+                            per_forward[name], REQUESTS if name == "headline"
+                            else 1)
+                for name, p in parsed.items()}
     for rec in records:
-        if counts[rec.name] != REQUESTS * per_forward[rec.name]:
-            raise AssertionError(f"{rec.name}: {counts[rec.name]} launches, "
-                                 f"expected {REQUESTS * per_forward[rec.name]}")
-        rec.launches = counts[rec.name]
-    num_paths = int(parsed["num_paths"])
-    for preds in outs:
-        if preds.shape != (num_paths,) or not np.all(np.isfinite(preds)):
-            raise AssertionError(f"bad predictions {preds.shape}")
-    log("  reference: the same model and design on the CPU (plain versions)")
-    t0 = time.perf_counter()
-    preds_cpu, mets_cpu = evaluate_design(model_cpu, parsed, device="cpu",
-                                          case_idx=REQUESTS)
-    log(f"  cpu request: {time.perf_counter() - t0:.2f} s  loss "
-        f"{mets_cpu['loss']:.6f}  r2 {mets_cpu['r2']:.6f}")
-    for req, preds in enumerate(outs):
-        diff = float(np.abs(preds - preds_cpu).max())
-        np.testing.assert_allclose(preds, preds_cpu, rtol=1e-4, atol=1e-4,
-                                   err_msg=f"request {req} vs cpu")
-        log(f"  request {req} vs cpu: max abs diff {diff:.3g} (rtol/atol "
-            "1e-4): ok")
+        rec.launches = {name: c[rec.name] for name, c in launches.items()}
 
     # ---- phase 5: where one request's time goes ----
-    design = pack_design(parsed, map_size=MAP_SIZE, device=dev)
+    designs = {name: pack_design(p, map_size=MAP_SIZE, device=dev)
+               for name, p in parsed.items()}
+    design = designs["headline"]
+    num_paths = int(p0["num_paths"])
     pids, mask = pad_batch(np.arange(num_paths), num_paths, dev)
     timer = Timer(torch, dev)
     with torch.no_grad():
         parts = {
             "forward": lambda: model(design, pids),
             "walk": lambda: model.gnn(design.graph),
+            "walk (prior-row design)":
+                lambda: model.gnn(designs["prior_rows"].graph),
             "LayoutNet": lambda: model.cnn(design.cnn_input),
         }
         for name, fn in parts.items():
@@ -434,31 +618,25 @@ def main() -> int:
     evaluate(model, design, pids, mask)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        evaluate(model, design, pids, mask)
-        torch.cuda.synchronize()
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            tot, cnt = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (tot + ev.time_range.elapsed_us(), cnt + 1)
-    if by_name:
-        busy_ms = sum(t for t, _ in by_name.values()) / 1e3
-        log(f"  evaluate: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
-            f"ms (torch.profiler), idle share {1 - busy_ms / wall_ms:.3f}; "
-            f"{sum(c for _, c in by_name.values())} kernel launches")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        for name, (tot, cnt) in top:
-            log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
-    else:
-        log(f"  evaluate: wall {wall_ms:.3f} ms; device busy not measured "
-            "(torch.profiler recorded no device kernels)")
+    by_name = device_kernels(torch, lambda: evaluate(model, design, pids,
+                                                     mask))
+    if not by_name:
+        raise AssertionError("torch.profiler recorded no device kernels")
+    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    log(f"  evaluate: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
+        f"ms (torch.profiler), idle share {1 - busy_ms / wall_ms:.3f}; "
+        f"{sum(c for _, c in by_name.values())} kernel launches")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (tot, cnt) in top:
+        log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
+    log("  the port's kernels in one walk (torch.profiler, warm L2):")
+    with torch.no_grad():
+        for name, d in designs.items():
+            log_port_kernels(device_kernels(torch, lambda: model.gnn(d.graph)),
+                             name)
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     for rec in records:
-        log(f"  {rec.name}: {rec.launches // REQUESTS} launches per request, "
-            f"{rec.ms:.4f} ms per forward against a bound of "
-            f"{bound(rec.bytes, rec.ops)[0]:.4f} ms")
+        log(f"  {rec.name}: launches {rec.launches}; {rec.summary()}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [rec.as_json() for rec in records]}))

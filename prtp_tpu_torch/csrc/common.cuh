@@ -24,3 +24,82 @@ inline dim3 row_block(int64_t per_row, int threads = 256) {
   }
   return dim3(tx, threads / tx);
 }
+
+// ---- the mailbox reductions' lane layout (softmax_sum, local_mean) ----
+//
+// A group of `group` lanes (a power of two, at most 32) covers one
+// destination row, one vector of N floats per lane (N = 4: 16-byte
+// loads; N = 1: the scalar path), looping while the row is wider than
+// the group; a warp covers 32 / group neighbouring rows. A block is
+// kMailboxThreads threads.
+
+constexpr int kMailboxThreads = 128;
+
+struct RowLanes {
+  int64_t row;  // the destination row of this lane's group
+  int lane;     // this lane's place in its group
+};
+
+__device__ __forceinline__ RowLanes row_lanes(int group) {
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  return {warp * (32 / group) + lane / group, lane & (group - 1)};
+}
+
+// Lanes of one group: the smallest power of two that covers `need`,
+// at most 32.
+inline int lane_group(int64_t need) {
+  int g = 1;
+  while (g < need && g < 32) g *= 2;
+  return g;
+}
+
+inline unsigned mailbox_grid(int64_t rows, int group) {
+  const int64_t rows_per_block = (kMailboxThreads / 32) * (32 / group);
+  return static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block);
+}
+
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[N]);
+
+template <>
+__device__ __forceinline__ void load_vec<4>(const float* p, float (&x)[4]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  x[0] = t.x;
+  x[1] = t.y;
+  x[2] = t.z;
+  x[3] = t.w;
+}
+
+template <>
+__device__ __forceinline__ void load_vec<1>(const float* p, float (&x)[1]) {
+  x[0] = __ldg(p);
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[N]);
+
+template <>
+__device__ __forceinline__ void store_vec<4>(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+template <>
+__device__ __forceinline__ void store_vec<1>(float* p, const float (&x)[1]) {
+  p[0] = x[0];
+}
+
+// The first k <= KMAX slot indices of a row, in every lane of its group:
+// lane j < k loads slot j once (the k loads of a row are contiguous) and
+// the group shares them by shuffle. Needs k <= group, and every lane of
+// the warp, those past the last row too, must call it.
+template <int KMAX>
+__device__ __forceinline__ void row_indices(const int32_t* __restrict__ idx,
+                                            const RowLanes& rl, bool row_ok,
+                                            int k, int group,
+                                            int32_t (&src)[KMAX]) {
+  const int32_t mine = (row_ok && rl.lane < k) ? idx[rl.row * k + rl.lane] : 0;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) src[j] = __shfl_sync(0xffffffffu, mine, j, group);
+}

@@ -3,7 +3,9 @@
 A copy of ``prtp_tpu/data/random_design.py``, kept in the port so that
 the port imports nothing of the JAX package. For a seed it gives
 array-identical designs (``tests/test_torch_graph.py`` holds it to
-that). Builds a complete parsed-design dict (the array layout of
+that). :func:`with_prior_net_drivers`, which the JAX package lacks,
+moves some net drivers below their pair's cell level, so that the walk's
+prior-row path runs. Builds a complete parsed-design dict (the array layout of
 ``prtp_tpu.data.features.extract_features``) directly, without writing
 netlist/report text — graph *scale* matters here more than parser
 fidelity.
@@ -115,6 +117,34 @@ def make_random_design(level_sizes, cell_feat_dim=36, net_feat_dim=3,
                                 dtype=np.float32),
         "path_ids": list(range(int(num_paths))),
     }
+
+
+def with_prior_net_drivers(parsed, share=0.1, seed=0):
+    """A copy of ``parsed`` in which ``ceil(share * n)`` of the ``n`` net
+    edges into each net level ``li >= 3``, drawn from a seeded numpy rng,
+    take a new driver: a random node of a cell level below ``li - 1``.
+    Those drivers lie before the pair's own cell level, so the packer
+    routes them through the prior-row gather. Nothing else changes."""
+    rng = np.random.default_rng(seed)
+    levels = parsed["levels"]
+    src = np.array(parsed["net_edges"][0], np.int64)
+    dst = np.asarray(parsed["net_edges"][1], np.int64)
+    level_of = np.full(int(parsed["num_nodes"]), -1, np.int64)
+    for li, (ids, _t, _p) in enumerate(levels):
+        level_of[np.asarray(ids, np.int64)] = li
+    dst_level = level_of[dst]
+    for li in range(3, len(levels), 2):
+        edges = np.nonzero(dst_level == li)[0]
+        n_move = int(np.ceil(share * len(edges)))
+        if n_move == 0:
+            continue
+        moved = rng.choice(edges, size=n_move, replace=False)
+        earlier = np.concatenate([np.asarray(levels[c][0], np.int64)
+                                  for c in range(0, li - 1, 2)])
+        src[moved] = earlier[rng.integers(0, len(earlier), size=n_move)]
+    out = dict(parsed)
+    out["net_edges"] = (src, dst.copy())
+    return out
 
 
 def bench_level_sizes(num_nodes=60_000, num_levels=24, decay=0.9):

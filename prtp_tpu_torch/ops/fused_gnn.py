@@ -1,21 +1,36 @@
 """The exact-levels level walk (forward) and its mailbox-reduce kernels.
 
-Port of ``prtp_tpu/ops/fused_gnn.py::_forward_impl``, op for op: per
-level pair, ONE global row gather ``h[gather_rows]`` serves the cell
-mailbox and the net half's prior-row sources (:func:`gather_rows`); the
-cell half reduces its mailbox with a masked per-channel softmax
-(:func:`softmax_sum`); the net half gathers its mailbox LOCALLY from
-``buf = [new cell rows | gathered prior rows | 0]`` and takes a masked
-mean (:func:`local_mean`, gather and reduce fused). Pair 0 skips the
-gather (PIs have no in-edges); level 0 drops the neighbour term; with
-``dgl_parity`` a row whose mailbox is empty keeps ``relu(old)``.
+Port of ``prtp_tpu/ops/fused_gnn.py::_forward_impl``. Per level pair the
+cell half reduces its mailbox with a masked per-channel softmax and the
+net half takes a masked mean; pair 0 drops the neighbour term (PIs have
+no in-edges); with ``dgl_parity`` a row whose mailbox is empty keeps
+``relu(old)``.
+
+Where the port departs from JAX: JAX gathers ONE merged table per pair,
+``gat = h[gather_rows]`` (the cell mailbox, then the net half's
+prior-row sources), because the TPU could not fetch a single HBM row
+(``csrc/gather_rows.cu``); the net mailbox is then a local gather from
+``buf = [new cell rows | prior rows | 0]``. On Hopper a row is fetched
+on its own, so the port moves fewer bytes:
+
+- :func:`softmax_sum` reads the cell mailbox straight from ``h`` by
+  ``cell_mail``; the mailbox is never built.
+- :func:`gather_rows` gathers only the prior rows
+  (``gather_rows[k][pn_c * md_c:]``), and only where there are any.
+- :func:`local_mean` reads the net mailbox from its two sources, the
+  new cell rows and the prior rows; ``buf`` is never built.
+
+This is exact: the packer refuses any source at or after its
+destination's level, so every cell-mailbox and prior row lies below
+``cell_off[k]`` and the cell half's write cannot change it; the slots
+are summed in the same order as before.
 
 ``softmax_sum`` and ``local_mean`` are CUDA kernels
 (``csrc/softmax_sum.cu``, ``csrc/local_mean.cu``, whose source notes give
-bound and design) with plain PyTorch versions beside them. For tensors
-on the CPU a wrapper runs the plain version; for CUDA tensors it
-launches the kernel or raises. The backward walk (``_bwd``) comes with
-the training slice.
+bound and design) with plain PyTorch versions beside them, which compute
+the JAX expressions. For tensors on the CPU a wrapper runs the plain
+version; for CUDA tensors it launches the kernel or raises. The
+backward walk (``_bwd``) comes with the training slice.
 """
 
 from __future__ import annotations
@@ -29,17 +44,32 @@ from . import _build
 from .gather import device_of, gather_rows
 
 _SOFTMAX_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_int64, c_int, c_int,
-                     c_void_p]
-_MEAN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_int64, c_int, c_int,
-                  c_int64, c_void_p]
+                     c_int, c_void_p]
+_MEAN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_int64, c_int,
+                  c_int, c_int, c_int, c_void_p]
+
+
+def _check_rows(what: str, t: torch.Tensor) -> None:
+    if t.dim() != 2 or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous 2-D float32 tensor, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def _check_index(idx: torch.Tensor) -> None:
+    if idx.dim() != 2 or idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError("idx must be a contiguous (P, K) int32 tensor, got "
+                         f"{idx.dtype} {tuple(idx.shape)}")
 
 
 # ------------------------------------------------------------ softmax_sum
 
-def softmax_sum_plain(m: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Masked elementwise mailbox softmax-weighted sum over axis 1
-    (``_softmax_sum``): m (P, K, D), valid (P, K) bool -> (P, D)."""
-    v = valid[..., None]
+def softmax_sum_plain(h: torch.Tensor, idx: torch.Tensor,
+                      num_rows: int) -> torch.Tensor:
+    """``_softmax_sum(h[idx], idx != num_rows)``: masked elementwise
+    mailbox softmax-weighted sum over the slots, h (R, D), idx (P, K)
+    -> (P, D)."""
+    m = h[idx.long()]
+    v = (idx != num_rows)[..., None]
     mx = torch.where(v, m, torch.full_like(m, -torch.inf)).amax(
         dim=1, keepdim=True)
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
@@ -48,24 +78,26 @@ def softmax_sum_plain(m: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return (ex / denom * m).sum(dim=1)
 
 
-def softmax_sum(m: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Cell-half mailbox reduce: m (P, K, D) float32 contiguous, valid
-    (P, K) bool. An all-invalid row gives 0."""
-    if m.dim() != 3 or m.dtype != torch.float32 or not m.is_contiguous():
-        raise ValueError("m must be a contiguous (P, K, D) float32 tensor, "
-                         f"got {m.dtype} {tuple(m.shape)}")
-    if (valid.dtype != torch.bool or tuple(valid.shape) != tuple(m.shape[:2])
-            or not valid.is_contiguous()):
-        raise ValueError(f"valid must be a contiguous bool {tuple(m.shape[:2])}"
-                         f" tensor, got {valid.dtype} {tuple(valid.shape)}")
-    if device_of("softmax_sum", m, valid).type == "cpu":
-        return softmax_sum_plain(m, valid)
-    p, k, d = m.shape
-    out = torch.empty((p, d), dtype=m.dtype, device=m.device)
-    with torch.cuda.device(m.device):
-        _build.launch("softmax_sum", _SOFTMAX_ARGTYPES, m.data_ptr(),
-                      valid.data_ptr(), out.data_ptr(), p, k, d,
-                      torch.cuda.current_stream(m.device).cuda_stream)
+def softmax_sum(h: torch.Tensor, idx: torch.Tensor,
+                num_rows: int) -> torch.Tensor:
+    """Cell-half mailbox reduce read straight from the node state: h
+    (R, D) float32 contiguous with R > num_rows, idx (P, K) int32 (the
+    cell mailbox); a slot is valid when its index is not ``num_rows``
+    and an invalid slot is never read. An all-invalid row gives 0."""
+    _check_rows("h", h)
+    _check_index(idx)
+    if not 0 <= num_rows < h.shape[0]:
+        raise ValueError(f"num_rows {num_rows} must index h's dummy row "
+                         f"(h has {h.shape[0]} rows)")
+    if device_of("softmax_sum", h, idx).type == "cpu":
+        return softmax_sum_plain(h, idx, num_rows)
+    p, k = idx.shape
+    d = h.shape[1]
+    out = torch.empty((p, d), dtype=h.dtype, device=h.device)
+    with torch.cuda.device(h.device):
+        _build.launch("softmax_sum", _SOFTMAX_ARGTYPES, h.data_ptr(),
+                      idx.data_ptr(), out.data_ptr(), p, k, d, num_rows,
+                      torch.cuda.current_stream(h.device).cuda_stream)
     softmax_sum.launches += 1
     return out
 
@@ -75,40 +107,43 @@ softmax_sum.launches = 0
 
 # ------------------------------------------------------------- local_mean
 
-def local_mean_plain(buf: torch.Tensor, idx: torch.Tensor,
-                     num_valid: int) -> torch.Tensor:
-    """``_mean_sum(buf[idx], idx < num_valid)``: masked mean of the
-    locally gathered mailbox, buf (R, D), idx (P, K) -> (P, D)."""
+def local_mean_plain(new: torch.Tensor, prior: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """``_mean_sum(cat([new, prior, 0])[idx], idx < num_valid)`` with
+    ``num_valid = len(new) + len(prior)``: masked mean of the local
+    mailbox, idx (P, K) -> (P, D)."""
+    buf = torch.cat([new, prior, new.new_zeros((1, new.shape[1]))])
     m = buf[idx.long()]
-    v = (idx < num_valid)[..., None]
+    v = (idx < buf.shape[0] - 1)[..., None]
     s = torch.where(v, m, torch.zeros_like(m)).sum(dim=1)
     cnt = v.sum(dim=1).to(m.dtype).clamp_min(1.0)
     return s / cnt
 
 
-def local_mean(buf: torch.Tensor, idx: torch.Tensor,
-               num_valid: int) -> torch.Tensor:
-    """Net-half mailbox: gather rows of ``buf`` (R, D) float32 by ``idx``
-    (P, K) int32 and average the slots whose index is below
-    ``num_valid``; an all-invalid row gives 0."""
-    if buf.dim() != 2 or buf.dtype != torch.float32 or not buf.is_contiguous():
-        raise ValueError("buf must be a contiguous (R, D) float32 tensor, "
-                         f"got {buf.dtype} {tuple(buf.shape)}")
-    if idx.dim() != 2 or idx.dtype != torch.int32 or not idx.is_contiguous():
-        raise ValueError("idx must be a contiguous (P, K) int32 tensor, "
-                         f"got {idx.dtype} {tuple(idx.shape)}")
-    if not 0 <= num_valid < buf.shape[0]:
-        raise ValueError(f"num_valid {num_valid} must index buf's dummy row "
-                         f"(buf has {buf.shape[0]} rows)")
-    if device_of("local_mean", buf, idx).type == "cpu":
-        return local_mean_plain(buf, idx, num_valid)
+def local_mean(new: torch.Tensor, prior: torch.Tensor,
+               idx: torch.Tensor) -> torch.Tensor:
+    """Net-half mailbox mean from two sources: slot ``i < len(new)``
+    reads ``new[i]``, ``len(new) <= i < num_valid`` reads
+    ``prior[i - len(new)]`` and ``i == num_valid = len(new) +
+    len(prior)`` is invalid, never read. new (pn_c, D) and prior
+    (n_prior, D, possibly 0 rows) float32 contiguous, idx (P, K) int32.
+    An all-invalid row gives 0."""
+    _check_rows("new", new)
+    _check_rows("prior", prior)
+    _check_index(idx)
+    if prior.shape[1] != new.shape[1]:
+        raise ValueError(f"new and prior differ in width: {new.shape[1]} "
+                         f"and {prior.shape[1]}")
+    if device_of("local_mean", new, prior, idx).type == "cpu":
+        return local_mean_plain(new, prior, idx)
     p, k = idx.shape
-    d = buf.shape[1]
-    out = torch.empty((p, d), dtype=buf.dtype, device=buf.device)
-    with torch.cuda.device(buf.device):
-        _build.launch("local_mean", _MEAN_ARGTYPES, buf.data_ptr(),
-                      idx.data_ptr(), out.data_ptr(), p, k, d, num_valid,
-                      torch.cuda.current_stream(buf.device).cuda_stream)
+    d = new.shape[1]
+    out = torch.empty((p, d), dtype=new.dtype, device=new.device)
+    with torch.cuda.device(new.device):
+        _build.launch("local_mean", _MEAN_ARGTYPES, new.data_ptr(),
+                      prior.data_ptr(), idx.data_ptr(), out.data_ptr(), p, k,
+                      d, new.shape[0], prior.shape[0],
+                      torch.cuda.current_stream(new.device).cuda_stream)
     local_mean.launches += 1
     return out
 
@@ -131,38 +166,30 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
     """
     num_rows = graph.num_rows
     h = h0.clone()
-    d = h.shape[1]
-    zero_row = h.new_zeros((1, d))
     for k in range(graph.num_pairs):
         cell_mail = graph.cell_mail[k]
         pn_c, md_c = cell_mail.shape
-        g_rows = graph.gather_rows[k]
-        # ---- one global gather for both halves ----
-        gat = (gather_rows(h, g_rows)
-               if k > 0 or g_rows.shape[0] > pn_c * md_c else None)
-        # ---- cell half (even level 2k) ----
-        valid = cell_mail != num_rows
+        # ---- cell half (even level 2k): mailbox read straight from h ----
         pre = params["fc_cell_self"](graph.cell_feat_lvl[k])
         if k > 0:  # level 0 drops the neighbour term
-            m_c = gat[: pn_c * md_c].view(pn_c, md_c, d)
-            pre = pre + params["fc_cell_neigh"](softmax_sum(m_c, valid))
+            pre = pre + params["fc_cell_neigh"](
+                softmax_sum(h, cell_mail, num_rows))
         new = F.relu(pre)
         c0 = graph.cell_off[k]
         if dgl_parity:
-            has = valid.any(dim=1, keepdim=True)
+            has = (cell_mail != num_rows).any(dim=1, keepdim=True)
             new = torch.where(has, new, F.relu(h[c0: c0 + pn_c]))
         h[c0: c0 + pn_c] = new
-        # ---- net half (odd level 2k+1): local-gather mailbox ----
-        net_mail = graph.net_mail[k]
-        pn_n = net_mail.shape[0]
-        prior = gat[pn_c * md_c:] if gat is not None else zero_row[:0]
-        buf = torch.cat([new, prior, zero_row])
-        neigh_n = local_mean(buf, graph.net_local_idx[k],
-                             pn_c + prior.shape[0])
+        # ---- net half (odd level 2k+1): [new | prior] mailbox ----
+        prior_rows = graph.gather_rows[k][pn_c * md_c:]
+        prior = gather_rows(h, prior_rows) if prior_rows.numel() else new[:0]
+        neigh_n = local_mean(new, prior, graph.net_local_idx[k])
         new_n = F.relu(params["fc_net_self"](graph.net_feat_lvl[k]) + neigh_n)
+        net_mail = graph.net_mail[k]
         n0 = graph.net_off[k]
         if dgl_parity:
             hasn = (net_mail != num_rows).any(dim=1, keepdim=True)
-            new_n = torch.where(hasn, new_n, F.relu(h[n0: n0 + pn_n]))
-        h[n0: n0 + pn_n] = new_n
+            new_n = torch.where(hasn, new_n,
+                                F.relu(h[n0: n0 + net_mail.shape[0]]))
+        h[n0: n0 + net_mail.shape[0]] = new_n
     return h

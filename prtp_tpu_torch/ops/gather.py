@@ -2,7 +2,9 @@
 
 Port of the Pallas kernel ``gk`` (``scripts/gather_roofline.py``), the
 level walk's one global gather per level pair (``h[gather_rows]`` in
-``prtp_tpu/ops/fused_gnn.py``). The kernel is ``csrc/gather_rows.cu``;
+``prtp_tpu/ops/fused_gnn.py``). The port's walk gathers only the net
+half's prior rows with it (``ops/fused_gnn.py``); the cell mailbox is
+read straight from ``h``. The kernel is ``csrc/gather_rows.cu``;
 its source note gives the bound and the design. For a tensor on the CPU
 the wrapper runs the plain version; for a CUDA tensor it launches the
 kernel or raises.

@@ -7,23 +7,24 @@ import pytest
 import torch
 
 from prtp_tpu.graph import pack_design as jax_pack_design
+from prtp_tpu.graph import pack_leveled_graph_exact as jax_pack_exact
 from prtp_tpu.models.gnn import TimeGNN as JaxTimeGNN
 from prtp_tpu.ops.fused_gnn import _forward_impl
-from prtp_tpu_torch.graph import pack_design
+from prtp_tpu_torch.data.random_design import with_prior_net_drivers
+from prtp_tpu_torch.graph import pack_design, pack_leveled_graph_exact
 from prtp_tpu_torch.models import TimeGNN
 from prtp_tpu_torch.ops import KERNELS
 from prtp_tpu_torch.utils.convert import params_from_flax
 
+from helpers import make_random_leveled_graph
 from test_torch_convert import small_parsed
 
 OUT, HID = 16, 32
 
 
-def _jax_walk(parsed, dgl_parity, h0):
-    """h_final of JAX ``_forward_impl`` with jittered init params."""
-    design = jax_pack_design(parsed, map_size=16, exact_levels=True,
-                             cnn_patches=False)
-    g = design.graph
+def _jax_walk(g, dgl_parity, h0):
+    """h_final of JAX ``_forward_impl`` on the JAX-packed graph ``g``,
+    with jittered init params."""
     model = JaxTimeGNN(out_dim=OUT, hidden_dim=HID, dgl_parity=dgl_parity)
     v = jax.jit(model.init)(jax.random.PRNGKey(0), g)
     leaves, treedef = jax.tree_util.tree_flatten(v)
@@ -54,19 +55,64 @@ def test_walk_matches_jax_forward_impl(dgl_parity, h0_kind):
     rng = np.random.default_rng(2)
     h0 = (np.zeros((n1, OUT), np.float32) if h0_kind == "zeros"
           else rng.normal(size=(n1, OUT)).astype(np.float32))
-    want, params = _jax_walk(parsed, dgl_parity, h0)
+    g = jax_pack_design(parsed, map_size=16, exact_levels=True,
+                        cnn_patches=False).graph
+    want, params = _jax_walk(g, dgl_parity, h0)
+    _assert_port_walk_matches(design.graph, params, dgl_parity, h0, 10, want,
+                              h0_kind == "random")
 
-    gnn = TimeGNN(10, 3, torch.Generator().manual_seed(0), out_dim=OUT,
-                  hidden_dim=HID, dgl_parity=dgl_parity)
+
+def _assert_port_walk_matches(graph, params, dgl_parity, h0, cell_feat_dim,
+                              want, pass_h0=True):
+    """The port's TimeGNN with the JAX ``params`` gives ``want`` on
+    ``graph`` at 1e-5, leaves h0 as it was and launches no kernel."""
+    gnn = TimeGNN(cell_feat_dim, 3, torch.Generator().manual_seed(0),
+                  out_dim=OUT, hidden_dim=HID, dgl_parity=dgl_parity)
     state = params_from_flax({"gnn": params})
     gnn.load_state_dict({k[len("gnn."):]: v for k, v in state.items()})
     h0_t = torch.from_numpy(h0)
     with torch.no_grad():
-        got = gnn(design.graph, h0_t if h0_kind == "random" else None)
-    assert got.shape == (n1, OUT) and got.dtype == torch.float32
+        got = gnn(graph, h0_t if pass_h0 else None)
+    assert got.shape == h0.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(h0_t.numpy(), h0)  # h0 left as it was
     assert [k.launches for k in KERNELS] == [0, 0, 0]
+
+
+@pytest.mark.parametrize("dgl_parity", [True, False])
+def test_walk_matches_jax_with_prior_row_net_sources(dgl_parity):
+    """Net drivers below the pair's own cell level (prior rows): the
+    walk's prior-row gather and the prior slots of ``local_mean``,
+    against ``_forward_impl`` on a graph whose edges come from any lower
+    level, packed by both packers."""
+    rng = np.random.default_rng(11)
+    parsed = make_random_leveled_graph(rng, level_sizes=(6, 8, 7, 9, 5, 6, 4),
+                                       cell_feat_dim=12, max_in=3)
+    graph, _, num_rows = pack_leveled_graph_exact(parsed, device="cpu")
+    g_jax, _, num_rows_jax = jax_pack_exact(parsed)
+    assert num_rows == num_rows_jax
+    assert any(graph.gather_rows[k].numel() > graph.cell_mail[k].numel()
+               for k in range(graph.num_pairs))
+    h0 = rng.normal(size=(num_rows + 1, OUT)).astype(np.float32)
+    want, params = _jax_walk(g_jax, dgl_parity, h0)
+    _assert_port_walk_matches(graph, params, dgl_parity, h0, 12, want)
+
+
+@pytest.mark.parametrize("dgl_parity", [True, False])
+def test_walk_matches_jax_on_a_design_with_prior_net_drivers(dgl_parity):
+    """The design chip_smoke.py drives for the prior-row path, at a
+    small size: every pair past the first gathers prior rows."""
+    parsed = with_prior_net_drivers(small_parsed(seed=4), share=0.1, seed=1)
+    design = pack_design(parsed, map_size=16, device="cpu")
+    g = design.graph
+    assert all(g.gather_rows[k].numel() > g.cell_mail[k].numel()
+               for k in range(1, g.num_pairs))
+    h0 = np.random.default_rng(6).normal(
+        size=(g.num_rows + 1, OUT)).astype(np.float32)
+    g_jax = jax_pack_design(parsed, map_size=16, exact_levels=True,
+                            cnn_patches=False).graph
+    want, params = _jax_walk(g_jax, dgl_parity, h0)
+    _assert_port_walk_matches(g, params, dgl_parity, h0, 10, want)
 
 
 def test_dgl_parity_keeps_relu_old_for_empty_mailboxes():

@@ -115,6 +115,34 @@ def test_local_index_validity_is_net_mail_validity(which):
         assert int(g.net_local_idx[k].max()) <= num_valid
 
 
+def test_with_prior_net_drivers_moves_a_share_below_the_pair():
+    parsed = _random_parsed(seed=2)
+    moved = port_rd.with_prior_net_drivers(parsed, share=0.1, seed=4)
+    level_of = np.empty(parsed["num_nodes"], np.int64)
+    for li, (ids, _t, _p) in enumerate(parsed["levels"]):
+        level_of[ids] = li
+    (src0, dst0), (src1, dst1) = parsed["net_edges"], moved["net_edges"]
+    np.testing.assert_array_equal(dst0, dst1)
+    changed = src0 != src1
+    for li in range(1, len(parsed["levels"]), 2):
+        at = level_of[dst0] == li
+        assert changed[at].sum() <= np.ceil(0.1 * at.sum())
+        if li >= 3:
+            assert changed[at].sum() >= 0.05 * at.sum() > 0
+        else:
+            assert not changed[at].any()
+    lv = level_of[src1[changed]]
+    assert (lv % 2 == 0).all()
+    assert (lv < level_of[dst1[changed]] - 1).all()
+    for key in parsed:  # nothing else changes
+        if key != "net_edges":
+            assert moved[key] is parsed[key]
+    g = pack_design(moved, map_size=16, device="cpu").graph
+    # every pair past the first whose net level exists gathers prior rows
+    assert all(g.gather_rows[k].numel() > g.cell_mail[k].numel()
+               for k in range(1, len(parsed["levels"]) // 2))
+
+
 def test_pack_refuses_merged_rasters():
     parsed = _random_parsed()
     parsed["cnn_input"] = np.stack([parsed["cnn_input"]] * 2)

@@ -38,40 +38,47 @@ def test_gather_rows_plain_equals_jax_gather(dtype):
         np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-def _mailbox(seed, p, k, d, invalid_rows):
-    rng = np.random.default_rng(seed)
-    m = (rng.normal(size=(p, k, d)) * 3).astype(np.float32)
-    valid = rng.random((p, k)) < 0.7
-    valid[invalid_rows] = False
-    return m, valid
-
-
 @pytest.mark.parametrize("k", [1, 3, 4, 11])
 def test_softmax_sum_matches_jax(k):
-    m, valid = _mailbox(k, 40, k, 16, invalid_rows=[0, 7])
-    want = np.asarray(_softmax_sum(jnp.asarray(m),
-                                   jnp.asarray(valid)[..., None])[0])
+    """The cell mailbox read from h by index: slot valid iff its index is
+    not num_rows; rows 0 and 7 all-invalid give exactly 0."""
+    rng = np.random.default_rng(k)
+    num_rows, p, d = 90, 40, 16
+    h = (rng.normal(size=(num_rows + 1, d)) * 3).astype(np.float32)
+    idx = rng.integers(0, num_rows, size=(p, k)).astype(np.int32)
+    idx[rng.random((p, k)) >= 0.7] = num_rows
+    idx[[0, 7]] = num_rows
+    valid = jnp.asarray(idx != num_rows)[..., None]
+    want = np.asarray(_softmax_sum(jnp.asarray(h)[jnp.asarray(idx)],
+                                   valid)[0])
     for fn in (softmax_sum, softmax_sum_plain):
-        got = fn(torch.from_numpy(m), torch.from_numpy(valid)).numpy()
+        got = fn(torch.from_numpy(h), torch.from_numpy(idx),
+                 num_rows).numpy()
+        assert got.shape == (p, d)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
         assert np.all(np.isfinite(got))
         np.testing.assert_array_equal(got[[0, 7]], 0.0)
 
 
+@pytest.mark.parametrize("n_prior", [0, 19])
 @pytest.mark.parametrize("k", [1, 2, 5])
-def test_local_mean_matches_jax(k):
-    rng = np.random.default_rng(10 + k)
-    num_valid = 57
-    buf = rng.normal(size=(num_valid + 1, 16)).astype(np.float32)
-    buf[num_valid] = 0.0  # the zero dummy row of [new | prior | 0]
+def test_local_mean_matches_jax(k, n_prior):
+    """Slots below len(new) read new, the next n_prior read prior, and
+    num_valid = len(new) + n_prior marks an invalid slot."""
+    rng = np.random.default_rng(10 + k + n_prior)
+    n_new, d = 38, 16
+    num_valid = n_new + n_prior
+    new = rng.normal(size=(n_new, d)).astype(np.float32)
+    prior = rng.normal(size=(n_prior, d)).astype(np.float32)
     idx = rng.integers(0, num_valid, size=(33, k)).astype(np.int32)
     idx[rng.random((33, k)) < 0.3] = num_valid
     idx[[2, 9]] = num_valid  # all-invalid rows
+    buf = np.concatenate([new, prior, np.zeros((1, d), np.float32)])
     m = jnp.asarray(buf)[jnp.asarray(idx)]
     want = np.asarray(_mean_sum(m, jnp.asarray(idx != num_valid)[..., None])[0])
     for fn in (local_mean, local_mean_plain):
-        got = fn(torch.from_numpy(buf), torch.from_numpy(idx),
-                 num_valid).numpy()
+        got = fn(torch.from_numpy(new), torch.from_numpy(prior),
+                 torch.from_numpy(idx)).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
         np.testing.assert_array_equal(got[[2, 9]], 0.0)
 
@@ -85,15 +92,32 @@ def test_wrappers_check_their_inputs():
         gather_rows(h.t(), idx)
     with pytest.raises(TypeError):
         gather_rows(h.double(), idx)
-    m = torch.zeros(4, 3, 8)
-    with pytest.raises(ValueError):
-        softmax_sum(m, torch.ones(4, 2, dtype=torch.bool))
-    with pytest.raises(ValueError):
-        softmax_sum(m.double(), torch.ones(4, 3, dtype=torch.bool))
-    with pytest.raises(ValueError):
-        local_mean(h, torch.zeros(4, 2, dtype=torch.int32), 10)
-    with pytest.raises(ValueError):
-        local_mean(h, torch.zeros(4, 2, dtype=torch.int64), 9)
+    mail = torch.zeros(4, 3, dtype=torch.int32)
+    softmax_sum(h, mail, 9)  # h holds the dummy row 9
+    for bad in ((h, mail, 10),            # no dummy row in h
+                (h, mail, -1),
+                (h.double(), mail, 9),     # dtype
+                (h.t(), mail, 9),          # not contiguous
+                (h[None], mail, 9),        # rank of h
+                (h, mail.long(), 9),       # index dtype
+                (h, mail[0], 9),           # rank of idx
+                (h, mail.t(), 9)):         # idx not contiguous
+        with pytest.raises(ValueError):
+            softmax_sum(*bad)
+    new, prior = torch.zeros(5, 8), torch.zeros(2, 8)
+    local_mean(new, prior, mail)
+    local_mean(new, prior[:0], mail)  # no prior rows
+    for bad in ((new, torch.zeros(2, 7), mail),  # widths differ
+                (new.double(), prior, mail),
+                (new, prior.double(), mail),
+                (new.t(), prior, mail),
+                (new, prior, mail.long()),
+                (new, prior, mail[0]),
+                (new, prior[0], mail)):
+        with pytest.raises(ValueError):
+            local_mean(*bad)
+    with pytest.raises(ValueError, match="devices"):
+        local_mean(new, prior, mail.to("meta"))
 
 
 @pytest.mark.parametrize("name", _build.KERNEL_NAMES)
