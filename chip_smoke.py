@@ -8,18 +8,20 @@ Phases, each failing loudly (nonzero exit) on any error:
 1. Print the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions; turn TF32 off for matmuls and convolutions (the slice
    is float32).
-2. Build every CUDA kernel of the path from ``prtp_tpu_torch/csrc``.
+2. Build every CUDA kernel of the path from ``prtp_tpu_torch/csrc``, one
+   ``nvcc`` per source, all at once.
 3. Build and pack two designs: the bench headline (80k nodes, 20
    levels, seed 7), whose net drivers all lie in the pair's own cell
    level, and the same design with 10% of each net level's drivers moved
    to an earlier cell level (prior rows). On each, hold every kernel
    against its plain PyTorch version on the card at every shape the walk
-   gives it (an all-invalid mailbox row added), timing kernel, plain
-   version, and the one PyTorch call that computes the same function
-   where there is one. Then each kernel's per-call floor (a one-row call,
-   same timer), the kernels' other code paths at edge shapes, and the
-   row gather at the TPU probe's shapes (160,000 x 128 bf16, 129,202
-   rows).
+   and its backward give it (an all-invalid mailbox row added), and
+   ``flat_adam`` at the full model's parameter count (step t = 2),
+   timing kernel, plain version, and the one PyTorch call that computes
+   the same function where there is one. Then each kernel's per-call
+   floor (a one-row call, same timer), the kernels' other code paths at
+   edge shapes, and the row gather at the TPU probe's shapes (160,000 x
+   128 bf16, 129,202 rows).
 4. The slice: the full-width float32 regression fusion model, random
    weights from a seed, answers three evaluation requests on the
    headline and one on the prior-row design through ``evaluate_design``;
@@ -27,10 +29,24 @@ Phases, each failing loudly (nonzero exit) on any error:
    show every kernel of that design's walk ran as often as its tables
    say; the predictions must match the same model and design on the CPU
    (plain versions) at rtol/atol 1e-4.
-5. Where one request's time goes: device time of the forward, the walk
-   and LayoutNet (CUDA events), the device's busy and idle share of an
-   evaluate call, and each kernel's in-walk time and count on both
-   designs (torch.profiler).
+5. Where one request's and one train step's time goes: device time of
+   the forward, the walk and LayoutNet, of a train step and of the walk's
+   backward at the bench's batch (CUDA events), the device's busy and
+   idle share of an evaluate call and of a train step, and each kernel's
+   in-walk and in-step time and count (torch.profiler).
+6. Training: the same model from the same random init, flat Adam at lr
+   1e-3, through ``trainer.train_step``/``train_steps``: (a) one epoch of
+   the headline's 597 paths in batches of 128 (numpy seed 0: 5 steps,
+   the last padded), (b) 3 steps on the prior-row design, (c) 10 steps
+   on the bench's fixed batch of all 597 paths, whose loss must fall.
+   The launch counters, zeroed just before each run, must show each
+   kernel as often per step as the tables say. The same steps on the CPU
+   (plain versions) must give the first step's gradients leaf by leaf
+   within 1e-3 x the leaf's largest |g| and every loss within rtol 1e-3.
+   A LayoutNet max-pool window whose winner differs between the card
+   and the CPU (a near tie that rounding resolves another way; at most
+   16 a pool, counted) moves the weight gradient of each conv above it
+   by more than rounding: those convs are held to 1e-2 x max |g|.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -51,6 +67,11 @@ NODES, LEVELS, DECAY, SEED = 80_000, 20, 0.8, 7
 CELL_FEAT, NET_FEAT, MAP_SIZE, CNN_HW, MASK_NNZ = 36, 3, 128, 512, 96
 PRIOR_SHARE = 0.1  # share of each net level's drivers moved to prior rows
 REQUESTS = 3
+LR = 1e-3  # phase 6: flat Adam's learning rate
+TRAIN_BATCH, EPOCH_SEED, PRIOR_STEPS, FIXED_STEPS = 128, 0, 3, 10
+GRAD_TOL, LOSS_RTOL = 1e-3, 1e-3  # card vs cpu, phase 6
+# card vs cpu, phase 6: a conv above a max-pool window whose winner differs
+FLIP_TOL, MAX_FLIPS = 1e-2, 16
 # H100 SXM peak rates (dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -66,6 +87,12 @@ KERNEL_INFO = {
                     "prtp_tpu/ops/fused_gnn.py:72", "headline"),
     "local_mean": ("prtp_tpu_torch/csrc/local_mean.cu",
                    "prtp_tpu/ops/fused_gnn.py:194", "headline"),
+    "softmax_sum_bwd": ("prtp_tpu_torch/csrc/softmax_sum_bwd.cu",
+                        "prtp_tpu/ops/fused_gnn.py:302", "headline"),
+    "mailbox_scatter": ("prtp_tpu_torch/csrc/mailbox_scatter.cu",
+                        "prtp_tpu/ops/fused_gnn.py:312", "headline"),
+    "flat_adam": ("prtp_tpu_torch/csrc/flat_adam.cu",
+                  "prtp_tpu/trainer.py:81", "headline"),
 }
 
 
@@ -120,8 +147,11 @@ def bound(nbytes: float, ops: float):
 
 
 class KernelRecord:
-    """Sums one kernel's numbers over the calls of one forward of one
-    design."""
+    """Sums one kernel's numbers over the calls of one pass of one
+    design: a forward (the forward kernels), a backward (the walk's
+    backward kernels) or a step (flat_adam). ``launches`` maps each main
+    path run (``serve <design>``, ``train ...``) to the kernel's count;
+    the JSON line gives their sum and the serving runs' sum."""
 
     def __init__(self, name, design):
         self.name, self.design = name, design
@@ -147,7 +177,7 @@ class KernelRecord:
     def summary(self) -> str:
         b = bound(self.bytes, self.ops)[0]
         return (f"{self.name} ({self.design}): {self.calls} calls, "
-                f"{self.ms:.4f} ms per forward; less {self.calls} x floor "
+                f"{self.ms:.4f} ms per pass; less {self.calls} x floor "
                 f"{self.floor_ms:.4f} ms: {self.ms - self.calls * self.floor_ms:.4f}"
                 f" ms; bound {b:.4f} ms; plain {self.plain_ms:.4f} ms; "
                 f"library {self.library_ms}")
@@ -157,8 +187,10 @@ class KernelRecord:
         return {"name": self.name, "ok": True, "route": "cuda",
                 "source": self.source, "replaces": self.replaces,
                 "launches": sum(self.launches.values()),
-                "launches_by_design": self.launches,
-                "design": self.design, "calls_per_forward": self.calls,
+                "launches_serving": sum(n for run, n in self.launches.items()
+                                        if run.startswith("serve")),
+                "launches_by_run": self.launches,
+                "design": self.design, "calls_per_pass": self.calls,
                 "max_abs_err": self.max_abs_err, "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": self.library_ms,
@@ -177,6 +209,188 @@ def launches_per_forward(graph) -> dict:
         "softmax_sum": graph.num_pairs - 1,
         "local_mean": graph.num_pairs,
     }
+
+
+def launches_per_step(graph) -> dict:
+    """Each kernel's launches in one train step on ``graph``: the
+    forward's, the backward's (``softmax_sum`` again, to recompute f; the
+    cell cotangent for pairs k > 0; a scatter for each non-empty intra
+    and merged table) and one flat Adam update."""
+    fwd = launches_per_forward(graph)
+    p = graph.num_pairs
+    return {
+        "gather_rows": fwd["gather_rows"],
+        "softmax_sum": 2 * (p - 1),
+        "local_mean": p,
+        "softmax_sum_bwd": p - 1,
+        "mailbox_scatter": sum(
+            (graph.intra_rows[k].numel() > 0)
+            + (graph.merged_rows[k].numel() > 0) for k in range(p)),
+        "flat_adam": 1,
+    }
+
+
+def scatter_bytes(torch, rows, pos, n_cell, md_n, has_cell, row_b):
+    """Bytes one mailbox_scatter call must move: each entry's index and
+    source row (a cell position's own row, unless there is no cell
+    cotangent; a net position's d_pre_n row and count, shared by its
+    mailbox's slots), each segment's row index and offset, and the
+    destination rows read and written."""
+    net_rows = torch.unique((pos[pos >= n_cell].long() - n_cell) // md_n)
+    n_cell_src = int((pos < n_cell).sum()) if has_cell else 0
+    return ((n_cell_src + net_rows.numel()) * row_b + net_rows.numel() * 4
+            + pos.numel() * 4 + rows.numel() * (2 * row_b + 8) + 4)
+
+
+def check_backward_kernels(torch, graph, dev, timer, design):
+    """Phase 3, backward: softmax_sum_bwd and mailbox_scatter against
+    their plain versions at every shape the walk's backward gives them
+    on ``graph``, with a random state, cotangents and counts as the
+    backward computes them. The scatters update a copy of a random
+    ``dest`` in place. Returns ``{name: KernelRecord}``."""
+    from prtp_tpu_torch.ops.fused_gnn import (mailbox_scatter,
+                                              mailbox_scatter_plain,
+                                              softmax_sum_bwd,
+                                              softmax_sum_bwd_plain,
+                                              softmax_sum_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    num_rows = graph.num_rows
+    row_b = D * 4
+    h = torch.randn((num_rows + 1, D), generator=gen, device=dev)
+    dh = torch.randn((num_rows + 1, D), generator=gen, device=dev)
+    recs = {name: KernelRecord(name, design)
+            for name in ("softmax_sum_bwd", "mailbox_scatter")}
+
+    def scatter_case(what, k, dest, rows, seg_off, pos, d_mail_c, d_pre_n,
+                     cnt_n, md_n, n_cell):
+        args = (rows, seg_off, pos, d_mail_c, d_pre_n, cnt_n, md_n, n_cell)
+        got, want = dest.clone(), dest.clone()
+        mailbox_scatter(got, *args)
+        mailbox_scatter_plain(want, *args)
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"mailbox_scatter ({what}) differs at pair "
+                                 f"{k}: max abs err {err}")
+        nbytes = scatter_bytes(torch, rows, pos, n_cell, md_n,
+                               d_mail_c is not None, row_b)
+        ops = float(pos.numel() * D)
+        work, work_p = dest.clone(), dest.clone()
+        ms = timer.ms(lambda: mailbox_scatter(work, *args))
+        pms = timer.ms(lambda: mailbox_scatter_plain(work_p, *args))
+        recs["mailbox_scatter"].add(ms, pms, None, nbytes, ops, err)
+        log(f"  mailbox_scatter {what} pair {k}: {pos.numel()} entries into "
+            f"{rows.numel()} rows  kernel {ms:.4f} ms  plain {pms:.4f}  bound "
+            f"{bound(nbytes, ops)[0]:.4f}  max abs err {err:.3g}")
+
+    for k in range(graph.num_pairs):
+        cell_mail, net_mail = graph.cell_mail[k], graph.net_mail[k]
+        pn_c, md_c = cell_mail.shape
+        pn_n, md_n = net_mail.shape
+        d_pre_n = torch.randn((pn_n, D), generator=gen, device=dev)
+        cnt_n = (net_mail != num_rows).sum(dim=1).float().clamp_min(1.0)
+        # ---- softmax_sum_bwd: the cell mailbox, row 0 all-invalid ----
+        d_mail_c = None
+        if k > 0:
+            idx = cell_mail.clone()
+            idx[0] = num_rows
+            f = softmax_sum_plain(h, idx, num_rows)
+            d_f = torch.randn((pn_c, D), generator=gen, device=dev)
+            # the kernel writes valid slots only (invalid rows undefined)
+            valid = (idx != num_rows).reshape(-1)
+            out = softmax_sum_bwd(h, idx, num_rows, f, d_f)[valid]
+            want = softmax_sum_bwd_plain(h, idx, num_rows, f, d_f)[valid]
+            err = float((out - want).abs().max())
+            if not (torch.allclose(out, want, rtol=1e-5, atol=1e-6)
+                    and bool(torch.isfinite(out).all())):
+                raise AssertionError(f"softmax_sum_bwd differs at pair {k}: "
+                                     f"max abs err {err}")
+            used = idx[idx != num_rows]
+            nbytes = (torch.unique(used).numel() * row_b + idx.numel() * 4
+                      + 2 * pn_c * row_b + used.numel() * row_b)
+            ops = 10.0 * used.numel() * D
+            ms = timer.ms(lambda: softmax_sum_bwd(h, idx, num_rows, f, d_f))
+            pms = timer.ms(lambda: softmax_sum_bwd_plain(h, idx, num_rows, f,
+                                                         d_f))
+            recs["softmax_sum_bwd"].add(ms, pms, None, nbytes, ops, err)
+            log(f"  softmax_sum_bwd pair {k}: ({pn_c}, {md_c}) of {D} f32, "
+                f"{used.numel()} valid slots  kernel {ms:.4f} ms  plain "
+                f"{pms:.4f}  bound {bound(nbytes, ops)[0]:.4f}  "
+                f"({nbytes / ms / 1e9:.3f} TB/s)  max abs err {err:.3g}")
+            d_mail_c = torch.randn((pn_c * md_c, D), generator=gen,
+                                   device=dev)
+        # ---- mailbox_scatter: the intra and the merged call sites ----
+        if graph.intra_rows[k].numel():
+            scatter_case("intra", k, dh[graph.cell_off[k]:
+                                        graph.cell_off[k] + pn_c],
+                         graph.intra_rows[k], graph.intra_seg_off[k],
+                         graph.intra_pos[k], None, d_pre_n, cnt_n, md_n, 0)
+        if graph.merged_rows[k].numel():
+            scatter_case("merged", k, dh, graph.merged_rows[k],
+                         graph.merged_seg_off[k], graph.merged_pos[k],
+                         d_mail_c, d_pre_n, cnt_n, md_n, pn_c * md_c)
+    return recs
+
+
+def adam_close(torch, got, want, what):
+    """flat_adam's (p, g, mu, nu) against the plain version's, each within
+    rtol 1e-6 and atol 1e-6 x the vector's largest value: the plain
+    version on the card divides by the bias corrections as PyTorch's CUDA
+    division by a scalar does, by a multiply with the reciprocal, an ulp
+    off a true division; and b1 * mu against (1 - b1) * g can cancel to a
+    value far smaller than its operands' rounding. Returns the max abs
+    error; logs each vector's worst element."""
+    err = 0.0
+    for name, a, b in zip(("p", "g", "mu", "nu"), got, want):
+        diff = (a - b).abs()
+        if not diff.numel():
+            continue
+        i = int(diff.argmax())
+        err = max(err, float(diff[i]))
+        scale = float(b.abs().max())
+        if float(diff[i]):
+            log(f"    {what}: {name} max abs err {float(diff[i]):.3g} at "
+                f"{float(a[i])!r} (plain {float(b[i])!r}); max |{name}| "
+                f"{scale:.3g}")
+        if not torch.allclose(a, b, rtol=1e-6, atol=1e-6 * scale):
+            raise AssertionError(f"{what}: {name} differs: max abs err "
+                                 f"{float(diff[i])}")
+    return err
+
+
+def check_flat_adam(torch, n, dev, timer):
+    """Phase 3, optimizer: flat_adam against its plain version on random
+    vectors of the full model's parameter count at step t = 2 (positive
+    second moments), with weight decay, and fused ``torch.optim.Adam``
+    (``fused=True``, never called by the port) on the same tensors as the
+    library yardstick. Returns a KernelRecord."""
+    from prtp_tpu_torch.ops.adam import flat_adam, flat_adam_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    p, g, mu = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    nu = torch.rand(n, generator=gen, device=dev) * 1e-2
+    hyper = (LR, 0.9, 0.999, 1e-8, 1e-4, 2)
+    got = [t.clone() for t in (p, g, mu, nu)]
+    want = [t.clone() for t in (p, g, mu, nu)]
+    flat_adam(*got, *hyper)
+    flat_adam_plain(*want, *hyper)
+    err = adam_close(torch, got, want, "flat_adam at the model's size")
+    rec = KernelRecord("flat_adam", "headline")
+    work = [t.clone() for t in (p, g, mu, nu)]
+    work_p = [t.clone() for t in (p, g, mu, nu)]
+    ms = timer.ms(lambda: flat_adam(*work, *hyper))
+    pms = timer.ms(lambda: flat_adam_plain(*work_p, *hyper))
+    q = p.clone().requires_grad_()
+    q.grad = g.clone()
+    lib = torch.optim.Adam([q], lr=LR, weight_decay=1e-4, fused=True)
+    lms = timer.ms(lib.step)
+    nbytes, ops = 28.0 * n, 15.0 * n
+    rec.add(ms, pms, lms, nbytes, ops, err)
+    log(f"  flat_adam: {n} parameters, t = 2  kernel {ms:.4f} ms  plain "
+        f"{pms:.4f}  Adam(fused=True) {lms:.4f}  bound "
+        f"{bound(nbytes, ops)[0]:.4f}  ({nbytes / ms / 1e9:.3f} TB/s)  max abs "
+        f"err {err:.3g}")
+    return rec
 
 
 def check_kernels(torch, F, graph, dev, timer, design):
@@ -273,18 +487,31 @@ def check_kernels(torch, F, graph, dev, timer, design):
 def call_floors(torch, graph, dev, timer) -> dict:
     """Each kernel timed on a one-row call with the phase's timer: what a
     call costs whatever its size."""
-    from prtp_tpu_torch.ops.fused_gnn import local_mean, softmax_sum
+    from prtp_tpu_torch.ops.adam import flat_adam
+    from prtp_tpu_torch.ops.fused_gnn import (local_mean, mailbox_scatter,
+                                              softmax_sum, softmax_sum_bwd)
     from prtp_tpu_torch.ops.gather import gather_rows
 
     h = torch.randn((graph.num_rows + 1, D), device=dev)
     one_row = graph.cell_mail[1][:1]
     new = torch.randn((1, D), device=dev)
     idx_n = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    seg_off = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    one = torch.ones(1, device=dev)
+    vec = [torch.rand(1, device=dev) for _ in range(4)]
     return {
         "gather_rows": timer.ms(lambda: gather_rows(h, one_row[0, :1])),
         "softmax_sum": timer.ms(
             lambda: softmax_sum(h, one_row, graph.num_rows)),
         "local_mean": timer.ms(lambda: local_mean(new, new[:0], idx_n)),
+        "softmax_sum_bwd": timer.ms(
+            lambda: softmax_sum_bwd(h, one_row, graph.num_rows, new, new)),
+        "mailbox_scatter": timer.ms(
+            lambda: mailbox_scatter(h, zero, seg_off, zero, None, new, one,
+                                    1, 0)),
+        "flat_adam": timer.ms(
+            lambda: flat_adam(*vec, LR, 0.9, 0.999, 1e-8, 0.0, 2)),
     }
 
 
@@ -396,6 +623,135 @@ def check_edge_shapes(torch, dev):
         "NaN where the plain version has it)")
 
 
+def check_backward_edge_shapes(torch, dev):
+    """The new kernels' other code paths against their plain versions:
+    for softmax_sum_bwd one slot, k > 8 (the generic path), D % 4 != 0
+    and a misaligned h (the scalar path), narrow and wide rows, an empty
+    mailbox, all-invalid rows and a NaN in a valid slot; for
+    mailbox_scatter an empty table, no cell cotangent with cell
+    positions (pair 0), several net slots a row, long segments, D % 4 !=
+    0 and a misaligned dest (against the plain version on the CPU); for
+    flat_adam lengths with a tail, a misaligned vector and no weight
+    decay."""
+    from prtp_tpu_torch.ops.adam import flat_adam, flat_adam_plain
+    from prtp_tpu_torch.ops.fused_gnn import (mailbox_scatter,
+                                              mailbox_scatter_plain,
+                                              softmax_sum_bwd,
+                                              softmax_sum_bwd_plain,
+                                              softmax_sum_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def rows(n, d, misaligned=False):
+        if misaligned:
+            return randn(n * d + 1)[1:].view(n, d)
+        return randn(n, d) * 4
+
+    cases = 0
+    # softmax_sum_bwd: (P, K, D, rows of h, case)
+    for p, k, d, r, case in ((0, 4, 128, 50, "empty"),
+                             (300, 1, 20, 500, "k=1, 5 lanes a row"),
+                             (300, 2, 4, 500, "D=4, 16 rows a warp"),
+                             (300, 8, 300, 900, "k=8, 75 float4s a row"),
+                             (300, 11, 128, 900, "k>8"),
+                             (50, 40, 7, 200, "k>8, D%4!=0"),
+                             (300, 3, 7, 500, "D%4!=0"),
+                             (300, 4, 128, 500, "misaligned h"),
+                             (300, 4, 128, 500, "NaN")):
+        h = rows(r, d, misaligned=case == "misaligned h")
+        idx = torch.randint(0, r - 1, (p, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        idx[torch.rand((p, k), generator=gen, device=dev) < 0.35] = r - 1
+        if p:
+            idx[0] = r - 1
+        if case == "NaN":
+            idx[1, 0] = 5
+            h[5, 2] = float("nan")
+        f = softmax_sum_plain(h, idx, r - 1)
+        d_f = randn(p, d)
+        out = softmax_sum_bwd(h, idx, r - 1, f, d_f)
+        want = softmax_sum_bwd_plain(h, idx, r - 1, f, d_f)
+        shape_ok = out.shape == want.shape
+        valid = (idx != r - 1).reshape(-1)  # invalid rows are undefined
+        out, want = out[valid], want[valid]
+        ok = shape_ok and torch.allclose(out, want, rtol=1e-5, atol=1e-6,
+                                         equal_nan=True)
+        if case == "NaN":
+            ok = ok and bool(out[int(valid[:k].sum()), 2].isnan())
+        else:
+            ok = ok and bool(torch.isfinite(out).all())
+        if not ok:
+            raise AssertionError(f"softmax_sum_bwd differs at {(p, k, d)} "
+                                 f"{case}")
+        cases += 1
+    # mailbox_scatter: (n_cell, pn_n, md_n, dest rows, D, entries, case)
+    for n_cell, pn_n, md_n, n_rows, d, n_ent, case in (
+            (40, 20, 1, 30, 128, 0, "empty"),
+            (0, 200, 1, 150, 128, 200, "intra, no cell positions"),
+            (60, 50, 1, 40, 128, 100, "pair 0: no cell cotangent"),
+            (300, 100, 3, 200, 128, 500, "3 net slots a row"),
+            (300, 100, 2, 4, 128, 400, "long segments"),
+            (100, 50, 2, 80, 7, 120, "D%4!=0"),
+            (100, 50, 2, 80, 20, 120, "D=20, 5 lanes a segment"),
+            (100, 50, 2, 80, 300, 120, "D=300"),
+            (100, 50, 2, 80, 128, 120, "misaligned dest")):
+        n_pos = n_cell + pn_n * md_n
+        pos = torch.randperm(n_pos, generator=gen, device=dev)[:n_ent]
+        dest_row = torch.randint(0, n_rows, (pos.numel(),), generator=gen,
+                                 device=dev)
+        order = torch.argsort(dest_row, stable=True)
+        pos, dest_row = pos[order].int(), dest_row[order]
+        uniq, counts = torch.unique_consecutive(dest_row, return_counts=True)
+        seg_off = torch.zeros(uniq.numel() + 1, dtype=torch.int32, device=dev)
+        seg_off[1:] = torch.cumsum(counts, 0)
+        d_mail_c = None if case.startswith("pair 0") else randn(n_cell, d)
+        cnt = torch.randint(1, md_n + 1, (pn_n,), generator=gen,
+                            device=dev).float()
+        args = (uniq.int(), seg_off, pos, d_mail_c, randn(pn_n, d), cnt,
+                md_n, n_cell)
+        dest = rows(n_rows, d, misaligned=case == "misaligned dest")
+        got = dest.clone()
+        if case == "misaligned dest":
+            got = randn(n_rows * d + 1)[1:].view(n_rows, d)
+            got.copy_(dest)
+        mailbox_scatter(got, *args)
+        # the plain version on the CPU: CUDA's index_add_ sums a segment in
+        # atomic order, which long segments show; the CPU's sums it in
+        # the kernel's order
+        want = dest.cpu()
+        mailbox_scatter_plain(want, *(a.cpu() if torch.is_tensor(a) else a
+                                      for a in args))
+        if not torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"mailbox_scatter differs: {case}: max abs "
+                                 f"err {float((got.cpu() - want).abs().max())}")
+        cases += 1
+    # flat_adam: (length, misaligned, weight decay)
+    for n, misaligned, wd in ((1, False, 0.0), (3, False, 1e-2),
+                              (1001, False, 1e-2), (4096, False, 0.0),
+                              (1001, True, 0.0)):
+        vecs = []
+        for i in range(4):
+            v = rows(1, n, misaligned).view(n)
+            vecs.append(v.abs() * 1e-2 if i == 3 else v)
+        got = [v.clone() for v in vecs]
+        want = [v.clone() for v in vecs]
+        if misaligned:
+            got = [randn(n + 1)[1:] for _ in range(4)]
+            for a, b in zip(got, vecs):
+                a.copy_(b)
+        flat_adam(*got, LR, 0.9, 0.999, 1e-8, wd, 3)
+        flat_adam_plain(*want, LR, 0.9, 0.999, 1e-8, wd, 3)
+        adam_close(torch, got, want,
+                   f"flat_adam n={n} misaligned={misaligned} wd={wd}")
+        cases += 1
+    log(f"  backward edge shapes: {cases} cases of the three new kernels "
+        "match their plain versions (rtol 1e-5, atol 1e-6; flat_adam rtol "
+        "1e-6, atol 1e-6 x max; NaN where the plain version has it)")
+
+
 def gather_probe(torch, dev, timer):
     """The TPU probe's shapes (scripts/gather_roofline.py): 160,000 x 128
     bf16 rows, 129,202 random indices."""
@@ -452,6 +808,10 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
                                  f"times, expected {requests * n}")
         if n == 0 and name != "gather_rows":
             raise AssertionError(f"{design}: {name} is not on the walk")
+    for name, n in counts.items():
+        if name not in per_forward and n:
+            raise AssertionError(f"{design}: {name} launched {n} times in "
+                                 "evaluation, which runs no backward")
     num_paths = int(parsed["num_paths"])
     for preds in outs:
         if preds.shape != (num_paths,) or not np.all(np.isfinite(preds)):
@@ -469,6 +829,110 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
         log(f"  {design} request {req} vs cpu: max abs diff {diff:.3g} "
             "(rtol/atol 1e-4): ok")
     return counts
+
+
+def train_run(torch, state, design, batches, what, per_step=None):
+    """Phase 6: one run of train steps through ``train_step`` (the first,
+    whose gradients stay in ``.grad``) and ``train_steps`` (the rest).
+    With ``per_step`` (on the card) the launch counters are zeroed just
+    before the run and read just after, and each kernel must have run
+    ``len(batches)`` x its per-step count. Returns (losses, the first
+    step's gradients on the CPU, counts)."""
+    import numpy as np
+    from prtp_tpu_torch.ops import KERNELS
+    from prtp_tpu_torch.trainer import train_step, train_steps
+
+    on_card = per_step is not None
+    if on_card:
+        torch.cuda.synchronize()
+        for kern in KERNELS:
+            kern.launches = 0
+    t0 = time.perf_counter()
+    first = train_step(state, design, *batches[0])
+    grads = {k: p.grad.detach().to("cpu", copy=True)
+             for k, p in state.model.named_parameters()}
+    rest = train_steps(state, design, batches[1:]) if len(batches) > 1 else {}
+    losses = [float(first["loss"])] + [float(x) for x in rest.get("loss", [])]
+    wall = time.perf_counter() - t0
+    counts = {kern.__name__: kern.launches for kern in KERNELS}
+    log(f"  {what} ({'card' if on_card else 'cpu, plain versions'}): "
+        f"{len(batches)} steps in {wall:.3f} s; losses "
+        + ", ".join(f"{x:.6f}" for x in losses))
+    if on_card:
+        log(f"  {what}: launches {counts}; per step expected {per_step}")
+        for name, n in per_step.items():
+            if counts[name] != len(batches) * n:
+                raise AssertionError(f"{what}: {name} launched {counts[name]}"
+                                     f" times, expected {len(batches) * n}")
+            if n == 0 and name != "gather_rows":
+                raise AssertionError(f"{what}: {name} is not on the step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: a loss is not finite: {losses}")
+    return losses, grads, counts
+
+
+def pool_winner_flips(torch, cnn_cpu, cnn_card, x_cpu, dev) -> dict:
+    """LayoutNet's two max pools at the same weights and raster on the
+    card and on the CPU: the windows (channels included) whose winner
+    differs, counted where the window's max is positive (a window of ReLU
+    zeros passes no gradient). Where two values nearly tie, rounding that
+    differs by an ulp can pick another winner; the window's whole
+    gradient then goes to another element, which moves the weight
+    gradients of the convs above that pool by far more than rounding.
+    Returns ``{conv: flipped windows in the pool after it}``."""
+    import torch.nn.functional as F
+    from prtp_tpu_torch.ops.pool import pool_2x2
+
+    def winners(a):
+        n, c, h, w = a.shape
+        win = a.reshape(n, c, h // 2, 2, w // 2, 2).permute(
+            0, 1, 2, 4, 3, 5).reshape(-1, 4)
+        return win.argmax(dim=1).cpu(), (win.amax(dim=1) > 0).cpu()
+
+    flips = {}
+    a, b = x_cpu, x_cpu.to(dev)
+    with torch.no_grad():
+        for conv in ("Conv_0", "Conv_1"):
+            a = F.relu(getattr(cnn_cpu, conv)(a))
+            b = F.relu(getattr(cnn_card, conv)(b))
+            (wa, live), (wb, _) = winners(a), winners(b)
+            flips[conv] = int(((wa != wb) & live).sum())
+            a, b = pool_2x2(a, "max"), pool_2x2(b, "max")
+    return flips
+
+
+def compare_runs(torch, what, card, cpu, flips):
+    """The card's run against the CPU's: the first step's gradients leaf
+    by leaf within GRAD_TOL x the leaf's largest |g|, every loss within
+    LOSS_RTOL. A LayoutNet conv above a pool with winners that differ
+    (``flips``, at most MAX_FLIPS a pool) is held to FLIP_TOL instead."""
+    import numpy as np
+    (l_card, g_card, _), (l_cpu, g_cpu, _) = card, cpu
+    if max(flips.values()) > MAX_FLIPS:
+        raise AssertionError(f"{what}: {flips} max-pool winners differ from "
+                             f"the cpu's (allowed {MAX_FLIPS} a pool)")
+    above = {"cnn.Conv_0.": flips["Conv_0"] + flips["Conv_1"],
+             "cnn.Conv_1.": flips["Conv_1"]}
+    worst, worst_flip = 0.0, 0.0
+    for key, want in g_cpu.items():
+        scale = float(want.abs().max())
+        diff = float((g_card[key] - want).abs().max())
+        rel = diff / scale if scale else diff
+        flipped = any(key.startswith(k) and n for k, n in above.items())
+        if flipped:
+            worst_flip = max(worst_flip, rel)
+        else:
+            worst = max(worst, rel)
+        if diff > (FLIP_TOL if flipped else GRAD_TOL) * scale:
+            raise AssertionError(f"{what}: gradient of {key} differs from "
+                                 f"the cpu's by {diff} (its max |g| {scale})")
+    np.testing.assert_allclose(l_card, l_cpu, rtol=LOSS_RTOL,
+                               err_msg=f"{what}: losses vs cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    log(f"  {what} vs cpu: first-step gradients within {worst:.3g} x each "
+        f"leaf's max |g| (allowed {GRAD_TOL}); convs above a flipped pool "
+        f"window within {worst_flip:.3g} (allowed {FLIP_TOL}); losses "
+        f"within rtol {rel:.3g} (allowed {LOSS_RTOL}): ok")
 
 
 def device_kernels(torch, fn):
@@ -498,6 +962,75 @@ def log_port_kernels(by_name, what):
         log(f"    {what}: {name}: {tot / 1e3:.4f} ms x{cnt}")
 
 
+def time_train_step(torch, model_cpu, design, dev):
+    """Phase 5, training: at the bench's batch (all 597 headline paths),
+    one train step's device time (queue pre-filled) and as-launched time,
+    the walk backward's device time, the device's busy and idle share of
+    a step, its top kernels, each port kernel's in-step time and count
+    (torch.profiler) and the step's peak memory; LayoutNet's forward and
+    backward. The step runs on a copy of the init with flat Adam."""
+    import numpy as np
+    from prtp_tpu_torch.trainer import (init_state, make_optimizer,
+                                        pad_batch, train_step)
+
+    state = init_state(copy.deepcopy(model_cpu),
+                       make_optimizer(LR), DEVICE)
+    num_paths = design.num_paths
+    ids, mask = pad_batch(np.random.default_rng(0).permutation(num_paths),
+                          num_paths, dev)
+
+    def step():
+        train_step(state, design, ids, mask)
+
+    timer = Timer(torch, dev)
+    dev_ms = timer.ms(step, queue_ms=200)
+    launched_ms = timer.ms(step, queue_ms=0)
+    log(f"phase 5: train step ({num_paths} paths): device time {dev_ms:.3f} "
+        f"ms; as launched (host gaps included) {launched_ms:.3f} ms")
+    gnn = state.model.gnn
+    params = list(gnn.parameters())
+    hf = gnn(design.graph)
+    g = torch.randn_like(hf)
+
+    def walk_backward():
+        torch.autograd.grad(hf, params, g, retain_graph=True)
+
+    dev_ms = timer.ms(walk_backward, queue_ms=100)
+    launched_ms = timer.ms(walk_backward, queue_ms=0)
+    log(f"phase 5: walk backward: device time {dev_ms:.3f} ms; as launched "
+        f"{launched_ms:.3f} ms")
+    cnn = state.model.cnn
+    cnn_params = list(cnn.parameters())
+    cot = torch.randn((1, 1, MAP_SIZE, MAP_SIZE), device=dev)
+
+    def cnn_fwd_bwd():
+        torch.autograd.grad(cnn(design.cnn_input), cnn_params, cot)
+
+    log(f"phase 5: LayoutNet forward + backward: device time "
+        f"{timer.ms(cnn_fwd_bwd, queue_ms=20):.3f} ms")
+    del timer, hf, g
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    by_name = device_kernels(torch, step)
+    if not by_name:
+        raise AssertionError("torch.profiler recorded no device kernels")
+    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    log(f"  train step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+        f"(torch.profiler), idle share {1 - busy_ms / wall_ms:.3f}; "
+        f"{sum(c for _, c in by_name.values())} kernel launches; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (tot, cnt) in top:
+        log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
+    log("  the port's kernels in one train step (torch.profiler, warm L2):")
+    log_port_kernels(by_name, "train step")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -513,10 +1046,14 @@ def main() -> int:
     from prtp_tpu_torch.graph import pack_design
     from prtp_tpu_torch.models import PathModel
     from prtp_tpu_torch.ops import _build
-    from prtp_tpu_torch.test import evaluate, pad_batch
+    from prtp_tpu_torch.test import evaluate
+    from prtp_tpu_torch.trainer import (batch_count, init_state,
+                                        iterate_batches, make_optimizer,
+                                        pad_batch)
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
+    tx = make_optimizer(LR)
     # ---- phase 1: the card ----
     smi = card_line()
     log(smi)
@@ -560,11 +1097,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     if per_forward["prior_rows"]["gather_rows"] == 0:
         raise AssertionError("the prior-row design has no prior rows")
+    per_step = {name: launches_per_step(g) for name, g in graphs.items()}
+    model_cpu = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+                          generator=torch.Generator().manual_seed(SEED))
     timer = Timer(torch, dev)
     recs = {}
     for name, g in graphs.items():
         log(f"  -- {name} --")
         recs[name] = check_kernels(torch, F, g, dev, timer, name)
+        recs[name].update(check_backward_kernels(torch, g, dev, timer, name))
+    recs["headline"]["flat_adam"] = check_flat_adam(
+        torch, sum(p.numel() for p in model_cpu.parameters()), dev, timer)
     floors = call_floors(torch, graphs["headline"], dev, timer)
     log("  per-call floor (one-row call, same timer): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in floors.items()))
@@ -572,27 +1115,25 @@ def main() -> int:
     for name, (_src, _rep, design) in KERNEL_INFO.items():
         rec = recs[design][name]
         rec.floor_ms = floors[name]
-        rec.max_abs_err = max(r[name].max_abs_err for r in recs.values())
+        rec.max_abs_err = max(r[name].max_abs_err for r in recs.values()
+                              if name in r)
         records.append(rec)
         log(f"  {rec.summary()}")
     check_edge_shapes(torch, dev)
+    check_backward_edge_shapes(torch, dev)
     gather_probe(torch, dev, timer)
     del timer, graphs
 
     # ---- phase 4: the slice ----
     log("phase 4: full-width PathModel, 3 evaluation requests on the "
         "headline and 1 on the prior-row design")
-    model_cpu = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
-                          generator=torch.Generator().manual_seed(SEED))
     model = copy.deepcopy(model_cpu).to(dev)
-    launches = {name: serve(torch, np, model, model_cpu, p, name,
-                            per_forward[name], REQUESTS if name == "headline"
-                            else 1)
+    launches = {f"serve {name}": serve(torch, np, model, model_cpu, p, name,
+                                       per_forward[name],
+                                       REQUESTS if name == "headline" else 1)
                 for name, p in parsed.items()}
-    for rec in records:
-        rec.launches = {name: c[rec.name] for name, c in launches.items()}
 
-    # ---- phase 5: where one request's time goes ----
+    # ---- phase 5: where one request's and one train step's time goes ----
     designs = {name: pack_design(p, map_size=MAP_SIZE, device=dev)
                for name, p in parsed.items()}
     design = designs["headline"]
@@ -635,6 +1176,54 @@ def main() -> int:
             log_port_kernels(device_kernels(torch, lambda: model.gnn(d.graph)),
                              name)
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    time_train_step(torch, model_cpu, design, dev)
+
+    # ---- phase 6: training ----
+    log(f"phase 6: full-width PathModel from the same init (seed {SEED}), "
+        f"flat Adam at lr {LR}, on the card and on the cpu")
+    del designs, design, model
+    torch.cuda.empty_cache()
+    cpu_designs = {name: pack_design(p, map_size=MAP_SIZE, device="cpu")
+                   for name, p in parsed.items()}
+    card_designs = {name: pack_design(p, map_size=MAP_SIZE, device=dev)
+                    for name, p in parsed.items()}
+    fixed = np.random.default_rng(0).permutation(num_paths)  # bench.py:308
+    flips = {name: pool_winner_flips(torch, model_cpu.cnn,
+                                     copy.deepcopy(model_cpu.cnn).to(dev),
+                                     d.cnn_input, dev)
+             for name, d in cpu_designs.items()}
+    log(f"  LayoutNet max-pool windows whose winner differs, card vs cpu, "
+        f"at the init: {flips}")
+    runs = {
+        "train headline epoch": ("headline", lambda d: list(iterate_batches(
+            np.arange(num_paths), TRAIN_BATCH,
+            np.random.default_rng(EPOCH_SEED), device=d))),
+        "train prior_rows": ("prior_rows", lambda d: list(iterate_batches(
+            np.arange(int(parsed["prior_rows"]["num_paths"])), TRAIN_BATCH,
+            np.random.default_rng(EPOCH_SEED), device=d))[:PRIOR_STEPS]),
+        "train headline fixed batch": ("headline", lambda d: [
+            pad_batch(fixed, num_paths, d)] * FIXED_STEPS),
+    }
+    for what, (name, batches_on) in runs.items():
+        batches = batches_on(dev)
+        if what.endswith("epoch"):
+            valid = [int(m.sum()) for _i, m in batches]
+            log(f"  {what}: {len(batches)} batches of {TRAIN_BATCH}, valid "
+                f"{valid}")
+            if len(batches) != batch_count(num_paths, TRAIN_BATCH, False):
+                raise AssertionError(f"{what}: {len(batches)} batches")
+        card = train_run(torch, init_state(copy.deepcopy(model_cpu), tx,
+                                           DEVICE),
+                         card_designs[name], batches, what, per_step[name])
+        launches[what] = card[2]
+        cpu = train_run(torch, init_state(copy.deepcopy(model_cpu), tx,
+                                          "cpu"),
+                        cpu_designs[name], batches_on("cpu"), what)
+        compare_runs(torch, what, card, cpu, flips[name])
+        if what.endswith("fixed batch") and not card[0][-1] < card[0][0]:
+            raise AssertionError(f"{what}: the loss did not fall: {card[0]}")
+    for rec in records:
+        rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:
         log(f"  {rec.name}: launches {rec.launches}; {rec.summary()}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -2,9 +2,11 @@
 
 The JAX package ``prtp_tpu`` is the reference; this package imports
 nothing of it (nor of JAX). Plain tensor code is PyTorch; the level
-walk's row gather and mailbox reductions are hand-written CUDA kernels
-(``csrc/``), built with ``nvcc`` at first use. Each kernel has a plain
-PyTorch version beside it, which runs for tensors on the CPU.
+walk's row gather and mailbox reductions, its backward's two scatters
+and flat Adam's update are hand-written CUDA kernels (``csrc/``), built
+with ``nvcc`` at first use. Each kernel has a plain PyTorch version
+beside it, which runs for tensors on the CPU. Serving is
+``test.evaluate_design``, training ``trainer.train_step``.
 
 Entry points take ``device=`` and default to ``"cuda"``: without a card
 they raise instead of quietly running on the CPU.

@@ -25,13 +25,19 @@ inline dim3 row_block(int64_t per_row, int threads = 256) {
   return dim3(tx, threads / tx);
 }
 
-// ---- the mailbox reductions' lane layout (softmax_sum, local_mean) ----
+__device__ __forceinline__ float nan_max(float acc, float x) {
+  // jnp.max propagates NaN; fmaxf would drop it
+  return (x > acc || x != x) ? x : acc;
+}
+
+// ---- the mailbox kernels' lane layout (softmax_sum, local_mean,
+// softmax_sum_bwd, mailbox_scatter) ----
 //
 // A group of `group` lanes (a power of two, at most 32) covers one
-// destination row, one vector of N floats per lane (N = 4: 16-byte
-// loads; N = 1: the scalar path), looping while the row is wider than
-// the group; a warp covers 32 / group neighbouring rows. A block is
-// kMailboxThreads threads.
+// destination row (a segment, for mailbox_scatter), one vector of N
+// floats per lane (N = 4: 16-byte loads; N = 1: the scalar path),
+// looping while the row is wider than the group; a warp covers
+// 32 / group neighbouring rows. A block is kMailboxThreads threads.
 
 constexpr int kMailboxThreads = 128;
 

@@ -40,11 +40,6 @@
 
 #include "common.cuh"
 
-__device__ __forceinline__ float nan_max(float acc, float x) {
-  // jnp.max propagates NaN; fmaxf would drop it
-  return (x > acc || x != x) ? x : acc;
-}
-
 // KMAX > 0: the register path for k <= KMAX; KMAX == 0: any k.
 template <int N, int KMAX>
 __global__ void __launch_bounds__(kMailboxThreads)

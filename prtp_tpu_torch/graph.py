@@ -13,7 +13,8 @@ is the gather dummy for padded mailbox slots).
 The JAX package also has padded and grouped packings; they exist to
 bound XLA recompiles and are numerically equal to this one, so the port
 has only the exact layout. The raster stays NCHW and no im2col patch
-table is built (serving runs Conv_0 as a plain convolution).
+table is built: Conv_0 runs as a plain convolution, forward and
+backward (on the H100 cuDNN's is faster than the patch-table product).
 """
 
 from __future__ import annotations
@@ -51,6 +52,12 @@ class LeveledGraphExact:
     merged_rows: tuple    # P x (U_k,) unique prior rows, sorted
     intra_pos: tuple      # P x (I_k,) flat pos into the net mailbox
     intra_slot: tuple     # P x (I_k,) local cell-block slot
+    # port-only CSR forms of the two scatters (ops.fused_gnn.mailbox_scatter):
+    # segment s of merged_rows holds merged_pos[merged_seg_off[s]:
+    # merged_seg_off[s+1]]; intra_rows are the distinct intra_slot values
+    merged_seg_off: tuple  # P x (U_k + 1,)
+    intra_rows: tuple      # P x (J_k,) distinct cell-block slots, sorted
+    intra_seg_off: tuple   # P x (J_k + 1,)
     # walk-forward tables: ONE global gather per pair serves both halves,
     # gather_rows = [cell_mail.flat | net prior-row sources]; the net
     # mailbox is then a LOCAL gather from buf = [new_cell | prior | 0]
@@ -99,6 +106,12 @@ def _sorted_level_tables(e_src, slot, pn, md, num_rows):
     flat = (slot.astype(np.int64) * md + pos).astype(np.int32)
     order2 = np.argsort(e_src, kind="stable")
     return e_src, slot, mail, flat[order2], e_src[order2]
+
+
+def _csr_offsets(seg, num_segments):
+    """Offsets of a sorted segment-id array: segment s spans
+    ``[off[s], off[s + 1])``."""
+    return np.searchsorted(seg, np.arange(num_segments + 1)).astype(np.int32)
 
 
 def _pack_exact_numpy(parsed):
@@ -164,6 +177,7 @@ def _pack_exact_numpy(parsed):
     nm, nrp, nrr = per_level_tables(1, parsed["net_edges"])
 
     m_pos, m_seg, m_rows, i_pos, i_slot = [], [], [], [], []
+    m_off, i_rows, i_off = [], [], []
     g_rows, n_local = [], []
     for k in range(n_pairs):
         pn_c, md_c = cm[k].shape
@@ -184,10 +198,14 @@ def _pack_exact_numpy(parsed):
         m_pos.append(cat_pos.astype(np.int32))
         m_seg.append(seg.astype(np.int32))
         m_rows.append(uniq.astype(np.int32))
+        m_off.append(_csr_offsets(seg, len(uniq)))
         fi, si = flat_n[intra], (src_n[intra] - c0)
         o2 = np.argsort(si, kind="stable")
         i_pos.append(fi[o2].astype(np.int32))
         i_slot.append(si[o2].astype(np.int32))
+        slots, i_seg = np.unique(si[o2], return_inverse=True)
+        i_rows.append(slots.astype(np.int32))
+        i_off.append(_csr_offsets(i_seg, len(slots)))
         # forward tables: one global gather for both halves
         flat_nm = nm[k].reshape(-1).astype(np.int64)
         validm = flat_nm != num_rows
@@ -209,6 +227,7 @@ def _pack_exact_numpy(parsed):
         net_rev_pos=nrp, net_rev_rows=nrr,
         merged_pos=m_pos, merged_seg=m_seg, merged_rows=m_rows,
         intra_pos=i_pos, intra_slot=i_slot,
+        merged_seg_off=m_off, intra_rows=i_rows, intra_seg_off=i_off,
         gather_rows=g_rows, net_local_idx=n_local,
         cell_off=cell_off, net_off=net_off)
     return tables, node_row, num_rows

@@ -9,9 +9,11 @@ Reference semantics per topological level:
   then ``h[v] = ReLU(fc_cell_self(cell_feat[v]) + fc_cell_neigh(agg))``
 - level 0 (PIs): ``h[v] = ReLU(fc_cell_self(cell_feat[v]))``
 
-The walk itself is :func:`prtp_tpu_torch.ops.fused_gnn.exact_gnn_forward`.
-The node-state carry is float32, ``(num_rows + 1, out_dim)``; the last
-row is the gather dummy.
+The walk itself is :func:`prtp_tpu_torch.ops.fused_gnn.exact_walk`: the
+forward of ``exact_gnn_forward`` with JAX's hand-written backward
+(``fused_vjp=True``, the JAX default), which returns the gradients of
+the three pair-step MLPs and of ``h0``. The node-state carry is float32,
+``(num_rows + 1, out_dim)``; the last row is the gather dummy.
 """
 
 from __future__ import annotations
@@ -19,10 +21,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.fused_gnn import exact_gnn_forward
+from ..ops.fused_gnn import MLP_NAMES as PAIR_STEP_MLPS
+from ..ops.fused_gnn import exact_walk
 from .mlp import MLP
-
-PAIR_STEP_MLPS = ("fc_cell_self", "fc_cell_neigh", "fc_net_self")
 
 
 class TimeGNN(nn.Module):
@@ -44,5 +45,9 @@ class TimeGNN(nn.Module):
             dev = g.cell_feat_lvl[0].device
             h0 = torch.zeros((g.num_rows + 1, self.out_dim),
                              dtype=torch.float32, device=dev)
-        params = {name: getattr(self, name) for name in PAIR_STEP_MLPS}
-        return exact_gnn_forward(params, h0, g, self.dgl_parity)
+        params = {}
+        for name in PAIR_STEP_MLPS:
+            mlp = getattr(self, name)
+            params[name] = (mlp.fc0.weight, mlp.fc0.bias, mlp.fc1.weight,
+                            mlp.fc1.bias)
+        return exact_walk(params, h0, g, self.dgl_parity)

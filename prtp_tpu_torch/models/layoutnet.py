@@ -2,11 +2,13 @@
 
 Port of ``prtp_tpu/models/layoutnet.py`` in NCHW: 2 input channels,
 512x512 input -> 128x128 single-channel output (two stride-2 pools).
-Every conv is a SAME-padded (``k // 2``) ``F.conv2d``. The JAX package
-may run Conv_0 as an im2col GEMM against a pack-time patch table; that
-computes the same function and exists for the training weight
-gradient, so it comes with the training slice. Convs are named
-``Conv_0..3`` as the flax modules are.
+Every conv is a SAME-padded (``k // 2``) ``F.conv2d``, its weight
+gradient by autograd. The JAX package may run Conv_0 as an im2col GEMM
+against a pack-time patch table, for XLA's slow tiny-channel weight
+gradient on the TPU; it computes the same function, and on the H100
+cuDNN's convolution is the faster of the two, forward and backward, so
+the port keeps it. Convs are named ``Conv_0..3`` as the flax modules
+are.
 """
 
 from __future__ import annotations

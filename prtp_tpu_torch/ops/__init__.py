@@ -1,14 +1,18 @@
-"""Kernels of the level walk and plain ops around them.
+"""Kernels of the level walk and of flat Adam, and plain ops around them.
 
 ``KERNELS`` lists the wrappers that launch a hand-written CUDA kernel;
 each keeps an integer ``launches`` count of its kernel launches.
 """
 
-from .fused_gnn import exact_gnn_forward, local_mean, softmax_sum
+from .adam import flat_adam
+from .fused_gnn import (exact_gnn_forward, exact_walk, local_mean,
+                        mailbox_scatter, softmax_sum, softmax_sum_bwd)
 from .gather import gather_rows
 from .pool import pool_2x2
 
-KERNELS = (gather_rows, softmax_sum, local_mean)
+KERNELS = (gather_rows, softmax_sum, local_mean, softmax_sum_bwd,
+           mailbox_scatter, flat_adam)
 
-__all__ = ["KERNELS", "exact_gnn_forward", "gather_rows", "local_mean",
-           "pool_2x2", "softmax_sum"]
+__all__ = ["KERNELS", "exact_gnn_forward", "exact_walk", "flat_adam",
+           "gather_rows", "local_mean", "mailbox_scatter", "pool_2x2",
+           "softmax_sum", "softmax_sum_bwd"]

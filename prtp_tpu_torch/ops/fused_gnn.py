@@ -1,4 +1,4 @@
-"""The exact-levels level walk (forward) and its mailbox-reduce kernels.
+"""The exact-levels level walk, forward and backward, and its kernels.
 
 Port of ``prtp_tpu/ops/fused_gnn.py::_forward_impl``. Per level pair the
 cell half reduces its mailbox with a masked per-channel softmax and the
@@ -25,12 +25,25 @@ destination's level, so every cell-mailbox and prior row lies below
 ``cell_off[k]`` and the cell half's write cannot change it; the slots
 are summed in the same order as before.
 
-``softmax_sum`` and ``local_mean`` are CUDA kernels
-(``csrc/softmax_sum.cu``, ``csrc/local_mean.cu``, whose source notes give
-bound and design) with plain PyTorch versions beside them, which compute
-the JAX expressions. For tensors on the CPU a wrapper runs the plain
-version; for CUDA tensors it launches the kernel or raises. The
-backward walk (``_bwd``) comes with the training slice.
+The backward is JAX's hand-written ``_bwd`` (:class:`ExactWalk`, a
+``torch.autograd.Function``): one ``dh`` carry over the reverse walk,
+updated in place; per half the ReLU mask ``hf > 0`` and the
+``dgl_parity`` split into ``d_pre`` and ``d_old``; the pair-step MLP
+gradients with the hidden recomputed (:func:`_mlp_grads`, plain
+products); ``f`` recomputed by :func:`softmax_sum` from the final state
+``hf`` by ``cell_mail``, as JAX recomputes ``_softmax_sum(hf[cell_mail])``
+(every mailbox row is final once its level is written, so this is
+exact, and saving ``f`` per pair would hold P x (pn_c, D) floats for a
+call that costs about as much as a copy); :func:`softmax_sum_bwd` for
+the cell reduce's cotangent; and :func:`mailbox_scatter` for the two
+sorted segment sums (the intra-pair net->cell-block one and the merged
+prior-row one, whose rows are unique: no atomics).
+
+``softmax_sum``, ``local_mean``, ``softmax_sum_bwd`` and
+``mailbox_scatter`` are CUDA kernels (``csrc/<name>.cu``, whose source
+notes give bound and design) with plain PyTorch versions beside them,
+which compute the JAX expressions. For tensors on the CPU a wrapper runs
+the plain version; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -47,6 +60,14 @@ _SOFTMAX_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_int64, c_int, c_int,
                      c_int, c_void_p]
 _MEAN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_int64, c_int,
                   c_int, c_int, c_int, c_void_p]
+_SOFTMAX_BWD_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
+                         c_int64, c_int, c_int, c_int, c_void_p]
+_SCATTER_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
+                     c_void_p, c_void_p, c_int64, c_int, c_int64, c_int,
+                     c_void_p]
+# the pair-step MLPs, each given to the walk as (fc0.weight, fc0.bias,
+# fc1.weight, fc1.bias) with torch's (out, in) weights
+MLP_NAMES = ("fc_cell_self", "fc_cell_neigh", "fc_net_self")
 
 
 def _check_rows(what: str, t: torch.Tensor) -> None:
@@ -55,27 +76,44 @@ def _check_rows(what: str, t: torch.Tensor) -> None:
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _check_index(idx: torch.Tensor) -> None:
-    if idx.dim() != 2 or idx.dtype != torch.int32 or not idx.is_contiguous():
-        raise ValueError("idx must be a contiguous (P, K) int32 tensor, got "
-                         f"{idx.dtype} {tuple(idx.shape)}")
+def _check_index(idx: torch.Tensor, what: str = "idx", dim: int = 2) -> None:
+    if idx.dim() != dim or idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dim}-D int32 tensor, "
+                         f"got {idx.dtype} {tuple(idx.shape)}")
+
+
+def _check_dummy(h: torch.Tensor, num_rows: int) -> None:
+    if not 0 <= num_rows < h.shape[0]:
+        raise ValueError(f"num_rows {num_rows} must index h's dummy row "
+                         f"(h has {h.shape[0]} rows)")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ------------------------------------------------------------ softmax_sum
 
-def softmax_sum_plain(h: torch.Tensor, idx: torch.Tensor,
-                      num_rows: int) -> torch.Tensor:
-    """``_softmax_sum(h[idx], idx != num_rows)``: masked elementwise
-    mailbox softmax-weighted sum over the slots, h (R, D), idx (P, K)
-    -> (P, D)."""
+def _softmax_weights(h, idx, num_rows):
+    """``m = h[idx]``, the slot mask and the masked per-channel softmax
+    weights ``w`` over the slots, as JAX's ``_softmax_sum`` computes
+    them."""
     m = h[idx.long()]
     v = (idx != num_rows)[..., None]
     mx = torch.where(v, m, torch.full_like(m, -torch.inf)).amax(
         dim=1, keepdim=True)
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     ex = torch.where(v, torch.exp(m - mx), torch.zeros_like(m))
-    denom = ex.sum(dim=1, keepdim=True).clamp_min(1e-12)
-    return (ex / denom * m).sum(dim=1)
+    return m, v, ex / ex.sum(dim=1, keepdim=True).clamp_min(1e-12)
+
+
+def softmax_sum_plain(h: torch.Tensor, idx: torch.Tensor,
+                      num_rows: int) -> torch.Tensor:
+    """``_softmax_sum(h[idx], idx != num_rows)``: masked elementwise
+    mailbox softmax-weighted sum over the slots, h (R, D), idx (P, K)
+    -> (P, D)."""
+    m, _v, w = _softmax_weights(h, idx, num_rows)
+    return (w * m).sum(dim=1)
 
 
 def softmax_sum(h: torch.Tensor, idx: torch.Tensor,
@@ -86,9 +124,7 @@ def softmax_sum(h: torch.Tensor, idx: torch.Tensor,
     and an invalid slot is never read. An all-invalid row gives 0."""
     _check_rows("h", h)
     _check_index(idx)
-    if not 0 <= num_rows < h.shape[0]:
-        raise ValueError(f"num_rows {num_rows} must index h's dummy row "
-                         f"(h has {h.shape[0]} rows)")
+    _check_dummy(h, num_rows)
     if device_of("softmax_sum", h, idx).type == "cpu":
         return softmax_sum_plain(h, idx, num_rows)
     p, k = idx.shape
@@ -97,7 +133,7 @@ def softmax_sum(h: torch.Tensor, idx: torch.Tensor,
     with torch.cuda.device(h.device):
         _build.launch("softmax_sum", _SOFTMAX_ARGTYPES, h.data_ptr(),
                       idx.data_ptr(), out.data_ptr(), p, k, d, num_rows,
-                      torch.cuda.current_stream(h.device).cuda_stream)
+                      _stream(h))
     softmax_sum.launches += 1
     return out
 
@@ -142,8 +178,7 @@ def local_mean(new: torch.Tensor, prior: torch.Tensor,
     with torch.cuda.device(new.device):
         _build.launch("local_mean", _MEAN_ARGTYPES, new.data_ptr(),
                       prior.data_ptr(), idx.data_ptr(), out.data_ptr(), p, k,
-                      d, new.shape[0], prior.shape[0],
-                      torch.cuda.current_stream(new.device).cuda_stream)
+                      d, new.shape[0], prior.shape[0], _stream(new))
     local_mean.launches += 1
     return out
 
@@ -151,18 +186,171 @@ def local_mean(new: torch.Tensor, prior: torch.Tensor,
 local_mean.launches = 0
 
 
+# -------------------------------------------------------- softmax_sum_bwd
+
+def softmax_sum_bwd_plain(h: torch.Tensor, idx: torch.Tensor, num_rows: int,
+                          f: torch.Tensor, d_f: torch.Tensor) -> torch.Tensor:
+    """JAX's ``d_f[:, None] * w * (1 + m - f[:, None])`` with ``m =
+    h[idx]`` and ``w`` the masked softmax weights of
+    ``_softmax_sum(m, valid)``; 0 at invalid slots. -> (P*K, D)."""
+    m, v, w = _softmax_weights(h, idx, num_rows)
+    out = d_f[:, None, :] * w * (1.0 + m - f[:, None, :])
+    return torch.where(v, out, torch.zeros_like(out)).reshape(-1, h.shape[1])
+
+
+def softmax_sum_bwd(h: torch.Tensor, idx: torch.Tensor, num_rows: int,
+                    f: torch.Tensor, d_f: torch.Tensor) -> torch.Tensor:
+    """Cotangent of the cell mailbox: for each row p and slot j of idx
+    (P, K) int32, row ``p*K + j`` of the (P*K, D) result is
+    ``d_f[p] * w_j * (1 + h[idx[p, j]] - f[p])`` for a valid slot. The
+    row of an invalid slot (``idx == num_rows``) is undefined: the kernel
+    does not write it (the plain version holds 0 there); the merged
+    scatter reads valid slots only. h (R, D), f =
+    ``softmax_sum(h, idx, num_rows)`` and d_f (P, D): contiguous
+    float32."""
+    _check_rows("h", h)
+    _check_rows("f", f)
+    _check_rows("d_f", d_f)
+    _check_index(idx)
+    _check_dummy(h, num_rows)
+    p, k = idx.shape
+    d = h.shape[1]
+    if f.shape != (p, d) or d_f.shape != (p, d):
+        raise ValueError(f"f {tuple(f.shape)} and d_f {tuple(d_f.shape)} "
+                         f"must be ({p}, {d})")
+    if device_of("softmax_sum_bwd", h, idx, f, d_f).type == "cpu":
+        return softmax_sum_bwd_plain(h, idx, num_rows, f, d_f)
+    out = torch.empty((p * k, d), dtype=h.dtype, device=h.device)
+    with torch.cuda.device(h.device):
+        _build.launch("softmax_sum_bwd", _SOFTMAX_BWD_ARGTYPES, h.data_ptr(),
+                      idx.data_ptr(), f.data_ptr(), d_f.data_ptr(),
+                      out.data_ptr(), p, k, d, num_rows, _stream(h))
+    softmax_sum_bwd.launches += 1
+    return out
+
+
+softmax_sum_bwd.launches = 0
+
+
+# -------------------------------------------------------- mailbox_scatter
+
+def mailbox_scatter_plain(dest, rows, seg_off, pos, d_mail_c, d_pre_n, cnt_n,
+                          md_n: int, n_cell: int) -> None:
+    """JAX's ``dest.at[rows].add(segment_sum(cat[pos], seg))`` in place,
+    where ``cat = [d_mail_c | d_mail_n]``: ``n_cell`` cell-mailbox rows
+    (zeros if ``d_mail_c`` is None) then the net mailbox cotangent,
+    ``d_mail_n[r*md_n + j] = d_pre_n[r] / cnt_n[r]``, and ``seg`` the
+    segment ids of the CSR offsets ``seg_off``."""
+    d = dest.shape[1]
+    cell = (d_mail_c if d_mail_c is not None
+            else dest.new_zeros((n_cell, d)))
+    d_mail_n = (d_pre_n / cnt_n[:, None]).repeat_interleave(md_n, dim=0)
+    contrib = torch.cat([cell, d_mail_n])[pos.long()]
+    seg = torch.repeat_interleave(
+        torch.arange(rows.shape[0], device=dest.device),
+        (seg_off[1:] - seg_off[:-1]).long())
+    uniq = dest.new_zeros((rows.shape[0], d)).index_add_(0, seg, contrib)
+    dest.index_add_(0, rows.long(), uniq)
+
+
+def mailbox_scatter(dest: torch.Tensor, rows: torch.Tensor,
+                    seg_off: torch.Tensor, pos: torch.Tensor,
+                    d_mail_c: torch.Tensor | None, d_pre_n: torch.Tensor,
+                    cnt_n: torch.Tensor, md_n: int, n_cell: int) -> None:
+    """Sorted unique-row segment sum added into ``dest`` in place.
+
+    For each segment s, ``dest[rows[s]] += sum of contrib(pos[e])`` over
+    ``e`` in ``[seg_off[s], seg_off[s+1])``, in that order. A position
+    ``q < n_cell`` reads row q of ``d_mail_c`` ((n_cell, D), or None for
+    zeros); a position ``q >= n_cell`` reads the net mailbox cotangent,
+    never built: ``r = (q - n_cell) // md_n`` gives ``d_pre_n[r] /
+    cnt_n[r]``. ``rows`` must be unique (no two segments add into one
+    row). dest (R, D), d_pre_n (pn_n, D) float32 contiguous; cnt_n
+    (pn_n,) float32; rows (U,), seg_off (U+1,), pos int32. An empty
+    table launches nothing."""
+    _check_rows("dest", dest)
+    _check_rows("d_pre_n", d_pre_n)
+    for what, t in (("rows", rows), ("seg_off", seg_off), ("pos", pos)):
+        _check_index(t, what, dim=1)
+    if d_mail_c is not None:
+        _check_rows("d_mail_c", d_mail_c)
+        if d_mail_c.shape != (n_cell, dest.shape[1]):
+            raise ValueError(f"d_mail_c {tuple(d_mail_c.shape)} must be "
+                             f"({n_cell}, {dest.shape[1]})")
+    if (cnt_n.dtype != torch.float32 or not cnt_n.is_contiguous()
+            or cnt_n.shape != d_pre_n.shape[:1]):
+        raise ValueError(f"cnt_n must be a contiguous float32 "
+                         f"({d_pre_n.shape[0]},) tensor, got {cnt_n.dtype} "
+                         f"{tuple(cnt_n.shape)}")
+    if d_pre_n.shape[1] != dest.shape[1] or seg_off.shape[0] != rows.shape[0] + 1:
+        raise ValueError("mailbox_scatter: d_pre_n's width or seg_off's "
+                         "length does not fit dest and rows")
+    if md_n < 1 or n_cell < 0:
+        raise ValueError(f"md_n {md_n} must be >= 1 and n_cell {n_cell} >= 0")
+    tensors = [dest, rows, seg_off, pos, d_pre_n, cnt_n]
+    if d_mail_c is not None:
+        tensors.append(d_mail_c)
+    if device_of("mailbox_scatter", *tensors).type == "cpu":
+        mailbox_scatter_plain(dest, rows, seg_off, pos, d_mail_c, d_pre_n,
+                              cnt_n, md_n, n_cell)
+        return
+    if rows.shape[0] == 0:
+        return
+    with torch.cuda.device(dest.device):
+        _build.launch("mailbox_scatter", _SCATTER_ARGTYPES, dest.data_ptr(),
+                      rows.data_ptr(), seg_off.data_ptr(), pos.data_ptr(),
+                      0 if d_mail_c is None else d_mail_c.data_ptr(),
+                      d_pre_n.data_ptr(), cnt_n.data_ptr(), rows.shape[0],
+                      dest.shape[1], n_cell, md_n, _stream(dest))
+    mailbox_scatter.launches += 1
+
+
+mailbox_scatter.launches = 0
+
+
 # ---------------------------------------------------------------- the walk
+
+def _mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """The pair-step MLP, Linear -> ReLU -> Linear, from ``p = (w0, b0,
+    w1, b1)``."""
+    return F.linear(F.relu(F.linear(x, p[0], p[1])), p[2], p[3])
+
+
+def _mlp_grads(p, x, d_out, need_dx=True):
+    """Port of ``prtp_tpu/ops/fused_gnn.py::_mlp_grads``: the gradients
+    of ``(w0, b0, w1, b1)`` and the input cotangent (None unless
+    ``need_dx``) of :func:`_mlp` at ``x`` for the output cotangent
+    ``d_out``, the hidden recomputed. JAX's ``kernel`` is ``weight.T``."""
+    w0, b0, w1, _b1 = p
+    a = F.linear(x, w0, b0)
+    d_a = (d_out @ w1) * (a > 0)
+    grads = (d_a.t() @ x, d_a.sum(0), d_out.t() @ F.relu(a), d_out.sum(0))
+    return grads, (d_a @ w0 if need_dx else None)
+
+
+def _relu_split(g, h_blk, mail, num_rows, dgl_parity):
+    """``(d_pre, d_old)`` of one half: the ReLU mask ``hf > 0`` (right for
+    both dgl_parity branches: a kept row is ``relu(old)``), split by
+    whether the row's mailbox has a valid slot."""
+    d = g * (h_blk > 0)
+    if not dgl_parity:
+        return d, None
+    has = (mail != num_rows).any(dim=1, keepdim=True)
+    return d * has, d * ~has
+
 
 def exact_gnn_forward(params, h0: torch.Tensor, graph,
                       dgl_parity: bool = True) -> torch.Tensor:
     """h_final of the exact-levels walk.
 
-    params: maps ``fc_cell_self``, ``fc_cell_neigh`` and ``fc_net_self``
-    to the pair-step MLPs (modules or any callables). h0: (num_rows+1, D)
-    float32 initial state; it is not modified — the walk writes each
-    level's rows in place into a copy (JAX's functional
-    ``dynamic_update_slice`` becomes a slice assignment). graph: a
-    :class:`prtp_tpu_torch.graph.LeveledGraphExact` on h0's device.
+    params: maps each name of ``MLP_NAMES`` to that pair-step MLP's
+    ``(w0, b0, w1, b1)``. h0: (num_rows+1, D) float32 initial state; it
+    is not modified — the walk writes each level's rows in place into a
+    copy (JAX's functional ``dynamic_update_slice`` becomes a slice
+    assignment). graph: a :class:`prtp_tpu_torch.graph.LeveledGraphExact`
+    on h0's device. Differentiable by torch autograd where every tensor
+    lies on the CPU (the plain versions); :class:`ExactWalk` is its
+    hand-written backward.
     """
     num_rows = graph.num_rows
     h = h0.clone()
@@ -170,10 +358,10 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
         cell_mail = graph.cell_mail[k]
         pn_c, md_c = cell_mail.shape
         # ---- cell half (even level 2k): mailbox read straight from h ----
-        pre = params["fc_cell_self"](graph.cell_feat_lvl[k])
+        pre = _mlp(params["fc_cell_self"], graph.cell_feat_lvl[k])
         if k > 0:  # level 0 drops the neighbour term
-            pre = pre + params["fc_cell_neigh"](
-                softmax_sum(h, cell_mail, num_rows))
+            pre = pre + _mlp(params["fc_cell_neigh"],
+                             softmax_sum(h, cell_mail, num_rows))
         new = F.relu(pre)
         c0 = graph.cell_off[k]
         if dgl_parity:
@@ -184,7 +372,8 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
         prior_rows = graph.gather_rows[k][pn_c * md_c:]
         prior = gather_rows(h, prior_rows) if prior_rows.numel() else new[:0]
         neigh_n = local_mean(new, prior, graph.net_local_idx[k])
-        new_n = F.relu(params["fc_net_self"](graph.net_feat_lvl[k]) + neigh_n)
+        new_n = F.relu(_mlp(params["fc_net_self"], graph.net_feat_lvl[k])
+                       + neigh_n)
         net_mail = graph.net_mail[k]
         n0 = graph.net_off[k]
         if dgl_parity:
@@ -193,3 +382,103 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
                                 F.relu(h[n0: n0 + net_mail.shape[0]]))
         h[n0: n0 + net_mail.shape[0]] = new_n
     return h
+
+
+def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
+                       dgl_parity: bool = True):
+    """Port of ``prtp_tpu/ops/fused_gnn.py::_bwd``: the cotangent of h0
+    and the parameter gradients (a dict like ``params``) of the walk
+    whose final state is ``hf``, for the cotangent ``g`` of ``hf``.
+
+    One ``dh`` carry, a copy of ``g``, is updated in place pair by pair
+    in reverse. The intra-pair net->cell-block sum goes straight into
+    ``dh``'s cell slice (JAX's ``g_c``), which ``d_old_c`` then
+    replaces, so no copy is made; the merged rows lie below
+    ``cell_off[k]``, so the merged add never touches the two slices just
+    written."""
+    num_rows = graph.num_rows
+    dh = g.clone(memory_format=torch.contiguous_format)
+    grads = {name: [torch.zeros_like(t) for t in params[name]]
+             for name in MLP_NAMES}
+
+    def acc(name, dp):  # one multi-tensor launch for the four tensors
+        torch._foreach_add_(grads[name], list(dp))
+
+    for k in reversed(range(graph.num_pairs)):
+        cell_mail, net_mail = graph.cell_mail[k], graph.net_mail[k]
+        pn_c, md_c = cell_mail.shape
+        pn_n, md_n = net_mail.shape
+        c0, n0 = graph.cell_off[k], graph.net_off[k]
+        # ---- net half ----
+        d_pre_n, d_old_n = _relu_split(dh[n0: n0 + pn_n],
+                                       hf[n0: n0 + pn_n], net_mail,
+                                       num_rows, dgl_parity)
+        acc("fc_net_self", _mlp_grads(params["fc_net_self"],
+                                      graph.net_feat_lvl[k], d_pre_n,
+                                      need_dx=False)[0])
+        cnt_n = (net_mail != num_rows).sum(dim=1).to(dh.dtype).clamp_min(1.0)
+        # ---- intra-pair net -> cell-block contributions ----
+        g_c = dh[c0: c0 + pn_c]
+        mailbox_scatter(g_c, graph.intra_rows[k], graph.intra_seg_off[k],
+                        graph.intra_pos[k], None, d_pre_n, cnt_n, md_n, 0)
+        # ---- cell half ----
+        d_pre_c, d_old_c = _relu_split(g_c, hf[c0: c0 + pn_c], cell_mail,
+                                       num_rows, dgl_parity)
+        acc("fc_cell_self", _mlp_grads(params["fc_cell_self"],
+                                       graph.cell_feat_lvl[k], d_pre_c,
+                                       need_dx=False)[0])
+        d_mail_c = None
+        if k > 0:
+            f = softmax_sum(hf, cell_mail, num_rows)
+            dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c)
+            acc("fc_cell_neigh", dp_neigh)
+            d_mail_c = softmax_sum_bwd(hf, cell_mail, num_rows, f, d_f)
+        # ---- the carry: d_old into both slices, then the merged scatter ----
+        if d_old_n is None:
+            dh[n0: n0 + pn_n] = 0.0
+            dh[c0: c0 + pn_c] = 0.0
+        else:
+            dh[n0: n0 + pn_n] = d_old_n
+            dh[c0: c0 + pn_c] = d_old_c
+        mailbox_scatter(dh, graph.merged_rows[k], graph.merged_seg_off[k],
+                        graph.merged_pos[k], d_mail_c, d_pre_n, cnt_n, md_n,
+                        pn_c * md_c)
+    return dh, grads
+
+
+def _params_of(flat):
+    return {name: tuple(flat[4 * i: 4 * i + 4])
+            for i, name in enumerate(MLP_NAMES)}
+
+
+class ExactWalk(torch.autograd.Function):
+    """The walk with JAX's hand-written backward (``fused_exact_gnn``).
+    Inputs: the graph and ``dgl_parity`` (no gradient), h0, then the
+    twelve pair-step tensors in ``MLP_NAMES`` order."""
+
+    @staticmethod
+    def forward(ctx, graph, dgl_parity, h0, *flat):
+        hf = exact_gnn_forward(_params_of(flat), h0, graph, dgl_parity)
+        ctx.graph, ctx.dgl_parity = graph, dgl_parity
+        ctx.save_for_backward(hf, *flat)
+        return hf
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        hf, *flat = ctx.saved_tensors
+        dh, grads = exact_gnn_backward(_params_of(flat), hf, g, ctx.graph,
+                                       ctx.dgl_parity)
+        dflat = [t for name in MLP_NAMES for t in grads[name]]
+        need = ctx.needs_input_grad
+        return (None, None, dh if need[2] else None,
+                *(t if need[3 + i] else None for i, t in enumerate(dflat)))
+
+
+def exact_walk(params, h0: torch.Tensor, graph,
+               dgl_parity: bool = True) -> torch.Tensor:
+    """:func:`exact_gnn_forward` through :class:`ExactWalk`: the forward
+    launches the same kernels, and autograd takes the hand-written
+    backward."""
+    flat = [t for name in MLP_NAMES for t in params[name]]
+    return ExactWalk.apply(graph, dgl_parity, h0, *flat)

@@ -1,10 +1,10 @@
 """Evaluation: the serving path of the port.
 
 Port of ``prtp_tpu/test.py::test`` (its metric part) and of
-``prtp_tpu/trainer.py``'s ``make_eval_step``, ``_task_loss_and_metrics``
-and ``pad_batch``, for the regression task. :func:`evaluate` runs the
-model over a batch of paths of a packed design and returns predictions
-and metrics; :func:`evaluate_design` packs one parsed design, evaluates
+``prtp_tpu/trainer.py``'s ``make_eval_step``, for the regression task
+(the loss, the metrics and ``pad_batch`` live in ``trainer.py``).
+:func:`evaluate` runs the model over a batch of paths of a packed
+design and returns predictions and metrics; :func:`evaluate_design` packs one parsed design, evaluates
 all of its paths and prints the per-level R²/MAPE lines and the case
 lines in the JAX driver's formats. Checkpoint loading and the CLI wait
 for a torch checkpoint format (the JAX checkpoints are flax msgpack).
@@ -19,31 +19,10 @@ import torch
 
 from . import resolve_device
 from .graph import pack_design
+from .trainer import pad_batch, task_loss_and_metrics
 from .utils import metrics as M
 
-
-def pad_batch(path_ids, batch_size: int, device="cuda"):
-    """Pad a path-id batch to a fixed size; returns (ids int64, mask)."""
-    dev = resolve_device(device)
-    n = len(path_ids)
-    ids = torch.zeros(batch_size, dtype=torch.int64)
-    ids[:n] = torch.as_tensor(np.asarray(path_ids, np.int64))
-    mask = torch.zeros(batch_size, dtype=torch.float32)
-    mask[:n] = 1.0
-    return ids.to(dev), mask.to(dev)
-
-
-def _task_metrics(preds, design, path_ids, mask):
-    """Masked MSE, R² and confusion counts of regression predictions."""
-    endpoints = design.path_endpoint[path_ids].long()
-    labels = design.is_critical[endpoints]
-    arrival = design.arrival_time[endpoints]
-    required = design.required_time[endpoints]
-    loss = M.mse_loss(preds, arrival, mask)
-    pred_labels = M.judge_critical(preds, required)
-    tp, fp, tn, fn = M.confusion_counts(pred_labels, labels, mask)
-    return {"loss": loss, "r2": M.r2_score(preds, arrival, mask),
-            "tp": tp, "fp": fp, "tn": tn, "fn": fn}
+__all__ = ["evaluate", "evaluate_design", "pad_batch"]
 
 
 @torch.no_grad()
@@ -52,7 +31,7 @@ def evaluate(model, design, path_ids, mask):
     0-d tensors. (``--task cls`` comes with the variants slice.)"""
     model.eval()
     preds = model(design, path_ids)
-    return preds, _task_metrics(preds, design, path_ids, mask)
+    return preds, task_loss_and_metrics(preds, design, path_ids, mask)[1]
 
 
 def evaluate_design(model, parsed, device="cuda", case_idx: int = 0):

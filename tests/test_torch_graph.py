@@ -148,3 +148,25 @@ def test_pack_refuses_merged_rasters():
     parsed["cnn_input"] = np.stack([parsed["cnn_input"]] * 2)
     with pytest.raises(ValueError, match="raster"):
         pack_design(parsed, map_size=16, device="cpu")
+
+
+@pytest.mark.parametrize("which", ["golden", "random", "prior_rows"])
+def test_scatter_csr_tables_match_the_segment_ids(which):
+    """The port-only CSR tables of the backward's two scatters hold the
+    packer's segments: ``merged_seg_off`` spans each ``merged_seg`` run,
+    ``intra_rows``/``intra_seg_off`` are the runs of the sorted
+    ``intra_slot``."""
+    parsed = golden_parsed() if which == "golden" else _random_parsed(6)
+    if which == "prior_rows":
+        parsed = port_rd.with_prior_net_drivers(parsed, share=0.2, seed=2)
+    g = pack_design(parsed, map_size=16, device="cpu").graph
+    for k in range(g.num_pairs):
+        off = g.merged_seg_off[k].numpy()
+        seg = np.repeat(np.arange(len(off) - 1), np.diff(off))
+        assert off.dtype == np.int32 and len(off) == g.merged_rows[k].numel() + 1
+        np.testing.assert_array_equal(seg, g.merged_seg[k].numpy())
+        slot = g.intra_slot[k].numpy()
+        rows, ioff = g.intra_rows[k].numpy(), g.intra_seg_off[k].numpy()
+        np.testing.assert_array_equal(rows, np.unique(slot))
+        np.testing.assert_array_equal(np.repeat(rows, np.diff(ioff)), slot)
+        assert ioff[0] == 0 and ioff[-1] == len(slot)
