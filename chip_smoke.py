@@ -20,8 +20,11 @@ Phases, each failing loudly (nonzero exit) on any error:
    timing kernel, plain version, and the one PyTorch call that computes
    the same function where there is one. Then each kernel's per-call
    floor (a one-row call, same timer), the kernels' other code paths at
-   edge shapes, and the row gather at the TPU probe's shapes (160,000 x
-   128 bf16, 129,202 rows).
+   edge shapes, the programmatic-launch hazard check (the two backward
+   kernels launched right after a PyTorch kernel, and right after a
+   kernel that lets them start at once, that writes their NaN-filled
+   inputs must match their plain versions), and the row gather at the
+   TPU probe's shapes (160,000 x 128 bf16, 129,202 rows).
 4. The slice: the full-width float32 regression fusion model, random
    weights from a seed, answers three evaluation requests on the
    headline and one on the prior-row design through ``evaluate_design``;
@@ -76,7 +79,36 @@ FLIP_TOL, MAX_FLIPS = 1e-2, 16
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPS, WARMUP = 10, 2
+HAZARD_REPS = 20  # phase 3: launches right after a writer of the inputs
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
+# phase 3's hazard check: a writer that lets a programmatic dependent
+# launch after it start at once (griddepcontrol.launch_dependents), then
+# spins and only then copies src into dst. A test fixture, not a kernel
+# of the port.
+EARLY_WRITER_SPIN_MS = 0.1
+EARLY_WRITER_CU = r"""
+#include <cuda_runtime.h>
+
+__global__ void early_writer(float* dst, const float* src, long long n,
+                             long long cycles) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  const long long t0 = clock64();
+  while (clock64() - t0 < cycles) {
+  }
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += step)
+    dst[i] = src[i];
+}
+
+extern "C" int early_writer_launch(void* dst, const void* src, long long n,
+                                   long long cycles, void* stream) {
+  early_writer<<<132, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(dst), static_cast<const float*>(src), n, cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 DEVICE = "cuda:0"
 D = 128  # the walk's row width (out_dim)
 # kernel: (source, TPU kernel or JAX op it replaces, design of its row)
@@ -275,20 +307,33 @@ def check_backward_kernels(torch, graph, dev, timer, design):
         nbytes = scatter_bytes(torch, rows, pos, n_cell, md_n,
                                d_mail_c is not None, row_b)
         ops = float(pos.numel() * D)
-        work, work_p = dest.clone(), dest.clone()
+        # the library yardstick: index_add_ of the per-entry contributions
+        # into dest, both prebuilt outside its timed call (the net
+        # cotangent divided and gathered, each entry's destination row):
+        # it sums in atomic order and builds nothing
+        cell = (d_mail_c if d_mail_c is not None
+                else dest.new_zeros((n_cell, D)))
+        contrib = torch.cat([cell, (d_pre_n / cnt_n[:, None])
+                             .repeat_interleave(md_n, dim=0)])[pos.long()]
+        entry_rows = rows.long().repeat_interleave(
+            (seg_off[1:] - seg_off[:-1]).long())
+        work, work_p, work_l = dest.clone(), dest.clone(), dest.clone()
         ms = timer.ms(lambda: mailbox_scatter(work, *args))
         pms = timer.ms(lambda: mailbox_scatter_plain(work_p, *args))
-        recs["mailbox_scatter"].add(ms, pms, None, nbytes, ops, err)
+        lms = timer.ms(lambda: work_l.index_add_(0, entry_rows, contrib))
+        recs["mailbox_scatter"].add(ms, pms, lms, nbytes, ops, err)
         log(f"  mailbox_scatter {what} pair {k}: {pos.numel()} entries into "
-            f"{rows.numel()} rows  kernel {ms:.4f} ms  plain {pms:.4f}  bound "
-            f"{bound(nbytes, ops)[0]:.4f}  max abs err {err:.3g}")
+            f"{rows.numel()} rows  kernel {ms:.4f} ms  plain {pms:.4f}  "
+            f"index_add_ of prebuilt contributions (atomic order, builds "
+            f"nothing) {lms:.4f}  bound {bound(nbytes, ops)[0]:.4f}  max abs "
+            f"err {err:.3g}")
 
     for k in range(graph.num_pairs):
         cell_mail, net_mail = graph.cell_mail[k], graph.net_mail[k]
         pn_c, md_c = cell_mail.shape
         pn_n, md_n = net_mail.shape
         d_pre_n = torch.randn((pn_n, D), generator=gen, device=dev)
-        cnt_n = (net_mail != num_rows).sum(dim=1).float().clamp_min(1.0)
+        cnt_n = graph.net_cnt[k]
         # ---- softmax_sum_bwd: the cell mailbox, row 0 all-invalid ----
         d_mail_c = None
         if k > 0:
@@ -629,9 +674,10 @@ def check_backward_edge_shapes(torch, dev):
     and a misaligned h (the scalar path), narrow and wide rows, an empty
     mailbox, all-invalid rows and a NaN in a valid slot; for
     mailbox_scatter an empty table, no cell cotangent with cell
-    positions (pair 0), several net slots a row, long segments, D % 4 !=
-    0 and a misaligned dest (against the plain version on the CPU); for
-    flat_adam lengths with a tail, a misaligned vector and no weight
+    positions (pair 0), several net slots a row, long segments, segments
+    of 1 to 13 entries, one-entry segments only, D % 4 != 0 (0 segments
+    too) and a misaligned dest (against the plain version on the CPU);
+    for flat_adam lengths with a tail, a misaligned vector and no weight
     decay."""
     from prtp_tpu_torch.ops.adam import flat_adam, flat_adam_plain
     from prtp_tpu_torch.ops.fused_gnn import (mailbox_scatter,
@@ -694,14 +740,25 @@ def check_backward_edge_shapes(torch, dev):
             (60, 50, 1, 40, 128, 100, "pair 0: no cell cotangent"),
             (300, 100, 3, 200, 128, 500, "3 net slots a row"),
             (300, 100, 2, 4, 128, 400, "long segments"),
+            (100, 50, 2, 80, 128, 31, "segments of 1, 4, 5, 8 and 13 entries"),
+            (100, 50, 2, 80, 128, 60, "every segment one entry"),
             (100, 50, 2, 80, 7, 120, "D%4!=0"),
-            (100, 50, 2, 80, 20, 120, "D=20, 5 lanes a segment"),
+            (100, 50, 2, 80, 7, 0, "0 segments, D%4!=0"),
+            (100, 50, 2, 80, 20, 120, "D=20, 8 lanes a segment, 5 busy"),
             (100, 50, 2, 80, 300, 120, "D=300"),
             (100, 50, 2, 80, 128, 120, "misaligned dest")):
         n_pos = n_cell + pn_n * md_n
         pos = torch.randperm(n_pos, generator=gen, device=dev)[:n_ent]
-        dest_row = torch.randint(0, n_rows, (pos.numel(),), generator=gen,
-                                 device=dev)
+        if case.startswith("segments of"):
+            dest_row = torch.tensor([2, 10, 11, 40, 79], device=dev)
+            dest_row = dest_row.repeat_interleave(
+                torch.tensor([1, 4, 5, 8, 13], device=dev))
+        elif case.startswith("every segment"):
+            dest_row = torch.randperm(n_rows, generator=gen,
+                                      device=dev)[:n_ent]
+        else:
+            dest_row = torch.randint(0, n_rows, (pos.numel(),),
+                                     generator=gen, device=dev)
         order = torch.argsort(dest_row, stable=True)
         pos, dest_row = pos[order].int(), dest_row[order]
         uniq, counts = torch.unique_consecutive(dest_row, return_counts=True)
@@ -750,6 +807,146 @@ def check_backward_edge_shapes(torch, dev):
     log(f"  backward edge shapes: {cases} cases of the three new kernels "
         "match their plain versions (rtol 1e-5, atol 1e-6; flat_adam rtol "
         "1e-6, atol 1e-6 x max; NaN where the plain version has it)")
+
+
+def start_early_writer_build():
+    """Phase 2: start ``nvcc`` on EARLY_WRITER_CU, beside the port's
+    builds, into the port's (git-ignored) build directory. Returns what
+    :func:`load_early_writer` takes."""
+    from prtp_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "early_writer.cu"
+    src.write_text(EARLY_WRITER_CU)
+    target = _build.BUILD_DIR / "libearly_writer.so"
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(target), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, target
+
+
+def load_early_writer(build):
+    """``early_writer_launch`` of the library :func:`start_early_writer_build`
+    compiles; raises with the compiler's output if the build failed."""
+    import ctypes
+
+    proc, target = build
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"early_writer build failed:\n{out}")
+    fn = ctypes.CDLL(str(target)).early_writer_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_programmatic_hazard(torch, graph, dev, early_writer, pair=1):
+    """Phase 3, programmatic dependent launch: softmax_sum_bwd and both
+    mailbox_scatter calls at one pair's shapes of ``graph``, each launched
+    right after a kernel that writes every input the kernel may read only
+    after its wait (f and d_f; dest, d_pre_n and d_mail_c), all NaN
+    before. Two writers: an elementwise PyTorch kernel (``torch.mul`` by
+    1), as on the main path, where the launch after it may start only as
+    its blocks exit; and ``early_writer`` (EARLY_WRITER_CU), which lets
+    the launch after it start at once and writes only after a spin, so
+    that any read before the wait finds NaN. A spin kernel holds the
+    stream while the host enqueues writer and kernel. Each of HAZARD_REPS
+    results a writer must match the plain version on the written values
+    (rtol 1e-5, atol 1e-6)."""
+    from prtp_tpu_torch.ops.fused_gnn import (mailbox_scatter,
+                                              mailbox_scatter_plain,
+                                              softmax_sum_bwd,
+                                              softmax_sum_bwd_plain,
+                                              softmax_sum_plain)
+
+    def write_early(buf, src):
+        err = early_writer(buf.data_ptr(), src.data_ptr(), buf.numel(),
+                           int(EARLY_WRITER_SPIN_MS * SPIN_CYCLES_PER_MS),
+                           torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"early_writer launch failed: cuda error {err}")
+
+    writers = {"torch.mul": lambda buf, src: torch.mul(src, 1.0, out=buf),
+               "early_writer": write_early}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    num_rows = graph.num_rows
+    cell_mail = graph.cell_mail[pair]
+    pn_c, md_c = cell_mail.shape
+    pn_n, md_n = graph.net_mail[pair].shape
+    h = torch.randn((num_rows + 1, D), generator=gen, device=dev)
+
+    def staged(vals):
+        """NaN-filled views of one buffer, shaped as ``vals``, the flat
+        values, and the buffer: one writer launch fills them all."""
+        src = torch.cat([v.reshape(-1) for v in vals])
+        buf = torch.full_like(src, float("nan"))
+        views, at = [], 0
+        for v in vals:
+            views.append(buf[at: at + v.numel()].view(v.shape))
+            at += v.numel()
+        return views, src, buf
+
+    failed = []
+
+    def after_writer(what, call, buf, src, want):
+        """For each writer, HAZARD_REPS launches of ``call``, each right
+        after the writer fills ``buf`` from ``src``; logs the elements
+        that differ from ``want`` in each launch."""
+        for writer, write in writers.items():
+            bad = []
+            for _ in range(HAZARD_REPS):
+                buf.fill_(float("nan"))
+                torch.cuda._sleep(int(0.2 * SPIN_CYCLES_PER_MS))
+                write(buf, src)
+                bad.append((~torch.isclose(call(), want, rtol=1e-5,
+                                           atol=1e-6)).sum())
+            bad = [int(b) for b in bad]
+            log(f"  programmatic launch: {what} right after {writer}: "
+                f"elements off the plain version in each of {HAZARD_REPS} "
+                f"launches {bad}")
+            if any(bad):
+                failed.append(f"{what} after {writer}")
+
+    f = softmax_sum_plain(h, cell_mail, num_rows)
+    d_f = torch.randn((pn_c, D), generator=gen, device=dev)
+    (f_v, d_f_v), src, buf = staged([f, d_f])
+    valid = (cell_mail != num_rows).reshape(-1)
+    after_writer("softmax_sum_bwd",
+                 lambda: softmax_sum_bwd(h, cell_mail, num_rows, f_v,
+                                         d_f_v)[valid], buf, src,
+                 softmax_sum_bwd_plain(h, cell_mail, num_rows, f, d_f)[valid])
+    d_pre_n = torch.randn((pn_n, D), generator=gen, device=dev)
+    d_mail_c = torch.randn((pn_c * md_c, D), generator=gen, device=dev)
+    sites = {
+        "intra": (torch.randn((pn_c, D), generator=gen, device=dev),
+                  graph.intra_rows[pair], graph.intra_seg_off[pair],
+                  graph.intra_pos[pair], False, 0),
+        "merged": (torch.randn((num_rows + 1, D), generator=gen, device=dev),
+                   graph.merged_rows[pair], graph.merged_seg_off[pair],
+                   graph.merged_pos[pair], True, pn_c * md_c),
+    }
+    for site, (dest, rows, seg_off, pos, with_cell, n_cell) in sites.items():
+        (dest_v, d_pre_v, d_mail_v), src, buf = staged(
+            [dest, d_pre_n, d_mail_c])
+        tail = (graph.net_cnt[pair], md_n, n_cell)
+
+        def scatter():
+            mailbox_scatter(dest_v, rows, seg_off, pos,
+                            d_mail_v if with_cell else None, d_pre_v, *tail)
+            return dest_v
+
+        want = dest.clone()
+        mailbox_scatter_plain(want, rows, seg_off, pos,
+                              d_mail_c if with_cell else None, d_pre_n, *tail)
+        after_writer(f"mailbox_scatter ({site})", scatter, buf, src, want)
+    if failed:
+        raise AssertionError("launched right after the kernel that writes "
+                             "its inputs, a kernel differs from its plain "
+                             f"version: {failed}")
+    log(f"  programmatic launch: softmax_sum_bwd and mailbox_scatter (intra, "
+        f"merged) at pair {pair} match their plain versions right after each "
+        "writer (rtol 1e-5, atol 1e-6)")
 
 
 def gather_probe(torch, dev, timer):
@@ -1027,7 +1224,8 @@ def time_train_step(torch, model_cpu, design, dev):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (tot, cnt) in top:
         log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
-    log("  the port's kernels in one train step (torch.profiler, warm L2):")
+    log("  the port's kernels in one train step (torch.profiler, warm L2; "
+        "the span of a programmatic launch starts early and holds its wait):")
     log_port_kernels(by_name, "train step")
 
 
@@ -1066,9 +1264,16 @@ def main() -> int:
 
     # ---- phase 2: build ----
     t0 = time.perf_counter()
-    report = _build.build()
-    log(f"phase 2: built {len(report)} kernel libraries in "
-        f"{time.perf_counter() - t0:.1f} s")
+    writer_build = start_early_writer_build()
+    try:
+        report = _build.build()
+    except BaseException:
+        writer_build[0].kill()
+        writer_build[0].wait()
+        raise
+    early_writer = load_early_writer(writer_build)
+    log(f"phase 2: built {len(report)} kernel libraries and the hazard "
+        f"check's writer in {time.perf_counter() - t0:.1f} s")
     for name, info in report.items():
         usage = [ln.strip() for ln in info["log"].splitlines()
                  if "entry function" in ln or "registers" in ln
@@ -1121,6 +1326,7 @@ def main() -> int:
         log(f"  {rec.summary()}")
     check_edge_shapes(torch, dev)
     check_backward_edge_shapes(torch, dev)
+    check_programmatic_hazard(torch, graphs["headline"], dev, early_writer)
     gather_probe(torch, dev, timer)
     del timer, graphs
 

@@ -83,6 +83,27 @@ __device__ __forceinline__ void load_vec<1>(const float* p, float (&x)[1]) {
   x[0] = __ldg(p);
 }
 
+// load_vec for data another kernel may still be writing when this one
+// starts (a programmatic dependent launch, below), read after
+// grid_dep_wait(): through L2 (ld.global.cg), never from L1 or the
+// read-only cache, which may hold lines from before the writer finished.
+template <int N>
+__device__ __forceinline__ void load_vec_cg(const float* p, float (&x)[N]);
+
+template <>
+__device__ __forceinline__ void load_vec_cg<4>(const float* p, float (&x)[4]) {
+  const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+  x[0] = t.x;
+  x[1] = t.y;
+  x[2] = t.z;
+  x[3] = t.w;
+}
+
+template <>
+__device__ __forceinline__ void load_vec_cg<1>(const float* p, float (&x)[1]) {
+  x[0] = __ldcg(p);
+}
+
 template <int N>
 __device__ __forceinline__ void store_vec(float* p, const float (&x)[N]);
 
@@ -108,4 +129,42 @@ __device__ __forceinline__ void row_indices(const int32_t* __restrict__ idx,
   const int32_t mine = (row_ok && rl.lane < k) ? idx[rl.row * k + rl.lane] : 0;
 #pragma unroll
   for (int j = 0; j < KMAX; ++j) src[j] = __shfl_sync(0xffffffffu, mine, j, group);
+}
+
+// ---- programmatic dependent launch (sm_90), for softmax_sum_bwd and
+// mailbox_scatter ----
+//
+// Launched with cudaLaunchAttributeProgrammaticStreamSerialization, a
+// kernel may start while the kernel before it on the stream drains: its
+// blocks run up to grid_dep_wait(), which returns once every earlier
+// kernel has finished and its writes are visible. Before the wait a
+// kernel reads only what no kernel in flight writes (the graph's tables,
+// the final node state); every other read and every store comes after.
+// So a caller must not let the kernel just before it on the stream write
+// what is read before the wait. Launched plainly, the wait returns at
+// once.
+
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Launches kernel<<<grid, kMailboxThreads, 0, s>>>(args...) through
+// cudaLaunchKernelEx, as a programmatic dependent launch. Returns the
+// launch's error, else the last.
+template <typename... Params, typename... Args>
+cudaError_t launch_programmatic(void (*kernel)(Params...), unsigned grid,
+                                cudaStream_t s, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kMailboxThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();  // and clear it
+  return err != cudaSuccess ? err : last;
 }

@@ -21,9 +21,11 @@
 // 1-9) the cell mailboxes hold 113,016 slots, 70,789 valid, 57,968
 // distinct rows over the nine calls: 29.7 MB of rows, 0.45 MB of
 // indices, f and d_f 28.9 MB, and 36.2 MB of output (valid slots only),
-// 95 MB a backward, 28 us at 3.35 TB/s. JAX also gathers the mailbox
-// first (57.9 MB written and read again) and writes zeros at the invalid
-// slots; the kernel reads hf by index and never builds it.
+// 95 MB a backward, 28 us at 3.35 TB/s. But each call is small (10,359
+// rows at most, about one wave of warps), so it costs its launch and a
+// chain of dependent loads more than its bytes. JAX also gathers the
+// mailbox first (57.9 MB written and read again) and writes zeros at the
+// invalid slots; the kernel reads hf by index and never builds it.
 //
 // Design: the lane layout of softmax_sum (common.cuh): a lane group
 // covers one row, one float4 of channels a lane (a whole warp at
@@ -34,6 +36,14 @@
 // row segment across the warp at D = 128). k > 8 takes a generic path that
 // re-reads the slots (from L1) in three passes; D % 4 != 0 or a pointer
 // off 16-byte alignment takes the scalar path (N = 1).
+//
+// Launched as a programmatic dependent launch (common.cuh), so that the
+// launch and the idx -> hf chain overlap the kernel before it. Before
+// grid_dep_wait() the kernel reads idx (the graph's cell_mail, copied to
+// the card when the design was packed) and h (the walk's final state hf,
+// written by the forward, before the backward began), and computes each
+// slot's max, exp and denominator. After it, f and d_f (which the
+// kernels just before this one write), then every store.
 
 #include <math.h>
 
@@ -44,8 +54,7 @@ template <int N, int KMAX>
 __global__ void __launch_bounds__(kMailboxThreads)
     softmax_sum_bwd_kernel(const float* __restrict__ h,
                            const int32_t* __restrict__ idx,
-                           const float* __restrict__ f,
-                           const float* __restrict__ df,
+                           const float* f, const float* df,
                            float* __restrict__ out, int64_t rows, int k, int d,
                            int num_rows, int group) {
   const RowLanes rl = row_lanes(group);
@@ -59,13 +68,11 @@ __global__ void __launch_bounds__(kMailboxThreads)
 #pragma unroll
     for (int j = 0; j < KMAX; ++j) ok[j] = j < k && src[j] != num_rows;
     for (int c = rl.lane; c < vecs; c += group) {
+      // ---- before the wait: idx and h only ----
       float x[KMAX][N];
 #pragma unroll
       for (int j = 0; j < KMAX; ++j)
         if (ok[j]) load_vec<N>(h + static_cast<int64_t>(src[j]) * d + c * N, x[j]);
-      float fv[N], dv[N];
-      load_vec<N>(f + rl.row * d + c * N, fv);
-      load_vec<N>(df + rl.row * d + c * N, dv);
       float e[KMAX][N];
       float den[N];
 #pragma unroll
@@ -83,6 +90,11 @@ __global__ void __launch_bounds__(kMailboxThreads)
         }
         den[i] = fmaxf(den[i], 1e-12f);
       }
+      // ---- after the wait: f, d_f and the stores ----
+      grid_dep_wait();
+      float fv[N], dv[N];
+      load_vec_cg<N>(f + rl.row * d + c * N, fv);
+      load_vec_cg<N>(df + rl.row * d + c * N, dv);
 #pragma unroll
       for (int j = 0; j < KMAX; ++j) {
         if (ok[j]) {
@@ -98,9 +110,8 @@ __global__ void __launch_bounds__(kMailboxThreads)
     if (!row_ok) return;
     const int32_t* irow = idx + rl.row * k;
     for (int c = rl.lane; c < vecs; c += group) {
-      float mx[N], den[N], x[N], fv[N], dv[N];
-      load_vec<N>(f + rl.row * d + c * N, fv);
-      load_vec<N>(df + rl.row * d + c * N, dv);
+      // ---- before the wait: idx and h only ----
+      float mx[N], den[N], x[N];
 #pragma unroll
       for (int i = 0; i < N; ++i) {
         mx[i] = -INFINITY;
@@ -123,6 +134,11 @@ __global__ void __launch_bounds__(kMailboxThreads)
       }
 #pragma unroll
       for (int i = 0; i < N; ++i) den[i] = fmaxf(den[i], 1e-12f);
+      // ---- after the wait: f, d_f and the stores ----
+      grid_dep_wait();
+      float fv[N], dv[N];
+      load_vec_cg<N>(f + rl.row * d + c * N, fv);
+      load_vec_cg<N>(df + rl.row * d + c * N, dv);
       for (int j = 0; j < k; ++j) {
         if (irow[j] == num_rows) continue;
         load_vec<N>(h + static_cast<int64_t>(irow[j]) * d + c * N, x);
@@ -137,21 +153,17 @@ __global__ void __launch_bounds__(kMailboxThreads)
 }
 
 template <int N>
-static void launch(const float* h, const int32_t* idx, const float* f,
-                   const float* df, float* out, int64_t rows, int k, int d,
-                   int num_rows, cudaStream_t s) {
+static cudaError_t launch(const float* h, const int32_t* idx, const float* f,
+                          const float* df, float* out, int64_t rows, int k,
+                          int d, int num_rows, cudaStream_t s) {
   const int vecs = d / N;
   const int group = lane_group(k <= 8 && k > vecs ? k : vecs);
   const unsigned grid = mailbox_grid(rows, group);
-  if (k <= 4)
-    softmax_sum_bwd_kernel<N, 4><<<grid, kMailboxThreads, 0, s>>>(
-        h, idx, f, df, out, rows, k, d, num_rows, group);
-  else if (k <= 8)
-    softmax_sum_bwd_kernel<N, 8><<<grid, kMailboxThreads, 0, s>>>(
-        h, idx, f, df, out, rows, k, d, num_rows, group);
-  else
-    softmax_sum_bwd_kernel<N, 0><<<grid, kMailboxThreads, 0, s>>>(
-        h, idx, f, df, out, rows, k, d, num_rows, group);
+  auto kernel = k <= 4   ? &softmax_sum_bwd_kernel<N, 4>
+                : k <= 8 ? &softmax_sum_bwd_kernel<N, 8>
+                         : &softmax_sum_bwd_kernel<N, 0>;
+  return launch_programmatic(kernel, grid, s, h, idx, f, df, out, rows, k, d,
+                             num_rows, group);
 }
 
 // h: (> num_rows, d) float32, idx: (rows, k) int32 with values in
@@ -171,9 +183,9 @@ PRTP_EXPORT int softmax_sum_bwd_launch(const void* h, const void* idx,
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(f) |
       reinterpret_cast<uintptr_t>(df) | reinterpret_cast<uintptr_t>(out);
-  if (d % 4 == 0 && align % 16 == 0)
-    launch<4>(hp, ip, fp, dp, op, rows, k, d, num_rows, s);
-  else
-    launch<1>(hp, ip, fp, dp, op, rows, k, d, num_rows, s);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      d % 4 == 0 && align % 16 == 0
+          ? launch<4>(hp, ip, fp, dp, op, rows, k, d, num_rows, s)
+          : launch<1>(hp, ip, fp, dp, op, rows, k, d, num_rows, s);
+  return static_cast<int>(err);
 }

@@ -58,6 +58,10 @@ class LeveledGraphExact:
     merged_seg_off: tuple  # P x (U_k + 1,)
     intra_rows: tuple      # P x (J_k,) distinct cell-block slots, sorted
     intra_seg_off: tuple   # P x (J_k + 1,)
+    # port-only: each net row's count of valid mailbox slots, at least 1
+    # (JAX's backward `cnt = maximum(validn.sum(1), 1)`), the divisor of
+    # the net mailbox cotangent
+    net_cnt: tuple        # P x (n_n_k,) float32
     # walk-forward tables: ONE global gather per pair serves both halves,
     # gather_rows = [cell_mail.flat | net prior-row sources]; the net
     # mailbox is then a LOCAL gather from buf = [new_cell | prior | 0]
@@ -228,6 +232,8 @@ def _pack_exact_numpy(parsed):
         merged_pos=m_pos, merged_seg=m_seg, merged_rows=m_rows,
         intra_pos=i_pos, intra_slot=i_slot,
         merged_seg_off=m_off, intra_rows=i_rows, intra_seg_off=i_off,
+        net_cnt=[np.maximum((m != num_rows).sum(axis=1), 1).astype(np.float32)
+                 for m in nm],
         gather_rows=g_rows, net_local_idx=n_local,
         cell_off=cell_off, net_off=net_off)
     return tables, node_row, num_rows

@@ -44,6 +44,10 @@ prior-row one, whose rows are unique: no atomics).
 notes give bound and design) with plain PyTorch versions beside them,
 which compute the JAX expressions. For tensors on the CPU a wrapper runs
 the plain version; for CUDA tensors it launches the kernel or raises.
+The two backward kernels launch as programmatic dependent launches
+(``csrc/common.cuh::launch_programmatic``): each reads the graph's
+tables and ``hf`` while the kernel before it drains, and the rest once
+it is done, so the kernel just before one of them must not write those.
 """
 
 from __future__ import annotations
@@ -207,7 +211,13 @@ def softmax_sum_bwd(h: torch.Tensor, idx: torch.Tensor, num_rows: int,
     does not write it (the plain version holds 0 there); the merged
     scatter reads valid slots only. h (R, D), f =
     ``softmax_sum(h, idx, num_rows)`` and d_f (P, D): contiguous
-    float32."""
+    float32.
+
+    On the card the kernel is a programmatic dependent launch: it reads
+    ``h`` and ``idx`` while the kernel before it on the stream may still
+    run, and ``f`` and ``d_f`` only after that kernel has finished. So
+    ``h`` and ``idx`` must be final before the previous kernel on the
+    stream starts: that kernel must not write them."""
     _check_rows("h", h)
     _check_rows("f", f)
     _check_rows("d_f", d_f)
@@ -266,8 +276,15 @@ def mailbox_scatter(dest: torch.Tensor, rows: torch.Tensor,
     never built: ``r = (q - n_cell) // md_n`` gives ``d_pre_n[r] /
     cnt_n[r]``. ``rows`` must be unique (no two segments add into one
     row). dest (R, D), d_pre_n (pn_n, D) float32 contiguous; cnt_n
-    (pn_n,) float32; rows (U,), seg_off (U+1,), pos int32. An empty
-    table launches nothing."""
+    (pn_n,) float32, the graph's ``net_cnt``; rows (U,), seg_off (U+1,),
+    pos int32. An empty table launches nothing.
+
+    On the card the kernel is a programmatic dependent launch: it may
+    read ``rows``, ``seg_off``, ``pos`` and ``cnt_n`` while the kernel
+    before it on the stream still runs, and ``dest``, ``d_pre_n`` and
+    ``d_mail_c`` only after that kernel has finished. So the first four
+    must be final before the previous kernel on the stream starts: that
+    kernel must not write them (the graph's tables never change)."""
     _check_rows("dest", dest)
     _check_rows("d_pre_n", d_pre_n)
     for what, t in (("rows", rows), ("seg_off", seg_off), ("pos", pos)):
@@ -395,7 +412,13 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     ``dh``'s cell slice (JAX's ``g_c``), which ``d_old_c`` then
     replaces, so no copy is made; the merged rows lie below
     ``cell_off[k]``, so the merged add never touches the two slices just
-    written."""
+    written.
+
+    ``softmax_sum_bwd`` and ``mailbox_scatter`` read their index tables
+    and ``hf`` before waiting on the kernel before them (programmatic
+    dependent launch). That holds here because those are the graph's
+    tables, packed before the walk, and ``hf``, final before the
+    backward begins; no kernel of the backward writes them."""
     num_rows = graph.num_rows
     dh = g.clone(memory_format=torch.contiguous_format)
     grads = {name: [torch.zeros_like(t) for t in params[name]]
@@ -416,7 +439,7 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         acc("fc_net_self", _mlp_grads(params["fc_net_self"],
                                       graph.net_feat_lvl[k], d_pre_n,
                                       need_dx=False)[0])
-        cnt_n = (net_mail != num_rows).sum(dim=1).to(dh.dtype).clamp_min(1.0)
+        cnt_n = graph.net_cnt[k]
         # ---- intra-pair net -> cell-block contributions ----
         g_c = dh[c0: c0 + pn_c]
         mailbox_scatter(g_c, graph.intra_rows[k], graph.intra_seg_off[k],

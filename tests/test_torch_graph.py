@@ -4,13 +4,18 @@ array for array."""
 import os
 import pickle
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from prtp_tpu.data import random_design as jax_rd
 from prtp_tpu.graph import pack_design as jax_pack_design
+from prtp_tpu.graph import pack_leveled_graph_exact as jax_pack_exact
 from prtp_tpu_torch.data import random_design as port_rd
-from prtp_tpu_torch.graph import pack_design
+from prtp_tpu_torch.graph import pack_design, pack_leveled_graph_exact
+
+from helpers import make_random_leveled_graph
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
@@ -148,6 +153,32 @@ def test_pack_refuses_merged_rasters():
     parsed["cnn_input"] = np.stack([parsed["cnn_input"]] * 2)
     with pytest.raises(ValueError, match="raster"):
         pack_design(parsed, map_size=16, device="cpu")
+
+
+@pytest.mark.parametrize("which", ["golden", "leveled"])
+def test_net_cnt_matches_jax_backward_count(which):
+    """The packer's ``net_cnt`` is the divisor JAX's walk backward
+    computes per pair, ``maximum(validn.sum(axis=1), 1)`` on the net
+    mailbox of the JAX-packed graph: the golden fixture, and a
+    ``make_random_leveled_graph`` graph whose net sources come from any
+    lower level."""
+    if which == "golden":
+        parsed = golden_parsed()
+        g = pack_design(parsed, map_size=16, device="cpu").graph
+        ref = jax_pack_design(parsed, map_size=16, exact_levels=True,
+                              cnn_patches=False).graph
+    else:
+        parsed = make_random_leveled_graph(
+            np.random.default_rng(8), level_sizes=(6, 8, 7, 9, 5, 6, 4),
+            cell_feat_dim=12, max_in=3)
+        g = pack_leveled_graph_exact(parsed, device="cpu")[0]
+        ref = jax_pack_exact(parsed)[0]
+    assert len(g.net_cnt) == g.num_pairs == ref.num_pairs
+    for k in range(g.num_pairs):
+        validn = (jnp.asarray(ref.net_mail[k]) != ref.num_rows)[..., None]
+        want = jnp.maximum(validn.sum(axis=1).astype(jnp.float32), 1.0)[:, 0]
+        assert g.net_cnt[k].dtype == torch.float32
+        np.testing.assert_array_equal(g.net_cnt[k].numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("which", ["golden", "random", "prior_rows"])

@@ -189,14 +189,21 @@ def test_softmax_sum_bwd_matches_jax(k):
         np.testing.assert_array_equal(got[(idx == num_rows).reshape(-1)], 0.0)
 
 
-def _scatter_case(rng, n_cell, pn_n, md_n, n_rows, d, with_cell):
+def _scatter_case(rng, n_cell, pn_n, md_n, n_rows, d, with_cell,
+                  seg_len=None):
     """Random sorted unique-row segment tables over ``n_cell`` cell and
-    ``pn_n * md_n`` net positions, as the packer builds them."""
+    ``pn_n * md_n`` net positions, as the packer builds them; ``seg_len``
+    maps destination rows to their segments' lengths (else random)."""
     n_pos = n_cell + pn_n * md_n
-    pos = rng.choice(n_pos, size=min(n_pos, 3 * n_rows // 2), replace=False)
-    if not with_cell:
-        pos = pos[pos >= n_cell]
-    dest_row = rng.integers(0, n_rows, size=len(pos))
+    if seg_len is None:
+        pos = rng.choice(n_pos, size=min(n_pos, 3 * n_rows // 2),
+                         replace=False)
+        if not with_cell:
+            pos = pos[pos >= n_cell]
+        dest_row = rng.integers(0, n_rows, size=len(pos))
+    else:
+        dest_row = np.repeat(list(seg_len), list(seg_len.values()))
+        pos = rng.choice(n_pos, size=len(dest_row), replace=False)
     order = np.argsort(dest_row, kind="stable")
     pos, dest_row = pos[order].astype(np.int32), dest_row[order]
     rows, seg = np.unique(dest_row, return_inverse=True)
@@ -210,19 +217,27 @@ def _scatter_case(rng, n_cell, pn_n, md_n, n_rows, d, with_cell):
         cnt_n=rng.integers(1, md_n + 1, size=pn_n).astype(np.float32))
 
 
-@pytest.mark.parametrize("site", ["merged", "intra", "pair0", "empty"])
+@pytest.mark.parametrize("site", ["merged", "intra", "pair0", "empty",
+                                  "long"])
 def test_mailbox_scatter_matches_jax_segment_sum_and_add(site):
     """JAX's ``dest.at[rows].add(segment_sum(cat[pos], seg))`` with
     ``cat = [d_mail_c | where(valid, d_pre_n / cnt, 0)]``: the merged
     call (cell and net positions), the intra call (net positions only,
-    no cell cotangent), pair 0 (cell positions read as 0) and an empty
-    table; rtol 1e-6, atol 1e-6 (the same sums in the same order)."""
-    rng = np.random.default_rng(["merged", "intra", "pair0", "empty"]
+    no cell cotangent), pair 0 (cell positions read as 0), an empty
+    table, and one segment of 13 entries, longer than any at the
+    headline, among one-entry segments; rtol 1e-6, atol 1e-6 (the same
+    sums in the same order)."""
+    rng = np.random.default_rng(["merged", "intra", "pair0", "empty", "long"]
                                 .index(site))
     n_cell, pn_n, md_n, n_rows, d = {
         "merged": (60, 25, 3, 40, 12), "intra": (0, 30, 2, 18, 8),
-        "pair0": (20, 25, 2, 30, 8), "empty": (10, 5, 1, 6, 4)}[site]
-    c = _scatter_case(rng, n_cell, pn_n, md_n, n_rows, d, site != "intra")
+        "pair0": (20, 25, 2, 30, 8), "empty": (10, 5, 1, 6, 4),
+        "long": (30, 20, 2, 12, 8)}[site]
+    seg_len = {0: 1, 3: 13, 5: 1, 7: 1, 11: 1} if site == "long" else None
+    c = _scatter_case(rng, n_cell, pn_n, md_n, n_rows, d, site != "intra",
+                      seg_len)
+    if site == "long":
+        assert np.diff(c["seg_off"]).tolist() == [1, 13, 1, 1, 1]
     if site == "empty":
         c.update(pos=c["pos"][:0], rows=c["rows"][:0], seg=c["seg"][:0],
                  seg_off=np.zeros(1, np.int32))
