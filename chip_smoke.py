@@ -51,6 +51,20 @@ Phases, each failing loudly (nonzero exit) on any error:
    16 a pool, counted) moves the weight gradient of each conv above it
    by more than rounding: those convs are held to 1e-2 x max |g|.
 
+7. The CLIs, as a user runs them, through the port: ``synthetic --big``
+   (2048 paths, 8 stages, 3 groups: about 102k cells and 260k pins, a
+   2x512x512 raster), ``generate`` (the native rasterizer must load),
+   ``train.main`` at the default full width and batch 1350 for one epoch
+   (2 steps, a validation after each, a save), ``train.main`` again
+   (it must resume), ``test.main`` on the card and on the CPU from the
+   same checkpoint (loss, R2 and predictions at rtol/atol 1e-4, equal
+   ``predict_critical``). Launch counters are zeroed just before each
+   CLI run on the card: each kernel must match the run's steps and
+   validations, ``gather_rows`` 0 times (a parsed design has no prior
+   rows). Prints generate's seconds, each train run's wall seconds,
+   steps, time a step as launched and validations, and the test CLI's
+   ``runtime``, each with the card's name and power limit.
+
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
 the script exits nonzero and prints no result.
@@ -79,6 +93,8 @@ FLIP_TOL, MAX_FLIPS = 1e-2, 16
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPS, WARMUP = 10, 2
+# phase 7: the big stress design of prtp_tpu_torch.data.synthetic --big
+CLI_DESIGN, CLI_PATHS, CLI_STAGES = "big", 2048, 8
 HAZARD_REPS = 20  # phase 3: launches right after a writer of the inputs
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
 # phase 3's hazard check: a writer that lets a programmatic dependent
@@ -969,6 +985,17 @@ def gather_probe(torch, dev, timer):
         f"{bound(nbytes, 0)[0]:.4f}  ({nbytes / ms / 1e6:.1f} GB/s)  exact")
 
 
+def _zero_launches():
+    from prtp_tpu_torch.ops import KERNELS
+    for kern in KERNELS:
+        kern.launches = 0
+
+
+def _read_launches() -> dict:
+    from prtp_tpu_torch.ops import KERNELS
+    return {kern.__name__: kern.launches for kern in KERNELS}
+
+
 def serve(torch, np, model, model_cpu, parsed, design, per_forward,
           requests):
     """Phase 4 for one design: ``requests`` evaluation requests on the
@@ -976,12 +1003,10 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
     (each must equal ``requests`` x its per-forward count, and every
     kernel of the walk must have run), then the same model on the CPU.
     Returns the launch counts."""
-    from prtp_tpu_torch.ops import KERNELS
     from prtp_tpu_torch.test import evaluate_design
 
     torch.cuda.synchronize()
-    for kern in KERNELS:
-        kern.launches = 0
+    _zero_launches()
     outs = []
     for req in range(requests):
         torch.cuda.synchronize()
@@ -996,7 +1021,7 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
             f"{mets['runtime'] * 1e3:.2f} ms)  loss {mets['loss']:.6f}  "
             f"r2 {mets['r2']:.6f}  tp {mets['tp']:.0f} fp {mets['fp']:.0f} "
             f"tn {mets['tn']:.0f} fn {mets['fn']:.0f}")
-    counts = {kern.__name__: kern.launches for kern in KERNELS}
+    counts = _read_launches()
     log(f"  {design}: launches in {requests} request(s): {counts}; per "
         f"forward expected {per_forward}")
     for name, n in per_forward.items():
@@ -1036,14 +1061,12 @@ def train_run(torch, state, design, batches, what, per_step=None):
     ``len(batches)`` x its per-step count. Returns (losses, the first
     step's gradients on the CPU, counts)."""
     import numpy as np
-    from prtp_tpu_torch.ops import KERNELS
     from prtp_tpu_torch.trainer import train_step, train_steps
 
     on_card = per_step is not None
     if on_card:
         torch.cuda.synchronize()
-        for kern in KERNELS:
-            kern.launches = 0
+        _zero_launches()
     t0 = time.perf_counter()
     first = train_step(state, design, *batches[0])
     grads = {k: p.grad.detach().to("cpu", copy=True)
@@ -1051,7 +1074,7 @@ def train_run(torch, state, design, batches, what, per_step=None):
     rest = train_steps(state, design, batches[1:]) if len(batches) > 1 else {}
     losses = [float(first["loss"])] + [float(x) for x in rest.get("loss", [])]
     wall = time.perf_counter() - t0
-    counts = {kern.__name__: kern.launches for kern in KERNELS}
+    counts = _read_launches()
     log(f"  {what} ({'card' if on_card else 'cpu, plain versions'}): "
         f"{len(batches)} steps in {wall:.3f} s; losses "
         + ", ".join(f"{x:.6f}" for x in losses))
@@ -1227,6 +1250,171 @@ def time_train_step(torch, model_cpu, design, dev):
     log("  the port's kernels in one train step (torch.profiler, warm L2; "
         "the span of a programmatic launch starts early and holds its wait):")
     log_port_kernels(by_name, "train step")
+
+
+class _Timed:
+    """Wraps ``fn`` so each call is timed on the host between two
+    ``torch.cuda.synchronize()``; ``calls`` keeps (seconds, args,
+    result)."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.calls = torch, fn, []
+
+    def __call__(self, *args, **kwargs):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        self.torch.cuda.synchronize()
+        self.calls.append((time.perf_counter() - t0, args, out))
+        return out
+
+
+def cli_phase(torch, np, dev, smi) -> dict:
+    """Phase 7: the user's four CLIs through the port, on the card, in a
+    temporary directory. Synthesizes the big stress design, generates its
+    dataset (the native rasterizer must load), trains at full width
+    (``train.main``), resumes, evaluates (``test.main``) and evaluates
+    again on the CPU from the same checkpoint. The launch counters are
+    zeroed just before each CLI run on the card and read just after: each
+    kernel must have run as often as the steps and validations say.
+    Returns each run's counts."""
+    import tempfile
+    from prtp_tpu_torch import test as test_mod
+    from prtp_tpu_torch import train as train_mod
+    from prtp_tpu_torch.data import generate, synthetic
+    from prtp_tpu_torch.data.dataset import load_design_npz
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.native import native_available
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="prtp_cli_") as tmp:
+        raw, data, mdl = (os.path.join(tmp, d)
+                          for d in ("raw", "data", "mdl"))
+        t0 = time.perf_counter()
+        synthetic.main(["--out", raw, "--big", "--designs", CLI_DESIGN,
+                        "--num_paths", str(CLI_PATHS),
+                        "--depth", str(CLI_STAGES)])
+        log(f"phase 7: synthetic --big ({CLI_PATHS} paths, {CLI_STAGES} "
+            f"stages, 3 groups): {time.perf_counter() - t0:.2f} s on the "
+            "host")
+        t0 = time.perf_counter()
+        generate.main(["--rawdata_path", raw, "--data_save_path", data])
+        gen_s = time.perf_counter() - t0
+        if not native_available():
+            raise AssertionError("generate ran without the native rasterizer")
+        parsed = load_design_npz(os.path.join(data, f"{CLI_DESIGN}.npz"))
+        graph = pack_design(parsed, map_size=MAP_SIZE, device=dev).graph
+        per_step, per_fwd = launches_per_step(graph), launches_per_forward(
+            graph)
+        n_pins = int(parsed["num_nodes"])
+        log(f"phase 7: generate: {gen_s:.2f} s on the host (native "
+            f"rasterizer); {n_pins} pins, {graph.num_pairs} level pairs, "
+            f"{parsed['num_paths']} paths, raster "
+            f"{tuple(parsed['cnn_input'].shape)}  [{smi}]")
+        if per_step["gather_rows"]:
+            raise AssertionError("the parsed design has prior rows")
+        del graph
+        torch.cuda.empty_cache()
+
+        args = ["--data_save_path", data, "--model_saving_dir", mdl,
+                "--num_epoch", "1"]
+        for run in ("train CLI", "train CLI resume"):
+            steps = _Timed(torch, train_mod.train_steps)
+            validate = _Timed(torch, train_mod.validate)
+            train_mod.train_steps, train_mod.validate = steps, validate
+            try:
+                _zero_launches()
+                t0 = time.perf_counter()
+                state = train_mod.main(args, device=DEVICE)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                train_mod.train_steps = steps.fn
+                train_mod.validate = validate.fn
+            counts = launches[run] = _read_launches()
+            n_steps = sum(len(a[2]) for _s, a, _o in steps.calls)
+            n_val = len(validate.calls)
+            step_s = sum(s for s, _a, _o in steps.calls) / n_steps
+            val_s = [s for s, _a, _o in validate.calls]
+            log(f"phase 7: {run}: {wall:.2f} s wall, {n_steps} steps of "
+                f"batch 1350 ({step_s * 1e3:.2f} ms a step as launched, "
+                f"chunks {[round(s * 1e3, 2) for s, _a, _o in steps.calls]}"
+                " ms),"
+                f" {n_val} validations ("
+                + ", ".join(f"{s * 1e3:.2f}" for s in val_s)
+                + f" ms); state step {state.step}  [{smi}]")
+            log(f"  {run}: launches {counts}")
+            for name, n in counts.items():
+                want = n_steps * per_step[name] + n_val * per_fwd.get(name, 0)
+                if n != want:
+                    raise AssertionError(f"{run}: {name} launched {n} times, "
+                                         f"expected {want}")
+                if name != "gather_rows" and not n:
+                    raise AssertionError(f"{run}: {name} did not launch")
+            if n_val < 2:
+                raise AssertionError(f"{run}: {n_val} validations")
+        with open(os.path.join(mdl, "stdout.log")) as f:
+            log_text = f.read()
+        with open(os.path.join(mdl, "seed.txt")) as f:
+            seeds = f.read()
+        if ("Loading the model and hyper-parameters" not in log_text
+                or "Saving model" not in log_text or seeds != "9294" * 2):
+            raise AssertionError(f"the second train CLI run did not resume "
+                                 f"(seed.txt {seeds!r})")
+
+        test_args = ["--data_save_path", data, "--model_saving_dir", mdl]
+        crit_path = os.path.join(mdl, "predict_critical",
+                                 f"{CLI_DESIGN}.json")
+        results = []
+        for where in (DEVICE, "cpu"):
+            ev = _Timed(torch, test_mod.evaluate_design)
+            test_mod.evaluate_design = ev
+            try:
+                if where != "cpu":
+                    _zero_launches()
+                t0 = time.perf_counter()
+                res, _f1, _r2, preds = test_mod.main(test_args, device=where)
+                wall = time.perf_counter() - t0
+            finally:
+                test_mod.evaluate_design = ev.fn
+            if where != "cpu":
+                counts = launches["test CLI"] = _read_launches()
+                if counts != {k: per_fwd.get(k, 0) for k in counts}:
+                    raise AssertionError(f"test CLI: launches {counts}, "
+                                         f"expected {per_fwd}")
+            with open(crit_path) as f:
+                results.append((res[0], preds[CLI_DESIGN], json.load(f)))
+            mets = ev.calls[0][2][1]
+            log(f"phase 7: test CLI on {where}: {wall:.2f} s wall; runtime "
+                f"{mets['runtime'] * 1e3:.2f} ms (pack "
+                f"{mets['pack_s'] * 1e3:.2f} ms)  [{smi}]")
+        (row, preds, crit), (row_cpu, preds_cpu, crit_cpu) = results
+        if preds.shape != (int(parsed["num_paths"]),) or not np.all(
+                np.isfinite(preds)):
+            raise AssertionError(f"test CLI: bad predictions {preds.shape}")
+        np.testing.assert_allclose(row[0], row_cpu[0], rtol=1e-4, atol=1e-4,
+                                   err_msg="test CLI loss")
+        arrival = np.asarray(parsed["arrival_time"])[np.asarray(
+            parsed["path_endpoint"], np.int64)]
+        if np.ptp(arrival) > 0:
+            np.testing.assert_allclose(row[1], row_cpu[1], rtol=1e-4,
+                                       atol=1e-4, err_msg="test CLI r2")
+        else:
+            # every path has the same arc count, so every arrival time is
+            # equal: R2 divides by SS_tot, a float32 rounding residue of
+            # the mean that depends on the order of the sum
+            log(f"  R2 not compared: all {arrival.size} arrival times are "
+                f"{arrival[0]}, so SS_tot is a rounding residue")
+        np.testing.assert_allclose(preds, preds_cpu, rtol=1e-4, atol=1e-4,
+                                   err_msg="test CLI predictions vs cpu")
+        if crit != crit_cpu:
+            raise AssertionError("predict_critical differs from the cpu's")
+        log(f"phase 7: test CLI card vs cpu: loss {row[0]:.6f} / "
+            f"{row_cpu[0]:.6f}, r2 {row[1]:.6f} / {row_cpu[1]:.6f}, "
+            f"predictions within "
+            f"{float(np.abs(preds - preds_cpu).max()):.3g} (rtol/atol "
+            f"1e-4), {len(crit)} predicted critical on both: ok")
+    return launches
 
 
 def main() -> int:
@@ -1428,6 +1616,11 @@ def main() -> int:
         compare_runs(torch, what, card, cpu, flips[name])
         if what.endswith("fixed batch") and not card[0][-1] < card[0][0]:
             raise AssertionError(f"{what}: the loss did not fall: {card[0]}")
+
+    # ---- phase 7: the CLIs ----
+    del cpu_designs, card_designs
+    torch.cuda.empty_cache()
+    launches.update(cli_phase(torch, np, dev, smi))
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

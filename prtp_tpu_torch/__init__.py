@@ -6,7 +6,10 @@ walk's row gather and mailbox reductions, its backward's two scatters
 and flat Adam's update are hand-written CUDA kernels (``csrc/``), built
 with ``nvcc`` at first use. Each kernel has a plain PyTorch version
 beside it, which runs for tensors on the CPU. Serving is
-``test.evaluate_design``, training ``trainer.train_step``.
+``test.evaluate_design``, training ``trainer.train_step``; the CLIs are
+``python -m prtp_tpu_torch.data.synthetic``, ``.data.generate``,
+``.train`` and ``.test``, with torch checkpoints
+(``utils/checkpoint.py``).
 
 Entry points take ``device=`` and default to ``"cuda"``: without a card
 they raise instead of quietly running on the CPU.

@@ -92,3 +92,33 @@ class PathModel(nn.Module):
         if self.nlabels == 1:
             out = out.squeeze(-1)
         return out.float()
+
+
+def model_from_options(options, cell_feat_dim: int, net_feat_dim: int):
+    """Build a PathModel from the parity CLI options (src/train.py:34-81).
+
+    flax infers the feature widths at init, and JAX's
+    ``model_from_options`` never reads ``--cell_feat_dim``; so here the
+    caller passes the widths of the loaded design (after
+    ``--feat_reduce``). The weights are drawn from a ``torch.Generator``
+    seeded with ``--seed``."""
+    nh = options.num_heads
+    if nh > 1 and options.out_dim % nh != 0:
+        raise ValueError(
+            f"--num_heads {nh} must divide --out_dim {options.out_dim} "
+            "(heads read disjoint out_dim/num_heads value slices)")
+    return PathModel(
+        cell_feat_dim, net_feat_dim,
+        compute_dtype=options.compute_dtype,
+        use_gnn=not options.no_gnn,
+        use_cnn=not options.no_cnn,
+        unet=options.unet,
+        pooling=options.pooling,
+        out_dim=options.out_dim,
+        hidden_dim=options.hidden_dim,
+        cnn_outdim=options.cnn_outdim,
+        map_size=options.map_size,
+        nlabels=options.nlabels,
+        flag_attn=options.attn,
+        generator=torch.Generator().manual_seed(options.seed),
+    )

@@ -1,28 +1,47 @@
-"""Evaluation: the serving path of the port.
+"""Evaluation: the serving path and the evaluation CLI of the port.
 
-Port of ``prtp_tpu/test.py::test`` (its metric part) and of
-``prtp_tpu/trainer.py``'s ``make_eval_step``, for the regression task
-(the loss, the metrics and ``pad_batch`` live in ``trainer.py``).
-:func:`evaluate` runs the model over a batch of paths of a packed
-design and returns predictions and metrics; :func:`evaluate_design` packs one parsed design, evaluates
-all of its paths and prints the per-level R²/MAPE lines and the case
-lines in the JAX driver's formats. Checkpoint loading and the CLI wait
-for a torch checkpoint format (the JAX checkpoints are flax msgpack).
+Port of ``prtp_tpu/test.py`` and of ``prtp_tpu/trainer.py``'s
+``make_eval_step``, for the regression task (the loss, the metrics and
+``pad_batch`` live in ``trainer.py``). :func:`evaluate` runs the model
+over a batch of paths of a packed design and returns predictions and
+metrics; :func:`evaluate_design` packs one parsed design, evaluates all
+of its paths and prints the per-level R²/MAPE lines and the case lines
+in the JAX driver's formats.
+
+The CLI (:func:`main`, CLI parity with the reference ``python test.py``,
+``src/test.py``) loads the trained torch checkpoint, evaluates every
+design of the test list over all of its paths, saves a relative-error
+vs level scatter plot per design to ``visual/{case}.png``
+(``:244-249``), the predicted-critical path ids to
+``predict_critical/{design}.json``, and appends the overall metric row
+to ``predict.txt`` (``:315-317``).
+
+Usage:
+    python -m prtp_tpu_torch.test --data_save_path ... --model_saving_dir ...
 """
 
 from __future__ import annotations
 
+import json
+import os
+import sys
 import time
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .data.dataset import get_design_list, load_design_npz
 from .graph import pack_design
-from .trainer import pad_batch, task_loss_and_metrics
+from .models.fusion import model_from_options
+from .options import get_options
+from .trainer import (init_state, make_optimizer, pad_batch,
+                      task_loss_and_metrics)
+from .utils import checkpoint as ckpt
 from .utils import metrics as M
 
-__all__ = ["evaluate", "evaluate_design", "pad_batch"]
+__all__ = ["evaluate", "evaluate_design", "load_model_state", "main",
+           "pad_batch", "test"]
 
 
 @torch.no_grad()
@@ -78,3 +97,118 @@ def evaluate_design(model, parsed, device="cuda", case_idx: int = 0):
     mets.update(acc=acc, recall=recall, precision=precision, f1=f1,
                 runtime=runtime, pack_s=pack_s)
     return preds, mets
+
+
+def load_model_state(options, sample_parsed, device="cuda"):
+    """Restore the checkpoint (must exist — reference src/test.py:37)
+    into a model whose feature widths are ``sample_parsed``'s. Returns
+    (model, state, config)."""
+    if not ckpt.checkpoint_exists(options.model_saving_dir):
+        raise FileNotFoundError(f"no checkpoint in {options.model_saving_dir}")
+    model = model_from_options(options, sample_parsed["cell_feat"].shape[1],
+                               sample_parsed["net_feat"].shape[1])
+    state = init_state(model, make_optimizer(options.learning_rate,
+                                             options.weight_decay), device)
+    state, config = ckpt.load_checkpoint(options.model_saving_dir, state)
+    return model, state, config
+
+
+def _feat_adjusted(parsed, options):
+    if options.feat_reduce is not None:
+        if options.feat_reduce[1] != 0:
+            parsed["net_feat"] = parsed["net_feat"][:, :-options.feat_reduce[1]]
+        if options.feat_reduce[0] != 0:
+            parsed["cell_feat"] = parsed["cell_feat"][:, :-options.feat_reduce[0]]
+    if options.norm:
+        from .data.dataset import min_max_norm
+        parsed["cell_feat"] = min_max_norm(parsed["cell_feat"],
+                                           parsed["num_ctypes"])
+    return parsed
+
+
+def test(options, designs, device="cuda"):
+    """Evaluate all paths of each design (reference test(), :124-318).
+
+    Returns ``(res, overall_f1, overall_r2, preds)``: ``res`` one metric
+    row ``[loss, r2, acc, recall, precision, f1]`` per design, ``preds``
+    each design's numpy predictions."""
+    dev = resolve_device(device)
+    res_save_path = os.path.join(options.model_saving_dir, "predict.txt")
+    overall = dict(loss=0.0, r2=0.0, acc=0.0, recall=0.0, precision=0.0,
+                   f1=0.0)
+    res = []
+    preds_by_design = {}
+
+    parsed_all = [_feat_adjusted(load_design_npz(
+        os.path.join(options.data_save_path, f"{d}.npz")), options)
+        for d in designs]
+    model, _state, _config = load_model_state(options, parsed_all[0], dev)
+
+    for case_idx, (design, parsed) in enumerate(zip(designs, parsed_all)):
+        # prints the per-level diagnostics and the case lines
+        preds, mets = evaluate_design(model, parsed, dev, case_idx)
+        preds_by_design[design] = preds
+        levels = parsed["path2level"]
+        arrival = parsed["arrival_time"][parsed["path_endpoint"]]
+        _plot_relative_error(options, case_idx, levels, preds, arrival)
+        # predicted-critical path ids (capability of the reference's
+        # predict_critical dumps, src/test.py:408-411, JSON not pickle)
+        required = parsed["required_time"][parsed["path_endpoint"]]
+        pred_crit = np.nonzero(required - preds < 0)[0].tolist()
+        crit_dir = os.path.join(options.model_saving_dir, "predict_critical")
+        os.makedirs(crit_dir, exist_ok=True)
+        with open(os.path.join(crit_dir, f"{design}.json"), "w") as f:
+            json.dump(pred_crit, f)
+        row = [mets[k] for k in ("loss", "r2", "acc", "recall", "precision",
+                                 "f1")]
+        for k, v in zip(("loss", "r2", "acc", "recall", "precision", "f1"),
+                        row):
+            overall[k] += v
+        res.append(row)
+
+    n = max(len(designs), 1)
+    for k in overall:
+        overall[k] /= n
+    print("overall val")
+    print(f"\tloss:{overall['loss']:.3f}, r2:{overall['r2']:.3f}, "
+          f"acc:{overall['acc']:.3f}, recall:{overall['recall']:.3f}, "
+          f"F1 score:{overall['f1']:.3f}")
+    with open(res_save_path, "a") as f:
+        f.write("{:.3f} {:.3f} {:.3f} {:.3f} {:.3f} {:.3f}\n".format(
+            overall["loss"], overall["r2"], overall["acc"],
+            overall["recall"], overall["precision"], overall["f1"]))
+    return res, overall["f1"], overall["r2"], preds_by_design
+
+
+def _plot_relative_error(options, case_idx, levels, preds, arrival):
+    """Scatter of relative error vs topo level -> visual/{case}.png
+    (reference src/test.py:244-249). Soft dependency on matplotlib,
+    imported here and not with the module."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except Exception:
+        return
+    rel = (preds - arrival) / np.where(arrival == 0, 1.0, arrival)
+    plt.scatter(levels, rel)
+    out_dir = os.path.join(options.model_saving_dir, "visual")
+    os.makedirs(out_dir, exist_ok=True)
+    plt.savefig(os.path.join(out_dir, f"{case_idx}.png"))
+    plt.close()
+
+
+def main(argv=None, device="cuda"):
+    """The evaluation CLI; returns :func:`test`'s result."""
+    from .train import select_device
+
+    options = get_options(argv)
+    dev = select_device(options, device)
+    options.cell_feat_dim -= options.feat_reduce[0]
+    options.net_feat_dim -= options.feat_reduce[1]
+    designs = get_design_list(options.data_save_path, "test")
+    return test(options, designs, dev)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

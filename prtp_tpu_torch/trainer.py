@@ -79,6 +79,22 @@ class FlatAdam:
                 p.grad = self.grad[off: off + m].view_as(p)
                 off += m
 
+    def state_dict(self) -> dict:
+        """The moments and the step count (the parameters are the
+        model's); ``utils.checkpoint`` saves them."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Copy saved moments into the buffers in place (never rebind
+        them), so that what the update reads stays where it lies."""
+        for key in ("mu", "nu"):
+            src = state[key]
+            if src.shape != self.flat.shape:
+                raise ValueError(f"FlatAdam {key}: saved {tuple(src.shape)}"
+                                 f", expected {tuple(self.flat.shape)}")
+            getattr(self, key).copy_(src)
+        self.count = int(state["count"])
+
     def zero_grad(self) -> None:
         self.grad.zero_()
 

@@ -1,0 +1,207 @@
+"""The port's CLIs against the JAX package's, on the CPU: (a) the
+synthetic raw designs are the same files byte for byte, (b) generate
+writes the same ``.npz`` arrays, (c) from one initial state, converted
+from JAX's, both train CLIs print the same per-batch and validation
+values and both test CLIs the same ``predict.txt`` row and
+``predict_critical`` lists.
+"""
+
+import json
+import os
+import re
+
+import jax
+import numpy as np
+import pytest
+
+from prtp_tpu import test as jax_test
+from prtp_tpu import train as jax_train
+from prtp_tpu import trainer as jtrainer
+from prtp_tpu.data import generate as jax_generate
+from prtp_tpu.data import synthetic as jax_synthetic
+from prtp_tpu.data.dataset import load_single_design as jax_load_single
+from prtp_tpu.graph import pack_design as jax_pack_design
+from prtp_tpu.models.fusion import model_from_options as jax_model_from_options
+from prtp_tpu.options import get_options as jax_get_options
+from prtp_tpu.utils import checkpoint as jax_ckpt
+from prtp_tpu_torch import test as test_mod
+from prtp_tpu_torch import train as train_mod
+from prtp_tpu_torch.data import generate, synthetic
+from prtp_tpu_torch.models.fusion import model_from_options
+from prtp_tpu_torch.options import get_options
+from prtp_tpu_torch.trainer import init_state, make_optimizer
+from prtp_tpu_torch.utils import checkpoint as ckpt
+from prtp_tpu_torch.utils.convert import params_from_flax
+
+from test_torch_cli import MAP_ARGS
+
+CORPUS_ARGS = ["--designs", "syn_a", "syn_b", "--num_paths", "6",
+               "--depth", "4", "--cnn_hw", "64"]
+BIG_KW = dict(num_paths=8, stages=4, grps=2)
+# printed values: 3 decimals, and float32 sums taken in another order
+RTOL, ATOL = 1e-4, 2e-3
+_NUMBER = re.compile(r"-?(?:\d+\.\d+(?:e[+-]?\d+)?|inf|nan)")
+
+
+def _files(root):
+    out = {}
+    for base, _dirs, names in os.walk(root):
+        for name in names:
+            path = os.path.join(base, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+@pytest.fixture(scope="module")
+def raw(tmp_path_factory):
+    """Each package's synthetic raw data: the small corpus (by each
+    ``synthetic.main``) and a small big-stress design, with libraries."""
+    out = {}
+    for name, mod in (("jax", jax_synthetic), ("port", synthetic)):
+        corpus = str(tmp_path_factory.mktemp(f"{name}_corpus"))
+        mod.main(["--out", corpus] + CORPUS_ARGS)
+        big = str(tmp_path_factory.mktemp(f"{name}_big"))
+        mod.write_libs(big)
+        mod.generate_big_design(os.path.join(big, "big"), **BIG_KW)
+        out[name] = {"corpus": corpus, "big": big}
+    return out
+
+
+@pytest.mark.parametrize("kind", ["corpus", "big"])
+def test_synthetic_files_are_byte_equal(raw, kind):
+    want, got = _files(raw["jax"][kind]), _files(raw["port"][kind])
+    assert sorted(got) == sorted(want)
+    assert len(want) > 5
+    for rel in want:
+        assert got[rel] == want[rel], rel
+
+
+@pytest.fixture(scope="module")
+def datasets(raw, tmp_path_factory):
+    """Each package's generate on the port's raw data."""
+    out = {}
+    for name, mod in (("jax", jax_generate), ("port", generate)):
+        for kind in ("corpus", "big"):
+            data = str(tmp_path_factory.mktemp(f"{name}_{kind}_data"))
+            mod.main(["--rawdata_path", raw["port"][kind],
+                      "--data_save_path", data, "--map_size", "16"])
+            out[name, kind] = data
+    return out
+
+
+@pytest.mark.parametrize("kind", ["corpus", "big"])
+def test_generate_arrays_are_equal(datasets, kind):
+    want_dir, got_dir = datasets["jax", kind], datasets["port", kind]
+    assert sorted(os.listdir(got_dir)) == sorted(os.listdir(want_dir))
+    npz = [f for f in os.listdir(want_dir) if f.endswith(".npz")]
+    assert npz
+    for name in npz:
+        with np.load(os.path.join(want_dir, name)) as want, \
+                np.load(os.path.join(got_dir, name)) as got:
+            assert sorted(got.files) == sorted(want.files)
+            for key in want.files:
+                assert got[key].dtype == want[key].dtype, (name, key)
+                np.testing.assert_array_equal(got[key], want[key],
+                                              err_msg=f"{name}:{key}")
+    for lst in ("traindata_list.txt", "testdata_list.txt"):
+        with open(os.path.join(want_dir, lst)) as a, \
+                open(os.path.join(got_dir, lst)) as b:
+            assert a.read() == b.read()
+
+
+@pytest.fixture(scope="module")
+def cli_runs(datasets, tmp_path_factory):
+    """JAX's init_state saved by JAX, converted and saved by the port;
+    then both train CLIs resume on ONE data directory (the first writes
+    the validation split files, the second reads them) and both test
+    CLIs evaluate."""
+    data = datasets["port", "corpus"]
+    dirs = {"jax": str(tmp_path_factory.mktemp("jax_mdl")),
+            "port": str(tmp_path_factory.mktemp("port_mdl"))}
+    args = (["--data_save_path", data, "--num_epoch", "1", "--max_steps",
+             "3", "--val_interval", "2", "--steps_per_dispatch", "1"]
+            + MAP_ARGS)
+
+    jopts = jax_get_options(args + ["--model_saving_dir", dirs["jax"]])
+    jopts.cell_feat_dim -= jopts.feat_reduce[0]
+    jopts.net_feat_dim -= jopts.feat_reduce[1]
+    parsed = jax_load_single("train", data, "syn_a",
+                             feat_reduce=jopts.feat_reduce)
+    jstate = jtrainer.init_state(
+        jax_model_from_options(jopts),
+        jtrainer.make_optimizer(jopts.learning_rate, jopts.weight_decay),
+        jax_pack_design(parsed, map_size=jopts.map_size),
+        jax.random.PRNGKey(jopts.seed))
+    jax_ckpt.save_checkpoint(dirs["jax"], jstate, dict(vars(jopts)))
+
+    popts = get_options(args + ["--model_saving_dir", dirs["port"]])
+    popts.cell_feat_dim -= popts.feat_reduce[0]
+    popts.net_feat_dim -= popts.feat_reduce[1]
+    model = model_from_options(popts, parsed["cell_feat"].shape[1],
+                               parsed["net_feat"].shape[1])
+    model.load_state_dict(params_from_flax(
+        jax.tree_util.tree_map(np.asarray, jstate.params)))
+    state = init_state(model, make_optimizer(popts.learning_rate), "cpu")
+    ckpt.save_checkpoint(dirs["port"], state, dict(vars(popts)))
+
+    jax_train.main(args + ["--model_saving_dir", dirs["jax"]])
+    train_mod.main(args + ["--model_saving_dir", dirs["port"]], device="cpu")
+    test_args = ["--data_save_path", data] + MAP_ARGS
+    jax_test.main(test_args + ["--model_saving_dir", dirs["jax"]])
+    test_mod.main(test_args + ["--model_saving_dir", dirs["port"]],
+                  device="cpu")
+    return dirs
+
+
+def _train_lines(mdl):
+    """The loop's lines of the run's stdout.log, the model directory
+    written as MDL: (line with each number as #, its numbers)."""
+    keep = ("e", "validate:", "\tcase", "\toverall", "Saving model",
+            "Model successfully", "max_steps", "-------")
+    out = []
+    with open(os.path.join(mdl, "stdout.log")) as f:
+        for line in f.read().splitlines():
+            if line.startswith(keep):
+                line = line.replace(mdl, "MDL")
+                out.append((_NUMBER.sub("#", line),
+                            [float(x) for x in _NUMBER.findall(line)]))
+    return out
+
+
+def test_train_cli_prints_jax_values(cli_runs):
+    want, got = _train_lines(cli_runs["jax"]), _train_lines(cli_runs["port"])
+    assert [s for s, _ in got] == [s for s, _ in want]
+    assert sum(s.startswith("e0,") for s, _ in want) == 3
+    assert sum(s == "validate:" for s, _ in want) >= 2
+    for (line, a), (_s, b) in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=line)
+
+
+def test_train_cli_saves_jax_config(cli_runs):
+    configs = {}
+    for name, mdl in cli_runs.items():
+        with open(os.path.join(mdl, "config.json")) as f:
+            configs[name] = json.load(f)
+        assert configs[name].pop("model_saving_dir") == mdl
+        configs[name].pop("compile_cache_dir")
+    assert configs["port"] == configs["jax"]
+
+
+def test_test_cli_writes_jax_predictions(cli_runs):
+    rows = {}
+    for name, mdl in cli_runs.items():
+        with open(os.path.join(mdl, "predict.txt")) as f:
+            rows[name] = [float(x) for x in f.read().split()]
+    assert len(rows["jax"]) == 6
+    np.testing.assert_allclose(rows["port"], rows["jax"], rtol=RTOL,
+                               atol=ATOL)
+    crit = {name: sorted(os.listdir(os.path.join(mdl, "predict_critical")))
+            for name, mdl in cli_runs.items()}
+    assert crit["port"] == crit["jax"] == ["syn_a.json", "syn_b.json"]
+    for name in crit["jax"]:
+        lists = []
+        for mdl in cli_runs.values():
+            with open(os.path.join(mdl, "predict_critical", name)) as f:
+                lists.append(json.load(f))
+        assert lists[0] == lists[1], name
