@@ -6,8 +6,8 @@
 Phases, each failing loudly (nonzero exit) on any error:
 
 1. Print the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions; turn TF32 off for matmuls and convolutions (the slice
-   is float32).
+   CUDA versions; turn TF32 off for matmuls and convolutions (the port's
+   float32, as the CLIs set it themselves) for phases 2-6 and 8.
 2. Build every CUDA kernel of the path from ``prtp_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once.
 3. Build and pack two designs: the bench headline (80k nodes, 20
@@ -51,19 +51,56 @@ Phases, each failing loudly (nonzero exit) on any error:
    16 a pool, counted) moves the weight gradient of each conv above it
    by more than rounding: those convs are held to 1e-2 x max |g|.
 
-7. The CLIs, as a user runs them, through the port: ``synthetic --big``
-   (2048 paths, 8 stages, 3 groups: about 102k cells and 260k pins, a
+7. The CLIs, as a user runs them, through the port, each run with TF32
+   turned on just before it (PyTorch's default for cuDNN), so that the
+   float32 checked is the CLI's own setting (it must have turned both
+   flags off). First the big stress design: ``synthetic --big`` (2048
+   paths, 8 stages, 3 groups: about 102k cells and 260k pins, a
    2x512x512 raster), ``generate`` (the native rasterizer must load),
    ``train.main`` at the default full width and batch 1350 for one epoch
-   (2 steps, a validation after each, a save), ``train.main`` again
-   (it must resume), ``test.main`` on the card and on the CPU from the
-   same checkpoint (loss, R2 and predictions at rtol/atol 1e-4, equal
-   ``predict_critical``). Launch counters are zeroed just before each
-   CLI run on the card: each kernel must match the run's steps and
-   validations, ``gather_rows`` 0 times (a parsed design has no prior
+   (3 steps: 2,730 ids in batches of 1350; a validation after the first
+   and the last, a save), ``train.main`` again (it must resume),
+   ``test.main`` on the card and on the CPU from the same checkpoint
+   (loss and predictions at rtol/atol 1e-4, equal ``predict_critical``;
+   R2 is not compared there: every arrival time of the design is equal,
+   so R2 divides by a rounding residue). Then two ``generate_corpus``
+   corpora of 3 designs (``--num_paths 48 --depth 5``: depths vary
+   across and within designs, a third of the paths critical), the second
+   with 3 x 256 x 256 rasters: the train CLI (3 epochs of a step and a
+   validation a design) and the test CLI on the card and the CPU from its
+   checkpoint for the default regression, ``--task cls --nlabels 2``
+   and ``--unet``: predictions, loss and R2 at 1e-4, the per-level
+   R2/MAPE lines at 1e-3 and the confusion counts equal (labels may
+   differ only at near ties, counted); ``cls`` must save the best-F1
+   model and write no ``visual/`` or ``predict_critical/``. Launch
+   counters are zeroed just before each CLI run on the card: each kernel
+   must match the run's steps and validation forwards on the designs
+   they ran on, ``gather_rows`` 0 times (a parsed design has no prior
    rows). Prints generate's seconds, each train run's wall seconds,
    steps, time a step as launched and validations, and the test CLI's
    ``runtime``, each with the card's name and power limit.
+8. The variants at the default model's full width, TF32 off: ``cls``
+   (2 logits, cross-entropy) on the headline design, and the U-Net on
+   the headline graph with a 3 x 256 x 256 raster (map 128). For each,
+   3 evaluation requests and phase 6's epoch (5 steps of 128, numpy seed
+   0), card against CPU with phase 4's and 6's launch counts and
+   tolerances (``cls``: argmax labels equal but at near-tie logits,
+   counted). Each of the card's steps starts from the CPU's state before
+   it: Adam's update of a near-zero gradient element follows its sign,
+   which rounding decides, so free-running steps drift apart (on the
+   CPU, cls weights perturbed by 1e-7 give a fifth loss 3e-3 away). The
+   U-Net's max-pool windows whose winner differs are counted as
+   LayoutNet's are, its BatchNorm running averages held card against CPU
+   after each step (rtol 1e-3), and an evaluation in eval
+   mode on the CPU's trained weights and averages (1e-4). The U-Net's
+   first-step gradients in float64 must agree card against CPU to 1e-8;
+   in float32 they may differ by twice their own float32 error against
+   float64 (the larger of card and CPU) more: its BatchNorms cancel most
+   of their sums over 256 x 256 positions.
+   Device time of
+   a U-Net forward (eval mode) and forward + backward (train mode), and
+   of a train step of each variant at the bench's batch of 597 paths, as
+   launched too, with its idle share and largest kernels by name.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -72,9 +109,12 @@ the script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -87,14 +127,29 @@ REQUESTS = 3
 LR = 1e-3  # phase 6: flat Adam's learning rate
 TRAIN_BATCH, EPOCH_SEED, PRIOR_STEPS, FIXED_STEPS = 128, 0, 3, 10
 GRAD_TOL, LOSS_RTOL = 1e-3, 1e-3  # card vs cpu, phase 6
-# card vs cpu, phase 6: a conv above a max-pool window whose winner differs
+# card vs cpu, phases 6 and 8: a conv above a max-pool window whose winner
+# differs
 FLIP_TOL, MAX_FLIPS = 1e-2, 16
+# each max pool of a layout CNN, and the parameter prefixes above it
+LAYOUTNET_POOLS = {"Conv_0": ("cnn.Conv_0.",),
+                   "Conv_1": ("cnn.Conv_0.", "cnn.Conv_1.")}
+UNET_POOLS = {"Down_0": ("cnn.DoubleConv_0.",),
+              "Down_1": ("cnn.DoubleConv_0.", "cnn.Down_0."),
+              "Down_2": ("cnn.DoubleConv_0.", "cnn.Down_0.", "cnn.Down_1."),
+              "OutConv_0": ("cnn.",)}
 # H100 SXM peak rates (dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPS, WARMUP = 10, 2
 # phase 7: the big stress design of prtp_tpu_torch.data.synthetic --big
 CLI_DESIGN, CLI_PATHS, CLI_STAGES = "big", 2048, 8
+# phase 7: the generate_corpus corpora (design i: CORPUS_PATHS + 2i paths,
+# CORPUS_DEPTH + i stages)
+CORPUS_DESIGNS, CORPUS_PATHS, CORPUS_DEPTH = ("syn_a", "syn_b", "syn_c"), 48, 5
+CORPUS_EPOCHS = 3  # a step and a validation a design an epoch
+# phases 7 and 8: the U-Net's raster (its map is the side halved: 128)
+UNET_CHANNELS, UNET_HW = 3, 256
+STAT_RTOL = 1e-3  # phase 8: U-Net running averages, card vs cpu
 HAZARD_REPS = 20  # phase 3: launches right after a writer of the inputs
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
 # phase 3's hazard check: a writer that lets a programmatic dependent
@@ -997,12 +1052,14 @@ def _read_launches() -> dict:
 
 
 def serve(torch, np, model, model_cpu, parsed, design, per_forward,
-          requests):
-    """Phase 4 for one design: ``requests`` evaluation requests on the
-    card with the launch counters zeroed just before and read just after
-    (each must equal ``requests`` x its per-forward count, and every
-    kernel of the walk must have run), then the same model on the CPU.
-    Returns the launch counts."""
+          requests, task="reg"):
+    """Phase 4 (and 8) for one design: ``requests`` evaluation requests
+    on the card with the launch counters zeroed just before and read just
+    after (each must equal ``requests`` x its per-forward count, and
+    every kernel of the walk must have run), then the same model on the
+    CPU: predictions (``cls``: both logits) at rtol/atol 1e-4, and for
+    ``cls`` the argmax labels equal except where a path's two logits lie
+    within 1e-4 of each other (counted). Returns the launch counts."""
     from prtp_tpu_torch.test import evaluate_design
 
     torch.cuda.synchronize()
@@ -1012,7 +1069,7 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         preds, mets = evaluate_design(model, parsed, device=DEVICE,
-                                      case_idx=req)
+                                      case_idx=req, task=task)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         outs.append(preds)
@@ -1035,12 +1092,13 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
             raise AssertionError(f"{design}: {name} launched {n} times in "
                                  "evaluation, which runs no backward")
     num_paths = int(parsed["num_paths"])
+    shape = (num_paths,) if task == "reg" else (num_paths, 2)
     for preds in outs:
-        if preds.shape != (num_paths,) or not np.all(np.isfinite(preds)):
+        if preds.shape != shape or not np.all(np.isfinite(preds)):
             raise AssertionError(f"bad predictions {preds.shape}")
     t0 = time.perf_counter()
     preds_cpu, mets_cpu = evaluate_design(model_cpu, parsed, device="cpu",
-                                          case_idx=requests)
+                                          case_idx=requests, task=task)
     log(f"  {design} on the cpu (plain versions): "
         f"{time.perf_counter() - t0:.2f} s  loss {mets_cpu['loss']:.6f}  "
         f"r2 {mets_cpu['r2']:.6f}")
@@ -1050,6 +1108,16 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
                                    err_msg=f"{design} request {req} vs cpu")
         log(f"  {design} request {req} vs cpu: max abs diff {diff:.3g} "
             "(rtol/atol 1e-4): ok")
+        if task == "cls":
+            near = np.abs(preds_cpu[:, 0] - preds_cpu[:, 1]) <= 1e-4
+            off = preds.argmax(1) != preds_cpu.argmax(1)
+            if (off & ~near).any():
+                raise AssertionError(
+                    f"{design} request {req}: argmax labels differ at "
+                    f"{np.nonzero(off & ~near)[0]}")
+            log(f"  {design} request {req}: argmax labels equal on the cpu's "
+                f"but {int(off.sum())} of {int(near.sum())} rows whose "
+                "logits lie within 1e-4")
     return counts
 
 
@@ -1091,17 +1159,36 @@ def train_run(torch, state, design, batches, what, per_step=None):
     return losses, grads, counts
 
 
-def pool_winner_flips(torch, cnn_cpu, cnn_card, x_cpu, dev) -> dict:
-    """LayoutNet's two max pools at the same weights and raster on the
-    card and on the CPU: the windows (channels included) whose winner
-    differs, counted where the window's max is positive (a window of ReLU
-    zeros passes no gradient). Where two values nearly tie, rounding that
-    differs by an ulp can pick another winner; the window's whole
-    gradient then goes to another element, which moves the weight
-    gradients of the convs above that pool by far more than rounding.
-    Returns ``{conv: flipped windows in the pool after it}``."""
+def pool_inputs(cnn, x) -> dict:
+    """The input of each max pool of a layout CNN, as a train step's
+    forward computes it (the U-Net's BatchNorms on batch statistics; the
+    caller runs a copy, whose running averages this moves)."""
     import torch.nn.functional as F
+    from prtp_tpu_torch.models.unet import UNet
     from prtp_tpu_torch.ops.pool import pool_2x2
+
+    if isinstance(cnn, UNet):
+        x1 = cnn.DoubleConv_0(x)
+        x2 = cnn.Down_0(x1)
+        x3 = cnn.Down_1(x2)
+        up = cnn.Up_2(cnn.Up_1(cnn.Up_0(cnn.Down_2(x3), x3), x2), x1)
+        return {"Down_0": x1, "Down_1": x2, "Down_2": x3,
+                "OutConv_0": cnn.OutConv_0.Conv_0(up)}
+    a = F.relu(cnn.Conv_0(x))
+    return {"Conv_0": a, "Conv_1": F.relu(cnn.Conv_1(pool_2x2(a, "max")))}
+
+
+def pool_winner_flips(torch, cnn_cpu, x_cpu, dev) -> dict:
+    """A layout CNN's max pools at the same weights and raster on the card
+    and on the CPU, in train mode: the windows (channels included) whose
+    winner differs, counted where the window's max is positive (a window
+    of ReLU zeros, or of values that the ReLU after the U-Net's OutConv
+    pool zeroes, passes no gradient). Where two values nearly tie,
+    rounding that differs by an ulp can pick another winner; the window's
+    whole gradient then goes to another element, which moves the weight
+    gradients of the convs above that pool (LAYOUTNET_POOLS,
+    UNET_POOLS) by far more than rounding. Returns ``{pool: flipped
+    windows}``."""
 
     def winners(a):
         n, c, h, w = a.shape
@@ -1109,50 +1196,202 @@ def pool_winner_flips(torch, cnn_cpu, cnn_card, x_cpu, dev) -> dict:
             0, 1, 2, 4, 3, 5).reshape(-1, 4)
         return win.argmax(dim=1).cpu(), (win.amax(dim=1) > 0).cpu()
 
-    flips = {}
-    a, b = x_cpu, x_cpu.to(dev)
+    cpu, card = copy.deepcopy(cnn_cpu).train(), copy.deepcopy(cnn_cpu).to(dev)
     with torch.no_grad():
-        for conv in ("Conv_0", "Conv_1"):
-            a = F.relu(getattr(cnn_cpu, conv)(a))
-            b = F.relu(getattr(cnn_card, conv)(b))
-            (wa, live), (wb, _) = winners(a), winners(b)
-            flips[conv] = int(((wa != wb) & live).sum())
-            a, b = pool_2x2(a, "max"), pool_2x2(b, "max")
+        a, b = pool_inputs(cpu, x_cpu), pool_inputs(card.train(),
+                                                   x_cpu.to(dev))
+    flips = {}
+    for pool in a:
+        (wa, live), (wb, _) = winners(a[pool]), winners(b[pool])
+        flips[pool] = int(((wa != wb) & live).sum())
     return flips
 
 
-def compare_runs(torch, what, card, cpu, flips):
+def compare_runs(torch, what, card, cpu, flips, pools=None, f32_err=None):
     """The card's run against the CPU's: the first step's gradients leaf
     by leaf within GRAD_TOL x the leaf's largest |g|, every loss within
-    LOSS_RTOL. A LayoutNet conv above a pool with winners that differ
-    (``flips``, at most MAX_FLIPS a pool) is held to FLIP_TOL instead."""
+    LOSS_RTOL. A conv above a max pool with winners that differ
+    (``flips``, at most MAX_FLIPS a pool; ``pools`` maps each pool to the
+    parameter prefixes above it) is held to FLIP_TOL instead. A leaf in
+    ``f32_err`` (its float32 gradient's distance from float64,
+    :func:`unet_f32_error`) may differ by twice that more."""
     import numpy as np
-    (l_card, g_card, _), (l_cpu, g_cpu, _) = card, cpu
+    (l_card, g_card, *_), (l_cpu, g_cpu, *_) = card, cpu
+    pools = pools or LAYOUTNET_POOLS
+    f32_err = f32_err or {}
     if max(flips.values()) > MAX_FLIPS:
         raise AssertionError(f"{what}: {flips} max-pool winners differ from "
                              f"the cpu's (allowed {MAX_FLIPS} a pool)")
-    above = {"cnn.Conv_0.": flips["Conv_0"] + flips["Conv_1"],
-             "cnn.Conv_1.": flips["Conv_1"]}
     worst, worst_flip = 0.0, 0.0
     for key, want in g_cpu.items():
         scale = float(want.abs().max())
         diff = float((g_card[key] - want).abs().max())
         rel = diff / scale if scale else diff
-        flipped = any(key.startswith(k) and n for k, n in above.items())
+        flipped = any(flips[pool] and key.startswith(above)
+                      for pool, above in pools.items())
         if flipped:
             worst_flip = max(worst_flip, rel)
         else:
             worst = max(worst, rel)
-        if diff > (FLIP_TOL if flipped else GRAD_TOL) * scale:
+        allowed = ((FLIP_TOL if flipped else GRAD_TOL) * scale
+                   + 2 * f32_err.get(key, 0.0))
+        if diff > allowed:
             raise AssertionError(f"{what}: gradient of {key} differs from "
-                                 f"the cpu's by {diff} (its max |g| {scale})")
+                                 f"the cpu's by {diff} (its max |g| {scale}"
+                                 f", allowed {allowed})")
     np.testing.assert_allclose(l_card, l_cpu, rtol=LOSS_RTOL,
                                err_msg=f"{what}: losses vs cpu")
     rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
     log(f"  {what} vs cpu: first-step gradients within {worst:.3g} x each "
-        f"leaf's max |g| (allowed {GRAD_TOL}); convs above a flipped pool "
-        f"window within {worst_flip:.3g} (allowed {FLIP_TOL}); losses "
-        f"within rtol {rel:.3g} (allowed {LOSS_RTOL}): ok")
+        f"leaf's max |g| (allowed {GRAD_TOL}"
+        + (", plus twice the leaf's float32 error" if f32_err else "")
+        + f"); convs above a flipped pool window within {worst_flip:.3g} "
+        f"(allowed {FLIP_TOL}); losses within rtol {rel:.3g} (allowed "
+        f"{LOSS_RTOL}): ok")
+
+
+def paired_steps(torch, model_cpu, designs, batches, what, per_step, task):
+    """Phase 8: the same steps through ``trainer.train_step`` on the CPU
+    and on the card, each card step from the CPU's state before it (its
+    parameters, buffers and Adam moments), so that each step's loss is
+    compared at the same weights. Adam moves a weight by about LR
+    whatever its gradient's size, so the sign of a near-zero gradient
+    element, which float32 rounding decides, would otherwise take the two
+    runs apart: on the CPU, the cls model's weights perturbed by 1e-7 of
+    their value give a fifth loss 3e-3 away. The launch counters are
+    zeroed just before the card's steps and read just after: each kernel
+    must have run ``len(batches)`` x its per-step count. Returns ``{where:
+    (losses, the first step's gradients, counts, the buffers after each
+    step, the state_dict after the last)}``, all on the CPU."""
+    import numpy as np
+    from prtp_tpu_torch.trainer import init_state, make_optimizer, train_step
+
+    def snapshot(state):
+        opt = state.optimizer
+        return ({k: v.to("cpu", copy=True)
+                 for k, v in state.model.state_dict().items()},
+                {"mu": opt.mu.to("cpu", copy=True),
+                 "nu": opt.nu.to("cpu", copy=True), "count": opt.count})
+
+    out, befores = {}, []
+    for where in ("cpu", DEVICE):
+        state = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), where)
+        losses, grads, buffers = [], None, []
+        if where != "cpu":
+            torch.cuda.synchronize()
+            _zero_launches()
+        t0 = time.perf_counter()
+        for t, (ids, mask) in enumerate(batches[where]):
+            if where == "cpu":
+                befores.append(snapshot(state))
+            else:
+                state.model.load_state_dict(befores[t][0])
+                state.optimizer.load_state_dict(befores[t][1])
+            losses.append(float(train_step(state, designs[where], ids, mask,
+                                           task)["loss"]))
+            if t == 0:
+                grads = {k: p.grad.detach().to("cpu", copy=True)
+                         for k, p in state.model.named_parameters()}
+            buffers.append({k: b.to("cpu", copy=True)
+                            for k, b in state.model.named_buffers()})
+        wall = time.perf_counter() - t0
+        counts = _read_launches()
+        label = ("cpu, plain versions" if where == "cpu"
+                 else "card, each step from the cpu's state")
+        log(f"  {what} ({label}): {len(losses)} steps in {wall:.3f} s; "
+            "losses " + ", ".join(f"{x:.6f}" for x in losses))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{what}: a loss is not finite: {losses}")
+        out[where] = (losses, grads, counts, buffers,
+                      {k: v.to("cpu", copy=True)
+                       for k, v in state.model.state_dict().items()})
+    counts, n = out[DEVICE][2], len(batches[DEVICE])
+    log(f"  {what}: launches {counts}; per step expected {per_step}")
+    for name, k in per_step.items():
+        if counts[name] != n * k:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} "
+                                 f"times, expected {n * k}")
+        if k == 0 and name != "gather_rows":
+            raise AssertionError(f"{what}: {name} is not on the step")
+    return out
+
+
+def check_running_averages(torch, what, card, cpu):
+    """The U-Net's BatchNorm running averages after each step (from the
+    same state), card against CPU, within STAT_RTOL x each buffer's
+    largest |value|."""
+    worst = 0.0
+    for t, (got_t, want_t) in enumerate(zip(card, cpu)):
+        for key, want in want_t.items():
+            if not key.endswith(("running_mean", "running_var")):
+                continue
+            got, scale = got_t[key], float(want.abs().max())
+            worst = max(worst, float((got - want).abs().max()) / scale)
+            if not torch.allclose(got, want, rtol=STAT_RTOL,
+                                  atol=STAT_RTOL * scale):
+                raise AssertionError(f"{what}: {key} after step {t} differs "
+                                     "from the cpu's by "
+                                     f"{float((got - want).abs().max())}")
+    log(f"  {what}: BatchNorm running averages card vs cpu after each step "
+        f"within {worst:.3g} x each buffer's max |value| (allowed "
+        f"{STAT_RTOL}): ok")
+
+
+def unet_f32_error(torch, model_cpu, design, batch, task, dev) -> dict:
+    """The float32 rounding of the U-Net's first-step gradients: the
+    cotangent that the first step's loss gives the U-Net's map on the
+    CPU (float32, as the step computes it), then the U-Net's parameter
+    gradients for it in float32 and in float64, on the CPU and on the
+    card. The two float64 runs must agree to 1e-8 of each leaf's max |g|
+    (the card computes the same function). Returns ``{leaf: the larger
+    of the CPU's and the card's max |g32 - g64|}``. BatchNorm's backward
+    over 256 x 256 positions a channel cancels most of its sums, so these
+    reach about a percent of a leaf's max |g|: a bound that card and CPU
+    cannot beat against each other."""
+    from prtp_tpu_torch.trainer import task_loss_and_metrics
+
+    model = copy.deepcopy(model_cpu).train()
+    kept = {}
+
+    def keep(_module, _inputs, out):
+        out.retain_grad()
+        kept["map"] = out
+
+    handle = model.cnn.register_forward_hook(keep)
+    try:
+        ids, mask = batch
+        loss, _m = task_loss_and_metrics(task, model(design, ids), design,
+                                         ids, mask)
+        loss.backward()
+    finally:
+        handle.remove()
+    cot = kept["map"].grad
+    grads = {}
+    for where in ("cpu", dev):
+        for dtype in (torch.float32, torch.float64):
+            cnn = copy.deepcopy(model_cpu.cnn).to(where, dtype).train()
+            out = cnn(design.cnn_input.to(where, dtype))
+            grads[where, dtype] = [g.to("cpu", torch.float64) for g in
+                                   torch.autograd.grad(
+                                       (out * cot.to(where, dtype)).sum(),
+                                       list(cnn.parameters()))]
+    names = [f"cnn.{name}" for name, _p in model_cpu.cnn.named_parameters()]
+    err, worst64 = {}, 0.0
+    for i, name in enumerate(names):
+        ref = grads["cpu", torch.float64][i]
+        scale = float(ref.abs().max())
+        d64 = float((grads[dev, torch.float64][i] - ref).abs().max())
+        worst64 = max(worst64, d64 / scale)
+        if d64 > 1e-8 * scale:
+            raise AssertionError(f"U-Net float64 gradient of {name}: card "
+                                 f"and cpu differ by {d64} (max |g| {scale})")
+        err[name] = max(
+            float((grads[w, torch.float32][i]
+                   - grads[w, torch.float64][i]).abs().max())
+            for w in ("cpu", dev))
+    log(f"  U-Net first-step gradients in float64, card vs cpu: within "
+        f"{worst64:.3g} x each leaf's max |g| (allowed 1e-8): ok")
+    return err
 
 
 def device_kernels(torch, fn):
@@ -1269,151 +1508,506 @@ class _Timed:
         return out
 
 
-def cli_phase(torch, np, dev, smi) -> dict:
-    """Phase 7: the user's four CLIs through the port, on the card, in a
-    temporary directory. Synthesizes the big stress design, generates its
-    dataset (the native rasterizer must load), trains at full width
-    (``train.main``), resumes, evaluates (``test.main``) and evaluates
-    again on the CPU from the same checkpoint. The launch counters are
-    zeroed just before each CLI run on the card and read just after: each
-    kernel must have run as often as the steps and validations say.
-    Returns each run's counts."""
-    import tempfile
-    from prtp_tpu_torch import test as test_mod
+@contextlib.contextmanager
+def timed(torch, module, *names):
+    """Wrap the functions ``names`` of ``module`` in :class:`_Timed` for
+    the block (callers in the module look them up there at call time);
+    yields the wrappers by name."""
+    wrappers = {name: _Timed(torch, getattr(module, name)) for name in names}
+    for name, w in wrappers.items():
+        setattr(module, name, w)
+    try:
+        yield wrappers
+    finally:
+        for name, w in wrappers.items():
+            setattr(module, name, w.fn)
+
+
+def tf32_on(torch):
+    """TF32 on for matmuls and cuDNN convolutions (cuDNN's is PyTorch's
+    default): a CLI run after this is float32 only if the CLI sets it."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def check_float32(torch, run):
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    if any(flags):
+        raise AssertionError(f"{run}: the CLI left TF32 on (matmul, cuDNN: "
+                             f"{flags})")
+
+
+def cli_train(torch, args, run, smi):
+    """One train CLI run (``train.main``) on the card, TF32 on before it.
+    The launch counters are zeroed just before and read just after: each
+    kernel must match the run's steps and validation forwards on the
+    designs they ran on (``gather_rows`` 0 times: a parsed design has no
+    prior rows), and the CLI must have turned TF32 off. Returns (state,
+    counts, each validation's ``(res, f1, r2)``)."""
     from prtp_tpu_torch import train as train_mod
+
+    with timed(torch, train_mod, "train_steps", "validate", "evaluate") as w:
+        tf32_on(torch)
+        _zero_launches()
+        t0 = time.perf_counter()
+        state = train_mod.main(args, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _read_launches()
+    check_float32(torch, run)
+    want = dict.fromkeys(counts, 0)
+    for _s, (_st, pack, chunk, *_r), _o in w["train_steps"].calls:
+        for name, n in launches_per_step(pack.graph).items():
+            want[name] += len(chunk) * n
+    for _s, (_m, pack, *_r), _o in w["evaluate"].calls:
+        for name, n in launches_per_forward(pack.graph).items():
+            want[name] += n
+    steps = w["train_steps"].calls
+    n_steps = sum(len(a[2]) for _s, a, _o in steps)
+    val_ms = [s * 1e3 for s, _a, _o in w["validate"].calls]
+    log(f"phase 7: {run}: {wall:.2f} s wall, {n_steps} steps "
+        f"({sum(s for s, _a, _o in steps) / n_steps * 1e3:.2f} ms a step as "
+        f"launched, chunks {[round(s * 1e3, 2) for s, _a, _o in steps]} ms), "
+        f"{len(val_ms)} validations ("
+        + ", ".join(f"{ms:.2f}" for ms in val_ms)
+        + f" ms); state step {state.step}; TF32 off after it  [{smi}]")
+    log(f"  {run}: launches {counts}")
+    if want["gather_rows"]:
+        raise AssertionError(f"{run}: a parsed design has prior rows")
+    for name, n in counts.items():
+        if n != want[name]:
+            raise AssertionError(f"{run}: {name} launched {n} times, "
+                                 f"expected {want[name]}")
+        if name != "gather_rows" and not n:
+            raise AssertionError(f"{run}: {name} did not launch")
+    if len(val_ms) < 2:
+        raise AssertionError(f"{run}: {len(val_ms)} validations")
+    return state, counts, [o for _s, _a, o in w["validate"].calls]
+
+
+def cli_test(torch, args, where, run, smi):
+    """One test CLI run (``test.main``) on ``where``, TF32 on before it,
+    its standard output captured. On the card the launch counters, zeroed
+    just before, must match its forwards. Returns ``{"res", "preds",
+    "out", "crit", "counts"}``: the per-design metric rows, predictions,
+    the printed text, the ``predict_critical`` lists it wrote (regression)
+    and the counts."""
+    from prtp_tpu_torch import test as test_mod
+
+    options = test_mod.get_options(args)
+    buf = io.StringIO()
+    with timed(torch, test_mod, "evaluate", "evaluate_design") as w, \
+            contextlib.redirect_stdout(buf):
+        tf32_on(torch)
+        _zero_launches()
+        t0 = time.perf_counter()
+        res, _f1, _r2, preds = test_mod.main(args, device=where)
+        wall = time.perf_counter() - t0
+    counts = _read_launches()
+    check_float32(torch, f"{run} on {where}")
+    want = dict.fromkeys(counts, 0)
+    for _s, (_m, pack, *_r), _o in w["evaluate"].calls:
+        for name, n in launches_per_forward(pack.graph).items():
+            want[name] += n
+    if where != "cpu" and counts != want:
+        raise AssertionError(f"{run} on {where}: launches {counts}, expected "
+                             f"{want}")
+    crit = {}
+    crit_dir = os.path.join(options.model_saving_dir, "predict_critical")
+    for design in preds if os.path.isdir(crit_dir) else ():
+        with open(os.path.join(crit_dir, f"{design}.json")) as f:
+            crit[design] = json.load(f)
+    mets = [o[1] for _s, _a, o in w["evaluate_design"].calls]
+    log(f"phase 7: {run} on {where}: {wall:.2f} s wall; runtime "
+        + ", ".join(f"{m['runtime'] * 1e3:.2f}" for m in mets)
+        + " ms (pack " + ", ".join(f"{m['pack_s'] * 1e3:.2f}" for m in mets)
+        + f" ms); TF32 off after it  [{smi}]")
+    return {"res": res, "preds": preds, "out": buf.getvalue(), "crit": crit,
+            "counts": counts}
+
+
+_LEVEL = re.compile(r"^level (\S+): #=(\d+), r2=(\S+), mape=(\S+)$", re.M)
+_COUNTS = re.compile(r"^\ttp: (\d+)  fp: (\d+)  fn: (\d+)  tn: (\d+) ", re.M)
+
+
+def compare_test_clis(np, run, card, cpu, data, task):
+    """A test CLI's results on the card against the CPU's, from one
+    checkpoint: each design's predictions (``cls``: logits) and loss at
+    rtol/atol 1e-4, R² at 1e-4 where the design's arrival times differ;
+    the per-level lines (the same levels and path counts; R² and MAPE
+    at rtol 1e-3, atol 1e-3: ratios of sums of squared errors of
+    predictions that agree to 1e-4); the confusion counts and
+    ``predict_critical`` equal, except for paths whose label is a near
+    tie on the CPU (predicted slack, or the two logits' margin, within
+    2e-4 + 2e-4 x |prediction|), counted."""
+    from prtp_tpu_torch.data.dataset import load_design_npz
+
+    near_ties = 0
+    for i, design in enumerate(cpu["preds"]):
+        parsed = load_design_npz(os.path.join(data, f"{design}.npz"))
+        p, q = card["preds"][design], cpu["preds"][design]
+        if p.shape != q.shape or not np.all(np.isfinite(p)):
+            raise AssertionError(f"{run}: bad predictions {p.shape}")
+        np.testing.assert_allclose(p, q, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{run}: {design} predictions")
+        np.testing.assert_allclose(card["res"][i][0], cpu["res"][i][0],
+                                   rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{run}: {design} loss")
+        endpoint = np.asarray(parsed["path_endpoint"], np.int64)
+        arrival = np.asarray(parsed["arrival_time"])[endpoint]
+        if task == "reg" and np.ptp(arrival) > 0:
+            np.testing.assert_allclose(card["res"][i][1], cpu["res"][i][1],
+                                       rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{run}: {design} r2")
+        if task == "cls":
+            labels_p, labels_q = p.argmax(1), q.argmax(1)
+            margin = q[:, 0] - q[:, 1]
+        else:
+            required = np.asarray(parsed["required_time"])[endpoint]
+            labels_p, labels_q = required - p < 0, required - q < 0
+            margin = required - q
+        scale = np.abs(q).max(axis=-1) if q.ndim > 1 else np.abs(q)
+        near = np.abs(margin) <= 2e-4 + 2e-4 * scale
+        off = labels_p != labels_q
+        if (off & ~near).any():
+            raise AssertionError(f"{run}: {design}: labels differ at "
+                                 f"{np.nonzero(off & ~near)[0]}")
+        near_ties += int(off.sum())
+        if task == "reg" and not off.any() and \
+                card["crit"][design] != cpu["crit"][design]:
+            raise AssertionError(f"{run}: {design} predict_critical differs")
+    lv_card, lv_cpu = _LEVEL.findall(card["out"]), _LEVEL.findall(cpu["out"])
+    if [r[:2] for r in lv_card] != [r[:2] for r in lv_cpu]:
+        raise AssertionError(f"{run}: per-level lines differ in levels or "
+                             "counts")
+    if lv_cpu:
+        np.testing.assert_allclose(
+            np.array([r[2:] for r in lv_card], float),
+            np.array([r[2:] for r in lv_cpu], float), rtol=1e-3, atol=1e-3,
+            equal_nan=True, err_msg=f"{run}: per-level R2 and MAPE")
+    cm_card, cm_cpu = _COUNTS.findall(card["out"]), _COUNTS.findall(cpu["out"])
+    if not near_ties and cm_card != cm_cpu:
+        raise AssertionError(f"{run}: confusion counts {cm_card} against the "
+                             f"cpu's {cm_cpu}")
+    worst = max(float(np.abs(card["preds"][d] - cpu["preds"][d]).max())
+                for d in cpu["preds"])
+    log(f"phase 7: {run} card vs cpu: predictions within {worst:.3g}"
+        f" (rtol/atol 1e-4); per design [loss, r2] card "
+        f"{[[round(r[0], 6), round(r[1], 6)] for r in card['res']]} cpu "
+        f"{[[round(r[0], 6), round(r[1], 6)] for r in cpu['res']]}; "
+        f"{len(lv_cpu)} per-level lines agree; confusion counts (tp, fp, fn,"
+        f" tn) {cm_card} / {cm_cpu}; {near_ties} labels off at near ties: ok")
+
+
+def big_design_runs(torch, np, dev, smi, tmp) -> dict:
+    """Phase 7, big design: ``synthetic --big``, ``generate`` (the native
+    rasterizer must load), the train CLI at full width, again (it must
+    resume), the test CLI on the card and on the CPU from the same
+    checkpoint. Returns each run's launch counts."""
     from prtp_tpu_torch.data import generate, synthetic
     from prtp_tpu_torch.data.dataset import load_design_npz
     from prtp_tpu_torch.graph import pack_design
     from prtp_tpu_torch.native import native_available
 
     launches = {}
-    with tempfile.TemporaryDirectory(prefix="prtp_cli_") as tmp:
-        raw, data, mdl = (os.path.join(tmp, d)
-                          for d in ("raw", "data", "mdl"))
+    raw, data, mdl = (os.path.join(tmp, d) for d in ("raw", "data", "mdl"))
+    t0 = time.perf_counter()
+    synthetic.main(["--out", raw, "--big", "--designs", CLI_DESIGN,
+                    "--num_paths", str(CLI_PATHS), "--depth", str(CLI_STAGES)])
+    log(f"phase 7: synthetic --big ({CLI_PATHS} paths, {CLI_STAGES} stages, "
+        f"3 groups): {time.perf_counter() - t0:.2f} s on the host")
+    t0 = time.perf_counter()
+    generate.main(["--rawdata_path", raw, "--data_save_path", data])
+    gen_s = time.perf_counter() - t0
+    if not native_available():
+        raise AssertionError("generate ran without the native rasterizer")
+    parsed = load_design_npz(os.path.join(data, f"{CLI_DESIGN}.npz"))
+    graph = pack_design(parsed, map_size=MAP_SIZE, device=dev).graph
+    log(f"phase 7: generate: {gen_s:.2f} s on the host (native rasterizer); "
+        f"{int(parsed['num_nodes'])} pins, {graph.num_pairs} level pairs, "
+        f"{parsed['num_paths']} paths, raster "
+        f"{tuple(parsed['cnn_input'].shape)}  [{smi}]")
+    del graph
+    torch.cuda.empty_cache()
+
+    args = ["--data_save_path", data, "--model_saving_dir", mdl,
+            "--num_epoch", "1"]
+    for run in ("train CLI", "train CLI resume"):
+        launches[run] = cli_train(torch, args, run, smi)[1]
+    with open(os.path.join(mdl, "stdout.log")) as f:
+        log_text = f.read()
+    with open(os.path.join(mdl, "seed.txt")) as f:
+        seeds = f.read()
+    if ("Loading the model and hyper-parameters" not in log_text
+            or "Saving model" not in log_text or seeds != "9294" * 2):
+        raise AssertionError(f"the second train CLI run did not resume "
+                             f"(seed.txt {seeds!r})")
+    test_args = ["--data_save_path", data, "--model_saving_dir", mdl]
+    card = cli_test(torch, test_args, DEVICE, "test CLI", smi)
+    launches["test CLI"] = card["counts"]
+    cpu = cli_test(torch, test_args, "cpu", "test CLI", smi)
+    arrival = np.asarray(parsed["arrival_time"])[np.asarray(
+        parsed["path_endpoint"], np.int64)]
+    if not np.ptp(arrival):
+        # every path has the same arc count, so every arrival time is
+        # equal: R2 divides by SS_tot, a float32 rounding residue of the
+        # mean that depends on the order of the sum
+        log(f"  R2 not compared: all {arrival.size} arrival times are "
+            f"{arrival[0]}, so SS_tot is a rounding residue")
+    compare_test_clis(np, "test CLI", card, cpu, data, "reg")
+    return launches
+
+
+def corpus_runs(torch, np, smi, tmp) -> dict:
+    """Phase 7, ``generate_corpus`` corpora (CORPUS_DESIGNS, CORPUS_PATHS
+    paths and CORPUS_DEPTH stages and more per design, a third of the
+    paths critical, depths varying across and within designs): the
+    default 2 x 512 x 512 rasters and, for the U-Net, 3 x UNET_HW x
+    UNET_HW. For each of ``reg`` (the default flags), ``cls`` (``--task
+    cls --nlabels 2``) and ``unet`` (``--unet``): the train CLI at full
+    width on the card for CORPUS_EPOCHS epochs, then the test CLI on the
+    card and on the CPU from its checkpoint, compared by
+    :func:`compare_test_clis`. ``cls`` must save the best-F1 model and
+    write no ``visual/`` or ``predict_critical/``. Returns each run's
+    launch counts."""
+    from prtp_tpu_torch.data import generate, synthetic
+
+    launches, data = {}, {}
+    for corpus, extra in (("corpus", []),
+                          ("corpus_unet", ["--cnn_channels",
+                                           str(UNET_CHANNELS), "--cnn_hw",
+                                           str(UNET_HW)])):
+        raw, data[corpus] = (os.path.join(tmp, f"{corpus}_{d}")
+                             for d in ("raw", "data"))
         t0 = time.perf_counter()
-        synthetic.main(["--out", raw, "--big", "--designs", CLI_DESIGN,
-                        "--num_paths", str(CLI_PATHS),
-                        "--depth", str(CLI_STAGES)])
-        log(f"phase 7: synthetic --big ({CLI_PATHS} paths, {CLI_STAGES} "
-            f"stages, 3 groups): {time.perf_counter() - t0:.2f} s on the "
+        synthetic.main(["--out", raw, "--designs", *CORPUS_DESIGNS,
+                        "--num_paths", str(CORPUS_PATHS), "--depth",
+                        str(CORPUS_DEPTH)] + extra)
+        generate.main(["--rawdata_path", raw, "--data_save_path",
+                       data[corpus]])
+        log(f"phase 7: synthetic + generate {corpus} ({len(CORPUS_DESIGNS)} "
+            f"designs, --num_paths {CORPUS_PATHS} --depth {CORPUS_DEPTH} "
+            f"{' '.join(extra)}): {time.perf_counter() - t0:.2f} s on the "
             "host")
-        t0 = time.perf_counter()
-        generate.main(["--rawdata_path", raw, "--data_save_path", data])
-        gen_s = time.perf_counter() - t0
-        if not native_available():
-            raise AssertionError("generate ran without the native rasterizer")
-        parsed = load_design_npz(os.path.join(data, f"{CLI_DESIGN}.npz"))
-        graph = pack_design(parsed, map_size=MAP_SIZE, device=dev).graph
-        per_step, per_fwd = launches_per_step(graph), launches_per_forward(
-            graph)
-        n_pins = int(parsed["num_nodes"])
-        log(f"phase 7: generate: {gen_s:.2f} s on the host (native "
-            f"rasterizer); {n_pins} pins, {graph.num_pairs} level pairs, "
-            f"{parsed['num_paths']} paths, raster "
-            f"{tuple(parsed['cnn_input'].shape)}  [{smi}]")
-        if per_step["gather_rows"]:
-            raise AssertionError("the parsed design has prior rows")
-        del graph
-        torch.cuda.empty_cache()
-
-        args = ["--data_save_path", data, "--model_saving_dir", mdl,
-                "--num_epoch", "1"]
-        for run in ("train CLI", "train CLI resume"):
-            steps = _Timed(torch, train_mod.train_steps)
-            validate = _Timed(torch, train_mod.validate)
-            train_mod.train_steps, train_mod.validate = steps, validate
-            try:
-                _zero_launches()
-                t0 = time.perf_counter()
-                state = train_mod.main(args, device=DEVICE)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            finally:
-                train_mod.train_steps = steps.fn
-                train_mod.validate = validate.fn
-            counts = launches[run] = _read_launches()
-            n_steps = sum(len(a[2]) for _s, a, _o in steps.calls)
-            n_val = len(validate.calls)
-            step_s = sum(s for s, _a, _o in steps.calls) / n_steps
-            val_s = [s for s, _a, _o in validate.calls]
-            log(f"phase 7: {run}: {wall:.2f} s wall, {n_steps} steps of "
-                f"batch 1350 ({step_s * 1e3:.2f} ms a step as launched, "
-                f"chunks {[round(s * 1e3, 2) for s, _a, _o in steps.calls]}"
-                " ms),"
-                f" {n_val} validations ("
-                + ", ".join(f"{s * 1e3:.2f}" for s in val_s)
-                + f" ms); state step {state.step}  [{smi}]")
-            log(f"  {run}: launches {counts}")
-            for name, n in counts.items():
-                want = n_steps * per_step[name] + n_val * per_fwd.get(name, 0)
-                if n != want:
-                    raise AssertionError(f"{run}: {name} launched {n} times, "
-                                         f"expected {want}")
-                if name != "gather_rows" and not n:
-                    raise AssertionError(f"{run}: {name} did not launch")
-            if n_val < 2:
-                raise AssertionError(f"{run}: {n_val} validations")
+    runs = {"reg": ("corpus", []),
+            "cls": ("corpus", ["--task", "cls", "--nlabels", "2"]),
+            "unet": ("corpus_unet", ["--unet"])}
+    for name, (corpus, flags) in runs.items():
+        mdl = os.path.join(tmp, f"mdl_{name}")
+        common = ["--data_save_path", data[corpus], "--model_saving_dir",
+                  mdl] + flags
+        run = f"train CLI {name} corpus"
+        state, launches[run], vals = cli_train(
+            torch, common + ["--num_epoch", str(CORPUS_EPOCHS)], run, smi)
+        run = f"test CLI {name} corpus"
+        card = cli_test(torch, common, DEVICE, run, smi)
+        launches[run] = card["counts"]
+        cpu = cli_test(torch, common, "cpu", run, smi)
+        task = "cls" if name == "cls" else "reg"
+        compare_test_clis(np, run, card, cpu, data[corpus], task)
+        if name != "cls":
+            continue
+        f1s, best, saves = [v[1] for v in vals], 0.0, 0
+        for f1 in f1s:
+            if f1 > best:
+                best, saves = f1, saves + 1
         with open(os.path.join(mdl, "stdout.log")) as f:
-            log_text = f.read()
-        with open(os.path.join(mdl, "seed.txt")) as f:
-            seeds = f.read()
-        if ("Loading the model and hyper-parameters" not in log_text
-                or "Saving model" not in log_text or seeds != "9294" * 2):
-            raise AssertionError(f"the second train CLI run did not resume "
-                                 f"(seed.txt {seeds!r})")
+            printed = f.read().count("Saving model.... ")
+        blob = torch.load(os.path.join(mdl, "model.pt"), weights_only=True)
+        written = [d for d in ("visual", "predict_critical")
+                   if os.path.exists(os.path.join(mdl, d))]
+        if printed != saves or blob["best_f1"] != best or written:
+            raise AssertionError(
+                f"cls: validation F1s {f1s}: {saves} improvements but "
+                f"{printed} saves; saved best_f1 {blob['best_f1']} against "
+                f"{best}; wrote {written}")
+        log(f"phase 7: cls: validation F1s {[round(f, 4) for f in f1s]}, "
+            f"{saves} saves, the checkpoint holds the best ({best:.4f}); no"
+            " visual/ or predict_critical/: ok")
+    return launches
 
-        test_args = ["--data_save_path", data, "--model_saving_dir", mdl]
-        crit_path = os.path.join(mdl, "predict_critical",
-                                 f"{CLI_DESIGN}.json")
-        results = []
-        for where in (DEVICE, "cpu"):
-            ev = _Timed(torch, test_mod.evaluate_design)
-            test_mod.evaluate_design = ev
-            try:
-                if where != "cpu":
-                    _zero_launches()
-                t0 = time.perf_counter()
-                res, _f1, _r2, preds = test_mod.main(test_args, device=where)
-                wall = time.perf_counter() - t0
-            finally:
-                test_mod.evaluate_design = ev.fn
-            if where != "cpu":
-                counts = launches["test CLI"] = _read_launches()
-                if counts != {k: per_fwd.get(k, 0) for k in counts}:
-                    raise AssertionError(f"test CLI: launches {counts}, "
-                                         f"expected {per_fwd}")
-            with open(crit_path) as f:
-                results.append((res[0], preds[CLI_DESIGN], json.load(f)))
-            mets = ev.calls[0][2][1]
-            log(f"phase 7: test CLI on {where}: {wall:.2f} s wall; runtime "
-                f"{mets['runtime'] * 1e3:.2f} ms (pack "
-                f"{mets['pack_s'] * 1e3:.2f} ms)  [{smi}]")
-        (row, preds, crit), (row_cpu, preds_cpu, crit_cpu) = results
-        if preds.shape != (int(parsed["num_paths"]),) or not np.all(
-                np.isfinite(preds)):
-            raise AssertionError(f"test CLI: bad predictions {preds.shape}")
-        np.testing.assert_allclose(row[0], row_cpu[0], rtol=1e-4, atol=1e-4,
-                                   err_msg="test CLI loss")
-        arrival = np.asarray(parsed["arrival_time"])[np.asarray(
-            parsed["path_endpoint"], np.int64)]
-        if np.ptp(arrival) > 0:
-            np.testing.assert_allclose(row[1], row_cpu[1], rtol=1e-4,
-                                       atol=1e-4, err_msg="test CLI r2")
-        else:
-            # every path has the same arc count, so every arrival time is
-            # equal: R2 divides by SS_tot, a float32 rounding residue of
-            # the mean that depends on the order of the sum
-            log(f"  R2 not compared: all {arrival.size} arrival times are "
-                f"{arrival[0]}, so SS_tot is a rounding residue")
-        np.testing.assert_allclose(preds, preds_cpu, rtol=1e-4, atol=1e-4,
-                                   err_msg="test CLI predictions vs cpu")
-        if crit != crit_cpu:
-            raise AssertionError("predict_critical differs from the cpu's")
-        log(f"phase 7: test CLI card vs cpu: loss {row[0]:.6f} / "
-            f"{row_cpu[0]:.6f}, r2 {row[1]:.6f} / {row_cpu[1]:.6f}, "
-            f"predictions within "
-            f"{float(np.abs(preds - preds_cpu).max()):.3g} (rtol/atol "
-            f"1e-4), {len(crit)} predicted critical on both: ok")
+
+def cli_phase(torch, np, dev, smi) -> dict:
+    """Phase 7: the user's four CLIs through the port, on the card, in a
+    temporary directory, each run with TF32 on before it (the CLIs must
+    compute in float32 themselves): the big stress design
+    (:func:`big_design_runs`), then the ``generate_corpus`` corpora for
+    reg, cls and the U-Net (:func:`corpus_runs`). Returns each CLI run's
+    launch counts on the card."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="prtp_cli_") as tmp:
+        launches = big_design_runs(torch, np, dev, smi, tmp)
+        launches.update(corpus_runs(torch, np, smi, tmp))
+    return launches
+
+
+def time_variant(torch, model_cpu, design, dev, task, what, smi):
+    """Phase 8: one train step of a variant from a copy of ``model_cpu``
+    at the bench's batch (all 597 headline paths): device time (queue
+    pre-filled) and as launched, the device's busy and idle share and
+    launches under torch.profiler, and its largest kernels by name."""
+    import numpy as np
+    from prtp_tpu_torch.trainer import (init_state, make_optimizer,
+                                        pad_batch, train_step)
+
+    state = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), DEVICE)
+    n = design.num_paths
+    ids, mask = pad_batch(np.random.default_rng(0).permutation(n), n, dev)
+
+    def step():
+        train_step(state, design, ids, mask, task)
+
+    timer = Timer(torch, dev)
+    dev_ms = timer.ms(step, queue_ms=200)
+    launched_ms = timer.ms(step, queue_ms=0)
+    del timer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_kernels(torch, step)
+    if not by_name:
+        raise AssertionError("torch.profiler recorded no device kernels")
+    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    log(f"phase 8: {what} train step ({n} paths): device time {dev_ms:.3f} "
+        f"ms; as launched {launched_ms:.3f} ms; wall {wall_ms:.3f} ms, "
+        f"device busy {busy_ms:.3f} ms (torch.profiler), idle share "
+        f"{1 - busy_ms / wall_ms:.3f}; "
+        f"{sum(c for _, c in by_name.values())} kernel launches  [{smi}]")
+    for name, (tot, cnt) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:10]:
+        log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
+
+
+def time_unet(torch, unet_cpu, x, smi):
+    """Phase 8: device time (CUDA events, queue pre-filled) of a U-Net
+    forward in eval mode and of a forward + backward in train mode on
+    ``x``, as launched too, and the kernels a forward launches."""
+    unet = copy.deepcopy(unet_cpu).to(x.device)
+    params = list(unet.parameters())
+    cot = torch.randn((1, 1, x.shape[2] // 2, x.shape[3] // 2),
+                      device=x.device)
+
+    def fwd():
+        with torch.no_grad():
+            unet.eval()(x)
+
+    def fwd_bwd():
+        torch.autograd.grad(unet.train()(x), params, cot)
+
+    timer = Timer(torch, x.device)
+    for what, fn in (("forward (eval mode)", fwd),
+                     ("forward + backward (train mode)", fwd_bwd)):
+        dev_ms = timer.ms(fn, queue_ms=20)
+        launched_ms = timer.ms(fn, queue_ms=0)
+        by_name = device_kernels(torch, fn)
+        log(f"phase 8: U-Net {what} on {tuple(x.shape)}: device time "
+            f"{dev_ms:.3f} ms; as launched {launched_ms:.3f} ms; "
+            f"{sum(c for _, c in by_name.values())} kernel launches  [{smi}]")
+        for name, (tot, cnt) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][0])[:6]:
+            log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
+
+
+def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
+    """Phase 8: the two variants at the default model's full width, TF32
+    off: ``cls`` (``nlabels=2``) on the headline design, and the U-Net on
+    the headline graph with a 3 x UNET_HW x UNET_HW raster (map 128). For
+    each: REQUESTS evaluation requests and the epoch of phase 6 (batches
+    of TRAIN_BATCH, numpy seed EPOCH_SEED, :func:`paired_steps`), card
+    against CPU with the launch counters as :func:`serve` holds them and
+    phase 6's tolerances (:func:`compare_runs`, the U-Net's max pools
+    counted as LayoutNet's are). For the U-Net also its first-step
+    gradients against float64 (:func:`unet_f32_error`), its BatchNorm
+    running averages card against CPU (:func:`check_running_averages`),
+    and an evaluation in eval mode of the CPU's trained weights and
+    averages on both (1e-4). Then
+    the timings (:func:`time_variant`, :func:`time_unet`). Returns each
+    run's launch counts."""
+    from prtp_tpu_torch.data.random_design import make_random_design
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.test import evaluate_design
+    from prtp_tpu_torch.trainer import iterate_batches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    unet_design = make_random_design(
+        sizes, cell_feat_dim=CELL_FEAT, net_feat_dim=NET_FEAT,
+        map_size=MAP_SIZE, cnn_channels=UNET_CHANNELS, cnn_hw=UNET_HW,
+        mask_nnz_per_path=MASK_NNZ, seed=SEED)
+    for key in ("cell_edges", "net_edges"):
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(unet_design[key], headline[key])):
+            raise AssertionError("the U-Net design's graph is not the "
+                                 "headline's")
+    variants = {
+        "cls": (dict(nlabels=2), "cls", headline, LAYOUTNET_POOLS),
+        "unet": (dict(unet=True, cnn_channels=UNET_CHANNELS), "reg",
+                 unet_design, UNET_POOLS),
+    }
+    launches = {}
+    num_paths = int(headline["num_paths"])
+    for name, (kw, task, parsed, pools) in variants.items():
+        log(f"phase 8: {name}: full-width PathModel({kw}), task {task}, "
+            f"raster {tuple(parsed['cnn_input'].shape)}, seed {SEED}")
+        model_cpu = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+                              generator=torch.Generator().manual_seed(SEED),
+                              **kw)
+        cpu_design = pack_design(parsed, map_size=MAP_SIZE, device="cpu")
+        card_design = pack_design(parsed, map_size=MAP_SIZE, device=dev)
+        graph = card_design.graph
+        launches[f"serve {name}"] = serve(
+            torch, np, copy.deepcopy(model_cpu).to(dev), model_cpu, parsed,
+            f"headline {name}", launches_per_forward(graph), REQUESTS, task)
+        flips = pool_winner_flips(torch, model_cpu.cnn, cpu_design.cnn_input,
+                                  dev)
+        log(f"  {name}: max-pool windows whose winner differs, card vs cpu, "
+            f"at the init: {flips}")
+        what = f"train {name} epoch"
+        designs = {DEVICE: card_design, "cpu": cpu_design}
+        batches = {where: list(iterate_batches(
+            np.arange(num_paths), TRAIN_BATCH,
+            np.random.default_rng(EPOCH_SEED), device=where))
+            for where in designs}
+        runs = paired_steps(torch, model_cpu, designs, batches, what,
+                            launches_per_step(graph), task)
+        launches[what] = runs[DEVICE][2]
+        f32_err = None
+        if name == "unet":
+            f32_err = unet_f32_error(torch, model_cpu, cpu_design,
+                                     batches["cpu"][0], task, dev)
+            rel = {k: e / float(runs["cpu"][1][k].abs().max())
+                   for k, e in f32_err.items()}
+            log(f"  {what}: the U-Net's first-step float32 gradients "
+                "against float64 (the larger of cpu and card), largest (x "
+                "the leaf's max |g|): "
+                + ", ".join(f"{k} {v:.3g}" for k, v in sorted(
+                    rel.items(), key=lambda kv: -kv[1])[:5]))
+        compare_runs(torch, what, runs[DEVICE], runs["cpu"], flips, pools,
+                     f32_err)
+        if name == "unet":
+            check_running_averages(torch, what, runs[DEVICE][3],
+                                   runs["cpu"][3])
+            trained = {where: copy.deepcopy(model_cpu).to(where)
+                       for where in designs}
+            for model in trained.values():
+                model.load_state_dict(runs["cpu"][4])
+            p_card, _m = evaluate_design(trained[DEVICE], parsed, DEVICE)
+            p_cpu, _m = evaluate_design(trained["cpu"], parsed, "cpu")
+            np.testing.assert_allclose(
+                p_card, p_cpu, rtol=1e-4, atol=1e-4,
+                err_msg="U-Net eval mode after training")
+            log(f"  {name}: eval mode on the trained running averages, card "
+                f"vs cpu: within {float(np.abs(p_card - p_cpu).max()):.3g} "
+                "(rtol/atol 1e-4): ok")
+            time_unet(torch, model_cpu.cnn, card_design.cnn_input, smi)
+        time_variant(torch, model_cpu, card_design, dev, task, name, smi)
+        del runs, designs, card_design, cpu_design
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1582,9 +2176,7 @@ def main() -> int:
     card_designs = {name: pack_design(p, map_size=MAP_SIZE, device=dev)
                     for name, p in parsed.items()}
     fixed = np.random.default_rng(0).permutation(num_paths)  # bench.py:308
-    flips = {name: pool_winner_flips(torch, model_cpu.cnn,
-                                     copy.deepcopy(model_cpu.cnn).to(dev),
-                                     d.cnn_input, dev)
+    flips = {name: pool_winner_flips(torch, model_cpu.cnn, d.cnn_input, dev)
              for name, d in cpu_designs.items()}
     log(f"  LayoutNet max-pool windows whose winner differs, card vs cpu, "
         f"at the init: {flips}")
@@ -1621,6 +2213,10 @@ def main() -> int:
     del cpu_designs, card_designs
     torch.cuda.empty_cache()
     launches.update(cli_phase(torch, np, dev, smi))
+
+    # ---- phase 8: the variants ----
+    launches.update(variants_phase(torch, np, dev, smi, parsed["headline"],
+                                   sizes))
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

@@ -24,6 +24,7 @@ from torch import nn
 from .gnn import TimeGNN
 from .layoutnet import LayoutNet
 from .mlp import MLP
+from .unet import UNet
 
 
 class PathModel(nn.Module):
@@ -34,13 +35,11 @@ class PathModel(nn.Module):
                  cnn_outdim: int = 128, map_size: int = 128,
                  global_dim: int = 64, nlabels: int = 1,
                  flag_attn: bool = False, dgl_parity: bool = True,
-                 compute_dtype=None, generator: torch.Generator | None = None):
+                 compute_dtype=None, cnn_channels: int = 2,
+                 generator: torch.Generator | None = None):
         super().__init__()
         if not (use_gnn or use_cnn):
             raise ValueError("GNN and CNN model can not be both None!")
-        if unet:
-            raise NotImplementedError("the U-Net branch is ported in a later "
-                                      "slice (variants)")
         if flag_attn:
             raise NotImplementedError("--attn is ported in a later slice "
                                       "(variants)")
@@ -52,13 +51,17 @@ class PathModel(nn.Module):
         self.use_gnn = use_gnn
         self.use_cnn = use_cnn
         self.map_size = map_size
+        self.unet = unet
         self.nlabels = nlabels
         if use_gnn:
             self.gnn = TimeGNN(cell_feat_dim, net_feat_dim, generator,
                                out_dim=out_dim, hidden_dim=hidden_dim,
                                dgl_parity=dgl_parity)
         if use_cnn:
-            self.cnn = LayoutNet(generator, pooling)
+            # flax infers the U-Net's input channels from the raster;
+            # LayoutNet's Conv_0 takes 2
+            self.cnn = (UNet(generator, pooling, cnn_channels) if unet
+                        else LayoutNet(generator, pooling))
             # Linear(map^2 -> cnn_outdim) applied via the mask-row algebra
             msq = map_size * map_size
             self.fcn_kernel = nn.Parameter(torch.empty(msq, cnn_outdim))
@@ -84,6 +87,14 @@ class PathModel(nn.Module):
             if feat_map.shape[0] != 1:
                 raise ValueError("merged super-graph designs (K CNN rasters) "
                                  "are not ported yet")
+            if feat_map[0].numel() != self.fcn_kernel.shape[0]:
+                # JAX fails here too, at the same product
+                raise ValueError(
+                    f"the layout CNN maps the raster "
+                    f"{tuple(design.cnn_input.shape[2:])} to "
+                    f"{tuple(feat_map.shape[2:])}, but map_size is "
+                    f"{self.map_size}: the raster's side must be "
+                    f"{2 if self.unet else 4} x map_size")
             rows = design.path_masks[path_ids].to(feat_map.dtype)
             fw = feat_map.reshape(-1)[:, None] * self.fcn_kernel
             parts.append(rows @ fw + self.fcn_bias)
@@ -94,13 +105,15 @@ class PathModel(nn.Module):
         return out.float()
 
 
-def model_from_options(options, cell_feat_dim: int, net_feat_dim: int):
+def model_from_options(options, cell_feat_dim: int, net_feat_dim: int,
+                       cnn_channels: int):
     """Build a PathModel from the parity CLI options (src/train.py:34-81).
 
-    flax infers the feature widths at init, and JAX's
-    ``model_from_options`` never reads ``--cell_feat_dim``; so here the
-    caller passes the widths of the loaded design (after
-    ``--feat_reduce``). The weights are drawn from a ``torch.Generator``
+    flax infers the feature widths and the U-Net's input channels at
+    init, and JAX's ``model_from_options`` never reads
+    ``--cell_feat_dim``; so here the caller passes the widths of the
+    loaded design (after ``--feat_reduce``) and its raster's channel
+    count. The weights are drawn from a ``torch.Generator``
     seeded with ``--seed``."""
     nh = options.num_heads
     if nh > 1 and options.out_dim % nh != 0:
@@ -120,5 +133,6 @@ def model_from_options(options, cell_feat_dim: int, net_feat_dim: int):
         map_size=options.map_size,
         nlabels=options.nlabels,
         flag_attn=options.attn,
+        cnn_channels=cnn_channels,
         generator=torch.Generator().manual_seed(options.seed),
     )

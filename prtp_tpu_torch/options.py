@@ -32,9 +32,6 @@ NOT_PORTED = (
     ("--compute_dtype bfloat16", lambda o: o.compute_dtype == "bfloat16",
      "item 3 (variants)"),
     ("--attn", lambda o: o.attn, "item 3 (variants)"),
-    ("--unet", lambda o: o.unet, "item 3 (variants)"),
-    ("--task cls", lambda o: o.task == "cls", "item 3 (variants)"),
-    ("--nlabels > 1", lambda o: o.nlabels > 1, "item 3 (variants)"),
 )
 
 
@@ -85,8 +82,7 @@ def get_options(args=None):
     parser.add_argument("--gpu", type=int, default=0,
                         help="index of the CUDA card. Type: int")
     parser.add_argument("--nlabels", type=int, default=1,
-                        help="number of prediction classes (> 1 is not "
-                             "ported yet). Type: int")
+                        help="number of prediction classes. Type: int")
     parser.add_argument("--os_rate", type=int, default=1,
                         help="the oversampling rate. Type: int")
     parser.add_argument("--beta", type=float, default=0.5,
@@ -107,14 +103,14 @@ def get_options(args=None):
     parser.add_argument("--design", type=str)
     parser.add_argument("--unet", action="store_true",
                         help="use the U-Net architecture for the layout "
-                             "branch (not ported yet)")
+                             "branch")
     parser.add_argument("--pooling", type=str, default="max",
                         help="the pooling type for layoutnet")
     parser.add_argument("--norm", action="store_true",
                         help="min-max normalize the input features")
     parser.add_argument("--task", type=str, default="reg",
                         help="classification or regression task, valid: "
-                             "['cls','reg'] ('cls' is not ported yet)")
+                             "['cls','reg']")
     parser.add_argument("--attn", action="store_true",
                         help="apply the attention mechanism in the GNN "
                              "(not ported yet)")

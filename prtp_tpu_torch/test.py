@@ -1,20 +1,21 @@
 """Evaluation: the serving path and the evaluation CLI of the port.
 
 Port of ``prtp_tpu/test.py`` and of ``prtp_tpu/trainer.py``'s
-``make_eval_step``, for the regression task (the loss, the metrics and
+``make_eval_step``, for both tasks (the loss, the metrics and
 ``pad_batch`` live in ``trainer.py``). :func:`evaluate` runs the model
-over a batch of paths of a packed design and returns predictions and
-metrics; :func:`evaluate_design` packs one parsed design, evaluates all
-of its paths and prints the per-level R²/MAPE lines and the case lines
-in the JAX driver's formats.
+in eval mode (the U-Net's BatchNorm on its running averages) over a
+batch of paths of a packed design and returns predictions and metrics;
+:func:`evaluate_design` packs one parsed design, evaluates all of its
+paths and prints the per-level R²/MAPE lines (regression only) and the
+case lines in the JAX driver's formats.
 
 The CLI (:func:`main`, CLI parity with the reference ``python test.py``,
-``src/test.py``) loads the trained torch checkpoint, evaluates every
-design of the test list over all of its paths, saves a relative-error
-vs level scatter plot per design to ``visual/{case}.png``
-(``:244-249``), the predicted-critical path ids to
-``predict_critical/{design}.json``, and appends the overall metric row
-to ``predict.txt`` (``:315-317``).
+``src/test.py``) computes in float32 (TF32 off), loads the trained torch
+checkpoint, evaluates every design of the test list over all of its
+paths and, for regression, saves a relative-error vs level scatter plot
+per design to ``visual/{case}.png`` (``:244-249``) and the
+predicted-critical path ids to ``predict_critical/{design}.json``; it
+appends the overall metric row to ``predict.txt`` (``:315-317``).
 
 Usage:
     python -m prtp_tpu_torch.test --data_save_path ... --model_saving_dir ...
@@ -45,17 +46,20 @@ __all__ = ["evaluate", "evaluate_design", "load_model_state", "main",
 
 
 @torch.no_grad()
-def evaluate(model, design, path_ids, mask):
-    """Regression (preds, metrics) for a batch of path ids; metrics are
-    0-d tensors. (``--task cls`` comes with the variants slice.)"""
+def evaluate(model, design, path_ids, mask, task: str = "reg"):
+    """(preds, metrics) of ``task`` for a batch of path ids, the model in
+    eval mode; metrics are 0-d tensors."""
     model.eval()
     preds = model(design, path_ids)
-    return preds, task_loss_and_metrics(preds, design, path_ids, mask)[1]
+    return preds, task_loss_and_metrics(task, preds, design, path_ids,
+                                         mask)[1]
 
 
-def evaluate_design(model, parsed, device="cuda", case_idx: int = 0):
+def evaluate_design(model, parsed, device="cuda", case_idx: int = 0,
+                    task: str = "reg"):
     """Pack ``parsed`` on ``device``, evaluate all of its paths and print
-    the JAX driver's per-level and case lines.
+    the JAX driver's case lines, after the per-level lines for
+    ``task="reg"``.
 
     Returns ``(preds, metrics)``: numpy predictions of every path, and
     host floats (``loss, r2, tp, fp, tn, fn, acc, recall, precision,
@@ -68,24 +72,13 @@ def evaluate_design(model, parsed, device="cuda", case_idx: int = 0):
     num_paths = int(parsed["num_paths"])
     start = time.perf_counter()
     pids, mask = pad_batch(np.arange(num_paths), design.num_paths, dev)
-    preds_t, mets_t = evaluate(model, design, pids, mask)
+    preds_t, mets_t = evaluate(model, design, pids, mask, task)
     preds = preds_t.cpu().numpy()[:num_paths]
     mets = {k: float(v) for k, v in mets_t.items()}
     runtime = time.perf_counter() - start
 
-    levels = np.asarray(parsed["path2level"])
-    endpoint = np.asarray(parsed["path_endpoint"], np.int64)
-    arrival = torch.from_numpy(np.asarray(parsed["arrival_time"],
-                                          np.float32)[endpoint])
-    preds_cpu = torch.from_numpy(preds)
-    # per-level diagnostics (reference src/test.py:211-216)
-    for lvl in np.unique(levels):
-        sel = torch.from_numpy(levels == lvl)
-        if int(sel.sum()) >= 2:
-            r2_l = float(M.r2_score(preds_cpu[sel], arrival[sel]))
-            mape_l = float(M.mape(preds_cpu[sel], arrival[sel]))
-            print(f"level {lvl}: #={int(sel.sum())}, r2={r2_l}, "
-                  f"mape={mape_l}")
+    if task == "reg":
+        _print_levels(parsed, preds)
     acc, recall, precision, f1 = M.classification_metrics(
         mets["tp"], mets["fp"], mets["tn"], mets["fn"])
     print(f"case {case_idx}, runtime: {runtime}")
@@ -99,14 +92,31 @@ def evaluate_design(model, parsed, device="cuda", case_idx: int = 0):
     return preds, mets
 
 
+def _print_levels(parsed, preds):
+    """Per-level R² and MAPE (reference src/test.py:211-216)."""
+    levels = np.asarray(parsed["path2level"])
+    endpoint = np.asarray(parsed["path_endpoint"], np.int64)
+    arrival = torch.from_numpy(np.asarray(parsed["arrival_time"],
+                                          np.float32)[endpoint])
+    preds_cpu = torch.from_numpy(preds)
+    for lvl in np.unique(levels):
+        sel = torch.from_numpy(levels == lvl)
+        if int(sel.sum()) >= 2:
+            r2_l = float(M.r2_score(preds_cpu[sel], arrival[sel]))
+            mape_l = float(M.mape(preds_cpu[sel], arrival[sel]))
+            print(f"level {lvl}: #={int(sel.sum())}, r2={r2_l}, "
+                  f"mape={mape_l}")
+
+
 def load_model_state(options, sample_parsed, device="cuda"):
     """Restore the checkpoint (must exist — reference src/test.py:37)
-    into a model whose feature widths are ``sample_parsed``'s. Returns
-    (model, state, config)."""
+    into a model whose feature widths and raster channels are
+    ``sample_parsed``'s. Returns (model, state, config)."""
     if not ckpt.checkpoint_exists(options.model_saving_dir):
         raise FileNotFoundError(f"no checkpoint in {options.model_saving_dir}")
     model = model_from_options(options, sample_parsed["cell_feat"].shape[1],
-                               sample_parsed["net_feat"].shape[1])
+                               sample_parsed["net_feat"].shape[1],
+                               sample_parsed["cnn_input"].shape[0])
     state = init_state(model, make_optimizer(options.learning_rate,
                                              options.weight_decay), device)
     state, config = ckpt.load_checkpoint(options.model_saving_dir, state)
@@ -145,20 +155,23 @@ def test(options, designs, device="cuda"):
     model, _state, _config = load_model_state(options, parsed_all[0], dev)
 
     for case_idx, (design, parsed) in enumerate(zip(designs, parsed_all)):
-        # prints the per-level diagnostics and the case lines
-        preds, mets = evaluate_design(model, parsed, dev, case_idx)
+        # prints the per-level diagnostics (reg) and the case lines
+        preds, mets = evaluate_design(model, parsed, dev, case_idx,
+                                      options.task)
         preds_by_design[design] = preds
-        levels = parsed["path2level"]
-        arrival = parsed["arrival_time"][parsed["path_endpoint"]]
-        _plot_relative_error(options, case_idx, levels, preds, arrival)
-        # predicted-critical path ids (capability of the reference's
-        # predict_critical dumps, src/test.py:408-411, JSON not pickle)
-        required = parsed["required_time"][parsed["path_endpoint"]]
-        pred_crit = np.nonzero(required - preds < 0)[0].tolist()
-        crit_dir = os.path.join(options.model_saving_dir, "predict_critical")
-        os.makedirs(crit_dir, exist_ok=True)
-        with open(os.path.join(crit_dir, f"{design}.json"), "w") as f:
-            json.dump(pred_crit, f)
+        if options.task == "reg":
+            levels = parsed["path2level"]
+            arrival = parsed["arrival_time"][parsed["path_endpoint"]]
+            _plot_relative_error(options, case_idx, levels, preds, arrival)
+            # predicted-critical path ids (capability of the reference's
+            # predict_critical dumps, src/test.py:408-411, JSON not pickle)
+            required = parsed["required_time"][parsed["path_endpoint"]]
+            pred_crit = np.nonzero(required - preds < 0)[0].tolist()
+            crit_dir = os.path.join(options.model_saving_dir,
+                                    "predict_critical")
+            os.makedirs(crit_dir, exist_ok=True)
+            with open(os.path.join(crit_dir, f"{design}.json"), "w") as f:
+                json.dump(pred_crit, f)
         row = [mets[k] for k in ("loss", "r2", "acc", "recall", "precision",
                                  "f1")]
         for k, v in zip(("loss", "r2", "acc", "recall", "precision", "f1"),
@@ -199,11 +212,13 @@ def _plot_relative_error(options, case_idx, levels, preds, arrival):
 
 
 def main(argv=None, device="cuda"):
-    """The evaluation CLI; returns :func:`test`'s result."""
-    from .train import select_device
+    """The evaluation CLI, in float32 (TF32 off for the process); returns
+    :func:`test`'s result."""
+    from .train import select_device, use_float32
 
     options = get_options(argv)
     dev = select_device(options, device)
+    use_float32()
     options.cell_feat_dim -= options.feat_reduce[0]
     options.net_feat_dim -= options.feat_reduce[1]
     designs = get_design_list(options.data_save_path, "test")

@@ -14,8 +14,10 @@ are not ported yet (``options.py`` raises for their flags).
 Usage:
     python -m prtp_tpu_torch.train --data_save_path ... --model_saving_dir ...
 
-``main(argv, device="cuda")`` runs on the card (``--gpu`` picks which);
-tests pass ``device="cpu"``. Without a card it raises.
+``main(argv, device="cuda")`` runs on the card (``--gpu`` picks which)
+in float32: it turns TF32 off for the process (:func:`use_float32`), as
+the JAX reference computes. Tests pass ``device="cpu"``. Without a card
+it raises.
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ def validate(options, val_designs, cache_val, model, device):
             continue
         n_cases += 1
         pids, mask = pad_batch(ids, max(pack.num_paths, len(ids), 1), device)
-        _preds, mets = evaluate(model, pack, pids, mask)
+        _preds, mets = evaluate(model, pack, pids, mask, options.task)
         loss, r2, tp, fp, tn, fn = _read(mets)
         acc, recall, precision, f1 = M.classification_metrics(tp, fp, tn, fn)
         for k, v in zip(("loss", "r2", "acc", "recall", "precision", "f1"),
@@ -130,7 +132,8 @@ def train(options, seed, device="cuda"):
             train_designs[0],
             lambda: _load("train", options, train_designs[0]))
         model = model_from_options(options, first["cell_feat"].shape[1],
-                                   first["net_feat"].shape[1])
+                                   first["net_feat"].shape[1],
+                                   first["cnn_input"].shape[0])
 
         config = {k: v for k, v in vars(options).items()}
         if ckpt.checkpoint_exists(options.model_saving_dir):
@@ -202,7 +205,7 @@ def train(options, seed, device="cuda"):
                                    max(options.max_steps - total_steps, 1))
                     chunk = batches[bidx: bidx + take]
                     losses, r2s, tps, fps, tns, fns = _read(
-                        train_steps(state, pack, chunk))
+                        train_steps(state, pack, chunk, options.task))
                     for j in range(len(chunk)):
                         _acc, recall, _prec, f1 = M.classification_metrics(
                             tps[j], fps[j], tns[j], fns[j])
@@ -218,8 +221,13 @@ def train(options, seed, device="cuda"):
                     if should_validate:
                         _res, val_f1, val_r2 = validate(
                             options, val_designs, cache_val, state.model, dev)
-                        # --task reg (options.py raises for cls)
-                        if val_r2 > max_r2:
+                        if options.task == "cls":
+                            improved = val_f1 > max_f1
+                        elif options.task == "reg":
+                            improved = val_r2 > max_r2
+                        else:
+                            raise AssertionError(f"bad task {options.task}")
+                        if improved:
                             max_f1, max_r2 = val_f1, val_r2
                             state.best_f1, state.best_r2 = max_f1, max_r2
                             print("Saving model.... ",
@@ -255,6 +263,14 @@ def select_device(options, device="cuda") -> torch.device:
     return torch.device("cuda", index)
 
 
+def use_float32() -> None:
+    """Compute float32 matmuls and cuDNN convolutions in float32, not
+    TF32 (PyTorch's default for convolutions): the precision that the
+    port's parity checks hold. Process-wide, so only the CLIs call it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def _profiled_train(options, seed, dev):
     """``train`` under torch.profiler; the trace goes to
     ``<profile_dir>/trace.json``."""
@@ -275,6 +291,7 @@ def main(argv=None, device="cuda"):
     :class:`~prtp_tpu_torch.trainer.TrainState`."""
     options = get_options(argv)
     dev = select_device(options, device)
+    use_float32()
     seed = options.seed
     random.seed(seed)
     np.random.seed(seed)

@@ -1,12 +1,15 @@
 """Training engine: the train step over packed designs.
 
-Port of ``prtp_tpu/trainer.py`` for the float32 regression task. One
-:func:`train_step` is the full-graph level walk, the CNN and the fusion
-head forward, the masked MSE on the endpoint batch, the backward (the
-walk's through its hand-written :class:`~prtp_tpu_torch.ops.fused_gnn.ExactWalk`)
-and one Adam update. PyTorch runs eagerly, so where JAX jits a step and
-scans several, the port calls the step in a Python loop
-(:func:`train_steps`).
+Port of ``prtp_tpu/trainer.py`` in float32, for the regression and the
+classification task. One :func:`train_step` is the full-graph level
+walk, the CNN and the fusion head forward, the task's masked loss on the
+endpoint batch, the backward (the walk's through its hand-written
+:class:`~prtp_tpu_torch.ops.fused_gnn.ExactWalk`) and one Adam update.
+PyTorch runs eagerly, so where JAX jits a step and scans several, the
+port calls the step in a Python loop (:func:`train_steps`). The U-Net's
+BatchNorm running averages are module buffers that a step's forward
+updates, as JAX's step returns its ``batch_stats``; the optimizer holds
+parameters only.
 
 Batches are fixed-size padded id vectors with a validity mask, as in
 JAX. Entry points take ``device=`` and default to ``"cuda"``; without a
@@ -117,51 +120,62 @@ def make_optimizer(learning_rate: float, weight_decay: float = 0.0):
 
 
 def init_state(model: nn.Module, tx, device="cuda") -> TrainState:
-    """Move ``model`` to ``device`` and build its optimizer with the
-    factory ``tx`` (:func:`make_optimizer`)."""
+    """Move ``model`` to ``device`` (parameters and buffers) and build its
+    optimizer over the parameters with the factory ``tx``
+    (:func:`make_optimizer`)."""
     model.to(resolve_device(device))
     return TrainState(model=model, optimizer=tx(list(model.parameters())))
 
 
-def task_loss_and_metrics(preds, design, path_ids, mask):
-    """Port of ``_task_loss_and_metrics`` for ``task="reg"``: the masked
-    MSE (differentiable) and the metrics ``loss, r2, tp, fp, tn, fn`` as
-    0-d tensors, each computed without a graph."""
+def task_loss_and_metrics(task, preds, design, path_ids, mask):
+    """Port of ``_task_loss_and_metrics``: the task's loss
+    (differentiable) and the metrics ``loss, r2, tp, fp, tn, fn`` as 0-d
+    tensors, computed from the detached predictions. ``task="cls"``: the
+    cross-entropy against the endpoints' critical labels, ``argmax``
+    labels, r2 0. Any other task is regression: the masked MSE against
+    the arrival times, labels where the predicted slack is negative."""
     endpoints = design.path_endpoint[path_ids].long()
     labels = design.is_critical[endpoints]
-    arrival = design.arrival_time[endpoints]
-    required = design.required_time[endpoints]
-    loss = M.mse_loss(preds, arrival, mask)
-    with torch.no_grad():
-        p = preds.detach()
-        tp, fp, tn, fn = M.confusion_counts(M.judge_critical(p, required),
-                                            labels, mask)
-        mets = {"loss": loss.detach(), "r2": M.r2_score(p, arrival, mask),
-                "tp": tp, "fp": fp, "tn": tn, "fn": fn}
+    p = preds.detach()
+    if task == "cls":
+        loss = M.cross_entropy_loss(preds, labels, mask)
+        r2, pred_labels = p.new_zeros(()), p.argmax(dim=-1)
+    else:
+        arrival = design.arrival_time[endpoints]
+        loss = M.mse_loss(preds, arrival, mask)
+        r2 = M.r2_score(p, arrival, mask)
+        pred_labels = M.judge_critical(p, design.required_time[endpoints])
+    tp, fp, tn, fn = M.confusion_counts(pred_labels, labels, mask)
+    mets = {"loss": loss.detach(), "r2": r2, "tp": tp, "fp": fp, "tn": tn,
+            "fn": fn}
     return loss, mets
 
 
-def train_step(state: TrainState, design, path_ids, mask) -> dict:
-    """One optimizer step on a batch: forward, masked MSE, backward,
-    update. Returns the step's metrics (0-d tensors on the device; reading
-    them waits for the device). The parameters' ``.grad`` keep this
-    step's gradients until the next step."""
+def train_step(state: TrainState, design, path_ids, mask,
+               task: str = "reg") -> dict:
+    """One optimizer step on a batch: forward (BatchNorm in train mode:
+    batch statistics, running averages updated), the task's loss,
+    backward, update. Returns the step's metrics (0-d tensors on the
+    device; reading them waits for the device). The parameters' ``.grad``
+    keep this step's gradients until the next step."""
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad()
     preds = model(design, path_ids)
-    loss, mets = task_loss_and_metrics(preds, design, path_ids, mask)
+    loss, mets = task_loss_and_metrics(task, preds, design, path_ids, mask)
     loss.backward()
     opt.step()
     state.step += 1
     return mets
 
 
-def train_steps(state: TrainState, design, batches) -> dict:
+def train_steps(state: TrainState, design, batches,
+                task: str = "reg") -> dict:
     """One step per ``(path_ids, mask)`` of ``batches``, in order: the
     eager counterpart of JAX's ``make_scan_train_step``. Returns each
     metric stacked over the steps, shape ``(n_steps,)``."""
-    mets = [train_step(state, design, ids, mask) for ids, mask in batches]
+    mets = [train_step(state, design, ids, mask, task)
+            for ids, mask in batches]
     if not mets:
         raise ValueError("train_steps got no batches")
     return {k: torch.stack([m[k] for m in mets]) for k in mets[0]}

@@ -1,9 +1,10 @@
 """Evaluation metrics on tensors.
 
 Port of ``prtp_tpu/utils/metrics.py`` (the reference's torchmetrics
-R2Score and confusion-matrix arithmetic). Each takes an optional
-validity ``mask`` so padded batch entries do not contribute, and returns
-a 0-d tensor (``classification_metrics`` works on host floats).
+R2Score, confusion-matrix arithmetic and the two task losses). Each
+takes an optional validity ``mask`` so padded batch entries do not
+contribute, and returns a 0-d tensor (``classification_metrics`` works
+on host floats).
 """
 
 from __future__ import annotations
@@ -43,6 +44,22 @@ def mse_loss(pred, target, mask=None):
     mask = _flat_mask(target, mask)
     n = mask.sum().clamp_min(1.0)
     return (((pred - target) ** 2) * mask).sum() / n
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Masked softmax cross-entropy (the reference's cls loss): the mean
+    over valid entries of the negative max-shifted log-softmax at the
+    label. ``take_along_dim`` broadcasts as JAX's ``take_along_axis``
+    does, so a 1-label head runs here where it runs there."""
+    logits = logits.reshape(-1, logits.shape[-1])
+    top = logits.amax(dim=-1, keepdim=True)
+    logp = (logits - torch.log(torch.exp(logits - top).sum(-1, keepdim=True))
+            - top)
+    nll = -torch.take_along_dim(logp, labels.reshape(-1, 1).long(),
+                                dim=-1).reshape(-1)
+    mask = _flat_mask(nll, mask)
+    n = mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / n
 
 
 def judge_critical(pred_arrival, required):

@@ -48,9 +48,7 @@ def test_options_match_jax_keys_and_defaults():
 @pytest.mark.parametrize("flags,item", [
     (["--dp"], "item 5"), (["--mesh_shape", "2"], "item 5"),
     (["--merge_designs"], "item 4"),
-    (["--compute_dtype", "bfloat16"], "item 3"), (["--attn"], "item 3"),
-    (["--unet"], "item 3"), (["--task", "cls"], "item 3"),
-    (["--nlabels", "2"], "item 3")])
+    (["--compute_dtype", "bfloat16"], "item 3"), (["--attn"], "item 3")])
 def test_not_ported_flags_raise(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
         get_options(flags)
@@ -228,6 +226,31 @@ def test_resume_keeps_the_saved_learning_rate_unless_changed(flow, tmp_path,
     assert state.optimizer.lr == (0.5 if change_lr else 1e-3)
 
 
+def test_clis_turn_tf32_off(flow, tmp_path):
+    """train.main and test.main compute in float32, whatever the caller's
+    TF32 settings: both flags are False after each CLI ran with them True
+    (cuDNN's is True by PyTorch's default)."""
+    mdl = str(tmp_path / "mdl")
+    shutil.copytree(flow["mdl"], mdl)
+    args = [a if a != flow["mdl"] else mdl for a in flow["args"]]
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for run in (
+                lambda: train_mod.main(args + ["--max_steps", "1"],
+                                       device="cpu"),
+                lambda: test_mod.main(["--data_save_path", flow["data"],
+                                       "--model_saving_dir", mdl] + MAP_ARGS,
+                                      device="cpu")):
+            for f in flags:
+                f.allow_tf32 = True
+            run()
+            assert [f.allow_tf32 for f in flags] == [False, False]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
 # ---- the checkpoint format ----
 
 def test_jax_checkpoint_alone_raises(flow, tmp_path):
@@ -301,6 +324,44 @@ def test_checkpoint_round_trip_is_bit_equal(tmp_path):
                            fresh.model.state_dict().values()):
         assert torch.equal(a, b), key
     assert torch.equal(fresh.optimizer.mu, state.optimizer.mu)
+
+
+def test_checkpoint_round_trip_keeps_batchnorm_averages(tmp_path):
+    """The U-Net's BatchNorm running averages are buffers, outside
+    FlatAdam: a step moves them, ``model.pt`` carries them, a load into a
+    fresh state restores them bit-equal, and one more step on each gives
+    bit-equal parameters and averages."""
+    parsed = make_random_design([6, 8, 6, 8, 6], cell_feat_dim=10,
+                                map_size=8, cnn_channels=3, cnn_hw=16,
+                                mask_nnz_per_path=4, seed=3)
+    design = pack_design(parsed, map_size=8, device="cpu")
+    ids, mask = pad_batch(np.arange(design.num_paths), design.num_paths,
+                          "cpu")
+
+    def unet_state(seed):
+        model = PathModel(10, 3, out_dim=8, hidden_dim=8, cnn_outdim=4,
+                          map_size=8, global_dim=4, unet=True,
+                          cnn_channels=3,
+                          generator=torch.Generator().manual_seed(seed))
+        return init_state(model, make_optimizer(1e-3), device="cpu")
+
+    state = unet_state(1)
+    train_step(state, design, ids, mask)
+    avgs = {k: v for k, v in state.model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+    assert len(avgs) == 28
+    assert not torch.equal(avgs["cnn.DoubleConv_0.BatchNorm_0.running_mean"],
+                           torch.zeros(16))
+    ckpt.save_checkpoint(str(tmp_path), state, {})
+    fresh, _c = ckpt.load_checkpoint(str(tmp_path), unet_state(2))
+    for key, val in avgs.items():
+        assert torch.equal(fresh.model.state_dict()[key], val), key
+    assert _inside_flat(fresh)
+    train_step(state, design, ids, mask)
+    train_step(fresh, design, ids, mask)
+    for (key, a), b in zip(state.model.state_dict().items(),
+                           fresh.model.state_dict().values()):
+        assert torch.equal(a, b), key
 
 
 def test_flat_adam_refuses_moments_of_another_model():

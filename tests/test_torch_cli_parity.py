@@ -3,9 +3,12 @@ synthetic raw designs are the same files byte for byte, (b) generate
 writes the same ``.npz`` arrays, (c) from one initial state, converted
 from JAX's, both train CLIs print the same per-batch and validation
 values and both test CLIs the same ``predict.txt`` row and
-``predict_critical`` lists.
+``predict_critical`` lists: with the default flags, for the
+classification task, with the U-Net (on a 3-channel corpus whose raster
+side is 2 x ``--map_size``) and with a set of non-default flags.
 """
 
+import functools
 import json
 import os
 import re
@@ -37,6 +40,16 @@ from test_torch_cli import MAP_ARGS
 
 CORPUS_ARGS = ["--designs", "syn_a", "syn_b", "--num_paths", "6",
                "--depth", "4", "--cnn_hw", "64"]
+# the U-Net halves its raster: a 32 px raster for MAP_ARGS' map of 16
+UNET_CORPUS_ARGS = CORPUS_ARGS[:-1] + ["32", "--cnn_channels", "3"]
+# the flag sets of the CLI runs, and the corpus each runs on
+CLI_FLAGS = {
+    "default": ([], "corpus"),
+    "cls": (["--task", "cls", "--nlabels", "2"], "corpus"),
+    "unet": (["--unet"], "unet"),
+    "flags": (["--norm", "--pooling", "avg", "--droplast", "--os_rate", "2",
+               "--weight_decay", "1e-4"], "corpus"),
+}
 BIG_KW = dict(num_paths=8, stages=4, grps=2)
 # printed values: 3 decimals, and float32 sums taken in another order
 RTOL, ATOL = 1e-4, 2e-3
@@ -111,17 +124,31 @@ def test_generate_arrays_are_equal(datasets, kind):
 
 
 @pytest.fixture(scope="module")
-def cli_runs(datasets, tmp_path_factory):
-    """JAX's init_state saved by JAX, converted and saved by the port;
-    then both train CLIs resume on ONE data directory (the first writes
-    the validation split files, the second reads them) and both test
-    CLIs evaluate."""
-    data = datasets["port", "corpus"]
+def unet_data(tmp_path_factory):
+    """The port's synthetic and generate on a 3-channel corpus."""
+    raw = str(tmp_path_factory.mktemp("unet_raw"))
+    data = str(tmp_path_factory.mktemp("unet_data"))
+    synthetic.main(["--out", raw] + UNET_CORPUS_ARGS)
+    generate.main(["--rawdata_path", raw, "--data_save_path", data,
+                   "--map_size", "16"])
+    return data
+
+
+@pytest.fixture(scope="module", params=list(CLI_FLAGS))
+def cli_runs(request, tmp_path_factory):
+    """For one flag set of CLI_FLAGS: JAX's init_state saved by JAX,
+    converted (running averages too) and saved by the port; then both
+    train CLIs resume on ONE data directory (the first writes the
+    validation split files, the second reads them) and both test CLIs
+    evaluate. Returns the model directories and the flag set's name."""
+    flags, corpus = CLI_FLAGS[request.param]
+    data = (request.getfixturevalue("datasets")["port", "corpus"]
+            if corpus == "corpus" else request.getfixturevalue("unet_data"))
     dirs = {"jax": str(tmp_path_factory.mktemp("jax_mdl")),
             "port": str(tmp_path_factory.mktemp("port_mdl"))}
     args = (["--data_save_path", data, "--num_epoch", "1", "--max_steps",
              "3", "--val_interval", "2", "--steps_per_dispatch", "1"]
-            + MAP_ARGS)
+            + MAP_ARGS + flags)
 
     jopts = jax_get_options(args + ["--model_saving_dir", dirs["jax"]])
     jopts.cell_feat_dim -= jopts.feat_reduce[0]
@@ -139,19 +166,21 @@ def cli_runs(datasets, tmp_path_factory):
     popts.cell_feat_dim -= popts.feat_reduce[0]
     popts.net_feat_dim -= popts.feat_reduce[1]
     model = model_from_options(popts, parsed["cell_feat"].shape[1],
-                               parsed["net_feat"].shape[1])
-    model.load_state_dict(params_from_flax(
-        jax.tree_util.tree_map(np.asarray, jstate.params)))
+                               parsed["net_feat"].shape[1],
+                               parsed["cnn_input"].shape[0])
+    to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
+    model.load_state_dict(params_from_flax(to_np(jstate.params),
+                                           to_np(jstate.batch_stats)))
     state = init_state(model, make_optimizer(popts.learning_rate), "cpu")
     ckpt.save_checkpoint(dirs["port"], state, dict(vars(popts)))
 
     jax_train.main(args + ["--model_saving_dir", dirs["jax"]])
     train_mod.main(args + ["--model_saving_dir", dirs["port"]], device="cpu")
-    test_args = ["--data_save_path", data] + MAP_ARGS
+    test_args = ["--data_save_path", data] + MAP_ARGS + flags
     jax_test.main(test_args + ["--model_saving_dir", dirs["jax"]])
     test_mod.main(test_args + ["--model_saving_dir", dirs["port"]],
                   device="cpu")
-    return dirs
+    return dirs, request.param
 
 
 def _train_lines(mdl):
@@ -170,7 +199,8 @@ def _train_lines(mdl):
 
 
 def test_train_cli_prints_jax_values(cli_runs):
-    want, got = _train_lines(cli_runs["jax"]), _train_lines(cli_runs["port"])
+    dirs = cli_runs[0]
+    want, got = _train_lines(dirs["jax"]), _train_lines(dirs["port"])
     assert [s for s, _ in got] == [s for s, _ in want]
     assert sum(s.startswith("e0,") for s, _ in want) == 3
     assert sum(s == "validate:" for s, _ in want) >= 2
@@ -180,7 +210,7 @@ def test_train_cli_prints_jax_values(cli_runs):
 
 def test_train_cli_saves_jax_config(cli_runs):
     configs = {}
-    for name, mdl in cli_runs.items():
+    for name, mdl in cli_runs[0].items():
         with open(os.path.join(mdl, "config.json")) as f:
             configs[name] = json.load(f)
         assert configs[name].pop("model_saving_dir") == mdl
@@ -189,19 +219,26 @@ def test_train_cli_saves_jax_config(cli_runs):
 
 
 def test_test_cli_writes_jax_predictions(cli_runs):
+    dirs, run = cli_runs
     rows = {}
-    for name, mdl in cli_runs.items():
+    for name, mdl in dirs.items():
         with open(os.path.join(mdl, "predict.txt")) as f:
             rows[name] = [float(x) for x in f.read().split()]
     assert len(rows["jax"]) == 6
     np.testing.assert_allclose(rows["port"], rows["jax"], rtol=RTOL,
                                atol=ATOL)
+    if run == "cls":  # no regression outputs, in either package
+        assert rows["jax"][1] == rows["port"][1] == 0.0
+        for mdl in dirs.values():
+            assert not os.path.exists(os.path.join(mdl, "predict_critical"))
+            assert not os.path.exists(os.path.join(mdl, "visual"))
+        return
     crit = {name: sorted(os.listdir(os.path.join(mdl, "predict_critical")))
-            for name, mdl in cli_runs.items()}
+            for name, mdl in dirs.items()}
     assert crit["port"] == crit["jax"] == ["syn_a.json", "syn_b.json"]
     for name in crit["jax"]:
         lists = []
-        for mdl in cli_runs.values():
+        for mdl in dirs.values():
             with open(os.path.join(mdl, "predict_critical", name)) as f:
                 lists.append(json.load(f))
         assert lists[0] == lists[1], name

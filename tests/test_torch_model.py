@@ -137,7 +137,6 @@ def test_ablations_match_jax(use_gnn, use_cnn):
 
 @pytest.mark.parametrize("kw,err", [
     (dict(use_gnn=False, use_cnn=False), ValueError),
-    (dict(unet=True), NotImplementedError),
     (dict(flag_attn=True), NotImplementedError),
     (dict(compute_dtype=torch.bfloat16), NotImplementedError),
 ])

@@ -105,28 +105,73 @@ def golden_train():
     return parsed, variables, exact, batches[:STEPS]
 
 
-def _jax_steps(golden_train, flat):
-    _parsed, variables, exact, batches = golden_train
-    model = JaxPathModel(**MODEL_KW)
+def jax_steps(model_kw, variables, exact, batches, flat=True, task="reg"):
+    """JAX's ``make_train_step`` over ``batches`` from ``variables``:
+    each step's metrics (numpy), the first step's gradients and the
+    parameters after the last step (port names and layouts)."""
+    model = JaxPathModel(**model_kw)
     tx = jtrainer.make_optimizer(LR, flat=flat)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     state = jtrainer.TrainState(
         params=params, batch_stats={}, opt_state=tx.init(params),
         step=jnp.zeros((), jnp.int32), best_f1=jnp.zeros(()),
         best_r2=jnp.zeros(()))
-    step = jtrainer.make_train_step(model, tx, donate=False)
-    losses, first_grads = [], None
+    step = jtrainer.make_train_step(model, tx, task, donate=False)
+    mets, first_grads = [], None
     for i, (ids, mask) in enumerate(batches):
         if i == 0:
             def loss_fn(p):
                 preds = model.apply({"params": p}, exact, jnp.asarray(ids))
                 return jtrainer._task_loss_and_metrics(
-                    "reg", preds, exact, jnp.asarray(ids), jnp.asarray(mask))[0]
+                    task, preds, exact, jnp.asarray(ids), jnp.asarray(mask))[0]
             first_grads = jax.jit(jax.grad(loss_fn))(state.params)
-        state, mets = step(state, exact, jnp.asarray(ids), jnp.asarray(mask))
-        losses.append(float(mets["loss"]))
-    return (np.asarray(losses), params_from_flax(first_grads),
+        state, m = step(state, exact, jnp.asarray(ids), jnp.asarray(mask))
+        mets.append({k: float(v) for k, v in m.items()})
+    return (mets, params_from_flax(first_grads),
             params_from_flax(jax.tree_util.tree_map(np.asarray, state.params)))
+
+
+def assert_steps_match_jax(parsed, model_kw, variables, exact, batches,
+                           flat=True, task="reg", param_atol=2e-5):
+    """The port's steps (``train_step``, then ``train_steps``) from the
+    converted ``variables`` against :func:`jax_steps`, with the bounds of
+    :func:`test_train_steps_match_jax_make_train_step` (the final
+    parameters' atol ``param_atol``). Returns the two runs' per-step
+    metrics (port's as host floats, JAX's)."""
+    want_mets, want_grads, want_params = jax_steps(model_kw, variables,
+                                                   exact, batches, flat, task)
+    model = PathModel(parsed["cell_feat"].shape[1],
+                      parsed["net_feat"].shape[1], **model_kw)
+    model.load_state_dict(params_from_flax(variables["params"]))
+    state = trainer.init_state(model, trainer.make_optimizer(LR),
+                               device="cpu")
+    assert isinstance(state.optimizer, trainer.FlatAdam)
+    design = pack_design(parsed, map_size=model_kw["map_size"], device="cpu")
+    port_batches = [(torch.from_numpy(i.astype(np.int64)),
+                     torch.from_numpy(m.copy())) for i, m in batches]
+    first = trainer.train_step(state, design, *port_batches[0], task=task)
+    for key, p in model.named_parameters():
+        g, want = p.grad.numpy(), want_grads[key].numpy()
+        np.testing.assert_allclose(g, want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=key)
+    mets = trainer.train_steps(state, design, port_batches[1:], task)
+    assert state.step == len(batches)
+    assert set(mets) == {"loss", "r2", "tp", "fp", "tn", "fn"}
+    assert mets["loss"].shape == (len(batches) - 1,)
+    got_mets = [{k: float(v) for k, v in first.items()}] + [
+        {k: float(v[i]) for k, v in mets.items()}
+        for i in range(len(batches) - 1)]
+    np.testing.assert_allclose([m["loss"] for m in got_mets],
+                               [m["loss"] for m in want_mets], rtol=1e-5)
+    for key, p in model.state_dict().items():
+        got, want = p.numpy(), want_params[key].numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=2 * LR * len(batches), err_msg=key)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=param_atol,
+                                   err_msg=key)
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
+    return got_mets, want_mets
 
 
 @pytest.mark.parametrize("flat", [True, False])
@@ -142,36 +187,22 @@ def test_train_steps_match_jax_make_train_step(golden_train, flat):
     gradient, so a gradient whose sign rounding could flip would move it
     by up to 2 x LR: the final parameters also hold every weight within
     2 x LR x STEPS, and that bound is only a backstop."""
-    parsed, variables, _exact, batches = golden_train
-    want_losses, want_grads, want_params = _jax_steps(golden_train, flat)
-    model = PathModel(parsed["cell_feat"].shape[1],
-                      parsed["net_feat"].shape[1], **MODEL_KW)
-    model.load_state_dict(params_from_flax(variables["params"]))
-    state = trainer.init_state(model, trainer.make_optimizer(LR),
-                               device="cpu")
-    assert isinstance(state.optimizer, trainer.FlatAdam)
-    design = pack_design(parsed, map_size=MAP_SIZE, device="cpu")
-    port_batches = [(torch.from_numpy(i.astype(np.int64)),
-                     torch.from_numpy(m.copy())) for i, m in batches]
-    first = trainer.train_step(state, design, *port_batches[0])
-    for key, p in model.named_parameters():
-        g, want = p.grad.numpy(), want_grads[key].numpy()
-        np.testing.assert_allclose(g, want, rtol=1e-4,
-                                   atol=1e-5 * np.abs(want).max(),
-                                   err_msg=key)
-    mets = trainer.train_steps(state, design, port_batches[1:])
-    assert state.step == STEPS
-    losses = np.concatenate([[float(first["loss"])], mets["loss"].numpy()])
-    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
-    assert set(mets) == {"loss", "r2", "tp", "fp", "tn", "fn"}
-    assert mets["loss"].shape == (STEPS - 1,)
-    for key, p in model.state_dict().items():
-        got, want = p.numpy(), want_params[key].numpy()
-        np.testing.assert_allclose(got, want, rtol=0, atol=2 * LR * STEPS,
-                                   err_msg=key)
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5,
-                                   err_msg=key)
-    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
+    parsed, variables, exact, batches = golden_train
+    assert_steps_match_jax(parsed, MODEL_KW, variables, exact, batches, flat)
+
+
+@pytest.mark.parametrize("ablation", ["no_cnn", "no_gnn"])
+def test_ablation_train_steps_match_jax(golden_train, ablation):
+    """The recorded configs ``reg_gnn_only`` (``--no_cnn``) and
+    ``reg_cnn_only`` (``--no_gnn``): STEPS steps from a converted init of
+    the ablated model, with the bounds of the full model's test."""
+    parsed, _v, exact, batches = golden_train
+    kw = dict(MODEL_KW, use_cnn=ablation != "no_cnn",
+              use_gnn=ablation != "no_gnn")
+    padded = jax_pack_design(parsed, map_size=MAP_SIZE, align=8)
+    variables = jax_params(JaxPathModel(**kw), padded,
+                           jnp.arange(padded.num_paths, dtype=jnp.int32))
+    assert_steps_match_jax(parsed, kw, variables, exact, batches)
 
 
 def test_flat_adam_keeps_parameters_and_grads_as_views():
