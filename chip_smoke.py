@@ -16,15 +16,19 @@ Phases, each failing loudly (nonzero exit) on any error:
    to an earlier cell level (prior rows). On each, hold every kernel
    against its plain PyTorch version on the card at every shape the walk
    and its backward give it (an all-invalid mailbox row added), and
-   ``flat_adam`` at the full model's parameter count (step t = 2),
-   timing kernel, plain version, and the one PyTorch call that computes
-   the same function where there is one. Then each kernel's per-call
-   floor (a one-row call, same timer), the kernels' other code paths at
-   edge shapes, the programmatic-launch hazard check (the two backward
-   kernels launched right after a PyTorch kernel, and right after a
-   kernel that lets them start at once, that writes their NaN-filled
-   inputs must match their plain versions), and the row gather at the
-   TPU probe's shapes (160,000 x 128 bf16, 129,202 rows).
+   ``flat_adam`` at the full model's parameter count (step t = 2), and
+   the ``--attn`` kernels (``attn_sum``, ``attn_bwd``) at the headline's
+   shapes with 1 and 4 heads, timing kernel, plain version, and the one
+   PyTorch call that computes the same function where there is one
+   (each time the median of 10 calls, cold L2). Then each kernel's
+   per-call floor (a one-row call, same timer), the kernels' other code
+   paths at edge shapes, the programmatic-launch hazard check (the two
+   backward kernels launched right after a PyTorch kernel, and right
+   after a kernel that lets them start at once, that writes their
+   NaN-filled inputs must match their plain versions; the merged
+   scatter right after ``attn_bwd`` must equal its result with a
+   synchronize between), and the row gather at the TPU probe's shapes
+   (160,000 x 128 bf16, 129,202 rows).
 4. The slice: the full-width float32 regression fusion model, random
    weights from a seed, answers three evaluation requests on the
    headline and one on the prior-row design through ``evaluate_design``;
@@ -49,7 +53,13 @@ Phases, each failing loudly (nonzero exit) on any error:
    A LayoutNet max-pool window whose winner differs between the card
    and the CPU (a near tie that rounding resolves another way; at most
    16 a pool, counted) moves the weight gradient of each conv above it
-   by more than rounding: those convs are held to 1e-2 x max |g|.
+   by more than rounding: those convs are held to 1e-2 x max |g|. An
+   element of Conv_2's or Conv_3's output whose sign differs (a value
+   within rounding of 0; at most 16 a conv, the outputs within 1e-4 of
+   their max) passes its gradient through the ReLU (leaky ReLU) on one
+   and not the other: the CPU's first step takes the card's branch there
+   (the card's value, the gradient straight through), and every leaf is
+   held to 1e-3.
 
 7. The CLIs, as a user runs them, through the port, each run with TF32
    turned on just before it (PyTorch's default for cuDNN), so that the
@@ -68,8 +78,9 @@ Phases, each failing loudly (nonzero exit) on any error:
    across and within designs, a third of the paths critical), the second
    with 3 x 256 x 256 rasters: the train CLI (3 epochs of a step and a
    validation a design) and the test CLI on the card and the CPU from its
-   checkpoint for the default regression, ``--task cls --nlabels 2``
-   and ``--unet``: predictions, loss and R2 at 1e-4, the per-level
+   checkpoint for the default regression, ``--task cls --nlabels 2``,
+   ``--unet`` and ``--attn --num_heads 2``: predictions, loss and R2 at
+   1e-4, the per-level
    R2/MAPE lines at 1e-3 and the confusion counts equal (labels may
    differ only at near ties, counted); ``cls`` must save the best-F1
    model and write no ``visual/`` or ``predict_critical/``. Launch
@@ -80,10 +91,12 @@ Phases, each failing loudly (nonzero exit) on any error:
    steps, time a step as launched and validations, and the test CLI's
    ``runtime``, each with the card's name and power limit.
 8. The variants at the default model's full width, TF32 off: ``cls``
-   (2 logits, cross-entropy) on the headline design, and the U-Net on
-   the headline graph with a 3 x 256 x 256 raster (map 128). For each,
-   3 evaluation requests and phase 6's epoch (5 steps of 128, numpy seed
-   0), card against CPU with phase 4's and 6's launch counts and
+   (2 logits, cross-entropy) on the headline design, the U-Net on the
+   headline graph with a 3 x 256 x 256 raster (map 128), and ``--attn``
+   on the headline design with one head (``reg_fusion_attn``) and with
+   four (its first 2 steps only, untimed). For each, 3 evaluation
+   requests and phase 6's epoch (5 steps of 128, numpy seed 0), card
+   against CPU with phase 4's and 6's launch counts and
    tolerances (``cls``: argmax labels equal but at near-tie logits,
    counted). Each of the card's steps starts from the CPU's state before
    it: Adam's update of a near-zero gradient element follows its sign,
@@ -115,6 +128,7 @@ import io
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -133,6 +147,10 @@ FLIP_TOL, MAX_FLIPS = 1e-2, 16
 # each max pool of a layout CNN, and the parameter prefixes above it
 LAYOUTNET_POOLS = {"Conv_0": ("cnn.Conv_0.",),
                    "Conv_1": ("cnn.Conv_0.", "cnn.Conv_1.")}
+# LayoutNet's convs followed by an activation that branches on the sign
+# (ReLU, leaky ReLU), and how far the card's outputs may lie from the
+# cpu's (x their largest |value|)
+SIGN_CONVS, PRE_RTOL = ("Conv_2", "Conv_3"), 1e-4
 UNET_POOLS = {"Down_0": ("cnn.DoubleConv_0.",),
               "Down_1": ("cnn.DoubleConv_0.", "cnn.Down_0."),
               "Down_2": ("cnn.DoubleConv_0.", "cnn.Down_0.", "cnn.Down_1."),
@@ -150,6 +168,7 @@ CORPUS_EPOCHS = 3  # a step and a validation a design an epoch
 # phases 7 and 8: the U-Net's raster (its map is the side halved: 128)
 UNET_CHANNELS, UNET_HW = 3, 256
 STAT_RTOL = 1e-3  # phase 8: U-Net running averages, card vs cpu
+ATTN4_STEPS = 2  # phase 8: the 4-head model's paired steps
 HAZARD_REPS = 20  # phase 3: launches right after a writer of the inputs
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
 # phase 3's hazard check: a writer that lets a programmatic dependent
@@ -196,7 +215,18 @@ KERNEL_INFO = {
                         "prtp_tpu/ops/fused_gnn.py:312", "headline"),
     "flat_adam": ("prtp_tpu_torch/csrc/flat_adam.cu",
                   "prtp_tpu/trainer.py:81", "headline"),
+    "attn_sum": ("prtp_tpu_torch/csrc/attn_sum.cu",
+                 "prtp_tpu/ops/fused_gnn.py:90", "headline"),
+    "attn_bwd": ("prtp_tpu_torch/csrc/attn_bwd.cu",
+                 "prtp_tpu/ops/fused_gnn.py:111", "headline"),
 }
+# the kernels' names as torch.profiler shows them, where not <name>_kernel
+KERNEL_SYMBOLS = {"attn_bwd": ("attn_bwd_rows_kernel",
+                               "attn_dw_reduce_kernel")}
+# the cell reduce's kernels, without and with --attn
+CELL_REDUCE = {False: ("softmax_sum", "softmax_sum_bwd"),
+               True: ("attn_sum", "attn_bwd")}
+ATTN_HEADS = (1, 4)  # phase 3: the recorded config's head count, and 4
 
 
 def log(msg=""):
@@ -212,12 +242,12 @@ def card_line() -> str:
 
 
 class Timer:
-    """Device time of one call with a cold L2: before each call a 128 MB
-    buffer is overwritten (the card's L2 holds 50 MB), then a spin kernel
-    holds the stream for about ``queue_ms`` while the host enqueues the
-    call, so the CUDA events around it bracket device work only, not the
-    host's launch overhead. ``queue_ms=0`` times the call as launched,
-    host gaps included."""
+    """Device time of one call with a cold L2, the median of REPS calls:
+    before each call a 128 MB buffer is overwritten (the card's L2 holds
+    50 MB), then a spin kernel holds the stream for about ``queue_ms``
+    while the host enqueues the call, so the CUDA events around it
+    bracket device work only, not the host's launch overhead.
+    ``queue_ms=0`` times the call as launched, host gaps included."""
 
     def __init__(self, torch, device):
         self.torch = torch
@@ -240,7 +270,7 @@ class Timer:
             end.record()
             pairs.append((start, end))
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in pairs) / REPS
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def bound(nbytes: float, ops: float):
@@ -301,36 +331,50 @@ class KernelRecord:
                 "ms_less_floor": self.ms - self.calls * self.floor_ms}
 
 
-def launches_per_forward(graph) -> dict:
+def launches_per_forward(graph, attn=False) -> dict:
     """Each kernel's launches in one walk of ``graph``: the prior-row
-    gather only for pairs with prior rows, the cell reduce for pairs
-    k > 0, the net mean for every pair."""
+    gather only for pairs with prior rows, the cell reduce
+    (``softmax_sum``, or ``attn_sum`` with ``--attn``; the other 0 times)
+    for pairs k > 0, the net mean for every pair."""
+    reduce, other = CELL_REDUCE[attn][0], CELL_REDUCE[not attn][0]
     return {
         "gather_rows": sum(
             1 for k in range(graph.num_pairs)
             if graph.gather_rows[k].numel() > graph.cell_mail[k].numel()),
-        "softmax_sum": graph.num_pairs - 1,
+        reduce: graph.num_pairs - 1,
+        other: 0,
         "local_mean": graph.num_pairs,
     }
 
 
-def launches_per_step(graph) -> dict:
+def launches_per_step(graph, attn=False) -> dict:
     """Each kernel's launches in one train step on ``graph``: the
-    forward's, the backward's (``softmax_sum`` again, to recompute f; the
-    cell cotangent for pairs k > 0; a scatter for each non-empty intra
-    and merged table) and one flat Adam update."""
-    fwd = launches_per_forward(graph)
+    forward's, the backward's (the cell reduce again, to recompute f and,
+    with ``--attn``, alpha; the cell cotangent for pairs k > 0; a scatter
+    for each non-empty intra and merged table) and one flat Adam
+    update. The other variant's cell kernels run 0 times."""
+    fwd = launches_per_forward(graph, attn)
     p = graph.num_pairs
+    (reduce, bwd), (other, other_bwd) = CELL_REDUCE[attn], CELL_REDUCE[not attn]
     return {
         "gather_rows": fwd["gather_rows"],
-        "softmax_sum": 2 * (p - 1),
+        reduce: 2 * (p - 1),
+        other: 0,
         "local_mean": p,
-        "softmax_sum_bwd": p - 1,
+        bwd: p - 1,
+        other_bwd: 0,
         "mailbox_scatter": sum(
             (graph.intra_rows[k].numel() > 0)
             + (graph.merged_rows[k].numel() > 0) for k in range(p)),
         "flat_adam": 1,
     }
+
+
+def may_idle(name, attn=False) -> bool:
+    """Whether a run may launch kernel ``name`` 0 times: the prior-row
+    gather (designs without prior rows), and the other variant's cell
+    kernels."""
+    return name == "gather_rows" or name in CELL_REDUCE[not attn]
 
 
 def scatter_bytes(torch, rows, pos, n_cell, md_n, has_cell, row_b):
@@ -445,6 +489,104 @@ def check_backward_kernels(torch, graph, dev, timer, design):
             scatter_case("merged", k, dh, graph.merged_rows[k],
                          graph.merged_seg_off[k], graph.merged_pos[k],
                          d_mail_c, d_pre_n, cnt_n, md_n, pn_c * md_c)
+    return recs
+
+
+def attn_close(torch, got, want):
+    """The attention kernels against their plain versions: each tensor
+    within rtol 1e-5 and atol 1e-5 x its largest |value| (NaN where the
+    plain version has it). The scores are float32 dot products over a
+    whole row, summed in another order than the plain version's product;
+    d_w sums every valid slot of a pair. Returns (ok, max abs error)."""
+    def finite_max(t):
+        t = t[torch.isfinite(t)].abs()
+        return float(t.max()) if t.numel() else 0.0
+
+    if got.shape != want.shape:
+        return False, float("inf")
+    scale, err = finite_max(want), finite_max(got - want)
+    ok = (got.shape == want.shape
+          and torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale,
+                             equal_nan=True))
+    return ok, err
+
+
+def attn_weights(torch, nh, gen, dev, d=D):
+    """A score projection (nh, d) with fc_attn2's init scale (lecun
+    normal: std 1/sqrt(d))."""
+    return torch.randn((nh, d), generator=gen, device=dev) / d ** 0.5
+
+
+def check_attn_kernels(torch, graph, dev, timer, design, nh):
+    """Phase 3, ``--attn``: attn_sum (with and without alpha) and attn_bwd
+    against their plain versions at every shape the walk and its backward
+    give them on ``graph`` (the cell mailbox of each pair k > 0, row 0
+    all-invalid), with ``nh`` heads, a random state, projection and
+    cotangent; attn_bwd twice, d_w bit for bit the same. Times attn_sum
+    as the forward calls it (no alpha) and attn_bwd. Bytes count the
+    distinct valid rows read, the indices, alpha, d_f and w, and the
+    outputs (attn_bwd: the valid slots' rows and d_w); operations the
+    products. Returns ``{name: KernelRecord}``."""
+    from prtp_tpu_torch.ops.fused_gnn import (attn_bwd, attn_bwd_plain,
+                                              attn_sum, attn_sum_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4 + nh)
+    num_rows = graph.num_rows
+    row_b = D * 4
+    h = torch.randn((num_rows + 1, D), generator=gen, device=dev)
+    w = attn_weights(torch, nh, gen, dev)
+    recs = {name: KernelRecord(name, design)
+            for name in ("attn_sum", "attn_bwd")}
+    for k in range(1, graph.num_pairs):
+        idx = graph.cell_mail[k].clone()
+        idx[0] = num_rows
+        pn_c, md_c = idx.shape
+        out, alpha = attn_sum(h, idx, num_rows, w, with_alpha=True)
+        want, want_alpha = attn_sum_plain(h, idx, num_rows, w, True)
+        ok_o, err_o = attn_close(torch, out, want)
+        ok_a, err_a = attn_close(torch, alpha, want_alpha)
+        if not (ok_o and ok_a and bool(torch.isfinite(out).all())
+                and not bool(out[0].any()) and torch.equal(
+                    attn_sum(h, idx, num_rows, w), out)):
+            raise AssertionError(f"attn_sum (nh {nh}) differs at pair {k}: "
+                                 f"max abs err {err_o} (alpha {err_a})")
+        used = idx[idx != num_rows]
+        n_used = used.numel()
+        nbytes = (torch.unique(used).numel() * row_b + idx.numel() * 4
+                  + w.numel() * 4 + pn_c * row_b)
+        ops = 2.0 * n_used * D * (nh + 1)
+        ms = timer.ms(lambda: attn_sum(h, idx, num_rows, w))
+        pms = timer.ms(lambda: attn_sum_plain(h, idx, num_rows, w))
+        recs["attn_sum"].add(ms, pms, None, nbytes, ops, max(err_o, err_a))
+        log(f"  attn_sum nh {nh} pair {k}: ({pn_c}, {md_c}) of {D} f32, "
+            f"{n_used} valid slots  kernel {ms:.4f} ms  plain {pms:.4f}  "
+            f"bound {bound(nbytes, ops)[0]:.4f}  max abs err {err_o:.3g} "
+            f"(alpha {err_a:.3g})")
+        d_f = torch.randn((pn_c, D), generator=gen, device=dev)
+        valid = (idx != num_rows).reshape(-1)
+        d_m, d_w = attn_bwd(h, idx, num_rows, w, want_alpha, d_f)
+        want_m, want_w = attn_bwd_plain(h, idx, num_rows, w, want_alpha, d_f)
+        ok_m, err_m = attn_close(torch, d_m[valid], want_m[valid])
+        ok_w, err_w = attn_close(torch, d_w, want_w)
+        again = attn_bwd(h, idx, num_rows, w, want_alpha, d_f)[1]
+        if not (ok_m and ok_w and bool(torch.isfinite(d_m[valid]).all())
+                and torch.equal(again, d_w)):
+            raise AssertionError(f"attn_bwd (nh {nh}) differs at pair {k}: "
+                                 f"d_mail max abs err {err_m}, d_w {err_w}, "
+                                 f"d_w again equal {torch.equal(again, d_w)}")
+        nbytes = (torch.unique(used).numel() * row_b + idx.numel() * 4
+                  + want_alpha.numel() * 4 + 2 * w.numel() * 4
+                  + pn_c * row_b + n_used * row_b)
+        ops = 4.0 * n_used * D * (nh + 1)
+        ms = timer.ms(lambda: attn_bwd(h, idx, num_rows, w, want_alpha, d_f))
+        pms = timer.ms(lambda: attn_bwd_plain(h, idx, num_rows, w,
+                                              want_alpha, d_f))
+        recs["attn_bwd"].add(ms, pms, None, nbytes, ops, max(err_m, err_w))
+        log(f"  attn_bwd nh {nh} pair {k}: {n_used} valid slots  kernel "
+            f"{ms:.4f} ms  plain {pms:.4f}  bound "
+            f"{bound(nbytes, ops)[0]:.4f}  max abs err {err_m:.3g} (d_w "
+            f"{err_w:.3g} of max {float(want_w.abs().max()):.3g}), d_w "
+            "deterministic")
     return recs
 
 
@@ -604,12 +746,15 @@ def call_floors(torch, graph, dev, timer) -> dict:
     """Each kernel timed on a one-row call with the phase's timer: what a
     call costs whatever its size."""
     from prtp_tpu_torch.ops.adam import flat_adam
-    from prtp_tpu_torch.ops.fused_gnn import (local_mean, mailbox_scatter,
-                                              softmax_sum, softmax_sum_bwd)
+    from prtp_tpu_torch.ops.fused_gnn import (attn_bwd, attn_sum, local_mean,
+                                              mailbox_scatter, softmax_sum,
+                                              softmax_sum_bwd)
     from prtp_tpu_torch.ops.gather import gather_rows
 
     h = torch.randn((graph.num_rows + 1, D), device=dev)
     one_row = graph.cell_mail[1][:1]
+    w = torch.randn((1, D), device=dev)
+    alpha = torch.rand((1, one_row.shape[1], 1), device=dev)
     new = torch.randn((1, D), device=dev)
     idx_n = torch.zeros((1, 1), dtype=torch.int32, device=dev)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -628,6 +773,10 @@ def call_floors(torch, graph, dev, timer) -> dict:
                                     1, 0)),
         "flat_adam": timer.ms(
             lambda: flat_adam(*vec, LR, 0.9, 0.999, 1e-8, 0.0, 2)),
+        "attn_sum": timer.ms(
+            lambda: attn_sum(h, one_row, graph.num_rows, w)),
+        "attn_bwd": timer.ms(
+            lambda: attn_bwd(h, one_row, graph.num_rows, w, alpha, new)),
     }
 
 
@@ -880,6 +1029,89 @@ def check_backward_edge_shapes(torch, dev):
         "1e-6, atol 1e-6 x max; NaN where the plain version has it)")
 
 
+def check_attn_edge_shapes(torch, dev):
+    """The attention kernels' other code paths against their plain
+    versions (attn_close), alpha and d_w included: k > 8 (the generic
+    path), nh 2, 8 and 64 at D = 128 (Dh 64, 16 and 2: a float4 spanning
+    heads), D = 12 with nh 3, D % 4 != 0 (the scalar path: D 6 with nh 3,
+    D 7), D = 300 (several float4s a lane: the generic path), a
+    misaligned h, an empty mailbox, all-invalid rows (row 0 of each), a
+    NaN in a valid slot (forward: NaN where the plain version has it),
+    and large scores: h in multiples of 1/8 up to 16, integer w up to 3,
+    so the scores, up to hundreds, are exact in float32 whatever the
+    order of their sum and exp of an unshifted score overflows."""
+    from prtp_tpu_torch.ops.fused_gnn import (attn_bwd, attn_bwd_plain,
+                                              attn_sum, attn_sum_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = 0
+    # (P, K, D, nh, rows of h, case)
+    for p, k, d, nh, r, case in (
+            (0, 4, 128, 1, 50, "empty"),
+            (300, 11, 128, 1, 900, "k>8"),
+            (300, 11, 128, 4, 900, "k>8, nh 4"),
+            (300, 4, 128, 2, 900, "nh 2"),
+            (300, 4, 128, 8, 900, "nh 8"),
+            (300, 4, 128, 64, 900, "nh 64: Dh 2, a float4 spans heads"),
+            (300, 7, 128, 4, 900, "k=7"),
+            (6000, 4, 128, 2, 900, "blocks of several tiles"),
+            (5000, 11, 128, 4, 900, "k>8, blocks of several tiles"),
+            (300, 4, 12, 3, 900, "D=12, nh 3"),
+            (300, 4, 6, 3, 900, "D=6, nh 3: D%4!=0"),
+            (50, 20, 7, 1, 200, "k>8, D=7"),
+            (300, 3, 300, 5, 900, "D=300, nh 5"),
+            (300, 4, 128, 4, 900, "misaligned h"),
+            (300, 4, 128, 1, 900, "large scores"),
+            (300, 4, 128, 4, 900, "large scores, nh 4"),
+            (300, 4, 128, 2, 900, "NaN")):
+        if case.startswith("large"):
+            h = torch.randint(-128, 129, (r, d), generator=gen,
+                              device=dev).float() / 8
+            w = torch.randint(-3, 4, (nh, d), generator=gen,
+                              device=dev).float()
+        else:
+            h = torch.randn(r * d + 1, generator=gen, device=dev)
+            h = (h[1:] if case == "misaligned h" else h[:-1]).view(r, d)
+            w = attn_weights(torch, nh, gen, dev, d)
+        idx = torch.randint(0, r - 1, (p, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        idx[torch.rand((p, k), generator=gen, device=dev) < 0.35] = r - 1
+        if p:
+            idx[0] = r - 1
+        if case == "NaN":
+            idx[1, 0] = 5
+            h[5, 2] = float("nan")
+        out, alpha = attn_sum(h, idx, r - 1, w, with_alpha=True)
+        want, want_alpha = attn_sum_plain(h, idx, r - 1, w, True)
+        ok = all(attn_close(torch, a, b)[0]
+                 for a, b in ((out, want), (alpha, want_alpha)))
+        if case == "NaN":
+            ok = ok and bool(out[1].isnan().any())
+        else:
+            ok = ok and bool(torch.isfinite(out).all())
+        if p:
+            ok = ok and not bool(out[0].any()) and not bool(alpha[0].any())
+        if case.startswith("large"):
+            scores = h[idx[idx != r - 1].long()] @ w.T
+            ok = ok and float(scores.abs().max()) > 88  # exp(88.8) overflows
+        if not ok:
+            raise AssertionError(f"attn_sum differs at {(p, k, d, nh)} {case}")
+        if case != "NaN":
+            d_f = torch.randn((p, d), generator=gen, device=dev)
+            d_m, d_w = attn_bwd(h, idx, r - 1, w, want_alpha, d_f)
+            want_m, want_w = attn_bwd_plain(h, idx, r - 1, w, want_alpha, d_f)
+            valid = (idx != r - 1).reshape(-1)
+            ok_m, err_m = attn_close(torch, d_m[valid], want_m[valid])
+            ok_w, err_w = attn_close(torch, d_w, want_w)
+            if not (ok_m and ok_w and bool(torch.isfinite(d_w).all())):
+                raise AssertionError(f"attn_bwd differs at {(p, k, d, nh)} "
+                                     f"{case}: d_mail {err_m}, d_w {err_w}")
+        cases += 1
+    log(f"  attention edge shapes: {cases} cases of attn_sum and attn_bwd "
+        "match their plain versions (rtol 1e-5, atol 1e-5 x max; NaN where "
+        "the plain version has it)")
+
+
 def start_early_writer_build():
     """Phase 2: start ``nvcc`` on EARLY_WRITER_CU, beside the port's
     builds, into the port's (git-ignored) build directory. Returns what
@@ -1020,6 +1252,67 @@ def check_programmatic_hazard(torch, graph, dev, early_writer, pair=1):
         "writer (rtol 1e-5, atol 1e-6)")
 
 
+def check_attn_hazard(torch, graph, dev, pair=1):
+    """Phase 3, programmatic dependent launch after ``--attn``'s backward:
+    the merged mailbox_scatter at one pair's shapes of ``graph``, launched
+    right after attn_bwd, whose first kernel writes the cell cotangent
+    the scatter reads after its wait and whose last kernel (the d_w
+    reduce) runs just before the scatter, which reads the graph's tables
+    while it drains. For each head count of ATTN_HEADS, HAZARD_REPS
+    cotangents d_f, each a new draw: attn_bwd and the scatter enqueued
+    back to back behind a spin kernel must equal bit for bit the result
+    with a synchronize between the two, run after it (so the memory that
+    the unsynchronized run's cotangent takes held another draw's); the
+    first synchronized result must match the plain versions'
+    (attn_close)."""
+    from prtp_tpu_torch.ops.fused_gnn import (attn_bwd, attn_bwd_plain,
+                                              attn_sum_plain, mailbox_scatter,
+                                              mailbox_scatter_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    num_rows = graph.num_rows
+    cell_mail = graph.cell_mail[pair]
+    pn_c, md_c = cell_mail.shape
+    pn_n, md_n = graph.net_mail[pair].shape
+    tables = (graph.merged_rows[pair], graph.merged_seg_off[pair],
+              graph.merged_pos[pair])
+    tail = (torch.randn((pn_n, D), generator=gen, device=dev),
+            graph.net_cnt[pair], md_n, pn_c * md_c)
+    h = torch.randn((num_rows + 1, D), generator=gen, device=dev)
+    dest = torch.randn((num_rows + 1, D), generator=gen, device=dev)
+    for nh in ATTN_HEADS:
+        w = attn_weights(torch, nh, gen, dev)
+        alpha = attn_sum_plain(h, cell_mail, num_rows, w, True)[1]
+
+        def run(d_f, sync):
+            got = dest.clone()
+            torch.cuda._sleep(int(0.2 * SPIN_CYCLES_PER_MS))
+            d_mail = attn_bwd(h, cell_mail, num_rows, w, alpha, d_f)[0]
+            if sync:
+                torch.cuda.synchronize()
+            mailbox_scatter(got, *tables, d_mail, *tail)
+            return got
+
+        bad, err = [], None
+        for _ in range(HAZARD_REPS):
+            d_f = torch.randn((pn_c, D), generator=gen, device=dev)
+            got = run(d_f, False)
+            ref = run(d_f, True)
+            bad.append(int((got != ref).sum()))
+            if err is None:
+                want = dest.clone()
+                mailbox_scatter_plain(want, *tables, attn_bwd_plain(
+                    h, cell_mail, num_rows, w, alpha, d_f)[0], *tail)
+                ok, err = attn_close(torch, ref, want)
+        log(f"  programmatic launch: mailbox_scatter (merged) right after "
+            f"attn_bwd (nh {nh}): elements off the synchronized result in "
+            f"each of {HAZARD_REPS} launches {bad}; synchronized vs plain "
+            f"versions max abs err {err:.3g}")
+        if any(bad) or not ok:
+            raise AssertionError(f"mailbox_scatter after attn_bwd (nh {nh}) "
+                                 f"differs: {bad}, vs plain {err}")
+
+
 def gather_probe(torch, dev, timer):
     """The TPU probe's shapes (scripts/gather_roofline.py): 160,000 x 128
     bf16 rows, 129,202 random indices."""
@@ -1052,7 +1345,7 @@ def _read_launches() -> dict:
 
 
 def serve(torch, np, model, model_cpu, parsed, design, per_forward,
-          requests, task="reg"):
+          requests, task="reg", attn=False):
     """Phase 4 (and 8) for one design: ``requests`` evaluation requests
     on the card with the launch counters zeroed just before and read just
     after (each must equal ``requests`` x its per-forward count, and
@@ -1085,7 +1378,7 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
         if counts[name] != requests * n:
             raise AssertionError(f"{design}: {name} launched {counts[name]} "
                                  f"times, expected {requests * n}")
-        if n == 0 and name != "gather_rows":
+        if n == 0 and not may_idle(name, attn):
             raise AssertionError(f"{design}: {name} is not on the walk")
     for name, n in counts.items():
         if name not in per_forward and n:
@@ -1121,13 +1414,15 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
     return counts
 
 
-def train_run(torch, state, design, batches, what, per_step=None):
+def train_run(torch, state, design, batches, what, per_step=None,
+              card=None):
     """Phase 6: one run of train steps through ``train_step`` (the first,
     whose gradients stay in ``.grad``) and ``train_steps`` (the rest).
     With ``per_step`` (on the card) the launch counters are zeroed just
     before the run and read just after, and each kernel must have run
-    ``len(batches)`` x its per-step count. Returns (losses, the first
-    step's gradients on the CPU, counts)."""
+    ``len(batches)`` x its per-step count. With ``card`` (on the CPU,
+    :func:`card_branches`) the first step takes the card's branches.
+    Returns (losses, the first step's gradients on the CPU, counts)."""
     import numpy as np
     from prtp_tpu_torch.trainer import train_step, train_steps
 
@@ -1136,7 +1431,10 @@ def train_run(torch, state, design, batches, what, per_step=None):
         torch.cuda.synchronize()
         _zero_launches()
     t0 = time.perf_counter()
-    first = train_step(state, design, *batches[0])
+    with take_card_branches(torch, state.model, card or {}) as taken:
+        first = train_step(state, design, *batches[0])
+    if card:
+        log(f"  {what} (cpu): first step took the card's branch at {taken}")
     grads = {k: p.grad.detach().to("cpu", copy=True)
              for k, p in state.model.named_parameters()}
     rest = train_steps(state, design, batches[1:]) if len(batches) > 1 else {}
@@ -1152,7 +1450,7 @@ def train_run(torch, state, design, batches, what, per_step=None):
             if counts[name] != len(batches) * n:
                 raise AssertionError(f"{what}: {name} launched {counts[name]}"
                                      f" times, expected {len(batches) * n}")
-            if n == 0 and name != "gather_rows":
+            if n == 0 and not may_idle(name):
                 raise AssertionError(f"{what}: {name} is not on the step")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{what}: a loss is not finite: {losses}")
@@ -1222,7 +1520,7 @@ def compare_runs(torch, what, card, cpu, flips, pools=None, f32_err=None):
     if max(flips.values()) > MAX_FLIPS:
         raise AssertionError(f"{what}: {flips} max-pool winners differ from "
                              f"the cpu's (allowed {MAX_FLIPS} a pool)")
-    worst, worst_flip = 0.0, 0.0
+    worst, worst_flip = (0.0, None), (0.0, None)
     for key, want in g_cpu.items():
         scale = float(want.abs().max())
         diff = float((g_card[key] - want).abs().max())
@@ -1230,9 +1528,9 @@ def compare_runs(torch, what, card, cpu, flips, pools=None, f32_err=None):
         flipped = any(flips[pool] and key.startswith(above)
                       for pool, above in pools.items())
         if flipped:
-            worst_flip = max(worst_flip, rel)
+            worst_flip = max(worst_flip, (rel, key))
         else:
-            worst = max(worst, rel)
+            worst = max(worst, (rel, key))
         allowed = ((FLIP_TOL if flipped else GRAD_TOL) * scale
                    + 2 * f32_err.get(key, 0.0))
         if diff > allowed:
@@ -1242,15 +1540,90 @@ def compare_runs(torch, what, card, cpu, flips, pools=None, f32_err=None):
     np.testing.assert_allclose(l_card, l_cpu, rtol=LOSS_RTOL,
                                err_msg=f"{what}: losses vs cpu")
     rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
-    log(f"  {what} vs cpu: first-step gradients within {worst:.3g} x each "
-        f"leaf's max |g| (allowed {GRAD_TOL}"
+    log(f"  {what} vs cpu: first-step gradients within {worst[0]:.3g} x "
+        f"each leaf's max |g| ({worst[1]}; allowed {GRAD_TOL}"
         + (", plus twice the leaf's float32 error" if f32_err else "")
-        + f"); convs above a flipped pool window within {worst_flip:.3g} "
-        f"(allowed {FLIP_TOL}); losses within rtol {rel:.3g} (allowed "
-        f"{LOSS_RTOL}): ok")
+        + f"); convs above a flipped pool window within {worst_flip[0]:.3g}"
+        f" ({worst_flip[1]}; allowed {FLIP_TOL}); losses within rtol "
+        f"{rel:.3g} (allowed {LOSS_RTOL}): ok")
 
 
-def paired_steps(torch, model_cpu, designs, batches, what, per_step, task):
+def card_branches(torch, cnn_cpu, x_cpu, dev) -> tuple:
+    """LayoutNet's SIGN_CONVS outputs (the pre-activations of the ReLU
+    after Conv_2 and the leaky ReLU after Conv_3) at the same weights and
+    raster on the card and on the CPU. They must agree within PRE_RTOL x
+    their largest |value|, and at most MAX_FLIPS elements a conv may
+    differ in sign: values within rounding of 0, which card and CPU put
+    on either side. At such an element the gradient passes on one and not
+    the other (the leaky ReLU's: at another slope), which moves the
+    weight gradients of the convs below by far more than rounding; the
+    CPU's first train step takes the card's branch there
+    (:func:`take_card_branches`). Returns ``{conv: the card's output, on
+    the CPU}`` (empty for the U-Net) and ``{conv: sign flips}``."""
+    import torch.nn.functional as F
+    from prtp_tpu_torch.models.layoutnet import LayoutNet
+    from prtp_tpu_torch.ops.pool import pool_2x2
+
+    if not isinstance(cnn_cpu, LayoutNet):
+        return {}, {}
+
+    def outputs(cnn, x):
+        a = pool_2x2(F.relu(cnn.Conv_0(x)), "max")
+        z2 = cnn.Conv_2(pool_2x2(F.relu(cnn.Conv_1(a)), "max"))
+        return {"Conv_2": z2, "Conv_3": cnn.Conv_3(F.relu(z2))}
+
+    with torch.no_grad():
+        want = outputs(cnn_cpu, x_cpu)
+        got = outputs(copy.deepcopy(cnn_cpu).to(dev), x_cpu.to(dev))
+    card, flips = {}, {}
+    for name in SIGN_CONVS:
+        card[name] = got[name].cpu()
+        err = float((card[name] - want[name]).abs().max())
+        scale = float(want[name].abs().max())
+        flips[name] = int(((card[name] > 0) != (want[name] > 0)).sum())
+        if err > PRE_RTOL * scale or flips[name] > MAX_FLIPS:
+            raise AssertionError(f"LayoutNet {name}'s output on the card "
+                                 f"differs from the cpu's by {err} (its max"
+                                 f" {scale}), {flips[name]} signs (allowed "
+                                 f"{PRE_RTOL} x max, {MAX_FLIPS})")
+    return card, flips
+
+
+@contextlib.contextmanager
+def take_card_branches(torch, model, card):
+    """While open, the CPU model's LayoutNet takes the card's branch at
+    each element of a SIGN_CONVS output whose sign differs from the
+    card's (``card``, :func:`card_branches`): the forward uses the card's
+    value there (within rounding of the CPU's, both near 0) with the
+    gradient passed straight through, so the activation after it passes
+    its gradient as on the card. Elsewhere nothing changes. Yields
+    ``{conv: elements taken}`` of the last forward."""
+    taken, handles = {}, []
+
+    def hook_for(name):
+        def hook(_module, _inputs, out):
+            want = card[name]
+            if want.shape != out.shape:
+                raise AssertionError(f"{name}: output {tuple(out.shape)}, "
+                                     f"the card's {tuple(want.shape)}")
+            flip = (out > 0) != (want > 0)
+            taken[name] = int(flip.sum())
+            return out + torch.where(flip, want - out,
+                                     torch.zeros_like(out)).detach()
+        return hook
+
+    for name in card:
+        handles.append(getattr(model.cnn, name).register_forward_hook(
+            hook_for(name)))
+    try:
+        yield taken
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
+                 attn=False, card=None):
     """Phase 8: the same steps through ``trainer.train_step`` on the CPU
     and on the card, each card step from the CPU's state before it (its
     parameters, buffers and Adam moments), so that each step's loss is
@@ -1260,7 +1633,9 @@ def paired_steps(torch, model_cpu, designs, batches, what, per_step, task):
     runs apart: on the CPU, the cls model's weights perturbed by 1e-7 of
     their value give a fifth loss 3e-3 away. The launch counters are
     zeroed just before the card's steps and read just after: each kernel
-    must have run ``len(batches)`` x its per-step count. Returns ``{where:
+    must have run ``len(batches)`` x its per-step count. The CPU's first
+    step takes the card's branches ``card`` (:func:`card_branches`).
+    Returns ``{where:
     (losses, the first step's gradients, counts, the buffers after each
     step, the state_dict after the last)}``, all on the CPU."""
     import numpy as np
@@ -1287,8 +1662,14 @@ def paired_steps(torch, model_cpu, designs, batches, what, per_step, task):
             else:
                 state.model.load_state_dict(befores[t][0])
                 state.optimizer.load_state_dict(befores[t][1])
-            losses.append(float(train_step(state, designs[where], ids, mask,
-                                           task)["loss"]))
+            branches = card if where == "cpu" and t == 0 else None
+            with take_card_branches(torch, state.model,
+                                    branches or {}) as taken:
+                losses.append(float(train_step(state, designs[where], ids,
+                                               mask, task)["loss"]))
+            if branches:
+                log(f"  {what} (cpu): first step took the card's branch at "
+                    f"{taken}")
             if t == 0:
                 grads = {k: p.grad.detach().to("cpu", copy=True)
                          for k, p in state.model.named_parameters()}
@@ -1311,7 +1692,7 @@ def paired_steps(torch, model_cpu, designs, batches, what, per_step, task):
         if counts[name] != n * k:
             raise AssertionError(f"{what}: {name} launched {counts[name]} "
                                  f"times, expected {n * k}")
-        if k == 0 and name != "gather_rows":
+        if k == 0 and not may_idle(name, attn):
             raise AssertionError(f"{what}: {name} is not on the step")
     return out
 
@@ -1415,7 +1796,9 @@ def device_kernels(torch, fn):
 def log_port_kernels(by_name, what):
     """Every kernel of the port by name, summed over its instantiations."""
     for name in KERNEL_INFO:
-        hits = [v for k, v in by_name.items() if f"{name}_kernel" in k]
+        symbols = KERNEL_SYMBOLS.get(name, (f"{name}_kernel",))
+        hits = [v for k, v in by_name.items()
+                if any(sym in k for sym in symbols)]
         tot = sum(t for t, _ in hits)
         cnt = sum(c for _, c in hits)
         log(f"    {what}: {name}: {tot / 1e3:.4f} ms x{cnt}")
@@ -1556,12 +1939,13 @@ def cli_train(torch, args, run, smi):
         wall = time.perf_counter() - t0
     counts = _read_launches()
     check_float32(torch, run)
+    attn = "--attn" in args
     want = dict.fromkeys(counts, 0)
     for _s, (_st, pack, chunk, *_r), _o in w["train_steps"].calls:
-        for name, n in launches_per_step(pack.graph).items():
+        for name, n in launches_per_step(pack.graph, attn).items():
             want[name] += len(chunk) * n
     for _s, (_m, pack, *_r), _o in w["evaluate"].calls:
-        for name, n in launches_per_forward(pack.graph).items():
+        for name, n in launches_per_forward(pack.graph, attn).items():
             want[name] += n
     steps = w["train_steps"].calls
     n_steps = sum(len(a[2]) for _s, a, _o in steps)
@@ -1579,7 +1963,7 @@ def cli_train(torch, args, run, smi):
         if n != want[name]:
             raise AssertionError(f"{run}: {name} launched {n} times, "
                                  f"expected {want[name]}")
-        if name != "gather_rows" and not n:
+        if not may_idle(name, attn) and not n:
             raise AssertionError(f"{run}: {name} did not launch")
     if len(val_ms) < 2:
         raise AssertionError(f"{run}: {len(val_ms)} validations")
@@ -1608,7 +1992,8 @@ def cli_test(torch, args, where, run, smi):
     check_float32(torch, f"{run} on {where}")
     want = dict.fromkeys(counts, 0)
     for _s, (_m, pack, *_r), _o in w["evaluate"].calls:
-        for name, n in launches_per_forward(pack.graph).items():
+        for name, n in launches_per_forward(pack.graph,
+                                            "--attn" in args).items():
             want[name] += n
     if where != "cpu" and counts != want:
         raise AssertionError(f"{run} on {where}: launches {counts}, expected "
@@ -1765,7 +2150,8 @@ def corpus_runs(torch, np, smi, tmp) -> dict:
     paths critical, depths varying across and within designs): the
     default 2 x 512 x 512 rasters and, for the U-Net, 3 x UNET_HW x
     UNET_HW. For each of ``reg`` (the default flags), ``cls`` (``--task
-    cls --nlabels 2``) and ``unet`` (``--unet``): the train CLI at full
+    cls --nlabels 2``), ``unet`` (``--unet``) and ``attn`` (``--attn
+    --num_heads 2``, on the default corpus): the train CLI at full
     width on the card for CORPUS_EPOCHS epochs, then the test CLI on the
     card and on the CPU from its checkpoint, compared by
     :func:`compare_test_clis`. ``cls`` must save the best-F1 model and
@@ -1792,7 +2178,8 @@ def corpus_runs(torch, np, smi, tmp) -> dict:
             "host")
     runs = {"reg": ("corpus", []),
             "cls": ("corpus", ["--task", "cls", "--nlabels", "2"]),
-            "unet": ("corpus_unet", ["--unet"])}
+            "unet": ("corpus_unet", ["--unet"]),
+            "attn": ("corpus", ["--attn", "--num_heads", "2"])}
     for name, (corpus, flags) in runs.items():
         mdl = os.path.join(tmp, f"mdl_{name}")
         common = ["--data_save_path", data[corpus], "--model_saving_dir",
@@ -1880,6 +2267,7 @@ def time_variant(torch, model_cpu, design, dev, task, what, smi):
     for name, (tot, cnt) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:10]:
         log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
+    log_port_kernels(by_name, f"{what} train step")
 
 
 def time_unet(torch, unet_cpu, x, smi):
@@ -1913,20 +2301,26 @@ def time_unet(torch, unet_cpu, x, smi):
 
 
 def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
-    """Phase 8: the two variants at the default model's full width, TF32
-    off: ``cls`` (``nlabels=2``) on the headline design, and the U-Net on
-    the headline graph with a 3 x UNET_HW x UNET_HW raster (map 128). For
-    each: REQUESTS evaluation requests and the epoch of phase 6 (batches
-    of TRAIN_BATCH, numpy seed EPOCH_SEED, :func:`paired_steps`), card
-    against CPU with the launch counters as :func:`serve` holds them and
-    phase 6's tolerances (:func:`compare_runs`, the U-Net's max pools
-    counted as LayoutNet's are). For the U-Net also its first-step
+    """Phase 8: the variants at the default model's full width, TF32
+    off: ``cls`` (``nlabels=2``) on the headline design, the U-Net on
+    the headline graph with a 3 x UNET_HW x UNET_HW raster (map 128),
+    ``attn`` (``--attn``, one head: the recorded ``reg_fusion_attn``) and
+    ``attn4`` (four heads) on the headline design. For each: REQUESTS
+    evaluation requests and the epoch of phase 6 (batches of
+    TRAIN_BATCH, numpy seed EPOCH_SEED, :func:`paired_steps`; ``attn4``
+    its first ATTN4_STEPS steps), card against CPU with the launch
+    counters as :func:`serve` holds them (``--attn``: ``attn_sum`` and
+    ``attn_bwd`` in place of ``softmax_sum`` and ``softmax_sum_bwd``) and
+    phase 6's tolerances (:func:`compare_runs`, ``fc_attn2``'s gradient
+    among the leaves, the U-Net's max pools counted as LayoutNet's
+    are). For the U-Net also its first-step
     gradients against float64 (:func:`unet_f32_error`), its BatchNorm
     running averages card against CPU (:func:`check_running_averages`),
     and an evaluation in eval mode of the CPU's trained weights and
     averages on both (1e-4). Then
     the timings (:func:`time_variant`, :func:`time_unet`). Returns each
-    run's launch counts."""
+    run's launch counts. Every variant but ``attn4`` is timed
+    (:func:`time_variant`)."""
     from prtp_tpu_torch.data.random_design import make_random_design
     from prtp_tpu_torch.graph import pack_design
     from prtp_tpu_torch.models import PathModel
@@ -1948,6 +2342,10 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
         "cls": (dict(nlabels=2), "cls", headline, LAYOUTNET_POOLS),
         "unet": (dict(unet=True, cnn_channels=UNET_CHANNELS), "reg",
                  unet_design, UNET_POOLS),
+        "attn": (dict(flag_attn=True, num_heads=1), "reg", headline,
+                 LAYOUTNET_POOLS),
+        "attn4": (dict(flag_attn=True, num_heads=4), "reg", headline,
+                  LAYOUTNET_POOLS),
     }
     launches = {}
     num_paths = int(headline["num_paths"])
@@ -1957,24 +2355,32 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
         model_cpu = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
                               generator=torch.Generator().manual_seed(SEED),
                               **kw)
+        attn = kw.get("flag_attn", False)
         cpu_design = pack_design(parsed, map_size=MAP_SIZE, device="cpu")
         card_design = pack_design(parsed, map_size=MAP_SIZE, device=dev)
         graph = card_design.graph
         launches[f"serve {name}"] = serve(
             torch, np, copy.deepcopy(model_cpu).to(dev), model_cpu, parsed,
-            f"headline {name}", launches_per_forward(graph), REQUESTS, task)
+            f"headline {name}", launches_per_forward(graph, attn), REQUESTS,
+            task, attn)
         flips = pool_winner_flips(torch, model_cpu.cnn, cpu_design.cnn_input,
                                   dev)
+        card, signs = card_branches(torch, model_cpu.cnn,
+                                    cpu_design.cnn_input, dev)
         log(f"  {name}: max-pool windows whose winner differs, card vs cpu, "
-            f"at the init: {flips}")
+            f"at the init: {flips}"
+            + (f"; conv outputs whose sign differs: {signs}" if card else ""))
         what = f"train {name} epoch"
         designs = {DEVICE: card_design, "cpu": cpu_design}
         batches = {where: list(iterate_batches(
             np.arange(num_paths), TRAIN_BATCH,
             np.random.default_rng(EPOCH_SEED), device=where))
             for where in designs}
+        if name == "attn4":
+            what = f"train {name}, the epoch's first {ATTN4_STEPS} steps"
+            batches = {where: b[:ATTN4_STEPS] for where, b in batches.items()}
         runs = paired_steps(torch, model_cpu, designs, batches, what,
-                            launches_per_step(graph), task)
+                            launches_per_step(graph, attn), task, attn, card)
         launches[what] = runs[DEVICE][2]
         f32_err = None
         if name == "unet":
@@ -2005,7 +2411,8 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
                 f"vs cpu: within {float(np.abs(p_card - p_cpu).max()):.3g} "
                 "(rtol/atol 1e-4): ok")
             time_unet(torch, model_cpu.cnn, card_design.cnn_input, smi)
-        time_variant(torch, model_cpu, card_design, dev, task, name, smi)
+        if name != "attn4":
+            time_variant(torch, model_cpu, card_design, dev, task, name, smi)
         del runs, designs, card_design, cpu_design
         torch.cuda.empty_cache()
     return launches
@@ -2095,6 +2502,13 @@ def main() -> int:
         recs[name].update(check_backward_kernels(torch, g, dev, timer, name))
     recs["headline"]["flat_adam"] = check_flat_adam(
         torch, sum(p.numel() for p in model_cpu.parameters()), dev, timer)
+    attn_recs = {}
+    for nh in ATTN_HEADS:
+        log(f"  -- headline, --attn --num_heads {nh} --")
+        attn_recs[nh] = check_attn_kernels(torch, graphs["headline"], dev,
+                                           timer, "headline", nh)
+    # the JSON line's attention records: the recorded config's one head
+    recs["headline"].update(attn_recs[ATTN_HEADS[0]])
     floors = call_floors(torch, graphs["headline"], dev, timer)
     log("  per-call floor (one-row call, same timer): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in floors.items()))
@@ -2106,9 +2520,15 @@ def main() -> int:
                               if name in r)
         records.append(rec)
         log(f"  {rec.summary()}")
+    for nh in ATTN_HEADS[1:]:
+        for rec in attn_recs[nh].values():
+            rec.floor_ms = floors[rec.name]
+            log(f"  nh {nh}: {rec.summary()}")
     check_edge_shapes(torch, dev)
     check_backward_edge_shapes(torch, dev)
+    check_attn_edge_shapes(torch, dev)
     check_programmatic_hazard(torch, graphs["headline"], dev, early_writer)
+    check_attn_hazard(torch, graphs["headline"], dev)
     gather_probe(torch, dev, timer)
     del timer, graphs
 
@@ -2180,6 +2600,12 @@ def main() -> int:
              for name, d in cpu_designs.items()}
     log(f"  LayoutNet max-pool windows whose winner differs, card vs cpu, "
         f"at the init: {flips}")
+    cards = {}
+    for name, d in cpu_designs.items():
+        cards[name], signs = card_branches(torch, model_cpu.cnn, d.cnn_input,
+                                           dev)
+        log(f"  {name}: LayoutNet conv outputs whose sign differs, card vs "
+            f"cpu, at the init: {signs}")
     runs = {
         "train headline epoch": ("headline", lambda d: list(iterate_batches(
             np.arange(num_paths), TRAIN_BATCH,
@@ -2204,7 +2630,8 @@ def main() -> int:
         launches[what] = card[2]
         cpu = train_run(torch, init_state(copy.deepcopy(model_cpu), tx,
                                           "cpu"),
-                        cpu_designs[name], batches_on("cpu"), what)
+                        cpu_designs[name], batches_on("cpu"), what,
+                        card=cards[name])
         compare_runs(torch, what, card, cpu, flips[name])
         if what.endswith("fixed batch") and not card[0][-1] < card[0][0]:
             raise AssertionError(f"{what}: the loss did not fall: {card[0]}")

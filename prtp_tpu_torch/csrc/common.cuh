@@ -46,11 +46,16 @@ struct RowLanes {
   int lane;     // this lane's place in its group
 };
 
-__device__ __forceinline__ RowLanes row_lanes(int group) {
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+// The lanes of block `block`'s rows (a kernel that loops over several
+// blocks' rows passes each in turn), or of this block's.
+__device__ __forceinline__ RowLanes row_lanes(int group, int64_t block) {
+  const int64_t warp = (block * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   return {warp * (32 / group) + lane / group, lane & (group - 1)};
+}
+
+__device__ __forceinline__ RowLanes row_lanes(int group) {
+  return row_lanes(group, blockIdx.x);
 }
 
 // Lanes of one group: the smallest power of two that covers `need`,
@@ -129,6 +134,16 @@ __device__ __forceinline__ void row_indices(const int32_t* __restrict__ idx,
   const int32_t mine = (row_ok && rl.lane < k) ? idx[rl.row * k + rl.lane] : 0;
 #pragma unroll
   for (int j = 0; j < KMAX; ++j) src[j] = __shfl_sync(0xffffffffu, mine, j, group);
+}
+
+// The sum of v over the `group` lanes of this lane's group (a power of
+// two, at most 32), in every lane of it: a butterfly of xor shuffles.
+// Every step adds two values in either order, which rounds alike, so
+// every lane gets the same bits. Every lane of the warp must call it.
+__device__ __forceinline__ float group_sum(float v, int group) {
+  for (int off = group >> 1; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off, group);
+  return v;
 }
 
 // ---- programmatic dependent launch (sm_90), for softmax_sum_bwd and

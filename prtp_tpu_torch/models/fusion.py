@@ -12,8 +12,9 @@ embedding width (64 by default). Forward, batched over path ids:
 ``fcn`` is applied through the algebra ``fcn(mask * f) = mask @ (f ⊙ W)
 + b``, a plain product. Parameters follow flax's initialisers (lecun
 normal kernels, zero biases, a xavier-uniform ``fcn_kernel``), drawn
-from the ``generator`` given. This slice ports the float32 regression
-model; the U-Net branch, ``--attn`` and bfloat16 compute raise.
+from the ``generator`` given. The port runs the regression and the
+classification heads, LayoutNet or the U-Net, and the GNN's softmax or
+``--attn`` cell reduce, in float32; bfloat16 compute raises.
 """
 
 from __future__ import annotations
@@ -34,15 +35,13 @@ class PathModel(nn.Module):
                  out_dim: int = 128, hidden_dim: int = 256,
                  cnn_outdim: int = 128, map_size: int = 128,
                  global_dim: int = 64, nlabels: int = 1,
-                 flag_attn: bool = False, dgl_parity: bool = True,
+                 flag_attn: bool = False, num_heads: int = 1,
+                 dgl_parity: bool = True,
                  compute_dtype=None, cnn_channels: int = 2,
                  generator: torch.Generator | None = None):
         super().__init__()
         if not (use_gnn or use_cnn):
             raise ValueError("GNN and CNN model can not be both None!")
-        if flag_attn:
-            raise NotImplementedError("--attn is ported in a later slice "
-                                      "(variants)")
         if compute_dtype not in (None, torch.float32, "float32"):
             raise NotImplementedError("bfloat16 compute is ported in a later "
                                       "slice (variants)")
@@ -56,7 +55,8 @@ class PathModel(nn.Module):
         if use_gnn:
             self.gnn = TimeGNN(cell_feat_dim, net_feat_dim, generator,
                                out_dim=out_dim, hidden_dim=hidden_dim,
-                               dgl_parity=dgl_parity)
+                               dgl_parity=dgl_parity, flag_attn=flag_attn,
+                               num_heads=num_heads)
         if use_cnn:
             # flax infers the U-Net's input channels from the raster;
             # LayoutNet's Conv_0 takes 2
@@ -133,6 +133,7 @@ def model_from_options(options, cell_feat_dim: int, net_feat_dim: int,
         map_size=options.map_size,
         nlabels=options.nlabels,
         flag_attn=options.attn,
+        num_heads=options.num_heads,
         cnn_channels=cnn_channels,
         generator=torch.Generator().manual_seed(options.seed),
     )

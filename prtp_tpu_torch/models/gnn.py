@@ -9,10 +9,16 @@ Reference semantics per topological level:
   then ``h[v] = ReLU(fc_cell_self(cell_feat[v]) + fc_cell_neigh(agg))``
 - level 0 (PIs): ``h[v] = ReLU(fc_cell_self(cell_feat[v]))``
 
+With ``flag_attn`` (``--attn --num_heads nh``) the cell levels reduce
+their mailbox by multi-head attention instead: per-edge scores
+``fc_attn2(h[u])`` (a bias-free ``Linear(out_dim, nh)``), a masked
+softmax per head over the mailbox, and head i summing its own
+``out_dim / nh`` value slice (JAX's ``_attn_sum``).
+
 The walk itself is :func:`prtp_tpu_torch.ops.fused_gnn.exact_walk`: the
 forward of ``exact_gnn_forward`` with JAX's hand-written backward
 (``fused_vjp=True``, the JAX default), which returns the gradients of
-the three pair-step MLPs and of ``h0``. The node-state carry is float32,
+the three pair-step MLPs (and ``fc_attn2``) and of ``h0``. The node-state carry is float32,
 ``(num_rows + 1, out_dim)``; the last row is the gather dummy.
 """
 
@@ -23,22 +29,33 @@ from torch import nn
 
 from ..ops.fused_gnn import MLP_NAMES as PAIR_STEP_MLPS
 from ..ops.fused_gnn import exact_walk
-from .mlp import MLP
+from .mlp import MLP, lecun_normal_
 
 
 class TimeGNN(nn.Module):
     def __init__(self, cell_feat_dim: int, net_feat_dim: int,
                  generator: torch.Generator, out_dim: int = 128,
-                 hidden_dim: int = 256, dgl_parity: bool = True):
+                 hidden_dim: int = 256, dgl_parity: bool = True,
+                 flag_attn: bool = False, num_heads: int = 1):
         super().__init__()
         self.out_dim = out_dim
         self.dgl_parity = dgl_parity
+        self.flag_attn = flag_attn
         # widths mirror the reference (256-wide single hidden layer)
         in_dims = {"fc_cell_self": cell_feat_dim, "fc_cell_neigh": out_dim,
                    "fc_net_self": net_feat_dim}
         for name in PAIR_STEP_MLPS:
             self.add_module(name, MLP(in_dims[name], (hidden_dim, out_dim),
                                       generator))
+        if flag_attn:
+            # one score column per head, flax's Dense(num_heads,
+            # use_bias=False); heads read disjoint out_dim/nh slices
+            if num_heads < 1 or out_dim % num_heads:
+                raise ValueError(f"num_heads {num_heads} must divide "
+                                 f"out_dim {out_dim}")
+            self.fc_attn2 = nn.utils.skip_init(nn.Linear, out_dim, num_heads,
+                                               bias=False)
+            lecun_normal_(self.fc_attn2.weight, out_dim, generator)
 
     def forward(self, g, h0: torch.Tensor | None = None) -> torch.Tensor:
         if h0 is None:
@@ -50,4 +67,6 @@ class TimeGNN(nn.Module):
             mlp = getattr(self, name)
             params[name] = (mlp.fc0.weight, mlp.fc0.bias, mlp.fc1.weight,
                             mlp.fc1.bias)
+        if self.flag_attn:
+            params["fc_attn2"] = self.fc_attn2.weight
         return exact_walk(params, h0, g, self.dgl_parity)

@@ -5,14 +5,15 @@ each keeps an integer ``launches`` count of its kernel launches.
 """
 
 from .adam import flat_adam
-from .fused_gnn import (exact_gnn_forward, exact_walk, local_mean,
-                        mailbox_scatter, softmax_sum, softmax_sum_bwd)
+from .fused_gnn import (attn_bwd, attn_sum, exact_gnn_forward, exact_walk,
+                        local_mean, mailbox_scatter, softmax_sum,
+                        softmax_sum_bwd)
 from .gather import gather_rows
 from .pool import pool_2x2
 
 KERNELS = (gather_rows, softmax_sum, local_mean, softmax_sum_bwd,
-           mailbox_scatter, flat_adam)
+           mailbox_scatter, flat_adam, attn_sum, attn_bwd)
 
-__all__ = ["KERNELS", "exact_gnn_forward", "exact_walk", "flat_adam",
-           "gather_rows", "local_mean", "mailbox_scatter", "pool_2x2",
-           "softmax_sum", "softmax_sum_bwd"]
+__all__ = ["KERNELS", "attn_bwd", "attn_sum", "exact_gnn_forward",
+           "exact_walk", "flat_adam", "gather_rows", "local_mean",
+           "mailbox_scatter", "pool_2x2", "softmax_sum", "softmax_sum_bwd"]

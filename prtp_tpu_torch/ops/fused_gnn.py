@@ -39,9 +39,16 @@ the cell reduce's cotangent; and :func:`mailbox_scatter` for the two
 sorted segment sums (the intra-pair net->cell-block one and the merged
 prior-row one, whose rows are unique: no atomics).
 
-``softmax_sum``, ``local_mean``, ``softmax_sum_bwd`` and
-``mailbox_scatter`` are CUDA kernels (``csrc/<name>.cu``, whose source
-notes give bound and design) with plain PyTorch versions beside them,
+With ``--attn`` the cell half reduces its mailbox by
+``_attn_sum``'s multi-head attention instead (:func:`attn_sum`, whose
+scores use ``fc_attn2``'s weight), and the backward recomputes its
+``(f, alpha)`` and takes ``_attn_bwd``'s cotangents (:func:`attn_bwd`),
+the weight's gradient summed over the pairs.
+
+``softmax_sum``, ``local_mean``, ``softmax_sum_bwd``, ``attn_sum``,
+``attn_bwd`` and ``mailbox_scatter`` are CUDA kernels
+(``csrc/<name>.cu``, whose source notes give bound and design) with
+plain PyTorch versions beside them,
 which compute the JAX expressions. For tensors on the CPU a wrapper runs
 the plain version; for CUDA tensors it launches the kernel or raises.
 The two backward kernels launch as programmatic dependent launches
@@ -66,6 +73,14 @@ _MEAN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_int64, c_int,
                   c_int, c_int, c_int, c_void_p]
 _SOFTMAX_BWD_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
                          c_int64, c_int, c_int, c_int, c_void_p]
+_ATTN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int64,
+                  c_int, c_int, c_int, c_int, c_void_p]
+_ATTN_BWD_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
+                      c_void_p, c_void_p, c_void_p, c_int64, c_int, c_int,
+                      c_int, c_int, c_int, c_void_p]
+# attn_bwd's rows kernel: at most eight blocks of four warps a streaming
+# multiprocessor of an H100 (132), each summing its rows' share of d_w
+_ATTN_BWD_BLOCKS = 1056
 _SCATTER_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
                      c_void_p, c_void_p, c_int64, c_int, c_int64, c_int,
                      c_void_p]
@@ -242,6 +257,139 @@ def softmax_sum_bwd(h: torch.Tensor, idx: torch.Tensor, num_rows: int,
 softmax_sum_bwd.launches = 0
 
 
+# ------------------------------------------------------ attn_sum, attn_bwd
+
+def _check_attn_w(w: torch.Tensor, d: int) -> int:
+    """The head count of the score projection ``w`` (nh, D)."""
+    _check_rows("w", w)
+    nh = w.shape[0]
+    if w.shape[1] != d or nh < 1 or d % nh:
+        raise ValueError(f"w {tuple(w.shape)} must be (nh, {d}) with nh "
+                         f"dividing {d}")
+    return nh
+
+
+def attn_sum_plain(h: torch.Tensor, idx: torch.Tensor, num_rows: int,
+                   w: torch.Tensor, with_alpha: bool = False):
+    """``_attn_sum(h[idx], idx != num_rows, w.T, nh)``: per head the
+    masked softmax over the slots of the scores ``m @ w.T``, each over
+    the whole row; head ``c // Dh`` of channel c sums its own
+    ``Dh = D / nh`` value slice with its weights. h (R, D), idx (P, K),
+    w (nh, D) -> out (P, D), and alpha (P, K, nh) if ``with_alpha``."""
+    m = h[idx.long()]
+    v = (idx != num_rows)[..., None]
+    scores = torch.where(v, torch.einsum("pkd,hd->pkh", m, w),
+                         torch.full((), -torch.inf, dtype=h.dtype,
+                                    device=h.device))
+    mx = scores.amax(dim=1, keepdim=True)
+    mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    ex = torch.where(v, torch.exp(scores - mx), torch.zeros_like(scores))
+    alpha = ex / ex.sum(dim=1, keepdim=True).clamp_min(1e-12)
+    p, k, d = m.shape
+    nh = w.shape[0]
+    out = (alpha[..., None] * m.reshape(p, k, nh, d // nh)).sum(dim=1)
+    out = out.reshape(p, d)
+    return (out, alpha) if with_alpha else out
+
+
+def attn_sum(h: torch.Tensor, idx: torch.Tensor, num_rows: int,
+             w: torch.Tensor, with_alpha: bool = False):
+    """The ``--attn`` cell-half mailbox reduce read straight from the node
+    state: h (R, D) float32 contiguous with R > num_rows, idx (P, K)
+    int32 (the cell mailbox), w (nh, D) float32, ``fc_attn2``'s weight
+    (nh divides D). A slot is valid when its index is not ``num_rows``;
+    an invalid slot is never read. An all-invalid row gives 0. Returns
+    out (P, D) and, if ``with_alpha``, the weights alpha (P, K, nh), 0
+    at invalid slots."""
+    _check_rows("h", h)
+    _check_index(idx)
+    _check_dummy(h, num_rows)
+    nh = _check_attn_w(w, h.shape[1])
+    if device_of("attn_sum", h, idx, w).type == "cpu":
+        return attn_sum_plain(h, idx, num_rows, w, with_alpha)
+    p, k = idx.shape
+    d = h.shape[1]
+    out = torch.empty((p, d), dtype=h.dtype, device=h.device)
+    alpha = (torch.empty((p, k, nh), dtype=h.dtype, device=h.device)
+             if with_alpha else None)
+    with torch.cuda.device(h.device):
+        _build.launch("attn_sum", _ATTN_ARGTYPES, h.data_ptr(),
+                      idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+                      0 if alpha is None else alpha.data_ptr(), p, k, d, nh,
+                      num_rows, _stream(h))
+    attn_sum.launches += 1
+    return (out, alpha) if with_alpha else out
+
+
+attn_sum.launches = 0
+
+
+def attn_bwd_plain(h: torch.Tensor, idx: torch.Tensor, num_rows: int,
+                   w: torch.Tensor, alpha: torch.Tensor, d_f: torch.Tensor):
+    """JAX's ``_attn_bwd(h[idx], valid, w.T, nh, d_f, alpha)`` in torch's
+    layout: the cotangent of the mailbox (P*K, D), 0 at invalid slots,
+    and of ``w`` (nh, D)."""
+    m = h[idx.long()]
+    v = (idx != num_rows)[..., None]
+    p, k, d = m.shape
+    nh = w.shape[0]
+    d_oh = d_f.reshape(p, nh, d // nh)
+    d_alpha = torch.einsum("pkhc,phc->pkh", m.reshape(p, k, nh, d // nh),
+                           d_oh)
+    d_m = (alpha[..., None] * d_oh[:, None]).reshape(p, k, d)
+    d_scores = alpha * (d_alpha - (alpha * d_alpha).sum(dim=1, keepdim=True))
+    d_scores = torch.where(v, d_scores, torch.zeros_like(d_scores))
+    d_w = torch.einsum("pkd,pkh->hd", m, d_scores)
+    d_m = d_m + torch.einsum("pkh,hd->pkd", d_scores, w)
+    d_m = torch.where(v, d_m, torch.zeros_like(d_m))
+    return d_m.reshape(-1, d), d_w
+
+
+def attn_bwd(h: torch.Tensor, idx: torch.Tensor, num_rows: int,
+             w: torch.Tensor, alpha: torch.Tensor, d_f: torch.Tensor):
+    """Cotangents of :func:`attn_sum` for the output cotangent d_f (P, D),
+    given its ``alpha`` (P, K, nh): ``(d_mail, d_w)``. Row ``p*K + j`` of
+    d_mail (P*K, D) is slot j of row p's cotangent; the row of an invalid
+    slot (``idx == num_rows``) is undefined: the kernel does not write it
+    (the plain version holds 0 there), and the merged scatter reads valid
+    slots only. d_w (nh, D) is the gradient of ``fc_attn2``'s weight,
+    summed over every valid slot in a fixed order (per-block partial sums,
+    then a fixed-order reduce: no atomics), so a call is deterministic.
+    h (R, D), w (nh, D), alpha, d_f: contiguous float32; idx (P, K)
+    int32; on the card D is at most 3,072 (the kernel's shared memory:
+    4 rows of D floats)."""
+    _check_rows("h", h)
+    _check_rows("d_f", d_f)
+    _check_index(idx)
+    _check_dummy(h, num_rows)
+    p, k = idx.shape
+    d = h.shape[1]
+    nh = _check_attn_w(w, d)
+    if (alpha.dtype != torch.float32 or not alpha.is_contiguous()
+            or alpha.shape != (p, k, nh) or d_f.shape != (p, d)):
+        raise ValueError(f"alpha {tuple(alpha.shape)} and d_f "
+                         f"{tuple(d_f.shape)} must be contiguous float32 "
+                         f"({p}, {k}, {nh}) and ({p}, {d})")
+    if device_of("attn_bwd", h, idx, w, alpha, d_f).type == "cpu":
+        return attn_bwd_plain(h, idx, num_rows, w, alpha, d_f)
+    out = torch.empty((p * k, d), dtype=h.dtype, device=h.device)
+    d_w = torch.empty((nh, d), dtype=h.dtype, device=h.device)
+    blocks = min(p, _ATTN_BWD_BLOCKS)
+    # workspace: each block's partial sums of d_w
+    work = torch.empty(blocks * nh * d, dtype=h.dtype, device=h.device)
+    with torch.cuda.device(h.device):
+        _build.launch("attn_bwd", _ATTN_BWD_ARGTYPES, h.data_ptr(),
+                      idx.data_ptr(), w.data_ptr(), alpha.data_ptr(),
+                      d_f.data_ptr(), out.data_ptr(), d_w.data_ptr(),
+                      work.data_ptr(), p, k, d, nh, num_rows, blocks,
+                      _stream(h))
+    attn_bwd.launches += 1
+    return out, d_w
+
+
+attn_bwd.launches = 0
+
+
 # -------------------------------------------------------- mailbox_scatter
 
 def mailbox_scatter_plain(dest, rows, seg_off, pos, d_mail_c, d_pre_n, cnt_n,
@@ -361,7 +509,9 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
     """h_final of the exact-levels walk.
 
     params: maps each name of ``MLP_NAMES`` to that pair-step MLP's
-    ``(w0, b0, w1, b1)``. h0: (num_rows+1, D) float32 initial state; it
+    ``(w0, b0, w1, b1)``, and with ``--attn`` ``"fc_attn2"`` to the score
+    projection's weight (nh, D): the cell half then reduces its mailbox
+    with :func:`attn_sum` instead of :func:`softmax_sum`. h0: (num_rows+1, D) float32 initial state; it
     is not modified — the walk writes each level's rows in place into a
     copy (JAX's functional ``dynamic_update_slice`` becomes a slice
     assignment). graph: a :class:`prtp_tpu_torch.graph.LeveledGraphExact`
@@ -370,6 +520,7 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
     hand-written backward.
     """
     num_rows = graph.num_rows
+    w_attn = params.get("fc_attn2")
     h = h0.clone()
     for k in range(graph.num_pairs):
         cell_mail = graph.cell_mail[k]
@@ -377,8 +528,9 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
         # ---- cell half (even level 2k): mailbox read straight from h ----
         pre = _mlp(params["fc_cell_self"], graph.cell_feat_lvl[k])
         if k > 0:  # level 0 drops the neighbour term
-            pre = pre + _mlp(params["fc_cell_neigh"],
-                             softmax_sum(h, cell_mail, num_rows))
+            neigh = (softmax_sum(h, cell_mail, num_rows) if w_attn is None
+                     else attn_sum(h, cell_mail, num_rows, w_attn))
+            pre = pre + _mlp(params["fc_cell_neigh"], neigh)
         new = F.relu(pre)
         c0 = graph.cell_off[k]
         if dgl_parity:
@@ -405,7 +557,11 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                        dgl_parity: bool = True):
     """Port of ``prtp_tpu/ops/fused_gnn.py::_bwd``: the cotangent of h0
     and the parameter gradients (a dict like ``params``) of the walk
-    whose final state is ``hf``, for the cotangent ``g`` of ``hf``.
+    whose final state is ``hf``, for the cotangent ``g`` of ``hf``. With
+    ``"fc_attn2"`` in ``params`` the cell half recomputes ``(f, alpha)``
+    by :func:`attn_sum` from ``hf``, as JAX does, and :func:`attn_bwd`
+    gives the mailbox's cotangent and the pair's share of the score
+    projection's gradient.
 
     One ``dh`` carry, a copy of ``g``, is updated in place pair by pair
     in reverse. The intra-pair net->cell-block sum goes straight into
@@ -423,6 +579,9 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     dh = g.clone(memory_format=torch.contiguous_format)
     grads = {name: [torch.zeros_like(t) for t in params[name]]
              for name in MLP_NAMES}
+    w_attn = params.get("fc_attn2")
+    if w_attn is not None:
+        grads["fc_attn2"] = torch.zeros_like(w_attn)
 
     def acc(name, dp):  # one multi-tensor launch for the four tensors
         torch._foreach_add_(grads[name], list(dp))
@@ -452,10 +611,19 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                                        need_dx=False)[0])
         d_mail_c = None
         if k > 0:
-            f = softmax_sum(hf, cell_mail, num_rows)
+            if w_attn is None:
+                f = softmax_sum(hf, cell_mail, num_rows)
+            else:
+                f, alpha = attn_sum(hf, cell_mail, num_rows, w_attn,
+                                    with_alpha=True)
             dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c)
             acc("fc_cell_neigh", dp_neigh)
-            d_mail_c = softmax_sum_bwd(hf, cell_mail, num_rows, f, d_f)
+            if w_attn is None:
+                d_mail_c = softmax_sum_bwd(hf, cell_mail, num_rows, f, d_f)
+            else:
+                d_mail_c, d_w = attn_bwd(hf, cell_mail, num_rows, w_attn,
+                                         alpha, d_f)
+                grads["fc_attn2"].add_(d_w)
         # ---- the carry: d_old into both slices, then the merged scatter ----
         if d_old_n is None:
             dh[n0: n0 + pn_n] = 0.0
@@ -470,14 +638,28 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
 
 
 def _params_of(flat):
-    return {name: tuple(flat[4 * i: 4 * i + 4])
-            for i, name in enumerate(MLP_NAMES)}
+    """The walk's ``params`` from the flat tensors: the three MLPs'
+    twelve, then ``fc_attn2``'s weight with ``--attn``."""
+    params = {name: tuple(flat[4 * i: 4 * i + 4])
+              for i, name in enumerate(MLP_NAMES)}
+    if len(flat) > 4 * len(MLP_NAMES):
+        params["fc_attn2"] = flat[4 * len(MLP_NAMES)]
+    return params
+
+
+def _flat_of(params):
+    """The inverse of :func:`_params_of`."""
+    flat = [t for name in MLP_NAMES for t in params[name]]
+    if "fc_attn2" in params:
+        flat.append(params["fc_attn2"])
+    return flat
 
 
 class ExactWalk(torch.autograd.Function):
     """The walk with JAX's hand-written backward (``fused_exact_gnn``).
     Inputs: the graph and ``dgl_parity`` (no gradient), h0, then the
-    twelve pair-step tensors in ``MLP_NAMES`` order."""
+    twelve pair-step tensors in ``MLP_NAMES`` order and, with ``--attn``,
+    ``fc_attn2``'s weight."""
 
     @staticmethod
     def forward(ctx, graph, dgl_parity, h0, *flat):
@@ -492,7 +674,7 @@ class ExactWalk(torch.autograd.Function):
         hf, *flat = ctx.saved_tensors
         dh, grads = exact_gnn_backward(_params_of(flat), hf, g, ctx.graph,
                                        ctx.dgl_parity)
-        dflat = [t for name in MLP_NAMES for t in grads[name]]
+        dflat = _flat_of(grads)
         need = ctx.needs_input_grad
         return (None, None, dh if need[2] else None,
                 *(t if need[3 + i] else None for i, t in enumerate(dflat)))
@@ -503,5 +685,4 @@ def exact_walk(params, h0: torch.Tensor, graph,
     """:func:`exact_gnn_forward` through :class:`ExactWalk`: the forward
     launches the same kernels, and autograd takes the hand-written
     backward."""
-    flat = [t for name in MLP_NAMES for t in params[name]]
-    return ExactWalk.apply(graph, dgl_parity, h0, *flat)
+    return ExactWalk.apply(graph, dgl_parity, h0, *_flat_of(params))

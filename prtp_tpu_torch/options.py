@@ -31,7 +31,6 @@ NOT_PORTED = (
      "item 4 (merged super-graph)"),
     ("--compute_dtype bfloat16", lambda o: o.compute_dtype == "bfloat16",
      "item 3 (variants)"),
-    ("--attn", lambda o: o.attn, "item 3 (variants)"),
 )
 
 
@@ -112,8 +111,7 @@ def get_options(args=None):
                         help="classification or regression task, valid: "
                              "['cls','reg']")
     parser.add_argument("--attn", action="store_true",
-                        help="apply the attention mechanism in the GNN "
-                             "(not ported yet)")
+                        help="apply the attention mechanism in the GNN")
     parser.add_argument("--num_heads", type=int, default=1,
                         help="the number of heads for the attention mechanism "
                              "(must divide --out_dim)")

@@ -74,16 +74,37 @@ def load_config(save_dir: str) -> dict:
         return json.load(f)
 
 
+def _check_fits(path: str, saved: dict, want: dict) -> None:
+    """Raise unless ``saved`` holds exactly ``want``'s keys and shapes:
+    ``load_state_dict`` would copy the tensors that fit before it raised
+    for the rest."""
+    missing = sorted(set(want) - set(saved))
+    extra = sorted(set(saved) - set(want))
+    shapes = [f"{k} {tuple(saved[k].shape)} (model {tuple(want[k].shape)})"
+              for k in sorted(set(want) & set(saved))
+              if saved[k].shape != want[k].shape]
+    if missing or extra or shapes:
+        raise ValueError(
+            f"{path} was saved from another model than this one: missing "
+            f"{missing}, unexpected {extra}, other shapes {shapes}. Give "
+            "the model flags it was trained with (such as --attn and "
+            "--num_heads, --unet, --task and --nlabels, the widths)")
+
+
 def load_checkpoint(save_dir: str, state):
     """Restore ``model.pt`` into ``state`` in place: the model's
     parameters and FlatAdam's moments are copied into the tensors that
     are there (the parameters stay views of the optimizer's flat buffer),
     on their device.
 
-    Returns (state, config). Raises FileNotFoundError when absent."""
+    Returns (state, config). Raises FileNotFoundError when absent, and
+    ValueError, before anything is copied, when the saved tensors do not
+    fit the model (another architecture, such as ``--attn`` or its
+    ``--num_heads``)."""
     dev = state.optimizer.flat.device
-    blob = torch.load(os.path.join(save_dir, CKPT_NAME), map_location=dev,
-                      weights_only=True)
+    path = os.path.join(save_dir, CKPT_NAME)
+    blob = torch.load(path, map_location=dev, weights_only=True)
+    _check_fits(path, blob["model"], state.model.state_dict())
     state.model.load_state_dict(blob["model"])
     state.optimizer.load_state_dict(blob["optimizer"])
     state.step = int(blob["step"])

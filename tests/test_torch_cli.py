@@ -48,7 +48,7 @@ def test_options_match_jax_keys_and_defaults():
 @pytest.mark.parametrize("flags,item", [
     (["--dp"], "item 5"), (["--mesh_shape", "2"], "item 5"),
     (["--merge_designs"], "item 4"),
-    (["--compute_dtype", "bfloat16"], "item 3"), (["--attn"], "item 3")])
+    (["--compute_dtype", "bfloat16"], "item 3")])
 def test_not_ported_flags_raise(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
         get_options(flags)

@@ -5,7 +5,8 @@ from JAX's, both train CLIs print the same per-batch and validation
 values and both test CLIs the same ``predict.txt`` row and
 ``predict_critical`` lists: with the default flags, for the
 classification task, with the U-Net (on a 3-channel corpus whose raster
-side is 2 x ``--map_size``) and with a set of non-default flags.
+side is 2 x ``--map_size``), with ``--attn --num_heads 2`` and with a
+set of non-default flags.
 """
 
 import functools
@@ -47,6 +48,7 @@ CLI_FLAGS = {
     "default": ([], "corpus"),
     "cls": (["--task", "cls", "--nlabels", "2"], "corpus"),
     "unet": (["--unet"], "unet"),
+    "attn": (["--attn", "--num_heads", "2"], "corpus"),
     "flags": (["--norm", "--pooling", "avg", "--droplast", "--os_rate", "2",
                "--weight_decay", "1e-4"], "corpus"),
 }
