@@ -20,15 +20,23 @@ Phases, each failing loudly (nonzero exit) on any error:
    the ``--attn`` kernels (``attn_sum``, ``attn_bwd``) at the headline's
    shapes with 1 and 4 heads, timing kernel, plain version, and the one
    PyTorch call that computes the same function where there is one
-   (each time the median of 10 calls, cold L2). Then each kernel's
-   per-call floor (a one-row call, same timer), the kernels' other code
-   paths at edge shapes, the programmatic-launch hazard check (the two
-   backward kernels launched right after a PyTorch kernel, and right
-   after a kernel that lets them start at once, that writes their
-   NaN-filled inputs must match their plain versions; the merged
-   scatter right after ``attn_bwd`` must equal its result with a
-   synchronize between), and the row gather at the TPU probe's shapes
-   (160,000 x 128 bf16, 129,202 rows).
+   (each time the median of 10 calls, cold L2), and ``attn_bwd`` with
+   its persistent grid capped at 132 to 2048 blocks. Then each kernel's
+   per-call floor (a one-row call, same timer) and the floor's parts
+   (the timer alone, an empty kernel launched plainly and as a
+   programmatic dependent launch), the kernels' other code paths at
+   edge shapes (the attention kernels with 1 to 64 heads and k 1 to
+   11), 20 back-to-back ``attn_bwd`` calls whose grids differ (each
+   ``d_w`` the same bits as alone), the programmatic-launch hazard
+   check (``softmax_sum_bwd`` and ``mailbox_scatter`` launched right
+   after a PyTorch kernel, and right after a kernel that lets them
+   start at once, that writes their NaN-filled inputs must match their
+   plain versions; ``attn_sum`` right after either writes ``h`` and
+   ``attn_bwd`` right after either writes ``d_f`` must equal bit for
+   bit a run with a synchronize between; the merged scatter right
+   after ``attn_bwd`` must equal its result with a synchronize
+   between), and the row gather at the TPU probe's shapes (160,000 x
+   128 bf16, 129,202 rows).
 4. The slice: the full-width float32 regression fusion model, random
    weights from a seed, answers three evaluation requests on the
    headline and one on the prior-row design through ``evaluate_design``;
@@ -94,7 +102,7 @@ Phases, each failing loudly (nonzero exit) on any error:
    (2 logits, cross-entropy) on the headline design, the U-Net on the
    headline graph with a 3 x 256 x 256 raster (map 128), and ``--attn``
    on the headline design with one head (``reg_fusion_attn``) and with
-   four (its first 2 steps only, untimed). For each, 3 evaluation
+   four (its first 2 paired steps). For each, 3 evaluation
    requests and phase 6's epoch (5 steps of 128, numpy seed 0), card
    against CPU with phase 4's and 6's launch counts and
    tolerances (``cls``: argmax labels equal but at near-tie logits,
@@ -171,12 +179,13 @@ STAT_RTOL = 1e-3  # phase 8: U-Net running averages, card vs cpu
 ATTN4_STEPS = 2  # phase 8: the 4-head model's paired steps
 HAZARD_REPS = 20  # phase 3: launches right after a writer of the inputs
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
-# phase 3's hazard check: a writer that lets a programmatic dependent
-# launch after it start at once (griddepcontrol.launch_dependents), then
-# spins and only then copies src into dst. A test fixture, not a kernel
-# of the port.
+# phase 3's fixtures, not kernels of the port: for the hazard check a
+# writer that lets a programmatic dependent launch after it start at
+# once (griddepcontrol.launch_dependents), then spins and only then
+# copies src into dst; for the floor an empty kernel of one warp,
+# launched plainly or as a programmatic dependent launch.
 EARLY_WRITER_SPIN_MS = 0.1
-EARLY_WRITER_CU = r"""
+FIXTURES_CU = r"""
 #include <cuda_runtime.h>
 
 __global__ void early_writer(float* dst, const float* src, long long n,
@@ -197,6 +206,23 @@ extern "C" int early_writer_launch(void* dst, const void* src, long long n,
   early_writer<<<132, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(dst), static_cast<const float*>(src), n, cycles);
   return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void empty_kernel() {}
+
+extern "C" int empty_launch(int programmatic, void* stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(32);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = programmatic ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, empty_kernel);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 """
 DEVICE = "cuda:0"
@@ -590,6 +616,36 @@ def check_attn_kernels(torch, graph, dev, timer, design, nh):
     return recs
 
 
+def attn_bwd_grids(torch, graph, dev, timer, nh, smi,
+                   caps=(132, 264, 528, 1056, 2048)):
+    """Phase 3: logs attn_bwd's time per backward on ``graph`` (the cell
+    mailbox of each pair k > 0) with its persistent grid capped at each of
+    ``caps`` blocks (the wrapper's ``_ATTN_BWD_BLOCKS``), the caps taken
+    in turns, each pair's time the timer's median."""
+    from prtp_tpu_torch.ops import fused_gnn
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6 + nh)
+    num_rows = graph.num_rows
+    h = torch.randn((num_rows + 1, D), generator=gen, device=dev)
+    w = attn_weights(torch, nh, gen, dev)
+    ms = dict.fromkeys(caps, 0.0)
+    default = fused_gnn._ATTN_BWD_BLOCKS
+    try:
+        for k in range(1, graph.num_pairs):
+            idx = graph.cell_mail[k]
+            alpha = fused_gnn.attn_sum_plain(h, idx, num_rows, w, True)[1]
+            d_f = torch.randn((idx.shape[0], D), generator=gen, device=dev)
+            for cap in caps:
+                fused_gnn._ATTN_BWD_BLOCKS = cap
+                ms[cap] += timer.ms(lambda: fused_gnn.attn_bwd(
+                    h, idx, num_rows, w, alpha, d_f))
+    finally:
+        fused_gnn._ATTN_BWD_BLOCKS = default
+    log(f"  attn_bwd nh {nh}, ms a backward by the grid's cap in blocks "
+        f"(the wrapper's {default}): "
+        + ", ".join(f"{c} {t:.4f}" for c, t in ms.items()) + f"  [{smi}]")
+
+
 def adam_close(torch, got, want, what):
     """flat_adam's (p, g, mu, nu) against the plain version's, each within
     rtol 1e-6 and atol 1e-6 x the vector's largest value: the plain
@@ -778,6 +834,24 @@ def call_floors(torch, graph, dev, timer) -> dict:
         "attn_bwd": timer.ms(
             lambda: attn_bwd(h, one_row, graph.num_rows, w, alpha, new)),
     }
+
+
+def fixture_floors(torch, dev, timer, empty_launch) -> dict:
+    """What the per-call floor is made of, with the same timer: the two
+    events with nothing between them, and the empty kernel (FIXTURES_CU)
+    launched plainly and as a programmatic dependent launch. A kernel's
+    one-row call less the empty launch is its chain of dependent loads
+    and its own work."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def empty(programmatic):
+        err = empty_launch(programmatic, stream)
+        if err != 0:
+            raise RuntimeError(f"empty_launch failed: cuda error {err}")
+
+    return {"nothing between the events": timer.ms(lambda: None),
+            "empty kernel": timer.ms(lambda: empty(0)),
+            "empty kernel, programmatic launch": timer.ms(lambda: empty(1))}
 
 
 def check_edge_shapes(torch, dev):
@@ -1031,10 +1105,13 @@ def check_backward_edge_shapes(torch, dev):
 
 def check_attn_edge_shapes(torch, dev):
     """The attention kernels' other code paths against their plain
-    versions (attn_close), alpha and d_w included: k > 8 (the generic
-    path), nh 2, 8 and 64 at D = 128 (Dh 64, 16 and 2: a float4 spanning
-    heads), D = 12 with nh 3, D % 4 != 0 (the scalar path: D 6 with nh 3,
-    D 7), D = 300 (several float4s a lane: the generic path), a
+    versions (attn_close), alpha and d_w included: the heads-together
+    register path at D = 128 with nh 1, 2, 4, 8, 16 and 32 (32 down to 1
+    lanes a head) and k 1, 2, 4, 7 and 8; k > 8 (the generic path: k 9
+    and 11); nh 64 at D = 128 (Dh 2: a float4 spanning heads, the
+    per-head loop), nh 3 at D = 12 and D = 96 (not a power of two), D %
+    4 != 0 (the scalar path: D 6 with nh 3, D 7), D = 300 (several
+    float4s a lane: the generic path), a
     misaligned h, an empty mailbox, all-invalid rows (row 0 of each), a
     NaN in a valid slot (forward: NaN where the plain version has it),
     and large scores: h in multiples of 1/8 up to 16, integer w up to 3,
@@ -1050,13 +1127,24 @@ def check_attn_edge_shapes(torch, dev):
             (0, 4, 128, 1, 50, "empty"),
             (300, 11, 128, 1, 900, "k>8"),
             (300, 11, 128, 4, 900, "k>8, nh 4"),
+            (300, 4, 128, 1, 900, "nh 1"),
             (300, 4, 128, 2, 900, "nh 2"),
             (300, 4, 128, 8, 900, "nh 8"),
+            (300, 4, 128, 16, 900, "nh 16"),
+            (300, 4, 128, 32, 900, "nh 32: a lane a head"),
+            (300, 8, 128, 32, 900, "nh 32, k=8"),
             (300, 4, 128, 64, 900, "nh 64: Dh 2, a float4 spans heads"),
+            (300, 1, 128, 4, 900, "k=1"),
+            (300, 2, 128, 4, 900, "k=2"),
+            (300, 4, 128, 4, 900, "k=4"),
             (300, 7, 128, 4, 900, "k=7"),
+            (300, 8, 128, 4, 900, "k=8"),
+            (300, 9, 128, 4, 900, "k=9: the generic path"),
+            (300, 8, 128, 1, 900, "k=8, nh 1"),
             (6000, 4, 128, 2, 900, "blocks of several tiles"),
             (5000, 11, 128, 4, 900, "k>8, blocks of several tiles"),
             (300, 4, 12, 3, 900, "D=12, nh 3"),
+            (300, 4, 96, 3, 900, "D=96, nh 3"),
             (300, 4, 6, 3, 900, "D=6, nh 3: D%4!=0"),
             (50, 20, 7, 1, 200, "k>8, D=7"),
             (300, 3, 300, 5, 900, "D=300, nh 5"),
@@ -1112,36 +1200,97 @@ def check_attn_edge_shapes(torch, dev):
         "the plain version has it)")
 
 
-def start_early_writer_build():
-    """Phase 2: start ``nvcc`` on EARLY_WRITER_CU, beside the port's
-    builds, into the port's (git-ignored) build directory. Returns what
-    :func:`load_early_writer` takes."""
+def check_attn_back_to_back(torch, dev, calls=20):
+    """attn_bwd's fixed-order d_w: ``calls`` calls back to back on the
+    stream, no synchronize between (each kernel a programmatic dependent
+    launch right after the one before), cycling through mailboxes whose
+    grids differ (1, 10, 50, 75, 750 and 1,056 blocks, the cap), with 1
+    and 4 heads. Each call's d_w must have the same bits as the same
+    inputs' call run alone before, which must match the plain version
+    (attn_close)."""
+    from prtp_tpu_torch.ops.fused_gnn import attn_bwd, attn_bwd_plain
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    r = 5000
+    h = torch.randn((r, D), generator=gen, device=dev)
+    cases = []
+    for p, nh in ((4, 1), (40, 4), (200, 1), (300, 4), (20000, 4),
+                  (3000, 1)):
+        idx = torch.randint(0, r - 1, (p, 4), generator=gen, device=dev,
+                            dtype=torch.int32)
+        idx[torch.rand((p, 4), generator=gen, device=dev) < 0.35] = r - 1
+        w = attn_weights(torch, nh, gen, dev)
+        alpha = torch.softmax(torch.randn((p, 4, nh), generator=gen,
+                                          device=dev), dim=1)
+        alpha[idx == r - 1] = 0.0
+        d_f = torch.randn((p, D), generator=gen, device=dev)
+        args = (h, idx, r - 1, w, alpha, d_f)
+        alone = attn_bwd(*args)[1]
+        torch.cuda.synchronize()
+        ok, err = attn_close(torch, alone, attn_bwd_plain(*args)[1])
+        if not ok:
+            raise AssertionError(f"attn_bwd d_w differs from the plain "
+                                 f"version at P {p}, nh {nh}: {err}")
+        cases.append((args, alone))
+    got = [attn_bwd(*cases[i % len(cases)][0])[1] for i in range(calls)]
+    torch.cuda.synchronize()
+    off = [int((g != cases[i % len(cases)][1]).sum())
+           for i, g in enumerate(got)]
+    log(f"  attn_bwd back to back: {calls} calls over "
+        f"{len(cases)} grids, d_w elements off the lone call's bits in "
+        f"each: {off}")
+    if any(off):
+        raise AssertionError(f"attn_bwd's d_w changed back to back: {off}")
+
+
+def start_fixture_build():
+    """Phase 2: start ``nvcc`` on FIXTURES_CU, beside the port's builds,
+    into the port's (git-ignored) build directory. Returns what
+    :func:`load_fixtures` takes."""
     from prtp_tpu_torch.ops import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.BUILD_DIR / "early_writer.cu"
-    src.write_text(EARLY_WRITER_CU)
-    target = _build.BUILD_DIR / "libearly_writer.so"
+    src = _build.BUILD_DIR / "fixtures.cu"
+    src.write_text(FIXTURES_CU)
+    target = _build.BUILD_DIR / "libfixtures.so"
     proc = subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(target), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, target
 
 
-def load_early_writer(build):
-    """``early_writer_launch`` of the library :func:`start_early_writer_build`
-    compiles; raises with the compiler's output if the build failed."""
+def load_fixtures(build):
+    """``(early_writer_launch, empty_launch)`` of the library
+    :func:`start_fixture_build` compiles; raises with the compiler's
+    output if the build failed."""
     import ctypes
 
     proc, target = build
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"early_writer build failed:\n{out}")
-    fn = ctypes.CDLL(str(target)).early_writer_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+        raise RuntimeError(f"fixtures build failed:\n{out}")
+    lib = ctypes.CDLL(str(target))
+    writer, empty = lib.early_writer_launch, lib.empty_launch
+    writer.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_void_p]
+    empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    writer.restype = empty.restype = ctypes.c_int
+    return writer, empty
+
+
+def hazard_writers(torch, dev, early_writer) -> dict:
+    """The two writers of the hazard checks, each ``write(buf, src)``
+    (copy src into buf on the stream): ``torch.mul`` by 1 and
+    ``early_writer``."""
+    def write_early(buf, src):
+        err = early_writer(buf.data_ptr(), src.data_ptr(), buf.numel(),
+                           int(EARLY_WRITER_SPIN_MS * SPIN_CYCLES_PER_MS),
+                           torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"early_writer launch failed: cuda error {err}")
+
+    return {"torch.mul": lambda buf, src: torch.mul(src, 1.0, out=buf),
+            "early_writer": write_early}
 
 
 def check_programmatic_hazard(torch, graph, dev, early_writer, pair=1):
@@ -1151,7 +1300,7 @@ def check_programmatic_hazard(torch, graph, dev, early_writer, pair=1):
     after its wait (f and d_f; dest, d_pre_n and d_mail_c), all NaN
     before. Two writers: an elementwise PyTorch kernel (``torch.mul`` by
     1), as on the main path, where the launch after it may start only as
-    its blocks exit; and ``early_writer`` (EARLY_WRITER_CU), which lets
+    its blocks exit; and ``early_writer`` (FIXTURES_CU), which lets
     the launch after it start at once and writes only after a spin, so
     that any read before the wait finds NaN. A spin kernel holds the
     stream while the host enqueues writer and kernel. Each of HAZARD_REPS
@@ -1163,15 +1312,7 @@ def check_programmatic_hazard(torch, graph, dev, early_writer, pair=1):
                                               softmax_sum_bwd_plain,
                                               softmax_sum_plain)
 
-    def write_early(buf, src):
-        err = early_writer(buf.data_ptr(), src.data_ptr(), buf.numel(),
-                           int(EARLY_WRITER_SPIN_MS * SPIN_CYCLES_PER_MS),
-                           torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"early_writer launch failed: cuda error {err}")
-
-    writers = {"torch.mul": lambda buf, src: torch.mul(src, 1.0, out=buf),
-               "early_writer": write_early}
+    writers = hazard_writers(torch, dev, early_writer)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     num_rows = graph.num_rows
     cell_mail = graph.cell_mail[pair]
@@ -1252,21 +1393,28 @@ def check_programmatic_hazard(torch, graph, dev, early_writer, pair=1):
         "writer (rtol 1e-5, atol 1e-6)")
 
 
-def check_attn_hazard(torch, graph, dev, pair=1):
-    """Phase 3, programmatic dependent launch after ``--attn``'s backward:
-    the merged mailbox_scatter at one pair's shapes of ``graph``, launched
-    right after attn_bwd, whose first kernel writes the cell cotangent
-    the scatter reads after its wait and whose last kernel (the d_w
-    reduce) runs just before the scatter, which reads the graph's tables
-    while it drains. For each head count of ATTN_HEADS, HAZARD_REPS
-    cotangents d_f, each a new draw: attn_bwd and the scatter enqueued
-    back to back behind a spin kernel must equal bit for bit the result
-    with a synchronize between the two, run after it (so the memory that
-    the unsynchronized run's cotangent takes held another draw's); the
-    first synchronized result must match the plain versions'
-    (attn_close)."""
+def check_attn_hazard(torch, graph, dev, early_writer, pair=1):
+    """Phase 3, programmatic dependent launches and ``--attn``, at one
+    pair's shapes of ``graph``, for each head count of ATTN_HEADS:
+
+    - attn_sum (with alpha) right after each writer of
+      :func:`hazard_writers` writes the NaN-filled ``h``, and attn_bwd
+      right after each writes the NaN-filled ``d_f``: each of HAZARD_REPS
+      launches must equal bit for bit a run with a synchronize between
+      writer and kernel (a read before the wait would find NaN).
+    - The merged mailbox_scatter launched right after attn_bwd, whose
+      rows kernel writes the cell cotangent that the scatter reads after
+      its wait and whose reduce runs just before the scatter, which reads
+      the graph's tables as it drains:
+      HAZARD_REPS cotangents d_f, each a new draw, attn_bwd and the
+      scatter enqueued back to back behind a spin kernel must equal bit
+      for bit the result with a synchronize between the two, run after
+      it (so the memory that the unsynchronized run's cotangent takes
+      held another draw's); the first synchronized result must match the
+      plain versions' (attn_close)."""
     from prtp_tpu_torch.ops.fused_gnn import (attn_bwd, attn_bwd_plain,
-                                              attn_sum_plain, mailbox_scatter,
+                                              attn_sum, attn_sum_plain,
+                                              mailbox_scatter,
                                               mailbox_scatter_plain)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -1280,9 +1428,45 @@ def check_attn_hazard(torch, graph, dev, pair=1):
             graph.net_cnt[pair], md_n, pn_c * md_c)
     h = torch.randn((num_rows + 1, D), generator=gen, device=dev)
     dest = torch.randn((num_rows + 1, D), generator=gen, device=dev)
+    writers = hazard_writers(torch, dev, early_writer)
+    h_v = torch.full_like(h, float("nan"))
+    d_f = torch.randn((pn_c, D), generator=gen, device=dev)
+    d_f_v = torch.full_like(d_f, float("nan"))
+    valid = (cell_mail != num_rows).reshape(-1)
     for nh in ATTN_HEADS:
         w = attn_weights(torch, nh, gen, dev)
         alpha = attn_sum_plain(h, cell_mail, num_rows, w, True)[1]
+
+        def fwd():
+            return attn_sum(h_v, cell_mail, num_rows, w, with_alpha=True)
+
+        def bwd():
+            d_m, d_w = attn_bwd(h, cell_mail, num_rows, w, alpha, d_f_v)
+            return d_m[valid], d_w
+
+        kernels = {"attn_sum": (h_v, h, fwd), "attn_bwd": (d_f_v, d_f, bwd)}
+        for name, (buf, src, call) in kernels.items():
+            for writer, write in writers.items():
+                bad = []
+                for _ in range(HAZARD_REPS):
+                    runs = []
+                    for sync in (False, True):
+                        buf.fill_(float("nan"))
+                        torch.cuda._sleep(int(0.2 * SPIN_CYCLES_PER_MS))
+                        write(buf, src)
+                        if sync:
+                            torch.cuda.synchronize()
+                        runs.append(call())
+                    bad.append(sum(int((a != b).sum())
+                                   for a, b in zip(*runs)))
+                log(f"  programmatic launch: {name} (nh {nh}) right after "
+                    f"{writer} writes its input: elements off the "
+                    f"synchronized run in each of {HAZARD_REPS} launches "
+                    f"{bad}")
+                if any(bad) or not all(bool(torch.isfinite(t).all())
+                                       for t in runs[1]):
+                    raise AssertionError(f"{name} (nh {nh}) right after "
+                                         f"{writer} differs: {bad}")
 
         def run(d_f, sync):
             got = dest.clone()
@@ -2317,10 +2501,9 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
     gradients against float64 (:func:`unet_f32_error`), its BatchNorm
     running averages card against CPU (:func:`check_running_averages`),
     and an evaluation in eval mode of the CPU's trained weights and
-    averages on both (1e-4). Then
-    the timings (:func:`time_variant`, :func:`time_unet`). Returns each
-    run's launch counts. Every variant but ``attn4`` is timed
-    (:func:`time_variant`)."""
+    averages on both (1e-4). Then the timings of every variant
+    (:func:`time_variant`, :func:`time_unet`). Returns each run's launch
+    counts."""
     from prtp_tpu_torch.data.random_design import make_random_design
     from prtp_tpu_torch.graph import pack_design
     from prtp_tpu_torch.models import PathModel
@@ -2411,8 +2594,7 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
                 f"vs cpu: within {float(np.abs(p_card - p_cpu).max()):.3g} "
                 "(rtol/atol 1e-4): ok")
             time_unet(torch, model_cpu.cnn, card_design.cnn_input, smi)
-        if name != "attn4":
-            time_variant(torch, model_cpu, card_design, dev, task, name, smi)
+        time_variant(torch, model_cpu, card_design, dev, task, name, smi)
         del runs, designs, card_design, cpu_design
         torch.cuda.empty_cache()
     return launches
@@ -2453,14 +2635,14 @@ def main() -> int:
 
     # ---- phase 2: build ----
     t0 = time.perf_counter()
-    writer_build = start_early_writer_build()
+    writer_build = start_fixture_build()
     try:
         report = _build.build()
     except BaseException:
         writer_build[0].kill()
         writer_build[0].wait()
         raise
-    early_writer = load_early_writer(writer_build)
+    early_writer, empty_launch = load_fixtures(writer_build)
     log(f"phase 2: built {len(report)} kernel libraries and the hazard "
         f"check's writer in {time.perf_counter() - t0:.1f} s")
     for name, info in report.items():
@@ -2507,11 +2689,15 @@ def main() -> int:
         log(f"  -- headline, --attn --num_heads {nh} --")
         attn_recs[nh] = check_attn_kernels(torch, graphs["headline"], dev,
                                            timer, "headline", nh)
+        attn_bwd_grids(torch, graphs["headline"], dev, timer, nh, smi)
     # the JSON line's attention records: the recorded config's one head
     recs["headline"].update(attn_recs[ATTN_HEADS[0]])
     floors = call_floors(torch, graphs["headline"], dev, timer)
     log("  per-call floor (one-row call, same timer): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in floors.items()))
+    log("  the floor's parts (same timer): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in fixture_floors(
+            torch, dev, timer, empty_launch).items()) + f"  [{smi}]")
     records = []
     for name, (_src, _rep, design) in KERNEL_INFO.items():
         rec = recs[design][name]
@@ -2527,8 +2713,9 @@ def main() -> int:
     check_edge_shapes(torch, dev)
     check_backward_edge_shapes(torch, dev)
     check_attn_edge_shapes(torch, dev)
+    check_attn_back_to_back(torch, dev)
     check_programmatic_hazard(torch, graphs["headline"], dev, early_writer)
-    check_attn_hazard(torch, graphs["headline"], dev)
+    check_attn_hazard(torch, graphs["headline"], dev, early_writer)
     gather_probe(torch, dev, timer)
     del timer, graphs
 

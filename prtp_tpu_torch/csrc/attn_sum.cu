@@ -37,15 +37,35 @@
 // covers one row, one float4 of channels a lane (a whole warp at
 // D = 128), the row's k indices loaded once by k lanes and shared by
 // shuffle. For k <= 8 and at most 32 float4s a row, every valid slot's
-// 16-byte load is issued at once and kept in registers; then for each
-// head every lane dots its float4 with w's and the group sums the
-// products (group_sum: the whole row), each lane applies the softmax to
-// the k scores it now holds, and accumulates its channels whose head it
-// is. A float4 that spans heads (D / nh < 4) takes each channel's own
-// head. Heads are taken one after another: nh group sums a slot. Other
-// shapes take a generic path: per head three passes over the slots (max,
-// denominator, weighted sum into out), the rows re-read from L1. D % 4 !=
-// 0 or a pointer off 16-byte alignment takes the scalar path (N = 1).
+// 16-byte load is issued at once and kept in registers.
+//
+// Heads together (NH > 0): where nh is a power of two, D / nh a multiple
+// of 4 and the group is exactly D / 4 lanes, head g's channels are the
+// group / nh contiguous lanes from g * group / nh, and one reduction pass
+// serves every head. For each slot each lane dots its float4 with all nh
+// heads' slices of w; head_scores() halves the nh partial scores at each
+// xor step (send the other half of the heads to the partner lane, keep
+// and add this half: nh - 1 shuffles), then a butterfly over the head's
+// own lanes (group_sum) leaves each lane the full score of its own head,
+// the same bits in all of that head's lanes: 6 shuffles a slot at nh = 4
+// and D = 128, against 20 for four full-warp sums. Each lane then runs
+// its own head's softmax only (k exps) and the head's lanes store its
+// alpha, slot by slot. At nh = 1 this is one full-group sum a slot.
+// The other shapes keep the per-head loop (NH == 0): nh group sums a
+// slot, each lane runs every head's softmax and keeps its channels'
+// (a float4 that spans heads, D / nh < 4, takes each channel's own head).
+// k > 8 or more than 32 float4s a row takes a generic path: per head
+// three passes over the slots (max, denominator, weighted sum into out).
+// D % 4 != 0 or a pointer off 16-byte alignment takes the scalar path
+// (N = 1).
+//
+// Launched as a programmatic dependent launch (common.cuh): before
+// grid_dep_wait() the kernel reads idx and w (the graph's table and a
+// weight that no kernel of the walk writes); the rows of h, which the
+// forward walk's kernels just before it write, after. (The backward's
+// recompute reads the final state hf, which could be read before the
+// wait too; on the H100 that moved the walk backward by less than its
+// noise, PERF.md §6, so both read h after it.)
 
 #include <math.h>
 
@@ -60,7 +80,7 @@ __device__ __forceinline__ float floor_den(float den) {
 // This lane's part of the score of slot src for head g: its channels'
 // products with w's, summed over its vectors, then over the group.
 template <int N>
-__device__ __forceinline__ float slot_score(const float* __restrict__ h,
+__device__ __forceinline__ float slot_score(const float* h,
                                             const float* __restrict__ w,
                                             int32_t src, bool valid, int g,
                                             int d, const RowLanes& rl,
@@ -69,7 +89,7 @@ __device__ __forceinline__ float slot_score(const float* __restrict__ h,
   if (valid) {
     for (int c = rl.lane; c < d / N; c += group) {
       float x[N], wv[N];
-      load_vec<N>(h + static_cast<int64_t>(src) * d + c * N, x);
+      load_vec_cg<N>(h + static_cast<int64_t>(src) * d + c * N, x);
       load_vec<N>(w + static_cast<int64_t>(g) * d + c * N, wv);
 #pragma unroll
       for (int i = 0; i < N; ++i) part += x[i] * wv[i];
@@ -78,21 +98,127 @@ __device__ __forceinline__ float slot_score(const float* __restrict__ h,
   return group_sum(part, group);
 }
 
-// KMAX > 0: the register path for k <= KMAX and d / N <= group;
-// KMAX == 0: any k and d.
+// The scores of NH heads (a power of two) from each lane's NH partial
+// scores p, reduced over the `group` lanes in one pass: on return this
+// lane holds the full score of its own head, lane / (group / NH). At
+// each xor step a lane keeps the half of the heads on its side of the
+// step's bit and adds the partner's partials of them (NH - 1 shuffles in
+// all); a butterfly over the head's group / NH lanes ends it, so every
+// lane of a head gets the same bits. Every lane of the warp must call it.
+template <int NH>
+__device__ __forceinline__ float head_scores(float (&p)[NH], int lane,
+                                             int group) {
+  int off = group >> 1;
+#pragma unroll
+  for (int cnt = NH; cnt > 1; cnt >>= 1) {
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < cnt / 2; ++i) {
+      const float keep = upper ? p[i + cnt / 2] : p[i];
+      const float send = upper ? p[i] : p[i + cnt / 2];
+      p[i] = keep + __shfl_xor_sync(0xffffffffu, send, off, group);
+    }
+    off >>= 1;
+  }
+  return group_sum(p[0], group / NH);
+}
+
+// The rows of the slots of one row, loaded at once (0 where not ok).
 template <int N, int KMAX>
+__device__ __forceinline__ void load_slots(const float* h,
+                                           const int32_t (&src)[KMAX],
+                                           const bool (&ok)[KMAX], bool mine,
+                                           int c, int d, float (&x)[KMAX][N]) {
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    if (ok[j] && mine) {
+      load_vec_cg<N>(h + static_cast<int64_t>(src[j]) * d + c * N, x[j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[j][i] = 0.f;
+    }
+  }
+}
+
+// KMAX > 0: the register path for k <= KMAX and d / N <= group; NH > 0
+// (N == 4, group == d / 4, nh == NH): its heads together; NH == 0: any
+// nh. KMAX == 0: any k and d.
+template <int N, int KMAX, int NH>
 __global__ void __launch_bounds__(kMailboxThreads)
-    attn_sum_kernel(const float* __restrict__ h,
-                    const int32_t* __restrict__ idx,
+    attn_sum_kernel(const float* h, const int32_t* __restrict__ idx,
                     const float* __restrict__ w, float* __restrict__ out,
                     float* __restrict__ alpha, int64_t rows, int k, int d,
                     int nh, int num_rows, int group) {
   const RowLanes rl = row_lanes(group);
   const bool row_ok = rl.row < rows;
-  const int dh = d / nh;
-  // no lane returns early: every lane of the warp takes part in the
-  // group sums
-  if constexpr (KMAX > 0) {
+  [[maybe_unused]] const int dh = d / nh;
+  // no lane returns before the last shuffle: every lane of the warp
+  // takes part in the group sums
+  if constexpr (KMAX > 0 && NH > 0) {
+    int32_t src[KMAX];
+    row_indices<KMAX>(idx, rl, row_ok, k, group, src);
+    bool ok[KMAX];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) ok[j] = row_ok && j < k && src[j] != num_rows;
+    const int c = rl.lane;  // this lane's float4 of channels
+    const int lanes = group / NH;  // a head's lanes
+    const int g = c / lanes;       // this lane's head
+    float wv[NH][N];
+#pragma unroll
+    for (int gg = 0; gg < NH; ++gg)
+      load_vec<N>(w + static_cast<int64_t>(gg) * d + c * N, wv[gg]);
+    grid_dep_wait();
+    float x[KMAX][N];
+    load_slots<N, KMAX>(h, src, ok, true, c, d, x);
+    float s[KMAX];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      float p[NH];
+#pragma unroll
+      for (int gg = 0; gg < NH; ++gg) {
+        p[gg] = 0.f;
+#pragma unroll
+        for (int i = 0; i < N; ++i) p[gg] += x[j][i] * wv[gg][i];
+      }
+      s[j] = head_scores<NH>(p, c, group);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j)
+      if (ok[j]) mx = nan_max(mx, s[j]);
+    if (!isfinite(mx)) mx = 0.f;
+    float a[KMAX];
+    float den = 0.f;
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      a[j] = ok[j] ? expf(s[j] - mx) : 0.f;
+      den += a[j];
+    }
+    den = floor_den(den);
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) a[j] = a[j] / den;
+    if (!row_ok) return;
+    if (alpha != nullptr) {
+      // the head's lanes store its weights, one slot each in turn
+      for (int jj = c - g * lanes; jj < k; jj += lanes) {
+        float mine_a = 0.f;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j == jj) mine_a = a[j];
+        alpha[(rl.row * k + jj) * NH + g] = mine_a;
+      }
+    }
+    float res[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j)
+        if (ok[j]) acc += a[j] * x[j][i];
+      res[i] = acc;
+    }
+    store_vec<N>(out + rl.row * d + c * N, res);
+  } else if constexpr (KMAX > 0) {
     int32_t src[KMAX];
     row_indices<KMAX>(idx, rl, row_ok, k, group, src);
     bool ok[KMAX];
@@ -100,16 +226,9 @@ __global__ void __launch_bounds__(kMailboxThreads)
     for (int j = 0; j < KMAX; ++j) ok[j] = row_ok && j < k && src[j] != num_rows;
     const int c = rl.lane;  // this lane's vector of channels
     const bool mine = c < d / N;
+    grid_dep_wait();
     float x[KMAX][N];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (ok[j] && mine) {
-        load_vec<N>(h + static_cast<int64_t>(src[j]) * d + c * N, x[j]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) x[j][i] = 0.f;
-      }
-    }
+    load_slots<N, KMAX>(h, src, ok, mine, c, d, x);
     float res[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) res[i] = 0.f;
@@ -164,6 +283,7 @@ __global__ void __launch_bounds__(kMailboxThreads)
     }
     if (row_ok && mine) store_vec<N>(out + rl.row * d + c * N, res);
   } else {
+    grid_dep_wait();
     const int32_t* irow = idx + (row_ok ? rl.row : 0) * k;
     for (int g = 0; g < nh; ++g) {
       float mx = -INFINITY;
@@ -196,7 +316,7 @@ __global__ void __launch_bounds__(kMailboxThreads)
         const float* hrow = h + static_cast<int64_t>(irow[j]) * d;
         for (int c = rl.lane * N; c < d; c += group * N) {
           float x[N];
-          load_vec<N>(hrow + c, x);
+          load_vec_cg<N>(hrow + c, x);
           for (int i = 0; i < N; ++i)
             if ((c + i) / dh == g) orow[c + i] += a * x[i];
         }
@@ -205,23 +325,47 @@ __global__ void __launch_bounds__(kMailboxThreads)
   }
 }
 
+// every instantiation has the same parameters
+using AttnSumKernel = decltype(&attn_sum_kernel<1, 0, 0>);
+
+// The register path's kernel for nh heads: heads together where they
+// may be, else the per-head loop.
+template <int N, int KMAX>
+static AttnSumKernel register_kernel(int nh, bool together) {
+  if constexpr (N == 4) {
+    if (together) {
+      switch (nh) {
+        case 1: return &attn_sum_kernel<4, KMAX, 1>;
+        case 2: return &attn_sum_kernel<4, KMAX, 2>;
+        case 4: return &attn_sum_kernel<4, KMAX, 4>;
+        case 8: return &attn_sum_kernel<4, KMAX, 8>;
+        case 16: return &attn_sum_kernel<4, KMAX, 16>;
+        case 32: return &attn_sum_kernel<4, KMAX, 32>;
+        default: break;
+      }
+    }
+  }
+  return &attn_sum_kernel<N, KMAX, 0>;
+}
+
 template <int N>
-static void launch(const float* h, const int32_t* idx, const float* w,
-                   float* out, float* alpha, int64_t rows, int k, int d,
-                   int nh, int num_rows, cudaStream_t s) {
+static cudaError_t launch(const float* h, const int32_t* idx, const float* w,
+                          float* out, float* alpha, int64_t rows, int k,
+                          int d, int nh, int num_rows, cudaStream_t s) {
   const int vecs = d / N;
   const bool regs = k <= 8 && vecs <= 32;
   const int group = lane_group(regs && k > vecs ? k : vecs);
   const unsigned grid = mailbox_grid(rows, group);
-  if (regs && k <= 4)
-    attn_sum_kernel<N, 4><<<grid, kMailboxThreads, 0, s>>>(
-        h, idx, w, out, alpha, rows, k, d, nh, num_rows, group);
-  else if (regs)
-    attn_sum_kernel<N, 8><<<grid, kMailboxThreads, 0, s>>>(
-        h, idx, w, out, alpha, rows, k, d, nh, num_rows, group);
-  else
-    attn_sum_kernel<N, 0><<<grid, kMailboxThreads, 0, s>>>(
-        h, idx, w, out, alpha, rows, k, d, nh, num_rows, group);
+  // heads together: each head's channels are whole float4s of lanes of
+  // their own, nh a power of two
+  const bool together = group == vecs && nh <= vecs && vecs % nh == 0 &&
+                        (nh & (nh - 1)) == 0;
+  const AttnSumKernel kernel =
+      !regs     ? &attn_sum_kernel<N, 0, 0>
+      : k <= 4  ? register_kernel<N, 4>(nh, together)
+                : register_kernel<N, 8>(nh, together);
+  return launch_programmatic(kernel, grid, kMailboxThreads, 0, s, h, idx, w,
+                             out, alpha, rows, k, d, nh, num_rows, group);
 }
 
 // h: (> num_rows, d) float32, idx: (rows, k) int32 with values in
@@ -241,9 +385,9 @@ PRTP_EXPORT int attn_sum_launch(const void* h, const void* idx, const void* w,
   const uintptr_t align = reinterpret_cast<uintptr_t>(h) |
                           reinterpret_cast<uintptr_t>(w) |
                           reinterpret_cast<uintptr_t>(out);
-  if (d % 4 == 0 && align % 16 == 0)
-    launch<4>(hp, ip, wp, op, ap, rows, k, d, nh, num_rows, s);
-  else
-    launch<1>(hp, ip, wp, op, ap, rows, k, d, nh, num_rows, s);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      d % 4 == 0 && align % 16 == 0
+          ? launch<4>(hp, ip, wp, op, ap, rows, k, d, nh, num_rows, s)
+          : launch<1>(hp, ip, wp, op, ap, rows, k, d, nh, num_rows, s);
+  return static_cast<int>(err);
 }

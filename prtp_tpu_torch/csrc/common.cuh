@@ -146,36 +146,40 @@ __device__ __forceinline__ float group_sum(float v, int group) {
   return v;
 }
 
-// ---- programmatic dependent launch (sm_90), for softmax_sum_bwd and
-// mailbox_scatter ----
+// ---- programmatic dependent launch (sm_90) ----
+//
+// Its users: attn_sum, attn_bwd's two kernels (attn_bwd_rows,
+// attn_dw_reduce), softmax_sum_bwd and mailbox_scatter. softmax_sum,
+// local_mean, gather_rows and flat_adam launch plainly.
 //
 // Launched with cudaLaunchAttributeProgrammaticStreamSerialization, a
 // kernel may start while the kernel before it on the stream drains: its
 // blocks run up to grid_dep_wait(), which returns once every earlier
 // kernel has finished and its writes are visible. Before the wait a
 // kernel reads only what no kernel in flight writes (the graph's tables,
-// the final node state); every other read and every store comes after.
-// So a caller must not let the kernel just before it on the stream write
-// what is read before the wait. Launched plainly, the wait returns at
-// once.
+// the final node state hf, the weights, attn_sum's alpha in the
+// backward); every other read and every store comes after. So a caller
+// must not let the kernel just before it on the stream write what is
+// read before the wait. Launched plainly, the wait returns at once.
 
 __device__ __forceinline__ void grid_dep_wait() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-// Launches kernel<<<grid, kMailboxThreads, 0, s>>>(args...) through
+// Launches kernel<<<grid, block, smem, s>>>(args...) through
 // cudaLaunchKernelEx, as a programmatic dependent launch. Returns the
 // launch's error, else the last.
 template <typename... Params, typename... Args>
-cudaError_t launch_programmatic(void (*kernel)(Params...), unsigned grid,
-                                cudaStream_t s, Args... args) {
+cudaError_t launch_programmatic(void (*kernel)(Params...), dim3 grid,
+                                dim3 block, size_t smem, cudaStream_t s,
+                                Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kMailboxThreads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;

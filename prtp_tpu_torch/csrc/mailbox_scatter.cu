@@ -118,9 +118,11 @@ PRTP_EXPORT int mailbox_scatter_launch(void* dest, const void* rows,
   const int group = lane_group(vecs);
   const unsigned grid = mailbox_grid(segs, group);
   const cudaError_t err =
-      vec4 ? launch_programmatic(mailbox_scatter_kernel<4>, grid, s, dp, rp, op,
-                                 pp, cp, np_, kp, segs, d, n_cell, md_n, group)
-           : launch_programmatic(mailbox_scatter_kernel<1>, grid, s, dp, rp, op,
-                                 pp, cp, np_, kp, segs, d, n_cell, md_n, group);
+      vec4 ? launch_programmatic(mailbox_scatter_kernel<4>, grid,
+                                 kMailboxThreads, 0, s, dp, rp, op, pp, cp,
+                                 np_, kp, segs, d, n_cell, md_n, group)
+           : launch_programmatic(mailbox_scatter_kernel<1>, grid,
+                                 kMailboxThreads, 0, s, dp, rp, op, pp, cp,
+                                 np_, kp, segs, d, n_cell, md_n, group);
   return static_cast<int>(err);
 }

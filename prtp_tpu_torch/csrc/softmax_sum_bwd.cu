@@ -162,8 +162,8 @@ static cudaError_t launch(const float* h, const int32_t* idx, const float* f,
   auto kernel = k <= 4   ? &softmax_sum_bwd_kernel<N, 4>
                 : k <= 8 ? &softmax_sum_bwd_kernel<N, 8>
                          : &softmax_sum_bwd_kernel<N, 0>;
-  return launch_programmatic(kernel, grid, s, h, idx, f, df, out, rows, k, d,
-                             num_rows, group);
+  return launch_programmatic(kernel, grid, kMailboxThreads, 0, s, h, idx, f,
+                             df, out, rows, k, d, num_rows, group);
 }
 
 // h: (> num_rows, d) float32, idx: (rows, k) int32 with values in

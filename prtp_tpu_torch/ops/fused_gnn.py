@@ -51,10 +51,12 @@ the weight's gradient summed over the pairs.
 plain PyTorch versions beside them,
 which compute the JAX expressions. For tensors on the CPU a wrapper runs
 the plain version; for CUDA tensors it launches the kernel or raises.
-The two backward kernels launch as programmatic dependent launches
+``softmax_sum_bwd``, ``mailbox_scatter``, ``attn_sum`` and ``attn_bwd``
+launch as programmatic dependent launches
 (``csrc/common.cuh::launch_programmatic``): each reads the graph's
-tables and ``hf`` while the kernel before it drains, and the rest once
-it is done, so the kernel just before one of them must not write those.
+tables, weights and ``hf`` while the kernel before it drains, and the
+rest once it is done, so the kernel just before one of them must not
+write those. ``softmax_sum`` and ``local_mean`` launch plainly.
 """
 
 from __future__ import annotations
@@ -300,7 +302,12 @@ def attn_sum(h: torch.Tensor, idx: torch.Tensor, num_rows: int,
     (nh divides D). A slot is valid when its index is not ``num_rows``;
     an invalid slot is never read. An all-invalid row gives 0. Returns
     out (P, D) and, if ``with_alpha``, the weights alpha (P, K, nh), 0
-    at invalid slots."""
+    at invalid slots.
+
+    On the card the kernel is a programmatic dependent launch: it reads
+    ``idx`` and ``w`` while the kernel before it on the stream may still
+    run, so that kernel must not write them, and ``h`` once that kernel
+    has finished."""
     _check_rows("h", h)
     _check_index(idx)
     _check_dummy(h, num_rows)
@@ -354,10 +361,17 @@ def attn_bwd(h: torch.Tensor, idx: torch.Tensor, num_rows: int,
     (the plain version holds 0 there), and the merged scatter reads valid
     slots only. d_w (nh, D) is the gradient of ``fc_attn2``'s weight,
     summed over every valid slot in a fixed order (per-block partial sums,
-    then a fixed-order reduce: no atomics), so a call is deterministic.
-    h (R, D), w (nh, D), alpha, d_f: contiguous float32; idx (P, K)
-    int32; on the card D is at most 3,072 (the kernel's shared memory:
-    4 rows of D floats)."""
+    then a fixed-order reduce: no float atomics), so a call gives the same
+    bits every time. h (R, D), w (nh, D), alpha, d_f: contiguous float32;
+    idx (P, K) int32; on the card 4 rows of D floats (5 of nh x D where
+    the heads are reduced together) must fit in a block's 227 KB of
+    shared memory.
+
+    On the card it is two kernels, both programmatic dependent launches:
+    the first reads ``h``, ``idx`` and ``alpha`` while the kernel before
+    it on the stream may still run, so that kernel must not write them,
+    and ``d_f`` and ``w`` once that kernel has finished; the second adds
+    the first's partial sums once it has finished."""
     _check_rows("h", h)
     _check_rows("d_f", d_f)
     _check_index(idx)
@@ -570,11 +584,14 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     ``cell_off[k]``, so the merged add never touches the two slices just
     written.
 
-    ``softmax_sum_bwd`` and ``mailbox_scatter`` read their index tables
-    and ``hf`` before waiting on the kernel before them (programmatic
-    dependent launch). That holds here because those are the graph's
-    tables, packed before the walk, and ``hf``, final before the
-    backward begins; no kernel of the backward writes them."""
+    ``softmax_sum_bwd``, ``mailbox_scatter`` and ``attn_bwd`` read their
+    index tables and ``hf`` (``attn_bwd`` also ``alpha``, written two
+    kernels or more before it), and the recompute's ``attn_sum`` its
+    table and ``w``, before waiting on the kernel before them
+    (programmatic dependent launch). That holds here because those are
+    the graph's tables, packed before the walk, ``hf``, final before the
+    backward begins, and the parameters; no kernel of the backward writes
+    them."""
     num_rows = graph.num_rows
     dh = g.clone(memory_format=torch.contiguous_format)
     grads = {name: [torch.zeros_like(t) for t in params[name]]

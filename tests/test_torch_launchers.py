@@ -1,0 +1,38 @@
+"""What the wrappers hand their CUDA kernels, checked without a card:
+each launcher takes the arguments its wrapper passes, of the types it
+passes. (The kernels themselves are held against their plain versions
+on the card, by chip_smoke.py.)"""
+
+import ctypes
+import re
+
+import pytest
+
+from prtp_tpu_torch.ops import _build, adam, fused_gnn, gather
+
+C_TYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,
+           "float": ctypes.c_float}
+# each kernel's ctypes argument list, as its wrapper passes it
+ARGTYPES = {
+    "gather_rows": gather._ARGTYPES,
+    "softmax_sum": fused_gnn._SOFTMAX_ARGTYPES,
+    "local_mean": fused_gnn._MEAN_ARGTYPES,
+    "softmax_sum_bwd": fused_gnn._SOFTMAX_BWD_ARGTYPES,
+    "mailbox_scatter": fused_gnn._SCATTER_ARGTYPES,
+    "flat_adam": adam._ARGTYPES,
+    "attn_sum": fused_gnn._ATTN_ARGTYPES,
+    "attn_bwd": fused_gnn._ATTN_BWD_ARGTYPES,
+}
+
+
+@pytest.mark.parametrize("name", _build.KERNEL_NAMES)
+def test_each_launcher_takes_what_its_wrapper_passes(name):
+    """ctypes passes the wrapper's list as it is: a launcher with another
+    number of parameters, or another type at a place, would read garbage
+    there."""
+    src = (_build.SRC_DIR / f"{name}.cu").read_text()
+    sig = re.search(rf"PRTP_EXPORT int {name}_launch\(([^)]*)\)", src)
+    params = [p.split() for p in sig.group(1).split(",") if p.strip()]
+    want = [ctypes.c_void_p if "*" in " ".join(p) else C_TYPES[p[0]]
+            for p in params]
+    assert want == ARGTYPES[name]
