@@ -36,7 +36,8 @@ Phases, each failing loudly (nonzero exit) on any error:
    bit a run with a synchronize between; the merged scatter right
    after ``attn_bwd`` must equal its result with a synchronize
    between), and the row gather at the TPU probe's shapes (160,000 x
-   128 bf16, 129,202 rows).
+   128 bf16, 129,202 rows), with ROADMAP rule 2's verdict (at least
+   half its bound and no slower than ``index_select``: left alone).
 4. The slice: the full-width float32 regression fusion model, random
    weights from a seed, answers three evaluation requests on the
    headline and one on the prior-row design through ``evaluate_design``;
@@ -91,7 +92,13 @@ Phases, each failing loudly (nonzero exit) on any error:
    1e-4, the per-level
    R2/MAPE lines at 1e-3 and the confusion counts equal (labels may
    differ only at near ties, counted); ``cls`` must save the best-F1
-   model and write no ``visual/`` or ``predict_critical/``. Launch
+   model and write no ``visual/`` or ``predict_critical/``. Then
+   ``--compute_dtype bfloat16`` on the reg corpus: the train CLI, the
+   test CLI on the card and the CPU, and the same checkpoint's test CLI
+   in float32 on the card; card against CPU by the bf16 bounds of phase
+   8 (predictions within BF16_ULPS bf16 ulps and REL_GAP x their
+   distance from float32, loss, R2 and per-level values at BF16_ULPS
+   ulps relative). Launch
    counters are zeroed just before each CLI run on the card: each kernel
    must match the run's steps and validation forwards on the designs
    they ran on, ``gather_rows`` 0 times (a parsed design has no prior
@@ -118,10 +125,24 @@ Phases, each failing loudly (nonzero exit) on any error:
    in float32 they may differ by twice their own float32 error against
    float64 (the larger of card and CPU) more: its BatchNorms cancel most
    of their sums over 256 x 256 positions.
-   Device time of
+   Then the bf16 models (``--compute_dtype bfloat16``): ``bf16`` (the
+   headline LayoutNet reg model: 3 requests, the epoch, a timed step),
+   ``bf16_unet`` and ``bf16_attn`` (3 requests, 2 steps each). Card
+   against CPU, both bf16: predictions within BF16_ULPS bf16 ulps of
+   their largest |value|, first-step gradients within BF16_GRAD_TOL x
+   each leaf's max |g|, losses within BF16_LOSS_RTOL; and each mean
+   distance at most REL_GAP x the distance of the same bf16 result from
+   its weights in float32, measured in the run. The CPU's first step
+   takes the card's value at each element of a layout-CNN layer that
+   differs (:func:`card_layers`): a bf16 element an ulp apart moves
+   pool winners and branches after it. Device time of
    a U-Net forward (eval mode) and forward + backward (train mode), and
    of a train step of each variant at the bench's batch of 597 paths, as
-   launched too, with its idle share and largest kernels by name.
+   launched too, with its idle share and largest kernels by name. Last,
+   ROADMAP 3d's measurement: the reg step in float32 (TF32 off), in
+   float32 with TF32 on and in bf16, in turns, twice, with LayoutNet's
+   and the walk's parts and LayoutNet's forward + backward bound in each
+   precision (:func:`precision_turns`).
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -166,6 +187,19 @@ UNET_POOLS = {"Down_0": ("cnn.DoubleConv_0.",),
 # H100 SXM peak rates (dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S, TF32_OPS_PER_S = 989e12, 495e12  # tensor cores
+# bf16 models (--compute_dtype bfloat16), card against cpu, both bf16:
+# predictions within BF16_ULPS bf16 ulps of their largest |value|, each
+# first-step gradient within BF16_GRAD_TOL x its leaf's max |g|, losses
+# within BF16_LOSS_RTOL; and each mean distance at most REL_GAP x the
+# mean distance of the same bf16 result from float32 on the same weights,
+# measured in the run (the bf16 rounding itself): a rounding at another
+# place than on the cpu would move results about that far. The gradient
+# bound is 12 bf16 ulps at a leaf's max: a U-Net transposed conv's bias
+# sums bf16 cotangents over 8,192 positions after the BatchNorms'
+# backward (measured on an H100: 3.0e-2 for the U-Net, 5.3e-3 for
+# LayoutNet)
+BF16_ULPS, BF16_GRAD_TOL, BF16_LOSS_RTOL, REL_GAP = 4, 5e-2, 2e-3, 0.1
 REPS, WARMUP = 10, 2
 # phase 7: the big stress design of prtp_tpu_torch.data.synthetic --big
 CLI_DESIGN, CLI_PATHS, CLI_STAGES = "big", 2048, 8
@@ -176,7 +210,9 @@ CORPUS_EPOCHS = 3  # a step and a validation a design an epoch
 # phases 7 and 8: the U-Net's raster (its map is the side halved: 128)
 UNET_CHANNELS, UNET_HW = 3, 256
 STAT_RTOL = 1e-3  # phase 8: U-Net running averages, card vs cpu
-ATTN4_STEPS = 2  # phase 8: the 4-head model's paired steps
+# phase 8: the paired steps of the 4-head, bf16 U-Net and bf16 --attn
+# models (the others run the whole epoch)
+SHORT_STEPS = 2
 HAZARD_REPS = 20  # phase 3: launches right after a writer of the inputs
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
 # phase 3's fixtures, not kernels of the port: for the hazard check a
@@ -299,9 +335,9 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1512,9 +1548,14 @@ def gather_probe(torch, dev, timer):
     nbytes = (torch.unique(idx).numel() + idx.numel()) * 256 + idx.numel() * 4
     ms = timer.ms(lambda: gather_rows(h, idx))
     lms = timer.ms(lambda: torch.index_select(h, 0, idx))
+    b_ms = bound(nbytes, 0)[0]
     log(f"  gather_rows probe: 129202 x 128 bf16 from 160000 rows  kernel "
         f"{ms:.4f} ms  index_select {lms:.4f}  bound "
-        f"{bound(nbytes, 0)[0]:.4f}  ({nbytes / ms / 1e6:.1f} GB/s)  exact")
+        f"{b_ms:.4f}  ({nbytes / ms / 1e6:.1f} GB/s)  exact")
+    kept = b_ms / ms >= 0.5 and ms <= lms
+    log(f"  gather_rows rule 2 (at least half its bound, no slower than "
+        f"index_select): {b_ms / ms:.0%} of its bound, {lms / ms:.2f}x "
+        f"index_select's speed: {'left alone' if kept else 'redesign owed'}")
 
 
 def _zero_launches():
@@ -1528,15 +1569,43 @@ def _read_launches() -> dict:
     return {kern.__name__: kern.launches for kern in KERNELS}
 
 
+def bf16_ulp(np, x):
+    """One bf16 ulp (8 significant bits) at ``x``."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def check_bf16(np, what, card, cpu, f32, ulps=BF16_ULPS):
+    """A bf16 result on the card against the same on the cpu: at most
+    ``ulps`` bf16 ulps of the cpu's largest |value| apart, and their mean
+    distance at most REL_GAP x the mean distance of the cpu's bf16 result
+    from ``f32``, the same weights' float32 result (the bf16 rounding,
+    measured in this run). Returns the largest distance in ulps."""
+    card, cpu, f32 = (np.asarray(a, np.float64) for a in (card, cpu, f32))
+    ulp = bf16_ulp(np, float(np.abs(cpu).max()))
+    worst = float(np.abs(card - cpu).max())
+    dist = float(np.abs(card - cpu).mean())
+    gap = float(np.abs(cpu - f32).mean())
+    log(f"  {what}: card vs cpu (bf16) within {worst / ulp:.3g} bf16 ulps of "
+        f"max |value| (allowed {ulps}); mean distance {dist:.3g}, "
+        f"{dist / gap:.3g} x the bf16 result's mean distance from float32 "
+        f"{gap:.3g} (allowed {REL_GAP})")
+    if worst > ulps * ulp or dist > REL_GAP * gap:
+        raise AssertionError(f"{what}: bf16 card vs cpu out of bounds")
+    return worst / ulp
+
+
 def serve(torch, np, model, model_cpu, parsed, design, per_forward,
-          requests, task="reg", attn=False):
+          requests, task="reg", attn=False, f32_model=None):
     """Phase 4 (and 8) for one design: ``requests`` evaluation requests
     on the card with the launch counters zeroed just before and read just
     after (each must equal ``requests`` x its per-forward count, and
     every kernel of the walk must have run), then the same model on the
     CPU: predictions (``cls``: both logits) at rtol/atol 1e-4, and for
     ``cls`` the argmax labels equal except where a path's two logits lie
-    within 1e-4 of each other (counted). Returns the launch counts."""
+    within 1e-4 of each other (counted). A bf16 model is held by
+    :func:`check_bf16` instead, against ``f32_model`` (its weights in
+    float32, on the card), and its near ties are logits within BF16_ULPS
+    bf16 ulps. Returns the launch counts."""
     from prtp_tpu_torch.test import evaluate_design
 
     torch.cuda.synchronize()
@@ -1579,14 +1648,26 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
     log(f"  {design} on the cpu (plain versions): "
         f"{time.perf_counter() - t0:.2f} s  loss {mets_cpu['loss']:.6f}  "
         f"r2 {mets_cpu['r2']:.6f}")
+    low = f32_model is not None
+    near_tol = 1e-4
+    if low:
+        with contextlib.redirect_stdout(io.StringIO()):
+            preds_f32, _m = evaluate_design(f32_model, parsed, DEVICE,
+                                            task=task)
+        near_tol = BF16_ULPS * bf16_ulp(np, float(np.abs(preds_cpu).max()))
     for req, preds in enumerate(outs):
-        diff = float(np.abs(preds - preds_cpu).max())
-        np.testing.assert_allclose(preds, preds_cpu, rtol=1e-4, atol=1e-4,
-                                   err_msg=f"{design} request {req} vs cpu")
-        log(f"  {design} request {req} vs cpu: max abs diff {diff:.3g} "
-            "(rtol/atol 1e-4): ok")
+        if low:
+            check_bf16(np, f"{design} request {req}", preds, preds_cpu,
+                       preds_f32)
+        else:
+            diff = float(np.abs(preds - preds_cpu).max())
+            np.testing.assert_allclose(preds, preds_cpu, rtol=1e-4,
+                                       atol=1e-4, err_msg=f"{design} request "
+                                       f"{req} vs cpu")
+            log(f"  {design} request {req} vs cpu: max abs diff {diff:.3g} "
+                "(rtol/atol 1e-4): ok")
         if task == "cls":
-            near = np.abs(preds_cpu[:, 0] - preds_cpu[:, 1]) <= 1e-4
+            near = np.abs(preds_cpu[:, 0] - preds_cpu[:, 1]) <= near_tol
             off = preds.argmax(1) != preds_cpu.argmax(1)
             if (off & ~near).any():
                 raise AssertionError(
@@ -1594,7 +1675,7 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
                     f"{np.nonzero(off & ~near)[0]}")
             log(f"  {design} request {req}: argmax labels equal on the cpu's "
                 f"but {int(off.sum())} of {int(near.sum())} rows whose "
-                "logits lie within 1e-4")
+                f"logits lie within {near_tol:.3g}")
     return counts
 
 
@@ -1773,6 +1854,57 @@ def card_branches(torch, cnn_cpu, x_cpu, dev) -> tuple:
     return card, flips
 
 
+def card_layers(torch, np, cnn_cpu, x_cpu, dev) -> tuple:
+    """A bf16 layout CNN's layers (each convolution, transposed
+    convolution and BatchNorm) at the same weights and raster, in train
+    mode, on the card and on the CPU. Sums taken in another order round
+    an element of a bf16 output an ulp the other way, and that moves
+    the layers after it: a max-pool winner or a ReLU branch can change,
+    so the first step's gradients would differ by far more than their
+    own rounding. The CPU's first train step takes the card's value at
+    every element of these layers that differs
+    (:func:`take_card_branches`), so the gradients compare the backward;
+    the forward is compared on its own (each layer's output logged
+    here, within 2 x BF16_ULPS bf16 ulps of its largest |value|, and the
+    predictions by :func:`check_bf16`). Returns ``{layer: the card's
+    output, on the CPU}`` and ``{layer: elements that differ}``."""
+    from prtp_tpu_torch.models.layoutnet import Conv2d
+    from prtp_tpu_torch.models.unet import BatchNorm, ConvTranspose2d
+
+    def outputs(cnn, x):
+        got, handles = {}, []
+        for name, mod in cnn.named_modules():
+            if isinstance(mod, (Conv2d, ConvTranspose2d, BatchNorm)):
+                handles.append(mod.register_forward_hook(
+                    lambda _m, _i, out, name=name: got.__setitem__(
+                        name, out.detach())))
+        try:
+            cnn(x)
+        finally:
+            for handle in handles:
+                handle.remove()
+        return got
+
+    with torch.no_grad():
+        want = outputs(copy.deepcopy(cnn_cpu).train(), x_cpu)
+        got = outputs(copy.deepcopy(cnn_cpu).to(dev).train(), x_cpu.to(dev))
+    card, differ, worst = {}, {}, (-1.0, "")
+    for name, w in want.items():
+        card[name] = got[name].cpu()
+        differ[name] = int((card[name] != w).sum())
+        ulp = bf16_ulp(np, float(w.abs().max()))
+        worst = max(worst, (float((card[name] - w).abs().max()) / ulp, name))
+    log(f"  bf16 layout CNN, card vs cpu in train mode: "
+        f"{sum(differ.values())} elements differ in {len(differ)} layers "
+        f"({ {k: n for k, n in differ.items() if n} }); at most "
+        f"{worst[0]:.3g} bf16 ulps of a layer's max |value| ({worst[1]}; "
+        f"allowed {2 * BF16_ULPS})")
+    if worst[0] > 2 * BF16_ULPS:
+        raise AssertionError(f"bf16 layout CNN: {worst[1]} differs on the "
+                             f"card by {worst[0]} ulps")
+    return card, differ
+
+
 @contextlib.contextmanager
 def take_card_branches(torch, model, card):
     """While open, the CPU model's LayoutNet takes the card's branch at
@@ -1780,8 +1912,10 @@ def take_card_branches(torch, model, card):
     card's (``card``, :func:`card_branches`): the forward uses the card's
     value there (within rounding of the CPU's, both near 0) with the
     gradient passed straight through, so the activation after it passes
-    its gradient as on the card. Elsewhere nothing changes. Yields
-    ``{conv: elements taken}`` of the last forward."""
+    its gradient as on the card. Elsewhere nothing changes. A bf16 layer
+    of ``card`` (:func:`card_layers`) takes the card's value at every
+    element whose value differs. Yields ``{layer: elements taken}`` of
+    the last forward."""
     taken, handles = {}, []
 
     def hook_for(name):
@@ -1790,14 +1924,19 @@ def take_card_branches(torch, model, card):
             if want.shape != out.shape:
                 raise AssertionError(f"{name}: output {tuple(out.shape)}, "
                                      f"the card's {tuple(want.shape)}")
-            flip = (out > 0) != (want > 0)
+            flip = (out != want if want.dtype == torch.bfloat16
+                    else (out > 0) != (want > 0))
             taken[name] = int(flip.sum())
+            if want.dtype == torch.bfloat16:  # the step exact in float32
+                o32 = out.float()
+                return (o32 + torch.where(flip, want.float() - o32, 0.0)
+                        .detach()).to(out.dtype)
             return out + torch.where(flip, want - out,
                                      torch.zeros_like(out)).detach()
         return hook
 
     for name in card:
-        handles.append(getattr(model.cnn, name).register_forward_hook(
+        handles.append(model.cnn.get_submodule(name).register_forward_hook(
             hook_for(name)))
     try:
         yield taken
@@ -1879,6 +2018,63 @@ def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
         if k == 0 and not may_idle(name, attn):
             raise AssertionError(f"{what}: {name} is not on the step")
     return out
+
+
+def float32_first_step(torch, twin, design, batch, task):
+    """The first train step of ``twin`` (a bf16 model's weights in
+    float32) on the card: its loss and gradients (on the CPU), the
+    float32 side of the bf16 bounds of :func:`compare_bf16_runs`."""
+    from prtp_tpu_torch.trainer import init_state, make_optimizer, train_step
+
+    state = init_state(copy.deepcopy(twin), make_optimizer(LR), DEVICE)
+    loss = float(train_step(state, design, *batch, task)["loss"])
+    return loss, {k: p.grad.detach().to("cpu", copy=True)
+                  for k, p in state.model.named_parameters()}
+
+
+def compare_bf16_runs(torch, what, card, cpu, f32_first):
+    """A bf16 model's runs, the card's against the CPU's (whose first
+    step took the card's layout-CNN values, :func:`card_layers`): the
+    first step's gradients leaf by leaf within BF16_GRAD_TOL x the leaf's
+    max |g|, and each leaf's mean distance at most REL_GAP x the mean
+    distance of the CPU's bf16 gradient from the float32 twin's
+    (``f32_first``, the same weights and batch on the card); every loss
+    within BF16_LOSS_RTOL, and the first within REL_GAP x its distance
+    from the float32 twin's loss."""
+    import numpy as np
+    (l_card, g_card, *_), (l_cpu, g_cpu, *_) = card, cpu
+    loss32, g32 = f32_first
+    rows, bad = [], []
+    for key, want in g_cpu.items():
+        scale = float(want.abs().max())
+        err, off = (g_card[key] - want).abs(), (want - g32[key]).abs()
+        gap = float(off.mean())
+        rel, dist = float(err.max()) / scale, float(err.mean())
+        ratio = dist / gap if gap else (0.0 if dist == 0 else np.inf)
+        rows.append((rel, ratio, key, float(off.max()) / scale))
+        if float(err.max()) > BF16_GRAD_TOL * scale or dist > REL_GAP * gap:
+            bad.append(key)
+    worst_rel = max(rows)
+    worst_ratio = max(rows, key=lambda r: r[1])
+    worst_f32 = min(rows, key=lambda r: r[3])
+    log(f"  {what} vs cpu (bf16): first-step gradients within "
+        f"{worst_rel[0]:.3g} x each leaf's max |g| ({worst_rel[2]}; allowed "
+        f"{BF16_GRAD_TOL}); mean distance at most {worst_ratio[1]:.3g} x "
+        f"the bf16 gradient's from float32 ({worst_ratio[2]}; allowed "
+        f"{REL_GAP}); the bf16 gradients lie at least {worst_f32[3]:.3g} "
+        f"x max |g| from float32 ({worst_f32[2]}); by leaf (max / max |g|, "
+        "mean / bf16-f32 mean, bf16-f32 max / max |g|): "
+        + ", ".join(f"{k} {a:.2g} {b:.2g} {c:.2g}" for a, b, k, c in sorted(
+            rows, key=lambda r: -r[1])[:8]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    d0, gap0 = abs(l_card[0] - l_cpu[0]), abs(l_cpu[0] - loss32)
+    log(f"  {what} vs cpu (bf16): losses within rtol {rel:.3g} (allowed "
+        f"{BF16_LOSS_RTOL}); the first {d0:.3g} apart, its distance from "
+        f"the float32 twin's {gap0:.3g} (allowed {REL_GAP} x)")
+    if bad:
+        raise AssertionError(f"{what}: bf16 gradients of {bad} out of bounds")
+    if rel > BF16_LOSS_RTOL or d0 > REL_GAP * gap0:
+        raise AssertionError(f"{what}: bf16 losses {l_card} vs cpu {l_cpu}")
 
 
 def check_running_averages(torch, what, card, cpu):
@@ -2200,7 +2396,7 @@ _LEVEL = re.compile(r"^level (\S+): #=(\d+), r2=(\S+), mape=(\S+)$", re.M)
 _COUNTS = re.compile(r"^\ttp: (\d+)  fp: (\d+)  fn: (\d+)  tn: (\d+) ", re.M)
 
 
-def compare_test_clis(np, run, card, cpu, data, task):
+def compare_test_clis(np, run, card, cpu, data, task, f32=None):
     """A test CLI's results on the card against the CPU's, from one
     checkpoint: each design's predictions (``cls``: logits) and loss at
     rtol/atol 1e-4, R² at 1e-4 where the design's arrival times differ;
@@ -2209,25 +2405,38 @@ def compare_test_clis(np, run, card, cpu, data, task):
     predictions that agree to 1e-4); the confusion counts and
     ``predict_critical`` equal, except for paths whose label is a near
     tie on the CPU (predicted slack, or the two logits' margin, within
-    2e-4 + 2e-4 x |prediction|), counted."""
+    2e-4 + 2e-4 x |prediction|), counted. A bf16 run (``f32``: the same
+    checkpoint's test CLI in float32 on the card) holds the predictions
+    by :func:`check_bf16`, the loss, R² and per-level values at rtol and
+    atol BF16_ULPS bf16 ulps (BF16_ULPS x 2^-8; a per-level value may
+    instead lie within REL_GAP x its distance from the float32 run's: a
+    level whose arrival times barely vary has an R² that divides by a
+    residue), and its near ties are margins within BF16_ULPS ulps of
+    |prediction|."""
     from prtp_tpu_torch.data.dataset import load_design_npz
 
-    near_ties = 0
+    tol, lv_tol, near_ties = 1e-4, 1e-3, 0
+    if f32 is not None:
+        tol = lv_tol = BF16_ULPS * 2.0 ** -8
     for i, design in enumerate(cpu["preds"]):
         parsed = load_design_npz(os.path.join(data, f"{design}.npz"))
         p, q = card["preds"][design], cpu["preds"][design]
         if p.shape != q.shape or not np.all(np.isfinite(p)):
             raise AssertionError(f"{run}: bad predictions {p.shape}")
-        np.testing.assert_allclose(p, q, rtol=1e-4, atol=1e-4,
-                                   err_msg=f"{run}: {design} predictions")
+        if f32 is None:
+            np.testing.assert_allclose(p, q, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{run}: {design} predictions")
+        else:
+            check_bf16(np, f"{run}: {design} predictions", p, q,
+                       f32["preds"][design])
         np.testing.assert_allclose(card["res"][i][0], cpu["res"][i][0],
-                                   rtol=1e-4, atol=1e-4,
+                                   rtol=tol, atol=tol,
                                    err_msg=f"{run}: {design} loss")
         endpoint = np.asarray(parsed["path_endpoint"], np.int64)
         arrival = np.asarray(parsed["arrival_time"])[endpoint]
         if task == "reg" and np.ptp(arrival) > 0:
             np.testing.assert_allclose(card["res"][i][1], cpu["res"][i][1],
-                                       rtol=1e-4, atol=1e-4,
+                                       rtol=tol, atol=tol,
                                        err_msg=f"{run}: {design} r2")
         if task == "cls":
             labels_p, labels_q = p.argmax(1), q.argmax(1)
@@ -2237,7 +2446,8 @@ def compare_test_clis(np, run, card, cpu, data, task):
             labels_p, labels_q = required - p < 0, required - q < 0
             margin = required - q
         scale = np.abs(q).max(axis=-1) if q.ndim > 1 else np.abs(q)
-        near = np.abs(margin) <= 2e-4 + 2e-4 * scale
+        near = (np.abs(margin) <= 2e-4 + 2e-4 * scale if f32 is None else
+                np.abs(margin) <= BF16_ULPS * bf16_ulp(np, scale + 1e-30))
         off = labels_p != labels_q
         if (off & ~near).any():
             raise AssertionError(f"{run}: {design}: labels differ at "
@@ -2251,10 +2461,15 @@ def compare_test_clis(np, run, card, cpu, data, task):
         raise AssertionError(f"{run}: per-level lines differ in levels or "
                              "counts")
     if lv_cpu:
-        np.testing.assert_allclose(
-            np.array([r[2:] for r in lv_card], float),
-            np.array([r[2:] for r in lv_cpu], float), rtol=1e-3, atol=1e-3,
-            equal_nan=True, err_msg=f"{run}: per-level R2 and MAPE")
+        a = np.array([r[2:] for r in lv_card], float)
+        b = np.array([r[2:] for r in lv_cpu], float)
+        ok = np.isclose(a, b, rtol=lv_tol, atol=lv_tol, equal_nan=True)
+        if f32 is not None:  # a level whose R2 or MAPE bf16 moves far
+            c = np.array([r[2:] for r in _LEVEL.findall(f32["out"])], float)
+            ok |= np.abs(a - b) <= REL_GAP * np.abs(b - c)
+        if not ok.all():
+            raise AssertionError(f"{run}: per-level R2 and MAPE: card {a[~ok]}"
+                                 f", cpu {b[~ok]}")
     cm_card, cm_cpu = _COUNTS.findall(card["out"]), _COUNTS.findall(cpu["out"])
     if not near_ties and cm_card != cm_cpu:
         raise AssertionError(f"{run}: confusion counts {cm_card} against the "
@@ -2262,7 +2477,7 @@ def compare_test_clis(np, run, card, cpu, data, task):
     worst = max(float(np.abs(card["preds"][d] - cpu["preds"][d]).max())
                 for d in cpu["preds"])
     log(f"phase 7: {run} card vs cpu: predictions within {worst:.3g}"
-        f" (rtol/atol 1e-4); per design [loss, r2] card "
+        f" (rtol/atol {tol:.3g}); per design [loss, r2] card "
         f"{[[round(r[0], 6), round(r[1], 6)] for r in card['res']]} cpu "
         f"{[[round(r[0], 6), round(r[1], 6)] for r in cpu['res']]}; "
         f"{len(lv_cpu)} per-level lines agree; confusion counts (tp, fp, fn,"
@@ -2334,13 +2549,14 @@ def corpus_runs(torch, np, smi, tmp) -> dict:
     paths critical, depths varying across and within designs): the
     default 2 x 512 x 512 rasters and, for the U-Net, 3 x UNET_HW x
     UNET_HW. For each of ``reg`` (the default flags), ``cls`` (``--task
-    cls --nlabels 2``), ``unet`` (``--unet``) and ``attn`` (``--attn
-    --num_heads 2``, on the default corpus): the train CLI at full
-    width on the card for CORPUS_EPOCHS epochs, then the test CLI on the
-    card and on the CPU from its checkpoint, compared by
-    :func:`compare_test_clis`. ``cls`` must save the best-F1 model and
-    write no ``visual/`` or ``predict_critical/``. Returns each run's
-    launch counts."""
+    cls --nlabels 2``), ``unet`` (``--unet``), ``attn`` (``--attn
+    --num_heads 2``) and ``bf16`` (``--compute_dtype bfloat16``, the last
+    two on the default corpus): the train CLI at full width on the card
+    for CORPUS_EPOCHS epochs, then the test CLI on the card and on the
+    CPU from its checkpoint, compared by :func:`compare_test_clis`
+    (``bf16`` against the same checkpoint's test CLI in float32 too).
+    ``cls`` must save the best-F1 model and write no ``visual/`` or
+    ``predict_critical/``. Returns each run's launch counts."""
     from prtp_tpu_torch.data import generate, synthetic
 
     launches, data = {}, {}
@@ -2363,7 +2579,8 @@ def corpus_runs(torch, np, smi, tmp) -> dict:
     runs = {"reg": ("corpus", []),
             "cls": ("corpus", ["--task", "cls", "--nlabels", "2"]),
             "unet": ("corpus_unet", ["--unet"]),
-            "attn": ("corpus", ["--attn", "--num_heads", "2"])}
+            "attn": ("corpus", ["--attn", "--num_heads", "2"]),
+            "bf16": ("corpus", ["--compute_dtype", "bfloat16"])}
     for name, (corpus, flags) in runs.items():
         mdl = os.path.join(tmp, f"mdl_{name}")
         common = ["--data_save_path", data[corpus], "--model_saving_dir",
@@ -2376,7 +2593,13 @@ def corpus_runs(torch, np, smi, tmp) -> dict:
         launches[run] = card["counts"]
         cpu = cli_test(torch, common, "cpu", run, smi)
         task = "cls" if name == "cls" else "reg"
-        compare_test_clis(np, run, card, cpu, data[corpus], task)
+        f32 = None
+        if name == "bf16":  # the bf16-trained checkpoint in float32
+            f32 = cli_test(torch, common[:-2] + ["--compute_dtype",
+                                                 "float32"],
+                           DEVICE, f"{run} in float32", smi)
+            launches[f"{run} in float32"] = f32["counts"]
+        compare_test_clis(np, run, card, cpu, data[corpus], task, f32)
         if name != "cls":
             continue
         f1s, best, saves = [v[1] for v in vals], 0.0, 0
@@ -2484,6 +2707,116 @@ def time_unet(torch, unet_cpu, x, smi):
             log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
 
 
+def layoutnet_work(torch, cnn, x) -> tuple:
+    """LayoutNet's forward + backward at raster ``x``: the operations
+    (each conv's 2 x outputs x cin x k^2, once forward, once for the
+    weight gradient and, above Conv_0, once for the input gradient: the
+    raster needs none) and the bytes it must move (the raster, the
+    weights and their gradients, the map's cotangent, each once)."""
+    side, fwd, ops = x.shape[-1], [], 0.0
+    for i in range(4):
+        w = getattr(cnn, f"Conv_{i}").weight
+        fwd.append(2.0 * side * side * w.numel())
+        if i < 2:
+            side //= 2
+    ops = 3 * sum(fwd) - fwd[0]
+    n_par = sum(p.numel() for p in cnn.parameters())
+    nbytes = x.numel() * x.element_size() + n_par * 8 + side * side * 4
+    return ops, nbytes, sum(fwd)
+
+
+def precision_turns(torch, np, parsed, dev, smi):
+    """Phase 8, ROADMAP 3d: the reg train step at the headline (all 597
+    paths, flat Adam) in three precisions, in turns in one process:
+    float32 with TF32 off (what the CLIs run), float32 with TF32 on for
+    matmuls and cuDNN, and bf16 (``--compute_dtype bfloat16``, its
+    design packed in bf16 as the train CLI packs it); then again in the
+    other order. Each turn: the step's device time (queue pre-filled)
+    and as launched, the device's idle share and launches
+    (torch.profiler); LayoutNet's forward and forward + backward; the
+    walk and its backward. Then LayoutNet's forward + backward bound in
+    each precision (:func:`layoutnet_work`, the H100 SXM peaks)."""
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.trainer import (init_state, make_optimizer,
+                                        pad_batch, train_step)
+
+    modes = {"float32": (torch.float32, False), "tf32": (torch.float32, True),
+             "bf16": (torch.bfloat16, False)}
+    designs = {dt: pack_design(parsed, map_size=MAP_SIZE, device=dev,
+                               compute_dtype=dt)
+               for dt in (torch.float32, torch.bfloat16)}
+    n = designs[torch.float32].num_paths
+    ids, mask = pad_batch(np.random.default_rng(0).permutation(n), n, dev)
+    states = {mode: init_state(PathModel(
+        CELL_FEAT, NET_FEAT, map_size=MAP_SIZE, compute_dtype=dt,
+        generator=torch.Generator().manual_seed(SEED)), make_optimizer(LR),
+        DEVICE) for mode, (dt, _tf) in modes.items()}
+    timer = Timer(torch, dev)
+    fb_ms = {}
+    try:
+        for turn, mode in enumerate(list(modes) + list(reversed(modes))):
+            dt, tf = modes[mode]
+            torch.backends.cuda.matmul.allow_tf32 = tf
+            torch.backends.cudnn.allow_tf32 = tf
+            state, design = states[mode], designs[dt]
+            model = state.model
+
+            def step():
+                train_step(state, design, ids, mask)
+
+            dev_ms = timer.ms(step, queue_ms=200)
+            launched_ms = timer.ms(step, queue_ms=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            by_name = device_kernels(torch, step)
+            busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+            cnn_params = list(model.cnn.parameters())
+            out = model.cnn(design.cnn_input)
+            cot = torch.randn(out.shape, device=dev).to(out.dtype)
+            gnn_params = list(model.gnn.parameters())
+            hf = model.gnn(design.graph)
+            g = torch.randn_like(hf)
+            with torch.no_grad():
+                cnn_ms = timer.ms(lambda: model.cnn(design.cnn_input),
+                                  queue_ms=20)
+                walk_ms = timer.ms(lambda: model.gnn(design.graph),
+                                   queue_ms=50)
+            fb = timer.ms(lambda: torch.autograd.grad(
+                model.cnn(design.cnn_input), cnn_params, cot), queue_ms=20)
+            fb_ms.setdefault(mode, []).append(fb)
+            bwd_ms = timer.ms(lambda: torch.autograd.grad(
+                hf, gnn_params, g, retain_graph=True), queue_ms=100)
+            del hf, g, out
+            log(f"phase 8: precision turn {turn}, {mode}: reg train step "
+                f"({n} paths) device time {dev_ms:.3f} ms; as launched "
+                f"{launched_ms:.3f} ms; wall {wall_ms:.3f} ms, device busy "
+                f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
+                f"{sum(c for _, c in by_name.values())} kernel launches; "
+                f"LayoutNet forward {cnn_ms:.3f} ms, forward + backward "
+                f"{fb:.3f} ms; walk {walk_ms:.3f} ms, walk backward "
+                f"{bwd_ms:.3f} ms  [{smi}]")
+            for name, (tot, cnt) in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1][0])[:6]:
+                log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    x = designs[torch.bfloat16].cnn_input
+    ops, nbytes, fwd = layoutnet_work(torch, states["bf16"].model.cnn, x)
+    for mode, rate in (("bf16", BF16_OPS_PER_S), ("tf32", TF32_OPS_PER_S),
+                       ("float32", F32_OPS_PER_S)):
+        b_ms, by = bound(nbytes, ops, rate)
+        log(f"phase 8: LayoutNet forward + backward, {mode}: "
+            f"{ops / 1e9:.2f} GFLOP (forward {fwd / 1e9:.2f}), bound "
+            f"{b_ms:.4f} ms ({by}); measured "
+            + ", ".join(f"{ms:.3f}" for ms in fb_ms[mode])
+            + f" ms: {b_ms / min(fb_ms[mode]):.1%} of the bound  [{smi}]")
+
+
 def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
     """Phase 8: the variants at the default model's full width, TF32
     off: ``cls`` (``nlabels=2``) on the headline design, the U-Net on
@@ -2492,7 +2825,7 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
     ``attn4`` (four heads) on the headline design. For each: REQUESTS
     evaluation requests and the epoch of phase 6 (batches of
     TRAIN_BATCH, numpy seed EPOCH_SEED, :func:`paired_steps`; ``attn4``
-    its first ATTN4_STEPS steps), card against CPU with the launch
+    its first SHORT_STEPS steps), card against CPU with the launch
     counters as :func:`serve` holds them (``--attn``: ``attn_sum`` and
     ``attn_bwd`` in place of ``softmax_sum`` and ``softmax_sum_bwd``) and
     phase 6's tolerances (:func:`compare_runs`, ``fc_attn2``'s gradient
@@ -2529,6 +2862,14 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
                  LAYOUTNET_POOLS),
         "attn4": (dict(flag_attn=True, num_heads=4), "reg", headline,
                   LAYOUTNET_POOLS),
+        "bf16": (dict(compute_dtype=torch.bfloat16), "reg", headline,
+                 LAYOUTNET_POOLS),
+        "bf16_unet": (dict(unet=True, cnn_channels=UNET_CHANNELS,
+                           compute_dtype=torch.bfloat16), "reg", unet_design,
+                      UNET_POOLS),
+        "bf16_attn": (dict(flag_attn=True, num_heads=1,
+                           compute_dtype=torch.bfloat16), "reg", headline,
+                      LAYOUTNET_POOLS),
     }
     launches = {}
     num_paths = int(headline["num_paths"])
@@ -2539,29 +2880,49 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
                               generator=torch.Generator().manual_seed(SEED),
                               **kw)
         attn = kw.get("flag_attn", False)
+        low = "compute_dtype" in kw
+        twin = None
+        if low:  # the same weights in float32, on the card
+            twin = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+                             **{k: v for k, v in kw.items()
+                                if k != "compute_dtype"})
+            twin.load_state_dict(model_cpu.state_dict())
+            twin.to(dev)
         cpu_design = pack_design(parsed, map_size=MAP_SIZE, device="cpu")
         card_design = pack_design(parsed, map_size=MAP_SIZE, device=dev)
         graph = card_design.graph
         launches[f"serve {name}"] = serve(
             torch, np, copy.deepcopy(model_cpu).to(dev), model_cpu, parsed,
             f"headline {name}", launches_per_forward(graph, attn), REQUESTS,
-            task, attn)
+            task, attn, twin)
         flips = pool_winner_flips(torch, model_cpu.cnn, cpu_design.cnn_input,
                                   dev)
-        card, signs = card_branches(torch, model_cpu.cnn,
-                                    cpu_design.cnn_input, dev)
-        log(f"  {name}: max-pool windows whose winner differs, card vs cpu, "
-            f"at the init: {flips}"
-            + (f"; conv outputs whose sign differs: {signs}" if card else ""))
+        if low:
+            log(f"  {name}: max-pool windows whose winner differs, card vs "
+                f"cpu, at the init: {flips} (the cpu's first step takes the "
+                "card's values)")
+            card, _d = card_layers(torch, np, model_cpu.cnn,
+                                   cpu_design.cnn_input, dev)
+            flips = dict.fromkeys(flips, 0)
+        else:
+            card, signs = card_branches(torch, model_cpu.cnn,
+                                        cpu_design.cnn_input, dev)
+            log(f"  {name}: max-pool windows whose winner differs, card vs "
+                f"cpu, at the init: {flips}"
+                + (f"; conv outputs whose sign differs: {signs}" if card
+                   else ""))
         what = f"train {name} epoch"
         designs = {DEVICE: card_design, "cpu": cpu_design}
         batches = {where: list(iterate_batches(
             np.arange(num_paths), TRAIN_BATCH,
             np.random.default_rng(EPOCH_SEED), device=where))
             for where in designs}
-        if name == "attn4":
-            what = f"train {name}, the epoch's first {ATTN4_STEPS} steps"
-            batches = {where: b[:ATTN4_STEPS] for where, b in batches.items()}
+        if name in ("attn4", "bf16_unet", "bf16_attn"):
+            what = f"train {name}, the epoch's first {SHORT_STEPS} steps"
+            batches = {where: b[:SHORT_STEPS] for where, b in batches.items()}
+        f32_first = (float32_first_step(torch, twin, card_design,
+                                        batches[DEVICE][0], task)
+                     if low else None)
         runs = paired_steps(torch, model_cpu, designs, batches, what,
                             launches_per_step(graph, attn), task, attn, card)
         launches[what] = runs[DEVICE][2]
@@ -2576,11 +2937,16 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
                 "the leaf's max |g|): "
                 + ", ".join(f"{k} {v:.3g}" for k, v in sorted(
                     rel.items(), key=lambda kv: -kv[1])[:5]))
-        compare_runs(torch, what, runs[DEVICE], runs["cpu"], flips, pools,
-                     f32_err)
-        if name == "unet":
+        if low:
+            compare_bf16_runs(torch, what, runs[DEVICE], runs["cpu"],
+                              f32_first)
+        else:
+            compare_runs(torch, what, runs[DEVICE], runs["cpu"], flips, pools,
+                         f32_err)
+        if name in ("unet", "bf16_unet"):
             check_running_averages(torch, what, runs[DEVICE][3],
                                    runs["cpu"][3])
+        if name == "unet":
             trained = {where: copy.deepcopy(model_cpu).to(where)
                        for where in designs}
             for model in trained.values():
@@ -2594,8 +2960,9 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
                 f"vs cpu: within {float(np.abs(p_card - p_cpu).max()):.3g} "
                 "(rtol/atol 1e-4): ok")
             time_unet(torch, model_cpu.cnn, card_design.cnn_input, smi)
-        time_variant(torch, model_cpu, card_design, dev, task, name, smi)
-        del runs, designs, card_design, cpu_design
+        if name not in ("bf16_unet", "bf16_attn"):
+            time_variant(torch, model_cpu, card_design, dev, task, name, smi)
+        del runs, designs, card_design, cpu_design, twin
         torch.cuda.empty_cache()
     return launches
 
@@ -2831,6 +3198,7 @@ def main() -> int:
     # ---- phase 8: the variants ----
     launches.update(variants_phase(torch, np, dev, smi, parsed["headline"],
                                    sizes))
+    precision_turns(torch, np, parsed["headline"], dev, smi)
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

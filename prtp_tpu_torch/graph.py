@@ -36,8 +36,8 @@ class LeveledGraphExact:
     dummy row of every mailbox table.
     """
 
-    cell_feat_lvl: tuple  # P x (n_c_k, Fc) float32
-    net_feat_lvl: tuple   # P x (n_n_k, Fn) float32
+    cell_feat_lvl: tuple  # P x (n_c_k, Fc) float32 (bf16 in a bf16 pack)
+    net_feat_lvl: tuple   # P x (n_n_k, Fn) float32 (bf16 in a bf16 pack)
     cell_mail: tuple      # P x (n_c_k, md_c_k) int32, pad = num_rows
     net_mail: tuple       # P x (n_n_k, md_n_k) int32, pad = num_rows
     cell_rev_pos: tuple   # P x (e_c_k,) int32 flat mailbox positions
@@ -88,7 +88,7 @@ class DesignData:
     path_endpoint: torch.Tensor  # (num_paths,) int32 state row of endpoint
     path_level: torch.Tensor     # (num_paths,) float32 topo level of path
     path_masks: torch.Tensor     # (num_paths, map_size^2) uint8
-    cnn_input: torch.Tensor      # (1, C, H, W) float32, NCHW
+    cnn_input: torch.Tensor      # (1, C, H, W) float32 (or bf16), NCHW
 
     @property
     def num_paths(self) -> int:
@@ -239,8 +239,10 @@ def _pack_exact_numpy(parsed):
     return tables, node_row, num_rows
 
 
-def pack_leveled_graph_exact(parsed, device="cuda"):
-    """Exact-shape packer. Returns ``(graph, node_row, num_rows)``."""
+def pack_leveled_graph_exact(parsed, device="cuda",
+                             compute_dtype=torch.float32):
+    """Exact-shape packer. Returns ``(graph, node_row, num_rows)``. The
+    feature tables are ``compute_dtype``, as JAX packs them."""
     dev = resolve_device(device)
     tables, node_row, num_rows = _pack_exact_numpy(parsed)
     fields = {}
@@ -248,14 +250,20 @@ def pack_leveled_graph_exact(parsed, device="cuda"):
         if key in ("cell_off", "net_off"):
             fields[key] = tuple(int(o) for o in arrs)
         else:
+            dt = (compute_dtype if key in ("cell_feat_lvl", "net_feat_lvl")
+                  else None)
             fields[key] = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                                .to(dev) for a in arrs)
+                                .to(dev, dt) for a in arrs)
     return LeveledGraphExact(num_rows=num_rows, **fields), node_row, num_rows
 
 
-def pack_design(parsed, map_size=128, device="cuda"):
+def pack_design(parsed, map_size=128, device="cuda",
+                compute_dtype=torch.float32):
     """Pack a host-side parsed design (dict of numpy arrays) into
-    :class:`DesignData` on ``device``.
+    :class:`DesignData` on ``device``. The feature tables and the raster
+    are ``compute_dtype`` (bf16 under ``--compute_dtype bfloat16`` in the
+    train CLI, as ``prtp_tpu/graph.py`` packs them); everything else is
+    as for float32.
 
     ``parsed`` keys: num_nodes, cell_feat (N,Fc), net_feat (N,Fn),
     levels, cell_edges (2,Ec), net_edges (2,En), arrival_time (N,),
@@ -264,7 +272,8 @@ def pack_design(parsed, map_size=128, device="cuda"):
     (C,H,W).
     """
     dev = resolve_device(device)
-    graph, node_row, num_rows = pack_leveled_graph_exact(parsed, dev)
+    graph, node_row, num_rows = pack_leveled_graph_exact(parsed, dev,
+                                                         compute_dtype)
 
     def remap(key, dtype=np.float32):
         vals = np.asarray(parsed[key], dtype=dtype).reshape(-1)
@@ -295,5 +304,5 @@ def pack_design(parsed, map_size=128, device="cuda"):
         path_level=torch.from_numpy(np.ascontiguousarray(path_level)).to(dev),
         path_masks=torch.from_numpy(masks).to(dev),
         cnn_input=torch.from_numpy(np.ascontiguousarray(cnn_input[None]))
-        .to(dev),
+        .to(dev, compute_dtype),
     )

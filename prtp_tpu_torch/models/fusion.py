@@ -14,7 +14,16 @@ embedding width (64 by default). Forward, batched over path ids:
 normal kernels, zero biases, a xavier-uniform ``fcn_kernel``), drawn
 from the ``generator`` given. The port runs the regression and the
 classification heads, LayoutNet or the U-Net, and the GNN's softmax or
-``--attn`` cell reduce, in float32; bfloat16 compute raises.
+``--attn`` cell reduce.
+
+``compute_dtype`` bfloat16 is JAX's mixed precision (flax style: the
+parameters stay float32 and are cast for the products): the walk's MLP
+products take bf16 operands and give float32 (the carry stays float32),
+the layout CNN runs in bf16, the fcn head rounds ``f ⊙ W``, then
+``mask @ (f ⊙ W)``, then the bias sum to bf16, ``mlp_alpha`` and
+``mlp_fuse`` are flax's bf16 ``Dense`` (``mlp.dense_bf16``), every part
+is cast to bf16 before the concatenation, and the output back to
+float32.
 """
 
 from __future__ import annotations
@@ -22,9 +31,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.bf16 import BF16, compute_dtype_of
 from .gnn import TimeGNN
 from .layoutnet import LayoutNet
-from .mlp import MLP
+from .mlp import MLP, dense_bf16
 from .unet import UNet
 
 
@@ -42,9 +52,7 @@ class PathModel(nn.Module):
         super().__init__()
         if not (use_gnn or use_cnn):
             raise ValueError("GNN and CNN model can not be both None!")
-        if compute_dtype not in (None, torch.float32, "float32"):
-            raise NotImplementedError("bfloat16 compute is ported in a later "
-                                      "slice (variants)")
+        dt = self.compute_dtype = compute_dtype_of(compute_dtype)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.use_gnn = use_gnn
@@ -56,21 +64,21 @@ class PathModel(nn.Module):
             self.gnn = TimeGNN(cell_feat_dim, net_feat_dim, generator,
                                out_dim=out_dim, hidden_dim=hidden_dim,
                                dgl_parity=dgl_parity, flag_attn=flag_attn,
-                               num_heads=num_heads)
+                               num_heads=num_heads, mlp_dtype=dt)
         if use_cnn:
             # flax infers the U-Net's input channels from the raster;
             # LayoutNet's Conv_0 takes 2
-            self.cnn = (UNet(generator, pooling, cnn_channels) if unet
-                        else LayoutNet(generator, pooling))
+            self.cnn = (UNet(generator, pooling, cnn_channels, dt) if unet
+                        else LayoutNet(generator, pooling, dt))
             # Linear(map^2 -> cnn_outdim) applied via the mask-row algebra
             msq = map_size * map_size
             self.fcn_kernel = nn.Parameter(torch.empty(msq, cnn_outdim))
             nn.init.xavier_uniform_(self.fcn_kernel, generator=generator)
             self.fcn_bias = nn.Parameter(torch.zeros(cnn_outdim))
-        self.mlp_alpha = MLP(1, (global_dim * 2, global_dim), generator)
+        self.mlp_alpha = MLP(1, (global_dim * 2, global_dim), generator, dt)
         fuse_in = ((out_dim if use_gnn else 0)
                    + (cnn_outdim if use_cnn else 0) + global_dim)
-        self.mlp_fuse = MLP(fuse_in, (fuse_in * 2, nlabels), generator)
+        self.mlp_fuse = MLP(fuse_in, (fuse_in * 2, nlabels), generator, dt)
 
     def forward(self, design, path_ids: torch.Tensor) -> torch.Tensor:
         """Predict for a batch of path ids (any integer dtype).
@@ -96,9 +104,15 @@ class PathModel(nn.Module):
                     f"{self.map_size}: the raster's side must be "
                     f"{2 if self.unet else 4} x map_size")
             rows = design.path_masks[path_ids].to(feat_map.dtype)
-            fw = feat_map.reshape(-1)[:, None] * self.fcn_kernel
-            parts.append(rows @ fw + self.fcn_bias)
+            if self.compute_dtype is None:
+                fw = feat_map.reshape(-1)[:, None] * self.fcn_kernel
+                parts.append(rows @ fw + self.fcn_bias)
+            else:  # fw rounded, the product rounded, the bias sum rounded
+                fw = feat_map.reshape(-1)[:, None] * self.fcn_kernel.to(BF16)
+                parts.append(dense_bf16(rows, fw.t(), self.fcn_bias))
         parts.append(self.mlp_alpha(levels[:, None].float()))
+        if self.compute_dtype is not None:
+            parts = [p.to(self.compute_dtype) for p in parts]
         out = self.mlp_fuse(torch.cat(parts, dim=-1))
         if self.nlabels == 1:
             out = out.squeeze(-1)

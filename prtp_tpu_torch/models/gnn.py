@@ -19,7 +19,10 @@ The walk itself is :func:`prtp_tpu_torch.ops.fused_gnn.exact_walk`: the
 forward of ``exact_gnn_forward`` with JAX's hand-written backward
 (``fused_vjp=True``, the JAX default), which returns the gradients of
 the three pair-step MLPs (and ``fc_attn2``) and of ``h0``. The node-state carry is float32,
-``(num_rows + 1, out_dim)``; the last row is the gather dummy.
+``(num_rows + 1, out_dim)``; the last row is the gather dummy. With
+``mlp_dtype`` bfloat16 the pair-step MLPs' products take bf16 operands
+and give float32 (JAX's ``mlp_dtype`` on the exact path); the carry
+stays float32, as at ``prtp_tpu/models/gnn.py:314-321``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.bf16 import compute_dtype_of
 from ..ops.fused_gnn import MLP_NAMES as PAIR_STEP_MLPS
 from ..ops.fused_gnn import exact_walk
 from .mlp import MLP, lecun_normal_
@@ -36,9 +40,11 @@ class TimeGNN(nn.Module):
     def __init__(self, cell_feat_dim: int, net_feat_dim: int,
                  generator: torch.Generator, out_dim: int = 128,
                  hidden_dim: int = 256, dgl_parity: bool = True,
-                 flag_attn: bool = False, num_heads: int = 1):
+                 flag_attn: bool = False, num_heads: int = 1,
+                 mlp_dtype=None):
         super().__init__()
         self.out_dim = out_dim
+        self.mlp_dtype = compute_dtype_of(mlp_dtype)
         self.dgl_parity = dgl_parity
         self.flag_attn = flag_attn
         # widths mirror the reference (256-wide single hidden layer)
@@ -69,4 +75,5 @@ class TimeGNN(nn.Module):
                             mlp.fc1.bias)
         if self.flag_attn:
             params["fc_attn2"] = self.fc_attn2.weight
-        return exact_walk(params, h0, g, self.dgl_parity)
+        return exact_walk(params, h0, g, self.dgl_parity,
+                          self.mlp_dtype is not None)

@@ -8,7 +8,9 @@ them by name.
 
 Parameters are created uninitialised and drawn from an explicit
 ``torch.Generator`` with flax's distributions (lecun-normal kernels,
-zero biases), never from the global RNG.
+zero biases), never from the global RNG. They stay float32; with a
+bfloat16 compute dtype each layer is flax's ``Dense(dtype=bfloat16)``
+(:func:`dense_bf16`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Sequence
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from ..ops.bf16 import BF16, compute_dtype_of, matmul_f32
 
 # flax lecun_normal = variance_scaling(1, "fan_in", "truncated_normal"):
 # a standard normal truncated to [-2, 2], rescaled to unit variance
@@ -43,20 +47,36 @@ def linear(in_dim: int, out_dim: int,
     return layer
 
 
+def dense_bf16(x: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor | None = None) -> torch.Tensor:
+    """flax's ``Dense(dtype=bfloat16)`` for a torch-layout weight ``w``
+    (out, in): ``x`` and ``w`` cast to bf16, their product rounded to
+    bf16, then the bias cast to bf16 and added, the sum rounded again.
+    Two roundings, as flax computes it; ``F.linear`` with a bf16 bias
+    rounds once and differs in about a quarter of the outputs."""
+    y = matmul_f32(x.to(BF16), w.to(BF16).t()).to(BF16)
+    return y if b is None else y + b.to(BF16)
+
+
 class MLP(nn.Module):
-    """Linear stack; ``features`` are the per-layer output sizes."""
+    """Linear stack; ``features`` are the per-layer output sizes.
+    ``compute_dtype`` bfloat16 makes each layer :func:`dense_bf16` and
+    the output bf16, as flax's ``MLP(dtype=bfloat16)``."""
 
     def __init__(self, in_dim: int, features: Sequence[int],
-                 generator: torch.Generator):
+                 generator: torch.Generator, compute_dtype=None):
         super().__init__()
         self.num_layers = len(features)
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         for i, f in enumerate(features):
             self.add_module(f"fc{i}", linear(in_dim, f, generator))
             in_dim = f
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"fc{i}")(x)
+            fc = getattr(self, f"fc{i}")
+            x = (fc(x) if self.compute_dtype is None
+                 else dense_bf16(x, fc.weight, fc.bias))
             if i < self.num_layers - 1:
                 x = F.relu(x)
         return x

@@ -57,6 +57,14 @@ launch as programmatic dependent launches
 tables, weights and ``hf`` while the kernel before it drains, and the
 rest once it is done, so the kernel just before one of them must not
 write those. ``softmax_sum`` and ``local_mean`` launch plainly.
+
+Under ``--compute_dtype bfloat16`` only the pair-step MLPs' products
+change, as JAX's ``_mm`` has them: bf16 operands, float32 products
+(:func:`prtp_tpu_torch.ops.bf16.mm_f32`), in :func:`_mlp` and in all
+five products of :func:`_mlp_grads`. The MLPs' weights are cast to bf16
+once a forward (``w16``) and kept for the backward. The carry ``h``,
+``dh``, the biases, every reduce, scatter and mean stay float32, so the
+kernels above take the same float32 inputs either way.
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .bf16 import BF16, mm_f32
 from .gather import device_of, gather_rows
 
 _SOFTMAX_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_int64, c_int, c_int,
@@ -489,22 +498,38 @@ mailbox_scatter.launches = 0
 
 # ---------------------------------------------------------------- the walk
 
-def _mlp(p, x: torch.Tensor) -> torch.Tensor:
+def _mlp(p, x: torch.Tensor, w16=None) -> torch.Tensor:
     """The pair-step MLP, Linear -> ReLU -> Linear, from ``p = (w0, b0,
-    w1, b1)``."""
-    return F.linear(F.relu(F.linear(x, p[0], p[1])), p[2], p[3])
+    w1, b1)``; with ``w16 = (w0, w1)`` in bf16, JAX's ``_mlp`` with bf16
+    ``_mm`` products (float32 results, float32 biases)."""
+    if w16 is None:
+        return F.linear(F.relu(F.linear(x, p[0], p[1])), p[2], p[3])
+    a = mm_f32(x.to(BF16), w16[0].t()) + p[1]
+    return mm_f32(F.relu(a).to(BF16), w16[1].t()) + p[3]
 
 
-def _mlp_grads(p, x, d_out, need_dx=True):
+def _mlp_grads(p, x, d_out, need_dx=True, w16=None):
     """Port of ``prtp_tpu/ops/fused_gnn.py::_mlp_grads``: the gradients
     of ``(w0, b0, w1, b1)`` and the input cotangent (None unless
     ``need_dx``) of :func:`_mlp` at ``x`` for the output cotangent
-    ``d_out``, the hidden recomputed. JAX's ``kernel`` is ``weight.T``."""
+    ``d_out``, the hidden recomputed. JAX's ``kernel`` is ``weight.T``.
+    With ``w16`` each of the five products is :func:`mm_f32` of bf16
+    operands, as JAX's ``_mm``; the masks and the bias sums stay
+    float32."""
     w0, b0, w1, _b1 = p
-    a = F.linear(x, w0, b0)
-    d_a = (d_out @ w1) * (a > 0)
-    grads = (d_a.t() @ x, d_a.sum(0), d_out.t() @ F.relu(a), d_out.sum(0))
-    return grads, (d_a @ w0 if need_dx else None)
+    if w16 is None:
+        a = F.linear(x, w0, b0)
+        d_a = (d_out @ w1) * (a > 0)
+        grads = (d_a.t() @ x, d_a.sum(0), d_out.t() @ F.relu(a),
+                 d_out.sum(0))
+        return grads, (d_a @ w0 if need_dx else None)
+    x16, d_out16 = x.to(BF16), d_out.to(BF16)
+    a = mm_f32(x16, w16[0].t()) + b0
+    d_a = mm_f32(d_out16, w16[1]) * (a > 0)
+    d_a16 = d_a.to(BF16)
+    grads = (mm_f32(d_a16.t(), x16), d_a.sum(0),
+             mm_f32(d_out16.t(), F.relu(a).to(BF16)), d_out.sum(0))
+    return grads, (mm_f32(d_a16, w16[0]) if need_dx else None)
 
 
 def _relu_split(g, h_blk, mail, num_rows, dgl_parity):
@@ -519,7 +544,7 @@ def _relu_split(g, h_blk, mail, num_rows, dgl_parity):
 
 
 def exact_gnn_forward(params, h0: torch.Tensor, graph,
-                      dgl_parity: bool = True) -> torch.Tensor:
+                      dgl_parity: bool = True, w16=None) -> torch.Tensor:
     """h_final of the exact-levels walk.
 
     params: maps each name of ``MLP_NAMES`` to that pair-step MLP's
@@ -531,7 +556,8 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
     assignment). graph: a :class:`prtp_tpu_torch.graph.LeveledGraphExact`
     on h0's device. Differentiable by torch autograd where every tensor
     lies on the CPU (the plain versions); :class:`ExactWalk` is its
-    hand-written backward.
+    hand-written backward. ``w16`` (:func:`bf16_weights`) makes the MLPs'
+    products bf16 (``--compute_dtype bfloat16``); h stays float32.
     """
     num_rows = graph.num_rows
     w_attn = params.get("fc_attn2")
@@ -540,11 +566,13 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
         cell_mail = graph.cell_mail[k]
         pn_c, md_c = cell_mail.shape
         # ---- cell half (even level 2k): mailbox read straight from h ----
-        pre = _mlp(params["fc_cell_self"], graph.cell_feat_lvl[k])
+        pre = _mlp(params["fc_cell_self"], graph.cell_feat_lvl[k],
+                   _w(w16, "fc_cell_self"))
         if k > 0:  # level 0 drops the neighbour term
             neigh = (softmax_sum(h, cell_mail, num_rows) if w_attn is None
                      else attn_sum(h, cell_mail, num_rows, w_attn))
-            pre = pre + _mlp(params["fc_cell_neigh"], neigh)
+            pre = pre + _mlp(params["fc_cell_neigh"], neigh,
+                             _w(w16, "fc_cell_neigh"))
         new = F.relu(pre)
         c0 = graph.cell_off[k]
         if dgl_parity:
@@ -555,8 +583,8 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
         prior_rows = graph.gather_rows[k][pn_c * md_c:]
         prior = gather_rows(h, prior_rows) if prior_rows.numel() else new[:0]
         neigh_n = local_mean(new, prior, graph.net_local_idx[k])
-        new_n = F.relu(_mlp(params["fc_net_self"], graph.net_feat_lvl[k])
-                       + neigh_n)
+        new_n = F.relu(_mlp(params["fc_net_self"], graph.net_feat_lvl[k],
+                            _w(w16, "fc_net_self")) + neigh_n)
         net_mail = graph.net_mail[k]
         n0 = graph.net_off[k]
         if dgl_parity:
@@ -568,7 +596,7 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
 
 
 def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
-                       dgl_parity: bool = True):
+                       dgl_parity: bool = True, w16=None):
     """Port of ``prtp_tpu/ops/fused_gnn.py::_bwd``: the cotangent of h0
     and the parameter gradients (a dict like ``params``) of the walk
     whose final state is ``hf``, for the cotangent ``g`` of ``hf``. With
@@ -614,7 +642,7 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                                        num_rows, dgl_parity)
         acc("fc_net_self", _mlp_grads(params["fc_net_self"],
                                       graph.net_feat_lvl[k], d_pre_n,
-                                      need_dx=False)[0])
+                                      False, _w(w16, "fc_net_self"))[0])
         cnt_n = graph.net_cnt[k]
         # ---- intra-pair net -> cell-block contributions ----
         g_c = dh[c0: c0 + pn_c]
@@ -625,7 +653,7 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                                        num_rows, dgl_parity)
         acc("fc_cell_self", _mlp_grads(params["fc_cell_self"],
                                        graph.cell_feat_lvl[k], d_pre_c,
-                                       need_dx=False)[0])
+                                       False, _w(w16, "fc_cell_self"))[0])
         d_mail_c = None
         if k > 0:
             if w_attn is None:
@@ -633,7 +661,8 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
             else:
                 f, alpha = attn_sum(hf, cell_mail, num_rows, w_attn,
                                     with_alpha=True)
-            dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c)
+            dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c,
+                                       True, _w(w16, "fc_cell_neigh"))
             acc("fc_cell_neigh", dp_neigh)
             if w_attn is None:
                 d_mail_c = softmax_sum_bwd(hf, cell_mail, num_rows, f, d_f)
@@ -652,6 +681,17 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                         graph.merged_pos[k], d_mail_c, d_pre_n, cnt_n, md_n,
                         pn_c * md_c)
     return dh, grads
+
+
+def _w(w16, name):
+    return None if w16 is None else w16[name]
+
+
+def bf16_weights(params):
+    """Each pair-step MLP's two weights cast to bf16 once, for a forward
+    and its backward: ``{name: (w0, w1)}``."""
+    return {name: (params[name][0].to(BF16), params[name][2].to(BF16))
+            for name in MLP_NAMES}
 
 
 def _params_of(flat):
@@ -674,32 +714,41 @@ def _flat_of(params):
 
 class ExactWalk(torch.autograd.Function):
     """The walk with JAX's hand-written backward (``fused_exact_gnn``).
-    Inputs: the graph and ``dgl_parity`` (no gradient), h0, then the
-    twelve pair-step tensors in ``MLP_NAMES`` order and, with ``--attn``,
-    ``fc_attn2``'s weight."""
+    Inputs: the graph, ``dgl_parity`` and whether the MLPs' products are
+    bf16 (no gradient), h0, then the twelve pair-step tensors in
+    ``MLP_NAMES`` order and, with ``--attn``, ``fc_attn2``'s weight. The
+    bf16 weights made for the forward are saved for the backward."""
 
     @staticmethod
-    def forward(ctx, graph, dgl_parity, h0, *flat):
-        hf = exact_gnn_forward(_params_of(flat), h0, graph, dgl_parity)
-        ctx.graph, ctx.dgl_parity = graph, dgl_parity
-        ctx.save_for_backward(hf, *flat)
+    def forward(ctx, graph, dgl_parity, bf16, h0, *flat):
+        params = _params_of(flat)
+        w16 = bf16_weights(params) if bf16 else None
+        hf = exact_gnn_forward(params, h0, graph, dgl_parity, w16)
+        ctx.graph, ctx.dgl_parity, ctx.bf16 = graph, dgl_parity, bf16
+        low = [t for name in MLP_NAMES for t in w16[name]] if bf16 else []
+        ctx.save_for_backward(hf, *flat, *low)
         return hf
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         hf, *flat = ctx.saved_tensors
+        w16 = None
+        if ctx.bf16:
+            flat, low = flat[:-2 * len(MLP_NAMES)], flat[-2 * len(MLP_NAMES):]
+            w16 = {name: tuple(low[2 * i: 2 * i + 2])
+                   for i, name in enumerate(MLP_NAMES)}
         dh, grads = exact_gnn_backward(_params_of(flat), hf, g, ctx.graph,
-                                       ctx.dgl_parity)
+                                       ctx.dgl_parity, w16)
         dflat = _flat_of(grads)
         need = ctx.needs_input_grad
-        return (None, None, dh if need[2] else None,
-                *(t if need[3 + i] else None for i, t in enumerate(dflat)))
+        return (None, None, None, dh if need[3] else None,
+                *(t if need[4 + i] else None for i, t in enumerate(dflat)))
 
 
-def exact_walk(params, h0: torch.Tensor, graph,
-               dgl_parity: bool = True) -> torch.Tensor:
+def exact_walk(params, h0: torch.Tensor, graph, dgl_parity: bool = True,
+               bf16: bool = False) -> torch.Tensor:
     """:func:`exact_gnn_forward` through :class:`ExactWalk`: the forward
     launches the same kernels, and autograd takes the hand-written
-    backward."""
-    return ExactWalk.apply(graph, dgl_parity, h0, *_flat_of(params))
+    backward. ``bf16``: the MLPs' products in bf16 (float32 results)."""
+    return ExactWalk.apply(graph, dgl_parity, bf16, h0, *_flat_of(params))

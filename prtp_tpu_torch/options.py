@@ -29,8 +29,6 @@ NOT_PORTED = (
      "item 5 (data parallelism)"),
     ("--merge_designs", lambda o: o.merge_designs,
      "item 4 (merged super-graph)"),
-    ("--compute_dtype bfloat16", lambda o: o.compute_dtype == "bfloat16",
-     "item 3 (variants)"),
 )
 
 
@@ -140,8 +138,7 @@ def get_options(args=None):
                           "ported yet)")
     ext.add_argument("--compute_dtype", type=str, default="float32",
                      choices=["float32", "bfloat16"],
-                     help="dtype for GNN/CNN activations (bfloat16 is not "
-                          "ported yet)")
+                     help="dtype for GNN/CNN activations")
     ext.add_argument("--merge_designs", action="store_true",
                      help="train on ONE super-graph merging all train "
                           "designs (not ported yet)")

@@ -10,7 +10,9 @@ paths and prints the per-level R²/MAPE lines (regression only) and the
 case lines in the JAX driver's formats.
 
 The CLI (:func:`main`, CLI parity with the reference ``python test.py``,
-``src/test.py``) computes in float32 (TF32 off), loads the trained torch
+``src/test.py``) computes in float32 (TF32 off) or, with
+``--compute_dtype bfloat16``, in the model's mixed precision on designs
+packed in float32 (as JAX's test CLI packs them), loads the trained torch
 checkpoint, evaluates every design of the test list over all of its
 paths and, for regression, saves a relative-error vs level scatter plot
 per design to ``visual/{case}.png`` (``:244-249``) and the

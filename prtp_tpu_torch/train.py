@@ -16,8 +16,10 @@ Usage:
 
 ``main(argv, device="cuda")`` runs on the card (``--gpu`` picks which)
 in float32: it turns TF32 off for the process (:func:`use_float32`), as
-the JAX reference computes. Tests pass ``device="cpu"``. Without a card
-it raises.
+the JAX reference computes. ``--compute_dtype bfloat16`` runs the model
+in JAX's mixed precision (``models/fusion.py``) on designs packed in
+bf16; the parameters, Adam's moments, the loss and the metrics stay
+float32. Tests pass ``device="cpu"``. Without a card it raises.
 """
 
 from __future__ import annotations
@@ -122,8 +124,14 @@ def train(options, seed, device="cuda"):
     print("--- train designs: ", train_designs)
     print("--- test designs: ", val_designs)
 
+    # the feature tables and the raster in the compute dtype, as JAX's
+    # train CLI packs them (its test CLI packs float32 and casts)
+    pack_dtype = (torch.bfloat16 if options.compute_dtype == "bfloat16"
+                  else torch.float32)
+
     def packer(parsed):
-        return pack_design(parsed, map_size=options.map_size, device=dev)
+        return pack_design(parsed, map_size=options.map_size, device=dev,
+                           compute_dtype=pack_dtype)
 
     cache_tr = DesignCache(packer)
     cache_val = DesignCache(packer)

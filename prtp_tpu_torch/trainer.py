@@ -1,10 +1,14 @@
 """Training engine: the train step over packed designs.
 
-Port of ``prtp_tpu/trainer.py`` in float32, for the regression and the
-classification task. One :func:`train_step` is the full-graph level
-walk, the CNN and the fusion head forward, the task's masked loss on the
-endpoint batch, the backward (the walk's through its hand-written
-:class:`~prtp_tpu_torch.ops.fused_gnn.ExactWalk`) and one Adam update.
+Port of ``prtp_tpu/trainer.py`` for the regression and the
+classification task. The loss, the metrics, the parameters (masters)
+and Adam's state are float32 whatever the model's compute dtype: a
+bfloat16 model's output is float32 and each parameter's gradient
+reaches :class:`FlatAdam` as float32. One :func:`train_step` is the
+full-graph level walk, the CNN and the fusion head forward, the task's
+masked loss on the endpoint batch, the backward (the walk's through its
+hand-written :class:`~prtp_tpu_torch.ops.fused_gnn.ExactWalk`) and one
+Adam update.
 PyTorch runs eagerly, so where JAX jits a step and scans several, the
 port calls the step in a Python loop (:func:`train_steps`). The U-Net's
 BatchNorm running averages are module buffers that a step's forward

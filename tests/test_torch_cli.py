@@ -47,14 +47,27 @@ def test_options_match_jax_keys_and_defaults():
 
 @pytest.mark.parametrize("flags,item", [
     (["--dp"], "item 5"), (["--mesh_shape", "2"], "item 5"),
-    (["--merge_designs"], "item 4"),
-    (["--compute_dtype", "bfloat16"], "item 3")])
+    (["--merge_designs"], "item 4")])
 def test_not_ported_flags_raise(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
         get_options(flags)
     with pytest.raises(NotImplementedError):
         train_mod.main(flags + ["--model_saving_dir", str(tmp_path)],
                        device="cpu")
+    assert not os.listdir(tmp_path)
+
+
+def test_unknown_compute_dtype_is_refused(tmp_path):
+    """``--compute_dtype`` takes float32 or bfloat16, as in the JAX
+    package: another value stops at the parser, before anything runs."""
+    assert get_options(["--compute_dtype", "bfloat16"]).compute_dtype == \
+        "bfloat16"
+    for bad in ("float16", "bf16"):
+        with pytest.raises(SystemExit):
+            get_options(["--compute_dtype", bad])
+        with pytest.raises(SystemExit):
+            train_mod.main(["--compute_dtype", bad, "--model_saving_dir",
+                            str(tmp_path)], device="cpu")
     assert not os.listdir(tmp_path)
 
 
@@ -252,6 +265,52 @@ def test_clis_turn_tf32_off(flow, tmp_path):
 
 
 # ---- the checkpoint format ----
+
+def test_bf16_checkpoint_evaluates_in_either_dtype(flow, tmp_path,
+                                                   monkeypatch):
+    """``--compute_dtype bfloat16``: the train CLI packs its designs in
+    bf16 and records the dtype in config.json as JAX does; model.pt holds
+    float32 parameters (and Adam's moments), so the test CLI evaluates
+    the checkpoint in float32 and in bf16, packing float32 either way.
+    The two give finite predictions of every design within 5e-2 of their
+    largest |value| of each other (bf16 keeps 8 bits)."""
+    packed = {}
+
+    def recording(module):
+        real = module.pack_design
+
+        def pack(parsed, *args, **kwargs):
+            packed.setdefault(module.__name__, set()).add(
+                kwargs.get("compute_dtype", torch.float32))
+            return real(parsed, *args, **kwargs)
+        return pack
+
+    mdl = str(tmp_path / "mdl")
+    bf16 = ["--compute_dtype", "bfloat16"]
+    monkeypatch.setattr(train_mod, "pack_design", recording(train_mod))
+    monkeypatch.setattr(test_mod, "pack_design", recording(test_mod))
+    train_mod.main(["--data_save_path", flow["data"], "--model_saving_dir",
+                    mdl] + TRAIN_ARGS + MAP_ARGS + bf16, device="cpu")
+    assert packed.pop(train_mod.__name__) == {torch.bfloat16}
+    with open(os.path.join(mdl, "config.json")) as f:
+        assert json.load(f)["compute_dtype"] == "bfloat16"
+    blob = torch.load(os.path.join(mdl, "model.pt"), weights_only=True)
+    assert all(t.dtype == torch.float32 for t in blob["model"].values())
+    assert blob["optimizer"]["mu"].dtype == torch.float32
+    preds = {}
+    for dtype in ("float32", "bfloat16"):
+        preds[dtype] = test_mod.main(
+            ["--data_save_path", flow["data"], "--model_saving_dir", mdl,
+             "--compute_dtype", dtype] + MAP_ARGS, device="cpu")[3]
+    assert packed[test_mod.__name__] == {torch.float32}
+    assert sorted(preds["float32"]) == sorted(preds["bfloat16"])
+    for design, want in preds["float32"].items():
+        got = preds["bfloat16"][design]
+        assert np.all(np.isfinite(got)) and got.shape == want.shape
+        assert not np.array_equal(got, want)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=5e-2 * np.abs(want).max())
+
 
 def test_jax_checkpoint_alone_raises(flow, tmp_path):
     mdl = tmp_path / "jax_mdl"

@@ -137,7 +137,7 @@ def test_ablations_match_jax(use_gnn, use_cnn):
 
 @pytest.mark.parametrize("kw,err", [
     (dict(use_gnn=False, use_cnn=False), ValueError),
-    (dict(compute_dtype=torch.bfloat16), NotImplementedError),
+    (dict(compute_dtype=torch.float16), ValueError),  # float32 or bfloat16
     (dict(flag_attn=True, num_heads=3), ValueError),  # 3 does not divide 16
 ])
 def test_unported_and_invalid_configurations_raise(kw, err):
