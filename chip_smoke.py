@@ -142,7 +142,25 @@ Phases, each failing loudly (nonzero exit) on any error:
    ROADMAP 3d's measurement: the reg step in float32 (TF32 off), in
    float32 with TF32 on and in bf16, in turns, twice, with LayoutNet's
    and the walk's parts and LayoutNet's forward + backward bound in each
-   precision (:func:`precision_turns`).
+   precision (:func:`precision_turns`). Two measurements ride along: each
+   bf16 model's first-step gradients, card and CPU each against the
+   float32 twin's, at the leaves farthest apart (ROADMAP F3); and the
+   U-Net's float32 gradient error against float64 again at the CPU's
+   weights after the epoch (G3).
+9. The merged super-graph (``--merge_designs``, :func:`merged_phase`)
+   at full width, TF32 off, on bench.py's merged point: 8 designs of
+   20k nodes (seeds 100-107) merged into one super-graph of 8 x 2 x 512
+   x 512 rasters, 256 ids a design (numpy seed 0). 3 grouped evaluation
+   requests, card against CPU at 1e-4, and each design's rows against
+   the design packed alone; 3 train steps card against CPU by phase 6's
+   rules (the flip allowances per raster); one merged step timed against
+   the 8 single-design steps on the same paths (device time, as launched,
+   idle share, launches); one bf16 forward in the test CLI's rounding
+   (phase 8's bf16 bounds); the merged U-Net (8 rasters of 3 x 256 x
+   256, BatchNorm over all 8) for 2 steps from the CPU's state, running
+   averages at STAT_RTOL. Phase 7 also trains the reg corpus with
+   ``--merge_designs`` (train CLI, test CLI card vs CPU), and its bf16
+   test CLI evaluates in the padded scan's rounding, as JAX's does.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -170,8 +188,8 @@ REQUESTS = 3
 LR = 1e-3  # phase 6: flat Adam's learning rate
 TRAIN_BATCH, EPOCH_SEED, PRIOR_STEPS, FIXED_STEPS = 128, 0, 3, 10
 GRAD_TOL, LOSS_RTOL = 1e-3, 1e-3  # card vs cpu, phase 6
-# card vs cpu, phases 6 and 8: a conv above a max-pool window whose winner
-# differs
+# card vs cpu, phases 6, 8 and 9: a conv above a max-pool window whose
+# winner differs (at most MAX_FLIPS a pool and raster)
 FLIP_TOL, MAX_FLIPS = 1e-2, 16
 # each max pool of a layout CNN, and the parameter prefixes above it
 LAYOUTNET_POOLS = {"Conv_0": ("cnn.Conv_0.",),
@@ -213,6 +231,12 @@ STAT_RTOL = 1e-3  # phase 8: U-Net running averages, card vs cpu
 # phase 8: the paired steps of the 4-head, bf16 U-Net and bf16 --attn
 # models (the others run the whole epoch)
 SHORT_STEPS = 2
+# phase 9: bench.py's merged point (build_merged_step): MERGED_K designs
+# of MERGED_NODES nodes (LEVELS levels, DECAY), seeds MERGED_SEED + k, and
+# MERGED_BATCH ids a design drawn with numpy seed 0; MERGED_STEPS train
+# steps card vs cpu
+MERGED_K, MERGED_NODES, MERGED_SEED, MERGED_BATCH = 8, 20_000, 100, 256
+MERGED_STEPS = 3
 HAZARD_REPS = 20  # phase 3: launches right after a writer of the inputs
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
 # phase 3's fixtures, not kernels of the port: for the hazard check a
@@ -1569,6 +1593,24 @@ def _read_launches() -> dict:
     return {kern.__name__: kern.launches for kern in KERNELS}
 
 
+def check_launches(what, counts, per, n, attn=False):
+    """``counts`` of a run of ``n`` forwards or steps against ``per``,
+    each kernel's launches in one of them: each kernel of ``per`` exactly
+    ``n`` x its count, every one of them on the path (but the prior-row
+    gather and the other variant's cell kernels), and none outside."""
+    log(f"  {what}: launches {counts}; per call expected {per}")
+    for name, k in per.items():
+        if counts[name] != n * k:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} "
+                                 f"times, expected {n * k}")
+        if k == 0 and not may_idle(name, attn):
+            raise AssertionError(f"{what}: {name} is not on the path")
+    for name, k in counts.items():
+        if name not in per and k:
+            raise AssertionError(f"{what}: {name} launched {k} times, not "
+                                 "on this path")
+
+
 def bf16_ulp(np, x):
     """One bf16 ulp (8 significant bits) at ``x``."""
     return 2.0 ** (np.floor(np.log2(x)) - 7)
@@ -1625,18 +1667,8 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
             f"r2 {mets['r2']:.6f}  tp {mets['tp']:.0f} fp {mets['fp']:.0f} "
             f"tn {mets['tn']:.0f} fn {mets['fn']:.0f}")
     counts = _read_launches()
-    log(f"  {design}: launches in {requests} request(s): {counts}; per "
-        f"forward expected {per_forward}")
-    for name, n in per_forward.items():
-        if counts[name] != requests * n:
-            raise AssertionError(f"{design}: {name} launched {counts[name]} "
-                                 f"times, expected {requests * n}")
-        if n == 0 and not may_idle(name, attn):
-            raise AssertionError(f"{design}: {name} is not on the walk")
-    for name, n in counts.items():
-        if name not in per_forward and n:
-            raise AssertionError(f"{design}: {name} launched {n} times in "
-                                 "evaluation, which runs no backward")
+    check_launches(f"{design}, {requests} request(s)", counts, per_forward,
+                   requests, attn)
     num_paths = int(parsed["num_paths"])
     shape = (num_paths,) if task == "reg" else (num_paths, 2)
     for preds in outs:
@@ -1710,13 +1742,7 @@ def train_run(torch, state, design, batches, what, per_step=None,
         f"{len(batches)} steps in {wall:.3f} s; losses "
         + ", ".join(f"{x:.6f}" for x in losses))
     if on_card:
-        log(f"  {what}: launches {counts}; per step expected {per_step}")
-        for name, n in per_step.items():
-            if counts[name] != len(batches) * n:
-                raise AssertionError(f"{what}: {name} launched {counts[name]}"
-                                     f" times, expected {len(batches) * n}")
-            if n == 0 and not may_idle(name):
-                raise AssertionError(f"{what}: {name} is not on the step")
+        check_launches(what, counts, per_step, len(batches))
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{what}: a loss is not finite: {losses}")
     return losses, grads, counts
@@ -1770,22 +1796,24 @@ def pool_winner_flips(torch, cnn_cpu, x_cpu, dev) -> dict:
     return flips
 
 
-def compare_runs(torch, what, card, cpu, flips, pools=None, f32_err=None):
+def compare_runs(torch, what, card, cpu, flips, pools=None, f32_err=None,
+                 rasters=1):
     """The card's run against the CPU's: the first step's gradients leaf
     by leaf within GRAD_TOL x the leaf's largest |g|, every loss within
     LOSS_RTOL. A conv above a max pool with winners that differ
-    (``flips``, at most MAX_FLIPS a pool; ``pools`` maps each pool to the
-    parameter prefixes above it) is held to FLIP_TOL instead. A leaf in
-    ``f32_err`` (its float32 gradient's distance from float64,
+    (``flips``, at most MAX_FLIPS a pool and raster; ``pools`` maps each
+    pool to the parameter prefixes above it) is held to FLIP_TOL instead.
+    A leaf in ``f32_err`` (its float32 gradient's distance from float64,
     :func:`unet_f32_error`) may differ by twice that more."""
     import numpy as np
     (l_card, g_card, *_), (l_cpu, g_cpu, *_) = card, cpu
     pools = pools or LAYOUTNET_POOLS
     f32_err = f32_err or {}
-    if max(flips.values()) > MAX_FLIPS:
+    if max(flips.values()) > MAX_FLIPS * rasters:
         raise AssertionError(f"{what}: {flips} max-pool winners differ from "
-                             f"the cpu's (allowed {MAX_FLIPS} a pool)")
-    worst, worst_flip = (0.0, None), (0.0, None)
+                             f"the cpu's (allowed {MAX_FLIPS} a pool and "
+                             f"raster, {rasters} rasters)")
+    worst, worst_flip = (0.0, ""), (0.0, "")
     for key, want in g_cpu.items():
         scale = float(want.abs().max())
         diff = float((g_card[key] - want).abs().max())
@@ -1817,8 +1845,8 @@ def card_branches(torch, cnn_cpu, x_cpu, dev) -> tuple:
     """LayoutNet's SIGN_CONVS outputs (the pre-activations of the ReLU
     after Conv_2 and the leaky ReLU after Conv_3) at the same weights and
     raster on the card and on the CPU. They must agree within PRE_RTOL x
-    their largest |value|, and at most MAX_FLIPS elements a conv may
-    differ in sign: values within rounding of 0, which card and CPU put
+    their largest |value|, and at most MAX_FLIPS elements a conv and
+    raster may differ in sign: values within rounding of 0, which card and CPU put
     on either side. At such an element the gradient passes on one and not
     the other (the leaky ReLU's: at another slope), which moves the
     weight gradients of the convs below by far more than rounding; the
@@ -1846,11 +1874,12 @@ def card_branches(torch, cnn_cpu, x_cpu, dev) -> tuple:
         err = float((card[name] - want[name]).abs().max())
         scale = float(want[name].abs().max())
         flips[name] = int(((card[name] > 0) != (want[name] > 0)).sum())
-        if err > PRE_RTOL * scale or flips[name] > MAX_FLIPS:
+        allowed = MAX_FLIPS * x_cpu.shape[0]
+        if err > PRE_RTOL * scale or flips[name] > allowed:
             raise AssertionError(f"LayoutNet {name}'s output on the card "
                                  f"differs from the cpu's by {err} (its max"
                                  f" {scale}), {flips[name]} signs (allowed "
-                                 f"{PRE_RTOL} x max, {MAX_FLIPS})")
+                                 f"{PRE_RTOL} x max, {allowed})")
     return card, flips
 
 
@@ -2009,14 +2038,7 @@ def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
         out[where] = (losses, grads, counts, buffers,
                       {k: v.to("cpu", copy=True)
                        for k, v in state.model.state_dict().items()})
-    counts, n = out[DEVICE][2], len(batches[DEVICE])
-    log(f"  {what}: launches {counts}; per step expected {per_step}")
-    for name, k in per_step.items():
-        if counts[name] != n * k:
-            raise AssertionError(f"{what}: {name} launched {counts[name]} "
-                                 f"times, expected {n * k}")
-        if k == 0 and not may_idle(name, attn):
-            raise AssertionError(f"{what}: {name} is not on the step")
+    check_launches(what, out[DEVICE][2], per_step, len(batches[DEVICE]), attn)
     return out
 
 
@@ -2044,7 +2066,7 @@ def compare_bf16_runs(torch, what, card, cpu, f32_first):
     import numpy as np
     (l_card, g_card, *_), (l_cpu, g_cpu, *_) = card, cpu
     loss32, g32 = f32_first
-    rows, bad = [], []
+    rows, bad, sides = [], [], []
     for key, want in g_cpu.items():
         scale = float(want.abs().max())
         err, off = (g_card[key] - want).abs(), (want - g32[key]).abs()
@@ -2052,6 +2074,8 @@ def compare_bf16_runs(torch, what, card, cpu, f32_first):
         rel, dist = float(err.max()) / scale, float(err.mean())
         ratio = dist / gap if gap else (0.0 if dist == 0 else np.inf)
         rows.append((rel, ratio, key, float(off.max()) / scale))
+        sides.append((rel, key, float((g_card[key] - g32[key]).abs().max())
+                      / scale, float(off.max()) / scale))
         if float(err.max()) > BF16_GRAD_TOL * scale or dist > REL_GAP * gap:
             bad.append(key)
     worst_rel = max(rows)
@@ -2066,6 +2090,11 @@ def compare_bf16_runs(torch, what, card, cpu, f32_first):
         "mean / bf16-f32 mean, bf16-f32 max / max |g|): "
         + ", ".join(f"{k} {a:.2g} {b:.2g} {c:.2g}" for a, b, k, c in sorted(
             rows, key=lambda r: -r[1])[:8]))
+    log(f"  {what}: each side's first-step bf16 gradient against the float32"
+        " twin's, at the leaves farthest card vs cpu (x the leaf's max |g|:"
+        " card vs cpu, card vs float32, cpu vs float32): " + ", ".join(
+            f"{k} {a:.3g} {b:.3g} {c:.3g}"
+            for a, k, b, c in sorted(sides, reverse=True)[:4]))
     rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
     d0, gap0 = abs(l_card[0] - l_cpu[0]), abs(l_cpu[0] - loss32)
     log(f"  {what} vs cpu (bf16): losses within rtol {rel:.3g} (allowed "
@@ -2171,6 +2200,30 @@ def device_kernels(torch, fn):
             tot, cnt = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (tot + ev.time_range.elapsed_us(), cnt + 1)
     return by_name
+
+
+def step_timing(torch, dev, fn, queue_ms) -> dict:
+    """``fn``'s device time (CUDA events, queue pre-filled for
+    ``queue_ms``) and time as launched, then one call's wall time and,
+    under torch.profiler, the device's busy time, idle share and kernel
+    launches."""
+    timer = Timer(torch, dev)
+    out = {"device_ms": timer.ms(fn, queue_ms=queue_ms),
+           "launched_ms": timer.ms(fn, queue_ms=0)}
+    del timer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    by_name = device_kernels(torch, fn)
+    if not by_name:
+        raise AssertionError("torch.profiler recorded no device kernels")
+    out["busy_ms"] = sum(t for t, _ in by_name.values()) / 1e3
+    out["idle"] = 1 - out["busy_ms"] / out["wall_ms"]
+    out["launches"] = sum(c for _, c in by_name.values())
+    out["by_name"] = by_name
+    return out
 
 
 def log_port_kernels(by_name, what):
@@ -2550,8 +2603,11 @@ def corpus_runs(torch, np, smi, tmp) -> dict:
     default 2 x 512 x 512 rasters and, for the U-Net, 3 x UNET_HW x
     UNET_HW. For each of ``reg`` (the default flags), ``cls`` (``--task
     cls --nlabels 2``), ``unet`` (``--unet``), ``attn`` (``--attn
-    --num_heads 2``) and ``bf16`` (``--compute_dtype bfloat16``, the last
-    two on the default corpus): the train CLI at full width on the card
+    --num_heads 2``), ``merged`` (``--merge_designs``: the corpus's
+    designs trained as one super-graph) and ``bf16`` (``--compute_dtype
+    bfloat16``, whose validations and test CLI evaluate in the padded
+    scan's rounding; the last three on the default corpus): the train CLI
+    at full width on the card
     for CORPUS_EPOCHS epochs, then the test CLI on the card and on the
     CPU from its checkpoint, compared by :func:`compare_test_clis`
     (``bf16`` against the same checkpoint's test CLI in float32 too).
@@ -2580,6 +2636,7 @@ def corpus_runs(torch, np, smi, tmp) -> dict:
             "cls": ("corpus", ["--task", "cls", "--nlabels", "2"]),
             "unet": ("corpus_unet", ["--unet"]),
             "attn": ("corpus", ["--attn", "--num_heads", "2"]),
+            "merged": ("corpus", ["--merge_designs"]),
             "bf16": ("corpus", ["--compute_dtype", "bfloat16"])}
     for name, (corpus, flags) in runs.items():
         mdl = os.path.join(tmp, f"mdl_{name}")
@@ -2649,32 +2706,17 @@ def time_variant(torch, model_cpu, design, dev, task, what, smi):
     state = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), DEVICE)
     n = design.num_paths
     ids, mask = pad_batch(np.random.default_rng(0).permutation(n), n, dev)
-
-    def step():
-        train_step(state, design, ids, mask, task)
-
-    timer = Timer(torch, dev)
-    dev_ms = timer.ms(step, queue_ms=200)
-    launched_ms = timer.ms(step, queue_ms=0)
-    del timer
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = device_kernels(torch, step)
-    if not by_name:
-        raise AssertionError("torch.profiler recorded no device kernels")
-    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
-    log(f"phase 8: {what} train step ({n} paths): device time {dev_ms:.3f} "
-        f"ms; as launched {launched_ms:.3f} ms; wall {wall_ms:.3f} ms, "
-        f"device busy {busy_ms:.3f} ms (torch.profiler), idle share "
-        f"{1 - busy_ms / wall_ms:.3f}; "
-        f"{sum(c for _, c in by_name.values())} kernel launches  [{smi}]")
-    for name, (tot, cnt) in sorted(by_name.items(),
+    t = step_timing(torch, dev, lambda: train_step(state, design, ids, mask,
+                                                   task), 200)
+    log(f"phase 8: {what} train step ({n} paths): device time "
+        f"{t['device_ms']:.3f} ms; as launched {t['launched_ms']:.3f} ms; "
+        f"wall {t['wall_ms']:.3f} ms, device busy {t['busy_ms']:.3f} ms "
+        f"(torch.profiler), idle share {t['idle']:.3f}; {t['launches']} "
+        f"kernel launches  [{smi}]")
+    for name, (tot, cnt) in sorted(t["by_name"].items(),
                                    key=lambda kv: -kv[1][0])[:10]:
         log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
-    log_port_kernels(by_name, f"{what} train step")
+    log_port_kernels(t["by_name"], f"{what} train step")
 
 
 def time_unet(torch, unet_cpu, x, smi):
@@ -2959,11 +3001,253 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
             log(f"  {name}: eval mode on the trained running averages, card "
                 f"vs cpu: within {float(np.abs(p_card - p_cpu).max()):.3g} "
                 "(rtol/atol 1e-4): ok")
+            # the float32 gradient error past the init: the same
+            # measurement at the cpu's weights and averages after the epoch
+            after = unet_f32_error(torch, trained["cpu"], cpu_design,
+                                   batches["cpu"][-1], task, dev)
+            grown = {k: e / float(runs["cpu"][1][k].abs().max())
+                     for k, e in after.items()}
+            log(f"  {name}: float32 gradient error against float64 after "
+                f"{len(batches['cpu'])} steps, largest (x the leaf's max |g| "
+                "at the init; at the init in brackets): " + ", ".join(
+                    f"{k} {v:.3g} ({rel[k]:.3g})" for k, v in sorted(
+                        grown.items(), key=lambda kv: -kv[1])[:5])
+                + f"  [{smi}]")
             time_unet(torch, model_cpu.cnn, card_design.cnn_input, smi)
         if name not in ("bf16_unet", "bf16_attn"):
             time_variant(torch, model_cpu, card_design, dev, task, name, smi)
         del runs, designs, card_design, cpu_design, twin
         torch.cuda.empty_cache()
+    return launches
+
+def merged_batch(np, merged, rows=MERGED_BATCH):
+    """bench.py's merged batch (``build_merged_step``): for each design of
+    the merged super-graph, the first ``rows`` ids of a numpy seed 0
+    permutation of its universe, padded; ``(ids (K, rows), mask (K,
+    rows))`` in numpy."""
+    rng = np.random.default_rng(0)
+    universes = merged["path_ids_per_design"]
+    ids = np.zeros((len(universes), rows), np.int64)
+    mask = np.zeros((len(universes), rows), np.float32)
+    for i, uni in enumerate(universes):
+        take = np.asarray(uni)[rng.permutation(len(uni))[:rows]]
+        ids[i, :len(take)] = take
+        mask[i, :len(take)] = 1.0
+    return ids, mask
+
+
+def merged_phase(torch, np, dev, smi) -> dict:
+    """Phase 9: the merged super-graph (``--merge_designs``) at the
+    default model's full width, TF32 off, on bench.py's merged point
+    (MERGED_K designs of MERGED_NODES nodes, one super-graph packed as
+    one design with its MERGED_K rasters stacked). Serving: REQUESTS
+    grouped forwards of the bench's batch, card against CPU at rtol/atol
+    1e-4, and each design's rows against that design packed alone on the
+    card (1e-4). Training: MERGED_STEPS steps on grouped batches
+    (``iterate_grouped_batches``, numpy seed EPOCH_SEED, an epoch a
+    step), card against CPU by phase 6's rules (MAX_FLIPS a pool and
+    raster). Timing: one merged step at the bench's batch against the
+    MERGED_K single-design steps on the same designs and paths (device
+    time, as launched, idle share, launches). The merged U-Net (MERGED_K
+    rasters of 3 x UNET_HW x UNET_HW): SHORT_STEPS steps, each card step
+    from the CPU's state, its BatchNorm statistics taken over the
+    rasters together (running averages at STAT_RTOL, gradients by phase
+    8's U-Net rule). One bf16 forward in the test CLI's rounding
+    (``rounding="scan"``) by phase 8's bf16 bounds. Every run's launch
+    counters are zeroed just before it and checked just after against
+    the merged tables. Returns each run's launch counts."""
+    from prtp_tpu_torch.data.random_design import (bench_level_sizes,
+                                                   make_random_design)
+    from prtp_tpu_torch.graph import merge_parsed_designs, pack_design
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.test import evaluate
+    from prtp_tpu_torch.trainer import (init_state, iterate_grouped_batches,
+                                        make_optimizer, pad_batch,
+                                        train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    sizes = bench_level_sizes(MERGED_NODES, LEVELS, decay=DECAY)
+
+    def build(**kw):
+        parsed = [make_random_design(
+            sizes, cell_feat_dim=CELL_FEAT, net_feat_dim=NET_FEAT,
+            map_size=MAP_SIZE, mask_nnz_per_path=MASK_NNZ,
+            seed=MERGED_SEED + i, **kw) for i in range(MERGED_K)]
+        merged = merge_parsed_designs(parsed)
+        return parsed, merged, {where: pack_design(merged, map_size=MAP_SIZE,
+                                                   device=where)
+                                for where in ("cpu", DEVICE)}
+
+    t0 = time.perf_counter()
+    parsed, merged, packs = build(cnn_hw=CNN_HW)
+    graph = packs[DEVICE].graph
+    log(f"phase 9: merged super-graph of {MERGED_K} designs of "
+        f"{sum(sizes)} nodes ({LEVELS} levels, seeds {MERGED_SEED}-"
+        f"{MERGED_SEED + MERGED_K - 1}): {merged['num_nodes']} nodes, "
+        f"{graph.num_pairs} level pairs, {merged['num_paths']} paths, "
+        f"rasters {tuple(packs['cpu'].cnn_input.shape)}; built, merged and "
+        f"packed in {time.perf_counter() - t0:.2f} s")
+    ids_np, mask_np = merged_batch(np, merged)
+    batch = {where: (torch.from_numpy(ids_np).to(where),
+                     torch.from_numpy(mask_np).to(where)) for where in packs}
+    model_cpu = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+                          generator=torch.Generator().manual_seed(SEED))
+    model = copy.deepcopy(model_cpu).to(dev)
+    per_forward, per_step = launches_per_forward(graph), launches_per_step(
+        graph)
+    launches = {}
+
+    # ---- serving ----
+    torch.cuda.synchronize()
+    _zero_launches()
+    outs = []
+    for req in range(REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds, mets = evaluate(model, packs[DEVICE], *batch[DEVICE])
+        outs.append(preds.cpu().numpy())
+        log(f"  merged request {req}: wall "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms  loss "
+            f"{float(mets['loss']):.6f}  r2 {float(mets['r2']):.6f}")
+    launches["serve merged"] = _read_launches()
+    check_launches("serve merged", launches["serve merged"], per_forward,
+                   REQUESTS)
+    want, _m = evaluate(model_cpu, packs["cpu"], *batch["cpu"])
+    for req, got in enumerate(outs):
+        if got.shape != ids_np.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"merged request {req}: bad predictions "
+                                 f"{got.shape}")
+        np.testing.assert_allclose(got, want.numpy(), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"merged request {req} vs cpu")
+    log(f"  merged requests vs cpu: max abs diff "
+        f"{max(float(np.abs(o - want.numpy()).max()) for o in outs):.3g} "
+        "(rtol/atol 1e-4): ok")
+    off = np.cumsum([0] + [int(p["num_paths"]) for p in parsed])
+    singles, worst = [], 0.0
+    for k, p in enumerate(parsed):
+        valid = mask_np[k] > 0
+        alone = pack_design(p, map_size=MAP_SIZE, device=dev)
+        ids_k, mask_k = pad_batch(ids_np[k][valid] - off[k],
+                                  ids_np.shape[1], dev)
+        singles.append((alone, ids_k, mask_k))
+        one = evaluate(model, alone, ids_k, mask_k)[0].cpu().numpy()
+        np.testing.assert_allclose(outs[0][k][valid], one[:valid.sum()],
+                                   rtol=1e-4, atol=1e-4,
+                                   err_msg=f"merged design {k} vs alone")
+        worst = max(worst, float(np.abs(outs[0][k][valid]
+                                        - one[:valid.sum()]).max()))
+    log(f"  each design's rows of the merged forward vs the design packed "
+        f"alone, on the card: max abs diff {worst:.3g} (rtol/atol 1e-4): ok")
+
+    # ---- training ----
+    what = f"train merged, {MERGED_STEPS} steps"
+    rng = np.random.default_rng(EPOCH_SEED)
+    rounds = [r for _ in range(MERGED_STEPS) for r in iterate_grouped_batches(
+        merged["path_ids_per_design"], MERGED_BATCH, rng, "cpu")]
+    if len(rounds) != MERGED_STEPS:
+        raise AssertionError(f"{what}: {len(rounds)} rounds, one an epoch "
+                             "expected")
+    flips = pool_winner_flips(torch, model_cpu.cnn, packs["cpu"].cnn_input,
+                              dev)
+    cards, signs = card_branches(torch, model_cpu.cnn,
+                                 packs["cpu"].cnn_input, dev)
+    log(f"  merged LayoutNet at the init, card vs cpu: max-pool windows "
+        f"whose winner differs {flips}; conv outputs whose sign differs "
+        f"{signs}")
+    card = train_run(torch, init_state(copy.deepcopy(model_cpu),
+                                       make_optimizer(LR), DEVICE),
+                     packs[DEVICE], [(i.to(dev), m.to(dev))
+                                     for i, m in rounds], what, per_step)
+    launches[what] = card[2]
+    cpu = train_run(torch, init_state(copy.deepcopy(model_cpu),
+                                      make_optimizer(LR), "cpu"),
+                    packs["cpu"], rounds, what, card=cards)
+    compare_runs(torch, what, card, cpu, flips, rasters=MERGED_K)
+    del card, cpu, cards
+
+    # ---- timing: one merged step against the single-design steps ----
+    state = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), DEVICE)
+    runs = {
+        "one merged step": step_timing(
+            torch, dev, lambda: train_step(state, packs[DEVICE],
+                                           *batch[DEVICE]), 300),
+        f"{MERGED_K} single-design steps": step_timing(
+            torch, dev, lambda: [train_step(state, *one) for one in singles],
+            1500),
+    }
+    for name, t in runs.items():
+        log(f"phase 9: {name} ({MERGED_K} x {MERGED_BATCH} ids, "
+            f"{int(mask_np.sum())} valid): device time "
+            f"{t['device_ms']:.3f} ms; as launched {t['launched_ms']:.3f} "
+            f"ms; wall {t['wall_ms']:.3f} ms, device busy {t['busy_ms']:.3f}"
+            f" ms (torch.profiler), idle share {t['idle']:.3f}; "
+            f"{t['launches']} kernel launches  [{smi}]")
+        for kname, (tot, cnt) in sorted(t["by_name"].items(),
+                                        key=lambda kv: -kv[1][0])[:6]:
+            log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {kname[:90]}")
+        log_port_kernels(t["by_name"], name)
+    # the launch queue holds about 1,000 launches, so a call of more does
+    # not fit the pre-filled queue: its timed device time holds host time,
+    # and the profiler's busy time is its device work
+    a, b = runs.values()
+    log(f"phase 9: merged step / {MERGED_K} single steps: device busy "
+        f"{a['busy_ms'] / b['busy_ms']:.3f}, as launched "
+        f"{a['launched_ms'] / b['launched_ms']:.3f}, launches "
+        f"{a['launches'] / b['launches']:.3f}  [{smi}]")
+    del state, runs, singles
+
+    # ---- bf16: one forward in the test CLI's rounding ----
+    low = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+                    compute_dtype=torch.bfloat16)
+    low.load_state_dict(model_cpu.state_dict())
+    low_card = copy.deepcopy(low).to(dev)
+    torch.cuda.synchronize()
+    _zero_launches()
+    got = evaluate(low_card, packs[DEVICE], *batch[DEVICE],
+                   rounding="scan")[0].cpu().numpy()
+    launches["serve merged bf16"] = _read_launches()
+    check_launches("serve merged bf16", launches["serve merged bf16"],
+                   per_forward, 1)
+    check_bf16(np, "merged bf16 forward (rounding scan)", got,
+               evaluate(low, packs["cpu"], *batch["cpu"],
+                        rounding="scan")[0].numpy(),
+               evaluate(model, packs[DEVICE], *batch[DEVICE])[0]
+               .cpu().numpy())
+    del low, low_card, model, packs, graph
+    torch.cuda.empty_cache()
+
+    # ---- the merged U-Net ----
+    t0 = time.perf_counter()
+    parsed_u, merged_u, packs_u = build(cnn_channels=UNET_CHANNELS,
+                                        cnn_hw=UNET_HW)
+    if not all(np.array_equal(a, b) for a, b in zip(
+            merged_u["cell_edges"], merged["cell_edges"])):
+        raise AssertionError("the merged U-Net's graph is not the merged "
+                             "design's")
+    unet_cpu = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE, unet=True,
+                         cnn_channels=UNET_CHANNELS,
+                         generator=torch.Generator().manual_seed(SEED))
+    what = f"train merged U-Net, {SHORT_STEPS} steps"
+    log(f"phase 9: merged U-Net, rasters "
+        f"{tuple(packs_u['cpu'].cnn_input.shape)}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    flips = pool_winner_flips(torch, unet_cpu.cnn, packs_u["cpu"].cnn_input,
+                              dev)
+    log(f"  merged U-Net at the init: max-pool windows whose winner differs, "
+        f"card vs cpu: {flips}")
+    batches = {where: [(i.to(where), m.to(where))
+                       for i, m in rounds[:SHORT_STEPS]] for where in packs_u}
+    runs = paired_steps(torch, unet_cpu, packs_u, batches, what,
+                        launches_per_step(packs_u[DEVICE].graph), "reg")
+    launches[what] = runs[DEVICE][2]
+    f32_err = unet_f32_error(torch, unet_cpu, packs_u["cpu"],
+                             batches["cpu"][0], "reg", dev)
+    compare_runs(torch, what, runs[DEVICE], runs["cpu"], flips, UNET_POOLS,
+                 f32_err, rasters=MERGED_K)
+    check_running_averages(torch, what, runs[DEVICE][3], runs["cpu"][3])
+    log(f"phase 9: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
     return launches
 
 
@@ -3199,6 +3483,9 @@ def main() -> int:
     launches.update(variants_phase(torch, np, dev, smi, parsed["headline"],
                                    sizes))
     precision_turns(torch, np, parsed["headline"], dev, smi)
+
+    # ---- phase 9: the merged super-graph ----
+    launches.update(merged_phase(torch, np, dev, smi))
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

@@ -15,6 +15,10 @@ bound XLA recompiles and are numerically equal to this one, so the port
 has only the exact layout. The raster stays NCHW and no im2col patch
 table is built: Conv_0 runs as a plain convolution, forward and
 backward (on the H100 cuDNN's is faster than the patch-table product).
+
+:func:`merge_parsed_designs` (a copy of JAX's) joins K parsed designs
+into one super-graph whose level l is the union of every design's level
+l; the packer takes it as one bigger design, with its K rasters stacked.
 """
 
 from __future__ import annotations
@@ -88,7 +92,9 @@ class DesignData:
     path_endpoint: torch.Tensor  # (num_paths,) int32 state row of endpoint
     path_level: torch.Tensor     # (num_paths,) float32 topo level of path
     path_masks: torch.Tensor     # (num_paths, map_size^2) uint8
-    cnn_input: torch.Tensor      # (1, C, H, W) float32 (or bf16), NCHW
+    # (K, C, H, W) float32 (or bf16), NCHW: K = 1, or a merged
+    # super-graph's K designs
+    cnn_input: torch.Tensor
 
     @property
     def num_paths(self) -> int:
@@ -269,7 +275,8 @@ def pack_design(parsed, map_size=128, device="cuda",
     levels, cell_edges (2,Ec), net_edges (2,En), arrival_time (N,),
     required_time (N,), is_critical (N,), path_endpoint (num_paths,),
     path_level (num_paths,), mask_coo (2, nnz), num_paths, cnn_input
-    (C,H,W).
+    (C,H,W), or (K,C,H,W) for a merged super-graph
+    (:func:`merge_parsed_designs`).
     """
     dev = resolve_device(device)
     graph, node_row, num_rows = pack_leveled_graph_exact(parsed, dev,
@@ -291,10 +298,11 @@ def pack_design(parsed, map_size=128, device="cuda",
         np.asarray(parsed["path_endpoint"], np.int64)].astype(np.int32)
     path_level = np.asarray(parsed["path_level"], np.float32)[:num_paths]
     cnn_input = np.asarray(parsed["cnn_input"], dtype=np.float32)
-    if cnn_input.ndim != 3:
-        raise ValueError("pack_design takes one (C, H, W) raster; merged "
-                         f"super-graph rasters {cnn_input.shape} are not "
-                         "ported yet")
+    if cnn_input.ndim == 3:
+        cnn_input = cnn_input[None]
+    elif cnn_input.ndim != 4:
+        raise ValueError(f"cnn_input {cnn_input.shape}: (C, H, W), or "
+                         "(K, C, H, W) for a merged super-graph")
     return DesignData(
         graph=graph,
         arrival_time=remap("arrival_time"),
@@ -303,6 +311,102 @@ def pack_design(parsed, map_size=128, device="cuda",
         path_endpoint=torch.from_numpy(path_endpoint).to(dev),
         path_level=torch.from_numpy(np.ascontiguousarray(path_level)).to(dev),
         path_masks=torch.from_numpy(masks).to(dev),
-        cnn_input=torch.from_numpy(np.ascontiguousarray(cnn_input[None]))
+        cnn_input=torch.from_numpy(np.ascontiguousarray(cnn_input))
         .to(dev, compute_dtype),
     )
+
+
+def merge_parsed_designs(parsed_list):
+    """Concatenate K parsed designs into ONE super-graph parsed dict.
+
+    Port of ``prtp_tpu/graph.py::merge_parsed_designs``: a disjoint DAG
+    whose level l is the union of every design's level l, nodes and
+    paths renumbered by offsets, so that one level walk propagates all K
+    designs at once with K x wider level blocks. The CNN rasters are
+    stacked on a leading axis (all must share a shape; the designs must
+    share a cell-type library), and the model reads them with grouped
+    path ids of shape ``(K, Bk)``, row k holding design k's paths only
+    (``path_ids_per_design``).
+
+    Returns a parsed dict with the extra keys ``path_design`` (path ->
+    design index) and ``path_ids_per_design`` (per-design sampling
+    universes, already offset).
+    """
+    assert len(parsed_list) >= 1
+    num_ctypes = {int(p["num_ctypes"]) for p in parsed_list
+                  if "num_ctypes" in p}
+    assert len(num_ctypes) <= 1, "designs must share the cell-type library"
+    node_off = np.cumsum([0] + [int(p["num_nodes"]) for p in parsed_list])
+    path_off = np.cumsum([0] + [int(p["num_paths"]) for p in parsed_list])
+
+    def get_arr(p, key):
+        if key in p:
+            return np.asarray(p[key])
+        if key in ("is_start", "is_end"):  # optional in minimal dicts
+            return np.zeros(int(p["num_nodes"]), np.int64)
+        if key == "path2level":
+            return np.asarray(p["path_level"], np.int64)
+        if key == "critical_paths":
+            return np.zeros(0, np.int64)
+        raise KeyError(key)
+
+    def cat_rows(key, off=None):
+        return np.concatenate([get_arr(p, key) if off is None
+                               else get_arr(p, key) + off[k]
+                               for k, p in enumerate(parsed_list)], axis=0)
+
+    def cat_edges(key):
+        return tuple(np.concatenate(
+            [np.asarray(p[key][i], np.int64) + node_off[k]
+             for k, p in enumerate(parsed_list)]) for i in (0, 1))
+
+    def cat_level(li, field, off):
+        parts = [np.asarray(p["levels"][li][field], np.int64) + off[k]
+                 for k, p in enumerate(parsed_list) if li < len(p["levels"])]
+        return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+    n_levels = max(len(p["levels"]) for p in parsed_list)
+    levels = [(cat_level(li, 0, node_off), cat_level(li, 1, node_off),
+               cat_level(li, 2, path_off)) for li in range(n_levels)]
+
+    coo = np.concatenate(
+        [np.stack([np.asarray(p["mask_coo"][0], np.int64) + path_off[k],
+                   np.asarray(p["mask_coo"][1], np.int64)])
+         for k, p in enumerate(parsed_list)], axis=1)
+
+    cnn_shapes = {np.asarray(p["cnn_input"]).shape for p in parsed_list}
+    assert len(cnn_shapes) == 1, \
+        f"designs must share a CNN raster shape, got {cnn_shapes}"
+    cnn_input = np.stack([np.asarray(p["cnn_input"], np.float32)
+                          for p in parsed_list])  # (K, C, H, W)
+
+    merged = {
+        "num_nodes": int(node_off[-1]),
+        "num_paths": int(path_off[-1]),
+        "cell_feat": cat_rows("cell_feat"),
+        "net_feat": cat_rows("net_feat"),
+        "is_start": cat_rows("is_start"),
+        "is_end": cat_rows("is_end"),
+        "is_critical": cat_rows("is_critical"),
+        "arrival_time": cat_rows("arrival_time"),
+        "required_time": cat_rows("required_time"),
+        "cell_edges": cat_edges("cell_edges"),
+        "net_edges": cat_edges("net_edges"),
+        "levels": levels,
+        "path2level": cat_rows("path2level"),
+        "path_level": cat_rows("path_level"),
+        "path_endpoint": cat_rows("path_endpoint", off=node_off),
+        "critical_paths": cat_rows("critical_paths", off=path_off),
+        "mask_coo": coo,
+        "cnn_input": cnn_input,
+        "path_design": np.concatenate(
+            [np.full(int(p["num_paths"]), k, np.int32)
+             for k, p in enumerate(parsed_list)]),
+        "path_ids_per_design": [
+            np.asarray(p.get("path_ids", np.arange(int(p["num_paths"]))),
+                       np.int64) + path_off[k]
+            for k, p in enumerate(parsed_list)],
+    }
+    if num_ctypes:
+        merged["num_ctypes"] = num_ctypes.pop()
+    return merged

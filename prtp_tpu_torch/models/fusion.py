@@ -10,7 +10,13 @@ embedding width (64 by default). Forward, batched over path ids:
   out      = mlp_fuse(concat(h_gnn, h_cnn, h_global))
 
 ``fcn`` is applied through the algebra ``fcn(mask * f) = mask @ (f ⊙ W)
-+ b``, a plain product. Parameters follow flax's initialisers (lecun
++ b``, a plain product. On a merged super-graph
+(``graph.merge_parsed_designs``) the path ids are ``(K, Bk)``, row k
+holding design k's paths only: the K rasters run as one batched
+convolution (the U-Net's BatchNorm takes its statistics over the K
+rasters together) and row k reads feature map k, ``rows_k @ (f_k ⊙ W)
++ b`` (JAX's grouped head, ``prtp_tpu/models/fusion.py:97-150``).
+Parameters follow flax's initialisers (lecun
 normal kernels, zero biases, a xavier-uniform ``fcn_kernel``), drawn
 from the ``generator`` given. The port runs the regression and the
 classification heads, LayoutNet or the U-Net, and the GNN's softmax or
@@ -20,10 +26,12 @@ classification heads, LayoutNet or the U-Net, and the GNN's softmax or
 parameters stay float32 and are cast for the products): the walk's MLP
 products take bf16 operands and give float32 (the carry stays float32),
 the layout CNN runs in bf16, the fcn head rounds ``f ⊙ W``, then
-``mask @ (f ⊙ W)``, then the bias sum to bf16, ``mlp_alpha`` and
+``mask @ (f ⊙ W)`` (each design's, on a merged super-graph), then the
+bias sum to bf16, ``mlp_alpha`` and
 ``mlp_fuse`` are flax's bf16 ``Dense`` (``mlp.dense_bf16``), every part
 is cast to bf16 before the concatenation, and the output back to
-float32.
+float32. An evaluation may ask for the walk's other bf16 rounding,
+JAX's padded scan's (``rounding="scan"``, ``models/gnn.py``).
 """
 
 from __future__ import annotations
@@ -31,10 +39,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.bf16 import BF16, compute_dtype_of
+from ..ops.bf16 import BF16, compute_dtype_of, dense_bf16
 from .gnn import TimeGNN
 from .layoutnet import LayoutNet
-from .mlp import MLP, dense_bf16
+from .mlp import MLP
 from .unet import UNet
 
 
@@ -80,43 +88,66 @@ class PathModel(nn.Module):
                    + (cnn_outdim if use_cnn else 0) + global_dim)
         self.mlp_fuse = MLP(fuse_in, (fuse_in * 2, nlabels), generator, dt)
 
-    def forward(self, design, path_ids: torch.Tensor) -> torch.Tensor:
-        """Predict for a batch of path ids (any integer dtype).
+    def forward(self, design, path_ids: torch.Tensor,
+                rounding: str = "fused") -> torch.Tensor:
+        """Predict for a batch of path ids (any integer dtype): ``(B,)``,
+        or ``(K, Bk)`` on a merged super-graph of K designs, row k holding
+        only design k's path ids. ``rounding``: the walk's bf16 rounding
+        (``"fused"`` or ``"scan"``, :class:`TimeGNN`).
 
-        Returns ``(B,)`` for ``nlabels == 1``, else ``(B, nlabels)``."""
-        endpoints = design.path_endpoint[path_ids]
-        levels = design.path_level[path_ids]
+        Returns an output shaped like ``path_ids`` for ``nlabels == 1``,
+        else ``path_ids.shape + (nlabels,)``."""
+        flat_ids = path_ids.reshape(-1)
         parts = []
         if self.use_gnn:
-            h = self.gnn(design.graph)
-            parts.append(h.index_select(0, endpoints))
+            h = self.gnn(design.graph, rounding=rounding)
+            parts.append(h.index_select(0, design.path_endpoint[flat_ids]))
         if self.use_cnn:
-            feat_map = self.cnn(design.cnn_input)
-            if feat_map.shape[0] != 1:
-                raise ValueError("merged super-graph designs (K CNN rasters) "
-                                 "are not ported yet")
-            if feat_map[0].numel() != self.fcn_kernel.shape[0]:
-                # JAX fails here too, at the same product
-                raise ValueError(
-                    f"the layout CNN maps the raster "
-                    f"{tuple(design.cnn_input.shape[2:])} to "
-                    f"{tuple(feat_map.shape[2:])}, but map_size is "
-                    f"{self.map_size}: the raster's side must be "
-                    f"{2 if self.unet else 4} x map_size")
-            rows = design.path_masks[path_ids].to(feat_map.dtype)
-            if self.compute_dtype is None:
-                fw = feat_map.reshape(-1)[:, None] * self.fcn_kernel
-                parts.append(rows @ fw + self.fcn_bias)
-            else:  # fw rounded, the product rounded, the bias sum rounded
-                fw = feat_map.reshape(-1)[:, None] * self.fcn_kernel.to(BF16)
-                parts.append(dense_bf16(rows, fw.t(), self.fcn_bias))
+            parts.append(self._fcn(design, path_ids))
+        levels = design.path_level[flat_ids]
         parts.append(self.mlp_alpha(levels[:, None].float()))
         if self.compute_dtype is not None:
             parts = [p.to(self.compute_dtype) for p in parts]
         out = self.mlp_fuse(torch.cat(parts, dim=-1))
         if self.nlabels == 1:
             out = out.squeeze(-1)
-        return out.float()
+        return out.float().reshape(*path_ids.shape, *out.shape[1:])
+
+    def _fcn(self, design, path_ids: torch.Tensor) -> torch.Tensor:
+        """The layout branch, ``(B or K x Bk, cnn_outdim)``: the layout
+        CNN over the design's K rasters, then ``rows_k @ (f_k ⊙ W) + b``
+        for each raster k and its row of ids (one row of flat ids and one
+        raster on a design packed alone)."""
+        feat_map = self.cnn(design.cnn_input)
+        k = feat_map.shape[0]
+        if path_ids.dim() == 1 and k != 1:
+            # JAX raises here too (prtp_tpu/models/fusion.py:141-144)
+            raise ValueError(
+                "merged super-graph designs (K CNN rasters) need grouped "
+                f"path_ids of shape (K, Bk); got flat ids with {k} rasters")
+        if path_ids.dim() == 2 and path_ids.shape[0] != k:
+            raise ValueError(f"grouped path_ids {tuple(path_ids.shape)} "
+                             f"need one row per raster, got {k} rasters")
+        msq = self.fcn_kernel.shape[0]
+        if feat_map[0].numel() != msq:
+            # JAX fails here too, at the same product
+            raise ValueError(
+                f"the layout CNN maps the raster "
+                f"{tuple(design.cnn_input.shape[2:])} to "
+                f"{tuple(feat_map.shape[2:])}, but map_size is "
+                f"{self.map_size}: the raster's side must be "
+                f"{2 if self.unet else 4} x map_size")
+        rows = design.path_masks[path_ids].to(feat_map.dtype).reshape(
+            k, -1, msq)
+        fmap = feat_map.reshape(k, msq, 1)
+        if self.compute_dtype is None:
+            fw = fmap * self.fcn_kernel  # (K, map^2, cnn_outdim)
+            return (torch.bmm(rows, fw) + self.fcn_bias).reshape(
+                -1, self.fcn_bias.shape[0])
+        # fw rounded, each design's product rounded, the bias sum rounded
+        fw = fmap * self.fcn_kernel.to(BF16)
+        return torch.cat([dense_bf16(r, f.t(), self.fcn_bias)
+                          for r, f in zip(rows, fw)])
 
 
 def model_from_options(options, cell_feat_dim: int, net_feat_dim: int,

@@ -22,7 +22,10 @@ the three pair-step MLPs (and ``fc_attn2``) and of ``h0``. The node-state carry 
 ``(num_rows + 1, out_dim)``; the last row is the gather dummy. With
 ``mlp_dtype`` bfloat16 the pair-step MLPs' products take bf16 operands
 and give float32 (JAX's ``mlp_dtype`` on the exact path); the carry
-stays float32, as at ``prtp_tpu/models/gnn.py:314-321``.
+stays float32, as at ``prtp_tpu/models/gnn.py:314-321``. A forward
+with ``rounding="scan"`` rounds them as JAX's padded scan does instead
+(flax's ``MLP(dtype=bfloat16)``, as XLA compiles it), for the
+evaluations that JAX runs through it; it has no backward.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ class TimeGNN(nn.Module):
                                                bias=False)
             lecun_normal_(self.fc_attn2.weight, out_dim, generator)
 
-    def forward(self, g, h0: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, g, h0: torch.Tensor | None = None,
+                rounding: str = "fused") -> torch.Tensor:
         if h0 is None:
             dev = g.cell_feat_lvl[0].device
             h0 = torch.zeros((g.num_rows + 1, self.out_dim),
@@ -76,4 +80,4 @@ class TimeGNN(nn.Module):
         if self.flag_attn:
             params["fc_attn2"] = self.fc_attn2.weight
         return exact_walk(params, h0, g, self.dgl_parity,
-                          self.mlp_dtype is not None)
+                          self.mlp_dtype is not None, rounding)

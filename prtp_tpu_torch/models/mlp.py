@@ -22,7 +22,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ..ops.bf16 import BF16, compute_dtype_of, matmul_f32
+from ..ops.bf16 import compute_dtype_of, dense_bf16
 
 # flax lecun_normal = variance_scaling(1, "fan_in", "truncated_normal"):
 # a standard normal truncated to [-2, 2], rescaled to unit variance
@@ -45,17 +45,6 @@ def linear(in_dim: int, out_dim: int,
     with torch.no_grad():
         layer.bias.zero_()
     return layer
-
-
-def dense_bf16(x: torch.Tensor, w: torch.Tensor,
-               b: torch.Tensor | None = None) -> torch.Tensor:
-    """flax's ``Dense(dtype=bfloat16)`` for a torch-layout weight ``w``
-    (out, in): ``x`` and ``w`` cast to bf16, their product rounded to
-    bf16, then the bias cast to bf16 and added, the sum rounded again.
-    Two roundings, as flax computes it; ``F.linear`` with a bf16 bias
-    rounds once and differs in about a quarter of the outputs."""
-    y = matmul_f32(x.to(BF16), w.to(BF16).t()).to(BF16)
-    return y if b is None else y + b.to(BF16)
 
 
 class MLP(nn.Module):

@@ -9,9 +9,11 @@ rounds their results in two ways, and the port keeps both:
   (``preferred_element_type=jnp.float32``), the bias, the carry and every
   reduce in float32: :func:`mm_f32`;
 - flax's ``Dense`` and ``Conv`` with ``dtype=bfloat16`` (the fusion head,
-  the layout CNNs): the product rounded to bf16, then the bf16 bias added
-  and the sum rounded again: :func:`matmul_f32` and a cast, in
-  ``models/mlp.py::dense_bf16``.
+  the layout CNNs): the product rounded to bf16, then the bf16 bias
+  added and the sum rounded again: :func:`dense_bf16`. The pair-step
+  MLPs of the padded scan that JAX evaluates through are flax's bf16
+  ``Dense`` too, but for the output layer's last rounding, which XLA
+  drops (``ops/fused_gnn.py::_mlp``).
 
 A product of two bf16 values is exact in float32, so :func:`mm_f32`
 differs from JAX only in the order of its float32 sum. On the CPU it is
@@ -77,3 +79,14 @@ class _MatmulF32(torch.autograd.Function):
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """:func:`mm_f32`, differentiable."""
     return _MatmulF32.apply(a, b)
+
+
+def dense_bf16(x: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor | None = None) -> torch.Tensor:
+    """flax's ``Dense(dtype=bfloat16)`` for a torch-layout weight ``w``
+    (out, in): ``x`` and ``w`` cast to bf16, their product rounded to
+    bf16, then the bias cast to bf16 and added, the sum rounded again.
+    Two roundings, as flax computes it; ``F.linear`` with a bf16 bias
+    rounds once and differs in about a quarter of the outputs."""
+    y = matmul_f32(x.to(BF16), w.to(BF16).t()).to(BF16)
+    return y if b is None else y + b.to(BF16)

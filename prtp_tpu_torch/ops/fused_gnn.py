@@ -65,6 +65,25 @@ five products of :func:`_mlp_grads`. The MLPs' weights are cast to bf16
 once a forward (``w16``) and kept for the backward. The carry ``h``,
 ``dh``, the biases, every reduce, scatter and mean stay float32, so the
 kernels above take the same float32 inputs either way.
+
+That is the rounding of JAX's fused exact walk (``rounding="fused"``).
+JAX evaluates bf16 through its padded scan in most places (its test
+CLI always; validation unless ``--exact_levels`` with at most one
+validation design), whose ``_PairStep`` runs each pair-step MLP as
+flax's ``MLP(dtype=bfloat16)`` (``prtp_tpu/models/gnn.py:85-92``), and
+``rounding="scan"`` computes what XLA compiles of it (:func:`_mlp`):
+each Dense's product rounded to bf16, the hidden layer's bias sum
+rounded and its ReLU in bf16, and the output layer's bias sum in
+float32. flax rounds that sum to bf16 too, but its only reader is the
+half's float32 sum (``h_self + gate * fc_cell_neigh(neigh)`` with a
+float32 ``gate``, ``fc_net_self(net_feat) + neigh_n`` with a float32
+``neigh_n``), and XLA drops a rounding to bf16 whose value is converted
+straight back to float32 (excess precision, its default): JAX's padded
+scan and its ``_PairStep`` under ``jax.jit`` keep that sum float32,
+while ``_PairStep`` run op by op rounds it
+(``tests/test_torch_bf16_eval.py``). It is a forward only:
+:class:`ExactWalk`'s backward raises under it. In float32 the two
+roundings are one function.
 """
 
 from __future__ import annotations
@@ -75,7 +94,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .bf16 import BF16, mm_f32
+from .bf16 import BF16, dense_bf16, mm_f32
 from .gather import device_of, gather_rows
 
 _SOFTMAX_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_int64, c_int, c_int,
@@ -498,12 +517,29 @@ mailbox_scatter.launches = 0
 
 # ---------------------------------------------------------------- the walk
 
-def _mlp(p, x: torch.Tensor, w16=None) -> torch.Tensor:
+ROUNDINGS = ("fused", "scan")
+
+
+def check_rounding(rounding: str) -> str:
+    """``rounding`` if it names one of ``ROUNDINGS``, else ValueError."""
+    if rounding not in ROUNDINGS:
+        raise ValueError(f"rounding {rounding!r}: one of {ROUNDINGS}")
+    return rounding
+
+
+def _mlp(p, x: torch.Tensor, w16=None, scan: bool = False) -> torch.Tensor:
     """The pair-step MLP, Linear -> ReLU -> Linear, from ``p = (w0, b0,
     w1, b1)``; with ``w16 = (w0, w1)`` in bf16, JAX's ``_mlp`` with bf16
-    ``_mm`` products (float32 results, float32 biases)."""
+    ``_mm`` products (float32 results, float32 biases), or with ``scan``
+    flax's ``MLP(dtype=bfloat16)`` as the padded scan compiles it: the
+    hidden layer :func:`dense_bf16` and its ReLU in bf16, then the
+    product rounded to bf16 and the bf16 bias added in float32 (a
+    float32 result, which rounded to bf16 is flax's)."""
     if w16 is None:
         return F.linear(F.relu(F.linear(x, p[0], p[1])), p[2], p[3])
+    if scan:
+        r = F.relu(dense_bf16(x, w16[0], p[1]))
+        return mm_f32(r, w16[1].t()).to(BF16).float() + p[3].to(BF16).float()
     a = mm_f32(x.to(BF16), w16[0].t()) + p[1]
     return mm_f32(F.relu(a).to(BF16), w16[1].t()) + p[3]
 
@@ -544,7 +580,8 @@ def _relu_split(g, h_blk, mail, num_rows, dgl_parity):
 
 
 def exact_gnn_forward(params, h0: torch.Tensor, graph,
-                      dgl_parity: bool = True, w16=None) -> torch.Tensor:
+                      dgl_parity: bool = True, w16=None,
+                      rounding: str = "fused") -> torch.Tensor:
     """h_final of the exact-levels walk.
 
     params: maps each name of ``MLP_NAMES`` to that pair-step MLP's
@@ -557,8 +594,12 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
     on h0's device. Differentiable by torch autograd where every tensor
     lies on the CPU (the plain versions); :class:`ExactWalk` is its
     hand-written backward. ``w16`` (:func:`bf16_weights`) makes the MLPs'
-    products bf16 (``--compute_dtype bfloat16``); h stays float32.
+    products bf16 (``--compute_dtype bfloat16``); h stays float32. With
+    ``w16``, ``rounding="scan"`` runs the MLPs as JAX's padded scan does
+    (``_mlp``), each half's sum in float32 as there
+    (``prtp_tpu/models/gnn.py:191, 203``).
     """
+    scan = check_rounding(rounding) == "scan"
     num_rows = graph.num_rows
     w_attn = params.get("fc_attn2")
     h = h0.clone()
@@ -567,12 +608,12 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
         pn_c, md_c = cell_mail.shape
         # ---- cell half (even level 2k): mailbox read straight from h ----
         pre = _mlp(params["fc_cell_self"], graph.cell_feat_lvl[k],
-                   _w(w16, "fc_cell_self"))
+                   _w(w16, "fc_cell_self"), scan).float()
         if k > 0:  # level 0 drops the neighbour term
             neigh = (softmax_sum(h, cell_mail, num_rows) if w_attn is None
                      else attn_sum(h, cell_mail, num_rows, w_attn))
             pre = pre + _mlp(params["fc_cell_neigh"], neigh,
-                             _w(w16, "fc_cell_neigh"))
+                             _w(w16, "fc_cell_neigh"), scan).float()
         new = F.relu(pre)
         c0 = graph.cell_off[k]
         if dgl_parity:
@@ -584,7 +625,7 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
         prior = gather_rows(h, prior_rows) if prior_rows.numel() else new[:0]
         neigh_n = local_mean(new, prior, graph.net_local_idx[k])
         new_n = F.relu(_mlp(params["fc_net_self"], graph.net_feat_lvl[k],
-                            _w(w16, "fc_net_self")) + neigh_n)
+                            _w(w16, "fc_net_self"), scan).float() + neigh_n)
         net_mail = graph.net_mail[k]
         n0 = graph.net_off[k]
         if dgl_parity:
@@ -714,17 +755,21 @@ def _flat_of(params):
 
 class ExactWalk(torch.autograd.Function):
     """The walk with JAX's hand-written backward (``fused_exact_gnn``).
-    Inputs: the graph, ``dgl_parity`` and whether the MLPs' products are
-    bf16 (no gradient), h0, then the twelve pair-step tensors in
-    ``MLP_NAMES`` order and, with ``--attn``, ``fc_attn2``'s weight. The
-    bf16 weights made for the forward are saved for the backward."""
+    Inputs: the graph, ``dgl_parity``, whether the MLPs' products are
+    bf16 and the ``rounding`` (no gradient), h0, then the twelve
+    pair-step tensors in ``MLP_NAMES`` order and, with ``--attn``,
+    ``fc_attn2``'s weight. The bf16 weights made for the forward are
+    saved for the backward. The backward is ``_bwd``'s, JAX's fused
+    rounding: in bf16 with ``rounding="scan"`` it raises (ROADMAP Queue
+    3, F2b: JAX's train steps through the padded scan are not ported)."""
 
     @staticmethod
-    def forward(ctx, graph, dgl_parity, bf16, h0, *flat):
+    def forward(ctx, graph, dgl_parity, bf16, rounding, h0, *flat):
         params = _params_of(flat)
         w16 = bf16_weights(params) if bf16 else None
-        hf = exact_gnn_forward(params, h0, graph, dgl_parity, w16)
+        hf = exact_gnn_forward(params, h0, graph, dgl_parity, w16, rounding)
         ctx.graph, ctx.dgl_parity, ctx.bf16 = graph, dgl_parity, bf16
+        ctx.scan = bf16 and rounding == "scan"
         low = [t for name in MLP_NAMES for t in w16[name]] if bf16 else []
         ctx.save_for_backward(hf, *flat, *low)
         return hf
@@ -732,6 +777,11 @@ class ExactWalk(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
+        if ctx.scan:
+            raise NotImplementedError(
+                "the walk's backward under the padded scan's bf16 rounding "
+                "(rounding='scan') is not ported (ROADMAP.md Queue 3, F2b); "
+                "train with the fused rounding")
         hf, *flat = ctx.saved_tensors
         w16 = None
         if ctx.bf16:
@@ -742,13 +792,16 @@ class ExactWalk(torch.autograd.Function):
                                        ctx.dgl_parity, w16)
         dflat = _flat_of(grads)
         need = ctx.needs_input_grad
-        return (None, None, None, dh if need[3] else None,
-                *(t if need[4 + i] else None for i, t in enumerate(dflat)))
+        return (None, None, None, None, dh if need[4] else None,
+                *(t if need[5 + i] else None for i, t in enumerate(dflat)))
 
 
 def exact_walk(params, h0: torch.Tensor, graph, dgl_parity: bool = True,
-               bf16: bool = False) -> torch.Tensor:
+               bf16: bool = False, rounding: str = "fused") -> torch.Tensor:
     """:func:`exact_gnn_forward` through :class:`ExactWalk`: the forward
     launches the same kernels, and autograd takes the hand-written
-    backward. ``bf16``: the MLPs' products in bf16 (float32 results)."""
-    return ExactWalk.apply(graph, dgl_parity, bf16, h0, *_flat_of(params))
+    backward. ``bf16``: the MLPs' products in bf16, rounded as JAX's
+    fused walk (``rounding="fused"``: float32 results) or as its padded
+    scan (``"scan"``: a forward only)."""
+    return ExactWalk.apply(graph, dgl_parity, bf16, check_rounding(rounding),
+                           h0, *_flat_of(params))

@@ -9,7 +9,9 @@ Flags fall in three groups here:
 
 - **Accepted no-ops**: flags that only shape XLA's work or
   pick what the port always does. ``--exact_levels`` (the port always
-  packs exact levels), ``--scan_groups``, ``--gnn_unroll``,
+  packs exact levels; with bf16 it and the validation design count pick
+  validation's rounding, as in JAX: ``train.eval_rounding``),
+  ``--scan_groups``, ``--gnn_unroll``,
   ``--compile_cache_dir``, ``--pallas`` and ``--flat_adam`` (flat Adam is
   the port's only optimizer); and, as in the JAX package, the
   reference's commented-out ``--balanced``, ``--data_info_txt`` and
@@ -27,8 +29,6 @@ NOT_PORTED = (
     ("--dp", lambda o: o.dp, "item 5 (data parallelism)"),
     ("--mesh_shape", lambda o: o.mesh_shape is not None,
      "item 5 (data parallelism)"),
-    ("--merge_designs", lambda o: o.merge_designs,
-     "item 4 (merged super-graph)"),
 )
 
 

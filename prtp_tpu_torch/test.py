@@ -12,7 +12,9 @@ case lines in the JAX driver's formats.
 The CLI (:func:`main`, CLI parity with the reference ``python test.py``,
 ``src/test.py``) computes in float32 (TF32 off) or, with
 ``--compute_dtype bfloat16``, in the model's mixed precision on designs
-packed in float32 (as JAX's test CLI packs them), loads the trained torch
+packed in float32 (as JAX's test CLI packs them), the walk's pair-step
+MLPs rounded as JAX's padded scan rounds them (``rounding="scan"``: JAX's
+test CLI always evaluates through it), loads the trained torch
 checkpoint, evaluates every design of the test list over all of its
 paths and, for regression, saves a relative-error vs level scatter plot
 per design to ``visual/{case}.png`` (``:244-249``) and the
@@ -48,20 +50,24 @@ __all__ = ["evaluate", "evaluate_design", "load_model_state", "main",
 
 
 @torch.no_grad()
-def evaluate(model, design, path_ids, mask, task: str = "reg"):
+def evaluate(model, design, path_ids, mask, task: str = "reg",
+             rounding: str = "fused"):
     """(preds, metrics) of ``task`` for a batch of path ids, the model in
-    eval mode; metrics are 0-d tensors."""
+    eval mode, its walk in bf16 ``rounding`` (:class:`~prtp_tpu_torch.
+    models.fusion.PathModel`); metrics are 0-d tensors."""
     model.eval()
-    preds = model(design, path_ids)
+    preds = model(design, path_ids, rounding=rounding)
     return preds, task_loss_and_metrics(task, preds, design, path_ids,
                                          mask)[1]
 
 
 def evaluate_design(model, parsed, device="cuda", case_idx: int = 0,
-                    task: str = "reg"):
+                    task: str = "reg", rounding: str = "scan"):
     """Pack ``parsed`` on ``device``, evaluate all of its paths and print
     the JAX driver's case lines, after the per-level lines for
-    ``task="reg"``.
+    ``task="reg"``. A bf16 model's walk rounds as ``rounding`` says; the
+    default is the test CLI's, JAX's padded scan (``"scan"``), which
+    JAX's test CLI always evaluates through.
 
     Returns ``(preds, metrics)``: numpy predictions of every path, and
     host floats (``loss, r2, tp, fp, tn, fn, acc, recall, precision,
@@ -74,7 +80,7 @@ def evaluate_design(model, parsed, device="cuda", case_idx: int = 0,
     num_paths = int(parsed["num_paths"])
     start = time.perf_counter()
     pids, mask = pad_batch(np.arange(num_paths), design.num_paths, dev)
-    preds_t, mets_t = evaluate(model, design, pids, mask, task)
+    preds_t, mets_t = evaluate(model, design, pids, mask, task, rounding)
     preds = preds_t.cpu().numpy()[:num_paths]
     mets = {k: float(v) for k, v in mets_t.items()}
     runtime = time.perf_counter() - start

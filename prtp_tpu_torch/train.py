@@ -8,8 +8,11 @@ save-on-best-validation checkpoint), the same printed lines, letter for
 letter; on :mod:`prtp_tpu_torch.trainer`'s eager train step. A chunk of
 ``--steps_per_dispatch`` batches is one ``trainer.train_steps`` call
 whose metrics are read once. What only XLA needed (bucket shapes, scan
-groups, the abstract init) is gone; the mesh and merged-design branches
-are not ported yet (``options.py`` raises for their flags).
+groups, the abstract init) is gone; the mesh branch is not ported yet
+(``options.py`` raises for its flags). With ``--merge_designs`` the
+train designs form one super-graph (``graph.merge_parsed_designs``),
+trained on grouped ``(K, batch)`` batches as the unit
+``"+".join(train_designs)``; validation stays per design.
 
 Usage:
     python -m prtp_tpu_torch.train --data_save_path ... --model_saving_dir ...
@@ -33,12 +36,13 @@ import torch
 
 from . import resolve_device
 from .data.dataset import get_design_list, load_single_design
-from .graph import pack_design
+from .graph import merge_parsed_designs, pack_design
 from .models.fusion import model_from_options
 from .options import get_options
 from .test import evaluate
 from .trainer import (DesignCache, batch_count, init_state, iterate_batches,
-                      make_optimizer, pad_batch, train_steps)
+                      iterate_grouped_batches, make_optimizer, pad_batch,
+                      train_steps)
 from .utils import checkpoint as ckpt
 from .utils import metrics as M
 from .utils.tee import StderrTee, StdoutTee
@@ -68,9 +72,23 @@ def _read(mets) -> list:
     return torch.stack([mets[k] for k in _METRICS]).tolist()
 
 
+def eval_rounding(options, val_designs) -> str:
+    """The bf16 rounding of validation's walk, by JAX's rule
+    (``prtp_tpu/train.py:154-206``): its fused exact walk (``"fused"``)
+    only under ``--exact_levels`` with at most one validation design;
+    otherwise JAX packs validation for its padded scan (or, with
+    ``--scan_groups``, its grouped packing), whose pair-step MLPs round
+    as flax's ``MLP(dtype=bfloat16)`` compiled (``"scan"``)."""
+    if options.exact_levels and len(val_designs) <= 1:
+        return "fused"
+    return "scan"
+
+
 def validate(options, val_designs, cache_val, model, device):
     """Per-design validation on the persisted val split; one padded batch
-    per design (reference validate(), src/train.py:137-291)."""
+    per design (reference validate(), src/train.py:137-291), the walk in
+    :func:`eval_rounding`'s rounding."""
+    rounding = eval_rounding(options, val_designs)
     overall = dict(loss=0.0, r2=0.0, acc=0.0, recall=0.0, precision=0.0,
                    f1=0.0)
     res = []
@@ -92,7 +110,8 @@ def validate(options, val_designs, cache_val, model, device):
             continue
         n_cases += 1
         pids, mask = pad_batch(ids, max(pack.num_paths, len(ids), 1), device)
-        _preds, mets = evaluate(model, pack, pids, mask, options.task)
+        _preds, mets = evaluate(model, pack, pids, mask, options.task,
+                                rounding)
         loss, r2, tp, fp, tn, fn = _read(mets)
         acc, recall, precision, f1 = M.classification_metrics(tp, fp, tn, fn)
         for k, v in zip(("loss", "r2", "acc", "recall", "precision", "f1"),
@@ -136,12 +155,22 @@ def train(options, seed, device="cuda"):
     cache_tr = DesignCache(packer)
     cache_val = DesignCache(packer)
     try:
-        _pack, first = cache_tr.get(
-            train_designs[0],
-            lambda: _load("train", options, train_designs[0]))
+        if options.merge_designs:
+            # ONE super-graph over all train designs (disjoint union per
+            # level, grouped path batches); validation stays per design:
+            # the parameters do not depend on the designs
+            first = merge_parsed_designs(
+                [_load("train", options, d) for d in train_designs])
+            merged_pack = packer(first)
+            design_units = ["+".join(train_designs)]
+        else:
+            _pack, first = cache_tr.get(
+                train_designs[0],
+                lambda: _load("train", options, train_designs[0]))
+            design_units = train_designs
         model = model_from_options(options, first["cell_feat"].shape[1],
                                    first["net_feat"].shape[1],
-                                   first["cnn_input"].shape[0])
+                                   first["cnn_input"].shape[-3])
 
         config = {k: v for k, v in vars(options).items()}
         if ckpt.checkpoint_exists(options.model_saving_dir):
@@ -184,20 +213,28 @@ def train(options, seed, device="cuda"):
                 val_designs[0],
                 lambda d=val_designs[0]: _load("test", options, d))
         for epoch in range(options.num_epoch):
-            for unit_idx, design in enumerate(train_designs):
-                pack, parsed = cache_tr.get(
-                    design, lambda d=design: _load("train", options, d))
-                if len(train_designs) > 1:
-                    # pack the next design while this one trains
-                    nxt = train_designs[(unit_idx + 1) % len(train_designs)]
-                    cache_tr.prefetch(
-                        nxt, lambda d=nxt: _load("train", options, d))
-                ids = parsed["path_ids"]
-                num_batch = batch_count(len(ids), options.batch_size,
-                                        options.droplast)
-                batches = list(iterate_batches(ids, options.batch_size, rng,
-                                               drop_last=options.droplast,
-                                               device=dev))
+            for unit_idx, design in enumerate(design_units):
+                if options.merge_designs:
+                    pack, universes = merged_pack, first["path_ids_per_design"]
+                    num_batch = max(batch_count(len(u), options.batch_size,
+                                                False) for u in universes)
+                    batches = list(iterate_grouped_batches(
+                        universes, options.batch_size, rng, device=dev))
+                else:
+                    pack, parsed = cache_tr.get(
+                        design, lambda d=design: _load("train", options, d))
+                    if len(train_designs) > 1:
+                        # pack the next design while this one trains
+                        nxt = train_designs[(unit_idx + 1)
+                                            % len(train_designs)]
+                        cache_tr.prefetch(
+                            nxt, lambda d=nxt: _load("train", options, d))
+                    ids = parsed["path_ids"]
+                    num_batch = batch_count(len(ids), options.batch_size,
+                                            options.droplast)
+                    batches = list(iterate_batches(
+                        ids, options.batch_size, rng,
+                        drop_last=options.droplast, device=dev))
                 bidx = 0
                 while bidx < len(batches):
                     # strict validation cadence: a chunk never runs past a

@@ -16,8 +16,10 @@ updates, as JAX's step returns its ``batch_stats``; the optimizer holds
 parameters only.
 
 Batches are fixed-size padded id vectors with a validity mask, as in
-JAX. Entry points take ``device=`` and default to ``"cuda"``; without a
-card they raise.
+JAX: ``(B,)``, or ``(K, B)`` on a merged super-graph of K designs
+(:func:`iterate_grouped_batches`), where the loss and the metrics run
+over all K x B entries. Entry points take ``device=`` and default to
+``"cuda"``; without a card they raise.
 """
 
 from __future__ import annotations
@@ -215,6 +217,26 @@ def iterate_batches(path_ids, batch_size: int, rng: np.random.Generator,
     rem = ids[n_full * batch_size:]
     if len(rem) and not drop_last:
         yield pad_batch(rem, batch_size, dev)
+
+
+def iterate_grouped_batches(per_design_ids, batch_size: int,
+                            rng: np.random.Generator, device="cuda"):
+    """Grouped batches over a merged super-graph
+    (:func:`prtp_tpu_torch.graph.merge_parsed_designs`), as JAX's
+    ``iterate_grouped_batches`` draws them from ``rng``: rounds of
+    ``(ids (K, B), mask (K, B))`` where row k draws only from design k's
+    universe, each universe shuffled once; a design with fewer batches
+    pads out with zero-mask rows once exhausted."""
+    dev = resolve_device(device)
+    streams = [np.asarray(ids, np.int64)[rng.permutation(len(ids))]
+               for ids in per_design_ids]
+    n_rounds = max(batch_count(len(s), batch_size, drop_last=False)
+                   for s in streams)
+    for r in range(n_rounds):
+        rows = [pad_batch(s[r * batch_size: (r + 1) * batch_size],
+                          batch_size, "cpu") for s in streams]
+        yield (torch.stack([i for i, _m in rows]).to(dev),
+               torch.stack([m for _i, m in rows]).to(dev))
 
 
 def batch_count(num_ids: int, batch_size: int, drop_last: bool) -> int:

@@ -219,7 +219,7 @@ class _Fixed(torch.nn.Module):
         super().__init__()
         self.value = value
 
-    def forward(self, *_args):
+    def forward(self, *_args, **_kwargs):
         return self.value
 
 

@@ -46,8 +46,7 @@ def test_options_match_jax_keys_and_defaults():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dp"], "item 5"), (["--mesh_shape", "2"], "item 5"),
-    (["--merge_designs"], "item 4")])
+    (["--dp"], "item 5"), (["--mesh_shape", "2"], "item 5")])
 def test_not_ported_flags_raise(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
         get_options(flags)
@@ -225,6 +224,28 @@ def test_steps_per_dispatch_and_debug_options_keep_the_run(flow, tmp_path):
     assert any(ln.startswith("e0,syn_b,b0/") for ln in logs["1"])
     assert not torch.is_anomaly_enabled()
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+
+
+def test_merge_designs_is_accepted_and_trains(flow, tmp_path):
+    """``--merge_designs`` trains the two designs as one super-graph, the
+    unit ``syn_a+syn_b``, validating per design; it resumes from a
+    checkpoint written without the flag, and a run without it resumes
+    from its checkpoint (the parameters do not depend on the designs)."""
+    assert get_options(["--merge_designs"]).merge_designs
+    mdl = str(tmp_path / "mdl")
+    shutil.copytree(flow["mdl"], mdl)
+    os.remove(os.path.join(mdl, "stdout.log"))
+    args = [a if a != flow["mdl"] else mdl for a in flow["args"]]
+    merged = train_mod.main(args + ["--merge_designs"], device="cpu")
+    with open(os.path.join(mdl, "stdout.log")) as f:
+        log = f.read()
+    assert "Loading the model and hyper-parameters" in log
+    steps = [ln for ln in log.splitlines() if ln.startswith("e0,")]
+    assert [ln[:len("e0,syn_a+syn_b,b0/3")] for ln in steps] == [
+        f"e0,syn_a+syn_b,b{b}/3" for b in range(3)]
+    assert "\tcase 1 \tl:" in log and "max_steps 3 reached" in log
+    again = train_mod.main(args + ["--max_steps", "1"], device="cpu")
+    assert again.step > 0
 
 
 @pytest.mark.parametrize("change_lr", [False, True])

@@ -6,13 +6,21 @@ values and both test CLIs the same ``predict.txt`` row and
 ``predict_critical`` lists: with the default flags, for the
 classification task, with the U-Net (on a 3-channel corpus whose raster
 side is 2 x ``--map_size``), with ``--attn --num_heads 2``, with a set
-of non-default flags and with ``--compute_dtype bfloat16``.
+of non-default flags, with ``--compute_dtype bfloat16`` and with
+``--merge_designs``.
+
+Run as a script, the module measures how far the two packages' CLIs lie
+apart on any flag set (:func:`main`):
+
+    PYTHONPATH=. python tests/test_torch_cli_parity.py [flag ...]
 """
 
-import functools
 import json
-import os
 import re
+import functools
+import os
+import sys
+import tempfile
 
 import jax
 import numpy as np
@@ -51,22 +59,23 @@ CLI_FLAGS = {
     "attn": (["--attn", "--num_heads", "2"], "corpus"),
     "flags": (["--norm", "--pooling", "avg", "--droplast", "--os_rate", "2",
                "--weight_decay", "1e-4"], "corpus"),
-    # --exact_levels (a no-op in the port) so that JAX's train steps take
-    # its fused exact walk, the port's; JAX's validations and test CLI
-    # still evaluate through its padded scan
+    # --exact_levels so that JAX's train steps take its fused exact walk,
+    # the port's; JAX's validations (two designs) and test CLI still
+    # evaluate through its padded scan, and so does the port's
     "bf16": (["--compute_dtype", "bfloat16", "--exact_levels"], "corpus"),
+    "merged": (["--merge_designs"], "corpus"),
 }
 BIG_KW = dict(num_paths=8, stages=4, grps=2)
 # printed values: 3 decimals, and float32 sums taken in another order
 RTOL, ATOL = 1e-4, 2e-3
-# bf16 evaluations (validation lines, the test CLI's row): JAX's CLIs
-# evaluate through its padded scan, whose pair-step MLPs are flax
-# Dense(bfloat16) and round their outputs to bf16, where its fused exact
-# walk, which its train steps take here, and the port keep them float32
-# (prtp_tpu/ops/fused_gnn.py:36-43); so JAX's own two paths differ
-# (tests/test_torch_bf16.py: 7.4e-3 of max |out|) and a validation loss of
-# this run lies 3.7% apart
-BF16_EVAL_RTOL = 5e-2
+# bf16 evaluations (validation lines, the test CLI's row): both packages
+# round the walk's pair-step MLPs as JAX's padded scan does
+# (tests/test_torch_bf16_eval.py); what is left is the layout CNN's bf16
+# outputs, a few an ulp apart where a float32 sum is taken in another
+# order. This module's main() measured the validation values equal and
+# the test row 1.7e-3 apart (needing rtol 1.73e-3 beside ATOL); 3.8e-2 in
+# validation while the port evaluated through the fused walk's rounding
+BF16_EVAL_RTOL = 5e-3
 _NUMBER = re.compile(r"-?(?:\d+\.\d+(?:e[+-]?\d+)?|inf|nan)")
 
 
@@ -150,50 +159,15 @@ def unet_data(tmp_path_factory):
 
 @pytest.fixture(scope="module", params=list(CLI_FLAGS))
 def cli_runs(request, tmp_path_factory):
-    """For one flag set of CLI_FLAGS: JAX's init_state saved by JAX,
-    converted (running averages too) and saved by the port; then both
-    train CLIs resume on ONE data directory (the first writes the
-    validation split files, the second reads them) and both test CLIs
-    evaluate. Returns the model directories and the flag set's name."""
+    """For one flag set of CLI_FLAGS: both packages' train and test CLIs
+    from one initial state (:func:`run_clis`). Returns the model
+    directories and the flag set's name."""
     flags, corpus = CLI_FLAGS[request.param]
     data = (request.getfixturevalue("datasets")["port", "corpus"]
             if corpus == "corpus" else request.getfixturevalue("unet_data"))
     dirs = {"jax": str(tmp_path_factory.mktemp("jax_mdl")),
             "port": str(tmp_path_factory.mktemp("port_mdl"))}
-    args = (["--data_save_path", data, "--num_epoch", "1", "--max_steps",
-             "3", "--val_interval", "2", "--steps_per_dispatch", "1"]
-            + MAP_ARGS + flags)
-
-    jopts = jax_get_options(args + ["--model_saving_dir", dirs["jax"]])
-    jopts.cell_feat_dim -= jopts.feat_reduce[0]
-    jopts.net_feat_dim -= jopts.feat_reduce[1]
-    parsed = jax_load_single("train", data, "syn_a",
-                             feat_reduce=jopts.feat_reduce)
-    jstate = jtrainer.init_state(
-        jax_model_from_options(jopts),
-        jtrainer.make_optimizer(jopts.learning_rate, jopts.weight_decay),
-        jax_pack_design(parsed, map_size=jopts.map_size),
-        jax.random.PRNGKey(jopts.seed))
-    jax_ckpt.save_checkpoint(dirs["jax"], jstate, dict(vars(jopts)))
-
-    popts = get_options(args + ["--model_saving_dir", dirs["port"]])
-    popts.cell_feat_dim -= popts.feat_reduce[0]
-    popts.net_feat_dim -= popts.feat_reduce[1]
-    model = model_from_options(popts, parsed["cell_feat"].shape[1],
-                               parsed["net_feat"].shape[1],
-                               parsed["cnn_input"].shape[0])
-    to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
-    model.load_state_dict(params_from_flax(to_np(jstate.params),
-                                           to_np(jstate.batch_stats)))
-    state = init_state(model, make_optimizer(popts.learning_rate), "cpu")
-    ckpt.save_checkpoint(dirs["port"], state, dict(vars(popts)))
-
-    jax_train.main(args + ["--model_saving_dir", dirs["jax"]])
-    train_mod.main(args + ["--model_saving_dir", dirs["port"]], device="cpu")
-    test_args = ["--data_save_path", data] + MAP_ARGS + flags
-    jax_test.main(test_args + ["--model_saving_dir", dirs["jax"]])
-    test_mod.main(test_args + ["--model_saving_dir", dirs["port"]],
-                  device="cpu")
+    run_clis(data, flags, dirs)
     return dirs, request.param
 
 
@@ -258,3 +232,94 @@ def test_test_cli_writes_jax_predictions(cli_runs):
             with open(os.path.join(mdl, "predict_critical", name)) as f:
                 lists.append(json.load(f))
         assert lists[0] == lists[1], name
+
+
+def run_clis(data, flags, dirs):
+    """JAX's init_state saved by JAX, converted (running averages too)
+    and saved by the port; then both train CLIs resume on ONE data
+    directory (the first writes the validation split files, the second
+    reads them) and both test CLIs evaluate. ``dirs`` maps ``"jax"`` and
+    ``"port"`` to a model directory each."""
+    args = (["--data_save_path", data, "--num_epoch", "1", "--max_steps",
+             "3", "--val_interval", "2", "--steps_per_dispatch", "1"]
+            + MAP_ARGS + flags)
+
+    jopts = jax_get_options(args + ["--model_saving_dir", dirs["jax"]])
+    jopts.cell_feat_dim -= jopts.feat_reduce[0]
+    jopts.net_feat_dim -= jopts.feat_reduce[1]
+    parsed = jax_load_single("train", data, "syn_a",
+                             feat_reduce=jopts.feat_reduce)
+    jstate = jtrainer.init_state(
+        jax_model_from_options(jopts),
+        jtrainer.make_optimizer(jopts.learning_rate, jopts.weight_decay),
+        jax_pack_design(parsed, map_size=jopts.map_size),
+        jax.random.PRNGKey(jopts.seed))
+    jax_ckpt.save_checkpoint(dirs["jax"], jstate, dict(vars(jopts)))
+
+    popts = get_options(args + ["--model_saving_dir", dirs["port"]])
+    popts.cell_feat_dim -= popts.feat_reduce[0]
+    popts.net_feat_dim -= popts.feat_reduce[1]
+    model = model_from_options(popts, parsed["cell_feat"].shape[1],
+                               parsed["net_feat"].shape[1],
+                               parsed["cnn_input"].shape[0])
+    to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
+    model.load_state_dict(params_from_flax(to_np(jstate.params),
+                                           to_np(jstate.batch_stats)))
+    state = init_state(model, make_optimizer(popts.learning_rate), "cpu")
+    ckpt.save_checkpoint(dirs["port"], state, dict(vars(popts)))
+
+    jax_train.main(args + ["--model_saving_dir", dirs["jax"]])
+    train_mod.main(args + ["--model_saving_dir", dirs["port"]], device="cpu")
+    test_args = ["--data_save_path", data] + MAP_ARGS + flags
+    jax_test.main(test_args + ["--model_saving_dir", dirs["jax"]])
+    test_mod.main(test_args + ["--model_saving_dir", dirs["port"]],
+                  device="cpu")
+
+
+def _gap(a, b, atol):
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    need = (np.abs(a - b) - atol) / np.maximum(np.abs(b), 1e-30)
+    return float(np.abs(a - b).max()), float(max(need.max(), 0.0))
+
+
+def main(argv):
+    """On this module's corpus (CORPUS_ARGS: the port's ``synthetic`` and
+    ``generate``), :func:`run_clis` with the flags ``argv``, then for the
+    printed train-step values, the validation values and the test CLI's
+    ``predict.txt`` row, the largest distance between the packages and
+    the rtol that distance needs beside ATOL: ``max((|port - jax| - ATOL)
+    / |jax|)``. ``--compute_dtype bfloat16`` alone measures the bf16 CLIs
+    under JAX's default flags, whose train steps take its padded scan."""
+    jax.config.update("jax_platforms", "cpu")
+
+    with tempfile.TemporaryDirectory(prefix="cli_gap_") as tmp:
+        raw, data = os.path.join(tmp, "raw"), os.path.join(tmp, "data")
+        synthetic.main(["--out", raw] + CORPUS_ARGS)
+        generate.main(["--rawdata_path", raw, "--data_save_path", data,
+                       "--map_size", "16"])
+        dirs = {name: os.path.join(tmp, f"{name}_mdl")
+                for name in ("jax", "port")}
+        run_clis(data, list(argv), dirs)
+        lines = {name: _train_lines(mdl) for name, mdl in dirs.items()}
+        rows = {}
+        for name, mdl in dirs.items():
+            with open(os.path.join(mdl, "predict.txt")) as f:
+                rows[name] = [float(x) for x in f.read().split()]
+    if [s for s, _ in lines["port"]] != [s for s, _ in lines["jax"]]:
+        raise SystemExit("the two train CLIs printed different lines")
+    groups = {"train steps": ([], []), "validation": ([], [])}
+    for (line, a), (_s, b) in zip(lines["port"], lines["jax"]):
+        group = groups["train steps" if line.startswith("e") else
+                       "validation"]
+        group[0].extend(a)
+        group[1].extend(b)
+    groups["test CLI row"] = (rows["port"], rows["jax"])
+    print(f"flags {' '.join(argv) or '(default)'}; atol {ATOL}")
+    for name, (a, b) in groups.items():
+        worst, need = _gap(a, b, ATOL)
+        print(f"  {name}: {len(b)} values, largest distance {worst:.6g}, "
+              f"needs rtol {need:.6g}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

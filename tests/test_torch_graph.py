@@ -149,10 +149,18 @@ def test_with_prior_net_drivers_moves_a_share_below_the_pair():
 
 
 def test_pack_refuses_merged_rasters():
+    """A stack of K rasters (a merged super-graph's, ``--merge_designs``)
+    packs as ``(K, C, H, W)``; a raster of any other rank, such as a
+    stack of stacks or a single channel, is refused."""
     parsed = _random_parsed()
-    parsed["cnn_input"] = np.stack([parsed["cnn_input"]] * 2)
-    with pytest.raises(ValueError, match="raster"):
-        pack_design(parsed, map_size=16, device="cpu")
+    raster = parsed["cnn_input"]
+    parsed["cnn_input"] = np.stack([raster] * 2)
+    design = pack_design(parsed, map_size=16, device="cpu")
+    assert design.cnn_input.shape == (2,) + raster.shape
+    for bad in (np.stack([np.stack([raster] * 2)] * 2), raster[0]):
+        parsed["cnn_input"] = bad
+        with pytest.raises(ValueError, match="cnn_input"):
+            pack_design(parsed, map_size=16, device="cpu")
 
 
 @pytest.mark.parametrize("which", ["golden", "leveled"])
