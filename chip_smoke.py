@@ -5,8 +5,8 @@
 
 Phases, each failing loudly (nonzero exit) on any error:
 
-1. Print the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions; turn TF32 off for matmuls and convolutions (the port's
+1. Print the card (``nvidia-smi`` name, power limit and compute mode),
+   the torch and CUDA versions; turn TF32 off for matmuls and convolutions (the port's
    float32, as the CLIs set it themselves) for phases 2-6 and 8.
 2. Build every CUDA kernel of the path from ``prtp_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once.
@@ -93,7 +93,9 @@ Phases, each failing loudly (nonzero exit) on any error:
    R2/MAPE lines at 1e-3 and the confusion counts equal (labels may
    differ only at near ties, counted); ``cls`` must save the best-F1
    model and write no ``visual/`` or ``predict_critical/``. Then
-   ``--compute_dtype bfloat16`` on the reg corpus: the train CLI, the
+   ``--compute_dtype bfloat16`` on the reg corpus (JAX's default flags:
+   its train steps take the padded scan's rounding, forward and
+   backward): the train CLI, the
    test CLI on the card and the CPU, and the same checkpoint's test CLI
    in float32 on the card; card against CPU by the bf16 bounds of phase
    8 (predictions within BF16_ULPS bf16 ulps and REL_GAP x their
@@ -127,7 +129,9 @@ Phases, each failing loudly (nonzero exit) on any error:
    of their sums over 256 x 256 positions.
    Then the bf16 models (``--compute_dtype bfloat16``): ``bf16`` (the
    headline LayoutNet reg model: 3 requests, the epoch, a timed step),
-   ``bf16_unet`` and ``bf16_attn`` (3 requests, 2 steps each). Card
+   ``bf16_unet`` and ``bf16_attn`` (3 requests, 2 steps each), and
+   ``bf16_scan`` (the reg model's first 3 steps in the padded scan's
+   rounding, ``rounding="scan"``, and its step timed). Card
    against CPU, both bf16: predictions within BF16_ULPS bf16 ulps of
    their largest |value|, first-step gradients within BF16_GRAD_TOL x
    each leaf's max |g|, losses within BF16_LOSS_RTOL; and each mean
@@ -161,6 +165,20 @@ Phases, each failing loudly (nonzero exit) on any error:
    averages at STAT_RTOL. Phase 7 also trains the reg corpus with
    ``--merge_designs`` (train CLI, test CLI card vs CPU), and its bf16
    test CLI evaluates in the padded scan's rounding, as JAX's does.
+10. Data parallelism (``--dp``, :func:`dp_phase`) at full width on the
+   headline, all 597 paths a step, float32, TF32 off: (a) a process
+   group of one rank over NCCL, 3 data-parallel steps against
+   ``train_step`` (losses and first-step gradients within 1e-6), its
+   step and the 2,727,202-float gradient all-reduce timed; (b) two
+   processes on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+   card), the ids padded to 598, 299 a rank, 3 steps against one rank's
+   (1e-5), the ranks' parameter checksums equal after each step, each
+   rank's launch counts its own, a step and the all-reduce timed on the
+   host; not run, and said so, where the card's compute mode (phase 1)
+   is exclusive; (c) the train and test CLIs with ``--dp`` on the reg
+   corpus against the same runs without it (each printed number within
+   a unit of its last digit plus rtol 1e-5). One card shows no speed-up
+   over cards, and none is claimed.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -231,12 +249,18 @@ STAT_RTOL = 1e-3  # phase 8: U-Net running averages, card vs cpu
 # phase 8: the paired steps of the 4-head, bf16 U-Net and bf16 --attn
 # models (the others run the whole epoch)
 SHORT_STEPS = 2
+SCAN_STEPS = 3  # phase 8: the bf16 steps in the padded scan's rounding
 # phase 9: bench.py's merged point (build_merged_step): MERGED_K designs
 # of MERGED_NODES nodes (LEVELS levels, DECAY), seeds MERGED_SEED + k, and
 # MERGED_BATCH ids a design drawn with numpy seed 0; MERGED_STEPS train
 # steps card vs cpu
 MERGED_K, MERGED_NODES, MERGED_SEED, MERGED_BATCH = 8, 20_000, 100, 256
 MERGED_STEPS = 3
+# phase 10: data parallelism, DP_STEPS steps a run; (a) one rank against
+# train_step within DP_TOL, (b) DP_RANKS ranks on one card within DP_TOL_2
+DP_STEPS, DP_RANKS = 3, 2
+DP_TOL, DP_TOL_2 = 1e-6, 1e-5
+DP_CLI_RTOL = 1e-5  # (c): the --dp CLIs' printed values against without
 HAZARD_REPS = 20  # phase 3: launches right after a writer of the inputs
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
 # phase 3's fixtures, not kernels of the port: for the hazard check a
@@ -1974,8 +1998,27 @@ def take_card_branches(torch, model, card):
             handle.remove()
 
 
+def _state_snapshot(state):
+    """The model's state_dict and FlatAdam's state, copied to the CPU."""
+    opt = state.optimizer
+    return ({k: v.to("cpu", copy=True)
+             for k, v in state.model.state_dict().items()},
+            {"mu": opt.mu.to("cpu", copy=True),
+             "nu": opt.nu.to("cpu", copy=True), "count": opt.count})
+
+
+def _state_restore(state, snap):
+    state.model.load_state_dict(snap[0])
+    state.optimizer.load_state_dict(snap[1])
+
+
+def _grads(state):
+    return {k: p.grad.detach().to("cpu", copy=True)
+            for k, p in state.model.named_parameters()}
+
+
 def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
-                 attn=False, card=None):
+                 attn=False, card=None, rounding="fused"):
     """Phase 8: the same steps through ``trainer.train_step`` on the CPU
     and on the card, each card step from the CPU's state before it (its
     parameters, buffers and Adam moments), so that each step's loss is
@@ -1986,19 +2029,13 @@ def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
     their value give a fifth loss 3e-3 away. The launch counters are
     zeroed just before the card's steps and read just after: each kernel
     must have run ``len(batches)`` x its per-step count. The CPU's first
-    step takes the card's branches ``card`` (:func:`card_branches`).
+    step takes the card's branches ``card`` (:func:`card_branches`). The
+    walk runs in the bf16 ``rounding`` (``trainer.train_step``).
     Returns ``{where:
     (losses, the first step's gradients, counts, the buffers after each
     step, the state_dict after the last)}``, all on the CPU."""
     import numpy as np
     from prtp_tpu_torch.trainer import init_state, make_optimizer, train_step
-
-    def snapshot(state):
-        opt = state.optimizer
-        return ({k: v.to("cpu", copy=True)
-                 for k, v in state.model.state_dict().items()},
-                {"mu": opt.mu.to("cpu", copy=True),
-                 "nu": opt.nu.to("cpu", copy=True), "count": opt.count})
 
     out, befores = {}, []
     for where in ("cpu", DEVICE):
@@ -2010,21 +2047,19 @@ def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
         t0 = time.perf_counter()
         for t, (ids, mask) in enumerate(batches[where]):
             if where == "cpu":
-                befores.append(snapshot(state))
+                befores.append(_state_snapshot(state))
             else:
-                state.model.load_state_dict(befores[t][0])
-                state.optimizer.load_state_dict(befores[t][1])
+                _state_restore(state, befores[t])
             branches = card if where == "cpu" and t == 0 else None
             with take_card_branches(torch, state.model,
                                     branches or {}) as taken:
                 losses.append(float(train_step(state, designs[where], ids,
-                                               mask, task)["loss"]))
+                                               mask, task, rounding)["loss"]))
             if branches:
                 log(f"  {what} (cpu): first step took the card's branch at "
                     f"{taken}")
             if t == 0:
-                grads = {k: p.grad.detach().to("cpu", copy=True)
-                         for k, p in state.model.named_parameters()}
+                grads = _grads(state)
             buffers.append({k: b.to("cpu", copy=True)
                             for k, b in state.model.named_buffers()})
         wall = time.perf_counter() - t0
@@ -2050,8 +2085,7 @@ def float32_first_step(torch, twin, design, batch, task):
 
     state = init_state(copy.deepcopy(twin), make_optimizer(LR), DEVICE)
     loss = float(train_step(state, design, *batch, task)["loss"])
-    return loss, {k: p.grad.detach().to("cpu", copy=True)
-                  for k, p in state.model.named_parameters()}
+    return loss, _grads(state)
 
 
 def compare_bf16_runs(torch, what, card, cpu, f32_first):
@@ -2363,7 +2397,8 @@ def cli_train(torch, args, run, smi):
     counts, each validation's ``(res, f1, r2)``)."""
     from prtp_tpu_torch import train as train_mod
 
-    with timed(torch, train_mod, "train_steps", "validate", "evaluate") as w:
+    steps_fn = "dp_train_steps" if "--dp" in args else "train_steps"
+    with timed(torch, train_mod, steps_fn, "validate", "evaluate") as w:
         tf32_on(torch)
         _zero_launches()
         t0 = time.perf_counter()
@@ -2374,13 +2409,13 @@ def cli_train(torch, args, run, smi):
     check_float32(torch, run)
     attn = "--attn" in args
     want = dict.fromkeys(counts, 0)
-    for _s, (_st, pack, chunk, *_r), _o in w["train_steps"].calls:
+    for _s, (_st, pack, chunk, *_r), _o in w[steps_fn].calls:
         for name, n in launches_per_step(pack.graph, attn).items():
             want[name] += len(chunk) * n
     for _s, (_m, pack, *_r), _o in w["evaluate"].calls:
         for name, n in launches_per_forward(pack.graph, attn).items():
             want[name] += n
-    steps = w["train_steps"].calls
+    steps = w[steps_fn].calls
     n_steps = sum(len(a[2]) for _s, a, _o in steps)
     val_ms = [s * 1e3 for s, _a, _o in w["validate"].calls]
     log(f"phase 7: {run}: {wall:.2f} s wall, {n_steps} steps "
@@ -2414,8 +2449,8 @@ def cli_test(torch, args, where, run, smi):
 
     options = test_mod.get_options(args)
     buf = io.StringIO()
-    with timed(torch, test_mod, "evaluate", "evaluate_design") as w, \
-            contextlib.redirect_stdout(buf):
+    with timed(torch, test_mod, "evaluate", "dp_evaluate",
+               "evaluate_design") as w, contextlib.redirect_stdout(buf):
         tf32_on(torch)
         _zero_launches()
         t0 = time.perf_counter()
@@ -2424,7 +2459,8 @@ def cli_test(torch, args, where, run, smi):
     counts = _read_launches()
     check_float32(torch, f"{run} on {where}")
     want = dict.fromkeys(counts, 0)
-    for _s, (_m, pack, *_r), _o in w["evaluate"].calls:
+    for _s, (_m, pack, *_r), _o in (w["evaluate"].calls
+                                    + w["dp_evaluate"].calls):
         for name, n in launches_per_forward(pack.graph,
                                             "--attn" in args).items():
             want[name] += n
@@ -2446,6 +2482,7 @@ def cli_test(torch, args, where, run, smi):
 
 
 _LEVEL = re.compile(r"^level (\S+): #=(\d+), r2=(\S+), mape=(\S+)$", re.M)
+_NUMBER = re.compile(r"-?(?:\d+\.\d+(?:e[+-]?\d+)?|inf|nan)")
 _COUNTS = re.compile(r"^\ttp: (\d+)  fp: (\d+)  fn: (\d+)  tn: (\d+) ", re.M)
 
 
@@ -2605,8 +2642,9 @@ def corpus_runs(torch, np, smi, tmp) -> dict:
     cls --nlabels 2``), ``unet`` (``--unet``), ``attn`` (``--attn
     --num_heads 2``), ``merged`` (``--merge_designs``: the corpus's
     designs trained as one super-graph) and ``bf16`` (``--compute_dtype
-    bfloat16``, whose validations and test CLI evaluate in the padded
-    scan's rounding; the last three on the default corpus): the train CLI
+    bfloat16``, whose train steps, validations and test CLI take the
+    padded scan's rounding; the last three on the default corpus): the
+    train CLI
     at full width on the card
     for CORPUS_EPOCHS epochs, then the test CLI on the card and on the
     CPU from its checkpoint, compared by :func:`compare_test_clis`
@@ -2694,11 +2732,13 @@ def cli_phase(torch, np, dev, smi) -> dict:
     return launches
 
 
-def time_variant(torch, model_cpu, design, dev, task, what, smi):
+def time_variant(torch, model_cpu, design, dev, task, what, smi,
+                 rounding="fused"):
     """Phase 8: one train step of a variant from a copy of ``model_cpu``
-    at the bench's batch (all 597 headline paths): device time (queue
-    pre-filled) and as launched, the device's busy and idle share and
-    launches under torch.profiler, and its largest kernels by name."""
+    at the bench's batch (all 597 headline paths), its walk in the bf16
+    ``rounding``: device time (queue pre-filled) and as launched, the
+    device's busy and idle share and launches under torch.profiler, and
+    its largest kernels by name."""
     import numpy as np
     from prtp_tpu_torch.trainer import (init_state, make_optimizer,
                                         pad_batch, train_step)
@@ -2707,7 +2747,7 @@ def time_variant(torch, model_cpu, design, dev, task, what, smi):
     n = design.num_paths
     ids, mask = pad_batch(np.random.default_rng(0).permutation(n), n, dev)
     t = step_timing(torch, dev, lambda: train_step(state, design, ids, mask,
-                                                   task), 200)
+                                                   task, rounding), 200)
     log(f"phase 8: {what} train step ({n} paths): device time "
         f"{t['device_ms']:.3f} ms; as launched {t['launched_ms']:.3f} ms; "
         f"wall {t['wall_ms']:.3f} ms, device busy {t['busy_ms']:.3f} ms "
@@ -2912,7 +2952,12 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
         "bf16_attn": (dict(flag_attn=True, num_heads=1,
                            compute_dtype=torch.bfloat16), "reg", headline,
                       LAYOUTNET_POOLS),
+        # JAX's default train steps: the padded scan's rounding, forward
+        # and backward (the bf16 run above serves in it already)
+        "bf16_scan": (dict(compute_dtype=torch.bfloat16), "reg", headline,
+                      LAYOUTNET_POOLS),
     }
+    rounding_of = {"bf16_scan": "scan"}
     launches = {}
     num_paths = int(headline["num_paths"])
     for name, (kw, task, parsed, pools) in variants.items():
@@ -2930,13 +2975,16 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
                                 if k != "compute_dtype"})
             twin.load_state_dict(model_cpu.state_dict())
             twin.to(dev)
+        rounding = rounding_of.get(name, "fused")
         cpu_design = pack_design(parsed, map_size=MAP_SIZE, device="cpu")
         card_design = pack_design(parsed, map_size=MAP_SIZE, device=dev)
         graph = card_design.graph
-        launches[f"serve {name}"] = serve(
-            torch, np, copy.deepcopy(model_cpu).to(dev), model_cpu, parsed,
-            f"headline {name}", launches_per_forward(graph, attn), REQUESTS,
-            task, attn, twin)
+        if name != "bf16_scan":
+            launches[f"serve {name}"] = serve(
+                torch, np, copy.deepcopy(model_cpu).to(dev), model_cpu,
+                parsed, f"headline {name}",
+                launches_per_forward(graph, attn), REQUESTS, task, attn,
+                twin)
         flips = pool_winner_flips(torch, model_cpu.cnn, cpu_design.cnn_input,
                                   dev)
         if low:
@@ -2962,11 +3010,16 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
         if name in ("attn4", "bf16_unet", "bf16_attn"):
             what = f"train {name}, the epoch's first {SHORT_STEPS} steps"
             batches = {where: b[:SHORT_STEPS] for where, b in batches.items()}
+        if name == "bf16_scan":
+            what = (f"train {name}, the epoch's first {SCAN_STEPS} steps "
+                    "in the padded scan's rounding")
+            batches = {where: b[:SCAN_STEPS] for where, b in batches.items()}
         f32_first = (float32_first_step(torch, twin, card_design,
                                         batches[DEVICE][0], task)
                      if low else None)
         runs = paired_steps(torch, model_cpu, designs, batches, what,
-                            launches_per_step(graph, attn), task, attn, card)
+                            launches_per_step(graph, attn), task, attn, card,
+                            rounding)
         launches[what] = runs[DEVICE][2]
         f32_err = None
         if name == "unet":
@@ -3015,7 +3068,8 @@ def variants_phase(torch, np, dev, smi, headline, sizes) -> dict:
                 + f"  [{smi}]")
             time_unet(torch, model_cpu.cnn, card_design.cnn_input, smi)
         if name not in ("bf16_unet", "bf16_attn"):
-            time_variant(torch, model_cpu, card_design, dev, task, name, smi)
+            time_variant(torch, model_cpu, card_design, dev, task, name, smi,
+                         rounding)
         del runs, designs, card_design, cpu_design, twin
         torch.cuda.empty_cache()
     return launches
@@ -3251,6 +3305,312 @@ def merged_phase(torch, np, dev, smi) -> dict:
     return launches
 
 
+def _host_ms(torch, fn, reps):
+    """Median host wall time (ms) of ``fn`` between two synchronizes,
+    after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dp_rank(rank, tmp, port):
+    """Phase 10 (b), one of DP_RANKS processes on cuda:0, joined over
+    gloo: the headline model from the parent's state before each step,
+    DP_STEPS data-parallel steps on its 299 of the 598 padded ids (cuDNN
+    deterministic, as the parent's); then one step timed, and the
+    gradient all-reduce alone. Writes its losses,
+    parameter checksums, first-step gradients (rank 0), launch counts and
+    times to ``rank<r>.pt`` in ``tmp``."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.parallel import Mesh
+    from prtp_tpu_torch.parallel.dp import broadcast_state, dp_train_step
+    from prtp_tpu_torch.trainer import init_state, make_optimizer, pad_batch
+
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=DP_RANKS, rank=rank)
+    try:
+        mesh = Mesh.of_group()
+        with open(os.path.join(tmp, "headline.pkl"), "rb") as f:
+            parsed = pickle.load(f)
+        snaps = torch.load(os.path.join(tmp, "ref_states.pt"),
+                           weights_only=True)
+        design = pack_design(parsed, map_size=MAP_SIZE, device=dev)
+        n = design.num_paths
+        state = init_state(PathModel(
+            CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+            generator=torch.Generator().manual_seed(SEED)),
+            make_optimizer(LR), dev)
+        broadcast_state(state, mesh)
+        ids, mask = pad_batch(np.random.default_rng(0).permutation(n), n,
+                              dev)
+        out = {"losses": [], "checksums": [], "grads": None}
+        torch.cuda.synchronize()
+        _zero_launches()
+        for t in range(DP_STEPS):
+            _state_restore(state, (snaps["model"][t], snaps["opt"][t]))
+            out["losses"].append(float(
+                dp_train_step(state, design, ids, mask, mesh)["loss"]))
+            out["checksums"].append(
+                float(state.optimizer.flat.double().abs().sum()))
+            if t == 0 and rank == 0:
+                out["grads"] = _grads(state)
+        torch.cuda.synchronize()
+        out["counts"] = _read_launches()
+        torch.backends.cudnn.deterministic = False
+        out["step_ms"] = _host_ms(
+            torch, lambda: dp_train_step(state, design, ids, mask, mesh), 3)
+        buf = torch.ones(state.optimizer.grad.numel(), device=dev)
+        out["allreduce_ms"] = _host_ms(
+            torch, lambda: dist.all_reduce(buf, group=mesh.group), 5)
+        out["allreduce_numel"] = buf.numel()
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_cli_runs(torch, np, smi, tmp) -> dict:
+    """Phase 10 (c): the reg corpus of phase 7, the train CLI and the
+    test CLI without ``--dp`` and with it (one card: a rank of one, NCCL),
+    each from a fresh model directory: the printed train-step and
+    validation lines and the ``predict.txt`` rows must be the same, each
+    number within a unit of its last printed digit plus DP_CLI_RTOL of
+    its value. Returns the ``--dp`` runs' launch counts."""
+    from prtp_tpu_torch.data import generate, synthetic
+
+    raw, data = os.path.join(tmp, "raw"), os.path.join(tmp, "data")
+    synthetic.main(["--out", raw, "--designs", *CORPUS_DESIGNS,
+                    "--num_paths", str(CORPUS_PATHS), "--depth",
+                    str(CORPUS_DEPTH)])
+    generate.main(["--rawdata_path", raw, "--data_save_path", data])
+    printed, rows, launches = {}, {}, {}
+    for name, flags in (("single", []), ("dp", ["--dp"])):
+        mdl = os.path.join(tmp, f"mdl_{name}")
+        common = ["--data_save_path", data, "--model_saving_dir", mdl]
+        run = f"train CLI {' '.join(flags) or 'without --dp'} reg corpus"
+        _state, counts, _vals = cli_train(
+            torch, common + ["--num_epoch", str(CORPUS_EPOCHS)] + flags,
+            run, smi)
+        run = f"test CLI {' '.join(flags) or 'without --dp'} reg corpus"
+        out = cli_test(torch, common + flags, DEVICE, run, smi)
+        if flags:
+            launches["train CLI --dp reg corpus"] = counts
+            launches["test CLI --dp reg corpus"] = out["counts"]
+        with open(os.path.join(mdl, "stdout.log")) as f:
+            printed[name] = [ln for ln in f.read().splitlines()
+                             if ln.startswith(("e", "\tcase", "\toverall"))]
+        with open(os.path.join(mdl, "predict.txt")) as f:
+            rows[name] = f.read()
+    # the same lines and numbers, each within one unit of its last
+    # printed digit and DP_CLI_RTOL: on the card cuDNN's backward adds in
+    # another order from run to run (phase 10 (a): gradients 1e-6 of max
+    # |g| apart at equal losses), and an R2 near -1e4 printed with three
+    # decimals shows float32's last bits
+    text = {k: [_NUMBER.sub("#", ln) for ln in v + [rows[k]]]
+            for k, v in printed.items()}
+    nums = {k: np.array([float(x) for ln in v + [rows[k]]
+                         for x in _NUMBER.findall(ln)])
+            for k, v in printed.items()}
+    off = np.abs(nums["dp"] - nums["single"]) if (
+        text["dp"] == text["single"]) else np.array([np.inf])
+    if not len(printed["dp"]) or (off > 1e-3 * (1 + 1e-6) + DP_CLI_RTOL
+                                  * np.abs(nums["single"])).any():
+        raise AssertionError(
+            "phase 10 (c): the --dp CLIs printed other values: "
+            f"{printed['dp'][:4]} ... / {printed['single'][:4]} ...; "
+            f"predict.txt {rows['dp']!r} / {rows['single']!r}")
+    log(f"phase 10 (c): train CLI and test CLI with --dp (1 card, NCCL): "
+        f"{len(printed['dp'])} printed train and validation lines and the "
+        f"predict.txt row {rows['dp'].strip()!r} equal the runs without it "
+        f"within {float(off.max()):.3g} ({int((off > 0).sum())} of "
+        f"{len(off)} numbers off; allowed 1e-3 + rtol {DP_CLI_RTOL}): ok")
+    return launches
+
+
+def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
+    """Phase 10: data parallelism (``--dp``) at the default model's full
+    width on the headline (all 597 paths a step), float32, TF32 off.
+
+    The compared steps run cuDNN's deterministic algorithms: its default
+    weight gradients add in another order from call to call, by up to
+    1.1e-6 of Conv_0's max |g| between two equal steps (PR 12).
+    (a) A process group of one rank, NCCL: DP_STEPS data-parallel steps
+    (``parallel.dp.dp_train_step``), each from the state ``train_step``
+    started its step from, against ``train_step``: losses at rtol DP_TOL
+    and first-step gradients within DP_TOL x each leaf's max |g|; one dp
+    step timed as phase 8 times a step (:func:`step_timing`), and the
+    gradient all-reduce (2,727,202 float32) alone.
+    (b) DP_RANKS processes on cuda:0 over gloo (NCCL refuses two ranks on
+    one card), :func:`dp_rank`: the 597 ids padded to 598, 299 a rank,
+    each step from the one-rank run's state before it: losses at rtol
+    DP_TOL_2, first-step gradients within DP_TOL_2 x each leaf's max |g|
+    (both processes run the raster's forward with the same kernels on
+    the same inputs, so no max-pool winner can differ), the ranks'
+    parameter checksums equal after each step; each rank's step and the
+    all-reduce timed on the host. Not run, and said so, where the card's
+    compute mode admits one process.
+    (c) :func:`dp_cli_runs`.
+
+    A speed-up over cards cannot be shown on one card; none is claimed.
+    Returns the dp runs' launch counts (each rank's own in (b))."""
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.parallel import Mesh
+    from prtp_tpu_torch.parallel.distributed import free_port
+    from prtp_tpu_torch.parallel.dp import dp_train_step
+    from prtp_tpu_torch.trainer import (init_state, make_optimizer,
+                                        pad_batch, train_step)
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the compared steps with cuDNN's deterministic algorithms: its
+    # default weight gradients add in another order from call to call
+    # (1e-6 of Conv_0's max |g| apart between two equal steps)
+    torch.backends.cudnn.deterministic = True
+    design = pack_design(headline, map_size=MAP_SIZE, device=dev)
+    n = design.num_paths
+    ids, mask = pad_batch(np.random.default_rng(0).permutation(n), n, dev)
+
+    def fresh():
+        return init_state(PathModel(
+            CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+            generator=torch.Generator().manual_seed(SEED)),
+            make_optimizer(LR), dev)
+
+    # the one-rank reference: train_step, its state before each step kept
+    ref, snaps, ref_losses, ref_grads = fresh(), [], [], None
+    for t in range(DP_STEPS):
+        snaps.append(_state_snapshot(ref))
+        ref_losses.append(float(train_step(ref, design, ids, mask)["loss"]))
+        if t == 0:
+            ref_grads = _grads(ref)
+    launches = {}
+
+    def check(what, losses, grads, tol):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        worst = (0.0, "")
+        for key, want in ref_grads.items():
+            scale = float(want.abs().max())
+            diff = float((grads[key] - want).abs().max())
+            worst = max(worst, (diff / scale if scale else diff, key))
+            if diff > tol * scale:
+                raise AssertionError(f"{what}: gradient of {key} differs by "
+                                     f"{diff} (max |g| {scale}, allowed "
+                                     f"{tol} x)")
+        if rel > tol:
+            raise AssertionError(f"{what}: losses {losses} against one "
+                                 f"rank's {ref_losses}")
+        log(f"  {what} vs train_step: losses {losses} within rtol {rel:.3g},"
+            f" first-step gradients within {worst[0]:.3g} x the leaf's max "
+            f"|g| ({worst[1]}; allowed {tol} each): ok")
+
+    # ---- (a) one rank, NCCL ----
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = Mesh.of_group()
+        state = fresh()
+        what = f"phase 10 (a): dp, 1 rank (NCCL), {DP_STEPS} steps"
+        losses, grads = [], None
+        torch.cuda.synchronize()
+        _zero_launches()
+        for t in range(DP_STEPS):
+            _state_restore(state, snaps[t])
+            losses.append(float(dp_train_step(state, design, ids, mask,
+                                              mesh)["loss"]))
+            if t == 0:
+                grads = _grads(state)
+        torch.cuda.synchronize()
+        launches[what] = _read_launches()
+        check_launches(what, launches[what],
+                       launches_per_step(design.graph), DP_STEPS)
+        check(what, losses, grads, DP_TOL)
+        torch.backends.cudnn.deterministic = False
+        tm = step_timing(torch, dev, lambda: dp_train_step(
+            state, design, ids, mask, mesh), 200)
+        buf = torch.ones(state.optimizer.grad.numel(), device=dev)
+        ar_ms = Timer(torch, dev).ms(lambda: dist.all_reduce(buf))
+        log(f"phase 10 (a): dp step, 1 rank ({n} paths): device time "
+            f"{tm['device_ms']:.3f} ms; as launched {tm['launched_ms']:.3f} "
+            f"ms; wall {tm['wall_ms']:.3f} ms, device busy "
+            f"{tm['busy_ms']:.3f} ms, idle share {tm['idle']:.3f}; "
+            f"{tm['launches']} kernel launches; the {buf.numel():,} float32"
+            f" gradient all-reduce (NCCL, 1 rank) {ar_ms:.4f} ms  [{smi}]")
+        del state, buf
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (b) two ranks on one card, gloo ----
+    if "exclusive" in compute_mode.lower():
+        log(f"phase 10 (b): the card's compute mode is {compute_mode}: it "
+            "admits one process, so two ranks cannot share it; (b) not run")
+    else:
+        with tempfile.TemporaryDirectory(prefix="prtp_dp_") as tmp:
+            with open(os.path.join(tmp, "headline.pkl"), "wb") as f:
+                pickle.dump(headline, f)
+            torch.save({"model": [s[0] for s in snaps],
+                        "opt": [s[1] for s in snaps]},
+                       os.path.join(tmp, "ref_states.pt"))
+            t0 = time.perf_counter()
+            torch.multiprocessing.start_processes(
+                dp_rank, args=(tmp, free_port()), nprocs=DP_RANKS,
+                join=True, start_method="spawn")
+            wall = time.perf_counter() - t0
+            outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                               weights_only=True) for r in range(DP_RANKS)]
+        what = (f"phase 10 (b): dp, {DP_RANKS} ranks on {DEVICE} (gloo), "
+                f"{DP_STEPS} steps")
+        for r, out in enumerate(outs):
+            launches[f"{what}, rank {r}"] = out["counts"]
+            check_launches(f"{what}, rank {r}", out["counts"],
+                           launches_per_step(design.graph), DP_STEPS)
+        if any(o["checksums"] != outs[0]["checksums"]
+               or o["losses"] != outs[0]["losses"] for o in outs):
+            raise AssertionError(f"{what}: the ranks' parameters or losses "
+                                 f"differ: {[o['checksums'] for o in outs]}")
+        check(what, outs[0]["losses"], outs[0]["grads"], DP_TOL_2)
+        log(f"  {what}: parameter checksums equal on every rank after each "
+            f"step ({outs[0]['checksums']}); {wall:.1f} s with the "
+            "processes' start")
+        log(f"phase 10 (b): dp step, {DP_RANKS} ranks on one card, host "
+            "time between synchronizes (median of 3): "
+            + ", ".join(f"rank {r} {o['step_ms']:.3f} ms"
+                        for r, o in enumerate(outs))
+            + f"; the {outs[0]['allreduce_numel']:,} float32 gradient "
+            "all-reduce alone (gloo, through the host; median of 5): "
+            + ", ".join(f"{o['allreduce_ms']:.3f}" for o in outs)
+            + f" ms  [{smi}]")
+    del design
+    torch.cuda.empty_cache()
+
+    # ---- (c) the CLIs ----
+    with tempfile.TemporaryDirectory(prefix="prtp_dp_cli_") as tmp:
+        launches.update(dp_cli_runs(torch, np, smi, tmp))
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3277,6 +3637,11 @@ def main() -> int:
     # ---- phase 1: the card ----
     smi = card_line()
     log(smi)
+    compute_mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"compute mode {compute_mode}")
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"device {torch.cuda.get_device_name(0)}  "
         f"count {torch.cuda.device_count()}")
@@ -3486,6 +3851,10 @@ def main() -> int:
 
     # ---- phase 9: the merged super-graph ----
     launches.update(merged_phase(torch, np, dev, smi))
+
+    # ---- phase 10: data parallelism ----
+    launches.update(dp_phase(torch, np, dev, smi, parsed["headline"],
+                             compute_mode))
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

@@ -74,6 +74,10 @@ class LeveledGraphExact:
     cell_off: tuple       # P ints
     net_off: tuple        # P ints
     num_rows: int
+    # the rows of a cell and of a net level in JAX's padded scan
+    # (:func:`scan_level_rows`): its bf16 bias gradients sum that many
+    # rows, the zeros of the padding included (ops.fused_gnn, "scan")
+    scan_rows: tuple = (1, 1)
 
     @property
     def num_pairs(self) -> int:
@@ -245,10 +249,33 @@ def _pack_exact_numpy(parsed):
     return tables, node_row, num_rows
 
 
+SCAN_ALIGN = 128
+
+
+def scan_level_rows(parsed_list, align: int = SCAN_ALIGN) -> tuple:
+    """``(pn_c, pn_n)``: the rows of every cell and every net level in
+    JAX's padded scan over the designs of ``parsed_list`` (full parsed
+    dicts or ``data.dataset.load_design_shapes``'s): each half's largest
+    level rounded up to ``align``, the largest over the designs, as
+    ``prtp_tpu/graph.py::bucket_shape`` and ``_level_layout`` pad them."""
+    rows = [1, 1]
+    for parsed in parsed_list:
+        levels = parsed["levels"]
+        for parity in (0, 1):
+            n = max((len(levels[li][0])
+                     for li in range(parity, len(levels), 2)), default=1)
+            rows[parity] = max(rows[parity],
+                               -(-max(n, 1) // align) * align)
+    return tuple(rows)
+
+
 def pack_leveled_graph_exact(parsed, device="cuda",
-                             compute_dtype=torch.float32):
+                             compute_dtype=torch.float32, scan_rows=None):
     """Exact-shape packer. Returns ``(graph, node_row, num_rows)``. The
-    feature tables are ``compute_dtype``, as JAX packs them."""
+    feature tables are ``compute_dtype``, as JAX packs them.
+    ``scan_rows`` (default: :func:`scan_level_rows` of this design) are
+    the level rows of JAX's padded scan, which the walk's bf16 backward
+    in the scan's rounding reads."""
     dev = resolve_device(device)
     tables, node_row, num_rows = _pack_exact_numpy(parsed)
     fields = {}
@@ -260,11 +287,15 @@ def pack_leveled_graph_exact(parsed, device="cuda",
                   else None)
             fields[key] = tuple(torch.from_numpy(np.ascontiguousarray(a))
                                 .to(dev, dt) for a in arrs)
-    return LeveledGraphExact(num_rows=num_rows, **fields), node_row, num_rows
+    if scan_rows is None:
+        scan_rows = scan_level_rows([parsed])
+    return (LeveledGraphExact(num_rows=num_rows,
+                              scan_rows=tuple(scan_rows), **fields),
+            node_row, num_rows)
 
 
 def pack_design(parsed, map_size=128, device="cuda",
-                compute_dtype=torch.float32):
+                compute_dtype=torch.float32, scan_rows=None):
     """Pack a host-side parsed design (dict of numpy arrays) into
     :class:`DesignData` on ``device``. The feature tables and the raster
     are ``compute_dtype`` (bf16 under ``--compute_dtype bfloat16`` in the
@@ -276,11 +307,12 @@ def pack_design(parsed, map_size=128, device="cuda",
     required_time (N,), is_critical (N,), path_endpoint (num_paths,),
     path_level (num_paths,), mask_coo (2, nnz), num_paths, cnn_input
     (C,H,W), or (K,C,H,W) for a merged super-graph
-    (:func:`merge_parsed_designs`).
+    (:func:`merge_parsed_designs`). ``scan_rows``: as for
+    :func:`pack_leveled_graph_exact`.
     """
     dev = resolve_device(device)
-    graph, node_row, num_rows = pack_leveled_graph_exact(parsed, dev,
-                                                         compute_dtype)
+    graph, node_row, num_rows = pack_leveled_graph_exact(
+        parsed, dev, compute_dtype, scan_rows)
 
     def remap(key, dtype=np.float32):
         vals = np.asarray(parsed[key], dtype=dtype).reshape(-1)

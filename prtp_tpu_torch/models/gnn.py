@@ -22,10 +22,11 @@ the three pair-step MLPs (and ``fc_attn2``) and of ``h0``. The node-state carry 
 ``(num_rows + 1, out_dim)``; the last row is the gather dummy. With
 ``mlp_dtype`` bfloat16 the pair-step MLPs' products take bf16 operands
 and give float32 (JAX's ``mlp_dtype`` on the exact path); the carry
-stays float32, as at ``prtp_tpu/models/gnn.py:314-321``. A forward
-with ``rounding="scan"`` rounds them as JAX's padded scan does instead
-(flax's ``MLP(dtype=bfloat16)``, as XLA compiles it), for the
-evaluations that JAX runs through it; it has no backward.
+stays float32, as at ``prtp_tpu/models/gnn.py:314-321``. With
+``rounding="scan"`` they round as JAX's padded scan does instead
+(flax's ``MLP(dtype=bfloat16)``, as XLA compiles it and its
+``jax.grad``), for the evaluations and the train steps that JAX runs
+through it.
 """
 
 from __future__ import annotations

@@ -81,6 +81,58 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _MatmulF32.apply(a, b)
 
 
+# XLA's CPU compiler rewrites a reduction over more than this many
+# elements into windows of this many, then reduces the windows' sums
+XLA_REDUCE_WINDOW = 32
+
+
+def column_sums_bf16(vs, rows=None):
+    """The column sums of each bf16 (n_i, C_i) tensor of ``vs``, as XLA's
+    CPU compiler sums a bf16 ``reduce_sum`` over the rows: every partial
+    sum rounded to bf16, in its tree order. A reduction of at most 32
+    rows runs in order from row 0; a longer one is padded with zero rows
+    to a multiple of 32, half the padding (rounded down) before row 0,
+    and each window of 32 is summed in order, then the windows' sums are
+    reduced the same way. ``rows[i]`` (at least n_i) sums tensor i as if
+    zero rows followed it up to that many, as a padded table's are: the
+    windows then fall elsewhere. Returns float32 (C_i,) tensors holding
+    bf16 values.
+
+    One pass of the tree serves every tensor of ``vs`` of one width at
+    once, so a call launches about 32 additions a level and width, not a
+    tensor."""
+    win = XLA_REDUCE_WINDOW
+    out = [None] * len(vs)
+    cur = dict(enumerate(vs))
+    # the rows each tensor is summed as: its own, or rows[i] with zeros
+    n_sum = {i: max(len(v), 0 if rows is None else rows[i])
+             for i, v in cur.items()}
+    while cur:
+        for width in sorted({v.shape[1] for v in cur.values()}):
+            items = [i for i, v in cur.items() if v.shape[1] == width]
+            wins = []
+            for i in items:
+                n = n_sum[i]
+                # zero rows before and after: centered to a multiple of
+                # the window, or, at most one window, after only
+                lo = ((-n) % win) // 2 if n > win else 0
+                hi = max(-(-n // win), 1) * win - lo - len(cur[i])
+                wins.append(torch.nn.functional.pad(cur[i], (0, 0, lo, hi))
+                            .view(-1, win, width))
+            w = torch.cat(wins) if len(wins) > 1 else wins[0]
+            acc = w[:, 0]
+            for j in range(1, win):
+                acc = acc + w[:, j]  # a bf16 add: float32, then rounded
+            for i, part in zip(items, acc.split([t.shape[0] for t in wins])):
+                if n_sum[i] > win:
+                    cur[i] = part
+                    n_sum[i] = len(part)
+                else:
+                    out[i] = part[0].float()
+                    del cur[i]
+    return out
+
+
 def dense_bf16(x: torch.Tensor, w: torch.Tensor,
                b: torch.Tensor | None = None) -> torch.Tensor:
     """flax's ``Dense(dtype=bfloat16)`` for a torch-layout weight ``w``

@@ -81,9 +81,9 @@ float32 ``gate``, ``fc_net_self(net_feat) + neigh_n`` with a float32
 straight back to float32 (excess precision, its default): JAX's padded
 scan and its ``_PairStep`` under ``jax.jit`` keep that sum float32,
 while ``_PairStep`` run op by op rounds it
-(``tests/test_torch_bf16_eval.py``). It is a forward only:
-:class:`ExactWalk`'s backward raises under it. In float32 the two
-roundings are one function.
+(``tests/test_torch_bf16_eval.py``). :class:`ExactWalk`'s backward
+transposes it as XLA compiles ``jax.grad`` of the scan
+(:func:`_mlp_grads`). In float32 the two roundings are one function.
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .bf16 import BF16, dense_bf16, mm_f32
+from .bf16 import BF16, column_sums_bf16, dense_bf16, mm_f32
 from .gather import device_of, gather_rows
 
 _SOFTMAX_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_int64, c_int, c_int,
@@ -544,14 +544,28 @@ def _mlp(p, x: torch.Tensor, w16=None, scan: bool = False) -> torch.Tensor:
     return mm_f32(F.relu(a).to(BF16), w16[1].t()) + p[3]
 
 
-def _mlp_grads(p, x, d_out, need_dx=True, w16=None):
+def _mlp_grads(p, x, d_out, need_dx=True, w16=None, scan=False):
     """Port of ``prtp_tpu/ops/fused_gnn.py::_mlp_grads``: the gradients
     of ``(w0, b0, w1, b1)`` and the input cotangent (None unless
     ``need_dx``) of :func:`_mlp` at ``x`` for the output cotangent
     ``d_out``, the hidden recomputed. JAX's ``kernel`` is ``weight.T``.
     With ``w16`` each of the five products is :func:`mm_f32` of bf16
     operands, as JAX's ``_mm``; the masks and the bias sums stay
-    float32."""
+    float32.
+
+    With ``scan`` (and ``w16``) it transposes ``_mlp(scan=True)`` as XLA
+    compiles ``jax.grad`` of flax's ``MLP(dtype=bfloat16)`` on the CPU
+    (read from the compiled HLO, held by
+    ``tests/test_torch_bf16_scan_grad.py``): the output cotangent
+    rounded to bf16 (the transpose of the float32 promotion); each
+    weight's gradient a float32 product of bf16 operands rounded to
+    bf16; the hidden cotangent rounded, masked by ``a >= 0`` (flax's
+    ``leaky_relu`` passes a hidden exactly 0); the input cotangent the
+    float32 product, not rounded (XLA drops the rounding before its
+    convert back to float32). The two bias gradients are bf16 column
+    sums whose every partial sum rounds (:func:`column_sums_bf16`), so
+    in their place this returns the bf16 cotangents they sum, for the
+    caller to sum in one batch."""
     w0, b0, w1, _b1 = p
     if w16 is None:
         a = F.linear(x, w0, b0)
@@ -560,6 +574,13 @@ def _mlp_grads(p, x, d_out, need_dx=True, w16=None):
                  d_out.sum(0))
         return grads, (d_a @ w0 if need_dx else None)
     x16, d_out16 = x.to(BF16), d_out.to(BF16)
+    if scan:
+        a = mm_f32(x16, w16[0].t()).to(BF16) + b0.to(BF16)
+        d_a16 = torch.where(a >= 0, mm_f32(d_out16, w16[1]).to(BF16),
+                            torch.zeros((), dtype=BF16, device=a.device))
+        grads = (mm_f32(d_a16.t(), x16).to(BF16).float(), d_a16,
+                 mm_f32(d_out16.t(), F.relu(a)).to(BF16).float(), d_out16)
+        return grads, (mm_f32(d_a16, w16[0]) if need_dx else None)
     a = mm_f32(x16, w16[0].t()) + b0
     d_a = mm_f32(d_out16, w16[1]) * (a > 0)
     d_a16 = d_a.to(BF16)
@@ -637,14 +658,23 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
 
 
 def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
-                       dgl_parity: bool = True, w16=None):
+                       dgl_parity: bool = True, w16=None,
+                       rounding: str = "fused"):
     """Port of ``prtp_tpu/ops/fused_gnn.py::_bwd``: the cotangent of h0
     and the parameter gradients (a dict like ``params``) of the walk
     whose final state is ``hf``, for the cotangent ``g`` of ``hf``. With
     ``"fc_attn2"`` in ``params`` the cell half recomputes ``(f, alpha)``
     by :func:`attn_sum` from ``hf``, as JAX does, and :func:`attn_bwd`
     gives the mailbox's cotangent and the pair's share of the score
-    projection's gradient.
+    projection's gradient. With ``w16`` and ``rounding="scan"`` the
+    MLPs' gradients are those of JAX's padded scan (:func:`_mlp_grads`
+    with ``scan``); the reduces' backward stays float32, as the scan's
+    mailbox softmax and ``fc_attn2`` run on the float32 carry. Each
+    pair's bias gradients are then summed once the walk is done, all in
+    one :func:`column_sums_bf16` call, and added pair by pair in the
+    walk's reverse order, as the scan's backward accumulates them; each
+    sums as many rows as the padded scan's level has (``graph.scan_rows``),
+    since the zero rows of the padding move XLA's summation windows.
 
     One ``dh`` carry, a copy of ``g``, is updated in place pair by pair
     in reverse. The intra-pair net->cell-block sum goes straight into
@@ -661,6 +691,7 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     the graph's tables, packed before the walk, ``hf``, final before the
     backward begins, and the parameters; no kernel of the backward writes
     them."""
+    scan = w16 is not None and check_rounding(rounding) == "scan"
     num_rows = graph.num_rows
     dh = g.clone(memory_format=torch.contiguous_format)
     grads = {name: [torch.zeros_like(t) for t in params[name]]
@@ -668,11 +699,21 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     w_attn = params.get("fc_attn2")
     if w_attn is not None:
         grads["fc_attn2"] = torch.zeros_like(w_attn)
+    # scan: per pair, the bias gradients, the bf16 cotangents they sum
+    # and the rows of the padded scan's level that those sums run over
+    bias_acc, bias_cot, bias_rows = [], [], []
 
     def acc(name, dp):  # one multi-tensor launch for the four tensors
-        torch._foreach_add_(grads[name], list(dp))
+        if not scan:
+            torch._foreach_add_(grads[name], list(dp))
+            return
+        torch._foreach_add_(grads[name][0::2], [dp[0], dp[2]])
+        bias_acc[-1] += grads[name][1::2]
+        bias_cot.extend((dp[1], dp[3]))
+        bias_rows.extend([graph.scan_rows[name == "fc_net_self"]] * 2)
 
     for k in reversed(range(graph.num_pairs)):
+        bias_acc.append([])
         cell_mail, net_mail = graph.cell_mail[k], graph.net_mail[k]
         pn_c, md_c = cell_mail.shape
         pn_n, md_n = net_mail.shape
@@ -683,7 +724,8 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                                        num_rows, dgl_parity)
         acc("fc_net_self", _mlp_grads(params["fc_net_self"],
                                       graph.net_feat_lvl[k], d_pre_n,
-                                      False, _w(w16, "fc_net_self"))[0])
+                                      False, _w(w16, "fc_net_self"),
+                                      scan)[0])
         cnt_n = graph.net_cnt[k]
         # ---- intra-pair net -> cell-block contributions ----
         g_c = dh[c0: c0 + pn_c]
@@ -694,7 +736,8 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                                        num_rows, dgl_parity)
         acc("fc_cell_self", _mlp_grads(params["fc_cell_self"],
                                        graph.cell_feat_lvl[k], d_pre_c,
-                                       False, _w(w16, "fc_cell_self"))[0])
+                                       False, _w(w16, "fc_cell_self"),
+                                       scan)[0])
         d_mail_c = None
         if k > 0:
             if w_attn is None:
@@ -703,7 +746,7 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                 f, alpha = attn_sum(hf, cell_mail, num_rows, w_attn,
                                     with_alpha=True)
             dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c,
-                                       True, _w(w16, "fc_cell_neigh"))
+                                       True, _w(w16, "fc_cell_neigh"), scan)
             acc("fc_cell_neigh", dp_neigh)
             if w_attn is None:
                 d_mail_c = softmax_sum_bwd(hf, cell_mail, num_rows, f, d_f)
@@ -721,6 +764,10 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         mailbox_scatter(dh, graph.merged_rows[k], graph.merged_seg_off[k],
                         graph.merged_pos[k], d_mail_c, d_pre_n, cnt_n, md_n,
                         pn_c * md_c)
+    if scan:
+        sums = iter(column_sums_bf16(bias_cot, bias_rows))
+        for targets in bias_acc:
+            torch._foreach_add_(targets, [next(sums) for _ in targets])
     return dh, grads
 
 
@@ -759,9 +806,9 @@ class ExactWalk(torch.autograd.Function):
     bf16 and the ``rounding`` (no gradient), h0, then the twelve
     pair-step tensors in ``MLP_NAMES`` order and, with ``--attn``,
     ``fc_attn2``'s weight. The bf16 weights made for the forward are
-    saved for the backward. The backward is ``_bwd``'s, JAX's fused
-    rounding: in bf16 with ``rounding="scan"`` it raises (ROADMAP Queue
-    3, F2b: JAX's train steps through the padded scan are not ported)."""
+    saved for the backward. The backward is ``_bwd``'s; in bf16 with
+    ``rounding="scan"`` its MLP gradients are those of JAX's padded
+    scan (:func:`exact_gnn_backward`)."""
 
     @staticmethod
     def forward(ctx, graph, dgl_parity, bf16, rounding, h0, *flat):
@@ -769,7 +816,7 @@ class ExactWalk(torch.autograd.Function):
         w16 = bf16_weights(params) if bf16 else None
         hf = exact_gnn_forward(params, h0, graph, dgl_parity, w16, rounding)
         ctx.graph, ctx.dgl_parity, ctx.bf16 = graph, dgl_parity, bf16
-        ctx.scan = bf16 and rounding == "scan"
+        ctx.rounding = rounding
         low = [t for name in MLP_NAMES for t in w16[name]] if bf16 else []
         ctx.save_for_backward(hf, *flat, *low)
         return hf
@@ -777,11 +824,6 @@ class ExactWalk(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        if ctx.scan:
-            raise NotImplementedError(
-                "the walk's backward under the padded scan's bf16 rounding "
-                "(rounding='scan') is not ported (ROADMAP.md Queue 3, F2b); "
-                "train with the fused rounding")
         hf, *flat = ctx.saved_tensors
         w16 = None
         if ctx.bf16:
@@ -789,7 +831,7 @@ class ExactWalk(torch.autograd.Function):
             w16 = {name: tuple(low[2 * i: 2 * i + 2])
                    for i, name in enumerate(MLP_NAMES)}
         dh, grads = exact_gnn_backward(_params_of(flat), hf, g, ctx.graph,
-                                       ctx.dgl_parity, w16)
+                                       ctx.dgl_parity, w16, ctx.rounding)
         dflat = _flat_of(grads)
         need = ctx.needs_input_grad
         return (None, None, None, None, dh if need[4] else None,
@@ -802,6 +844,6 @@ def exact_walk(params, h0: torch.Tensor, graph, dgl_parity: bool = True,
     launches the same kernels, and autograd takes the hand-written
     backward. ``bf16``: the MLPs' products in bf16, rounded as JAX's
     fused walk (``rounding="fused"``: float32 results) or as its padded
-    scan (``"scan"``: a forward only)."""
+    scan (``"scan"``), forward and backward."""
     return ExactWalk.apply(graph, dgl_parity, bf16, check_rounding(rounding),
                            h0, *_flat_of(params))

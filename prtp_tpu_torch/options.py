@@ -5,31 +5,24 @@ so that an experiment script runs unchanged against either package. One
 default differs: ``--compile_cache_dir`` is ``""``, since the port has
 no XLA compile cache.
 
-Flags fall in three groups here:
+Flags fall in two groups here:
 
 - **Accepted no-ops**: flags that only shape XLA's work or
   pick what the port always does. ``--exact_levels`` (the port always
-  packs exact levels; with bf16 it and the validation design count pick
-  validation's rounding, as in JAX: ``train.eval_rounding``),
+  packs exact levels; with bf16 it picks the train steps' rounding, and
+  with the validation design count validation's, as in JAX:
+  ``train.train_rounding``, ``train.eval_rounding``),
   ``--scan_groups``, ``--gnn_unroll``,
   ``--compile_cache_dir``, ``--pallas`` and ``--flat_adam`` (flat Adam is
   the port's only optimizer); and, as in the JAX package, the
   reference's commented-out ``--balanced``, ``--data_info_txt`` and
   ``--data_usage``.
-- **Not ported yet**: :func:`get_options` raises ``NotImplementedError``
-  naming the ROADMAP item that ports the path (``NOT_PORTED``), so a set
-  flag is never ignored quietly.
-- Everything else is honored as the JAX package honors it.
+- Everything else is honored as the JAX package honors it; ``--dp``
+  and ``--mesh_shape`` run the CLIs data-parallel over one process a
+  card (``parallel/``).
 """
 
 import argparse
-
-# (flag, test on the parsed options, ROADMAP Queue 1 item that ports it)
-NOT_PORTED = (
-    ("--dp", lambda o: o.dp, "item 5 (data parallelism)"),
-    ("--mesh_shape", lambda o: o.mesh_shape is not None,
-     "item 5 (data parallelism)"),
-)
 
 
 def get_options(args=None):
@@ -131,17 +124,18 @@ def get_options(args=None):
         "additions", "the JAX package's additions; those that only shape "
         "XLA's work are accepted no-ops here")
     ext.add_argument("--mesh_shape", type=int, nargs="+", default=None,
-                     help="device mesh shape for data-parallel training "
-                          "(not ported yet)")
+                     help="data-parallel mesh shape: --mesh_shape N runs N "
+                          "ranks, one a CUDA card (1-D only). Default: all "
+                          "visible cards")
     ext.add_argument("--dp", action="store_true",
-                     help="data parallelism over the path batch (not "
-                          "ported yet)")
+                     help="data parallelism over the path batch, one "
+                          "process a card (torch.distributed)")
     ext.add_argument("--compute_dtype", type=str, default="float32",
                      choices=["float32", "bfloat16"],
                      help="dtype for GNN/CNN activations")
     ext.add_argument("--merge_designs", action="store_true",
                      help="train on ONE super-graph merging all train "
-                          "designs (not ported yet)")
+                          "designs")
     ext.add_argument("--compile_cache_dir", type=str, default="",
                      help="no-op: the port has no XLA compile cache")
     ext.add_argument("--pallas", action="store_true",
@@ -180,18 +174,7 @@ def get_options(args=None):
                           "(designs are independent; reference is serial)")
 
     options = parser.parse_args(args)
-    check_ported(options)
-    return options
-
-
-def check_ported(options) -> None:
-    """Raise ``NotImplementedError`` for a set flag whose path the port
-    does not have yet, naming the ROADMAP item that ports it."""
     if options.task not in ("reg", "cls"):
         raise ValueError(f"--task {options.task!r}: valid are 'cls' and "
                          "'reg'")
-    for flag, is_set, item in NOT_PORTED:
-        if is_set(options):
-            raise NotImplementedError(
-                f"{flag} is not ported to prtp_tpu_torch yet (ROADMAP.md "
-                f"Queue 1, {item}); use the JAX package prtp_tpu for it")
+    return options

@@ -19,7 +19,10 @@ checkpoint, evaluates every design of the test list over all of its
 paths and, for regression, saves a relative-error vs level scatter plot
 per design to ``visual/{case}.png`` (``:244-249``) and the
 predicted-critical path ids to ``predict_critical/{design}.json``; it
-appends the overall metric row to ``predict.txt`` (``:315-317``).
+appends the overall metric row to ``predict.txt`` (``:315-317``). With
+``--dp`` / ``--mesh_shape N`` each design's paths, rounded up to a
+multiple of the N ranks, are evaluated data-parallel
+(``parallel.dp.dp_evaluate``) and only rank 0 writes those files.
 
 Usage:
     python -m prtp_tpu_torch.test --data_save_path ... --model_saving_dir ...
@@ -40,10 +43,14 @@ from .data.dataset import get_design_list, load_design_npz
 from .graph import pack_design
 from .models.fusion import model_from_options
 from .options import get_options
+from .parallel import (is_main_process, maybe_initialize, requested_ranks,
+                       run_ranks)
+from .parallel.dp import dp_evaluate
 from .trainer import (init_state, make_optimizer, pad_batch,
                       task_loss_and_metrics)
 from .utils import checkpoint as ckpt
 from .utils import metrics as M
+from .utils.tee import main_process_stdout
 
 __all__ = ["evaluate", "evaluate_design", "load_model_state", "main",
            "pad_batch", "test"]
@@ -62,12 +69,14 @@ def evaluate(model, design, path_ids, mask, task: str = "reg",
 
 
 def evaluate_design(model, parsed, device="cuda", case_idx: int = 0,
-                    task: str = "reg", rounding: str = "scan"):
+                    task: str = "reg", rounding: str = "scan", mesh=None):
     """Pack ``parsed`` on ``device``, evaluate all of its paths and print
     the JAX driver's case lines, after the per-level lines for
     ``task="reg"``. A bf16 model's walk rounds as ``rounding`` says; the
     default is the test CLI's, JAX's padded scan (``"scan"``), which
-    JAX's test CLI always evaluates through.
+    JAX's test CLI always evaluates through. With ``mesh``
+    (``parallel.Mesh``) the paths, padded to a multiple of its ranks, are
+    evaluated data-parallel, and every rank gets all predictions.
 
     Returns ``(preds, metrics)``: numpy predictions of every path, and
     host floats (``loss, r2, tp, fp, tn, fn, acc, recall, precision,
@@ -79,8 +88,15 @@ def evaluate_design(model, parsed, device="cuda", case_idx: int = 0,
     pack_s = time.perf_counter() - t0
     num_paths = int(parsed["num_paths"])
     start = time.perf_counter()
-    pids, mask = pad_batch(np.arange(num_paths), design.num_paths, dev)
-    preds_t, mets_t = evaluate(model, design, pids, mask, task, rounding)
+    cap = design.num_paths
+    if mesh is not None:
+        cap = -(-cap // mesh.size) * mesh.size
+    pids, mask = pad_batch(np.arange(num_paths), cap, dev)
+    if mesh is None:
+        preds_t, mets_t = evaluate(model, design, pids, mask, task, rounding)
+    else:
+        preds_t, mets_t = dp_evaluate(model, design, pids, mask, mesh, task,
+                                      rounding)
     preds = preds_t.cpu().numpy()[:num_paths]
     mets = {k: float(v) for k, v in mets_t.items()}
     runtime = time.perf_counter() - start
@@ -144,8 +160,9 @@ def _feat_adjusted(parsed, options):
     return parsed
 
 
-def test(options, designs, device="cuda"):
-    """Evaluate all paths of each design (reference test(), :124-318).
+def test(options, designs, device="cuda", mesh=None):
+    """Evaluate all paths of each design (reference test(), :124-318),
+    data-parallel over ``mesh``'s ranks if given (only rank 0 writes).
 
     Returns ``(res, overall_f1, overall_r2, preds)``: ``res`` one metric
     row ``[loss, r2, acc, recall, precision, f1]`` per design, ``preds``
@@ -165,9 +182,9 @@ def test(options, designs, device="cuda"):
     for case_idx, (design, parsed) in enumerate(zip(designs, parsed_all)):
         # prints the per-level diagnostics (reg) and the case lines
         preds, mets = evaluate_design(model, parsed, dev, case_idx,
-                                      options.task)
+                                      options.task, mesh=mesh)
         preds_by_design[design] = preds
-        if options.task == "reg":
+        if options.task == "reg" and is_main_process():
             levels = parsed["path2level"]
             arrival = parsed["arrival_time"][parsed["path_endpoint"]]
             _plot_relative_error(options, case_idx, levels, preds, arrival)
@@ -194,10 +211,11 @@ def test(options, designs, device="cuda"):
     print(f"\tloss:{overall['loss']:.3f}, r2:{overall['r2']:.3f}, "
           f"acc:{overall['acc']:.3f}, recall:{overall['recall']:.3f}, "
           f"F1 score:{overall['f1']:.3f}")
-    with open(res_save_path, "a") as f:
-        f.write("{:.3f} {:.3f} {:.3f} {:.3f} {:.3f} {:.3f}\n".format(
-            overall["loss"], overall["r2"], overall["acc"],
-            overall["recall"], overall["precision"], overall["f1"]))
+    if is_main_process():
+        with open(res_save_path, "a") as f:
+            f.write("{:.3f} {:.3f} {:.3f} {:.3f} {:.3f} {:.3f}\n".format(
+                overall["loss"], overall["r2"], overall["acc"],
+                overall["recall"], overall["precision"], overall["f1"]))
     return res, overall["f1"], overall["r2"], preds_by_design
 
 
@@ -219,18 +237,38 @@ def _plot_relative_error(options, case_idx, levels, preds, arrival):
     plt.close()
 
 
-def main(argv=None, device="cuda"):
+def _run(options, mesh, dev):
+    """One process's evaluation CLI on ``dev``, in float32; only rank 0
+    prints."""
+    from .train import use_float32
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    use_float32()
+    designs = get_design_list(options.data_save_path, "test")
+    with main_process_stdout():
+        return test(options, designs, dev, mesh)
+
+
+def main(argv=None, device="cuda", backend=None):
     """The evaluation CLI, in float32 (TF32 off for the process); returns
-    :func:`test`'s result."""
-    from .train import select_device, use_float32
+    :func:`test`'s result, or None where it started its data-parallel
+    ranks (``--dp`` / ``--mesh_shape``, as the train CLI does) as
+    processes of their own."""
+    from .train import select_device
 
     options = get_options(argv)
-    dev = select_device(options, device)
-    use_float32()
+    resolve_device(device)
+    maybe_initialize(device, backend)
     options.cell_feat_dim -= options.feat_reduce[0]
     options.net_feat_dim -= options.feat_reduce[1]
-    designs = get_design_list(options.data_save_path, "test")
-    return test(options, designs, dev)
+    world = requested_ranks(options, device)
+    if world is None:
+        return _run(options, None, select_device(options, device))
+    if options.gpu:
+        raise SystemExit(f"--gpu {options.gpu} with --dp: each data-parallel"
+                         " rank drives its own card (rank r on cuda:r)")
+    return run_ranks(_run, options, device, backend)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,15 @@ save-on-best-validation checkpoint), the same printed lines, letter for
 letter; on :mod:`prtp_tpu_torch.trainer`'s eager train step. A chunk of
 ``--steps_per_dispatch`` batches is one ``trainer.train_steps`` call
 whose metrics are read once. What only XLA needed (bucket shapes, scan
-groups, the abstract init) is gone; the mesh branch is not ported yet
-(``options.py`` raises for its flags). With ``--merge_designs`` the
+groups, the abstract init) is gone. With ``--dp`` / ``--mesh_shape N``
+the steps are data-parallel (``parallel/dp.py``): the batch size is
+rounded up to a multiple of the ranks, every rank draws the same
+shuffled batches and takes its block, validation runs on every rank's
+replicated state, and only rank 0 writes the log, the config, the seed
+file and the checkpoints. Without a process group the CLI starts the
+ranks itself (``parallel.run_ranks``: rank r on ``cuda:r``); under
+torchrun or ``PRTP_COORDINATOR`` (``parallel.maybe_initialize``) it
+joins the group. With ``--merge_designs`` the
 train designs form one super-graph (``graph.merge_parsed_designs``),
 trained on grouped ``(K, batch)`` batches as the unit
 ``"+".join(train_designs)``; validation stays per design.
@@ -33,12 +40,17 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import resolve_device
-from .data.dataset import get_design_list, load_single_design
-from .graph import merge_parsed_designs, pack_design
+from .data.dataset import (get_design_list, load_design_shapes,
+                           load_single_design)
+from .graph import merge_parsed_designs, pack_design, scan_level_rows
 from .models.fusion import model_from_options
 from .options import get_options
+from .parallel import is_main_process, maybe_initialize, requested_ranks
+from .parallel import run_ranks
+from .parallel.dp import broadcast_state, dp_train_steps
 from .test import evaluate
 from .trainer import (DesignCache, batch_count, init_state, iterate_batches,
                       iterate_grouped_batches, make_optimizer, pad_batch,
@@ -82,6 +94,16 @@ def eval_rounding(options, val_designs) -> str:
     if options.exact_levels and len(val_designs) <= 1:
         return "fused"
     return "scan"
+
+
+def train_rounding(options) -> str:
+    """The bf16 rounding of the train steps' walk, by JAX's rule
+    (``prtp_tpu/train.py:154-171``): its fused exact walk (``"fused"``)
+    only under ``--exact_levels``; otherwise JAX packs for its padded scan
+    (or, with ``--scan_groups``, its grouped scan), whose pair-step MLPs
+    round, forward and backward, as flax's ``MLP(dtype=bfloat16)``
+    compiled (``"scan"``). In float32 the two are one function."""
+    return "fused" if options.exact_levels else "scan"
 
 
 def validate(options, val_designs, cache_val, model, device):
@@ -128,7 +150,9 @@ def validate(options, val_designs, cache_val, model, device):
     return res, overall["f1"], overall["r2"]
 
 
-def train(options, seed, device="cuda"):
+def train(options, seed, device="cuda", mesh=None):
+    """The train loop; ``mesh`` (``parallel.Mesh``) makes its steps
+    data-parallel over the ranks of a process group."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     print(options.data_save_path)
@@ -137,6 +161,13 @@ def train(options, seed, device="cuda"):
     # config.json records them, the model takes its widths from the data
     options.cell_feat_dim -= options.feat_reduce[0]
     options.net_feat_dim -= options.feat_reduce[1]
+
+    if mesh is not None:
+        # every padded batch is exactly --batch_size long; round it up to
+        # a multiple of the ranks (pad rows carry zero loss weight)
+        options.batch_size = -(-options.batch_size // mesh.size) * mesh.size
+        print(f"--- data-parallel mesh: {mesh.size} x {dev.type} devices, "
+              f"batch_size {options.batch_size}")
 
     train_designs = get_design_list(options.data_save_path, "train")
     val_designs = get_design_list(options.data_save_path, "test")
@@ -147,10 +178,20 @@ def train(options, seed, device="cuda"):
     # train CLI packs them (its test CLI packs float32 and casts)
     pack_dtype = (torch.bfloat16 if options.compute_dtype == "bfloat16"
                   else torch.float32)
+    rounding = train_rounding(options)
+    # JAX pads every design's levels to one bucket for its padded scan
+    # (prtp_tpu/train.py:162-176); the scan rounding's bf16 bias
+    # gradients sum the padded rows (graph.scan_level_rows)
+    scan_rows = None
+    if rounding == "scan" and not options.merge_designs:
+        scan_rows = scan_level_rows(
+            [load_design_shapes(os.path.join(options.data_save_path,
+                                             f"{d}.npz"))
+             for d in sorted(set(train_designs) | set(val_designs))])
 
-    def packer(parsed):
+    def packer(parsed, scan_rows=scan_rows):
         return pack_design(parsed, map_size=options.map_size, device=dev,
-                           compute_dtype=pack_dtype)
+                           compute_dtype=pack_dtype, scan_rows=scan_rows)
 
     cache_tr = DesignCache(packer)
     cache_val = DesignCache(packer)
@@ -161,7 +202,7 @@ def train(options, seed, device="cuda"):
             # the parameters do not depend on the designs
             first = merge_parsed_designs(
                 [_load("train", options, d) for d in train_designs])
-            merged_pack = packer(first)
+            merged_pack = packer(first, None)
             design_units = ["+".join(train_designs)]
         else:
             _pack, first = cache_tr.get(
@@ -173,7 +214,10 @@ def train(options, seed, device="cuda"):
                                    first["cnn_input"].shape[-3])
 
         config = {k: v for k, v in vars(options).items()}
-        if ckpt.checkpoint_exists(options.model_saving_dir):
+        resume = ckpt.checkpoint_exists(options.model_saving_dir)
+        if mesh is not None:  # every rank looks before rank 0 writes
+            dist.barrier(group=mesh.group)
+        if resume:
             saved_cfg = ckpt.load_config(options.model_saving_dir)
             # resume-with-overrides (reference src/train.py:123-126)
             if not options.change_lr and "learning_rate" in saved_cfg:
@@ -191,10 +235,13 @@ def train(options, seed, device="cuda"):
             os.makedirs(options.model_saving_dir, exist_ok=True)
             ckpt.save_checkpoint(options.model_saving_dir, state, config)
             print("creating model in:", options.model_saving_dir)
+        if mesh is not None:
+            broadcast_state(state, mesh)
 
-        with open(os.path.join(options.model_saving_dir, "seed.txt"),
-                  "a") as f:
-            f.write(str(seed))
+        if is_main_process():
+            with open(os.path.join(options.model_saving_dir, "seed.txt"),
+                      "a") as f:
+                f.write(str(seed))
 
         print("Hyperparameters are listed as follows:")
         print(options)
@@ -250,7 +297,10 @@ def train(options, seed, device="cuda"):
                                    max(options.max_steps - total_steps, 1))
                     chunk = batches[bidx: bidx + take]
                     losses, r2s, tps, fps, tns, fns = _read(
-                        train_steps(state, pack, chunk, options.task))
+                        train_steps(state, pack, chunk, options.task,
+                                    rounding) if mesh is None else
+                        dp_train_steps(state, pack, chunk, mesh,
+                                       options.task, rounding))
                     for j in range(len(chunk)):
                         _acc, recall, _prec, f1 = M.classification_metrics(
                             tps[j], fps[j], tns[j], fns[j])
@@ -316,9 +366,9 @@ def use_float32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _profiled_train(options, seed, dev):
+def _profiled_train(options, seed, dev, mesh=None):
     """``train`` under torch.profiler; the trace goes to
-    ``<profile_dir>/trace.json``."""
+    ``<profile_dir>/trace.json`` (rank 0's under ``--dp``)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -326,24 +376,23 @@ def _profiled_train(options, seed, dev):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(options.profile_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        state = train(options, seed, dev)
-    prof.export_chrome_trace(os.path.join(options.profile_dir, "trace.json"))
+        state = train(options, seed, dev, mesh)
+    if is_main_process():
+        prof.export_chrome_trace(os.path.join(options.profile_dir,
+                                              "trace.json"))
     return state
 
 
-def main(argv=None, device="cuda"):
-    """The train CLI. Returns the final
-    :class:`~prtp_tpu_torch.trainer.TrainState`."""
-    options = get_options(argv)
-    dev = select_device(options, device)
+def _run(options, mesh, dev):
+    """One process's train CLI on ``dev``: float32, the seeds, the
+    logs (rank 0's), the loop."""
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     use_float32()
     seed = options.seed
     random.seed(seed)
     np.random.seed(seed)
     os.makedirs(options.model_saving_dir, exist_ok=True)
-    if options.preprocess:
-        from .data import generate
-        generate.main(argv)
     stdout_f = os.path.join(options.model_saving_dir, "stdout.log")
     stderr_f = os.path.join(options.model_saving_dir, "stderr.log")
     # analogue of th.autograd.set_detect_anomaly(True) (src/train.py:452);
@@ -351,8 +400,35 @@ def main(argv=None, device="cuda"):
     with StdoutTee(stdout_f), StderrTee(stderr_f), \
             torch.autograd.set_detect_anomaly(options.debug_nans):
         if options.profile_dir:
-            return _profiled_train(options, seed, dev)
-        return train(options, seed, dev)
+            return _profiled_train(options, seed, dev, mesh)
+        return train(options, seed, dev, mesh)
+
+
+def main(argv=None, device="cuda", backend=None):
+    """The train CLI. Returns the final
+    :class:`~prtp_tpu_torch.trainer.TrainState`, or None where it
+    started its data-parallel ranks as processes of their own.
+
+    ``--dp`` / ``--mesh_shape N`` train on N ranks
+    (``parallel.run_ranks``; ``backend`` picks the process group's,
+    NCCL for CUDA and gloo for the CPU by default); ``--gpu`` is refused
+    with them, since rank r drives card r."""
+    options = get_options(argv)
+    resolve_device(device)
+    maybe_initialize(device, backend)
+    world = requested_ranks(options, device)
+    if world is not None and options.gpu:
+        raise SystemExit(f"--gpu {options.gpu} with --dp: each data-parallel"
+                         " rank drives its own card (rank r on cuda:r)")
+    if options.preprocess:
+        if is_main_process():
+            from .data import generate
+            generate.main(argv)
+        if dist.is_initialized():
+            dist.barrier()
+    if world is None:
+        return _run(options, None, select_device(options, device))
+    return run_ranks(_run, options, device, backend)
 
 
 if __name__ == "__main__":

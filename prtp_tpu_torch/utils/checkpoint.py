@@ -25,6 +25,8 @@ import os
 
 import torch
 
+from ..parallel.distributed import is_main_process
+
 CKPT_NAME = "model.pt"
 CONFIG_NAME = "config.json"
 JAX_CKPT_NAME = "model.msgpack"
@@ -32,7 +34,12 @@ JAX_CKPT_NAME = "model.msgpack"
 
 def save_checkpoint(save_dir: str, state, config: dict) -> str:
     """Write ``state`` (a :class:`~prtp_tpu_torch.trainer.TrainState`)
-    and ``config``; returns the path of ``model.pt``."""
+    and ``config``; returns the path of ``model.pt``. Under data
+    parallelism only rank 0 writes (the ranks' states are replicas); the
+    others return the path and write nothing."""
+    path = os.path.join(save_dir, CKPT_NAME)
+    if not is_main_process():
+        return path
     os.makedirs(save_dir, exist_ok=True)
     blob = {
         "model": state.model.state_dict(),
@@ -41,7 +48,6 @@ def save_checkpoint(save_dir: str, state, config: dict) -> str:
         "best_f1": float(state.best_f1),
         "best_r2": float(state.best_r2),
     }
-    path = os.path.join(save_dir, CKPT_NAME)
     tmp = path + ".tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)

@@ -46,20 +46,26 @@ def mse_loss(pred, target, mask=None):
     return (((pred - target) ** 2) * mask).sum() / n
 
 
-def cross_entropy_loss(logits, labels, mask=None):
-    """Masked softmax cross-entropy (the reference's cls loss): the mean
-    over valid entries of the negative max-shifted log-softmax at the
-    label. ``take_along_dim`` broadcasts as JAX's ``take_along_axis``
-    does, so a 1-label head runs here where it runs there."""
+def nll(logits, labels):
+    """Per entry, the negative max-shifted log-softmax at the label (the
+    reference's cls loss before its mean). ``take_along_dim`` broadcasts
+    as JAX's ``take_along_axis`` does, so a 1-label head runs here where
+    it runs there."""
     logits = logits.reshape(-1, logits.shape[-1])
     top = logits.amax(dim=-1, keepdim=True)
     logp = (logits - torch.log(torch.exp(logits - top).sum(-1, keepdim=True))
             - top)
-    nll = -torch.take_along_dim(logp, labels.reshape(-1, 1).long(),
-                                dim=-1).reshape(-1)
-    mask = _flat_mask(nll, mask)
+    return -torch.take_along_dim(logp, labels.reshape(-1, 1).long(),
+                                 dim=-1).reshape(-1)
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Masked softmax cross-entropy (the reference's cls loss): the mean
+    of :func:`nll` over valid entries."""
+    per = nll(logits, labels)
+    mask = _flat_mask(per, mask)
     n = mask.sum().clamp_min(1.0)
-    return (nll * mask).sum() / n
+    return (per * mask).sum() / n
 
 
 def judge_critical(pred_arrival, required):

@@ -23,7 +23,8 @@ walk computes either (``ops/fused_gnn.py``):
   ``_PairStep`` walk and padded-scan ``PathModel``: the port's mean
   distance at most ``REL_GAP`` x the distance between JAX's own two
   bf16 paths (padded scan and fused exact walk) on the same inputs;
-- the walk's backward refuses this rounding (ROADMAP Queue 3, F2b);
+- the walk's backward runs in this rounding (its gradients against
+  JAX's: ``tests/test_torch_bf16_scan_grad.py``);
 - the train CLI picks the rounding by JAX's rule.
 """
 
@@ -251,19 +252,23 @@ def test_model_scan_rounding_matches_jax_padded_scan(name):
 
 
 def test_walk_backward_refuses_flax_rounding():
-    """A bf16 walk with ``rounding="scan"`` has no backward (F2b); in
-    float32 both roundings are one function, and its backward runs."""
+    """A bf16 walk with ``rounding="scan"`` has a backward, whose MLP
+    gradients differ from the fused rounding's; in float32 both roundings
+    are one function, gradients included. A rounding that names neither
+    is refused."""
     parsed = _wide_parsed()
     design = pack_design(parsed, map_size=16, device="cpu")
     for dtype in ("bfloat16", None):
-        model = PathModel(10, 3, compute_dtype=dtype, **MODEL_KW)
-        out = model(design, torch.arange(design.num_paths), rounding="scan")
-        if dtype:
-            with pytest.raises(NotImplementedError, match="F2b"):
-                out.sum().backward()
-        else:
+        grads = {}
+        for rounding in ("scan", "fused"):
+            model = PathModel(10, 3, compute_dtype=dtype, **MODEL_KW)
+            out = model(design, torch.arange(design.num_paths),
+                        rounding=rounding)
             out.sum().backward()
-            assert model.gnn.fc_cell_self.fc0.weight.grad is not None
+            grads[rounding] = model.gnn.fc_cell_self.fc0.weight.grad
+            assert torch.isfinite(grads[rounding]).all()
+        same = torch.equal(grads["scan"], grads["fused"])
+        assert same == (dtype is None), dtype
     with pytest.raises(ValueError, match="rounding"):
         check_rounding("bf16")
 

@@ -45,17 +45,6 @@ def test_options_match_jax_keys_and_defaults():
     assert port["compile_cache_dir"] == ""
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--dp"], "item 5"), (["--mesh_shape", "2"], "item 5")])
-def test_not_ported_flags_raise(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
-        get_options(flags)
-    with pytest.raises(NotImplementedError):
-        train_mod.main(flags + ["--model_saving_dir", str(tmp_path)],
-                       device="cpu")
-    assert not os.listdir(tmp_path)
-
-
 def test_unknown_compute_dtype_is_refused(tmp_path):
     """``--compute_dtype`` takes float32 or bfloat16, as in the JAX
     package: another value stops at the parser, before anything runs."""

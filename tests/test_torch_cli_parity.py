@@ -6,8 +6,9 @@ values and both test CLIs the same ``predict.txt`` row and
 ``predict_critical`` lists: with the default flags, for the
 classification task, with the U-Net (on a 3-channel corpus whose raster
 side is 2 x ``--map_size``), with ``--attn --num_heads 2``, with a set
-of non-default flags, with ``--compute_dtype bfloat16`` and with
-``--merge_designs``.
+of non-default flags, with ``--compute_dtype bfloat16`` (with
+``--exact_levels``, and with JAX's default flags, under which its train
+steps take its padded scan) and with ``--merge_designs``.
 
 Run as a script, the module measures how far the two packages' CLIs lie
 apart on any flag set (:func:`main`):
@@ -63,6 +64,9 @@ CLI_FLAGS = {
     # the port's; JAX's validations (two designs) and test CLI still
     # evaluate through its padded scan, and so does the port's
     "bf16": (["--compute_dtype", "bfloat16", "--exact_levels"], "corpus"),
+    # JAX's default flags: its train steps, validations and test CLI all
+    # take its padded scan, and the port's the scan's rounding
+    "bf16_default": (["--compute_dtype", "bfloat16"], "corpus"),
     "merged": (["--merge_designs"], "corpus"),
 }
 BIG_KW = dict(num_paths=8, stages=4, grps=2)
@@ -76,6 +80,7 @@ RTOL, ATOL = 1e-4, 2e-3
 # the test row 1.7e-3 apart (needing rtol 1.73e-3 beside ATOL); 3.8e-2 in
 # validation while the port evaluated through the fused walk's rounding
 BF16_EVAL_RTOL = 5e-3
+BF16_RUNS = ("bf16", "bf16_default")
 _NUMBER = re.compile(r"-?(?:\d+\.\d+(?:e[+-]?\d+)?|inf|nan)")
 
 
@@ -193,7 +198,7 @@ def test_train_cli_prints_jax_values(cli_runs):
     assert sum(s.startswith("e0,") for s, _ in want) == 3
     assert sum(s == "validate:" for s, _ in want) >= 2
     for (line, a), (_s, b) in zip(got, want):
-        rtol = (BF16_EVAL_RTOL if run == "bf16" and not line.startswith("e")
+        rtol = (BF16_EVAL_RTOL if run in BF16_RUNS and not line.startswith("e")
                 else RTOL)
         np.testing.assert_allclose(a, b, rtol=rtol, atol=ATOL, err_msg=line)
 
@@ -216,7 +221,8 @@ def test_test_cli_writes_jax_predictions(cli_runs):
             rows[name] = [float(x) for x in f.read().split()]
     assert len(rows["jax"]) == 6
     np.testing.assert_allclose(rows["port"], rows["jax"], atol=ATOL,
-                               rtol=BF16_EVAL_RTOL if run == "bf16" else RTOL)
+                               rtol=BF16_EVAL_RTOL if run in BF16_RUNS
+                               else RTOL)
     if run == "cls":  # no regression outputs, in either package
         assert rows["jax"][1] == rows["port"][1] == 0.0
         for mdl in dirs.values():
@@ -234,16 +240,10 @@ def test_test_cli_writes_jax_predictions(cli_runs):
         assert lists[0] == lists[1], name
 
 
-def run_clis(data, flags, dirs):
-    """JAX's init_state saved by JAX, converted (running averages too)
-    and saved by the port; then both train CLIs resume on ONE data
-    directory (the first writes the validation split files, the second
-    reads them) and both test CLIs evaluate. ``dirs`` maps ``"jax"`` and
-    ``"port"`` to a model directory each."""
-    args = (["--data_save_path", data, "--num_epoch", "1", "--max_steps",
-             "3", "--val_interval", "2", "--steps_per_dispatch", "1"]
-            + MAP_ARGS + flags)
-
+def save_initial_states(data, args, dirs):
+    """JAX's ``init_state`` for the train CLI arguments ``args`` saved by
+    JAX in ``dirs["jax"]``, converted (running averages too) and saved by
+    the port in every other directory of ``dirs``."""
     jopts = jax_get_options(args + ["--model_saving_dir", dirs["jax"]])
     jopts.cell_feat_dim -= jopts.feat_reduce[0]
     jopts.net_feat_dim -= jopts.feat_reduce[1]
@@ -256,18 +256,32 @@ def run_clis(data, flags, dirs):
         jax.random.PRNGKey(jopts.seed))
     jax_ckpt.save_checkpoint(dirs["jax"], jstate, dict(vars(jopts)))
 
-    popts = get_options(args + ["--model_saving_dir", dirs["port"]])
-    popts.cell_feat_dim -= popts.feat_reduce[0]
-    popts.net_feat_dim -= popts.feat_reduce[1]
-    model = model_from_options(popts, parsed["cell_feat"].shape[1],
-                               parsed["net_feat"].shape[1],
-                               parsed["cnn_input"].shape[0])
     to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
-    model.load_state_dict(params_from_flax(to_np(jstate.params),
-                                           to_np(jstate.batch_stats)))
-    state = init_state(model, make_optimizer(popts.learning_rate), "cpu")
-    ckpt.save_checkpoint(dirs["port"], state, dict(vars(popts)))
+    for name, mdl in dirs.items():
+        if name == "jax":
+            continue
+        popts = get_options(args + ["--model_saving_dir", mdl])
+        popts.cell_feat_dim -= popts.feat_reduce[0]
+        popts.net_feat_dim -= popts.feat_reduce[1]
+        model = model_from_options(popts, parsed["cell_feat"].shape[1],
+                                   parsed["net_feat"].shape[1],
+                                   parsed["cnn_input"].shape[0])
+        model.load_state_dict(params_from_flax(to_np(jstate.params),
+                                               to_np(jstate.batch_stats)))
+        state = init_state(model, make_optimizer(popts.learning_rate), "cpu")
+        ckpt.save_checkpoint(mdl, state, dict(vars(popts)))
 
+
+def run_clis(data, flags, dirs):
+    """JAX's init_state saved by JAX, converted (running averages too)
+    and saved by the port (:func:`save_initial_states`); then both train
+    CLIs resume on ONE data directory (the first writes the validation
+    split files, the second reads them) and both test CLIs evaluate.
+    ``dirs`` maps ``"jax"`` and ``"port"`` to a model directory each."""
+    args = (["--data_save_path", data, "--num_epoch", "1", "--max_steps",
+             "3", "--val_interval", "2", "--steps_per_dispatch", "1"]
+            + MAP_ARGS + flags)
+    save_initial_states(data, args, dirs)
     jax_train.main(args + ["--model_saving_dir", dirs["jax"]])
     train_mod.main(args + ["--model_saving_dir", dirs["port"]], device="cpu")
     test_args = ["--data_save_path", data] + MAP_ARGS + flags
