@@ -179,6 +179,22 @@ Phases, each failing loudly (nonzero exit) on any error:
    corpus against the same runs without it (each printed number within
    a unit of its last digit plus rtol 1e-5). One card shows no speed-up
    over cards, and none is claimed.
+11. The segment reduce (``gnn_reduce="segment"``, :func:`segment_phase`)
+   and the 2-D ``(dp, gp)`` edge-sharded step, at full width on the
+   headline, float32, TF32 off: (a) its three kernels
+   (``segment_softmax_sum``, ``segment_mean``, ``segment_softmax_sum_bwd``)
+   and its backward's ``mailbox_scatter`` calls against their plain
+   versions at every level's shapes, timed (median of 10 cold-L2 calls)
+   beside their bytes bound, one-slot floor, plain version and library
+   call (``embedding_bag``, ``index_add_``); (b) the segment reg model:
+   3 requests card against CPU and against the card's mailbox model on
+   the same weights, 3 steps card against CPU by phase 6's bounds, the
+   first step against the mailbox model's, its step timed beside the
+   mailbox step; (c)
+   ``graph_sharded_train_step``: a (1, 1) mesh over NCCL against
+   ``train_step`` (1e-6), and two processes sharing ``cuda:0`` over gloo
+   at (1, 2) against it (1e-5; checksums equal, a destination slot split
+   across the blocks), the step and its gp all-reduces timed.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -261,6 +277,9 @@ MERGED_STEPS = 3
 DP_STEPS, DP_RANKS = 3, 2
 DP_TOL, DP_TOL_2 = 1e-6, 1e-5
 DP_CLI_RTOL = 1e-5  # (c): the --dp CLIs' printed values against without
+# phase 11: the segment reduce's train steps a run, and the ranks of its
+# (1, GP_RANKS) edge-sharded mesh on one card
+SEG_STEPS, GP_RANKS = 3, 2
 HAZARD_REPS = 20  # phase 3: launches right after a writer of the inputs
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
 # phase 3's fixtures, not kernels of the port: for the hazard check a
@@ -329,7 +348,18 @@ KERNEL_INFO = {
                  "prtp_tpu/ops/fused_gnn.py:90", "headline"),
     "attn_bwd": ("prtp_tpu_torch/csrc/attn_bwd.cu",
                  "prtp_tpu/ops/fused_gnn.py:111", "headline"),
+    "segment_softmax_sum": ("prtp_tpu_torch/csrc/segment_softmax_sum.cu",
+                            "prtp_tpu/ops/segment.py:51", "headline"),
+    "segment_mean": ("prtp_tpu_torch/csrc/segment_mean.cu",
+                     "prtp_tpu/ops/segment.py:29", "headline"),
+    "segment_softmax_sum_bwd": (
+        "prtp_tpu_torch/csrc/segment_softmax_sum_bwd.cu",
+        "prtp_tpu/models/gnn.py:185", "headline"),
 }
+# the segment walk's own kernels (phase 11); its backward's scatter is
+# the mailbox walk's mailbox_scatter
+SEGMENT_KERNELS = ("segment_softmax_sum", "segment_mean",
+                   "segment_softmax_sum_bwd")
 # the kernels' names as torch.profiler shows them, where not <name>_kernel
 KERNEL_SYMBOLS = {"attn_bwd": ("attn_bwd_rows_kernel",
                                "attn_dw_reduce_kernel")}
@@ -481,10 +511,11 @@ def launches_per_step(graph, attn=False) -> dict:
 
 
 def may_idle(name, attn=False) -> bool:
-    """Whether a run may launch kernel ``name`` 0 times: the prior-row
-    gather (designs without prior rows), and the other variant's cell
-    kernels."""
-    return name == "gather_rows" or name in CELL_REDUCE[not attn]
+    """Whether a run of the mailbox walk may launch kernel ``name`` 0
+    times: the prior-row gather (designs without prior rows), the other
+    variant's cell kernels, and the segment walk's kernels (phase 11)."""
+    return (name == "gather_rows" or name in CELL_REDUCE[not attn]
+            or name in SEGMENT_KERNELS)
 
 
 def scatter_bytes(torch, rows, pos, n_cell, md_n, has_cell, row_b):
@@ -2264,8 +2295,11 @@ def log_port_kernels(by_name, what):
     """Every kernel of the port by name, summed over its instantiations."""
     for name in KERNEL_INFO:
         symbols = KERNEL_SYMBOLS.get(name, (f"{name}_kernel",))
+        # a whole symbol: softmax_sum_kernel is inside
+        # segment_softmax_sum_kernel
         hits = [v for k, v in by_name.items()
-                if any(sym in k for sym in symbols)]
+                if any(re.search(rf"(?<!\w){sym}(?!\w)", k)
+                       for sym in symbols)]
         tot = sum(t for t, _ in hits)
         cnt = sum(c for _, c in hits)
         log(f"    {what}: {name}: {tot / 1e3:.4f} ms x{cnt}")
@@ -3611,6 +3645,557 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
     return launches
 
 
+def launches_per_forward_segment(graph) -> dict:
+    """Each kernel's launches in one segment walk of ``graph``: the cell
+    reduce for pairs k > 0, the net reduce for every pair."""
+    return {"segment_softmax_sum": graph.num_pairs - 1,
+            "segment_mean": graph.num_pairs}
+
+
+def launches_per_step_segment(graph, sharded=False) -> dict:
+    """Each kernel's launches in one train step of the segment walk on
+    ``graph``: the forward's, the cell cotangent for pairs k > 0, a
+    ``mailbox_scatter`` for each level with edges (two under the
+    edge-sharded step: into the compact buffer, then into dh) and one
+    flat Adam update."""
+    p = graph.num_pairs
+    scatters = sum((graph.net_src_rows[k].numel() > 0)
+                   + (k > 0 and graph.cell_src_rows[k].numel() > 0)
+                   for k in range(p))
+    return {**launches_per_forward_segment(graph),
+            "segment_softmax_sum_bwd": p - 1,
+            "mailbox_scatter": scatters * (2 if sharded else 1),
+            "flat_adam": 1}
+
+
+def walk_allreduces(graph) -> list:
+    """The shapes of the edge-sharded walk's all-reduces over gp in one
+    train step, in order: per pair the cell reduce's max and [den |
+    numer] (k > 0) and the net sums; in the backward each level's compact
+    source-row cotangents. ``(op, rows, width)``."""
+    out = []
+    for k in range(graph.num_pairs):
+        pn_c, pn_n = (graph.cell_feat_lvl[k].shape[0],
+                      graph.net_feat_lvl[k].shape[0])
+        if k > 0:
+            out += [("max", pn_c, D), ("sum", pn_c, 2 * D)]
+        out.append(("sum", pn_n, D))
+    for k in reversed(range(graph.num_pairs)):
+        for half in ("net", "cell"):
+            u = getattr(graph, f"{half}_src_rows")[k].numel()
+            if u and (half == "net" or k > 0):
+                out.append(("sum", u, D))
+    return out
+
+
+def time_allreduces(torch, dist, shapes, dev, group, reps):
+    """Host time (ms, median of ``reps``) of the step's all-reduces
+    ``shapes`` (:func:`walk_allreduces`) in sequence, on fresh buffers."""
+    bufs = [(op, torch.ones((r, w), device=dev)) for op, r, w in shapes]
+
+    def run():
+        for op, b in bufs:
+            dist.all_reduce(b, op=(dist.ReduceOp.MAX if op == "max"
+                                   else dist.ReduceOp.SUM), group=group)
+
+    return _host_ms(torch, run, reps)
+
+
+def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
+    """Phase 11 (a): the three kernels of the segment walk against their
+    plain versions at the headline's shapes, each level's in turn, with a
+    random state ``h``: ``segment_softmax_sum`` (whole and ``partial``),
+    ``segment_mean`` (with and without counts), ``segment_softmax_sum_bwd``,
+    and the backward's ``mailbox_scatter`` calls (a cell level's per-edge
+    cotangent, a net level's per-slot one over its counts), each at rtol
+    1e-5, atol 1e-6. Bytes count what a call must move: each distinct
+    source row and index once and the outputs (``segment_softmax_sum``'s
+    saved shift and denominator included; its bound without them is
+    logged beside). Times: the median of REPS cold-L2 calls; library:
+    ``F.embedding_bag`` (mode "mean") for ``segment_mean``, ``index_add_``
+    of prebuilt per-edge contributions for the scatter. Returns
+    ``({name: KernelRecord}, the scatter's KernelRecord)``."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
+    row_b = D * 4
+    recs = {name: KernelRecord(name, "headline") for name in SEGMENT_KERNELS}
+    scatter = KernelRecord("mailbox_scatter", "headline segment")
+
+    def close(name, k, got, want):
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        if not (torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{name} differs at pair {k}: max abs err "
+                                 f"{err}")
+        return err
+
+    for k in range(graph.num_pairs):
+        # ---- the cell half (k > 0): forward, backward, scatter ----
+        if k > 0:
+            src, off = graph.cell_src[k], graph.cell_dst_off[k]
+            s, e = off.shape[0] - 1, src.shape[0]
+            rows = torch.unique(src).numel()
+            err = 0.0
+            for partial in (False, True):
+                for got, want in zip(
+                        K.segment_softmax_sum(h, src, off, partial),
+                        K.segment_softmax_sum_plain(h, src, off, partial)):
+                    err = max(err, close("segment_softmax_sum", k, got,
+                                         want))
+            nbytes = rows * row_b + e * 4 + (s + 1) * 4 + 3 * s * row_b
+            ops = 6.0 * e * D
+            ms = timer.ms(lambda: K.segment_softmax_sum(h, src, off))
+            pms = timer.ms(lambda: K.segment_softmax_sum_plain(h, src, off))
+            recs["segment_softmax_sum"].add(ms, pms, None, nbytes, ops, err)
+            log(f"  segment_softmax_sum pair {k}: {e} edges into {s} slots "
+                f"of {D} f32  kernel {ms:.4f} ms  plain {pms:.4f}  bound "
+                f"{bound(nbytes, ops)[0]:.4f} (without writing mx and den "
+                f"{bound(nbytes - 2 * s * row_b, ops)[0]:.4f})  max abs err "
+                f"{err:.3g}")
+            out, mx, den = K.segment_softmax_sum(h, src, off)
+            g = torch.randn((s, D), generator=gen, device=dev)
+            d_msg = K.segment_softmax_sum_bwd(h, src, off, out, mx, den, g)
+            err = close("segment_softmax_sum_bwd", k, d_msg,
+                        K.segment_softmax_sum_bwd_plain(h, src, off, out, mx,
+                                                        den, g))
+            nbytes = (rows * row_b + e * 4 + (s + 1) * 4 + 4 * s * row_b
+                      + e * row_b)
+            ops = 8.0 * e * D
+            ms = timer.ms(lambda: K.segment_softmax_sum_bwd(
+                h, src, off, out, mx, den, g))
+            pms = timer.ms(lambda: K.segment_softmax_sum_bwd_plain(
+                h, src, off, out, mx, den, g))
+            recs["segment_softmax_sum_bwd"].add(ms, pms, None, nbytes, ops,
+                                                err)
+            log(f"  segment_softmax_sum_bwd pair {k}: {e} edges  kernel "
+                f"{ms:.4f} ms  plain {pms:.4f}  bound "
+                f"{bound(nbytes, ops)[0]:.4f}  max abs err {err:.3g}")
+            check_segment_scatter(torch, scatter, k, "cell", graph, h, d_msg,
+                                  None, timer, close)
+        # ---- the net half (every pair): the mean, the scatter ----
+        src, off = graph.net_src[k], graph.net_dst_off[k]
+        cnt = graph.net_cnt[k]
+        s, e = off.shape[0] - 1, src.shape[0]
+        err = max(close("segment_mean", k, K.segment_mean(h, src, off, c),
+                        K.segment_mean_plain(h, src, off, c))
+                  for c in (cnt, None))
+        src_l, off_l = src.long(), off[:-1].long()
+        lib = F.embedding_bag(src_l, h, off_l, mode="mean")
+        close("segment_mean (embedding_bag)", k, lib,
+              K.segment_mean(h, src, off, cnt))
+        nbytes = (torch.unique(src).numel() * row_b + e * 4 + (s + 1) * 4
+                  + s * 4 + s * row_b)
+        ops = float(e * D + s * D)
+        ms = timer.ms(lambda: K.segment_mean(h, src, off, cnt))
+        pms = timer.ms(lambda: K.segment_mean_plain(h, src, off, cnt))
+        lms = timer.ms(lambda: F.embedding_bag(src_l, h, off_l, mode="mean"))
+        recs["segment_mean"].add(ms, pms, lms, nbytes, ops, err)
+        log(f"  segment_mean pair {k}: {e} edges into {s} slots  kernel "
+            f"{ms:.4f} ms  plain {pms:.4f}  embedding_bag {lms:.4f}  bound "
+            f"{bound(nbytes, ops)[0]:.4f}  max abs err {err:.3g}")
+        g_n = torch.randn((s, D), generator=gen, device=dev)
+        check_segment_scatter(torch, scatter, k, "net", graph, h, g_n, cnt,
+                              timer, close)
+    return recs, scatter
+
+
+def check_segment_scatter(torch, rec, k, half, graph, h, val, cnt, timer,
+                          close):
+    """Phase 11 (a): the segment walk's ``mailbox_scatter`` of one level
+    (``segment_walk._scatter_add``) into a copy of ``h`` against the
+    plain version; timed beside ``index_add_`` of the level's prebuilt
+    per-edge contributions (dst-sorted, by source)."""
+    from prtp_tpu_torch.ops import fused_gnn
+    from prtp_tpu_torch.ops.segment_walk import _scatter_add
+
+    rows, soff, pos = (getattr(graph, f"{half}_src_{x}")[k]
+                       for x in ("rows", "off", "pos"))
+    src = getattr(graph, f"{half}_src")[k]
+    if rows.numel() == 0:
+        return
+
+    def plain(dest):
+        if cnt is None:  # the per-edge cotangent as the cell rows
+            fused_gnn.mailbox_scatter_plain(
+                dest, rows, soff, pos, val, val.new_empty((0, D)),
+                val.new_empty((0,)), 1, val.shape[0])
+        else:
+            fused_gnn.mailbox_scatter_plain(dest, rows, soff, pos, None, val,
+                                            cnt, 1, 0)
+
+    got, want = h.clone(), h.clone()
+    _scatter_add(got, rows, soff, pos, val, cnt)
+    plain(want)
+    err = close("mailbox_scatter (segment)", k, got, want)
+    if cnt is None:
+        contrib = val  # one row an edge, dst-sorted
+        read = pos.numel() * (D * 4 + 4)
+    else:
+        slot = getattr(graph, f"{half}_dst_slot")[k].long()
+        contrib = val[slot] / cnt[slot][:, None]
+        read = torch.unique(pos).numel() * (D * 4 + 4) + pos.numel() * 4
+    lib_out, src_l = h.clone(), src.long()
+    torch.testing.assert_close(lib_out.index_add_(0, src_l, contrib), got,
+                               rtol=1e-5, atol=1e-5)
+    nbytes = read + rows.numel() * (2 * D * 4 + 8) + 4
+    ops = float(pos.numel() * D)
+    ms = timer.ms(lambda: _scatter_add(got, rows, soff, pos, val, cnt))
+    pms = timer.ms(lambda: plain(want))
+    lms = timer.ms(lambda: lib_out.index_add_(0, src_l, contrib))
+    rec.add(ms, pms, lms, nbytes, ops, err)
+    log(f"  mailbox_scatter pair {k} {half}: {pos.numel()} edges into "
+        f"{rows.numel()} rows  kernel {ms:.4f} ms  plain {pms:.4f}  "
+        f"index_add_ {lms:.4f}  bound {bound(nbytes, ops)[0]:.4f}  max abs "
+        f"err {err:.3g}")
+
+
+def segment_floors(torch, graph, dev, timer) -> dict:
+    """Each segment kernel, and the walk's ``mailbox_scatter``, timed on
+    a one-slot call."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+    from prtp_tpu_torch.ops.fused_gnn import mailbox_scatter
+
+    h = torch.randn((graph.num_rows + 1, D), device=dev)
+    src = graph.cell_src[1][:1]
+    off = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    one = torch.ones(1, device=dev)
+    row = torch.randn((1, D), device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    return {
+        "segment_softmax_sum": timer.ms(
+            lambda: K.segment_softmax_sum(h, src, off)),
+        "segment_mean": timer.ms(lambda: K.segment_mean(h, src, off, one)),
+        "segment_softmax_sum_bwd": timer.ms(
+            lambda: K.segment_softmax_sum_bwd(h, src, off, row, row, row,
+                                              row)),
+        "mailbox_scatter": timer.ms(
+            lambda: mailbox_scatter(h, zero, off, zero, None, row, one, 1, 0)),
+    }
+
+
+def gp_rank(rank, tmp, port):
+    """Phase 11 (c), one of GP_RANKS processes on cuda:0 joined over gloo
+    in a (1, GP_RANKS) mesh: the headline segment model from the
+    parent's state before each step, SEG_STEPS graph-sharded steps on all
+    597 paths (cuDNN deterministic, as the parent's); then one step
+    timed, and the step's all-reduces alone. Writes its losses,
+    parameter checksums, first-step gradients (rank 0), launch counts,
+    split slots and times to ``rank<r>.pt`` in ``tmp``."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.parallel.graph_shard import (graph_sharded_train_step,
+                                                     make_2d_mesh,
+                                                     shard_design)
+    from prtp_tpu_torch.trainer import init_state, make_optimizer, pad_batch
+
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=GP_RANKS, rank=rank)
+    try:
+        mesh = make_2d_mesh(1, GP_RANKS)
+        with open(os.path.join(tmp, "headline.pkl"), "rb") as f:
+            parsed = pickle.load(f)
+        snaps = torch.load(os.path.join(tmp, "ref_states.pt"),
+                           weights_only=True)
+        design = shard_design(mesh, pack_design(parsed, map_size=MAP_SIZE,
+                                                device=dev, segment=True))
+        n = design.num_paths
+        state = init_state(PathModel(
+            CELL_FEAT, NET_FEAT, map_size=MAP_SIZE, gnn_reduce="segment",
+            generator=torch.Generator().manual_seed(SEED)),
+            make_optimizer(LR), dev)
+        ids, mask = pad_batch(np.random.default_rng(0).permutation(n), n,
+                              dev)
+        out = {"losses": [], "checksums": [], "grads": None,
+               "split_slots": design.graph.shard.split_slots}
+        torch.cuda.synchronize()
+        _zero_launches()
+        for t in range(SEG_STEPS):
+            _state_restore(state, (snaps["model"][t], snaps["opt"][t]))
+            out["losses"].append(float(graph_sharded_train_step(
+                state, design, ids, mask, mesh, batch_axis=None)["loss"]))
+            out["checksums"].append(
+                float(state.optimizer.flat.double().abs().sum()))
+            if t == 0 and rank == 0:
+                out["grads"] = _grads(state)
+        torch.cuda.synchronize()
+        out["counts"] = _read_launches()
+        torch.backends.cudnn.deterministic = False
+        out["step_ms"] = _host_ms(torch, lambda: graph_sharded_train_step(
+            state, design, ids, mask, mesh, batch_axis=None), 3)
+        shapes = walk_allreduces(design.graph)
+        out["allreduces"] = len(shapes)
+        out["allreduce_ms"] = time_allreduces(torch, dist, shapes, dev,
+                                              mesh.gp_group, 3)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def segment_phase(torch, np, dev, smi, headline, compute_mode) -> tuple:
+    """Phase 11: the segment reduce (``gnn_reduce="segment"``) and the
+    2-D ``(dp, gp)`` edge-sharded step at the default model's full width
+    on the headline, float32, TF32 off.
+
+    (a) :func:`check_segment_kernels`, and each kernel's one-slot floor.
+    (b) The headline LayoutNet reg model with ``gnn_reduce="segment"``
+    (the phase 4 model's weights): REQUESTS evaluation requests card
+    against CPU (1e-4) and against the card's mailbox model on the same
+    weights (1e-4); SEG_STEPS steps of phase 6's epoch through
+    :func:`paired_steps` (each card step from the CPU's state) by phase
+    6's bounds, with the segment walk's launch counts; the first step's
+    loss and gradients against the mailbox model's on the card (the same
+    function, summed in another order: phase 6's bounds); one step timed
+    (:func:`step_timing`), the mailbox step beside it, in turns.
+    (c) :func:`~prtp_tpu_torch.parallel.graph_shard.graph_sharded_train_step`
+    on all 597 paths (cuDNN deterministic): a (1, 1) mesh over NCCL,
+    SEG_STEPS steps each from ``train_step``'s state before it, against
+    ``train_step`` (losses and first-step gradients within DP_TOL),
+    timed; then GP_RANKS processes on ``cuda:0`` over gloo at (1,
+    GP_RANKS) (:func:`gp_rank`; not run, and said so, where the card's
+    compute mode admits one process): against the one-rank steps within
+    DP_TOL_2, checksums equal on every rank, cell slots split
+    across the blocks, the step and its all-reduces timed on the host.
+    Returns ``(records, launch counts of each run)``."""
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.parallel.distributed import free_port
+    from prtp_tpu_torch.parallel.graph_shard import (graph_sharded_train_step,
+                                                     make_2d_mesh,
+                                                     shard_design)
+    from prtp_tpu_torch.test import evaluate_design
+    from prtp_tpu_torch.trainer import (init_state, iterate_batches,
+                                        make_optimizer, pad_batch,
+                                        train_step)
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    design = pack_design(headline, map_size=MAP_SIZE, device=dev,
+                         segment=True)
+    graph = design.graph
+    # ---- (a) the kernels ----
+    log(f"phase 11 (a): the segment kernels at the headline's shapes "
+        f"({graph.num_pairs} pairs)")
+    timer = Timer(torch, dev)
+    recs, scatter = check_segment_kernels(torch, F, graph, dev, timer)
+    floors = segment_floors(torch, graph, dev, timer)
+    del timer
+    for rec in (*recs.values(), scatter):
+        rec.floor_ms = floors[rec.name]
+        log(f"  {rec.summary()}  [{smi}]")
+
+    # ---- (b) the segment model: serving, training, the mailbox beside ----
+    kw = dict(map_size=MAP_SIZE, generator=torch.Generator().manual_seed(SEED))
+    model_cpu = PathModel(CELL_FEAT, NET_FEAT, gnn_reduce="segment", **kw)
+    mailbox = PathModel(CELL_FEAT, NET_FEAT,
+                        generator=torch.Generator().manual_seed(SEED),
+                        map_size=MAP_SIZE)
+    mailbox.load_state_dict(model_cpu.state_dict())
+    mailbox.to(dev)
+    launches = {}
+    what = "serve headline segment"
+    model = copy.deepcopy(model_cpu).to(dev)
+    launches[what] = serve(torch, np, model, model_cpu, headline,
+                           "headline segment",
+                           launches_per_forward_segment(graph), REQUESTS)
+    with contextlib.redirect_stdout(io.StringIO()):
+        p_seg, _m = evaluate_design(model, headline, DEVICE)
+        p_box, _m = evaluate_design(mailbox, headline, DEVICE)
+    diff = float(np.abs(p_seg - p_box).max())
+    np.testing.assert_allclose(p_seg, p_box, rtol=1e-4, atol=1e-4,
+                               err_msg="segment vs mailbox on the card")
+    log(f"  headline segment vs mailbox, both on the card, same weights: "
+        f"predictions within {diff:.3g} (rtol/atol 1e-4): ok")
+    num_paths = int(headline["num_paths"])
+    cpu_design = pack_design(headline, map_size=MAP_SIZE, device="cpu",
+                             segment=True)
+    designs = {DEVICE: design, "cpu": cpu_design}
+    batches = {where: list(iterate_batches(
+        np.arange(num_paths), TRAIN_BATCH, np.random.default_rng(EPOCH_SEED),
+        device=where))[:SEG_STEPS] for where in designs}
+    flips = pool_winner_flips(torch, model_cpu.cnn, cpu_design.cnn_input, dev)
+    card, signs = card_branches(torch, model_cpu.cnn, cpu_design.cnn_input,
+                                dev)
+    log(f"  segment: max-pool windows whose winner differs, card vs cpu, at "
+        f"the init: {flips}; conv outputs whose sign differs: {signs}")
+    what = f"train headline segment, the epoch's first {SEG_STEPS} steps"
+    runs = paired_steps(torch, model_cpu, designs, batches, what,
+                        launches_per_step_segment(graph), "reg", card=card)
+    launches[what] = runs[DEVICE][2]
+    compare_runs(torch, what, runs[DEVICE], runs["cpu"], flips)
+    del runs, cpu_design
+    # the same first step on the card, segment and mailbox
+    first = {}
+    for name, m in (("segment", model_cpu), ("mailbox", mailbox)):
+        state = init_state(copy.deepcopy(m).cpu(), make_optimizer(LR), dev)
+        loss = float(train_step(state, design, *batches[DEVICE][0])["loss"])
+        first[name] = ([loss], _grads(state))
+    (l_seg, g_seg), (l_box, g_box) = first["segment"], first["mailbox"]
+    worst = max((float((g_seg[k] - g).abs().max() / g.abs().max()), k)
+                for k, g in g_box.items() if g.abs().max() > 0)
+    rel = abs(l_seg[0] - l_box[0]) / abs(l_box[0])
+    if worst[0] > GRAD_TOL or rel > LOSS_RTOL:
+        raise AssertionError(f"segment vs mailbox first step on the card: "
+                             f"loss rtol {rel}, gradients {worst} x max |g|")
+    log(f"  train headline segment vs mailbox, first step, both on the "
+        f"card: loss within rtol {rel:.3g} (allowed {LOSS_RTOL}), gradients "
+        f"within {worst[0]:.3g} x each leaf's max |g| ({worst[1]}; allowed "
+        f"{GRAD_TOL}): ok")
+    ids, mask = pad_batch(np.random.default_rng(0).permutation(num_paths),
+                          num_paths, dev)
+    for name in ("mailbox", "segment", "segment", "mailbox"):
+        state = init_state(copy.deepcopy(
+            model_cpu if name == "segment" else mailbox).cpu(),
+            make_optimizer(LR), dev)
+        tm = step_timing(torch, dev, lambda: train_step(state, design, ids,
+                                                        mask), 200)
+        log(f"phase 11 (b): {name} train step ({num_paths} paths): device "
+            f"time {tm['device_ms']:.3f} ms; as launched "
+            f"{tm['launched_ms']:.3f} ms; wall {tm['wall_ms']:.3f} ms, "
+            f"device busy {tm['busy_ms']:.3f} ms, idle share "
+            f"{tm['idle']:.3f}; {tm['launches']} kernel launches  [{smi}]")
+        if name == "segment":
+            log_port_kernels(tm["by_name"], "segment train step")
+    del mailbox, model, state
+    torch.cuda.empty_cache()
+
+    # ---- (c) the edge-sharded step ----
+    torch.backends.cudnn.deterministic = True
+    ref = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), dev)
+    snaps, ref_losses, ref_grads = [], [], None
+    for t in range(SEG_STEPS):
+        snaps.append(_state_snapshot(ref))
+        ref_losses.append(float(train_step(ref, design, ids, mask)["loss"]))
+        if t == 0:
+            ref_grads = _grads(ref)
+    del ref
+
+    def check(what, losses, grads, tol):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        worst = (0.0, "")
+        for key, want in ref_grads.items():
+            scale = float(want.abs().max())
+            diff = float((grads[key] - want).abs().max())
+            worst = max(worst, (diff / scale if scale else diff, key))
+            if diff > tol * scale:
+                raise AssertionError(f"{what}: gradient of {key} differs by "
+                                     f"{diff} (max |g| {scale}, allowed "
+                                     f"{tol} x)")
+        if rel > tol:
+            raise AssertionError(f"{what}: losses {losses} against one "
+                                 f"process's {ref_losses}")
+        log(f"  {what} vs train_step: losses {losses} within rtol "
+            f"{rel:.3g}, first-step gradients within {worst[0]:.3g} x the "
+            f"leaf's max |g| ({worst[1]}; allowed {tol} each): ok")
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_2d_mesh(1, 1)
+        sharded = shard_design(mesh, design)
+        state = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), dev)
+        what = (f"phase 11 (c): graph-sharded, (1, 1) mesh (NCCL), "
+                f"{SEG_STEPS} steps")
+        losses, grads = [], None
+        torch.cuda.synchronize()
+        _zero_launches()
+        for t in range(SEG_STEPS):
+            _state_restore(state, snaps[t])
+            losses.append(float(graph_sharded_train_step(
+                state, sharded, ids, mask, mesh)["loss"]))
+            if t == 0:
+                grads = _grads(state)
+        torch.cuda.synchronize()
+        launches[what] = _read_launches()
+        check_launches(what, launches[what],
+                       launches_per_step_segment(graph, sharded=True),
+                       SEG_STEPS)
+        check(what, losses, grads, DP_TOL)
+        torch.backends.cudnn.deterministic = False
+        tm = step_timing(torch, dev, lambda: graph_sharded_train_step(
+            state, sharded, ids, mask, mesh), 200)
+        shapes = walk_allreduces(graph)
+        ar_ms = time_allreduces(torch, dist, shapes, dev, mesh.gp_group, 5)
+        log(f"phase 11 (c): graph-sharded step, (1, 1) mesh ({num_paths} "
+            f"paths): device time {tm['device_ms']:.3f} ms; as launched "
+            f"{tm['launched_ms']:.3f} ms; wall {tm['wall_ms']:.3f} ms, "
+            f"device busy {tm['busy_ms']:.3f} ms, idle share "
+            f"{tm['idle']:.3f}; {tm['launches']} kernel launches; its "
+            f"{len(shapes)} gp all-reduces alone (NCCL, 1 rank, host time) "
+            f"{ar_ms:.3f} ms  [{smi}]")
+        del state, sharded
+    finally:
+        dist.destroy_process_group()
+
+    if "exclusive" in compute_mode.lower():
+        log(f"phase 11 (c): the card's compute mode is {compute_mode}: it "
+            "admits one process, so two ranks cannot share it; the (1, 2) "
+            "mesh not run")
+    else:
+        with tempfile.TemporaryDirectory(prefix="prtp_gp_") as tmp:
+            with open(os.path.join(tmp, "headline.pkl"), "wb") as f:
+                pickle.dump(headline, f)
+            torch.save({"model": [s[0] for s in snaps],
+                        "opt": [s[1] for s in snaps]},
+                       os.path.join(tmp, "ref_states.pt"))
+            t0 = time.perf_counter()
+            torch.multiprocessing.start_processes(
+                gp_rank, args=(tmp, free_port()), nprocs=GP_RANKS,
+                join=True, start_method="spawn")
+            wall = time.perf_counter() - t0
+            outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                               weights_only=True) for r in range(GP_RANKS)]
+        what = (f"phase 11 (c): graph-sharded, (1, {GP_RANKS}) mesh on "
+                f"{DEVICE} (gloo), {SEG_STEPS} steps")
+        for r, out in enumerate(outs):
+            launches[f"{what}, rank {r}"] = out["counts"]
+            check_launches(f"{what}, rank {r}", out["counts"],
+                           launches_per_step_segment(graph, sharded=True),
+                           SEG_STEPS)
+        if any(o["checksums"] != outs[0]["checksums"]
+               or o["losses"] != outs[0]["losses"] for o in outs):
+            raise AssertionError(f"{what}: the ranks' parameters or losses "
+                                 f"differ: {[o['checksums'] for o in outs]}")
+        if not outs[0]["split_slots"]:
+            raise AssertionError(f"{what}: no cell slot is split "
+                                 "across the gp blocks")
+        check(what, outs[0]["losses"], outs[0]["grads"], DP_TOL_2)
+        log(f"  {what}: parameter checksums equal on every rank after each "
+            f"step ({outs[0]['checksums']}); {outs[0]['split_slots']} "
+            f"cell slots split across the blocks; {wall:.1f} s with "
+            "the processes' start")
+        log(f"phase 11 (c): graph-sharded step, (1, {GP_RANKS}) mesh on one "
+            "card, host time between synchronizes (median of 3): "
+            + ", ".join(f"rank {r} {o['step_ms']:.3f} ms"
+                        for r, o in enumerate(outs))
+            + f"; its {outs[0]['allreduces']} gp all-reduces alone (gloo, "
+            "through the host; median of 3): "
+            + ", ".join(f"{o['allreduce_ms']:.3f}" for o in outs)
+            + f" ms  [{smi}]")
+    torch.backends.cudnn.deterministic = False
+    del design
+    torch.cuda.empty_cache()
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return [recs[name] for name in SEGMENT_KERNELS], launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3716,6 +4301,8 @@ def main() -> int:
             torch, dev, timer, empty_launch).items()) + f"  [{smi}]")
     records = []
     for name, (_src, _rep, design) in KERNEL_INFO.items():
+        if name in SEGMENT_KERNELS:  # phase 11's
+            continue
         rec = recs[design][name]
         rec.floor_ms = floors[name]
         rec.max_abs_err = max(r[name].max_abs_err for r in recs.values()
@@ -3855,6 +4442,12 @@ def main() -> int:
     # ---- phase 10: data parallelism ----
     launches.update(dp_phase(torch, np, dev, smi, parsed["headline"],
                              compute_mode))
+
+    # ---- phase 11: the segment reduce and the (dp, gp) sharded step ----
+    seg_records, seg_launches = segment_phase(
+        torch, np, dev, smi, parsed["headline"], compute_mode)
+    records += seg_records
+    launches.update(seg_launches)
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

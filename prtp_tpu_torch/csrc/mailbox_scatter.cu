@@ -5,7 +5,15 @@
 // - intra (:264-272): `intra_add = segment_sum(d_mail_n.flat[intra_pos],
 //   intra_slot)`, `g_c = dh[cell block] + intra_add`;
 // - merged (:308-321): `uniq = segment_sum(cat([d_mail_c, d_mail_n])
-//   [merged_pos], merged_seg)`, `dh = dh.at[merged_rows].add(uniq)`.
+//   [merged_pos], merged_seg)`, `dh = dh.at[merged_rows].add(uniq)`;
+// and, under reduce_mode='segment', the transpose of the edge gathers
+// `h[xs["cell_src"]]` and `h[xs["net_src"]]` (prtp_tpu/models/gnn.py:184,
+// :200) that XLA's autodiff takes, on the packer's source-sorted edge
+// tables with md_n = 1 (ops/segment_walk.py::_scatter_add): a net
+// level's positions are destination slots (n_cell 0, d_pre_n the slots'
+// cotangent, cnt_n net_cnt), a cell level's are edge ids into the
+// per-edge cotangent passed as d_mail_c (n_cell = E); the edge-sharded
+// step adds its summed compact buffer the same way, one entry a row.
 // For each segment s (a CSR table: rows[s], entries
 // [seg_off[s], seg_off[s+1]) of pos), in entry order:
 //   dest[rows[s], c] += sum_e contrib(pos[e], c)
@@ -40,9 +48,9 @@
 // entries load one after another.
 //
 // Launched as a programmatic dependent launch (common.cuh). Before
-// grid_dep_wait() the kernel reads seg_off and rows: the graph's tables,
-// copied to the card when the design was packed and written by no kernel
-// since. After it, pos and cnt_n (also graph tables), dest (a slice of
+// grid_dep_wait() the kernel reads seg_off and rows: the graph's tables
+// (or the edge shard's static iota), copied to the card when the design
+// was packed or sharded and written by no kernel since. After it, pos and cnt_n (also graph tables), dest (a slice of
 // the backward's dh carry), d_pre_n and d_mail_c, which the kernels just
 // before this one write, and every store.
 

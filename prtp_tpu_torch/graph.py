@@ -71,6 +71,9 @@ class LeveledGraphExact:
     # mailbox is then a LOCAL gather from buf = [new_cell | prior | 0]
     gather_rows: tuple    # P x (n_c_k*md_c_k + n_prior_k,)
     net_local_idx: tuple  # P x (n_n_k, md_n_k) into buf; pad = n_c_k + n_prior_k
+    # the row has an in-edge: the dgl_parity mask of both walks
+    cell_has_in: tuple    # P x (n_c_k, 1) bool
+    net_has_in: tuple     # P x (n_n_k, 1) bool
     cell_off: tuple       # P ints
     net_off: tuple        # P ints
     num_rows: int
@@ -78,6 +81,30 @@ class LeveledGraphExact:
     # (:func:`scan_level_rows`): its bf16 bias gradients sum that many
     # rows, the zeros of the padding included (ops.fused_gnn, "scan")
     scan_rows: tuple = (1, 1)
+    # this rank's block of the edge tables under the 2-D (dp, gp) mesh
+    # (parallel.graph_shard.shard_design); None: the whole level
+    shard: object = None
+    # the segment reduce's flat edge tables (ops.segment_walk), packed
+    # only on request (``segment=True``; else None), per half (cell_*,
+    # net_*): the level's edges sorted by destination slot, the slot's
+    # CSR offsets, and for the backward's scatter the edges sorted by
+    # source row (stable), grouped by distinct source row: segment s adds
+    # into row src_rows[s] the entries src_pos[src_off[s]: src_off[s+1]],
+    # which for a cell level are edge ids (into the per-edge cotangent)
+    # and for a net level destination slots (its cotangent is the slot's
+    # mean cotangent)
+    cell_src: tuple = None       # P x (e_c_k,) int32 source rows, dst-sorted
+    cell_dst_slot: tuple = None  # P x (e_c_k,) int32 destination slots
+    cell_dst_off: tuple = None   # P x (n_c_k + 1,) int32
+    cell_src_pos: tuple = None   # P x (e_c_k,) int32 edge ids, src-sorted
+    cell_src_rows: tuple = None  # P x (u_c_k,) int32 distinct source rows
+    cell_src_off: tuple = None   # P x (u_c_k + 1,) int32
+    net_src: tuple = None        # P x (e_n_k,)
+    net_dst_slot: tuple = None   # P x (e_n_k,)
+    net_dst_off: tuple = None    # P x (n_n_k + 1,)
+    net_src_pos: tuple = None    # P x (e_n_k,) destination slots, src-sorted
+    net_src_rows: tuple = None   # P x (u_n_k,)
+    net_src_off: tuple = None    # P x (u_n_k + 1,)
 
     @property
     def num_pairs(self) -> int:
@@ -128,8 +155,9 @@ def _csr_offsets(seg, num_segments):
     return np.searchsorted(seg, np.arange(num_segments + 1)).astype(np.int32)
 
 
-def _pack_exact_numpy(parsed):
-    """The exact-levels tables as numpy arrays.
+def _pack_exact_numpy(parsed, segment=False):
+    """The exact-levels tables as numpy arrays, the segment reduce's flat
+    edge tables only with ``segment``.
 
     Returns ``(tables, node_row, num_rows)``; ``tables`` maps each
     per-pair field of :class:`LeveledGraphExact` to a list of arrays
@@ -173,6 +201,9 @@ def _pack_exact_numpy(parsed):
                     np.asarray(edges[1], np.int64))
         lev = node_level[dst]
         mails, rposs, rrows = [], [], []
+        flat = {key: [] for key in (("src", "dst_slot", "dst_off", "src_pos",
+                                     "src_rows", "src_off") * segment
+                                    + ("has_in",))}
         offsets = cell_off if parity == 0 else net_off
         blocks = cell_feat_l if parity == 0 else net_feat_l
         for k in range(n_pairs):
@@ -180,15 +211,32 @@ def _pack_exact_numpy(parsed):
             slot0 = node_row[dst[sel]] - offsets[k]
             pn = blocks[k].shape[0]
             md = max(1, int(np.bincount(slot0).max())) if len(slot0) else 1
-            _src, _slot, mail, rp, rr = _sorted_level_tables(
+            e_src, slot, mail, rp, rr = _sorted_level_tables(
                 node_row[src[sel]], slot0, pn, md, num_rows)
             mails.append(mail)
             rposs.append(rp)
             rrows.append(rr)
-        return mails, rposs, rrows
+            flat["has_in"].append((np.bincount(slot, minlength=pn)
+                                   > 0)[:, None])
+            if not segment:
+                continue
+            order = np.argsort(e_src, kind="stable")
+            rows, seg = np.unique(e_src[order], return_inverse=True)
+            flat["src"].append(e_src)
+            flat["dst_slot"].append(slot)
+            flat["dst_off"].append(_csr_offsets(slot, pn))
+            # a net entry reads its destination's cotangent, a cell entry
+            # its edge's
+            flat["src_pos"].append(
+                (order if parity == 0 else slot[order]).astype(np.int32))
+            flat["src_rows"].append(rows.astype(np.int32))
+            flat["src_off"].append(_csr_offsets(seg, len(rows)))
+        half = "cell" if parity == 0 else "net"
+        return mails, rposs, rrows, {f"{half}_{key}": v
+                                     for key, v in flat.items()}
 
-    cm, crp, crr = per_level_tables(0, parsed["cell_edges"])
-    nm, nrp, nrr = per_level_tables(1, parsed["net_edges"])
+    cm, crp, crr, cell_flat = per_level_tables(0, parsed["cell_edges"])
+    nm, nrp, nrr, net_flat = per_level_tables(1, parsed["net_edges"])
 
     m_pos, m_seg, m_rows, i_pos, i_slot = [], [], [], [], []
     m_off, i_rows, i_off = [], [], []
@@ -245,6 +293,7 @@ def _pack_exact_numpy(parsed):
         net_cnt=[np.maximum((m != num_rows).sum(axis=1), 1).astype(np.float32)
                  for m in nm],
         gather_rows=g_rows, net_local_idx=n_local,
+        **cell_flat, **net_flat,
         cell_off=cell_off, net_off=net_off)
     return tables, node_row, num_rows
 
@@ -270,14 +319,16 @@ def scan_level_rows(parsed_list, align: int = SCAN_ALIGN) -> tuple:
 
 
 def pack_leveled_graph_exact(parsed, device="cuda",
-                             compute_dtype=torch.float32, scan_rows=None):
+                             compute_dtype=torch.float32, scan_rows=None,
+                             segment=False):
     """Exact-shape packer. Returns ``(graph, node_row, num_rows)``. The
     feature tables are ``compute_dtype``, as JAX packs them.
     ``scan_rows`` (default: :func:`scan_level_rows` of this design) are
     the level rows of JAX's padded scan, which the walk's bf16 backward
-    in the scan's rounding reads."""
+    in the scan's rounding reads. ``segment`` adds the flat edge tables
+    of the segment reduce (``gnn_reduce="segment"``)."""
     dev = resolve_device(device)
-    tables, node_row, num_rows = _pack_exact_numpy(parsed)
+    tables, node_row, num_rows = _pack_exact_numpy(parsed, segment)
     fields = {}
     for key, arrs in tables.items():
         if key in ("cell_off", "net_off"):
@@ -295,7 +346,7 @@ def pack_leveled_graph_exact(parsed, device="cuda",
 
 
 def pack_design(parsed, map_size=128, device="cuda",
-                compute_dtype=torch.float32, scan_rows=None):
+                compute_dtype=torch.float32, scan_rows=None, segment=False):
     """Pack a host-side parsed design (dict of numpy arrays) into
     :class:`DesignData` on ``device``. The feature tables and the raster
     are ``compute_dtype`` (bf16 under ``--compute_dtype bfloat16`` in the
@@ -307,12 +358,12 @@ def pack_design(parsed, map_size=128, device="cuda",
     required_time (N,), is_critical (N,), path_endpoint (num_paths,),
     path_level (num_paths,), mask_coo (2, nnz), num_paths, cnn_input
     (C,H,W), or (K,C,H,W) for a merged super-graph
-    (:func:`merge_parsed_designs`). ``scan_rows``: as for
-    :func:`pack_leveled_graph_exact`.
+    (:func:`merge_parsed_designs`). ``scan_rows`` and ``segment`` (the
+    segment reduce's edge tables): as for :func:`pack_leveled_graph_exact`.
     """
     dev = resolve_device(device)
     graph, node_row, num_rows = pack_leveled_graph_exact(
-        parsed, dev, compute_dtype, scan_rows)
+        parsed, dev, compute_dtype, scan_rows, segment)
 
     def remap(key, dtype=np.float32):
         vals = np.asarray(parsed[key], dtype=dtype).reshape(-1)

@@ -20,7 +20,9 @@ Parameters follow flax's initialisers (lecun
 normal kernels, zero biases, a xavier-uniform ``fcn_kernel``), drawn
 from the ``generator`` given. The port runs the regression and the
 classification heads, LayoutNet or the U-Net, and the GNN's softmax or
-``--attn`` cell reduce.
+``--attn`` cell reduce; ``gnn_reduce="segment"`` (JAX's default is
+``"mailbox"``) walks the GNN over the flat edge tables, the reduce of
+the 2-D ``(dp, gp)`` edge-sharded step (``parallel/graph_shard.py``).
 
 ``compute_dtype`` bfloat16 is JAX's mixed precision (flax style: the
 parameters stay float32 and are cast for the products): the walk's MLP
@@ -54,7 +56,7 @@ class PathModel(nn.Module):
                  cnn_outdim: int = 128, map_size: int = 128,
                  global_dim: int = 64, nlabels: int = 1,
                  flag_attn: bool = False, num_heads: int = 1,
-                 dgl_parity: bool = True,
+                 dgl_parity: bool = True, gnn_reduce: str = "mailbox",
                  compute_dtype=None, cnn_channels: int = 2,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -64,6 +66,7 @@ class PathModel(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.use_gnn = use_gnn
+        self.gnn_reduce = gnn_reduce  # "segment": pack with segment=True
         self.use_cnn = use_cnn
         self.map_size = map_size
         self.unet = unet
@@ -72,7 +75,8 @@ class PathModel(nn.Module):
             self.gnn = TimeGNN(cell_feat_dim, net_feat_dim, generator,
                                out_dim=out_dim, hidden_dim=hidden_dim,
                                dgl_parity=dgl_parity, flag_attn=flag_attn,
-                               num_heads=num_heads, mlp_dtype=dt)
+                               num_heads=num_heads, mlp_dtype=dt,
+                               reduce_mode=gnn_reduce)
         if use_cnn:
             # flax infers the U-Net's input channels from the raster;
             # LayoutNet's Conv_0 takes 2

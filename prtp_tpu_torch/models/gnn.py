@@ -27,6 +27,14 @@ stays float32, as at ``prtp_tpu/models/gnn.py:314-321``. With
 (flax's ``MLP(dtype=bfloat16)``, as XLA compiles it and its
 ``jax.grad``), for the evaluations and the train steps that JAX runs
 through it.
+
+With ``reduce_mode="segment"`` (JAX's ``TimeGNN(reduce_mode=...)``;
+``PathModel(gnn_reduce=...)``) the walk reduces over each level's flat
+edge tables instead of its dense mailbox
+(:func:`prtp_tpu_torch.ops.segment_walk.segment_walk`): the same
+function, summed in another order; it is the reduce that the 2-D
+``(dp, gp)`` edge-sharded step partitions (``parallel/graph_shard.py``).
+It runs in float32 without ``--attn``; those two are refused.
 """
 
 from __future__ import annotations
@@ -36,8 +44,11 @@ from torch import nn
 
 from ..ops.bf16 import compute_dtype_of
 from ..ops.fused_gnn import MLP_NAMES as PAIR_STEP_MLPS
-from ..ops.fused_gnn import exact_walk
+from ..ops.fused_gnn import check_rounding, exact_walk
+from ..ops.segment_walk import segment_walk
 from .mlp import MLP, lecun_normal_
+
+REDUCE_MODES = ("mailbox", "segment")
 
 
 class TimeGNN(nn.Module):
@@ -45,10 +56,20 @@ class TimeGNN(nn.Module):
                  generator: torch.Generator, out_dim: int = 128,
                  hidden_dim: int = 256, dgl_parity: bool = True,
                  flag_attn: bool = False, num_heads: int = 1,
-                 mlp_dtype=None):
+                 mlp_dtype=None, reduce_mode: str = "mailbox"):
         super().__init__()
         self.out_dim = out_dim
         self.mlp_dtype = compute_dtype_of(mlp_dtype)
+        if reduce_mode not in REDUCE_MODES:
+            raise ValueError(f"reduce_mode {reduce_mode!r}: one of "
+                             f"{REDUCE_MODES}")
+        if reduce_mode == "segment" and (flag_attn
+                                         or self.mlp_dtype is not None):
+            raise ValueError(
+                "reduce_mode='segment' runs in float32 without --attn; its "
+                "--attn (segment_weighted_softmax_sum) and bf16 are not "
+                "ported (ROADMAP.md Queue 1, item 6)")
+        self.reduce_mode = reduce_mode
         self.dgl_parity = dgl_parity
         self.flag_attn = flag_attn
         # widths mirror the reference (256-wide single hidden layer)
@@ -80,5 +101,8 @@ class TimeGNN(nn.Module):
                             mlp.fc1.bias)
         if self.flag_attn:
             params["fc_attn2"] = self.fc_attn2.weight
+        if self.reduce_mode == "segment":  # float32: one rounding
+            check_rounding(rounding)
+            return segment_walk(params, h0, g, self.dgl_parity)
         return exact_walk(params, h0, g, self.dgl_parity,
                           self.mlp_dtype is not None, rounding)

@@ -24,7 +24,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNEL_NAMES = ("gather_rows", "softmax_sum", "local_mean", "softmax_sum_bwd",
-                "mailbox_scatter", "flat_adam", "attn_sum", "attn_bwd")
+                "mailbox_scatter", "flat_adam", "attn_sum", "attn_bwd",
+                "segment_softmax_sum", "segment_mean",
+                "segment_softmax_sum_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

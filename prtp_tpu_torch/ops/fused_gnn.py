@@ -589,14 +589,14 @@ def _mlp_grads(p, x, d_out, need_dx=True, w16=None, scan=False):
     return grads, (mm_f32(d_a16, w16[0]) if need_dx else None)
 
 
-def _relu_split(g, h_blk, mail, num_rows, dgl_parity):
+def _relu_split(g, h_blk, has, dgl_parity):
     """``(d_pre, d_old)`` of one half: the ReLU mask ``hf > 0`` (right for
     both dgl_parity branches: a kept row is ``relu(old)``), split by
-    whether the row's mailbox has a valid slot."""
+    whether the row has an in-edge (``has`` (n, 1) bool, the graph's
+    ``cell_has_in`` or ``net_has_in``)."""
     d = g * (h_blk > 0)
     if not dgl_parity:
         return d, None
-    has = (mail != num_rows).any(dim=1, keepdim=True)
     return d * has, d * ~has
 
 
@@ -638,8 +638,8 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
         new = F.relu(pre)
         c0 = graph.cell_off[k]
         if dgl_parity:
-            has = (cell_mail != num_rows).any(dim=1, keepdim=True)
-            new = torch.where(has, new, F.relu(h[c0: c0 + pn_c]))
+            new = torch.where(graph.cell_has_in[k], new,
+                              F.relu(h[c0: c0 + pn_c]))
         h[c0: c0 + pn_c] = new
         # ---- net half (odd level 2k+1): [new | prior] mailbox ----
         prior_rows = graph.gather_rows[k][pn_c * md_c:]
@@ -650,8 +650,7 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
         net_mail = graph.net_mail[k]
         n0 = graph.net_off[k]
         if dgl_parity:
-            hasn = (net_mail != num_rows).any(dim=1, keepdim=True)
-            new_n = torch.where(hasn, new_n,
+            new_n = torch.where(graph.net_has_in[k], new_n,
                                 F.relu(h[n0: n0 + net_mail.shape[0]]))
         h[n0: n0 + net_mail.shape[0]] = new_n
     return h
@@ -720,8 +719,8 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         c0, n0 = graph.cell_off[k], graph.net_off[k]
         # ---- net half ----
         d_pre_n, d_old_n = _relu_split(dh[n0: n0 + pn_n],
-                                       hf[n0: n0 + pn_n], net_mail,
-                                       num_rows, dgl_parity)
+                                       hf[n0: n0 + pn_n],
+                                       graph.net_has_in[k], dgl_parity)
         acc("fc_net_self", _mlp_grads(params["fc_net_self"],
                                       graph.net_feat_lvl[k], d_pre_n,
                                       False, _w(w16, "fc_net_self"),
@@ -732,8 +731,8 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         mailbox_scatter(g_c, graph.intra_rows[k], graph.intra_seg_off[k],
                         graph.intra_pos[k], None, d_pre_n, cnt_n, md_n, 0)
         # ---- cell half ----
-        d_pre_c, d_old_c = _relu_split(g_c, hf[c0: c0 + pn_c], cell_mail,
-                                       num_rows, dgl_parity)
+        d_pre_c, d_old_c = _relu_split(g_c, hf[c0: c0 + pn_c],
+                                       graph.cell_has_in[k], dgl_parity)
         acc("fc_cell_self", _mlp_grads(params["fc_cell_self"],
                                        graph.cell_feat_lvl[k], d_pre_c,
                                        False, _w(w16, "fc_cell_self"),

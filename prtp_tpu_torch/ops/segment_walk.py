@@ -1,0 +1,258 @@
+"""The level walk under the segment reduce, forward and backward.
+
+Port of ``prtp_tpu/models/gnn.py::_PairStep.__call__`` with
+``reduce_mode='segment'`` (:163-206), the pair step that JAX's
+edge-parallel ``(dp, gp)`` step (``prtp_tpu/parallel/graph_shard.py``)
+partitions along the edge axis. Per level pair it computes the same
+function as the mailbox walk (:mod:`.fused_gnn`), over a level's flat
+edge tables (``graph.py``, ``cell_src`` ... ``net_has_in``) instead of
+its dense mailbox, with the kernels of :mod:`.segment_kernels`:
+
+- the cell half: ``segment_softmax_sum`` of ``h[cell_src]`` by
+  destination slot, read straight from ``h``; pair 0 drops the
+  neighbour term (JAX's ``gate``, :190);
+- the net half, which reads ``h`` after the cell half's write:
+  ``segment_mean``, the in-edge sum over ``net_cnt``;
+- with ``dgl_parity`` a row without in-edges keeps ``relu(old)``
+  (:152-161), by the level's ``has_in``.
+
+The pair-step MLPs are the mailbox walk's (``_mlp``, ``_mlp_grads``,
+``_relu_split``), so their arithmetic is shared. The backward
+(:class:`SegmentWalk`) is the transpose XLA's autodiff takes through
+that step: per half in reverse the ReLU split, the MLP gradients, and
+the edges' cotangents scattered into ``dh`` by source row with the
+mailbox walk's ``mailbox_scatter`` (net: ``g_n[dst] / cnt[dst]`` formed
+in the kernel; cell: ``segment_softmax_sum_bwd``'s per-edge cotangent).
+The net half's
+scatter comes first, since its sources include the pair's own cell
+rows, which the cell half's cotangent reads. The forward keeps each
+cell reduce's ``(out, mx, den)`` for the backward: every source row is
+final once its level is written, so that is what a recompute from
+``hf`` would give, without its collectives under sharding.
+
+Under the 2-D ``(dp, gp)`` mesh (``graph.shard``, set by
+``parallel.graph_shard.shard_design``) each rank holds one contiguous
+block of every level's destination-sorted edges and the rest replicated,
+as JAX's ``P(None, "gp")``; the collectives JAX's partitioner inserts
+become explicit all-reduces over the ``gp`` group:
+
+- cell: each rank's partial ``(numer, max, den)``; the max all-reduced
+  (MAX), the local sums rescaled to it, then summed (one all-reduce of
+  ``[den | numer]``); an empty slot's local max is ``-inf`` and its scale
+  0, and a slot empty on every rank gives JAX's 0;
+- net: the partial sums summed, then divided by ``net_cnt``;
+- backward: each rank scatters its own edges into a compact buffer of
+  the level's distinct source rows, the buffers are summed, and the sum
+  is added into ``dh`` (``mailbox_scatter`` with one entry a row), so every
+  rank's ``dh`` stays equal.
+
+``has_in`` is the whole level's, never a shard's (a row whose in-edges
+all lie on another rank must still update). Only float32 runs here:
+``--attn`` and bf16 under the segment reduce are refused by the model.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .fused_gnn import (MLP_NAMES, _flat_of, _mlp, _mlp_grads, _params_of,
+                        _relu_split, mailbox_scatter)
+from .segment_kernels import (segment_mean, segment_softmax_sum,
+                              segment_softmax_sum_bwd)
+
+
+def require_tables(graph, who: str) -> None:
+    """Raise unless ``graph`` holds the flat edge tables, which the
+    packer builds only on request."""
+    if graph.cell_src is None:
+        raise ValueError(f"{who} walks the flat edge tables: pack the "
+                         "design with pack_design(..., segment=True)")
+
+
+def combine_softmax(numer, shift, den, shard):
+    """``(out, mx, den)`` of the whole level from this rank's partial
+    ``segment_softmax_sum`` (``partial=True``), by two all-reduces over
+    ``shard``'s ``gp`` group: the slots' max, then the rescaled ``[den |
+    numer]``."""
+    top = torch.where(den > 0, shift,
+                      torch.full((), -torch.inf, device=den.device))
+    shard.max_(top)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    scale = torch.where(den > 0, torch.exp(shift - top),
+                        torch.zeros_like(den))
+    both = torch.cat([den * scale, numer * scale], dim=1)
+    shard.sum_(both)
+    den, numer = both.tensor_split(2, dim=1)
+    den = den.contiguous()
+    return numer / den.clamp_min(1e-12), top, den
+
+
+def _cell_reduce(h, graph, k):
+    shard = graph.shard
+    if shard is None:
+        return segment_softmax_sum(h, graph.cell_src[k],
+                                   graph.cell_dst_off[k])
+    return combine_softmax(*segment_softmax_sum(
+        h, shard.cell_src[k], shard.cell_dst_off[k], partial=True), shard)
+
+
+def _net_reduce(h, graph, k):
+    shard = graph.shard
+    if shard is None:
+        return segment_mean(h, graph.net_src[k], graph.net_dst_off[k],
+                            graph.net_cnt[k])
+    sums = segment_mean(h, shard.net_src[k], shard.net_dst_off[k], None)
+    shard.sum_(sums)
+    return sums / graph.net_cnt[k][:, None]
+
+
+def _scatter_add(dest, rows, seg_off, pos, val, cnt):
+    """``dest[rows[s]] += sum of val[pos[e]]`` (over ``cnt[pos[e]]`` when
+    given) over each segment's entries, by ``mailbox_scatter`` with one
+    slot a row: with ``cnt`` every position reads the net cotangent
+    ``val / cnt`` (``n_cell`` 0), without it ``val`` as its cell rows."""
+    if cnt is not None:
+        mailbox_scatter(dest, rows, seg_off, pos, None, val, cnt, 1, 0)
+        return
+    mailbox_scatter(dest, rows, seg_off, pos, val,
+                    val.new_empty((0, val.shape[1])), val.new_empty((0,)),
+                    1, val.shape[0])
+
+
+def _scatter(dh, graph, half, k, val, cnt):
+    """Add a level's edge cotangents into ``dh`` by source row, under
+    sharding through the summed compact buffer of the level's distinct
+    source rows."""
+    rows = getattr(graph, f"{half}_src_rows")[k]
+    shard = graph.shard
+    if rows.shape[0] == 0:  # a level without edges, on every rank
+        return
+    if shard is None:
+        _scatter_add(dh, rows, getattr(graph, f"{half}_src_off")[k],
+                     getattr(graph, f"{half}_src_pos")[k], val, cnt)
+        return
+    buf = dh.new_zeros((rows.shape[0], dh.shape[1]))
+    _scatter_add(buf, getattr(shard, f"{half}_src_rows")[k],
+                 getattr(shard, f"{half}_src_off")[k],
+                 getattr(shard, f"{half}_src_pos")[k], val, cnt)
+    shard.sum_(buf)
+    u = rows.shape[0]
+    _scatter_add(dh, rows, shard.iota[: u + 1], shard.iota[:u], buf, None)
+
+
+def segment_gnn_forward(params, h0: torch.Tensor, graph,
+                        dgl_parity: bool = True, saved=None) -> torch.Tensor:
+    """h_final of the walk under the segment reduce. ``params`` maps each
+    name of ``MLP_NAMES`` to that MLP's ``(w0, b0, w1, b1)``; h0 (num_rows
+    + 1, D) float32 is not modified (the walk writes a copy); graph: a
+    :class:`prtp_tpu_torch.graph.LeveledGraphExact` on h0's device, with
+    its ``shard`` under the edge-sharded step. ``saved``, a dict, receives
+    each pair k > 0's cell reduce ``(out, mx, den)`` for the backward.
+    Differentiable by torch autograd where every tensor lies on the CPU
+    and the graph is not sharded (the plain versions); :class:`SegmentWalk`
+    is its hand-written backward."""
+    require_tables(graph, "the segment reduce")
+    h = h0.clone()
+    for k in range(graph.num_pairs):
+        # ---- cell half (even level 2k) ----
+        pn_c = graph.cell_feat_lvl[k].shape[0]
+        c0 = graph.cell_off[k]
+        pre = _mlp(params["fc_cell_self"], graph.cell_feat_lvl[k])
+        if k > 0:  # level 0 drops the neighbour term
+            reduced = _cell_reduce(h, graph, k)
+            if saved is not None:
+                saved[k] = reduced
+            pre = pre + _mlp(params["fc_cell_neigh"], reduced[0])
+        new = F.relu(pre)
+        if dgl_parity:
+            new = torch.where(graph.cell_has_in[k], new,
+                              F.relu(h[c0: c0 + pn_c]))
+        h[c0: c0 + pn_c] = new
+        # ---- net half (odd level 2k+1), after the cell half's write ----
+        pn_n = graph.net_feat_lvl[k].shape[0]
+        n0 = graph.net_off[k]
+        new_n = F.relu(_mlp(params["fc_net_self"], graph.net_feat_lvl[k])
+                       + _net_reduce(h, graph, k))
+        if dgl_parity:
+            new_n = torch.where(graph.net_has_in[k], new_n,
+                                F.relu(h[n0: n0 + pn_n]))
+        h[n0: n0 + pn_n] = new_n
+    return h
+
+
+def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
+                         saved, dgl_parity: bool = True):
+    """The cotangent of h0 and the MLPs' gradients (a dict like
+    ``params``) of the walk whose final state is ``hf``, for the
+    cotangent ``g`` of ``hf``; ``saved`` is what the forward kept. One
+    ``dh`` carry, a copy of ``g``, updated in place pair by pair in
+    reverse."""
+    dh = g.clone(memory_format=torch.contiguous_format)
+    grads = {name: [torch.zeros_like(t) for t in params[name]]
+             for name in MLP_NAMES}
+    tables = graph.shard or graph
+    for k in reversed(range(graph.num_pairs)):
+        pn_c = graph.cell_feat_lvl[k].shape[0]
+        pn_n = graph.net_feat_lvl[k].shape[0]
+        c0, n0 = graph.cell_off[k], graph.net_off[k]
+        # ---- net half: its block's carry, then its edges' scatter ----
+        d_pre_n, d_old_n = _relu_split(dh[n0: n0 + pn_n], hf[n0: n0 + pn_n],
+                                       graph.net_has_in[k], dgl_parity)
+        torch._foreach_add_(grads["fc_net_self"], list(_mlp_grads(
+            params["fc_net_self"], graph.net_feat_lvl[k], d_pre_n, False)[0]))
+        dh[n0: n0 + pn_n] = 0.0 if d_old_n is None else d_old_n
+        _scatter(dh, graph, "net", k, d_pre_n, graph.net_cnt[k])
+        # ---- cell half ----
+        d_pre_c, d_old_c = _relu_split(dh[c0: c0 + pn_c], hf[c0: c0 + pn_c],
+                                       graph.cell_has_in[k], dgl_parity)
+        torch._foreach_add_(grads["fc_cell_self"], list(_mlp_grads(
+            params["fc_cell_self"], graph.cell_feat_lvl[k], d_pre_c,
+            False)[0]))
+        d_msg = None
+        if k > 0:
+            f, mx, den = saved[k]
+            dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c)
+            torch._foreach_add_(grads["fc_cell_neigh"], list(dp_neigh))
+            d_msg = segment_softmax_sum_bwd(hf, tables.cell_src[k],
+                                            tables.cell_dst_off[k], f, mx,
+                                            den, d_f)
+        dh[c0: c0 + pn_c] = 0.0 if d_old_c is None else d_old_c
+        if d_msg is not None:
+            _scatter(dh, graph, "cell", k, d_msg, None)
+    return dh, grads
+
+
+class SegmentWalk(torch.autograd.Function):
+    """The walk under the segment reduce with its hand-written backward.
+    Inputs: the graph and ``dgl_parity`` (no gradient), h0, then the
+    twelve pair-step tensors in ``MLP_NAMES`` order."""
+
+    @staticmethod
+    def forward(ctx, graph, dgl_parity, h0, *flat):
+        saved = {} if any(ctx.needs_input_grad) else None
+        hf = segment_gnn_forward(_params_of(flat), h0, graph, dgl_parity,
+                                 saved)
+        ctx.graph, ctx.dgl_parity, ctx.reduced = graph, dgl_parity, saved
+        ctx.save_for_backward(hf, *flat)
+        return hf
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        hf, *flat = ctx.saved_tensors
+        dh, grads = segment_gnn_backward(_params_of(flat), hf, g, ctx.graph,
+                                         ctx.reduced, ctx.dgl_parity)
+        ctx.reduced = None
+        need = ctx.needs_input_grad
+        return (None, None, dh if need[2] else None,
+                *(t if need[3 + i] else None
+                  for i, t in enumerate(_flat_of(grads))))
+
+
+def segment_walk(params, h0: torch.Tensor, graph,
+                 dgl_parity: bool = True) -> torch.Tensor:
+    """:func:`segment_gnn_forward` through :class:`SegmentWalk`: the
+    forward launches the same kernels, and autograd takes the
+    hand-written backward."""
+    return SegmentWalk.apply(graph, dgl_parity, h0, *_flat_of(params))

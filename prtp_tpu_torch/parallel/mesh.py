@@ -36,8 +36,9 @@ def requested_ranks(options, device="cuda") -> int | None:
     visible card (``torch.cuda.device_count()``), one rank on the CPU, or
     every rank of an existing process group; ``--mesh_shape N`` means N
     (an explicit mesh implies ``--dp``). A multi-dimensional
-    ``--mesh_shape``, more ranks than cards, or another N than an
-    existing group's size is refused."""
+    ``--mesh_shape`` (the 2-D ``(dp, gp)`` edge sharding is the
+    :mod:`.graph_shard` library API, as in JAX), more ranks than cards,
+    or another N than an existing group's size is refused."""
     if not (getattr(options, "dp", False)
             or getattr(options, "mesh_shape", None)):
         return None
@@ -45,8 +46,8 @@ def requested_ranks(options, device="cuda") -> int | None:
     if shape and len(shape) > 1:
         raise ValueError(
             f"--mesh_shape {shape}: the train/test CLIs run a 1-D "
-            "data-parallel mesh; the 2-D (dp, gp) graph-sharded step is not "
-            "ported (ROADMAP.md Queue 1, item 6)")
+            "data-parallel mesh; for the 2-D (dp, gp) graph-sharded "
+            "step use prtp_tpu_torch.parallel.graph_shard directly")
     if dist.is_initialized():
         world = dist.get_world_size()
         if shape and shape[0] != world:

@@ -84,7 +84,8 @@ def evaluate_design(model, parsed, device="cuda", case_idx: int = 0,
     seconds)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    design = pack_design(parsed, map_size=model.map_size, device=dev)
+    design = pack_design(parsed, map_size=model.map_size, device=dev,
+                         segment=model.gnn_reduce == "segment")
     pack_s = time.perf_counter() - t0
     num_paths = int(parsed["num_paths"])
     start = time.perf_counter()

@@ -8,7 +8,7 @@ import re
 
 import pytest
 
-from prtp_tpu_torch.ops import _build, adam, fused_gnn, gather
+from prtp_tpu_torch.ops import _build, adam, fused_gnn, gather, segment_kernels
 
 C_TYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,
            "float": ctypes.c_float}
@@ -22,6 +22,9 @@ ARGTYPES = {
     "flat_adam": adam._ARGTYPES,
     "attn_sum": fused_gnn._ATTN_ARGTYPES,
     "attn_bwd": fused_gnn._ATTN_BWD_ARGTYPES,
+    "segment_softmax_sum": segment_kernels._SOFTMAX_ARGTYPES,
+    "segment_mean": segment_kernels._MEAN_ARGTYPES,
+    "segment_softmax_sum_bwd": segment_kernels._SOFTMAX_BWD_ARGTYPES,
 }
 
 

@@ -146,7 +146,8 @@ def assert_steps_match_jax(parsed, model_kw, variables, exact, batches,
     state = trainer.init_state(model, trainer.make_optimizer(LR),
                                device="cpu")
     assert isinstance(state.optimizer, trainer.FlatAdam)
-    design = pack_design(parsed, map_size=model_kw["map_size"], device="cpu")
+    design = pack_design(parsed, map_size=model_kw["map_size"], device="cpu",
+                         segment=model_kw.get("gnn_reduce") == "segment")
     port_batches = [(torch.from_numpy(i.astype(np.int64)),
                      torch.from_numpy(m.copy())) for i, m in batches]
     first = trainer.train_step(state, design, *port_batches[0], task=task)
