@@ -186,7 +186,12 @@ Phases, each failing loudly (nonzero exit) on any error:
    and its backward's ``mailbox_scatter`` calls against their plain
    versions at every level's shapes, timed (median of 10 cold-L2 calls)
    beside their bytes bound, one-slot floor, plain version and library
-   call (``embedding_bag``, ``index_add_``); (b) the segment reg model:
+   call (``embedding_bag``, ``index_add_``); the softmax forward whole
+   and ``partial``, its backward recomputing and stats-reading (the two
+   bit for bit against each other), each mode's bound; both softmax
+   kernels on the shapes the headline does not reach (edge shapes) and
+   launched right after a writer of what they read after their wait
+   (programmatic launch hazards); (b) the segment reg model:
    3 requests card against CPU and against the card's mailbox model on
    the same weights, 3 steps card against CPU by phase 6's bounds, the
    first step against the mailbox model's, its step timed beside the
@@ -1408,6 +1413,42 @@ def hazard_writers(torch, dev, early_writer) -> dict:
             "early_writer": write_early}
 
 
+def staged(torch, vals):
+    """NaN-filled views of one buffer, shaped as ``vals``, the flat
+    values, and the buffer: one writer launch fills them all."""
+    src = torch.cat([v.reshape(-1) for v in vals])
+    buf = torch.full_like(src, float("nan"))
+    views, at = [], 0
+    for v in vals:
+        views.append(buf[at: at + v.numel()].view(v.shape))
+        at += v.numel()
+    return views, src, buf
+
+
+def after_writers(torch, writers, what, call, buf, src, want) -> list:
+    """For each writer of :func:`hazard_writers`, HAZARD_REPS launches of
+    ``call``, each right after the writer fills ``buf`` (NaN first) from
+    ``src``, a spin kernel holding the stream while the host enqueues
+    both; logs the elements that differ from ``want`` (rtol 1e-5, atol
+    1e-6) in each launch. Returns the failed ``what after writer``s."""
+    failed = []
+    for writer, write in writers.items():
+        bad = []
+        for _ in range(HAZARD_REPS):
+            buf.fill_(float("nan"))
+            torch.cuda._sleep(int(0.2 * SPIN_CYCLES_PER_MS))
+            write(buf, src)
+            bad.append((~torch.isclose(call(), want, rtol=1e-5,
+                                       atol=1e-6)).sum())
+        bad = [int(b) for b in bad]
+        log(f"  programmatic launch: {what} right after {writer}: "
+            f"elements off the plain version in each of {HAZARD_REPS} "
+            f"launches {bad}")
+        if any(bad):
+            failed.append(f"{what} after {writer}")
+    return failed
+
+
 def check_programmatic_hazard(torch, graph, dev, early_writer, pair=1):
     """Phase 3, programmatic dependent launch: softmax_sum_bwd and both
     mailbox_scatter calls at one pair's shapes of ``graph``, each launched
@@ -1434,42 +1475,15 @@ def check_programmatic_hazard(torch, graph, dev, early_writer, pair=1):
     pn_c, md_c = cell_mail.shape
     pn_n, md_n = graph.net_mail[pair].shape
     h = torch.randn((num_rows + 1, D), generator=gen, device=dev)
-
-    def staged(vals):
-        """NaN-filled views of one buffer, shaped as ``vals``, the flat
-        values, and the buffer: one writer launch fills them all."""
-        src = torch.cat([v.reshape(-1) for v in vals])
-        buf = torch.full_like(src, float("nan"))
-        views, at = [], 0
-        for v in vals:
-            views.append(buf[at: at + v.numel()].view(v.shape))
-            at += v.numel()
-        return views, src, buf
-
     failed = []
 
     def after_writer(what, call, buf, src, want):
-        """For each writer, HAZARD_REPS launches of ``call``, each right
-        after the writer fills ``buf`` from ``src``; logs the elements
-        that differ from ``want`` in each launch."""
-        for writer, write in writers.items():
-            bad = []
-            for _ in range(HAZARD_REPS):
-                buf.fill_(float("nan"))
-                torch.cuda._sleep(int(0.2 * SPIN_CYCLES_PER_MS))
-                write(buf, src)
-                bad.append((~torch.isclose(call(), want, rtol=1e-5,
-                                           atol=1e-6)).sum())
-            bad = [int(b) for b in bad]
-            log(f"  programmatic launch: {what} right after {writer}: "
-                f"elements off the plain version in each of {HAZARD_REPS} "
-                f"launches {bad}")
-            if any(bad):
-                failed.append(f"{what} after {writer}")
+        failed.extend(after_writers(torch, writers, what, call, buf, src,
+                                    want))
 
     f = softmax_sum_plain(h, cell_mail, num_rows)
     d_f = torch.randn((pn_c, D), generator=gen, device=dev)
-    (f_v, d_f_v), src, buf = staged([f, d_f])
+    (f_v, d_f_v), src, buf = staged(torch, [f, d_f])
     valid = (cell_mail != num_rows).reshape(-1)
     after_writer("softmax_sum_bwd",
                  lambda: softmax_sum_bwd(h, cell_mail, num_rows, f_v,
@@ -1487,7 +1501,7 @@ def check_programmatic_hazard(torch, graph, dev, early_writer, pair=1):
     }
     for site, (dest, rows, seg_off, pos, with_cell, n_cell) in sites.items():
         (dest_v, d_pre_v, d_mail_v), src, buf = staged(
-            [dest, d_pre_n, d_mail_c])
+            torch, [dest, d_pre_n, d_mail_c])
         tail = (graph.net_cnt[pair], md_n, n_cell)
 
         def scatter():
@@ -3704,17 +3718,23 @@ def time_allreduces(torch, dist, shapes, dev, group, reps):
 def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
     """Phase 11 (a): the three kernels of the segment walk against their
     plain versions at the headline's shapes, each level's in turn, with a
-    random state ``h``: ``segment_softmax_sum`` (whole and ``partial``),
-    ``segment_mean`` (with and without counts), ``segment_softmax_sum_bwd``,
-    and the backward's ``mailbox_scatter`` calls (a cell level's per-edge
+    random state ``h``: ``segment_softmax_sum`` whole (the main path)
+    and ``partial`` (an edge-sharded rank's), ``segment_mean`` (with and
+    without counts), ``segment_softmax_sum_bwd`` recomputing (the main
+    path) and reading the statistics (an edge-sharded rank's), and the
+    backward's ``mailbox_scatter`` calls (a cell level's per-edge
     cotangent, a net level's per-slot one over its counts), each at rtol
-    1e-5, atol 1e-6. Bytes count what a call must move: each distinct
-    source row and index once and the outputs (``segment_softmax_sum``'s
-    saved shift and denominator included; its bound without them is
-    logged beside). Times: the median of REPS cold-L2 calls; library:
-    ``F.embedding_bag`` (mode "mean") for ``segment_mean``, ``index_add_``
-    of prebuilt per-edge contributions for the scatter. Returns
-    ``({name: KernelRecord}, the scatter's KernelRecord)``."""
+    1e-5, atol 1e-6. The partial call's numerator over its denominator
+    (the combine at one rank) against the whole call's output, and the
+    two backward modes against each other: bit-equal, or the largest
+    difference logged. Bytes count what a call must move: each distinct
+    source row and index once and the outputs (``partial`` also writes
+    the shift and denominator, the stats-reading backward reads them and
+    the output). Times: the median of REPS cold-L2 calls; library:
+    ``F.embedding_bag`` (mode "mean") for ``segment_mean``,
+    ``index_add_`` of prebuilt per-edge contributions for the scatter.
+    Returns ``({name: KernelRecord} of the main path's modes, the
+    scatter's KernelRecord, [KernelRecord] of the other modes)``."""
     from prtp_tpu_torch.ops import segment_kernels as K
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -3722,6 +3742,9 @@ def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
     row_b = D * 4
     recs = {name: KernelRecord(name, "headline") for name in SEGMENT_KERNELS}
     scatter = KernelRecord("mailbox_scatter", "headline segment")
+    partial_rec = KernelRecord("segment_softmax_sum", "headline, partial")
+    stats_rec = KernelRecord("segment_softmax_sum_bwd",
+                             "headline, stats-reading")
 
     def close(name, k, got, want):
         err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -3731,47 +3754,82 @@ def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
                                  f"{err}")
         return err
 
+    def bits(a, b):
+        """'bit-equal', or the largest difference and its count."""
+        if torch.equal(a, b):
+            return "bit-equal"
+        return (f"{int((a != b).sum())} elements differ, by at most "
+                f"{float((a - b).abs().max()):.3g}")
+
     for k in range(graph.num_pairs):
         # ---- the cell half (k > 0): forward, backward, scatter ----
         if k > 0:
             src, off = graph.cell_src[k], graph.cell_dst_off[k]
             s, e = off.shape[0] - 1, src.shape[0]
             rows = torch.unique(src).numel()
-            err = 0.0
-            for partial in (False, True):
-                for got, want in zip(
-                        K.segment_softmax_sum(h, src, off, partial),
-                        K.segment_softmax_sum_plain(h, src, off, partial)):
-                    err = max(err, close("segment_softmax_sum", k, got,
-                                         want))
-            nbytes = rows * row_b + e * 4 + (s + 1) * 4 + 3 * s * row_b
+            kw = {"max_deg": graph.cell_mail[k].shape[1]}  # as the walk
+            out = K.segment_softmax_sum(h, src, off, **kw)[0]
+            err = close("segment_softmax_sum", k, out,
+                        K.segment_softmax_sum_plain(h, src, off)[0])
+            stats = K.segment_softmax_sum(h, src, off, True, **kw)
+            err_p = max(close("segment_softmax_sum (partial)", k, got, want)
+                        for got, want in zip(stats, K.segment_softmax_sum_plain(
+                            h, src, off, partial=True)))
+            numer, mx, den = stats
+            combined = bits(numer / den.clamp_min(1e-12), out)
+            # read: the distinct rows, the edge table, the offsets
+            nbytes = rows * row_b + e * 4 + (s + 1) * 4
             ops = 6.0 * e * D
-            ms = timer.ms(lambda: K.segment_softmax_sum(h, src, off))
+            ms = timer.ms(lambda: K.segment_softmax_sum(h, src, off, **kw))
+            ms_p = timer.ms(lambda: K.segment_softmax_sum(h, src, off, True,
+                                                          **kw))
             pms = timer.ms(lambda: K.segment_softmax_sum_plain(h, src, off))
-            recs["segment_softmax_sum"].add(ms, pms, None, nbytes, ops, err)
+            recs["segment_softmax_sum"].add(ms, pms, None,
+                                            nbytes + s * row_b, ops, err)
+            partial_rec.add(ms_p, pms, None, nbytes + 3 * s * row_b, ops,
+                            err_p)
             log(f"  segment_softmax_sum pair {k}: {e} edges into {s} slots "
-                f"of {D} f32  kernel {ms:.4f} ms  plain {pms:.4f}  bound "
-                f"{bound(nbytes, ops)[0]:.4f} (without writing mx and den "
-                f"{bound(nbytes - 2 * s * row_b, ops)[0]:.4f})  max abs err "
-                f"{err:.3g}")
-            out, mx, den = K.segment_softmax_sum(h, src, off)
+                f"of {D} f32  kernel {ms:.4f} ms (partial {ms_p:.4f})  plain "
+                f"{pms:.4f}  bound {bound(nbytes + s * row_b, ops)[0]:.4f} "
+                f"(partial {bound(nbytes + 3 * s * row_b, ops)[0]:.4f})  max "
+                f"abs err {err:.3g} (partial {err_p:.3g}); partial numerator "
+                f"over its denominator vs the whole output: {combined}")
             g = torch.randn((s, D), generator=gen, device=dev)
-            d_msg = K.segment_softmax_sum_bwd(h, src, off, out, mx, den, g)
-            err = close("segment_softmax_sum_bwd", k, d_msg,
-                        K.segment_softmax_sum_bwd_plain(h, src, off, out, mx,
-                                                        den, g))
-            nbytes = (rows * row_b + e * 4 + (s + 1) * 4 + 4 * s * row_b
+            stats = (out, mx, den)
+            d_msg = K.segment_softmax_sum_bwd(h, src, off, g, **kw)
+            d_st = K.segment_softmax_sum_bwd(h, src, off, g, stats, **kw)
+            # both against the plain version on the forward kernel's
+            # statistics (which match the plain forward's above): a
+            # recomputed out off by an ulp moves (1 + x) - out by more
+            # than rtol where the two nearly cancel
+            want = K.segment_softmax_sum_bwd_plain(h, src, off, g, stats)
+            err = close("segment_softmax_sum_bwd", k, d_msg, want)
+            err_s = close("segment_softmax_sum_bwd (stats-reading)", k, d_st,
+                          want)
+            err_r = float((d_msg - K.segment_softmax_sum_bwd_plain(
+                h, src, off, g)).abs().max())
+            modes = bits(d_msg, d_st)
+            # read the distinct rows, the tables and g; write the (E, D)
+            # cotangent; stats-reading also reads out, mx and den
+            nbytes = (rows * row_b + e * 4 + (s + 1) * 4 + s * row_b
                       + e * row_b)
-            ops = 8.0 * e * D
-            ms = timer.ms(lambda: K.segment_softmax_sum_bwd(
-                h, src, off, out, mx, den, g))
+            ms = timer.ms(lambda: K.segment_softmax_sum_bwd(h, src, off, g,
+                                                            **kw))
+            ms_s = timer.ms(lambda: K.segment_softmax_sum_bwd(h, src, off, g,
+                                                              stats, **kw))
             pms = timer.ms(lambda: K.segment_softmax_sum_bwd_plain(
-                h, src, off, out, mx, den, g))
-            recs["segment_softmax_sum_bwd"].add(ms, pms, None, nbytes, ops,
-                                                err)
+                h, src, off, g))
+            recs["segment_softmax_sum_bwd"].add(ms, pms, None, nbytes,
+                                                14.0 * e * D, err)
+            stats_rec.add(ms_s, pms, None, nbytes + 3 * s * row_b,
+                          8.0 * e * D, err_s)
             log(f"  segment_softmax_sum_bwd pair {k}: {e} edges  kernel "
-                f"{ms:.4f} ms  plain {pms:.4f}  bound "
-                f"{bound(nbytes, ops)[0]:.4f}  max abs err {err:.3g}")
+                f"{ms:.4f} ms (stats-reading {ms_s:.4f})  plain {pms:.4f}  "
+                f"bound {bound(nbytes, 14.0 * e * D)[0]:.4f} (stats-reading "
+                f"{bound(nbytes + 3 * s * row_b, 8.0 * e * D)[0]:.4f})  max "
+                f"abs err {err:.3g} (stats-reading {err_s:.3g}; against the "
+                f"plain version recomputing too {err_r:.3g}); recomputing vs "
+                f"stats-reading: {modes}")
             check_segment_scatter(torch, scatter, k, "cell", graph, h, d_msg,
                                   None, timer, close)
         # ---- the net half (every pair): the mean, the scatter ----
@@ -3798,7 +3856,7 @@ def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
         g_n = torch.randn((s, D), generator=gen, device=dev)
         check_segment_scatter(torch, scatter, k, "net", graph, h, g_n, cnt,
                               timer, close)
-    return recs, scatter
+    return recs, scatter, [partial_rec, stats_rec]
 
 
 def check_segment_scatter(torch, rec, k, half, graph, h, val, cnt, timer,
@@ -3865,14 +3923,149 @@ def segment_floors(torch, graph, dev, timer) -> dict:
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     return {
         "segment_softmax_sum": timer.ms(
-            lambda: K.segment_softmax_sum(h, src, off)),
+            lambda: K.segment_softmax_sum(h, src, off, max_deg=1)),
         "segment_mean": timer.ms(lambda: K.segment_mean(h, src, off, one)),
         "segment_softmax_sum_bwd": timer.ms(
-            lambda: K.segment_softmax_sum_bwd(h, src, off, row, row, row,
-                                              row)),
+            lambda: K.segment_softmax_sum_bwd(h, src, off, row, max_deg=1)),
         "mailbox_scatter": timer.ms(
             lambda: mailbox_scatter(h, zero, off, zero, None, row, one, 1, 0)),
     }
+
+
+def check_segment_edge_shapes(torch, dev):
+    """Phase 11 (a): the two softmax kernels of the segment walk on the
+    code paths the headline does not reach, against their plain versions
+    (rtol 1e-5, atol 1e-6, NaN where the plain version has it):
+    ``segment_softmax_sum`` whole and ``partial``, and
+    ``segment_softmax_sum_bwd`` recomputing and stats-reading (the
+    statistics of the kernel's own partial call), on empty slots, slots
+    of 1, 8, 9 and 33 edges (9 and 33: the generic path), D % 4 != 0 and
+    a misaligned h (the scalar path), narrow and wide rows, a NaN on a
+    real edge, and no edges (no slots too). An empty slot must give 0.
+    The two backward modes against each other: the elements that differ
+    are logged."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def same(got, want):
+        return got.shape == want.shape and torch.allclose(
+            got, want, rtol=1e-5, atol=1e-6, equal_nan=True)
+
+    cases, differ = 0, 0
+    # (degrees of the slots, D, rows of h, case), each with both widths of
+    # the register path
+    for degs, d, r, case in (
+            ([0, 1, 8, 9, 33, 0, 4, 2, 3, 1] * 30, 128, 500, "degrees"),
+            ([0, 1, 8, 9, 33, 4], 300, 200, "75 float4s a slot"),
+            ([0, 1, 8, 9, 33, 4] * 20, 20, 200, "5 float4s a slot"),
+            ([0, 1, 8, 9, 33, 4] * 20, 4, 200, "one float4 a slot"),
+            ([0, 1, 8, 9, 33, 4] * 20, 7, 200, "D%4!=0"),
+            ([0, 1, 8, 9, 33, 4] * 20, 128, 200, "misaligned h"),
+            ([0, 3, 9, 2] * 20, 128, 200, "NaN"),
+            ([0] * 5, 128, 50, "no edges"),
+            ([], 128, 50, "no slots")):
+        deg = torch.tensor(degs, dtype=torch.int64)
+        off = torch.zeros(len(degs) + 1, dtype=torch.int32)
+        off[1:] = deg.cumsum(0)
+        off = off.to(dev)
+        src = torch.randint(0, r, (int(deg.sum()),), generator=gen,
+                            device=dev, dtype=torch.int32)
+        if case == "misaligned h":
+            h = torch.randn(r * d + 1, generator=gen, device=dev)[1:]
+            h = h.view(r, d)
+        else:
+            h = torch.randn((r, d), generator=gen, device=dev) * 4
+        nan_slot = None
+        if case == "NaN":  # on the first edge of slots 1 and 2 (3, 9 edges)
+            nan_slot = [1, 2]
+            h[src[off[1:3].long()], 2] = float("nan")
+        empty = (deg == 0).to(dev)
+        g = torch.randn((len(degs), d), generator=gen, device=dev)
+        want = K.segment_softmax_sum_plain(h, src, off)[0]
+        want_p = K.segment_softmax_sum_plain(h, src, off, True)
+        # max_deg 0: no bound known (the 8-row register path); 4: the
+        # 4-row one, the wider slots on the generic path
+        for kmax in (0, 4):
+            what = f"{case}, D={d}, max_deg={kmax}"
+            out = K.segment_softmax_sum(h, src, off, max_deg=kmax)[0]
+            part = K.segment_softmax_sum(h, src, off, True, kmax)
+            ok = (same(out, want)
+                  and all(same(x, y) for x, y in zip(part, want_p))
+                  and not bool(out[empty].any())
+                  and not any(bool(t[empty].any()) for t in part[1:]))
+            if nan_slot is not None:
+                ok = ok and bool(out[nan_slot, 2].isnan().all())
+            else:
+                ok = ok and bool(torch.isfinite(out).all())
+            if not ok:
+                raise AssertionError(f"segment_softmax_sum differs: {what}")
+            stats = (out, part[1], part[2])
+            d_re = K.segment_softmax_sum_bwd(h, src, off, g, max_deg=kmax)
+            d_st = K.segment_softmax_sum_bwd(h, src, off, g, stats, kmax)
+            # against the plain version on the kernel's statistics, as in
+            # check_segment_kernels
+            d_want = K.segment_softmax_sum_bwd_plain(h, src, off, g, stats)
+            if not (same(d_re, d_want) and same(d_st, d_want)):
+                errs = [float((x - d_want).abs().nan_to_num().max())
+                        if x.numel() else 0.0 for x in (d_re, d_st)]
+                raise AssertionError(
+                    f"segment_softmax_sum_bwd differs: {what}: max abs err "
+                    f"recomputing {errs[0]}, stats-reading {errs[1]}")
+            differ += int((~((d_re == d_st) | (d_re.isnan() & d_st.isnan())))
+                          .sum())
+        cases += 1
+    log(f"  segment edge shapes: {cases} cases, each kernel in both modes "
+        "and with both register-path widths, match their plain versions (rtol 1e-5, atol 1e-6, NaN where the "
+        f"plain version has it, empty slots 0); backward elements that "
+        f"differ between recomputing and stats-reading: {differ}")
+
+
+def check_segment_hazard(torch, graph, dev, early_writer, pair=1):
+    """Phase 11 (a), programmatic dependent launch: at one pair's shapes
+    of ``graph``, ``segment_softmax_sum`` (whole and ``partial``) right
+    after a writer of ``h``, the one input it reads after its wait, and
+    ``segment_softmax_sum_bwd`` (recomputing and stats-reading) right
+    after a writer of ``g``, each NaN first, for both writers of
+    :func:`hazard_writers`; each of HAZARD_REPS results a writer must
+    match the plain version on the written values (rtol 1e-5, atol
+    1e-6)."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    writers = hazard_writers(torch, dev, early_writer)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    src, off = graph.cell_src[pair], graph.cell_dst_off[pair]
+    s = off.shape[0] - 1
+    max_deg = graph.cell_mail[pair].shape[1]  # as the walk
+    h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
+    g = torch.randn((s, D), generator=gen, device=dev)
+    failed = []
+    (h_v,), h_src, h_buf = staged(torch, [h])
+    for partial in (False, True):
+        want = K.segment_softmax_sum_plain(h, src, off, partial)
+        failed += after_writers(
+            torch, writers, f"segment_softmax_sum (partial={partial})",
+            lambda: torch.cat([t for t in K.segment_softmax_sum(
+                h_v, src, off, partial, max_deg) if t is not None]),
+            h_buf, h_src, torch.cat([t for t in want if t is not None]))
+    numer, mx, den = K.segment_softmax_sum_plain(h, src, off, True)
+    (g_v,), g_src, g_buf = staged(torch, [g])
+    for stats in (None, (numer / den.clamp_min(1e-12), mx, den)):
+        mode = "recomputing" if stats is None else "stats-reading"
+        failed += after_writers(
+            torch, writers, f"segment_softmax_sum_bwd ({mode})",
+            lambda: K.segment_softmax_sum_bwd(h, src, off, g_v, stats,
+                                              max_deg),
+            g_buf, g_src,
+            K.segment_softmax_sum_bwd_plain(h, src, off, g, stats))
+    if failed:
+        raise AssertionError("launched right after the kernel that writes "
+                             "its inputs, a segment kernel differs from its "
+                             f"plain version: {failed}")
+    log(f"  programmatic launch: segment_softmax_sum (whole, partial) and "
+        f"segment_softmax_sum_bwd (recomputing, stats-reading) at pair "
+        f"{pair} match their plain versions right after each writer (rtol "
+        "1e-5, atol 1e-6)")
 
 
 def gp_rank(rank, tmp, port):
@@ -3943,12 +4136,14 @@ def gp_rank(rank, tmp, port):
         dist.destroy_process_group()
 
 
-def segment_phase(torch, np, dev, smi, headline, compute_mode) -> tuple:
+def segment_phase(torch, np, dev, smi, headline, compute_mode,
+                  early_writer) -> tuple:
     """Phase 11: the segment reduce (``gnn_reduce="segment"``) and the
     2-D ``(dp, gp)`` edge-sharded step at the default model's full width
     on the headline, float32, TF32 off.
 
-    (a) :func:`check_segment_kernels`, and each kernel's one-slot floor.
+    (a) :func:`check_segment_kernels`, and each kernel's one-slot floor;
+    :func:`check_segment_edge_shapes` and :func:`check_segment_hazard`.
     (b) The headline LayoutNet reg model with ``gnn_reduce="segment"``
     (the phase 4 model's weights): REQUESTS evaluation requests card
     against CPU (1e-4) and against the card's mailbox model on the same
@@ -3994,12 +4189,14 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode) -> tuple:
     log(f"phase 11 (a): the segment kernels at the headline's shapes "
         f"({graph.num_pairs} pairs)")
     timer = Timer(torch, dev)
-    recs, scatter = check_segment_kernels(torch, F, graph, dev, timer)
+    recs, scatter, modes = check_segment_kernels(torch, F, graph, dev, timer)
     floors = segment_floors(torch, graph, dev, timer)
     del timer
-    for rec in (*recs.values(), scatter):
+    for rec in (*recs.values(), *modes, scatter):
         rec.floor_ms = floors[rec.name]
         log(f"  {rec.summary()}  [{smi}]")
+    check_segment_edge_shapes(torch, dev)
+    check_segment_hazard(torch, graph, dev, early_writer)
 
     # ---- (b) the segment model: serving, training, the mailbox beside ----
     kw = dict(map_size=MAP_SIZE, generator=torch.Generator().manual_seed(SEED))
@@ -4445,7 +4642,7 @@ def main() -> int:
 
     # ---- phase 11: the segment reduce and the (dp, gp) sharded step ----
     seg_records, seg_launches = segment_phase(
-        torch, np, dev, smi, parsed["headline"], compute_mode)
+        torch, np, dev, smi, parsed["headline"], compute_mode, early_writer)
     records += seg_records
     launches.update(seg_launches)
     for rec in records:

@@ -5,6 +5,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
+
 #include <cstdint>
 
 #define PRTP_EXPORT extern "C" __attribute__((visibility("default")))
@@ -31,7 +33,7 @@ __device__ __forceinline__ float nan_max(float acc, float x) {
 }
 
 // ---- the mailbox kernels' lane layout (softmax_sum, local_mean,
-// softmax_sum_bwd, mailbox_scatter) ----
+// softmax_sum_bwd, mailbox_scatter; the segment kernels too) ----
 //
 // A group of `group` lanes (a power of two, at most 32) covers one
 // destination row (a segment, for mailbox_scatter), one vector of N
@@ -146,11 +148,152 @@ __device__ __forceinline__ float group_sum(float v, int group) {
   return v;
 }
 
+// ---- the segment reduce's softmax (segment_softmax_sum and its
+// backward) ----
+//
+// A slot s owns the edges [off[s], off[s + 1]) of a destination-sorted
+// edge table; its rows are h[src[e]] in edge order. Per channel, over
+// them: the shift mx (the max; NaN if any is NaN; 0 when not finite, so
+// an empty slot's is 0), den = sum exp(x - mx) and num = sum exp(x - mx)
+// * x, each summed in edge order; the output num / max(den, 1e-12). The
+// forward and the backward both compute these through the functions
+// below, so the backward's recomputed shift, denominator and output are
+// the forward's bits.
+
+// The widest register path: a slot of at most kSlotMax edges has its
+// indices shared by shuffle, every row load issued before any
+// arithmetic and its rows kept in registers. A kernel instance serves
+// slots of up to KMAX = 4 or 8 edges so (chosen by a bound on the
+// level's degree, as the mailbox kernels choose by its width k); a
+// wider slot takes the generic path.
+constexpr int kSlotMax = 8;
+
+// The register path's width for slots of at most max_deg edges (0: no
+// bound known).
+inline int slot_width(int max_deg) {
+  return max_deg > 0 && max_deg <= 4 ? 4 : kSlotMax;
+}
+
+template <int N>
+__device__ __forceinline__ void softmax_begin(float (&mx)[N], float (&den)[N],
+                                              float (&num)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mx[i] = -INFINITY;
+    den[i] = num[i] = 0.f;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void softmax_max(float (&mx)[N],
+                                            const float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mx[i] = nan_max(mx[i], x[i]);
+}
+
+// The isfinite guard: after the last softmax_max.
+template <int N>
+__device__ __forceinline__ void softmax_shift(float (&mx)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (!isfinite(mx[i])) mx[i] = 0.f;
+}
+
+// Adds one row x to den and num.
+template <int N>
+__device__ __forceinline__ void softmax_add(const float (&mx)[N],
+                                            const float (&x)[N],
+                                            float (&den)[N], float (&num)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float e = expf(x[i] - mx[i]);
+    den[i] += e;
+    num[i] += e * x[i];
+  }
+}
+
+__device__ __forceinline__ float softmax_out(float num, float den) {
+  return num / fmaxf(den, 1e-12f);
+}
+
+// The slot's softmax over its first deg <= KMAX rows x[0 .. deg), held
+// in registers.
+template <int N, int KMAX>
+__device__ __forceinline__ void slot_softmax(const float (&x)[KMAX][N],
+                                             int deg, float (&mx)[N],
+                                             float (&den)[N],
+                                             float (&num)[N]) {
+  softmax_begin<N>(mx, den, num);
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j)
+    if (j < deg) softmax_max<N>(mx, x[j]);
+  softmax_shift<N>(mx);
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j)
+    if (j < deg) softmax_add<N>(mx, x[j], den, num);
+}
+
+// The slot's softmax over its deg rows h[src[begin + j]] at channel
+// offset col, walking the edge range twice (the max, then the sums):
+// the generic path, for any degree. CG: read h through L2 (load_vec_cg,
+// after a programmatic launch's wait), else load_vec.
+template <int N, bool CG>
+__device__ __forceinline__ void walk_softmax(const float* h,
+                                             const int32_t* __restrict__ src,
+                                             int32_t begin, int deg, int d,
+                                             int col, float (&mx)[N],
+                                             float (&den)[N],
+                                             float (&num)[N]) {
+  float x[N];
+  softmax_begin<N>(mx, den, num);
+  for (int32_t j = begin; j < begin + deg; ++j) {
+    const float* row = h + static_cast<int64_t>(__ldg(src + j)) * d + col;
+    if (CG)
+      load_vec_cg<N>(row, x);
+    else
+      load_vec<N>(row, x);
+    softmax_max<N>(mx, x);
+  }
+  softmax_shift<N>(mx);
+  for (int32_t j = begin; j < begin + deg; ++j) {
+    const float* row = h + static_cast<int64_t>(__ldg(src + j)) * d + col;
+    if (CG)
+      load_vec_cg<N>(row, x);
+    else
+      load_vec<N>(row, x);
+    softmax_add<N>(mx, x, den, num);
+  }
+}
+
+// A slot's edge range [begin, begin + deg) of the CSR offsets off and,
+// when deg <= KMAX, its source indices src[begin + j] in every lane of
+// its group: lanes 0 and 1 load off[s] and off[s + 1], lane j < deg
+// loads index j (the slot's indices are contiguous), and the group
+// shares them by shuffle. Needs KMAX <= group; every lane of the warp,
+// those past the last slot too, must call it. A lane past the last slot
+// gets deg 0.
+template <int KMAX>
+__device__ __forceinline__ int slot_edges(const int32_t* __restrict__ src,
+                                          const int32_t* __restrict__ off,
+                                          const RowLanes& rl, bool row_ok,
+                                          int group, int32_t& begin,
+                                          int32_t (&idx)[KMAX]) {
+  const int32_t o = (row_ok && rl.lane < 2) ? __ldg(off + rl.row + rl.lane) : 0;
+  begin = __shfl_sync(0xffffffffu, o, 0, group);
+  const int deg = __shfl_sync(0xffffffffu, o, 1, group) - begin;
+  const int32_t mine =
+      (rl.lane < deg && rl.lane < KMAX) ? __ldg(src + begin + rl.lane) : 0;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) idx[j] = __shfl_sync(0xffffffffu, mine, j, group);
+  return deg;
+}
+
 // ---- programmatic dependent launch (sm_90) ----
 //
 // Its users: attn_sum, attn_bwd's two kernels (attn_bwd_rows,
-// attn_dw_reduce), softmax_sum_bwd and mailbox_scatter. softmax_sum,
-// local_mean, gather_rows and flat_adam launch plainly.
+// attn_dw_reduce), softmax_sum_bwd, mailbox_scatter,
+// segment_softmax_sum and segment_softmax_sum_bwd. softmax_sum,
+// local_mean, gather_rows, flat_adam and segment_mean launch plainly.
 //
 // Launched with cudaLaunchAttributeProgrammaticStreamSerialization, a
 // kernel may start while the kernel before it on the stream drains: its
@@ -158,7 +301,8 @@ __device__ __forceinline__ float group_sum(float v, int group) {
 // kernel has finished and its writes are visible. Before the wait a
 // kernel reads only what no kernel in flight writes (the graph's tables,
 // the final node state hf, the weights, attn_sum's alpha in the
-// backward); every other read and every store comes after. So a caller
+// backward, the segment backward's saved slot statistics); every other
+// read and every store comes after. So a caller
 // must not let the kernel just before it on the stream write what is
 // read before the wait. Launched plainly, the wait returns at once.
 

@@ -7,42 +7,63 @@
 // prtp_tpu/ops/segment.py::segment_softmax_sum_fused (:51-63). The
 // (E, D) message table is never built. The edges are sorted by
 // destination slot; slot s owns edges [off[s], off[s + 1]). For a slot s
-// and a channel c, over its edges e:
+// and a channel c, over its edges e (common.cuh, "the segment reduce's
+// softmax"):
 //   mx    = max_e h[src[e], c]   (NaN if any is NaN, as XLA's max; 0 when
 //                                 not finite: JAX's isfinite guard, so an
 //                                 empty slot's shift is 0)
 //   den   = sum_e exp(h[src[e], c] - mx)
 //   numer = sum_e exp(h[src[e], c] - mx) * h[src[e], c]
-//   out[s, c] = numer / max(den, 1e-12)    (or numer, with `partial`)
-// and mx_out[s, c] = mx, den_out[s, c] = den, which the backward
-// (segment_softmax_sum_bwd) and the edge-sharded step's combine over
-// ranks (prtp_tpu_torch/parallel/graph_shard.py) read. An empty slot gives
-// out 0, mx 0 and den 0, never NaN. With `partial` the kernel writes the
-// numerator: a rank of the edge-sharded step holds only a block of the
-// edges, and the ranks' partial sums are rescaled to the common max and
-// added before the division.
+//   out[s, c] = numer / max(den, 1e-12)
+// An empty slot gives 0, never NaN. With `partial` (a rank of the
+// edge-sharded step, prtp_tpu_torch/parallel/graph_shard.py, which holds
+// only a block of the edges) the kernel writes the numerator undivided
+// and also mx and den, which the combine over ranks rescales to the
+// common max and adds before the division. Without it only out is
+// written, as JAX's fused op returns only out: the backward
+// (segment_softmax_sum_bwd) recomputes the shift and denominator from the
+// rows it reads.
 //
 // Bound on Hopper: bytes: each distinct source row read once, the edge
-// table and the offsets, and three (S, D) outputs written, over 3.35
-// TB/s; an exp and a few float operations an element, far below the f32
-// rate. The saved shift and denominator count among the outputs, though
-// JAX's fused op returns only `out` (its backward recomputes them);
-// chip_smoke.py (phase 11) prints the bound at the headline's shapes
-// with them and without them, beside the kernel's time.
+// table and the offsets, and the (S, D) output written (with `partial`
+// also mx and den: three (S, D) tables), over 3.35 TB/s; an exp and a
+// few float operations an element, far below the f32 rate. At the
+// headline design (pairs 1-9: 70,789 edges into 28,254 slots) that is
+// 44.5 MB, 0.0133 ms a forward, and 73.5 MB, 0.0219 ms, with `partial`
+// (chip_smoke.py, phase 11 (a), which prints each beside the kernel's
+// time and its one-slot floor). Nine calls of at most 10,359 slots each
+// pay the per-call floor (a one-slot call: about 0.0065 ms on an H100
+// 80GB HBM3 at 700 W) more than their bytes.
 //
 // Design: the lane layout of the mailbox reductions (common.cuh): a lane
 // group covers one destination slot, one float4 of channels a lane (a
-// whole warp at D = 128), walking the slot's edge range twice (the max,
-// then the exp sums); each edge's source index is a broadcast load, and
-// the second pass finds its rows in L1 or L2. A slot's in-degree is
-// small (a cell's fan-in), so the walk is short. D % 4 != 0 or a pointer
-// off 16-byte alignment takes the scalar path (N = 1). Launched plainly.
-
-#include <math.h>
+// whole warp at D = 128; at least KMAX lanes). The slot's two offsets
+// and, for deg <= KMAX, its deg source indices are loaded once, by two
+// and by deg lanes, and shared by shuffle (slot_edges). Then every row's
+// 16-byte load is issued before any arithmetic and kept in registers (4
+// x 16 B in flight a lane at the headline's degree 4), each exp runs
+// once per element, and the result is stored once as a float4. KMAX is 4
+// or 8, by the caller's bound on the level's degree (the walk passes the
+// level's mailbox width), as softmax_sum chooses by its k: the 4-row
+// instance needs fewer registers (56 against 80 a thread at N = 4,
+// ptxas -v for sm_90a), so more warps fit on an SM. A slot above KMAX
+// takes a generic path that walks its edge range twice (the max, then
+// the exp sums), reading each index as it goes; D % 4 != 0 or a pointer
+// off 16-byte alignment takes the scalar path (N = 1). Every path sums
+// through the same functions in edge order, so all give the same bits.
+//
+// Launched as a programmatic dependent launch (common.cuh), so that the
+// launch and the off -> src chain of loads overlap the kernel before it.
+// Before grid_dep_wait() the kernel reads only off and src (the graph's
+// tables, copied to the card when the design was packed). After it, h
+// (which the previous pair's net half writes) through L2, then every
+// store.
 
 #include "common.cuh"
 
-template <int N>
+// KMAX (4 or 8): the register path's width; a wider slot takes the
+// generic path.
+template <int N, int KMAX>
 __global__ void __launch_bounds__(kMailboxThreads)
     segment_softmax_sum_kernel(const float* __restrict__ h,
                                const int32_t* __restrict__ src,
@@ -52,51 +73,65 @@ __global__ void __launch_bounds__(kMailboxThreads)
                                float* __restrict__ den_out, int64_t segs,
                                int d, int partial, int group) {
   const RowLanes rl = row_lanes(group);
-  if (rl.row >= segs) return;
+  const bool row_ok = rl.row < segs;
+  // ---- before the wait: off and src only ----
+  int32_t begin, idx[KMAX];
+  const int deg = slot_edges<KMAX>(src, off, rl, row_ok, group, begin, idx);
+  if (!row_ok) return;
+  // ---- after the wait: h, then the stores ----
+  grid_dep_wait();
   const int vecs = d / N;
-  const int32_t begin = __ldg(off + rl.row);
-  const int32_t end = __ldg(off + rl.row + 1);
   const int64_t o = rl.row * d;
   for (int c = rl.lane; c < vecs; c += group) {
-    float mx[N], den[N], num[N], x[N];
+    float mx[N], den[N], num[N];
+    if (deg <= KMAX) {
+      float x[KMAX][N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      mx[i] = -INFINITY;
-      den[i] = num[i] = 0.f;
-    }
-    for (int32_t e = begin; e < end; ++e) {
-      load_vec<N>(h + static_cast<int64_t>(__ldg(src + e)) * d + c * N, x);
-#pragma unroll
-      for (int i = 0; i < N; ++i) mx[i] = nan_max(mx[i], x[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      if (!isfinite(mx[i])) mx[i] = 0.f;
-    for (int32_t e = begin; e < end; ++e) {
-      load_vec<N>(h + static_cast<int64_t>(__ldg(src + e)) * d + c * N, x);
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float ex = expf(x[i] - mx[i]);
-        den[i] += ex;
-        num[i] += ex * x[i];
-      }
+      for (int j = 0; j < KMAX; ++j)
+        if (j < deg)
+          load_vec_cg<N>(h + static_cast<int64_t>(idx[j]) * d + c * N, x[j]);
+      slot_softmax<N, KMAX>(x, deg, mx, den, num);
+    } else {
+      walk_softmax<N, true>(h, src, begin, deg, d, c * N, mx, den, num);
     }
     float res[N];
 #pragma unroll
     for (int i = 0; i < N; ++i)
-      res[i] = partial ? num[i] : num[i] / fmaxf(den[i], 1e-12f);
+      res[i] = partial ? num[i] : softmax_out(num[i], den[i]);
     store_vec<N>(out + o + c * N, res);
-    store_vec<N>(mx_out + o + c * N, mx);
-    store_vec<N>(den_out + o + c * N, den);
+    if (partial) {
+      store_vec<N>(mx_out + o + c * N, mx);
+      store_vec<N>(den_out + o + c * N, den);
+    }
   }
 }
 
+template <int N>
+static cudaError_t launch(const float* h, const int32_t* src,
+                          const int32_t* off, float* out, float* mx,
+                          float* den, int64_t segs, int d, int partial,
+                          int max_deg, cudaStream_t s) {
+  const int vecs = d / N;
+  const int kmax = slot_width(max_deg);
+  const int group = lane_group(vecs > kmax ? vecs : kmax);
+  const unsigned grid = mailbox_grid(segs, group);
+  auto kernel = kmax == 4 ? &segment_softmax_sum_kernel<N, 4>
+                          : &segment_softmax_sum_kernel<N, kSlotMax>;
+  return launch_programmatic(kernel, grid, kMailboxThreads, 0, s, h, src, off,
+                             out, mx, den, segs, d, partial, group);
+}
+
 // h: (> max(src), d) float32, src: (off[segs],) int32, off: (segs + 1,)
-// int32 ascending, out, mx, den: (segs, d) float32.
+// int32 ascending, out: (segs, d) float32; mx, den: (segs, d) float32
+// with `partial`, else unused (may be null). max_deg: a bound on every
+// slot's degree (the register path's width: 4 up to 4, else 8), or 0
+// where none is known; a slot above it takes the generic path, so a
+// wrong bound costs time, never correctness.
 PRTP_EXPORT int segment_softmax_sum_launch(const void* h, const void* src,
                                            const void* off, void* out,
                                            void* mx, void* den, int64_t segs,
-                                           int d, int partial, void* stream) {
+                                           int d, int partial, int max_deg,
+                                           void* stream) {
   if (segs == 0 || d == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* hp = static_cast<const float*>(h);
@@ -108,14 +143,9 @@ PRTP_EXPORT int segment_softmax_sum_launch(const void* h, const void* src,
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(out) |
       reinterpret_cast<uintptr_t>(mx) | reinterpret_cast<uintptr_t>(den);
-  const bool vec4 = d % 4 == 0 && align % 16 == 0;
-  const int group = lane_group(vec4 ? d / 4 : d);
-  const unsigned grid = mailbox_grid(segs, group);
-  if (vec4)
-    segment_softmax_sum_kernel<4><<<grid, kMailboxThreads, 0, s>>>(
-        hp, sp, op, outp, mp, dp, segs, d, partial, group);
-  else
-    segment_softmax_sum_kernel<1><<<grid, kMailboxThreads, 0, s>>>(
-        hp, sp, op, outp, mp, dp, segs, d, partial, group);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      d % 4 == 0 && align % 16 == 0
+          ? launch<4>(hp, sp, op, outp, mp, dp, segs, d, partial, max_deg, s)
+          : launch<1>(hp, sp, op, outp, mp, dp, segs, d, partial, max_deg, s);
+  return static_cast<int>(err);
 }

@@ -7,33 +7,73 @@
 // (:51-63) under reduce_mode='segment' (prtp_tpu/models/gnn.py:184-186):
 // the transposed segment sums, the exp's and the division's cotangents
 // gathered back to the edges. For an edge e of destination slot s and a
-// channel c, with x = hf[src[e], c] and the forward's per-slot shift mx,
-// denominator den and output out (segment_softmax_sum):
+// channel c, with x = hf[src[e], c] and the slot's shift mx, denominator
+// den and output out (segment_softmax_sum):
 //   w = exp(x - mx[s, c]) / max(den[s, c], 1e-12)
 //   d_msg[e, c] = (g[s, c] * w) * ((1 + x) - out[s, c])
 // (the max's own cotangent, which cancels exactly, is left out). Reading
 // hf is exact: every source row of a level is final once that level has
-// been written. Under the edge-sharded step a rank passes its own block
-// of edges with the slots' combined mx, den and out.
+// been written. Two modes:
+// - recomputing (out, mx, den null; the unsharded walk): the kernel
+//   recomputes the slot's mx, den and out from the rows it reads, with
+//   the forward's functions (common.cuh, "the segment reduce's
+//   softmax"), so they are the forward's bits; the forward keeps none of
+//   them for it.
+// - stats-reading (the edge-sharded step): a rank holds only a block of
+//   a slot's edges, so it cannot recompute the slot; it passes its block
+//   with the slots' combined mx, den and out, which the kernel reads.
 //
 // Bound on Hopper: bytes: each distinct source row read once, the edge
-// table and the offsets, four (S, D) slot tables read and the (E, D)
-// cotangent written, over 3.35 TB/s; an exp and a few float operations
-// an element. chip_smoke.py (phase 11) prints the bound at the
-// headline's shapes beside the kernel's time.
+// table and the offsets, the (S, D) cotangent g read (stats-reading:
+// also out, mx and den) and the (E, D) cotangent written, over 3.35
+// TB/s; an exp and a few float operations an element. At the headline
+// design (pairs 1-9) that is 80.8 MB, 0.0241 ms a backward, recomputing,
+// and 124.2 MB, 0.0371 ms, stats-reading (chip_smoke.py, phase 11 (a),
+// which prints each beside the kernel's time and its one-slot floor).
 //
-// Design: the lane layout of the mailbox reductions (common.cuh): a lane
+// Design: the lane layout of segment_softmax_sum (common.cuh): a lane
 // group covers one destination slot, one float4 of channels a lane (a
-// whole warp at D = 128); it loads the slot's four float4s of g, out, mx
-// and den once, then walks the slot's edges, one load of hf and one
-// store a float4 each. D % 4 != 0 or a pointer off 16-byte alignment
-// takes the scalar path (N = 1). Launched plainly.
-
-#include <math.h>
+// whole warp at D = 128), the slot's offsets and, for deg <= KMAX, its
+// indices loaded once and shared by shuffle (slot_edges); KMAX is 4 or
+// 8, chosen as in segment_softmax_sum. On that register path every row's
+// 16-byte load is issued before any arithmetic and kept in registers;
+// then each edge's float4 of cotangent is stored (a 512-byte row segment
+// across the warp at D = 128). A slot above KMAX takes a generic path
+// that walks its edge range (twice to recompute, then once to store);
+// D % 4 != 0 or a pointer off 16-byte alignment takes the scalar path (N
+// = 1).
+//
+// Launched as a programmatic dependent launch (common.cuh), so that the
+// launch, the off -> src -> hf chain of loads and the slot's softmax
+// overlap the kernels before it. Before grid_dep_wait() the kernel reads
+// off and src (the graph's tables), hf (the walk's final state, written
+// by the forward before the backward began) and, stats-reading, the
+// saved out, mx and den (written by the forward's combine); it
+// recomputes the slot's softmax there. After it, g (d_f, which the
+// fc_cell_neigh gradients just before this kernel write), then every
+// store.
 
 #include "common.cuh"
 
+// The cotangent of edge e at channel offset col, stored: (g * w) * ((1 +
+// x) - f) with w = exp(x - m) / dd (dd already clamped at 1e-12).
 template <int N>
+__device__ __forceinline__ void store_cotangent(float* d_msg, int64_t e, int d,
+                                                int col, const float (&x)[N],
+                                                const float (&gs)[N],
+                                                const float (&m)[N],
+                                                const float (&dd)[N],
+                                                const float (&f)[N]) {
+  float r[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    r[i] = (gs[i] * (expf(x[i] - m[i]) / dd[i])) * ((1.f + x[i]) - f[i]);
+  store_vec<N>(d_msg + e * d + col, r);
+}
+
+// KMAX (4 or 8): the register path's width; a wider slot takes the
+// generic path. STATS: the stats-reading mode; else the recomputing one.
+template <int N, int KMAX, bool STATS>
 __global__ void __launch_bounds__(kMailboxThreads)
     segment_softmax_sum_bwd_kernel(const float* __restrict__ h,
                                    const int32_t* __restrict__ src,
@@ -41,43 +81,95 @@ __global__ void __launch_bounds__(kMailboxThreads)
                                    const float* __restrict__ out,
                                    const float* __restrict__ mx,
                                    const float* __restrict__ den,
-                                   const float* __restrict__ g,
-                                   float* __restrict__ d_msg, int64_t segs,
-                                   int d, int group) {
+                                   const float* g, float* __restrict__ d_msg,
+                                   int64_t segs, int d, int group) {
   const RowLanes rl = row_lanes(group);
-  if (rl.row >= segs) return;
+  const bool row_ok = rl.row < segs;
+  // ---- before the wait: off, src, hf and the saved statistics ----
+  int32_t begin, idx[KMAX];
+  const int deg = slot_edges<KMAX>(src, off, rl, row_ok, group, begin, idx);
+  if (deg == 0) return;  // an empty slot, or past the last
   const int vecs = d / N;
-  const int32_t begin = __ldg(off + rl.row);
-  const int32_t end = __ldg(off + rl.row + 1);
-  if (begin == end) return;
   const int64_t o = rl.row * d;
+  // The register path and the generic path each run to their stores on
+  // their own: sharing the tail costs the register path registers.
   for (int c = rl.lane; c < vecs; c += group) {
-    float f[N], m[N], dd[N], gs[N], x[N], r[N];
-    load_vec<N>(out + o + c * N, f);
-    load_vec<N>(mx + o + c * N, m);
-    load_vec<N>(den + o + c * N, dd);
-    load_vec<N>(g + o + c * N, gs);
+    float f[N], m[N], dd[N], gs[N];
+    if (STATS) {
+      load_vec<N>(out + o + c * N, f);
+      load_vec<N>(mx + o + c * N, m);
+      load_vec<N>(den + o + c * N, dd);
+    }
+    if (deg <= KMAX) {
+      float x[KMAX][N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) dd[i] = fmaxf(dd[i], 1e-12f);
-    for (int32_t e = begin; e < end; ++e) {
-      load_vec<N>(h + static_cast<int64_t>(__ldg(src + e)) * d + c * N, x);
+      for (int j = 0; j < KMAX; ++j)
+        if (j < deg)
+          load_vec<N>(h + static_cast<int64_t>(idx[j]) * d + c * N, x[j]);
+      if (!STATS) {
+        float num[N];
+        slot_softmax<N, KMAX>(x, deg, m, dd, num);
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float w = expf(x[i] - m[i]) / dd[i];
-        r[i] = (gs[i] * w) * ((1.f + x[i]) - f[i]);
+        for (int i = 0; i < N; ++i) f[i] = softmax_out(num[i], dd[i]);
       }
-      store_vec<N>(d_msg + static_cast<int64_t>(e) * d + c * N, r);
+#pragma unroll
+      for (int i = 0; i < N; ++i) dd[i] = fmaxf(dd[i], 1e-12f);
+      // ---- after the wait: g, then the stores ----
+      grid_dep_wait();
+      load_vec_cg<N>(g + o + c * N, gs);
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j)
+        if (j < deg)
+          store_cotangent<N>(d_msg, begin + j, d, c * N, x[j], gs, m, dd, f);
+    } else {
+      if (!STATS) {
+        float num[N];
+        walk_softmax<N, false>(h, src, begin, deg, d, c * N, m, dd, num);
+#pragma unroll
+        for (int i = 0; i < N; ++i) f[i] = softmax_out(num[i], dd[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < N; ++i) dd[i] = fmaxf(dd[i], 1e-12f);
+      // ---- after the wait: g, then the stores ----
+      grid_dep_wait();
+      load_vec_cg<N>(g + o + c * N, gs);
+      for (int32_t j = begin; j < begin + deg; ++j) {
+        float x[N];
+        load_vec<N>(h + static_cast<int64_t>(__ldg(src + j)) * d + c * N, x);
+        store_cotangent<N>(d_msg, j, d, c * N, x, gs, m, dd, f);
+      }
     }
   }
 }
 
+template <int N>
+static cudaError_t launch(const float* h, const int32_t* src,
+                          const int32_t* off, const float* out,
+                          const float* mx, const float* den, const float* g,
+                          float* d_msg, int64_t segs, int d, int max_deg,
+                          cudaStream_t s) {
+  const int vecs = d / N;
+  const int kmax = slot_width(max_deg);
+  const int group = lane_group(vecs > kmax ? vecs : kmax);
+  const unsigned grid = mailbox_grid(segs, group);
+  const bool stats = out != nullptr;
+  auto kernel =
+      kmax == 4 ? (stats ? &segment_softmax_sum_bwd_kernel<N, 4, true>
+                         : &segment_softmax_sum_bwd_kernel<N, 4, false>)
+                : (stats ? &segment_softmax_sum_bwd_kernel<N, kSlotMax, true>
+                         : &segment_softmax_sum_bwd_kernel<N, kSlotMax, false>);
+  return launch_programmatic(kernel, grid, kMailboxThreads, 0, s, h, src, off,
+                             out, mx, den, g, d_msg, segs, d, group);
+}
+
 // h: (> max(src), d) float32, src: (off[segs],) int32, off: (segs + 1,)
-// int32 ascending, out, mx, den, g: (segs, d) float32, d_msg:
-// (off[segs], d) float32.
+// int32 ascending, g: (segs, d) float32, d_msg: (off[segs], d) float32;
+// out, mx, den: (segs, d) float32 all three (stats-reading), or all
+// null (recomputing). max_deg: as for segment_softmax_sum_launch.
 PRTP_EXPORT int segment_softmax_sum_bwd_launch(
     const void* h, const void* src, const void* off, const void* out,
     const void* mx, const void* den, const void* g, void* d_msg,
-    int64_t segs, int d, void* stream) {
+    int64_t segs, int d, int max_deg, void* stream) {
   if (segs == 0 || d == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* hp = static_cast<const float*>(h);
@@ -92,14 +184,9 @@ PRTP_EXPORT int segment_softmax_sum_bwd_launch(
       reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(out) |
       reinterpret_cast<uintptr_t>(mx) | reinterpret_cast<uintptr_t>(den) |
       reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(d_msg);
-  const bool vec4 = d % 4 == 0 && align % 16 == 0;
-  const int group = lane_group(vec4 ? d / 4 : d);
-  const unsigned grid = mailbox_grid(segs, group);
-  if (vec4)
-    segment_softmax_sum_bwd_kernel<4><<<grid, kMailboxThreads, 0, s>>>(
-        hp, sp, op, fp, mp, dp, gp, rp, segs, d, group);
-  else
-    segment_softmax_sum_bwd_kernel<1><<<grid, kMailboxThreads, 0, s>>>(
-        hp, sp, op, fp, mp, dp, gp, rp, segs, d, group);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      d % 4 == 0 && align % 16 == 0
+          ? launch<4>(hp, sp, op, fp, mp, dp, gp, rp, segs, d, max_deg, s)
+          : launch<1>(hp, sp, op, fp, mp, dp, gp, rp, segs, d, max_deg, s);
+  return static_cast<int>(err);
 }

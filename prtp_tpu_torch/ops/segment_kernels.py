@@ -7,9 +7,13 @@ source row for the backward), through:
 
 - :func:`segment_softmax_sum`: JAX's ``segment_softmax_sum_fused`` of
   ``h[src]`` (``prtp_tpu/ops/segment.py:51-63``) read straight from
-  ``h``, keeping each slot's shift and denominator;
+  ``h``; with ``partial`` (a rank of the edge-sharded step) the
+  numerator and each slot's shift and denominator, which the combine
+  over ranks needs;
 - :func:`segment_mean`: ``segment_sum(h[src], ...) / net_cnt``;
-- :func:`segment_softmax_sum_bwd`: the per-edge cotangent of the first.
+- :func:`segment_softmax_sum_bwd`: the per-edge cotangent of the first,
+  recomputing each slot's softmax from ``h`` or reading the combined
+  statistics the edge-sharded walk saved.
 
 The backward's scatter-add of per-edge (or per-slot) cotangents into
 ``dh`` by source row is the mailbox walk's ``mailbox_scatter``
@@ -32,11 +36,11 @@ from .fused_gnn import _check_index, _check_rows, _stream
 from .gather import device_of
 from .segment import segment_sum, softmax_parts
 
-_SOFTMAX_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
-                     c_void_p, c_int64, c_int, c_int, c_void_p]
+_SOFTMAX_ARGTYPES = [c_void_p] * 6 + [c_int64, c_int, c_int, c_int,
+                                      c_void_p]
 _MEAN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int64,
                   c_int, c_void_p]
-_SOFTMAX_BWD_ARGTYPES = [c_void_p] * 8 + [c_int64, c_int, c_void_p]
+_SOFTMAX_BWD_ARGTYPES = [c_void_p] * 8 + [c_int64, c_int, c_int, c_void_p]
 
 
 def _segment_ids(off: torch.Tensor) -> torch.Tensor:
@@ -53,43 +57,55 @@ def _check_csr(src, off):
         raise ValueError("off must hold at least one offset")
 
 
-def segment_softmax_sum_plain(h, src, off, partial=False):
-    """``(out, mx, den)`` of :func:`segment_softmax_sum` by the JAX
-    expressions on ``h[src]``."""
+def _softmax_parts_plain(h, src, off):
+    """``(numer, mx, den)`` of each slot by the JAX expressions on
+    ``h[src]``."""
     s = off.shape[0] - 1
     seg = _segment_ids(off)
     m = h[src.long()]
     shift, ex = softmax_parts(m, seg, s)
-    den = segment_sum(ex, seg, s)
-    numer = segment_sum(ex * m, seg, s)
-    out = numer if partial else numer / den.clamp_min(1e-12)
-    return out, shift, den
+    return segment_sum(ex * m, seg, s), shift, segment_sum(ex, seg, s)
+
+
+def segment_softmax_sum_plain(h, src, off, partial=False):
+    """:func:`segment_softmax_sum` by the JAX expressions on
+    ``h[src]``."""
+    numer, shift, den = _softmax_parts_plain(h, src, off)
+    if partial:
+        return numer, shift, den
+    return numer / den.clamp_min(1e-12), None, None
 
 
 def segment_softmax_sum(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
-                        partial: bool = False):
+                        partial: bool = False, max_deg: int = 0):
     """The segment reduce's cell half, read straight from the node state:
     for each destination slot s (edges ``[off[s], off[s+1])`` of the
     destination-sorted ``src``) and channel, the softmax over its edges of
     ``h[src]`` weighting ``h[src]`` (``segment_softmax_sum_fused``).
-    Returns ``(out, mx, den)``, each (S, D): the result (the numerator,
-    undivided, with ``partial``), the shift (the max, 0 where not finite:
-    0 for an empty slot) and the denominator (0 for an empty slot). h
-    (R, D) float32 contiguous, src (E,) and off (S+1,) int32."""
+    Returns ``(out, mx, den)``: the result (S, D), and ``mx = den = None``.
+    With ``partial`` (a rank of the edge-sharded step): the numerator,
+    undivided, the shift (the max, 0 where not finite: 0 for an empty
+    slot) and the denominator (0 for an empty slot), each (S, D). h (R, D)
+    float32 contiguous, src (E,) and off (S+1,) int32. ``max_deg``: a
+    bound on every slot's degree (the level's mailbox width), which picks
+    the kernel's register path; 0 where none is known. A slot above it
+    costs time, not correctness."""
     _check_rows("h", h)
     _check_csr(src, off)
     if device_of("segment_softmax_sum", h, src, off).type == "cpu":
         return segment_softmax_sum_plain(h, src, off, partial)
     s, d = off.shape[0] - 1, h.shape[1]
-    out, mx, den = (torch.empty((s, d), dtype=h.dtype, device=h.device)
-                    for _ in range(3))
+    out = torch.empty((s, d), dtype=h.dtype, device=h.device)
+    mx, den = ((torch.empty_like(out), torch.empty_like(out)) if partial
+               else (None, None))
     if s == 0:
         return out, mx, den
     with torch.cuda.device(h.device):
         _build.launch("segment_softmax_sum", _SOFTMAX_ARGTYPES, h.data_ptr(),
                       src.data_ptr(), off.data_ptr(), out.data_ptr(),
-                      mx.data_ptr(), den.data_ptr(), s, d, int(partial),
-                      _stream(h))
+                      mx.data_ptr() if partial else 0,
+                      den.data_ptr() if partial else 0, s, d, int(partial),
+                      max_deg, _stream(h))
     segment_softmax_sum.launches += 1
     return out, mx, den
 
@@ -138,9 +154,16 @@ def segment_mean(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
 segment_mean.launches = 0
 
 
-def segment_softmax_sum_bwd_plain(h, src, off, out, mx, den, g):
+def segment_softmax_sum_bwd_plain(h, src, off, g, stats=None):
     """``d_msg[e] = g[s] * w_e * (1 + x_e - out[s])`` with ``x_e =
-    h[src[e]]`` and ``w_e = exp(x_e - mx[s]) / max(den[s], 1e-12)``."""
+    h[src[e]]`` and ``w_e = exp(x_e - mx[s]) / max(den[s], 1e-12)``;
+    ``(out, mx, den)`` is ``stats``, or recomputed as
+    :func:`segment_softmax_sum_plain` computes them."""
+    if stats is None:
+        numer, mx, den = _softmax_parts_plain(h, src, off)
+        out = numer / den.clamp_min(1e-12)
+    else:
+        out, mx, den = stats
     seg = _segment_ids(off)
     x = h[src.long()]
     w = torch.exp(x - mx[seg]) / den.clamp_min(1e-12)[seg]
@@ -148,34 +171,40 @@ def segment_softmax_sum_bwd_plain(h, src, off, out, mx, den, g):
 
 
 def segment_softmax_sum_bwd(h: torch.Tensor, src: torch.Tensor,
-                            off: torch.Tensor, out: torch.Tensor,
-                            mx: torch.Tensor, den: torch.Tensor,
-                            g: torch.Tensor) -> torch.Tensor:
+                            off: torch.Tensor, g: torch.Tensor,
+                            stats=None, max_deg: int = 0) -> torch.Tensor:
     """The per-edge cotangent (E, D) of :func:`segment_softmax_sum` for
-    the output cotangent ``g`` (S, D), from its ``(out, mx, den)`` (each
-    (S, D); combined over the ranks under the edge-sharded step): edge e
-    of slot s gets ``g[s] * w_e * (1 + h[src[e]] - out[s])``, ``w_e`` its
-    softmax weight. h (R, D) float32 contiguous (the final node state:
-    every source row of a level is final once it is written), src (E,)
-    and off (S+1,) int32."""
+    the output cotangent ``g`` (S, D): edge e of slot s gets ``g[s] * w_e
+    * (1 + h[src[e]] - out[s])``, ``w_e`` its softmax weight. Without
+    ``stats`` each slot's ``(out, mx, den)`` is recomputed from ``h``, as
+    the forward computed it; under the edge-sharded step, where a rank
+    holds only a block of a slot's edges, ``stats`` is the slots'
+    combined ``(out, mx, den)``, each (S, D). h (R, D) float32 contiguous
+    (the final node state: every source row of a level is final once it
+    is written), src (E,) and off (S+1,) int32; ``max_deg`` as for
+    :func:`segment_softmax_sum`."""
     _check_rows("h", h)
     _check_csr(src, off)
     s, d = off.shape[0] - 1, h.shape[1]
-    for what, t in (("out", out), ("mx", mx), ("den", den), ("g", g)):
+    named = [("g", g)]
+    if stats is not None:
+        named += list(zip(("out", "mx", "den"), stats))
+    for what, t in named:
         _check_rows(what, t)
         if t.shape != (s, d):
             raise ValueError(f"{what} {tuple(t.shape)} must be ({s}, {d})")
-    if device_of("segment_softmax_sum_bwd", h, src, off, out, mx, den,
-                 g).type == "cpu":
-        return segment_softmax_sum_bwd_plain(h, src, off, out, mx, den, g)
+    if device_of("segment_softmax_sum_bwd", h, src, off,
+                 *(t for _, t in named)).type == "cpu":
+        return segment_softmax_sum_bwd_plain(h, src, off, g, stats)
     d_msg = torch.empty((src.shape[0], d), dtype=h.dtype, device=h.device)
     if src.shape[0] == 0:
         return d_msg
+    ptrs = [0, 0, 0] if stats is None else [t.data_ptr() for t in stats]
     with torch.cuda.device(h.device):
         _build.launch("segment_softmax_sum_bwd", _SOFTMAX_BWD_ARGTYPES,
-                      h.data_ptr(), src.data_ptr(), off.data_ptr(),
-                      out.data_ptr(), mx.data_ptr(), den.data_ptr(),
-                      g.data_ptr(), d_msg.data_ptr(), s, d, _stream(h))
+                      h.data_ptr(), src.data_ptr(), off.data_ptr(), *ptrs,
+                      g.data_ptr(), d_msg.data_ptr(), s, d, max_deg,
+                      _stream(h))
     segment_softmax_sum_bwd.launches += 1
     return d_msg
 

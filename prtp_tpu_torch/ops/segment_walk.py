@@ -26,9 +26,12 @@ in the kernel; cell: ``segment_softmax_sum_bwd``'s per-edge cotangent).
 The net half's
 scatter comes first, since its sources include the pair's own cell
 rows, which the cell half's cotangent reads. The forward keeps each
-cell reduce's ``(out, mx, den)`` for the backward: every source row is
-final once its level is written, so that is what a recompute from
-``hf`` would give, without its collectives under sharding.
+cell reduce's ``out`` for the ``fc_cell_neigh`` gradients; the cell
+cotangent's kernel recomputes each slot's shift and denominator from
+``hf`` (every source row is final once its level is written, so they
+are the forward's). Under sharding a rank holds only a block of a slot's
+edges, so the forward also keeps the combined ``(mx, den)`` and the
+kernel reads them, without a second round of collectives.
 
 Under the 2-D ``(dp, gp)`` mesh (``graph.shard``, set by
 ``parallel.graph_shard.shard_design``) each rank holds one contiguous
@@ -89,12 +92,16 @@ def combine_softmax(numer, shift, den, shard):
 
 
 def _cell_reduce(h, graph, k):
+    """``(out, mx, den)`` of pair k's cell reduce: ``mx`` and ``den``
+    None unless the graph is sharded (the combined statistics)."""
     shard = graph.shard
+    max_deg = graph.cell_mail[k].shape[1]  # the level's widest slot
     if shard is None:
         return segment_softmax_sum(h, graph.cell_src[k],
-                                   graph.cell_dst_off[k])
+                                   graph.cell_dst_off[k], max_deg=max_deg)
     return combine_softmax(*segment_softmax_sum(
-        h, shard.cell_src[k], shard.cell_dst_off[k], partial=True), shard)
+        h, shard.cell_src[k], shard.cell_dst_off[k], partial=True,
+        max_deg=max_deg), shard)
 
 
 def _net_reduce(h, graph, k):
@@ -148,7 +155,8 @@ def segment_gnn_forward(params, h0: torch.Tensor, graph,
     + 1, D) float32 is not modified (the walk writes a copy); graph: a
     :class:`prtp_tpu_torch.graph.LeveledGraphExact` on h0's device, with
     its ``shard`` under the edge-sharded step. ``saved``, a dict, receives
-    each pair k > 0's cell reduce ``(out, mx, den)`` for the backward.
+    each pair k > 0's cell reduce ``(out, mx, den)`` for the backward
+    (``mx = den = None`` unless sharded).
     Differentiable by torch autograd where every tensor lies on the CPU
     and the graph is not sharded (the plain versions); :class:`SegmentWalk`
     is its hand-written backward."""
@@ -214,9 +222,10 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
             f, mx, den = saved[k]
             dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c)
             torch._foreach_add_(grads["fc_cell_neigh"], list(dp_neigh))
-            d_msg = segment_softmax_sum_bwd(hf, tables.cell_src[k],
-                                            tables.cell_dst_off[k], f, mx,
-                                            den, d_f)
+            d_msg = segment_softmax_sum_bwd(
+                hf, tables.cell_src[k], tables.cell_dst_off[k], d_f,
+                None if mx is None else (f, mx, den),
+                max_deg=graph.cell_mail[k].shape[1])
         dh[c0: c0 + pn_c] = 0.0 if d_old_c is None else d_old_c
         if d_msg is not None:
             _scatter(dh, graph, "cell", k, d_msg, None)

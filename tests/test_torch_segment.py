@@ -97,9 +97,10 @@ def _csr_case(seed=1, rows=40, s=12, d=8):
 
 
 def test_segment_softmax_sum_plain_matches_jax():
-    """``(out, mx, den)``: out is ``segment_softmax_sum_fused(h[src])``,
-    mx JAX's clamped ``segment_max``, den the sum of the shifted exps;
-    ``partial`` gives the numerator. rtol/atol 1e-6."""
+    """out is ``segment_softmax_sum_fused(h[src])``, and no statistics
+    without ``partial``; ``partial`` gives the numerator, mx JAX's clamped
+    ``segment_max`` and den the sum of the shifted exps. rtol/atol
+    1e-6."""
     h, src, slot, off = _csr_case()
     s = off.shape[0] - 1
     msg = jnp.asarray(h)[jnp.asarray(src)]
@@ -109,10 +110,11 @@ def test_segment_softmax_sum_plain_matches_jax():
         jnp.exp(msg - want_mx[slot]), slot, s))
     t = [torch.from_numpy(x) for x in (h, src, off)]
     out, mx, den = kern.segment_softmax_sum(*t)
+    assert mx is None and den is None
     np.testing.assert_allclose(out.numpy(), want, rtol=1e-6, atol=1e-6)
+    numer, mx, den = kern.segment_softmax_sum(*t, partial=True)
     np.testing.assert_allclose(mx.numpy(), want_mx, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(den.numpy(), want_den, rtol=1e-6, atol=1e-6)
-    numer, _mx, _den = kern.segment_softmax_sum(*t, partial=True)
     np.testing.assert_allclose(
         numer.numpy(), want * np.maximum(want_den, 1e-12), rtol=1e-5,
         atol=1e-5)
@@ -135,11 +137,15 @@ def test_segment_mean_plain_matches_jax():
                                rtol=1e-6, atol=1e-6)
 
 
-def test_segment_softmax_sum_bwd_plain_matches_jax_vjp():
+@pytest.mark.parametrize("mode", ["recompute", "stats"])
+def test_segment_softmax_sum_bwd_plain_matches_jax_vjp(mode):
     """The per-edge cotangent against ``jax.vjp`` of
     ``segment_softmax_sum_fused`` with respect to the edge messages:
     rtol 1e-5, atol 1e-5 x max |d| (XLA also sends the max's own
-    cotangent, which cancels to rounding)."""
+    cotangent, which cancels to rounding). Each slot's softmax recomputed
+    from h (the unsharded walk) or read from the ``(out, mx, den)`` an
+    edge-sharded rank passes (here the partial forward's, divided as the
+    combine divides at one rank): the two are bit-equal."""
     h, src, slot, off = _csr_case(seed=3)
     s = off.shape[0] - 1
     g = np.random.default_rng(4).normal(size=(s, h.shape[1])).astype(
@@ -149,8 +155,13 @@ def test_segment_softmax_sum_bwd_plain_matches_jax_vjp():
                      msg)
     want = np.asarray(vjp(jnp.asarray(g))[0])
     t = [torch.from_numpy(x) for x in (h, src, off)]
-    out, mx, den = kern.segment_softmax_sum(*t)
-    got = kern.segment_softmax_sum_bwd(*t, out, mx, den, torch.from_numpy(g))
+    g_t = torch.from_numpy(g)
+    recomputed = kern.segment_softmax_sum_bwd(*t, g_t)
+    numer, mx, den = kern.segment_softmax_sum(*t, partial=True)
+    read = kern.segment_softmax_sum_bwd(
+        *t, g_t, (numer / den.clamp_min(1e-12), mx, den))
+    np.testing.assert_array_equal(recomputed.numpy(), read.numpy())
+    got = recomputed if mode == "recompute" else read
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
 
@@ -325,6 +336,27 @@ def test_segment_walk_matches_jax_segment_timegnn(dgl_parity, which):
                                    atol=1e-5, err_msg=key)
     np.testing.assert_allclose(h0_t.grad.numpy()[rows],
                                np.asarray(d_h0)[jrows], rtol=2e-4, atol=1e-5)
+
+
+def test_unsharded_segment_walk_saves_only_out():
+    """Off the edge-sharded step the forward keeps each cell reduce's
+    output alone, for the ``fc_cell_neigh`` gradients: no shift or
+    denominator (the cell cotangent recomputes them from hf)."""
+    parsed, cfd = _walk_case("prior")
+    g = pack_leveled_graph_exact(parsed, device="cpu", segment=True)[0]
+    gnn = TimeGNN(cfd, 3, torch.Generator().manual_seed(3), out_dim=OUT,
+                  hidden_dim=HID, reduce_mode="segment")
+    params = {name: tuple(getattr(gnn, name).parameters())
+              for name in MLP_NAMES}
+    h0 = torch.randn((g.num_rows + 1, OUT),
+                     generator=torch.Generator().manual_seed(1))
+    saved = {}
+    with torch.no_grad():
+        segment_gnn_forward(params, h0, g, saved=saved)
+    assert sorted(saved) == list(range(1, g.num_pairs))
+    for k, (out, mx, den) in saved.items():
+        assert mx is None and den is None
+        assert out.shape == (g.cell_feat_lvl[k].shape[0], OUT)
 
 
 @pytest.mark.parametrize("which", ["no_prior", "prior"])
