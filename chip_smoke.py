@@ -285,6 +285,9 @@ DP_CLI_RTOL = 1e-5  # (c): the --dp CLIs' printed values against without
 # phase 11: the segment reduce's train steps a run, and the ranks of its
 # (1, GP_RANKS) edge-sharded mesh on one card
 SEG_STEPS, GP_RANKS = 3, 2
+# phase 11 (a): the elementwise kernel before each segment softmax call
+# when the walk's calls are timed back to back
+CHAIN_ELEMS = 10_000 * 128
 HAZARD_REPS = 20  # phase 3: launches right after a writer of the inputs
 SPIN_CYCLES_PER_MS = 2_000_000  # about the H100's SM clock
 # phase 3's fixtures, not kernels of the port: for the hazard check a
@@ -3859,6 +3862,145 @@ def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
     return recs, scatter, [partial_rec, stats_rec]
 
 
+def segment_chain(torch, graph, dev, timer, per_call_ms):
+    """Phase 11 (a): the segment softmax pair's calls as the walk issues
+    them, back to back: each pair's forward (whole) after an elementwise
+    kernel of CHAIN_ELEMS floats (as the pair's MLP before it), then each
+    pair's backward (recomputing) likewise, in reverse, no event between
+    (where a programmatic launch overlaps the kernel before it); beside
+    the elementwise kernels alone and the pair's summed per-call times
+    ``per_call_ms``."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
+    levels = [(graph.cell_src[k], graph.cell_dst_off[k],
+               torch.randn((graph.cell_dst_off[k].shape[0] - 1, D),
+                           generator=gen, device=dev),
+               graph.cell_mail[k].shape[1])  # max_deg, as the walk
+              for k in range(1, graph.num_pairs)]
+    y = torch.randn(CHAIN_ELEMS, generator=gen, device=dev)
+
+    def chain(kernels=True):
+        for src, off, _g, w in levels:
+            y.mul_(1.0)
+            if kernels:
+                K.segment_softmax_sum(h, src, off, max_deg=w)
+        for src, off, g, w in reversed(levels):
+            y.mul_(1.0)
+            if kernels:
+                K.segment_softmax_sum_bwd(h, src, off, g, max_deg=w)
+
+    ms = timer.ms(chain, queue_ms=3)
+    alone = timer.ms(lambda: chain(False), queue_ms=3)
+    log(f"  the walk's {len(levels)} segment_softmax_sum and "
+        f"{len(levels)} segment_softmax_sum_bwd calls, each after an "
+        f"elementwise kernel, back to back: {ms:.4f} ms (the elementwise "
+        f"kernels alone {alone:.4f}; the pair's per-call times summed "
+        f"{per_call_ms:.4f})")
+
+
+def degree_mixes(torch, graph, dev) -> dict:
+    """``{mix: [(src, off) of each cell pair k > 0]}``: the headline's
+    cell levels with their slots' degrees redrawn (empty slots stay
+    empty) and every edge's source drawn anew from the level's distinct
+    sources. The headline's slots have 1-4 edges; "5% at 5-8" gives a
+    twentieth of them 5-8 edges (the many-input cells of a standard-cell
+    library, AOI222 or OA33, among mostly 1-4 input ones), "1-8 uniform"
+    every slot 1-8."""
+    gen = torch.Generator().manual_seed(SEED + 23)
+    mixes = {}
+    for mix, share in (("5% at 5-8", 0.05), ("1-8 uniform", None)):
+        levels = []
+        for k in range(1, graph.num_pairs):
+            src = graph.cell_src[k].cpu()
+            off = graph.cell_dst_off[k].cpu()
+            deg = (off[1:] - off[:-1]).long()
+            if share is None:
+                new = torch.randint(1, 9, deg.shape, generator=gen)
+            else:
+                new = deg.clone()
+                pick = torch.rand(deg.shape, generator=gen) < share
+                new[pick] = torch.randint(5, 9, (int(pick.sum()),),
+                                          generator=gen)
+            new[deg == 0] = 0
+            pool = torch.unique(src)
+            n_off = torch.zeros(deg.shape[0] + 1, dtype=torch.int32)
+            n_off[1:] = new.cumsum(0)
+            pick = torch.randint(0, pool.shape[0], (int(new.sum()),),
+                                 generator=gen)
+            levels.append((pool[pick].to(torch.int32).to(dev), n_off.to(dev)))
+        mixes[mix] = levels
+    return mixes
+
+
+def check_segment_degree_mix(torch, graph, dev, timer, smi):
+    """Phase 11 (a): the segment softmax pair on the headline's cell
+    levels with slots of 5-8 edges mixed in (:func:`degree_mixes`), the
+    register path 8 rows wide (``max_deg=8``) against 4 rows wide with
+    the generic path for the wider slots (``max_deg=4``): the forward
+    (whole) and the backward (recomputing), each against its plain
+    version (rtol 1e-5, atol 1e-6; the backward on the kernel's
+    statistics, as in :func:`check_segment_kernels`), the two widths'
+    outputs against each other (bit-equal, or the largest difference
+    logged), and timed in turns (8, 4, 4, 8; each the median of REPS
+    cold-L2 calls) into ms a pass beside each kernel's bound."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
+    row_b = D * 4
+    widths = (8, 4)
+
+    def close(what, got, want):
+        if not (torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{what} differs from its plain version: "
+                                 f"max abs err "
+                                 f"{float((got - want).abs().max())}")
+
+    for mix, levels in degree_mixes(torch, graph, dev).items():
+        ms = {(name, w): 0.0 for name in ("fwd", "bwd") for w in widths}
+        nbytes = {"fwd": 0, "bwd": 0}
+        differ = []
+        edges = slots = 0
+        for src, off in levels:
+            s, e = off.shape[0] - 1, src.shape[0]
+            edges, slots = edges + e, slots + s
+            g = torch.randn((s, D), generator=gen, device=dev)
+            outs = {}
+            for w in widths:
+                out = K.segment_softmax_sum(h, src, off, max_deg=w)[0]
+                close(f"segment_softmax_sum ({mix}, max_deg={w})", out,
+                      K.segment_softmax_sum_plain(h, src, off)[0])
+                _n, mx, den = K.segment_softmax_sum(h, src, off, True, w)
+                d_msg = K.segment_softmax_sum_bwd(h, src, off, g, max_deg=w)
+                close(f"segment_softmax_sum_bwd ({mix}, max_deg={w})", d_msg,
+                      K.segment_softmax_sum_bwd_plain(h, src, off, g,
+                                                      (out, mx, den)))
+                outs[w] = (out, d_msg)
+            for a, b in zip(outs[8], outs[4]):
+                if not torch.equal(a, b):
+                    differ.append(float((a - b).abs().max()))
+            for w in (8, 4, 4, 8):
+                ms[("fwd", w)] += timer.ms(lambda: K.segment_softmax_sum(
+                    h, src, off, max_deg=w)) / 2
+                ms[("bwd", w)] += timer.ms(lambda: K.segment_softmax_sum_bwd(
+                    h, src, off, g, max_deg=w)) / 2
+            read = torch.unique(src).numel() * row_b + e * 4 + (s + 1) * 4
+            nbytes["fwd"] += read + s * row_b
+            nbytes["bwd"] += read + s * row_b + e * row_b
+        log(f"  degree mix {mix} ({edges} edges into {slots} slots over "
+            f"{len(levels)} pairs): segment_softmax_sum {ms[('fwd', 8)]:.4f}"
+            f" ms a pass 8 rows wide, {ms[('fwd', 4)]:.4f} 4 rows wide "
+            f"(bound {bound(nbytes['fwd'], 0.0)[0]:.4f}); "
+            f"segment_softmax_sum_bwd {ms[('bwd', 8)]:.4f} / "
+            f"{ms[('bwd', 4)]:.4f} (bound {bound(nbytes['bwd'], 0.0)[0]:.4f})"
+            f"; the two widths: " + ("bit-equal" if not differ else
+                                     f"differ by at most {max(differ):.3g}")
+            + f"  [{smi}]")
+
+
 def check_segment_scatter(torch, rec, k, half, graph, h, val, cnt, timer,
                           close):
     """Phase 11 (a): the segment walk's ``mailbox_scatter`` of one level
@@ -4191,6 +4333,10 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
     timer = Timer(torch, dev)
     recs, scatter, modes = check_segment_kernels(torch, F, graph, dev, timer)
     floors = segment_floors(torch, graph, dev, timer)
+    segment_chain(torch, graph, dev, timer,
+                  recs["segment_softmax_sum"].ms
+                  + recs["segment_softmax_sum_bwd"].ms)
+    check_segment_degree_mix(torch, graph, dev, timer, smi)
     del timer
     for rec in (*recs.values(), *modes, scatter):
         rec.floor_ms = floors[rec.name]

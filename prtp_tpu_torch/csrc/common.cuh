@@ -233,35 +233,57 @@ __device__ __forceinline__ void slot_softmax(const float (&x)[KMAX][N],
     if (j < deg) softmax_add<N>(mx, x[j], den, num);
 }
 
+// The rows h[src[j + i]], i < n <= C, at channel offset col into x[i]:
+// each lane loads the n indices itself (one address across its group),
+// then every row load is issued before any use. CG: read h through L2
+// (load_vec_cg, after a programmatic launch's wait), else load_vec.
+template <int N, int C, bool CG>
+__device__ __forceinline__ void load_rows(const float* h,
+                                          const int32_t* __restrict__ src,
+                                          int32_t j, int n, int d, int col,
+                                          float (&x)[C][N]) {
+  int32_t idx[C];
+#pragma unroll
+  for (int i = 0; i < C; ++i) idx[i] = i < n ? __ldg(src + j + i) : 0;
+#pragma unroll
+  for (int i = 0; i < C; ++i)
+    if (i < n) {
+      const float* row = h + static_cast<int64_t>(idx[i]) * d + col;
+      if (CG)
+        load_vec_cg<N>(row, x[i]);
+      else
+        load_vec<N>(row, x[i]);
+    }
+}
+
 // The slot's softmax over its deg rows h[src[begin + j]] at channel
-// offset col, walking the edge range twice (the max, then the sums):
-// the generic path, for any degree. CG: read h through L2 (load_vec_cg,
-// after a programmatic launch's wait), else load_vec.
-template <int N, bool CG>
+// offset col, walking the edge range twice (the max, then the sums) in
+// chunks of C rows, each chunk's loads issued together (load_rows): the
+// generic path, for any degree, in C rows of registers.
+template <int N, int C, bool CG>
 __device__ __forceinline__ void walk_softmax(const float* h,
                                              const int32_t* __restrict__ src,
                                              int32_t begin, int deg, int d,
                                              int col, float (&mx)[N],
                                              float (&den)[N],
                                              float (&num)[N]) {
-  float x[N];
+  float x[C][N];
+  const int32_t end = begin + deg;
   softmax_begin<N>(mx, den, num);
-  for (int32_t j = begin; j < begin + deg; ++j) {
-    const float* row = h + static_cast<int64_t>(__ldg(src + j)) * d + col;
-    if (CG)
-      load_vec_cg<N>(row, x);
-    else
-      load_vec<N>(row, x);
-    softmax_max<N>(mx, x);
+  for (int32_t j = begin; j < end; j += C) {
+    const int n = min(C, end - j);
+    load_rows<N, C, CG>(h, src, j, n, d, col, x);
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      if (i < n) softmax_max<N>(mx, x[i]);
   }
   softmax_shift<N>(mx);
-  for (int32_t j = begin; j < begin + deg; ++j) {
-    const float* row = h + static_cast<int64_t>(__ldg(src + j)) * d + col;
-    if (CG)
-      load_vec_cg<N>(row, x);
-    else
-      load_vec<N>(row, x);
-    softmax_add<N>(mx, x, den, num);
+  for (int32_t j = begin; j < end; j += C) {
+    const int n = min(C, end - j);
+    load_rows<N, C, CG>(h, src, j, n, d, col, x);
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      if (i < n) softmax_add<N>(mx, x[i], den, num);
   }
 }
 

@@ -92,7 +92,7 @@ __global__ void __launch_bounds__(kMailboxThreads)
           load_vec_cg<N>(h + static_cast<int64_t>(idx[j]) * d + c * N, x[j]);
       slot_softmax<N, KMAX>(x, deg, mx, den, num);
     } else {
-      walk_softmax<N, true>(h, src, begin, deg, d, c * N, mx, den, num);
+      walk_softmax<N, 4, true>(h, src, begin, deg, d, c * N, mx, den, num);
     }
     float res[N];
 #pragma unroll

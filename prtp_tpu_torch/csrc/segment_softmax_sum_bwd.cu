@@ -124,7 +124,7 @@ __global__ void __launch_bounds__(kMailboxThreads)
     } else {
       if (!STATS) {
         float num[N];
-        walk_softmax<N, false>(h, src, begin, deg, d, c * N, m, dd, num);
+        walk_softmax<N, 4, false>(h, src, begin, deg, d, c * N, m, dd, num);
 #pragma unroll
         for (int i = 0; i < N; ++i) f[i] = softmax_out(num[i], dd[i]);
       }
@@ -133,10 +133,14 @@ __global__ void __launch_bounds__(kMailboxThreads)
       // ---- after the wait: g, then the stores ----
       grid_dep_wait();
       load_vec_cg<N>(g + o + c * N, gs);
-      for (int32_t j = begin; j < begin + deg; ++j) {
-        float x[N];
-        load_vec<N>(h + static_cast<int64_t>(__ldg(src + j)) * d + c * N, x);
-        store_cotangent<N>(d_msg, j, d, c * N, x, gs, m, dd, f);
+      for (int32_t j = begin; j < begin + deg; j += 4) {
+        const int n = min(4, begin + deg - j);
+        float x[4][N];
+        load_rows<N, 4, false>(h, src, j, n, d, c * N, x);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (i < n)
+            store_cotangent<N>(d_msg, j + i, d, c * N, x[i], gs, m, dd, f);
       }
     }
   }
