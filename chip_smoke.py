@@ -3770,11 +3770,10 @@ def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
             src, off = graph.cell_src[k], graph.cell_dst_off[k]
             s, e = off.shape[0] - 1, src.shape[0]
             rows = torch.unique(src).numel()
-            kw = {"max_deg": graph.cell_mail[k].shape[1]}  # as the walk
-            out = K.segment_softmax_sum(h, src, off, **kw)[0]
+            out = K.segment_softmax_sum(h, src, off)[0]
             err = close("segment_softmax_sum", k, out,
                         K.segment_softmax_sum_plain(h, src, off)[0])
-            stats = K.segment_softmax_sum(h, src, off, True, **kw)
+            stats = K.segment_softmax_sum(h, src, off, True)
             err_p = max(close("segment_softmax_sum (partial)", k, got, want)
                         for got, want in zip(stats, K.segment_softmax_sum_plain(
                             h, src, off, partial=True)))
@@ -3783,9 +3782,8 @@ def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
             # read: the distinct rows, the edge table, the offsets
             nbytes = rows * row_b + e * 4 + (s + 1) * 4
             ops = 6.0 * e * D
-            ms = timer.ms(lambda: K.segment_softmax_sum(h, src, off, **kw))
-            ms_p = timer.ms(lambda: K.segment_softmax_sum(h, src, off, True,
-                                                          **kw))
+            ms = timer.ms(lambda: K.segment_softmax_sum(h, src, off))
+            ms_p = timer.ms(lambda: K.segment_softmax_sum(h, src, off, True))
             pms = timer.ms(lambda: K.segment_softmax_sum_plain(h, src, off))
             recs["segment_softmax_sum"].add(ms, pms, None,
                                             nbytes + s * row_b, ops, err)
@@ -3799,8 +3797,8 @@ def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
                 f"over its denominator vs the whole output: {combined}")
             g = torch.randn((s, D), generator=gen, device=dev)
             stats = (out, mx, den)
-            d_msg = K.segment_softmax_sum_bwd(h, src, off, g, **kw)
-            d_st = K.segment_softmax_sum_bwd(h, src, off, g, stats, **kw)
+            d_msg = K.segment_softmax_sum_bwd(h, src, off, g)
+            d_st = K.segment_softmax_sum_bwd(h, src, off, g, stats)
             # both against the plain version on the forward kernel's
             # statistics (which match the plain forward's above): a
             # recomputed out off by an ulp moves (1 + x) - out by more
@@ -3816,10 +3814,9 @@ def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
             # cotangent; stats-reading also reads out, mx and den
             nbytes = (rows * row_b + e * 4 + (s + 1) * 4 + s * row_b
                       + e * row_b)
-            ms = timer.ms(lambda: K.segment_softmax_sum_bwd(h, src, off, g,
-                                                            **kw))
+            ms = timer.ms(lambda: K.segment_softmax_sum_bwd(h, src, off, g))
             ms_s = timer.ms(lambda: K.segment_softmax_sum_bwd(h, src, off, g,
-                                                              stats, **kw))
+                                                              stats))
             pms = timer.ms(lambda: K.segment_softmax_sum_bwd_plain(
                 h, src, off, g))
             recs["segment_softmax_sum_bwd"].add(ms, pms, None, nbytes,
@@ -3876,20 +3873,19 @@ def segment_chain(torch, graph, dev, timer, per_call_ms):
     h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
     levels = [(graph.cell_src[k], graph.cell_dst_off[k],
                torch.randn((graph.cell_dst_off[k].shape[0] - 1, D),
-                           generator=gen, device=dev),
-               graph.cell_mail[k].shape[1])  # max_deg, as the walk
+                           generator=gen, device=dev))
               for k in range(1, graph.num_pairs)]
     y = torch.randn(CHAIN_ELEMS, generator=gen, device=dev)
 
     def chain(kernels=True):
-        for src, off, _g, w in levels:
+        for src, off, _g in levels:
             y.mul_(1.0)
             if kernels:
-                K.segment_softmax_sum(h, src, off, max_deg=w)
-        for src, off, g, w in reversed(levels):
+                K.segment_softmax_sum(h, src, off)
+        for src, off, g in reversed(levels):
             y.mul_(1.0)
             if kernels:
-                K.segment_softmax_sum_bwd(h, src, off, g, max_deg=w)
+                K.segment_softmax_sum_bwd(h, src, off, g)
 
     ms = timer.ms(chain, queue_ms=3)
     alone = timer.ms(lambda: chain(False), queue_ms=3)
@@ -3936,21 +3932,17 @@ def degree_mixes(torch, graph, dev) -> dict:
 
 def check_segment_degree_mix(torch, graph, dev, timer, smi):
     """Phase 11 (a): the segment softmax pair on the headline's cell
-    levels with slots of 5-8 edges mixed in (:func:`degree_mixes`), the
-    register path 8 rows wide (``max_deg=8``) against 4 rows wide with
-    the generic path for the wider slots (``max_deg=4``): the forward
-    (whole) and the backward (recomputing), each against its plain
-    version (rtol 1e-5, atol 1e-6; the backward on the kernel's
-    statistics, as in :func:`check_segment_kernels`), the two widths'
-    outputs against each other (bit-equal, or the largest difference
-    logged), and timed in turns (8, 4, 4, 8; each the median of REPS
-    cold-L2 calls) into ms a pass beside each kernel's bound."""
+    levels with slots of 5-8 edges mixed in (:func:`degree_mixes`), which
+    take the kernels' generic path: the forward (whole) and the backward
+    (recomputing), each against its plain version (rtol 1e-5, atol 1e-6;
+    the backward on the kernel's statistics, as in
+    :func:`check_segment_kernels`), timed (the median of REPS cold-L2
+    calls) into ms a pass beside each kernel's bound."""
     from prtp_tpu_torch.ops import segment_kernels as K
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 29)
     h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
     row_b = D * 4
-    widths = (8, 4)
 
     def close(what, got, want):
         if not (torch.allclose(got, want, rtol=1e-5, atol=1e-6)
@@ -3960,45 +3952,33 @@ def check_segment_degree_mix(torch, graph, dev, timer, smi):
                                  f"{float((got - want).abs().max())}")
 
     for mix, levels in degree_mixes(torch, graph, dev).items():
-        ms = {(name, w): 0.0 for name in ("fwd", "bwd") for w in widths}
+        ms = {"fwd": 0.0, "bwd": 0.0}
         nbytes = {"fwd": 0, "bwd": 0}
-        differ = []
         edges = slots = 0
         for src, off in levels:
             s, e = off.shape[0] - 1, src.shape[0]
             edges, slots = edges + e, slots + s
             g = torch.randn((s, D), generator=gen, device=dev)
-            outs = {}
-            for w in widths:
-                out = K.segment_softmax_sum(h, src, off, max_deg=w)[0]
-                close(f"segment_softmax_sum ({mix}, max_deg={w})", out,
-                      K.segment_softmax_sum_plain(h, src, off)[0])
-                _n, mx, den = K.segment_softmax_sum(h, src, off, True, w)
-                d_msg = K.segment_softmax_sum_bwd(h, src, off, g, max_deg=w)
-                close(f"segment_softmax_sum_bwd ({mix}, max_deg={w})", d_msg,
-                      K.segment_softmax_sum_bwd_plain(h, src, off, g,
-                                                      (out, mx, den)))
-                outs[w] = (out, d_msg)
-            for a, b in zip(outs[8], outs[4]):
-                if not torch.equal(a, b):
-                    differ.append(float((a - b).abs().max()))
-            for w in (8, 4, 4, 8):
-                ms[("fwd", w)] += timer.ms(lambda: K.segment_softmax_sum(
-                    h, src, off, max_deg=w)) / 2
-                ms[("bwd", w)] += timer.ms(lambda: K.segment_softmax_sum_bwd(
-                    h, src, off, g, max_deg=w)) / 2
+            out = K.segment_softmax_sum(h, src, off)[0]
+            close(f"segment_softmax_sum ({mix})", out,
+                  K.segment_softmax_sum_plain(h, src, off)[0])
+            _n, mx, den = K.segment_softmax_sum(h, src, off, True)
+            close(f"segment_softmax_sum_bwd ({mix})",
+                  K.segment_softmax_sum_bwd(h, src, off, g),
+                  K.segment_softmax_sum_bwd_plain(h, src, off, g,
+                                                  (out, mx, den)))
+            ms["fwd"] += timer.ms(lambda: K.segment_softmax_sum(h, src, off))
+            ms["bwd"] += timer.ms(
+                lambda: K.segment_softmax_sum_bwd(h, src, off, g))
             read = torch.unique(src).numel() * row_b + e * 4 + (s + 1) * 4
             nbytes["fwd"] += read + s * row_b
             nbytes["bwd"] += read + s * row_b + e * row_b
         log(f"  degree mix {mix} ({edges} edges into {slots} slots over "
-            f"{len(levels)} pairs): segment_softmax_sum {ms[('fwd', 8)]:.4f}"
-            f" ms a pass 8 rows wide, {ms[('fwd', 4)]:.4f} 4 rows wide "
-            f"(bound {bound(nbytes['fwd'], 0.0)[0]:.4f}); "
-            f"segment_softmax_sum_bwd {ms[('bwd', 8)]:.4f} / "
-            f"{ms[('bwd', 4)]:.4f} (bound {bound(nbytes['bwd'], 0.0)[0]:.4f})"
-            f"; the two widths: " + ("bit-equal" if not differ else
-                                     f"differ by at most {max(differ):.3g}")
-            + f"  [{smi}]")
+            f"{len(levels)} pairs): segment_softmax_sum {ms['fwd']:.4f} ms a "
+            f"pass (bound {bound(nbytes['fwd'], 0.0)[0]:.4f}), "
+            f"segment_softmax_sum_bwd {ms['bwd']:.4f} (bound "
+            f"{bound(nbytes['bwd'], 0.0)[0]:.4f}); each matches its plain "
+            f"version  [{smi}]")
 
 
 def check_segment_scatter(torch, rec, k, half, graph, h, val, cnt, timer,
@@ -4065,10 +4045,10 @@ def segment_floors(torch, graph, dev, timer) -> dict:
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     return {
         "segment_softmax_sum": timer.ms(
-            lambda: K.segment_softmax_sum(h, src, off, max_deg=1)),
+            lambda: K.segment_softmax_sum(h, src, off)),
         "segment_mean": timer.ms(lambda: K.segment_mean(h, src, off, one)),
         "segment_softmax_sum_bwd": timer.ms(
-            lambda: K.segment_softmax_sum_bwd(h, src, off, row, max_deg=1)),
+            lambda: K.segment_softmax_sum_bwd(h, src, off, row)),
         "mailbox_scatter": timer.ms(
             lambda: mailbox_scatter(h, zero, off, zero, None, row, one, 1, 0)),
     }
@@ -4081,7 +4061,8 @@ def check_segment_edge_shapes(torch, dev):
     ``segment_softmax_sum`` whole and ``partial``, and
     ``segment_softmax_sum_bwd`` recomputing and stats-reading (the
     statistics of the kernel's own partial call), on empty slots, slots
-    of 1, 8, 9 and 33 edges (9 and 33: the generic path), D % 4 != 0 and
+    of 1-9 and 33 edges (above 4: the generic path, 4 rows at a time, a
+    last chunk of 1-4 rows), D % 4 != 0 and
     a misaligned h (the scalar path), narrow and wide rows, a NaN on a
     real edge, and no edges (no slots too). An empty slot must give 0.
     The two backward modes against each other: the elements that differ
@@ -4095,10 +4076,10 @@ def check_segment_edge_shapes(torch, dev):
             got, want, rtol=1e-5, atol=1e-6, equal_nan=True)
 
     cases, differ = 0, 0
-    # (degrees of the slots, D, rows of h, case), each with both widths of
-    # the register path
+    # (degrees of the slots, D, rows of h, case)
     for degs, d, r, case in (
-            ([0, 1, 8, 9, 33, 0, 4, 2, 3, 1] * 30, 128, 500, "degrees"),
+            ([0, 1, 8, 9, 33, 0, 4, 2, 3, 1, 5, 6, 7] * 30, 128, 500,
+             "degrees"),
             ([0, 1, 8, 9, 33, 4], 300, 200, "75 float4s a slot"),
             ([0, 1, 8, 9, 33, 4] * 20, 20, 200, "5 float4s a slot"),
             ([0, 1, 8, 9, 33, 4] * 20, 4, 200, "one float4 a slot"),
@@ -4126,39 +4107,36 @@ def check_segment_edge_shapes(torch, dev):
         g = torch.randn((len(degs), d), generator=gen, device=dev)
         want = K.segment_softmax_sum_plain(h, src, off)[0]
         want_p = K.segment_softmax_sum_plain(h, src, off, True)
-        # max_deg 0: no bound known (the 8-row register path); 4: the
-        # 4-row one, the wider slots on the generic path
-        for kmax in (0, 4):
-            what = f"{case}, D={d}, max_deg={kmax}"
-            out = K.segment_softmax_sum(h, src, off, max_deg=kmax)[0]
-            part = K.segment_softmax_sum(h, src, off, True, kmax)
-            ok = (same(out, want)
-                  and all(same(x, y) for x, y in zip(part, want_p))
-                  and not bool(out[empty].any())
-                  and not any(bool(t[empty].any()) for t in part[1:]))
-            if nan_slot is not None:
-                ok = ok and bool(out[nan_slot, 2].isnan().all())
-            else:
-                ok = ok and bool(torch.isfinite(out).all())
-            if not ok:
-                raise AssertionError(f"segment_softmax_sum differs: {what}")
-            stats = (out, part[1], part[2])
-            d_re = K.segment_softmax_sum_bwd(h, src, off, g, max_deg=kmax)
-            d_st = K.segment_softmax_sum_bwd(h, src, off, g, stats, kmax)
-            # against the plain version on the kernel's statistics, as in
-            # check_segment_kernels
-            d_want = K.segment_softmax_sum_bwd_plain(h, src, off, g, stats)
-            if not (same(d_re, d_want) and same(d_st, d_want)):
-                errs = [float((x - d_want).abs().nan_to_num().max())
-                        if x.numel() else 0.0 for x in (d_re, d_st)]
-                raise AssertionError(
-                    f"segment_softmax_sum_bwd differs: {what}: max abs err "
-                    f"recomputing {errs[0]}, stats-reading {errs[1]}")
-            differ += int((~((d_re == d_st) | (d_re.isnan() & d_st.isnan())))
-                          .sum())
+        what = f"{case}, D={d}"
+        out = K.segment_softmax_sum(h, src, off)[0]
+        part = K.segment_softmax_sum(h, src, off, True)
+        ok = (same(out, want)
+              and all(same(x, y) for x, y in zip(part, want_p))
+              and not bool(out[empty].any())
+              and not any(bool(t[empty].any()) for t in part[1:]))
+        if nan_slot is not None:
+            ok = ok and bool(out[nan_slot, 2].isnan().all())
+        else:
+            ok = ok and bool(torch.isfinite(out).all())
+        if not ok:
+            raise AssertionError(f"segment_softmax_sum differs: {what}")
+        stats = (out, part[1], part[2])
+        d_re = K.segment_softmax_sum_bwd(h, src, off, g)
+        d_st = K.segment_softmax_sum_bwd(h, src, off, g, stats)
+        # against the plain version on the kernel's statistics, as in
+        # check_segment_kernels
+        d_want = K.segment_softmax_sum_bwd_plain(h, src, off, g, stats)
+        if not (same(d_re, d_want) and same(d_st, d_want)):
+            errs = [float((x - d_want).abs().nan_to_num().max())
+                    if x.numel() else 0.0 for x in (d_re, d_st)]
+            raise AssertionError(
+                f"segment_softmax_sum_bwd differs: {what}: max abs err "
+                f"recomputing {errs[0]}, stats-reading {errs[1]}")
+        differ += int((~((d_re == d_st) | (d_re.isnan() & d_st.isnan())))
+                      .sum())
         cases += 1
-    log(f"  segment edge shapes: {cases} cases, each kernel in both modes "
-        "and with both register-path widths, match their plain versions (rtol 1e-5, atol 1e-6, NaN where the "
+    log(f"  segment edge shapes: {cases} cases, each kernel in both modes, "
+        "match their plain versions (rtol 1e-5, atol 1e-6, NaN where the "
         f"plain version has it, empty slots 0); backward elements that "
         f"differ between recomputing and stats-reading: {differ}")
 
@@ -4178,7 +4156,6 @@ def check_segment_hazard(torch, graph, dev, early_writer, pair=1):
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     src, off = graph.cell_src[pair], graph.cell_dst_off[pair]
     s = off.shape[0] - 1
-    max_deg = graph.cell_mail[pair].shape[1]  # as the walk
     h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
     g = torch.randn((s, D), generator=gen, device=dev)
     failed = []
@@ -4188,7 +4165,7 @@ def check_segment_hazard(torch, graph, dev, early_writer, pair=1):
         failed += after_writers(
             torch, writers, f"segment_softmax_sum (partial={partial})",
             lambda: torch.cat([t for t in K.segment_softmax_sum(
-                h_v, src, off, partial, max_deg) if t is not None]),
+                h_v, src, off, partial) if t is not None]),
             h_buf, h_src, torch.cat([t for t in want if t is not None]))
     numer, mx, den = K.segment_softmax_sum_plain(h, src, off, True)
     (g_v,), g_src, g_buf = staged(torch, [g])
@@ -4196,8 +4173,7 @@ def check_segment_hazard(torch, graph, dev, early_writer, pair=1):
         mode = "recomputing" if stats is None else "stats-reading"
         failed += after_writers(
             torch, writers, f"segment_softmax_sum_bwd ({mode})",
-            lambda: K.segment_softmax_sum_bwd(h, src, off, g_v, stats,
-                                              max_deg),
+            lambda: K.segment_softmax_sum_bwd(h, src, off, g_v, stats),
             g_buf, g_src,
             K.segment_softmax_sum_bwd_plain(h, src, off, g, stats))
     if failed:

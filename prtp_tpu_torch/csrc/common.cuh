@@ -160,19 +160,14 @@ __device__ __forceinline__ float group_sum(float v, int group) {
 // below, so the backward's recomputed shift, denominator and output are
 // the forward's bits.
 
-// The widest register path: a slot of at most kSlotMax edges has its
+// The register path's width: a slot of at most kSlotRows edges has its
 // indices shared by shuffle, every row load issued before any
-// arithmetic and its rows kept in registers. A kernel instance serves
-// slots of up to KMAX = 4 or 8 edges so (chosen by a bound on the
-// level's degree, as the mailbox kernels choose by its width k); a
-// wider slot takes the generic path.
-constexpr int kSlotMax = 8;
-
-// The register path's width for slots of at most max_deg edges (0: no
-// bound known).
-inline int slot_width(int max_deg) {
-  return max_deg > 0 && max_deg <= 4 ? 4 : kSlotMax;
-}
+// arithmetic and its rows kept in registers; a wider slot takes the
+// generic path, kSlotRows rows at a time. An 8-row register path needs
+// more registers a thread (fewer warps an SM) for every slot of a level:
+// it was slower at the headline and no faster where a twentieth of a
+// level's slots have 5-8 edges (PERF.md §6).
+constexpr int kSlotRows = 4;
 
 template <int N>
 __device__ __forceinline__ void softmax_begin(float (&mx)[N], float (&den)[N],
@@ -216,97 +211,112 @@ __device__ __forceinline__ float softmax_out(float num, float den) {
   return num / fmaxf(den, 1e-12f);
 }
 
-// The slot's softmax over its first deg <= KMAX rows x[0 .. deg), held
-// in registers.
-template <int N, int KMAX>
-__device__ __forceinline__ void slot_softmax(const float (&x)[KMAX][N],
-                                             int deg, float (&mx)[N],
-                                             float (&den)[N],
-                                             float (&num)[N]) {
-  softmax_begin<N>(mx, den, num);
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j)
-    if (j < deg) softmax_max<N>(mx, x[j]);
-  softmax_shift<N>(mx);
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j)
-    if (j < deg) softmax_add<N>(mx, x[j], den, num);
+// Loads the row at p into x: through L2 (load_vec_cg) for data read
+// after a programmatic launch's wait (CG), else load_vec.
+template <int N, bool CG>
+__device__ __forceinline__ void load_row(const float* p, float (&x)[N]) {
+  if (CG)
+    load_vec_cg<N>(p, x);
+  else
+    load_vec<N>(p, x);
 }
 
-// The rows h[src[j + i]], i < n <= C, at channel offset col into x[i]:
-// each lane loads the n indices itself (one address across its group),
-// then every row load is issued before any use. CG: read h through L2
-// (load_vec_cg, after a programmatic launch's wait), else load_vec.
-template <int N, int C, bool CG>
+// The slot's first min(deg, kSlotRows) rows h[idx[j]] (slot_edges) at
+// channel offset col into x, every load issued before any use.
+template <int N, bool CG>
+__device__ __forceinline__ void load_head(const float* h,
+                                          const int32_t (&idx)[kSlotRows],
+                                          int deg, int d, int col,
+                                          float (&x)[kSlotRows][N]) {
+#pragma unroll
+  for (int j = 0; j < kSlotRows; ++j)
+    if (j < deg) load_row<N, CG>(h + static_cast<int64_t>(idx[j]) * d + col, x[j]);
+}
+
+// The rows h[src[j + i]], i < n <= kSlotRows, at channel offset col into
+// x[i]: each lane loads the n indices itself (one address across its
+// group), then every row load is issued before any use.
+template <int N, bool CG>
 __device__ __forceinline__ void load_rows(const float* h,
                                           const int32_t* __restrict__ src,
                                           int32_t j, int n, int d, int col,
-                                          float (&x)[C][N]) {
-  int32_t idx[C];
+                                          float (&x)[kSlotRows][N]) {
+  int32_t idx[kSlotRows];
 #pragma unroll
-  for (int i = 0; i < C; ++i) idx[i] = i < n ? __ldg(src + j + i) : 0;
+  for (int i = 0; i < kSlotRows; ++i) idx[i] = i < n ? __ldg(src + j + i) : 0;
 #pragma unroll
-  for (int i = 0; i < C; ++i)
-    if (i < n) {
-      const float* row = h + static_cast<int64_t>(idx[i]) * d + col;
-      if (CG)
-        load_vec_cg<N>(row, x[i]);
-      else
-        load_vec<N>(row, x[i]);
-    }
+  for (int i = 0; i < kSlotRows; ++i)
+    if (i < n) load_row<N, CG>(h + static_cast<int64_t>(idx[i]) * d + col, x[i]);
 }
 
-// The slot's softmax over its deg rows h[src[begin + j]] at channel
-// offset col, walking the edge range twice (the max, then the sums) in
-// chunks of C rows, each chunk's loads issued together (load_rows): the
-// generic path, for any degree, in C rows of registers.
-template <int N, int C, bool CG>
-__device__ __forceinline__ void walk_softmax(const float* h,
+// The softmax of slot [begin, begin + deg) at channel offset col, its
+// first rows loaded from idx (slot_edges). A slot of at most kSlotRows
+// edges (the register path) loads each row once and leaves its rows in
+// x. A wider one (the generic path) walks its edge range twice (the max,
+// then the sums), kSlotRows rows at a time (load_rows), through the same
+// x. One x for both paths, and loops that stay loops (unroll 1), keep
+// the generic path from needing more registers than the register path.
+template <int N, bool CG>
+__device__ __forceinline__ void slot_softmax(const float* h,
                                              const int32_t* __restrict__ src,
-                                             int32_t begin, int deg, int d,
-                                             int col, float (&mx)[N],
-                                             float (&den)[N],
+                                             int32_t begin, int deg,
+                                             const int32_t (&idx)[kSlotRows],
+                                             int d, int col,
+                                             float (&x)[kSlotRows][N],
+                                             float (&mx)[N], float (&den)[N],
                                              float (&num)[N]) {
-  float x[C][N];
   const int32_t end = begin + deg;
+  load_head<N, CG>(h, idx, deg, d, col, x);
   softmax_begin<N>(mx, den, num);
-  for (int32_t j = begin; j < end; j += C) {
-    const int n = min(C, end - j);
-    load_rows<N, C, CG>(h, src, j, n, d, col, x);
 #pragma unroll
-    for (int i = 0; i < C; ++i)
+  for (int j = 0; j < kSlotRows; ++j)
+    if (j < deg) softmax_max<N>(mx, x[j]);
+#pragma unroll 1
+  for (int32_t j = begin + kSlotRows; j < end; j += kSlotRows) {
+    const int n = min(kSlotRows, end - j);
+    load_rows<N, CG>(h, src, j, n, d, col, x);
+#pragma unroll
+    for (int i = 0; i < kSlotRows; ++i)
       if (i < n) softmax_max<N>(mx, x[i]);
   }
   softmax_shift<N>(mx);
-  for (int32_t j = begin; j < end; j += C) {
-    const int n = min(C, end - j);
-    load_rows<N, C, CG>(h, src, j, n, d, col, x);
+  if (deg <= kSlotRows) {
 #pragma unroll
-    for (int i = 0; i < C; ++i)
+    for (int j = 0; j < kSlotRows; ++j)
+      if (j < deg) softmax_add<N>(mx, x[j], den, num);
+    return;
+  }
+#pragma unroll 1
+  for (int32_t j = begin; j < end; j += kSlotRows) {
+    const int n = min(kSlotRows, end - j);
+    load_rows<N, CG>(h, src, j, n, d, col, x);
+#pragma unroll
+    for (int i = 0; i < kSlotRows; ++i)
       if (i < n) softmax_add<N>(mx, x[i], den, num);
   }
 }
 
 // A slot's edge range [begin, begin + deg) of the CSR offsets off and,
-// when deg <= KMAX, its source indices src[begin + j] in every lane of
-// its group: lanes 0 and 1 load off[s] and off[s + 1], lane j < deg
+// when deg <= kSlotRows, its source indices src[begin + j] in every lane
+// of its group: lanes 0 and 1 load off[s] and off[s + 1], lane j < deg
 // loads index j (the slot's indices are contiguous), and the group
-// shares them by shuffle. Needs KMAX <= group; every lane of the warp,
-// those past the last slot too, must call it. A lane past the last slot
-// gets deg 0.
-template <int KMAX>
+// shares them by shuffle. Needs kSlotRows <= group; every lane of the
+// warp, those past the last slot too, must call it. A lane past the last
+// slot gets deg 0.
 __device__ __forceinline__ int slot_edges(const int32_t* __restrict__ src,
                                           const int32_t* __restrict__ off,
                                           const RowLanes& rl, bool row_ok,
                                           int group, int32_t& begin,
-                                          int32_t (&idx)[KMAX]) {
+                                          int32_t (&idx)[kSlotRows]) {
   const int32_t o = (row_ok && rl.lane < 2) ? __ldg(off + rl.row + rl.lane) : 0;
   begin = __shfl_sync(0xffffffffu, o, 0, group);
   const int deg = __shfl_sync(0xffffffffu, o, 1, group) - begin;
-  const int32_t mine =
-      (rl.lane < deg && rl.lane < KMAX) ? __ldg(src + begin + rl.lane) : 0;
+  const int32_t mine = (rl.lane < deg && rl.lane < kSlotRows)
+                           ? __ldg(src + begin + rl.lane)
+                           : 0;
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) idx[j] = __shfl_sync(0xffffffffu, mine, j, group);
+  for (int j = 0; j < kSlotRows; ++j)
+    idx[j] = __shfl_sync(0xffffffffu, mine, j, group);
   return deg;
 }
 

@@ -37,20 +37,20 @@
 //
 // Design: the lane layout of the mailbox reductions (common.cuh): a lane
 // group covers one destination slot, one float4 of channels a lane (a
-// whole warp at D = 128; at least KMAX lanes). The slot's two offsets
-// and, for deg <= KMAX, its deg source indices are loaded once, by two
-// and by deg lanes, and shared by shuffle (slot_edges). Then every row's
-// 16-byte load is issued before any arithmetic and kept in registers (4
-// x 16 B in flight a lane at the headline's degree 4), each exp runs
-// once per element, and the result is stored once as a float4. KMAX is 4
-// or 8, by the caller's bound on the level's degree (the walk passes the
-// level's mailbox width), as softmax_sum chooses by its k: the 4-row
-// instance needs fewer registers (56 against 80 a thread at N = 4,
-// ptxas -v for sm_90a), so more warps fit on an SM. A slot above KMAX
-// takes a generic path that walks its edge range twice (the max, then
-// the exp sums), reading each index as it goes; D % 4 != 0 or a pointer
-// off 16-byte alignment takes the scalar path (N = 1). Every path sums
+// whole warp at D = 128; at least kSlotRows = 4 lanes). The slot's two
+// offsets and, for deg <= 4, its deg source indices are loaded once, by
+// two and by deg lanes, and shared by shuffle (slot_edges). Then every
+// row's 16-byte load is issued before any arithmetic and kept in
+// registers (4 x 16 B in flight a lane at the headline's degree of at
+// most 4), each exp runs once per element, and the result is stored
+// once as a float4. A slot of more than 4 edges takes the generic path,
+// which walks its edge range twice (the max, then the exp sums) 4 rows
+// at a time, each 4 loads issued together; D % 4 != 0 or a pointer off
+// 16-byte alignment takes the scalar path (N = 1). Every path sums
 // through the same functions in edge order, so all give the same bits.
+// An 8-row register path keeps 8 rows in registers in every slot's
+// thread; it was slower at the headline and no faster where a twentieth
+// of the slots have 5-8 edges (PERF.md §6).
 //
 // Launched as a programmatic dependent launch (common.cuh), so that the
 // launch and the off -> src chain of loads overlap the kernel before it.
@@ -61,9 +61,7 @@
 
 #include "common.cuh"
 
-// KMAX (4 or 8): the register path's width; a wider slot takes the
-// generic path.
-template <int N, int KMAX>
+template <int N>
 __global__ void __launch_bounds__(kMailboxThreads)
     segment_softmax_sum_kernel(const float* __restrict__ h,
                                const int32_t* __restrict__ src,
@@ -75,25 +73,16 @@ __global__ void __launch_bounds__(kMailboxThreads)
   const RowLanes rl = row_lanes(group);
   const bool row_ok = rl.row < segs;
   // ---- before the wait: off and src only ----
-  int32_t begin, idx[KMAX];
-  const int deg = slot_edges<KMAX>(src, off, rl, row_ok, group, begin, idx);
+  int32_t begin, idx[kSlotRows];
+  const int deg = slot_edges(src, off, rl, row_ok, group, begin, idx);
   if (!row_ok) return;
   // ---- after the wait: h, then the stores ----
   grid_dep_wait();
   const int vecs = d / N;
   const int64_t o = rl.row * d;
   for (int c = rl.lane; c < vecs; c += group) {
-    float mx[N], den[N], num[N];
-    if (deg <= KMAX) {
-      float x[KMAX][N];
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < deg)
-          load_vec_cg<N>(h + static_cast<int64_t>(idx[j]) * d + c * N, x[j]);
-      slot_softmax<N, KMAX>(x, deg, mx, den, num);
-    } else {
-      walk_softmax<N, 4, true>(h, src, begin, deg, d, c * N, mx, den, num);
-    }
+    float x[kSlotRows][N], mx[N], den[N], num[N];
+    slot_softmax<N, true>(h, src, begin, deg, idx, d, c * N, x, mx, den, num);
     float res[N];
 #pragma unroll
     for (int i = 0; i < N; ++i)
@@ -110,28 +99,22 @@ template <int N>
 static cudaError_t launch(const float* h, const int32_t* src,
                           const int32_t* off, float* out, float* mx,
                           float* den, int64_t segs, int d, int partial,
-                          int max_deg, cudaStream_t s) {
+                          cudaStream_t s) {
   const int vecs = d / N;
-  const int kmax = slot_width(max_deg);
-  const int group = lane_group(vecs > kmax ? vecs : kmax);
+  const int group = lane_group(vecs > kSlotRows ? vecs : kSlotRows);
   const unsigned grid = mailbox_grid(segs, group);
-  auto kernel = kmax == 4 ? &segment_softmax_sum_kernel<N, 4>
-                          : &segment_softmax_sum_kernel<N, kSlotMax>;
-  return launch_programmatic(kernel, grid, kMailboxThreads, 0, s, h, src, off,
-                             out, mx, den, segs, d, partial, group);
+  return launch_programmatic(&segment_softmax_sum_kernel<N>, grid,
+                             kMailboxThreads, 0, s, h, src, off, out, mx, den,
+                             segs, d, partial, group);
 }
 
 // h: (> max(src), d) float32, src: (off[segs],) int32, off: (segs + 1,)
 // int32 ascending, out: (segs, d) float32; mx, den: (segs, d) float32
-// with `partial`, else unused (may be null). max_deg: a bound on every
-// slot's degree (the register path's width: 4 up to 4, else 8), or 0
-// where none is known; a slot above it takes the generic path, so a
-// wrong bound costs time, never correctness.
+// with `partial`, else unused (may be null).
 PRTP_EXPORT int segment_softmax_sum_launch(const void* h, const void* src,
                                            const void* off, void* out,
                                            void* mx, void* den, int64_t segs,
-                                           int d, int partial, int max_deg,
-                                           void* stream) {
+                                           int d, int partial, void* stream) {
   if (segs == 0 || d == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* hp = static_cast<const float*>(h);
@@ -145,7 +128,7 @@ PRTP_EXPORT int segment_softmax_sum_launch(const void* h, const void* src,
       reinterpret_cast<uintptr_t>(mx) | reinterpret_cast<uintptr_t>(den);
   const cudaError_t err =
       d % 4 == 0 && align % 16 == 0
-          ? launch<4>(hp, sp, op, outp, mp, dp, segs, d, partial, max_deg, s)
-          : launch<1>(hp, sp, op, outp, mp, dp, segs, d, partial, max_deg, s);
+          ? launch<4>(hp, sp, op, outp, mp, dp, segs, d, partial, s)
+          : launch<1>(hp, sp, op, outp, mp, dp, segs, d, partial, s);
   return static_cast<int>(err);
 }

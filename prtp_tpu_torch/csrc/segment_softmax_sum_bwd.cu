@@ -33,15 +33,15 @@
 //
 // Design: the lane layout of segment_softmax_sum (common.cuh): a lane
 // group covers one destination slot, one float4 of channels a lane (a
-// whole warp at D = 128), the slot's offsets and, for deg <= KMAX, its
-// indices loaded once and shared by shuffle (slot_edges); KMAX is 4 or
-// 8, chosen as in segment_softmax_sum. On that register path every row's
-// 16-byte load is issued before any arithmetic and kept in registers;
-// then each edge's float4 of cotangent is stored (a 512-byte row segment
-// across the warp at D = 128). A slot above KMAX takes a generic path
-// that walks its edge range (twice to recompute, then once to store);
-// D % 4 != 0 or a pointer off 16-byte alignment takes the scalar path (N
-// = 1).
+// whole warp at D = 128), the slot's offsets and, for deg <= kSlotRows
+// (4), its indices loaded once and shared by shuffle (slot_edges). On
+// that register path every row's 16-byte load is issued before any
+// arithmetic and kept in registers; then each edge's float4 of cotangent
+// is stored (a 512-byte row segment across the warp at D = 128). A slot
+// of more than 4 edges takes the generic path, which walks its edge
+// range 4 rows at a time, each 4 loads issued together (twice to
+// recompute, then once to store); D % 4 != 0 or a pointer off 16-byte
+// alignment takes the scalar path (N = 1).
 //
 // Launched as a programmatic dependent launch (common.cuh), so that the
 // launch, the off -> src -> hf chain of loads and the slot's softmax
@@ -71,9 +71,8 @@ __device__ __forceinline__ void store_cotangent(float* d_msg, int64_t e, int d,
   store_vec<N>(d_msg + e * d + col, r);
 }
 
-// KMAX (4 or 8): the register path's width; a wider slot takes the
-// generic path. STATS: the stats-reading mode; else the recomputing one.
-template <int N, int KMAX, bool STATS>
+// STATS: the stats-reading mode; else the recomputing one.
+template <int N, bool STATS>
 __global__ void __launch_bounds__(kMailboxThreads)
     segment_softmax_sum_bwd_kernel(const float* __restrict__ h,
                                    const int32_t* __restrict__ src,
@@ -86,62 +85,45 @@ __global__ void __launch_bounds__(kMailboxThreads)
   const RowLanes rl = row_lanes(group);
   const bool row_ok = rl.row < segs;
   // ---- before the wait: off, src, hf and the saved statistics ----
-  int32_t begin, idx[KMAX];
-  const int deg = slot_edges<KMAX>(src, off, rl, row_ok, group, begin, idx);
+  int32_t begin, idx[kSlotRows];
+  const int deg = slot_edges(src, off, rl, row_ok, group, begin, idx);
   if (deg == 0) return;  // an empty slot, or past the last
   const int vecs = d / N;
   const int64_t o = rl.row * d;
-  // The register path and the generic path each run to their stores on
-  // their own: sharing the tail costs the register path registers.
   for (int c = rl.lane; c < vecs; c += group) {
-    float f[N], m[N], dd[N], gs[N];
+    float x[kSlotRows][N], f[N], m[N], dd[N], gs[N];
     if (STATS) {
       load_vec<N>(out + o + c * N, f);
       load_vec<N>(mx + o + c * N, m);
       load_vec<N>(den + o + c * N, dd);
+      load_head<N, false>(h, idx, deg, d, c * N, x);
+    } else {
+      float num[N];
+      slot_softmax<N, false>(h, src, begin, deg, idx, d, c * N, x, m, dd,
+                             num);
+#pragma unroll
+      for (int i = 0; i < N; ++i) f[i] = softmax_out(num[i], dd[i]);
     }
-    if (deg <= KMAX) {
-      float x[KMAX][N];
 #pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < deg)
-          load_vec<N>(h + static_cast<int64_t>(idx[j]) * d + c * N, x[j]);
-      if (!STATS) {
-        float num[N];
-        slot_softmax<N, KMAX>(x, deg, m, dd, num);
+    for (int i = 0; i < N; ++i) dd[i] = fmaxf(dd[i], 1e-12f);
+    // ---- after the wait: g, then the stores ----
+    grid_dep_wait();
+    load_vec_cg<N>(g + o + c * N, gs);
+    if (deg <= kSlotRows) {  // the rows are in x
 #pragma unroll
-        for (int i = 0; i < N; ++i) f[i] = softmax_out(num[i], dd[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < N; ++i) dd[i] = fmaxf(dd[i], 1e-12f);
-      // ---- after the wait: g, then the stores ----
-      grid_dep_wait();
-      load_vec_cg<N>(g + o + c * N, gs);
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
+      for (int j = 0; j < kSlotRows; ++j)
         if (j < deg)
           store_cotangent<N>(d_msg, begin + j, d, c * N, x[j], gs, m, dd, f);
-    } else {
-      if (!STATS) {
-        float num[N];
-        walk_softmax<N, 4, false>(h, src, begin, deg, d, c * N, m, dd, num);
+      continue;
+    }
+#pragma unroll 1
+    for (int32_t j = begin; j < begin + deg; j += kSlotRows) {
+      const int n = min(kSlotRows, begin + deg - j);
+      load_rows<N, false>(h, src, j, n, d, c * N, x);
 #pragma unroll
-        for (int i = 0; i < N; ++i) f[i] = softmax_out(num[i], dd[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < N; ++i) dd[i] = fmaxf(dd[i], 1e-12f);
-      // ---- after the wait: g, then the stores ----
-      grid_dep_wait();
-      load_vec_cg<N>(g + o + c * N, gs);
-      for (int32_t j = begin; j < begin + deg; j += 4) {
-        const int n = min(4, begin + deg - j);
-        float x[4][N];
-        load_rows<N, 4, false>(h, src, j, n, d, c * N, x);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (i < n)
-            store_cotangent<N>(d_msg, j + i, d, c * N, x[i], gs, m, dd, f);
-      }
+      for (int i = 0; i < kSlotRows; ++i)
+        if (i < n)
+          store_cotangent<N>(d_msg, j + i, d, c * N, x[i], gs, m, dd, f);
     }
   }
 }
@@ -150,18 +132,12 @@ template <int N>
 static cudaError_t launch(const float* h, const int32_t* src,
                           const int32_t* off, const float* out,
                           const float* mx, const float* den, const float* g,
-                          float* d_msg, int64_t segs, int d, int max_deg,
-                          cudaStream_t s) {
+                          float* d_msg, int64_t segs, int d, cudaStream_t s) {
   const int vecs = d / N;
-  const int kmax = slot_width(max_deg);
-  const int group = lane_group(vecs > kmax ? vecs : kmax);
+  const int group = lane_group(vecs > kSlotRows ? vecs : kSlotRows);
   const unsigned grid = mailbox_grid(segs, group);
-  const bool stats = out != nullptr;
-  auto kernel =
-      kmax == 4 ? (stats ? &segment_softmax_sum_bwd_kernel<N, 4, true>
-                         : &segment_softmax_sum_bwd_kernel<N, 4, false>)
-                : (stats ? &segment_softmax_sum_bwd_kernel<N, kSlotMax, true>
-                         : &segment_softmax_sum_bwd_kernel<N, kSlotMax, false>);
+  auto kernel = out != nullptr ? &segment_softmax_sum_bwd_kernel<N, true>
+                               : &segment_softmax_sum_bwd_kernel<N, false>;
   return launch_programmatic(kernel, grid, kMailboxThreads, 0, s, h, src, off,
                              out, mx, den, g, d_msg, segs, d, group);
 }
@@ -169,11 +145,11 @@ static cudaError_t launch(const float* h, const int32_t* src,
 // h: (> max(src), d) float32, src: (off[segs],) int32, off: (segs + 1,)
 // int32 ascending, g: (segs, d) float32, d_msg: (off[segs], d) float32;
 // out, mx, den: (segs, d) float32 all three (stats-reading), or all
-// null (recomputing). max_deg: as for segment_softmax_sum_launch.
+// null (recomputing).
 PRTP_EXPORT int segment_softmax_sum_bwd_launch(
     const void* h, const void* src, const void* off, const void* out,
     const void* mx, const void* den, const void* g, void* d_msg,
-    int64_t segs, int d, int max_deg, void* stream) {
+    int64_t segs, int d, void* stream) {
   if (segs == 0 || d == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* hp = static_cast<const float*>(h);
@@ -190,7 +166,7 @@ PRTP_EXPORT int segment_softmax_sum_bwd_launch(
       reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(d_msg);
   const cudaError_t err =
       d % 4 == 0 && align % 16 == 0
-          ? launch<4>(hp, sp, op, fp, mp, dp, gp, rp, segs, d, max_deg, s)
-          : launch<1>(hp, sp, op, fp, mp, dp, gp, rp, segs, d, max_deg, s);
+          ? launch<4>(hp, sp, op, fp, mp, dp, gp, rp, segs, d, s)
+          : launch<1>(hp, sp, op, fp, mp, dp, gp, rp, segs, d, s);
   return static_cast<int>(err);
 }

@@ -36,11 +36,10 @@ from .fused_gnn import _check_index, _check_rows, _stream
 from .gather import device_of
 from .segment import segment_sum, softmax_parts
 
-_SOFTMAX_ARGTYPES = [c_void_p] * 6 + [c_int64, c_int, c_int, c_int,
-                                      c_void_p]
+_SOFTMAX_ARGTYPES = [c_void_p] * 6 + [c_int64, c_int, c_int, c_void_p]
 _MEAN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int64,
                   c_int, c_void_p]
-_SOFTMAX_BWD_ARGTYPES = [c_void_p] * 8 + [c_int64, c_int, c_int, c_void_p]
+_SOFTMAX_BWD_ARGTYPES = [c_void_p] * 8 + [c_int64, c_int, c_void_p]
 
 
 def _segment_ids(off: torch.Tensor) -> torch.Tensor:
@@ -77,7 +76,7 @@ def segment_softmax_sum_plain(h, src, off, partial=False):
 
 
 def segment_softmax_sum(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
-                        partial: bool = False, max_deg: int = 0):
+                        partial: bool = False):
     """The segment reduce's cell half, read straight from the node state:
     for each destination slot s (edges ``[off[s], off[s+1])`` of the
     destination-sorted ``src``) and channel, the softmax over its edges of
@@ -86,10 +85,7 @@ def segment_softmax_sum(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
     With ``partial`` (a rank of the edge-sharded step): the numerator,
     undivided, the shift (the max, 0 where not finite: 0 for an empty
     slot) and the denominator (0 for an empty slot), each (S, D). h (R, D)
-    float32 contiguous, src (E,) and off (S+1,) int32. ``max_deg``: a
-    bound on every slot's degree (the level's mailbox width), which picks
-    the kernel's register path; 0 where none is known. A slot above it
-    costs time, not correctness."""
+    float32 contiguous, src (E,) and off (S+1,) int32."""
     _check_rows("h", h)
     _check_csr(src, off)
     if device_of("segment_softmax_sum", h, src, off).type == "cpu":
@@ -105,7 +101,7 @@ def segment_softmax_sum(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
                       src.data_ptr(), off.data_ptr(), out.data_ptr(),
                       mx.data_ptr() if partial else 0,
                       den.data_ptr() if partial else 0, s, d, int(partial),
-                      max_deg, _stream(h))
+                      _stream(h))
     segment_softmax_sum.launches += 1
     return out, mx, den
 
@@ -172,7 +168,7 @@ def segment_softmax_sum_bwd_plain(h, src, off, g, stats=None):
 
 def segment_softmax_sum_bwd(h: torch.Tensor, src: torch.Tensor,
                             off: torch.Tensor, g: torch.Tensor,
-                            stats=None, max_deg: int = 0) -> torch.Tensor:
+                            stats=None) -> torch.Tensor:
     """The per-edge cotangent (E, D) of :func:`segment_softmax_sum` for
     the output cotangent ``g`` (S, D): edge e of slot s gets ``g[s] * w_e
     * (1 + h[src[e]] - out[s])``, ``w_e`` its softmax weight. Without
@@ -181,8 +177,7 @@ def segment_softmax_sum_bwd(h: torch.Tensor, src: torch.Tensor,
     holds only a block of a slot's edges, ``stats`` is the slots'
     combined ``(out, mx, den)``, each (S, D). h (R, D) float32 contiguous
     (the final node state: every source row of a level is final once it
-    is written), src (E,) and off (S+1,) int32; ``max_deg`` as for
-    :func:`segment_softmax_sum`."""
+    is written), src (E,) and off (S+1,) int32."""
     _check_rows("h", h)
     _check_csr(src, off)
     s, d = off.shape[0] - 1, h.shape[1]
@@ -203,8 +198,7 @@ def segment_softmax_sum_bwd(h: torch.Tensor, src: torch.Tensor,
     with torch.cuda.device(h.device):
         _build.launch("segment_softmax_sum_bwd", _SOFTMAX_BWD_ARGTYPES,
                       h.data_ptr(), src.data_ptr(), off.data_ptr(), *ptrs,
-                      g.data_ptr(), d_msg.data_ptr(), s, d, max_deg,
-                      _stream(h))
+                      g.data_ptr(), d_msg.data_ptr(), s, d, _stream(h))
     segment_softmax_sum_bwd.launches += 1
     return d_msg
 

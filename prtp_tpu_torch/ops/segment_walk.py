@@ -95,13 +95,11 @@ def _cell_reduce(h, graph, k):
     """``(out, mx, den)`` of pair k's cell reduce: ``mx`` and ``den``
     None unless the graph is sharded (the combined statistics)."""
     shard = graph.shard
-    max_deg = graph.cell_mail[k].shape[1]  # the level's widest slot
     if shard is None:
         return segment_softmax_sum(h, graph.cell_src[k],
-                                   graph.cell_dst_off[k], max_deg=max_deg)
+                                   graph.cell_dst_off[k])
     return combine_softmax(*segment_softmax_sum(
-        h, shard.cell_src[k], shard.cell_dst_off[k], partial=True,
-        max_deg=max_deg), shard)
+        h, shard.cell_src[k], shard.cell_dst_off[k], partial=True), shard)
 
 
 def _net_reduce(h, graph, k):
@@ -224,8 +222,7 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
             torch._foreach_add_(grads["fc_cell_neigh"], list(dp_neigh))
             d_msg = segment_softmax_sum_bwd(
                 hf, tables.cell_src[k], tables.cell_dst_off[k], d_f,
-                None if mx is None else (f, mx, den),
-                max_deg=graph.cell_mail[k].shape[1])
+                None if mx is None else (f, mx, den))
         dh[c0: c0 + pn_c] = 0.0 if d_old_c is None else d_old_c
         if d_msg is not None:
             _scatter(dh, graph, "cell", k, d_msg, None)
