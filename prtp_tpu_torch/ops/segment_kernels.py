@@ -36,7 +36,8 @@ from .fused_gnn import _check_index, _check_rows, _stream
 from .gather import device_of
 from .segment import segment_sum, softmax_parts
 
-_SOFTMAX_ARGTYPES = [c_void_p] * 6 + [c_int64, c_int, c_int, c_void_p]
+_SOFTMAX_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
+                     c_void_p, c_int64, c_int, c_int, c_void_p]
 _MEAN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int64,
                   c_int, c_void_p]
 _SOFTMAX_BWD_ARGTYPES = [c_void_p] * 8 + [c_int64, c_int, c_void_p]
