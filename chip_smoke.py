@@ -3748,6 +3748,10 @@ def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
     partial_rec = KernelRecord("segment_softmax_sum", "headline, partial")
     stats_rec = KernelRecord("segment_softmax_sum_bwd",
                              "headline, stats-reading")
+    recs["segment_mean"].design = "headline, update"
+    mean_rec = KernelRecord("segment_mean", "headline, mean")
+    sums_rec = KernelRecord("segment_mean", "headline, sums")
+    composition = {"ms": 0.0, "launches": 0}
 
     def close(name, k, got, want):
         err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -3832,68 +3836,183 @@ def check_segment_kernels(torch, F, graph, dev, timer) -> dict:
                 f"stats-reading: {modes}")
             check_segment_scatter(torch, scatter, k, "cell", graph, h, d_msg,
                                   None, timer, close)
-        # ---- the net half (every pair): the mean, the scatter ----
+        # ---- the net half (every pair): the three modes, the scatter ----
         src, off = graph.net_src[k], graph.net_dst_off[k]
-        cnt = graph.net_cnt[k]
+        cnt, has_in, n0 = graph.net_cnt[k], graph.net_has_in[k], graph.net_off[k]
         s, e = off.shape[0] - 1, src.shape[0]
-        err = max(close("segment_mean", k, K.segment_mean(h, src, off, c),
-                        K.segment_mean_plain(h, src, off, c))
-                  for c in (cnt, None))
+        err_s = close("segment_mean (sums)", k, K.segment_mean(h, src, off,
+                                                              None),
+                      K.segment_mean_plain(h, src, off, None))
+        mean = K.segment_mean(h, src, off, cnt)
+        err = close("segment_mean (mean)", k, mean,
+                    K.segment_mean_plain(h, src, off, cnt))
         src_l, off_l = src.long(), off[:-1].long()
         lib = F.embedding_bag(src_l, h, off_l, mode="mean")
-        close("segment_mean (embedding_bag)", k, lib,
-              K.segment_mean(h, src, off, cnt))
-        nbytes = (torch.unique(src).numel() * row_b + e * 4 + (s + 1) * 4
-                  + s * 4 + s * row_b)
+        close("segment_mean (embedding_bag)", k, lib, mean)
+        pre = torch.randn((s, D), generator=gen, device=dev)
+        err_u, cases = check_net_update(torch, K, gen, k, h, src, off, cnt,
+                                        pre, has_in, n0, close)
+        # read: the distinct rows, the edge table, the offsets (and the
+        # counts); write the (S, D) result. The update mode reads pre and
+        # has_in, the old rows of the slots without in-edges, and only
+        # the sources of the others
+        read = torch.unique(src).numel() * row_b + e * 4 + (s + 1) * 4
         ops = float(e * D + s * D)
-        ms = timer.ms(lambda: K.segment_mean(h, src, off, cnt))
-        pms = timer.ms(lambda: K.segment_mean_plain(h, src, off, cnt))
+        nb = {"sums": read + s * row_b, "mean": read + s * 4 + s * row_b,
+              "update": net_update_bytes(torch, src, off, has_in, s)}
+        hu, hc = h.clone(), h.clone()
+        ms = {
+            "sums": timer.ms(lambda: K.segment_mean(h, src, off, None)),
+            "mean": timer.ms(lambda: K.segment_mean(h, src, off, cnt)),
+            "update": timer.ms(lambda: K.net_update(hu, src, off, cnt, pre,
+                                                    has_in, n0)),
+            "composition": timer.ms(lambda: K.net_epilogue(
+                hc, pre, K.segment_mean(hc, src, off, cnt), has_in, n0))}
+        pms = {
+            "sums": timer.ms(lambda: K.segment_mean_plain(h, src, off, None)),
+            "mean": timer.ms(lambda: K.segment_mean_plain(h, src, off, cnt)),
+            "update": timer.ms(lambda: K.net_update_plain(
+                hc, src, off, cnt, pre, has_in, n0))}
         lms = timer.ms(lambda: F.embedding_bag(src_l, h, off_l, mode="mean"))
-        recs["segment_mean"].add(ms, pms, lms, nbytes, ops, err)
+        ops_u = float(e * D + 3 * s * D)  # the adds; div, add, relu a slot
+        recs["segment_mean"].add(ms["update"], pms["update"], None,
+                                 nb["update"], ops_u, err_u)
+        sums_rec.add(ms["sums"], pms["sums"], None, nb["sums"], float(e * D),
+                     err_s)
+        mean_rec.add(ms["mean"], pms["mean"], lms, nb["mean"], ops, err)
+        composition["ms"] += ms["composition"]
+        composition["launches"] += 6 if has_in is not None else 4
         log(f"  segment_mean pair {k}: {e} edges into {s} slots  kernel "
-            f"{ms:.4f} ms  plain {pms:.4f}  embedding_bag {lms:.4f}  bound "
-            f"{bound(nbytes, ops)[0]:.4f}  max abs err {err:.3g}")
+            f"update {ms['update']:.4f} ms (the mean kernel and the five ops "
+            f"it replaces {ms['composition']:.4f}), mean {ms['mean']:.4f}, "
+            f"sums {ms['sums']:.4f}  plain {pms['update']:.4f} / "
+            f"{pms['mean']:.4f} / {pms['sums']:.4f}  embedding_bag "
+            f"{lms:.4f}  bound {bound(nb['update'], ops_u)[0]:.4f}"
+            f" / {bound(nb['mean'], ops)[0]:.4f} / "
+            f"{bound(nb['sums'], float(e * D))[0]:.4f}  max abs err "
+            f"{err_u:.3g} / {err:.3g} / {err_s:.3g}; update vs the unfused "
+            f"composition: {cases}")
         g_n = torch.randn((s, D), generator=gen, device=dev)
         check_segment_scatter(torch, scatter, k, "net", graph, h, g_n, cnt,
                               timer, close)
-    return recs, scatter, [partial_rec, stats_rec]
+    log(f"  the net half's update: segment_mean's update mode "
+        f"{recs['segment_mean'].ms:.4f} ms a pass in "
+        f"{recs['segment_mean'].calls} launches; the mean kernel and the "
+        f"five ops it replaces {composition['ms']:.4f} ms in "
+        f"{composition['launches']} launches")
+    return recs, scatter, [partial_rec, stats_rec, mean_rec, sums_rec]
 
 
-def segment_chain(torch, graph, dev, timer, per_call_ms):
-    """Phase 11 (a): the segment softmax pair's calls as the walk issues
-    them, back to back: each pair's forward (whole) after an elementwise
-    kernel of CHAIN_ELEMS floats (as the pair's MLP before it), then each
-    pair's backward (recomputing) likewise, in reverse, no event between
-    (where a programmatic launch overlaps the kernel before it); beside
-    the elementwise kernels alone and the pair's summed per-call times
-    ``per_call_ms``."""
+def net_update_bytes(torch, src, off, has_in, s):
+    """The bytes the update mode must move for one net level: the
+    distinct sources of the slots with in-edges (``has_in``; every slot
+    when None) and their edges, the offsets, counts and ``has_in``, pre
+    read, and the (S, D) rows written; a slot without in-edges reads its
+    old row instead."""
+    row_b = D * 4
+    slot = torch.repeat_interleave(
+        torch.arange(s, device=src.device), (off[1:] - off[:-1]).long())
+    take = (torch.ones(s, dtype=torch.bool, device=src.device)
+            if has_in is None else has_in.reshape(-1))
+    used = src[take[slot]]
+    return (torch.unique(used).numel() * row_b + used.numel() * 4
+            + (s + 1) * 4 + s * 4 + s + 2 * s * row_b
+            + int((~take).sum()) * row_b)
+
+
+def check_net_update(torch, K, gen, k, h, src, off, cnt, pre, has_in, n0,
+                     close):
+    """Phase 11 (a): ``segment_mean``'s update mode (``net_update``) at
+    one net level against its plain version (rtol 1e-5, atol 1e-6) and,
+    bit for bit, against the unfused composition it replaces on the card
+    (the mean kernel, then the walk's five PyTorch ops:
+    ``net_epilogue``), each on a copy of ``h``, in three cases: every
+    slot with in-edges, a random third without, and ``dgl_parity`` off
+    (no ``has_in``). Also the rows outside the level must be untouched.
+    Returns the largest error against the plain version and a note."""
+    s = off.shape[0] - 1
+    third = torch.rand((s, 1), generator=gen, device=h.device) >= 1 / 3
+    cases = {"has_in all true": torch.ones_like(has_in),
+             "a third without in-edges": has_in & third,
+             "dgl_parity off": None}
+    err = 0.0
+    for what, mask in cases.items():
+        got, plain, comp = h.clone(), h.clone(), h.clone()
+        K.net_update(got, src, off, cnt, pre, mask, n0)
+        K.net_update_plain(plain, src, off, cnt, pre, mask, n0)
+        K.net_epilogue(comp, pre, K.segment_mean(comp, src, off, cnt), mask,
+                       n0)
+        err = max(err, close(f"segment_mean (update, {what})", k,
+                             got[n0: n0 + s], plain[n0: n0 + s]))
+        if not same_bits(torch, got, comp):
+            raise AssertionError(
+                f"segment_mean (update, {what}) at pair {k}: "
+                f"{int((got.view(torch.int32) != comp.view(torch.int32)).sum())}"
+                " elements' bits differ from the unfused composition")
+    return err, f"bit-equal in {len(cases)} cases ({', '.join(cases)})"
+
+
+def same_bits(torch, a, b) -> bool:
+    """Whether two float32 tensors hold the same bits (NaN payloads and
+    the sign of zero included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def segment_chain(torch, graph, dev, timer, per_call_ms, net_ms):
+    """Phase 11 (a): the segment walk's kernel calls as the walk issues
+    them, back to back, each after an elementwise kernel of CHAIN_ELEMS
+    floats (as the MLP before it), no event between (where a
+    programmatic launch overlaps the kernel before it): (1) the softmax
+    pair: each pair's forward (whole), then each pair's backward
+    (recomputing) in reverse; (2) the same with the net half: in each
+    pair the cell forward (k > 0), then ``segment_mean``'s update mode
+    (``net_update``), then the backwards. Each beside its elementwise
+    kernels alone and its kernels' summed per-call times
+    (``per_call_ms`` for the softmax pair, ``net_ms`` more with the net
+    half)."""
     from prtp_tpu_torch.ops import segment_kernels as K
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
-    levels = [(graph.cell_src[k], graph.cell_dst_off[k],
-               torch.randn((graph.cell_dst_off[k].shape[0] - 1, D),
-                           generator=gen, device=dev))
-              for k in range(1, graph.num_pairs)]
+    cells = {k: (graph.cell_src[k], graph.cell_dst_off[k],
+                 torch.randn((graph.cell_dst_off[k].shape[0] - 1, D),
+                             generator=gen, device=dev))
+             for k in range(1, graph.num_pairs)}
+    nets = [(graph.net_src[k], graph.net_dst_off[k], graph.net_cnt[k],
+             torch.randn((graph.net_cnt[k].shape[0], D), generator=gen,
+                         device=dev), graph.net_has_in[k], graph.net_off[k])
+            for k in range(graph.num_pairs)]
     y = torch.randn(CHAIN_ELEMS, generator=gen, device=dev)
 
-    def chain(kernels=True):
-        for src, off, _g in levels:
-            y.mul_(1.0)
-            if kernels:
-                K.segment_softmax_sum(h, src, off)
-        for src, off, g in reversed(levels):
+    def chain(kernels=True, net=False):
+        for k in range(graph.num_pairs):
+            if k in cells:
+                y.mul_(1.0)
+                if kernels:
+                    K.segment_softmax_sum(h, *cells[k][:2])
+            if net:
+                y.mul_(1.0)
+                if kernels:
+                    K.net_update(h, *nets[k])
+        for src, off, g in reversed(cells.values()):
             y.mul_(1.0)
             if kernels:
                 K.segment_softmax_sum_bwd(h, src, off, g)
 
     ms = timer.ms(chain, queue_ms=3)
     alone = timer.ms(lambda: chain(False), queue_ms=3)
-    log(f"  the walk's {len(levels)} segment_softmax_sum and "
-        f"{len(levels)} segment_softmax_sum_bwd calls, each after an "
+    log(f"  the walk's {len(cells)} segment_softmax_sum and "
+        f"{len(cells)} segment_softmax_sum_bwd calls, each after an "
         f"elementwise kernel, back to back: {ms:.4f} ms (the elementwise "
         f"kernels alone {alone:.4f}; the pair's per-call times summed "
         f"{per_call_ms:.4f})")
+    ms = timer.ms(lambda: chain(net=True), queue_ms=3)
+    alone = timer.ms(lambda: chain(False, True), queue_ms=3)
+    log(f"  the same with the net half's {len(nets)} net_update calls "
+        f"(segment_mean's update mode), each after an elementwise kernel: "
+        f"{ms:.4f} ms (the elementwise kernels alone {alone:.4f}; the "
+        f"per-call times summed {per_call_ms + net_ms:.4f})")
 
 
 def degree_mixes(torch, graph, dev) -> dict:
@@ -4033,7 +4152,9 @@ def check_segment_scatter(torch, rec, k, half, graph, h, val, cnt, timer,
 
 def segment_floors(torch, graph, dev, timer) -> dict:
     """Each segment kernel, and the walk's ``mailbox_scatter``, timed on
-    a one-slot call."""
+    a one-slot call, keyed by name (the main path's mode) and, for the
+    other modes of ``segment_mean``, by ``(name, design)`` as their
+    records have it."""
     from prtp_tpu_torch.ops import segment_kernels as K
     from prtp_tpu_torch.ops.fused_gnn import mailbox_scatter
 
@@ -4043,10 +4164,17 @@ def segment_floors(torch, graph, dev, timer) -> dict:
     one = torch.ones(1, device=dev)
     row = torch.randn((1, D), device=dev)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    has_in = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    n0 = graph.net_off[graph.num_pairs - 1]
     return {
         "segment_softmax_sum": timer.ms(
             lambda: K.segment_softmax_sum(h, src, off)),
-        "segment_mean": timer.ms(lambda: K.segment_mean(h, src, off, one)),
+        "segment_mean": timer.ms(
+            lambda: K.net_update(h, src, off, one, row, has_in, n0)),
+        ("segment_mean", "headline, mean"): timer.ms(
+            lambda: K.segment_mean(h, src, off, one)),
+        ("segment_mean", "headline, sums"): timer.ms(
+            lambda: K.segment_mean(h, src, off, None)),
         "segment_softmax_sum_bwd": timer.ms(
             lambda: K.segment_softmax_sum_bwd(h, src, off, row)),
         "mailbox_scatter": timer.ms(
@@ -4055,18 +4183,23 @@ def segment_floors(torch, graph, dev, timer) -> dict:
 
 
 def check_segment_edge_shapes(torch, dev):
-    """Phase 11 (a): the two softmax kernels of the segment walk on the
-    code paths the headline does not reach, against their plain versions
-    (rtol 1e-5, atol 1e-6, NaN where the plain version has it):
-    ``segment_softmax_sum`` whole and ``partial``, and
+    """Phase 11 (a): the segment walk's kernels on the code paths the
+    headline does not reach, against their plain versions (rtol 1e-5,
+    atol 1e-6, NaN where the plain version has it):
+    ``segment_softmax_sum`` whole and ``partial``,
     ``segment_softmax_sum_bwd`` recomputing and stats-reading (the
-    statistics of the kernel's own partial call), on empty slots, slots
-    of 1-9 and 33 edges (above 4: the generic path, 4 rows at a time, a
-    last chunk of 1-4 rows), D % 4 != 0 and
-    a misaligned h (the scalar path), narrow and wide rows, a NaN on a
-    real edge, and no edges (no slots too). An empty slot must give 0.
-    The two backward modes against each other: the elements that differ
-    are logged."""
+    statistics of the kernel's own partial call), and ``segment_mean``'s
+    three modes (sums, mean, and the update of a net level held in h's
+    last rows, with a random third of the slots without in-edges and
+    with ``dgl_parity`` off), on empty slots, slots of 1-9 and 33 edges
+    (above 4: the generic path, 4 rows at a time, a last chunk of 1-4
+    rows), D % 4 != 0 and a misaligned h (the scalar path), narrow and
+    wide rows, a NaN on a real edge (and NaN and signed zeros in pre and
+    the level's old rows), and no edges (no slots too). An empty slot
+    must give 0 (sums, mean, the softmax), relu(pre + 0) in the update
+    mode; the update mode must also equal, bit for bit, the mean kernel
+    followed by the walk's five PyTorch ops. The two backward modes
+    against each other: the elements that differ are logged."""
     from prtp_tpu_torch.ops import segment_kernels as K
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -4094,15 +4227,22 @@ def check_segment_edge_shapes(torch, dev):
         off = off.to(dev)
         src = torch.randint(0, r, (int(deg.sum()),), generator=gen,
                             device=dev, dtype=torch.int32)
+        # rows [r, r + S) of h: the net level that the update mode writes
+        rows = r + len(degs)
         if case == "misaligned h":
-            h = torch.randn(r * d + 1, generator=gen, device=dev)[1:]
-            h = h.view(r, d)
+            h = torch.randn(rows * d + 1, generator=gen, device=dev)[1:]
+            h = h.view(rows, d)
         else:
-            h = torch.randn((r, d), generator=gen, device=dev) * 4
+            h = torch.randn((rows, d), generator=gen, device=dev) * 4
+        pre = torch.randn((len(degs), d), generator=gen, device=dev) * 4
         nan_slot = None
         if case == "NaN":  # on the first edge of slots 1 and 2 (3, 9 edges)
             nan_slot = [1, 2]
             h[src[off[1:3].long()], 2] = float("nan")
+            for t in (pre, h[r:]):
+                t[::3, 0] = float("nan")
+                t[1::3, 1] = -0.0
+                t[2::3, 1] = 0.0
         empty = (deg == 0).to(dev)
         g = torch.randn((len(degs), d), generator=gen, device=dev)
         want = K.segment_softmax_sum_plain(h, src, off)[0]
@@ -4134,19 +4274,65 @@ def check_segment_edge_shapes(torch, dev):
                 f"recomputing {errs[0]}, stats-reading {errs[1]}")
         differ += int((~((d_re == d_st) | (d_re.isnan() & d_st.isnan())))
                       .sum())
+        check_segment_mean_shape(torch, K, gen, what, h, src, off, deg, pre,
+                                 r, nan_slot, same)
         cases += 1
-    log(f"  segment edge shapes: {cases} cases, each kernel in both modes, "
-        "match their plain versions (rtol 1e-5, atol 1e-6, NaN where the "
-        f"plain version has it, empty slots 0); backward elements that "
+    log(f"  segment edge shapes: {cases} cases, each softmax kernel in both "
+        "modes and segment_mean in its three, match their plain versions "
+        "(rtol 1e-5, atol 1e-6, NaN where the plain version has it, empty "
+        "slots 0, relu(pre + 0) in the update mode); the update mode "
+        "bit-equal to the mean kernel and five ops; backward elements that "
         f"differ between recomputing and stats-reading: {differ}")
+
+
+def check_segment_mean_shape(torch, K, gen, what, h, src, off, deg, pre, r,
+                             nan_slot, same):
+    """:func:`check_segment_edge_shapes` for ``segment_mean``: the sums
+    and mean modes (cnt the in-degree, at least 1) and the update mode of
+    the level at h's rows ``[r, r + S)``, with a random third of the
+    slots without in-edges (those with none among them) and with
+    ``dgl_parity`` off."""
+    s = off.shape[0] - 1
+    dev = h.device
+    empty = (deg == 0).to(dev)
+    cnt = deg.clamp_min(1).float().to(dev)
+    for c in (None, cnt):
+        mode = "sums" if c is None else "mean"
+        got = K.segment_mean(h, src, off, c)
+        ok = same(got, K.segment_mean_plain(h, src, off, c)) and not bool(
+            got[empty].any())
+        if nan_slot is not None:
+            ok = ok and bool(got[nan_slot, 2].isnan().all())
+        if not ok:
+            raise AssertionError(f"segment_mean ({mode}) differs: {what}")
+    third = torch.rand((s, 1), generator=gen, device=dev) >= 1 / 3
+    for mask in ((deg > 0).to(dev)[:, None] & third, None):
+        got, plain, comp = h.clone(), h.clone(), h.clone()
+        K.net_update(got, src, off, cnt, pre, mask, r)
+        K.net_update_plain(plain, src, off, cnt, pre, mask, r)
+        K.net_epilogue(comp, pre, K.segment_mean(comp, src, off, cnt), mask,
+                       r)
+        take = (torch.ones((s, 1), dtype=torch.bool, device=dev)
+                if mask is None else mask)[:, 0]
+        ok = (same(got, plain) and same_bits(torch, got, comp)
+              and same_bits(torch, got[:r], h[:r])
+              and same_bits(torch, got[r:][empty & take],
+                            torch.relu(pre[empty & take] + 0.0)))
+        if not ok:
+            raise AssertionError(
+                f"segment_mean (update, "
+                f"{'dgl_parity off' if mask is None else 'has_in'}) "
+                f"differs: {what}")
 
 
 def check_segment_hazard(torch, graph, dev, early_writer, pair=1):
     """Phase 11 (a), programmatic dependent launch: at one pair's shapes
     of ``graph``, ``segment_softmax_sum`` (whole and ``partial``) right
-    after a writer of ``h``, the one input it reads after its wait, and
+    after a writer of ``h``, the one input it reads after its wait,
     ``segment_softmax_sum_bwd`` (recomputing and stats-reading) right
-    after a writer of ``g``, each NaN first, for both writers of
+    after a writer of ``g``, ``segment_mean`` (sums and mean) right after
+    a writer of ``h`` and its update mode right after a writer of ``h``
+    and ``pre``, each NaN first, for both writers of
     :func:`hazard_writers`; each of HAZARD_REPS results a writer must
     match the plain version on the written values (rtol 1e-5, atol
     1e-6)."""
@@ -4176,14 +4362,40 @@ def check_segment_hazard(torch, graph, dev, early_writer, pair=1):
             lambda: K.segment_softmax_sum_bwd(h, src, off, g_v, stats),
             g_buf, g_src,
             K.segment_softmax_sum_bwd_plain(h, src, off, g, stats))
+    # segment_mean at the pair's net level: the sums and the mean right
+    # after a writer of h; the update right after one writer launch of h
+    # and pre (the level's rows of h, each slot's own old row included,
+    # read after the wait), with a random third of the slots without
+    # in-edges
+    src, off = graph.net_src[pair], graph.net_dst_off[pair]
+    cnt, n0 = graph.net_cnt[pair], graph.net_off[pair]
+    s = off.shape[0] - 1
+    for c in (None, cnt):
+        failed += after_writers(
+            torch, writers, f"segment_mean ({'sums' if c is None else 'mean'})",
+            lambda: K.segment_mean(h_v, src, off, c), h_buf, h_src,
+            K.segment_mean_plain(h, src, off, c))
+    pre = torch.randn((s, D), generator=gen, device=dev)
+    has_in = graph.net_has_in[pair] & (
+        torch.rand((s, 1), generator=gen, device=dev) >= 1 / 3)
+    want = h.clone()
+    K.net_update_plain(want, src, off, cnt, pre, has_in, n0)
+    (hu_v, pre_v), u_src, u_buf = staged(torch, [h, pre])
+
+    def update():
+        K.net_update(hu_v, src, off, cnt, pre_v, has_in, n0)
+        return hu_v[n0: n0 + s]
+
+    failed += after_writers(torch, writers, "segment_mean (update)", update,
+                            u_buf, u_src, want[n0: n0 + s])
     if failed:
         raise AssertionError("launched right after the kernel that writes "
                              "its inputs, a segment kernel differs from its "
                              f"plain version: {failed}")
-    log(f"  programmatic launch: segment_softmax_sum (whole, partial) and "
-        f"segment_softmax_sum_bwd (recomputing, stats-reading) at pair "
-        f"{pair} match their plain versions right after each writer (rtol "
-        "1e-5, atol 1e-6)")
+    log(f"  programmatic launch: segment_softmax_sum (whole, partial), "
+        f"segment_softmax_sum_bwd (recomputing, stats-reading) and "
+        f"segment_mean (sums, mean, update) at pair {pair} match their plain "
+        "versions right after each writer (rtol 1e-5, atol 1e-6)")
 
 
 def gp_rank(rank, tmp, port):
@@ -4311,11 +4523,12 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
     floors = segment_floors(torch, graph, dev, timer)
     segment_chain(torch, graph, dev, timer,
                   recs["segment_softmax_sum"].ms
-                  + recs["segment_softmax_sum_bwd"].ms)
+                  + recs["segment_softmax_sum_bwd"].ms,
+                  recs["segment_mean"].ms)
     check_segment_degree_mix(torch, graph, dev, timer, smi)
     del timer
     for rec in (*recs.values(), *modes, scatter):
-        rec.floor_ms = floors[rec.name]
+        rec.floor_ms = floors.get((rec.name, rec.design), floors[rec.name])
         log(f"  {rec.summary()}  [{smi}]")
     check_segment_edge_shapes(torch, dev)
     check_segment_hazard(torch, graph, dev, early_writer)
@@ -4343,6 +4556,14 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
     log(f"  headline segment vs mailbox, both on the card, same weights: "
         f"predictions within {diff:.3g} (rtol/atol 1e-4): ok")
     num_paths = int(headline["num_paths"])
+    pids, _m = pad_batch(np.arange(num_paths), num_paths, dev)
+    for name, m in (("segment", model), ("mailbox", mailbox)):
+        with torch.no_grad():
+            by_name = device_kernels(torch, lambda: m(design, pids))
+        log(f"phase 11 (b): {name} model forward ({num_paths} paths): "
+            f"{sum(c for _, c in by_name.values())} kernel launches, device "
+            f"busy {sum(t for t, _ in by_name.values()) / 1e3:.3f} ms "
+            f"(torch.profiler)  [{smi}]")
     cpu_design = pack_design(headline, map_size=MAP_SIZE, device="cpu",
                              segment=True)
     designs = {DEVICE: design, "cpu": cpu_design}

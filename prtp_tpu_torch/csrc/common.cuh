@@ -320,12 +320,46 @@ __device__ __forceinline__ int slot_edges(const int32_t* __restrict__ src,
   return deg;
 }
 
+// ---- the net half's update (segment_mean's update mode) ----
+//
+// The walk's net half writes each net slot s's row of h as
+//   h[n0 + s] = has_in[s] ? relu(pre[s] + mean[s]) : relu(h[n0 + s])
+// (prtp_tpu/models/gnn.py:200-204 with _masked_update), where PyTorch
+// runs `+`, F.relu twice, torch.where and the copy into h as five
+// kernels. These functions do the same float operations in the same
+// order, so the result has the unfused composition's bits on the card.
+// The mailbox walk's local_mean (ops/fused_gnn.py) is followed by the
+// same five ops and could end in them too.
+
+// torch.relu of a float as PyTorch's CUDA clamp_min computes it: a NaN
+// is returned as it is (its payload kept), anything else is
+// max(v, 0.f) (the same max instruction, so the same sign of zero).
+__device__ __forceinline__ float torch_relu(float v) {
+  return isnan(v) ? v : fmaxf(v, 0.f);
+}
+
+// A row with in-edges: x = relu(pre + x), x holding the slot's mean.
+template <int N>
+__device__ __forceinline__ void update_row(const float (&pre)[N],
+                                           float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = torch_relu(pre[i] + x[i]);
+}
+
+// A row without in-edges (has_in false): x = relu(x), x its old value.
+template <int N>
+__device__ __forceinline__ void keep_row(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = torch_relu(x[i]);
+}
+
 // ---- programmatic dependent launch (sm_90) ----
 //
 // Its users: attn_sum, attn_bwd's two kernels (attn_bwd_rows,
 // attn_dw_reduce), softmax_sum_bwd, mailbox_scatter,
-// segment_softmax_sum and segment_softmax_sum_bwd. softmax_sum,
-// local_mean, gather_rows, flat_adam and segment_mean launch plainly.
+// segment_softmax_sum, segment_softmax_sum_bwd and segment_mean (its
+// three modes). softmax_sum, local_mean, gather_rows and flat_adam
+// launch plainly.
 //
 // Launched with cudaLaunchAttributeProgrammaticStreamSerialization, a
 // kernel may start while the kernel before it on the stream drains: its

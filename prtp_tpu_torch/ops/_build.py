@@ -99,17 +99,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, argtypes, *args) -> None:
-    """Call ``<name>_launch(*args)`` of kernel ``name``'s library and raise
-    if it returns a CUDA error. Pointers and the stream are passed as
-    ``c_void_p`` (Python ints), so ctypes never truncates them."""
+def launch(name: str, argtypes, *args, entry: str | None = None) -> None:
+    """Call ``<entry>_launch(*args)`` (``entry`` defaults to ``name``) of
+    kernel ``name``'s library and raise if it returns a CUDA error.
+    Pointers and the stream are passed as ``c_void_p`` (Python ints), so
+    ctypes never truncates them."""
     lib = library(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, f"{entry or name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     err = fn(*args)
     if err != 0:
         msg = lib.error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: cuda error {err} "
-                           f"({msg})")
+        raise RuntimeError(f"{entry or name} kernel launch failed: cuda "
+                           f"error {err} ({msg})")

@@ -10,7 +10,10 @@ source row for the backward), through:
   ``h``; with ``partial`` (a rank of the edge-sharded step) the
   numerator and each slot's shift and denominator, which the combine
   over ranks needs;
-- :func:`segment_mean`: ``segment_sum(h[src], ...) / net_cnt``;
+- :func:`segment_mean`: ``segment_sum(h[src], ...) / net_cnt``, and
+  :func:`net_update`, the same kernel's update mode: the net half's
+  update of ``h`` (``relu(pre + mean)`` where a row has in-edges, else
+  ``relu(old)``) written in place;
 - :func:`segment_softmax_sum_bwd`: the per-edge cotangent of the first,
   recomputing each slot's softmax from ``h`` or reading the combined
   statistics the edge-sharded walk saved.
@@ -30,6 +33,7 @@ from __future__ import annotations
 from ctypes import c_int, c_int64, c_void_p
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .fused_gnn import _check_index, _check_rows, _stream
@@ -40,6 +44,7 @@ _SOFTMAX_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
                      c_void_p, c_int64, c_int, c_int, c_void_p]
 _MEAN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int64,
                   c_int, c_void_p]
+_UPDATE_ARGTYPES = [c_void_p] * 6 + [c_int64, c_int64, c_int, c_void_p]
 _SOFTMAX_BWD_ARGTYPES = [c_void_p] * 8 + [c_int64, c_int, c_void_p]
 
 
@@ -149,6 +154,72 @@ def segment_mean(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
 
 
 segment_mean.launches = 0
+
+
+def net_epilogue(h, pre, mean, has_in, n0):
+    """The net half's update of ``h``'s rows ``[n0, n0 + S)`` in place
+    (``prtp_tpu/models/gnn.py:200-204`` with ``_masked_update``):
+    ``relu(pre + mean)`` where ``has_in`` (every row when it is None),
+    else ``relu`` of the old row. Five PyTorch ops."""
+    new = F.relu(pre + mean)
+    if has_in is not None:
+        new = torch.where(has_in, new, F.relu(h[n0: n0 + pre.shape[0]]))
+    h[n0: n0 + pre.shape[0]] = new
+
+
+def net_update_plain(h, src, off, cnt, pre, has_in, n0):
+    """:func:`net_update` as the walk computed it before the kernel took
+    the update: the mean, then :func:`net_epilogue`."""
+    net_epilogue(h, pre, segment_mean_plain(h, src, off, cnt), has_in, n0)
+
+
+def net_update(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
+               cnt: torch.Tensor, pre: torch.Tensor,
+               has_in: torch.Tensor | None, n0: int) -> None:
+    """The unsharded walk's net half in one launch of the
+    ``segment_mean`` kernel (its update mode, counted under
+    :func:`segment_mean`): for each slot s, ``h[n0 + s] = relu(pre[s] +
+    mean[s])`` where ``has_in[s]`` (every slot when ``has_in`` is None:
+    ``dgl_parity`` off), else ``relu(h[n0 + s])``; ``mean`` is
+    :func:`segment_mean` with ``cnt``. Writes h in place. On the card the
+    rows have the bits of :func:`net_update_plain`'s ops run there. h
+    (R, D) float32 contiguous, whose rows ``[n0, n0 + S)`` no edge
+    reads; src (E,) and off (S+1,) int32; cnt (S,) float32; pre (S, D)
+    float32 contiguous; has_in (S, 1) bool (the graph's ``net_has_in``)
+    or None."""
+    _check_rows("h", h)
+    _check_rows("pre", pre)
+    _check_csr(src, off)
+    s, d = off.shape[0] - 1, h.shape[1]
+    if (cnt.dtype != torch.float32 or not cnt.is_contiguous()
+            or cnt.shape != (s,)):
+        raise ValueError(f"cnt must be a contiguous float32 ({s},) tensor, "
+                         f"got {cnt.dtype} {tuple(cnt.shape)}")
+    if pre.shape != (s, d):
+        raise ValueError(f"pre {tuple(pre.shape)} must be ({s}, {d})")
+    if not 0 <= n0 <= h.shape[0] - s:
+        raise ValueError(f"rows [{n0}, {n0 + s}) must lie in h's "
+                         f"{h.shape[0]} rows")
+    tensors = [h, src, off, cnt, pre]
+    if has_in is not None:
+        if (has_in.dtype != torch.bool or not has_in.is_contiguous()
+                or has_in.shape != (s, 1)):
+            raise ValueError(f"has_in must be a contiguous bool ({s}, 1) "
+                             f"tensor, got {has_in.dtype} "
+                             f"{tuple(has_in.shape)}")
+        tensors.append(has_in)
+    if device_of("net_update", *tensors).type == "cpu":
+        net_update_plain(h, src, off, cnt, pre, has_in, n0)
+        return
+    if s == 0:
+        return
+    with torch.cuda.device(h.device):
+        _build.launch("segment_mean", _UPDATE_ARGTYPES, h.data_ptr(),
+                      src.data_ptr(), off.data_ptr(), cnt.data_ptr(),
+                      pre.data_ptr(),
+                      0 if has_in is None else has_in.data_ptr(), n0, s, d,
+                      _stream(h), entry="net_update")
+    segment_mean.launches += 1
 
 
 def segment_softmax_sum_bwd_plain(h, src, off, g, stats=None):

@@ -11,10 +11,14 @@ its dense mailbox, with the kernels of :mod:`.segment_kernels`:
 - the cell half: ``segment_softmax_sum`` of ``h[cell_src]`` by
   destination slot, read straight from ``h``; pair 0 drops the
   neighbour term (JAX's ``gate``, :190);
-- the net half, which reads ``h`` after the cell half's write:
-  ``segment_mean``, the in-edge sum over ``net_cnt``;
-- with ``dgl_parity`` a row without in-edges keeps ``relu(old)``
-  (:152-161), by the level's ``has_in``.
+- the net half, which reads ``h`` after the cell half's write: the
+  in-edge sum over ``net_cnt``, added to the ``fc_net_self`` MLP's
+  output under a ReLU; with ``dgl_parity`` a row without in-edges keeps
+  ``relu(old)`` (:152-161), by the level's ``has_in``. Unsharded, one
+  launch of ``segment_mean``'s update mode (``net_update``) computes
+  the mean and writes the new rows into ``h``; sharded, the partial
+  sums' all-reduce comes between, so the mean and the update
+  (``net_epilogue``) stay apart.
 
 The pair-step MLPs are the mailbox walk's (``_mlp``, ``_mlp_grads``,
 ``_relu_split``), so their arithmetic is shared. The backward
@@ -61,8 +65,8 @@ import torch.nn.functional as F
 
 from .fused_gnn import (MLP_NAMES, _flat_of, _mlp, _mlp_grads, _params_of,
                         _relu_split, mailbox_scatter)
-from .segment_kernels import (segment_mean, segment_softmax_sum,
-                              segment_softmax_sum_bwd)
+from .segment_kernels import (net_epilogue, net_update, segment_mean,
+                              segment_softmax_sum, segment_softmax_sum_bwd)
 
 
 def require_tables(graph, who: str) -> None:
@@ -103,10 +107,9 @@ def _cell_reduce(h, graph, k):
 
 
 def _net_reduce(h, graph, k):
+    """Pair k's net mean on an edge-sharded rank: its partial sums,
+    summed over the ``gp`` group, over ``net_cnt``."""
     shard = graph.shard
-    if shard is None:
-        return segment_mean(h, graph.net_src[k], graph.net_dst_off[k],
-                            graph.net_cnt[k])
     sums = segment_mean(h, shard.net_src[k], shard.net_dst_off[k], None)
     shard.sum_(sums)
     return sums / graph.net_cnt[k][:, None]
@@ -176,14 +179,14 @@ def segment_gnn_forward(params, h0: torch.Tensor, graph,
                               F.relu(h[c0: c0 + pn_c]))
         h[c0: c0 + pn_c] = new
         # ---- net half (odd level 2k+1), after the cell half's write ----
-        pn_n = graph.net_feat_lvl[k].shape[0]
-        n0 = graph.net_off[k]
-        new_n = F.relu(_mlp(params["fc_net_self"], graph.net_feat_lvl[k])
-                       + _net_reduce(h, graph, k))
-        if dgl_parity:
-            new_n = torch.where(graph.net_has_in[k], new_n,
-                                F.relu(h[n0: n0 + pn_n]))
-        h[n0: n0 + pn_n] = new_n
+        pre = _mlp(params["fc_net_self"], graph.net_feat_lvl[k])
+        has_in = graph.net_has_in[k] if dgl_parity else None
+        if graph.shard is None:  # the mean and the update in one launch
+            net_update(h, graph.net_src[k], graph.net_dst_off[k],
+                       graph.net_cnt[k], pre, has_in, graph.net_off[k])
+        else:
+            net_epilogue(h, pre, _net_reduce(h, graph, k), has_in,
+                         graph.net_off[k])
     return h
 
 

@@ -12,7 +12,7 @@ from prtp_tpu_torch.ops import _build, adam, fused_gnn, gather, segment_kernels
 
 C_TYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,
            "float": ctypes.c_float}
-# each kernel's ctypes argument list, as its wrapper passes it
+# each launcher's ctypes argument list, as its wrapper passes it
 ARGTYPES = {
     "gather_rows": gather._ARGTYPES,
     "softmax_sum": fused_gnn._SOFTMAX_ARGTYPES,
@@ -26,16 +26,30 @@ ARGTYPES = {
     "segment_mean": segment_kernels._MEAN_ARGTYPES,
     "segment_softmax_sum_bwd": segment_kernels._SOFTMAX_BWD_ARGTYPES,
 }
+# launchers beyond <name>_launch, by library: (entry, argument list)
+MORE = {"segment_mean": [("net_update", segment_kernels._UPDATE_ARGTYPES)]}
+LAUNCHERS = ([(name, name, ARGTYPES[name]) for name in _build.KERNEL_NAMES]
+             + [(name, entry, types) for name, more in MORE.items()
+                for entry, types in more])
 
 
-@pytest.mark.parametrize("name", _build.KERNEL_NAMES)
-def test_each_launcher_takes_what_its_wrapper_passes(name):
+def _exported(name):
+    """``{entry: [parameter, ...]}`` of every launcher in csrc/<name>.cu."""
+    src = (_build.SRC_DIR / f"{name}.cu").read_text()
+    return {entry: [p.split() for p in params.split(",") if p.strip()]
+            for entry, params in re.findall(
+                r"PRTP_EXPORT int (\w+)_launch\(([^)]*)\)", src)}
+
+
+@pytest.mark.parametrize("name,entry,argtypes", LAUNCHERS,
+                         ids=[entry for _n, entry, _t in LAUNCHERS])
+def test_each_launcher_takes_what_its_wrapper_passes(name, entry, argtypes):
     """ctypes passes the wrapper's list as it is: a launcher with another
     number of parameters, or another type at a place, would read garbage
-    there."""
-    src = (_build.SRC_DIR / f"{name}.cu").read_text()
-    sig = re.search(rf"PRTP_EXPORT int {name}_launch\(([^)]*)\)", src)
-    params = [p.split() for p in sig.group(1).split(",") if p.strip()]
+    there. Every launcher a source exports is listed."""
+    exported = _exported(name)
+    assert sorted(exported) == sorted(
+        [name] + [e for e, _t in MORE.get(name, [])])
     want = [ctypes.c_void_p if "*" in " ".join(p) else C_TYPES[p[0]]
-            for p in params]
-    assert want == ARGTYPES[name]
+            for p in exported[entry]]
+    assert want == argtypes

@@ -14,16 +14,20 @@ its scatter order, so float32 values agree to rounding: each tolerance
 is stated in its test.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from prtp_tpu.graph import pack_design as jax_pack_design
 from prtp_tpu.graph import pack_leveled_graph as jax_pack_padded
 from prtp_tpu.models import PathModel as JaxPathModel
 from prtp_tpu.models.gnn import TimeGNN as JaxTimeGNN
+from prtp_tpu.models.gnn import _PairStep as JaxPairStep
 from prtp_tpu.ops import segment as jseg
 from prtp_tpu_torch import test as port_test
 from prtp_tpu_torch.graph import (merge_parsed_designs, pack_design,
@@ -135,6 +139,112 @@ def test_segment_mean_plain_matches_jax():
                                atol=1e-6)
     np.testing.assert_allclose(kern.segment_mean(*t, None).numpy(), sums,
                                rtol=1e-6, atol=1e-6)
+
+
+def _net_case(seed, special=False, rows=50, n0=30, s=12, d=8):
+    """A node state h (rows, d) whose net level holds rows [n0, n0 + s),
+    its destination-sorted edges from rows below n0 (slots 0, 4 and 11
+    empty, in-degrees 1 to 5), cnt (the in-degree, at least 1), has_in
+    (s, 1) and pre (s, d); with ``special`` NaN and signed zeros in pre
+    and in the level's old rows."""
+    rng = np.random.default_rng(seed)
+    h = (2 * rng.normal(size=(rows, d))).astype(np.float32)
+    pre = (2 * rng.normal(size=(s, d))).astype(np.float32)
+    deg = rng.integers(1, 6, size=s)
+    deg[[0, 4, 11]] = 0
+    slot = np.repeat(np.arange(s), deg).astype(np.int32)
+    src = rng.integers(0, n0, size=slot.shape[0]).astype(np.int32)
+    off = np.searchsorted(slot, np.arange(s + 1)).astype(np.int32)
+    if special:
+        for t in (pre, h[n0: n0 + s]):
+            t[::3, 0] = np.nan
+            t[1::3, 1] = -0.0
+            t[2::3, 1] = 0.0
+    cnt = np.maximum(deg, 1).astype(np.float32)
+    return h, src, slot, off, cnt, (deg > 0)[:, None], pre, n0
+
+
+def _old_net_half(h, src, off, cnt, pre, has_in, n0):
+    """The segment walk's net half as it was written before the update
+    mode took it (``segment_mean``, then five PyTorch ops)."""
+    pn_n = pre.shape[0]
+    new_n = F.relu(pre + kern.segment_mean(h, src, off, cnt))
+    if has_in is not None:
+        new_n = torch.where(has_in, new_n, F.relu(h[n0: n0 + pn_n]))
+    h[n0: n0 + pn_n] = new_n
+
+
+@pytest.mark.parametrize("special", [False, True], ids=["normal", "nan_zero"])
+@pytest.mark.parametrize("dgl_parity", [True, False])
+def test_net_update_plain_is_the_old_net_half(dgl_parity, special):
+    """:func:`net_update` on the CPU (its plain version) writes the bits
+    of the walk's former net half, NaN and the sign of zero included,
+    and touches no other row."""
+    h, src, _slot, off, cnt, has_in, pre, n0 = _net_case(7, special)
+    t = [torch.from_numpy(x) for x in (src, off, cnt, pre)]
+    mask = torch.from_numpy(has_in) if dgl_parity else None
+    got, want = torch.from_numpy(h.copy()), torch.from_numpy(h.copy())
+    kern.net_update(got, *t, mask, n0)
+    _old_net_half(want, *t, mask, n0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[:n0], torch.from_numpy(h[:n0]))
+
+
+@pytest.mark.parametrize("dgl_parity", [True, False])
+def test_net_update_matches_jax_net_half(dgl_parity):
+    """:func:`net_update` against JAX's segment net half
+    (``prtp_tpu/models/gnn.py:200-204``: ``segment_sum`` of ``h[net_src]``
+    over ``net_cnt``, ``relu(fc_net_self + neigh_n)``, then JAX's own
+    ``_PairStep._masked_update``), ``fc_net_self``'s output given as
+    ``pre``; slots without in-edges keep ``relu(old)`` under
+    ``dgl_parity``: rtol/atol 1e-6 (float32 sums in another order)."""
+    h, src, slot, off, cnt, has_in, pre, n0 = _net_case(8)
+    s = off.shape[0] - 1
+    sums = jseg.segment_sum(jnp.asarray(h)[jnp.asarray(src)],
+                            jnp.asarray(slot), s + 1)[:s]
+    h_new = jax.nn.relu(jnp.asarray(pre) + sums / jnp.asarray(cnt)[:, None])
+    step = SimpleNamespace(dgl_parity=dgl_parity)
+    want = np.asarray(JaxPairStep._masked_update(
+        step, jnp.asarray(h), h_new, n0, jnp.asarray(has_in[:, 0])))
+    got = torch.from_numpy(h.copy())
+    kern.net_update(got, *(torch.from_numpy(x) for x in (src, off, cnt, pre)),
+                    torch.from_numpy(has_in) if dgl_parity else None, n0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    if dgl_parity:  # the empty slots kept relu(old)
+        np.testing.assert_array_equal(
+            got.numpy()[n0 + np.array([0, 4, 11])],
+            np.maximum(h[n0 + np.array([0, 4, 11])], 0))
+
+
+def _golden_parsed():
+    from test_torch_graph import golden_parsed
+    return golden_parsed()
+
+
+@pytest.mark.parametrize("which", ["golden", "prior", "merged"])
+def test_no_net_source_lies_in_its_own_level(which):
+    """The premise of the update mode's write into h in place: no net
+    level's source row lies in its own rows ``[net_off[k], net_off[k] +
+    S_k)`` (all lie below them), on the committed golden design, a
+    random design with prior rows and a merged super-graph."""
+    if which == "golden":
+        parsed = _golden_parsed()
+    elif which == "prior":
+        parsed = _prior_parsed()
+    else:
+        rng = np.random.default_rng(5)
+        parsed = merge_parsed_designs([_tiny_parsed_design(rng)
+                                       for _ in range(3)])
+    g = pack_leveled_graph_exact(parsed, device="cpu", segment=True)[0]
+    if which == "prior":  # net drivers below their pair's cell level
+        assert any((g.net_src[k] < g.cell_off[k]).any()
+                   for k in range(g.num_pairs))
+    for k in range(g.num_pairs):
+        s = g.net_dst_off[k].shape[0] - 1
+        assert s == g.net_feat_lvl[k].shape[0]
+        assert not ((g.net_src[k] >= g.net_off[k])
+                    & (g.net_src[k] < g.net_off[k] + s)).any(), k
+        assert (g.net_src[k] < g.net_off[k]).all(), k
 
 
 @pytest.mark.parametrize("mode", ["recompute", "stats"])
