@@ -21,8 +21,8 @@
 //   mean   (segment_mean_launch): out[s] = mean[s]. An empty slot gives
 //          0 in both.
 //   update (net_update_launch, the unsharded walk): with pre the
-//          fc_net_self MLP's (S, D) output and has_in the level's
-//          (S,) bool table (null: every slot, as with dgl_parity off),
+//          fc_net_self MLP's (S, D) output and has_in the level's S
+//          bools (null: every slot, as with dgl_parity off),
 //            h[n0 + s, c] = has_in[s] ? relu(pre[s, c] + mean[s, c])
 //                                     : relu(h[n0 + s, c])
 //          (common.cuh, "the net half's update"). The float operations
@@ -58,8 +58,10 @@
 // net slot has one) issues all its row loads before any add; a wider
 // one (the generic path) walks its edges 4 rows at a time, each chunk's
 // loads issued together. Every path adds in edge order from 0.f and
-// then divides, so all give PR 13's kernel's bits. D % 4 != 0 or a
-// pointer off 16-byte alignment takes the scalar path (N = 1).
+// then divides, so all give the same bits as the kernel's earlier
+// design (one row at a time) and as chip_smoke.py's edge_order_sums.
+// D % 4 != 0 or a pointer off 16-byte alignment takes the scalar path
+// (N = 1).
 //
 // Launched as a programmatic dependent launch (common.cuh), so that the
 // launch and the off -> src chain of loads overlap the kernel before it.
@@ -118,13 +120,15 @@ __global__ void __launch_bounds__(kMailboxThreads)
   const RowLanes rl = row_lanes(group);
   const bool row_ok = rl.row < segs;
   // ---- before the wait: the graph's tables only ----
-  int32_t begin, idx[kSlotRows];
-  const int deg = slot_edges(src, off, rl, row_ok, group, begin, idx);
+  // lanes 2 and 3 load the slot's count and has_in first, so that both
+  // are in flight beside the offsets (slot_edges, lanes 0 and 1)
   float c = 1.f;
   int in = 1;
   if (row_ok && rl.lane == 2 && cnt != nullptr) c = __ldg(cnt + rl.row);
   if (UPDATE && row_ok && rl.lane == 3 && has_in != nullptr)
     in = __ldg(has_in + rl.row);
+  int32_t begin, idx[kSlotRows];
+  const int deg = slot_edges(src, off, rl, row_ok, group, begin, idx);
   const float n = __shfl_sync(0xffffffffu, c, 2, group);
   const bool take = __shfl_sync(0xffffffffu, in, 3, group) != 0;
   if (!row_ok) return;

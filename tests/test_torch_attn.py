@@ -28,7 +28,8 @@ from prtp_tpu_torch.options import get_options
 from prtp_tpu_torch.utils import checkpoint as ckpt
 from prtp_tpu_torch.utils.convert import params_from_flax, params_to_flax
 
-from test_torch_convert import SMALL_KW, jax_params, small_parsed
+from test_torch_convert import (SMALL_KW, golden_variables, jax_params,
+                                small_parsed)
 from test_torch_gnn import HID, OUT, _grad_case
 from test_torch_model import MAP_SIZE, MODEL_KW
 from test_torch_train import assert_steps_match_jax, golden_train  # noqa: F401
@@ -277,8 +278,7 @@ def test_attn_model_matches_golden():
     jittered JAX weights, converted, against ``golden_outputs_attn.npz``
     (tests/test_variant_goldens.py) at 2e-4."""
     parsed = trp.parsed.__wrapped__()
-    _m, variables, _d, _p = tvg._build(parsed, **tvg.ATTN_KW)
-    variables = jax.tree_util.tree_map(np.asarray, variables)
+    variables = golden_variables(parsed, tvg.MAP_SIZE, **tvg.ATTN_KW)
     port = PathModel(parsed["cell_feat"].shape[1],
                      parsed["net_feat"].shape[1], **tvg.ATTN_KW)
     port.load_state_dict(params_from_flax(variables["params"]))

@@ -23,7 +23,7 @@ from prtp_tpu_torch.test import pad_batch as port_pad_batch
 from prtp_tpu_torch.utils import metrics
 from prtp_tpu_torch.utils.convert import params_from_flax
 
-from test_torch_convert import jax_params
+from test_torch_convert import golden_variables, jax_params
 from test_torch_model import MAP_SIZE, MODEL_KW
 from test_torch_train import assert_steps_match_jax, golden_train  # noqa: F401
 
@@ -64,8 +64,7 @@ def cls_golden():
     """The golden design and tests/test_variant_goldens.py's jittered
     cls weights; the port's model from them."""
     parsed = trp.parsed.__wrapped__()
-    _m, variables, _d, _p = tvg._build(parsed, **CLS_KW)
-    variables = jax.tree_util.tree_map(np.asarray, variables)
+    variables = golden_variables(parsed, tvg.MAP_SIZE, **CLS_KW)
     port = PathModel(parsed["cell_feat"].shape[1],
                      parsed["net_feat"].shape[1], **CLS_KW)
     port.load_state_dict(params_from_flax(variables["params"]))

@@ -40,6 +40,17 @@ def jax_params(model, design, pids, init_seed=0, jitter_seed=7, scale=0.05):
     return jax.tree_util.tree_map(np.asarray, jax.jit(init)(design, pids))
 
 
+def golden_variables(parsed, pack_map_size, **model_kw):
+    """The weights tests/test_variant_goldens.py's ``_build`` makes for a
+    golden output (its init and jitter seeds and scale, on its padded
+    pack) by :func:`jax_params` under ``jax.jit``: eager, the model's
+    init alone takes seconds. As a numpy tree."""
+    design = jax_pack_design(parsed, map_size=pack_map_size, align=8,
+                             cnn_patches=False)
+    return jax_params(JaxPathModel(**model_kw), design,
+                      jnp.arange(design.num_paths, dtype=jnp.int32))
+
+
 @functools.lru_cache(maxsize=None)  # read-only trees, shared by tests
 def _flax_tree(use_gnn, use_cnn):
     parsed = small_parsed()

@@ -43,7 +43,7 @@ from prtp_tpu_torch.trainer import (init_state, make_optimizer, pad_batch,
                                     train_step)
 
 from test_torch_cli import MAP_ARGS
-from test_torch_cli_parity import save_initial_states
+from _cli_parity import save_initial_states
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "_torch_dp_child.py")
