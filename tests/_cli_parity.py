@@ -62,7 +62,6 @@ CLI_FLAGS = {
     "bf16_default": (["--compute_dtype", "bfloat16"], "corpus"),
     "merged": (["--merge_designs"], "corpus"),
 }
-BIG_KW = dict(num_paths=8, stages=4, grps=2)
 # printed values: 3 decimals, and float32 sums taken in another order
 RTOL, ATOL = 1e-4, 2e-3
 # bf16 evaluations (validation lines, the test CLI's row): both packages
@@ -75,16 +74,6 @@ RTOL, ATOL = 1e-4, 2e-3
 BF16_EVAL_RTOL = 5e-3
 BF16_RUNS = ("bf16", "bf16_default")
 _NUMBER = re.compile(r"-?(?:\d+\.\d+(?:e[+-]?\d+)?|inf|nan)")
-
-
-def _files(root):
-    out = {}
-    for base, _dirs, names in os.walk(root):
-        for name in names:
-            path = os.path.join(base, name)
-            with open(path, "rb") as f:
-                out[os.path.relpath(path, root)] = f.read()
-    return out
 
 
 @pytest.fixture(scope="module")

@@ -27,13 +27,24 @@ from prtp_tpu.data import generate as jax_generate
 from prtp_tpu.data import synthetic as jax_synthetic
 from prtp_tpu_torch.data import generate, synthetic
 
-from _cli_parity import (BIG_KW, CORPUS_ARGS, _files,  # noqa: F401
-                         cli_runs_fixture, corpus_data, main,
+from _cli_parity import (CORPUS_ARGS, cli_runs_fixture,  # noqa: F401
+                         corpus_data, main,
                          test_test_cli_writes_jax_predictions,
                          test_train_cli_prints_jax_values,
                          test_train_cli_saves_jax_config)
 
 cli_runs = cli_runs_fixture(["default", "attn", "merged", "bf16_default"])
+BIG_KW = dict(num_paths=8, stages=4, grps=2)
+
+
+def _files(root):
+    out = {}
+    for base, _dirs, names in os.walk(root):
+        for name in names:
+            path = os.path.join(base, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
 
 
 @pytest.fixture(scope="module")
