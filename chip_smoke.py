@@ -366,13 +366,25 @@ KERNEL_INFO = {
     "segment_softmax_sum_bwd": (
         "prtp_tpu_torch/csrc/segment_softmax_sum_bwd.cu",
         "prtp_tpu/models/gnn.py:185", "headline"),
+    "segment_attn_sum": ("prtp_tpu_torch/csrc/segment_attn_sum.cu",
+                         "prtp_tpu/ops/segment.py:86", "headline"),
+    "segment_attn_bwd": ("prtp_tpu_torch/csrc/segment_attn_bwd.cu",
+                         "prtp_tpu/models/gnn.py:180", "headline"),
 }
 # the segment walk's own kernels (phase 11); its backward's scatter is
 # the mailbox walk's mailbox_scatter
 SEGMENT_KERNELS = ("segment_softmax_sum", "segment_mean",
                    "segment_softmax_sum_bwd")
+# the segment walk's --attn cell reduce (phase 12), in place of the first
+# and the last of SEGMENT_KERNELS
+SEGMENT_ATTN_KERNELS = ("segment_attn_sum", "segment_attn_bwd")
 # the kernels' names as torch.profiler shows them, where not <name>_kernel
-KERNEL_SYMBOLS = {"attn_bwd": ("attn_bwd_rows_kernel",
+KERNEL_SYMBOLS = {"segment_attn_sum": ("segment_attn_heads_kernel",
+                                       "segment_attn_loop_kernel"),
+                  "segment_attn_bwd": ("segment_attn_bwd_heads_kernel",
+                                       "segment_attn_bwd_loop_kernel",
+                                       "segment_dw_reduce_kernel"),
+                  "attn_bwd": ("attn_bwd_rows_kernel",
                                "attn_dw_reduce_kernel")}
 # the cell reduce's kernels, without and with --attn
 CELL_REDUCE = {False: ("softmax_sum", "softmax_sum_bwd"),
@@ -524,9 +536,10 @@ def launches_per_step(graph, attn=False) -> dict:
 def may_idle(name, attn=False) -> bool:
     """Whether a run of the mailbox walk may launch kernel ``name`` 0
     times: the prior-row gather (designs without prior rows), the other
-    variant's cell kernels, and the segment walk's kernels (phase 11)."""
+    variant's cell kernels, and the segment walk's kernels (phases 11 and
+    12)."""
     return (name == "gather_rows" or name in CELL_REDUCE[not attn]
-            or name in SEGMENT_KERNELS)
+            or name in SEGMENT_KERNELS or name in SEGMENT_ATTN_KERNELS)
 
 
 def scatter_bytes(torch, rows, pos, n_cell, md_n, has_cell, row_b):
@@ -3665,46 +3678,56 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
     return launches
 
 
-def launches_per_forward_segment(graph) -> dict:
+def launches_per_forward_segment(graph, attn=False) -> dict:
     """Each kernel's launches in one segment walk of ``graph``: the cell
-    reduce for pairs k > 0, the net reduce for every pair."""
-    return {"segment_softmax_sum": graph.num_pairs - 1,
+    reduce (``segment_softmax_sum``, or ``segment_attn_sum`` with
+    ``--attn``; the other 0 times) for pairs k > 0, the net reduce for
+    every pair."""
+    cell = graph.num_pairs - 1
+    return {"segment_softmax_sum": 0 if attn else cell,
+            "segment_attn_sum": cell if attn else 0,
             "segment_mean": graph.num_pairs}
 
 
-def launches_per_step_segment(graph, sharded=False) -> dict:
+def launches_per_step_segment(graph, sharded=False, attn=False) -> dict:
     """Each kernel's launches in one train step of the segment walk on
-    ``graph``: the forward's, the cell cotangent for pairs k > 0, a
-    ``mailbox_scatter`` for each level with edges (two under the
-    edge-sharded step: into the compact buffer, then into dh) and one
-    flat Adam update."""
+    ``graph``: the forward's, the cell cotangent for pairs k > 0
+    (``segment_attn_bwd`` with ``--attn``), a ``mailbox_scatter`` for
+    each level with edges (two under the edge-sharded step: into the
+    compact buffer, then into dh) and one flat Adam update."""
     p = graph.num_pairs
     scatters = sum((graph.net_src_rows[k].numel() > 0)
                    + (k > 0 and graph.cell_src_rows[k].numel() > 0)
                    for k in range(p))
-    return {**launches_per_forward_segment(graph),
-            "segment_softmax_sum_bwd": p - 1,
+    return {**launches_per_forward_segment(graph, attn),
+            "segment_softmax_sum_bwd": 0 if attn else p - 1,
+            "segment_attn_bwd": p - 1 if attn else 0,
             "mailbox_scatter": scatters * (2 if sharded else 1),
             "flat_adam": 1}
 
 
-def walk_allreduces(graph) -> list:
+def walk_allreduces(graph, nh=None) -> list:
     """The shapes of the edge-sharded walk's all-reduces over gp in one
     train step, in order: per pair the cell reduce's max and [den |
-    numer] (k > 0) and the net sums; in the backward each level's compact
-    source-row cotangents. ``(op, rows, width)``."""
+    numer] (k > 0; with ``--attn`` of ``nh`` heads the max and den per
+    head) and the net sums; in the backward each level's compact
+    source-row cotangents, and with ``--attn`` last ``fc_attn2``'s
+    gradient. ``(op, rows, width)``."""
+    stats = D if nh is None else nh
     out = []
     for k in range(graph.num_pairs):
         pn_c, pn_n = (graph.cell_feat_lvl[k].shape[0],
                       graph.net_feat_lvl[k].shape[0])
         if k > 0:
-            out += [("max", pn_c, D), ("sum", pn_c, 2 * D)]
+            out += [("max", pn_c, stats), ("sum", pn_c, stats + D)]
         out.append(("sum", pn_n, D))
     for k in reversed(range(graph.num_pairs)):
         for half in ("net", "cell"):
             u = getattr(graph, f"{half}_src_rows")[k].numel()
             if u and (half == "net" or k > 0):
                 out.append(("sum", u, D))
+    if nh is not None:
+        out.append(("sum", nh, D))
     return out
 
 
@@ -4443,9 +4466,10 @@ def check_segment_hazard(torch, graph, dev, early_writer, pair=1):
         "versions right after each writer (rtol 1e-5, atol 1e-6)")
 
 
-def gp_rank(rank, tmp, port):
-    """Phase 11 (c), one of GP_RANKS processes on cuda:0 joined over gloo
-    in a (1, GP_RANKS) mesh: the headline segment model from the
+def gp_rank(rank, tmp, port, model_kw):
+    """Phases 11 and 12 (c), one of GP_RANKS processes on cuda:0 joined
+    over gloo in a (1, GP_RANKS) mesh: the headline segment model (with
+    ``model_kw``: phase 12's ``--attn``) from the
     parent's state before each step, SEG_STEPS graph-sharded steps on all
     597 paths (cuDNN deterministic, as the parent's); then one step
     timed, and the step's all-reduces alone. Writes its losses,
@@ -4481,7 +4505,7 @@ def gp_rank(rank, tmp, port):
         n = design.num_paths
         state = init_state(PathModel(
             CELL_FEAT, NET_FEAT, map_size=MAP_SIZE, gnn_reduce="segment",
-            generator=torch.Generator().manual_seed(SEED)),
+            generator=torch.Generator().manual_seed(SEED), **model_kw),
             make_optimizer(LR), dev)
         ids, mask = pad_batch(np.random.default_rng(0).permutation(n), n,
                               dev)
@@ -4502,7 +4526,7 @@ def gp_rank(rank, tmp, port):
         torch.backends.cudnn.deterministic = False
         out["step_ms"] = _host_ms(torch, lambda: graph_sharded_train_step(
             state, design, ids, mask, mesh, batch_axis=None), 3)
-        shapes = walk_allreduces(design.graph)
+        shapes = walk_allreduces(design.graph, heads_of(model_kw))
         out["allreduces"] = len(shapes)
         out["allreduce_ms"] = time_allreduces(torch, dist, shapes, dev,
                                               mesh.gp_group, 3)
@@ -4519,8 +4543,9 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
 
     (a) :func:`check_segment_kernels`, and each kernel's one-slot floor;
     :func:`check_segment_edge_shapes` and :func:`check_segment_hazard`.
-    (b) The headline LayoutNet reg model with ``gnn_reduce="segment"``
-    (the phase 4 model's weights): REQUESTS evaluation requests card
+    (b) (:func:`segment_model_checks`) The headline LayoutNet reg model
+    with ``gnn_reduce="segment"`` (the phase 4 model's weights):
+    REQUESTS evaluation requests card
     against CPU (1e-4) and against the card's mailbox model on the same
     weights (1e-4); SEG_STEPS steps of phase 6's epoch through
     :func:`paired_steps` (each card step from the CPU's state) by phase
@@ -4538,21 +4563,8 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
     DP_TOL_2, checksums equal on every rank, cell slots split
     across the blocks, the step and its all-reduces timed on the host.
     Returns ``(records, launch counts of each run)``."""
-    import pickle
-    import tempfile
-
-    import torch.distributed as dist
     import torch.nn.functional as F
     from prtp_tpu_torch.graph import pack_design
-    from prtp_tpu_torch.models import PathModel
-    from prtp_tpu_torch.parallel.distributed import free_port
-    from prtp_tpu_torch.parallel.graph_shard import (graph_sharded_train_step,
-                                                     make_2d_mesh,
-                                                     shard_design)
-    from prtp_tpu_torch.test import evaluate_design
-    from prtp_tpu_torch.trainer import (init_state, iterate_batches,
-                                        make_optimizer, pad_batch,
-                                        train_step)
 
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4578,34 +4590,76 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
     check_segment_edge_shapes(torch, dev)
     check_segment_hazard(torch, graph, dev, early_writer)
 
-    # ---- (b) the segment model: serving, training, the mailbox beside ----
+    launches = segment_model_checks(torch, np, dev, smi, headline, design,
+                                    compute_mode, "11", {})
+    del design
+    torch.cuda.empty_cache()
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return [recs[name] for name in SEGMENT_KERNELS], launches
+
+
+def heads_of(model_kw):
+    """The head count of a segment model's keyword arguments with
+    ``--attn``, else None."""
+    return model_kw.get("num_heads", 1) if model_kw.get("flag_attn") else None
+
+
+def segment_model_checks(torch, np, dev, smi, headline, design,
+                         compute_mode, phase, model_kw) -> dict:
+    """Phases 11 and 12, (b) and (c), for the headline segment model with
+    ``model_kw`` (phase 12: ``flag_attn`` and ``num_heads``), on
+    ``design`` (the headline packed with ``segment=True``), its mailbox
+    twin on the same weights beside it; see :func:`segment_phase`.
+    Returns the launch counts of each run."""
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.parallel.distributed import free_port
+    from prtp_tpu_torch.parallel.graph_shard import (graph_sharded_train_step,
+                                                     make_2d_mesh,
+                                                     shard_design)
+    from prtp_tpu_torch.test import evaluate_design
+    from prtp_tpu_torch.trainer import (init_state, iterate_batches,
+                                        make_optimizer, pad_batch,
+                                        train_step)
+
+    graph = design.graph
+    nh = heads_of(model_kw)
+    attn = nh is not None
+    name_of = "segment" if not attn else f"segment --attn nh {nh}"
     kw = dict(map_size=MAP_SIZE, generator=torch.Generator().manual_seed(SEED))
-    model_cpu = PathModel(CELL_FEAT, NET_FEAT, gnn_reduce="segment", **kw)
+    model_cpu = PathModel(CELL_FEAT, NET_FEAT, gnn_reduce="segment", **kw,
+                          **model_kw)
     mailbox = PathModel(CELL_FEAT, NET_FEAT,
                         generator=torch.Generator().manual_seed(SEED),
-                        map_size=MAP_SIZE)
+                        map_size=MAP_SIZE, **model_kw)
     mailbox.load_state_dict(model_cpu.state_dict())
     mailbox.to(dev)
     launches = {}
-    what = "serve headline segment"
+    what = f"serve headline {name_of}"
     model = copy.deepcopy(model_cpu).to(dev)
     launches[what] = serve(torch, np, model, model_cpu, headline,
-                           "headline segment",
-                           launches_per_forward_segment(graph), REQUESTS)
+                           f"headline {name_of}",
+                           launches_per_forward_segment(graph, attn),
+                           REQUESTS, attn=attn)
     with contextlib.redirect_stdout(io.StringIO()):
         p_seg, _m = evaluate_design(model, headline, DEVICE)
         p_box, _m = evaluate_design(mailbox, headline, DEVICE)
     diff = float(np.abs(p_seg - p_box).max())
     np.testing.assert_allclose(p_seg, p_box, rtol=1e-4, atol=1e-4,
-                               err_msg="segment vs mailbox on the card")
-    log(f"  headline segment vs mailbox, both on the card, same weights: "
+                               err_msg=f"{name_of} vs mailbox on the card")
+    log(f"  headline {name_of} vs mailbox, both on the card, same weights: "
         f"predictions within {diff:.3g} (rtol/atol 1e-4): ok")
     num_paths = int(headline["num_paths"])
     pids, _m = pad_batch(np.arange(num_paths), num_paths, dev)
     for name, m in (("segment", model), ("mailbox", mailbox)):
         with torch.no_grad():
             by_name = device_kernels(torch, lambda: m(design, pids))
-        log(f"phase 11 (b): {name} model forward ({num_paths} paths): "
+        log(f"phase {phase} (b): {name} model forward ({num_paths} paths"
+            f"{', --attn nh %d' % nh if attn else ''}): "
             f"{sum(c for _, c in by_name.values())} kernel launches, device "
             f"busy {sum(t for t, _ in by_name.values()) / 1e3:.3f} ms "
             f"(torch.profiler)  [{smi}]")
@@ -4618,11 +4672,12 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
     flips = pool_winner_flips(torch, model_cpu.cnn, cpu_design.cnn_input, dev)
     card, signs = card_branches(torch, model_cpu.cnn, cpu_design.cnn_input,
                                 dev)
-    log(f"  segment: max-pool windows whose winner differs, card vs cpu, at "
+    log(f"  {name_of}: max-pool windows whose winner differs, card vs cpu, at "
         f"the init: {flips}; conv outputs whose sign differs: {signs}")
-    what = f"train headline segment, the epoch's first {SEG_STEPS} steps"
+    what = f"train headline {name_of}, the epoch's first {SEG_STEPS} steps"
     runs = paired_steps(torch, model_cpu, designs, batches, what,
-                        launches_per_step_segment(graph), "reg", card=card)
+                        launches_per_step_segment(graph, attn=attn), "reg",
+                        attn=attn, card=card)
     launches[what] = runs[DEVICE][2]
     compare_runs(torch, what, runs[DEVICE], runs["cpu"], flips)
     del runs, cpu_design
@@ -4637,9 +4692,9 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
                 for k, g in g_box.items() if g.abs().max() > 0)
     rel = abs(l_seg[0] - l_box[0]) / abs(l_box[0])
     if worst[0] > GRAD_TOL or rel > LOSS_RTOL:
-        raise AssertionError(f"segment vs mailbox first step on the card: "
+        raise AssertionError(f"{name_of} vs mailbox first step on the card: "
                              f"loss rtol {rel}, gradients {worst} x max |g|")
-    log(f"  train headline segment vs mailbox, first step, both on the "
+    log(f"  train headline {name_of} vs mailbox, first step, both on the "
         f"card: loss within rtol {rel:.3g} (allowed {LOSS_RTOL}), gradients "
         f"within {worst[0]:.3g} x each leaf's max |g| ({worst[1]}; allowed "
         f"{GRAD_TOL}): ok")
@@ -4651,13 +4706,14 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
             make_optimizer(LR), dev)
         tm = step_timing(torch, dev, lambda: train_step(state, design, ids,
                                                         mask), 200)
-        log(f"phase 11 (b): {name} train step ({num_paths} paths): device "
+        log(f"phase {phase} (b): {name} train step ({num_paths} paths"
+            f"{', --attn nh %d' % nh if attn else ''}): device "
             f"time {tm['device_ms']:.3f} ms; as launched "
             f"{tm['launched_ms']:.3f} ms; wall {tm['wall_ms']:.3f} ms, "
             f"device busy {tm['busy_ms']:.3f} ms, idle share "
             f"{tm['idle']:.3f}; {tm['launches']} kernel launches  [{smi}]")
         if name == "segment":
-            log_port_kernels(tm["by_name"], "segment train step")
+            log_port_kernels(tm["by_name"], f"{name_of} train step")
     del mailbox, model, state
     torch.cuda.empty_cache()
 
@@ -4696,8 +4752,8 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
         mesh = make_2d_mesh(1, 1)
         sharded = shard_design(mesh, design)
         state = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), dev)
-        what = (f"phase 11 (c): graph-sharded, (1, 1) mesh (NCCL), "
-                f"{SEG_STEPS} steps")
+        what = (f"phase {phase} (c): {name_of} graph-sharded, (1, 1) mesh "
+                f"(NCCL), {SEG_STEPS} steps")
         losses, grads = [], None
         torch.cuda.synchronize()
         _zero_launches()
@@ -4710,15 +4766,16 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
         torch.cuda.synchronize()
         launches[what] = _read_launches()
         check_launches(what, launches[what],
-                       launches_per_step_segment(graph, sharded=True),
+                       launches_per_step_segment(graph, True, attn),
                        SEG_STEPS)
         check(what, losses, grads, DP_TOL)
         torch.backends.cudnn.deterministic = False
         tm = step_timing(torch, dev, lambda: graph_sharded_train_step(
             state, sharded, ids, mask, mesh), 200)
-        shapes = walk_allreduces(graph)
+        shapes = walk_allreduces(graph, nh)
         ar_ms = time_allreduces(torch, dist, shapes, dev, mesh.gp_group, 5)
-        log(f"phase 11 (c): graph-sharded step, (1, 1) mesh ({num_paths} "
+        log(f"phase {phase} (c): {name_of} graph-sharded step, (1, 1) "
+            f"mesh ({num_paths} "
             f"paths): device time {tm['device_ms']:.3f} ms; as launched "
             f"{tm['launched_ms']:.3f} ms; wall {tm['wall_ms']:.3f} ms, "
             f"device busy {tm['busy_ms']:.3f} ms, idle share "
@@ -4730,7 +4787,7 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
         dist.destroy_process_group()
 
     if "exclusive" in compute_mode.lower():
-        log(f"phase 11 (c): the card's compute mode is {compute_mode}: it "
+        log(f"phase {phase} (c): the card's compute mode is {compute_mode}: it "
             "admits one process, so two ranks cannot share it; the (1, 2) "
             "mesh not run")
     else:
@@ -4742,17 +4799,17 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
                        os.path.join(tmp, "ref_states.pt"))
             t0 = time.perf_counter()
             torch.multiprocessing.start_processes(
-                gp_rank, args=(tmp, free_port()), nprocs=GP_RANKS,
+                gp_rank, args=(tmp, free_port(), model_kw), nprocs=GP_RANKS,
                 join=True, start_method="spawn")
             wall = time.perf_counter() - t0
             outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                                weights_only=True) for r in range(GP_RANKS)]
-        what = (f"phase 11 (c): graph-sharded, (1, {GP_RANKS}) mesh on "
-                f"{DEVICE} (gloo), {SEG_STEPS} steps")
+        what = (f"phase {phase} (c): {name_of} graph-sharded, (1, "
+                f"{GP_RANKS}) mesh on {DEVICE} (gloo), {SEG_STEPS} steps")
         for r, out in enumerate(outs):
             launches[f"{what}, rank {r}"] = out["counts"]
             check_launches(f"{what}, rank {r}", out["counts"],
-                           launches_per_step_segment(graph, sharded=True),
+                           launches_per_step_segment(graph, True, attn),
                            SEG_STEPS)
         if any(o["checksums"] != outs[0]["checksums"]
                or o["losses"] != outs[0]["losses"] for o in outs):
@@ -4766,8 +4823,8 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
             f"step ({outs[0]['checksums']}); {outs[0]['split_slots']} "
             f"cell slots split across the blocks; {wall:.1f} s with "
             "the processes' start")
-        log(f"phase 11 (c): graph-sharded step, (1, {GP_RANKS}) mesh on one "
-            "card, host time between synchronizes (median of 3): "
+        log(f"phase {phase} (c): {name_of} graph-sharded step, (1, "
+            f"{GP_RANKS}) mesh on one card, host time between synchronizes (median of 3): "
             + ", ".join(f"rank {r} {o['step_ms']:.3f} ms"
                         for r, o in enumerate(outs))
             + f"; its {outs[0]['allreduces']} gp all-reduces alone (gloo, "
@@ -4775,10 +4832,369 @@ def segment_phase(torch, np, dev, smi, headline, compute_mode,
             + ", ".join(f"{o['allreduce_ms']:.3f}" for o in outs)
             + f" ms  [{smi}]")
     torch.backends.cudnn.deterministic = False
+    return launches
+
+
+# ---- phase 12: --attn under the segment reduce ----
+
+def attn_stats_out(torch, numer, den):
+    """The partial forward's numerator over each head's ``max(den,
+    1e-12)``: the output as the combine at one rank divides it."""
+    (s, nh), d = den.shape, numer.shape[1]
+    return (numer.view(s, nh, d // nh)
+            / den.clamp_min(1e-12)[:, :, None]).view(s, d)
+
+
+def attn_bits(torch, a, b) -> int:
+    """Elements of ``a`` whose bits differ from ``b``'s (NaN equal to
+    NaN)."""
+    return int((~((a == b) | (a.isnan() & b.isnan()))).sum())
+
+
+def check_segment_attn_kernels(torch, graph, dev, timer, nh) -> tuple:
+    """Phase 12 (a): the two ``--attn`` kernels of the segment walk
+    against their plain versions at the headline's shapes, each level
+    k > 0 in turn, with ``nh`` heads, a random state ``h``, score weight
+    (``fc_attn2``'s init scale) and cotangent: ``segment_attn_sum`` whole
+    (the main path) and ``partial`` (an edge-sharded rank's),
+    ``segment_attn_bwd`` recomputing (the main path) and reading the
+    statistics (an edge-sharded rank's), each tensor by
+    :func:`attn_close`, the backward against the plain version on the
+    forward kernel's statistics. Bit for bit: the partial call's
+    numerator over its denominator (the combine at one rank) against the
+    whole call's output, the two backward modes given those statistics,
+    and ``d_w`` of two calls. Bytes count what a call must move: each
+    distinct source row and index once, w, and the outputs (``partial``
+    also writes the (S, nh) shift and denominator; the backward reads
+    g_out and writes the (E, D) cotangent and d_w, stats-reading also
+    reads the statistics); operations the products (2 D nh an edge for
+    the scores, 2 D for the weighted sum; the backward 2 D (3 nh + 2)).
+    No single PyTorch call computes either function: no library time.
+    Times: the median of REPS cold-L2 calls. Returns ``({name:
+    KernelRecord} of the main path's modes, [KernelRecord] of the
+    others)``."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21 + nh)
+    h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
+    w = attn_weights(torch, nh, gen, dev)
+    row_b, w_b, st_b = D * 4, nh * D * 4, nh * 4
+    design = f"headline, nh {nh}"
+    recs = {name: KernelRecord(name, design) for name in SEGMENT_ATTN_KERNELS}
+    partial_rec = KernelRecord("segment_attn_sum", f"{design}, partial")
+    stats_rec = KernelRecord("segment_attn_bwd", f"{design}, stats-reading")
+
+    def close(what, k, got, want):
+        ok, err = attn_close(torch, got, want)
+        if not (ok and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{what} (nh {nh}) differs at pair {k}: max "
+                                 f"abs err {err}")
+        return err
+
+    for k in range(1, graph.num_pairs):
+        src, off = graph.cell_src[k], graph.cell_dst_off[k]
+        s, e = off.shape[0] - 1, src.shape[0]
+        rows = torch.unique(src).numel()
+        out = K.segment_attn_sum(h, src, off, w)[0]
+        err = close("segment_attn_sum", k, out,
+                    K.segment_attn_sum_plain(h, src, off, w)[0])
+        numer, mx, den = K.segment_attn_sum(h, src, off, w, True)
+        err_p = max(close("segment_attn_sum (partial)", k, got, want)
+                    for got, want in zip(
+                        (numer, mx, den),
+                        K.segment_attn_sum_plain(h, src, off, w, True)))
+        stats = (attn_stats_out(torch, numer, den), mx, den)
+        if not torch.equal(stats[0], out):
+            raise AssertionError(f"segment_attn_sum (nh {nh}) at pair {k}: "
+                                 f"the partial numerator over its "
+                                 f"denominator differs from the whole "
+                                 f"output at {attn_bits(torch, stats[0], out)}"
+                                 " elements")
+        # read: the distinct rows, the edge table, the offsets, w
+        nbytes = rows * row_b + e * 4 + (s + 1) * 4 + w_b
+        ops = 2.0 * e * D * (nh + 1)
+        ms = timer.ms(lambda: K.segment_attn_sum(h, src, off, w))
+        ms_p = timer.ms(lambda: K.segment_attn_sum(h, src, off, w, True))
+        pms = timer.ms(lambda: K.segment_attn_sum_plain(h, src, off, w))
+        recs["segment_attn_sum"].add(ms, pms, None, nbytes + s * row_b, ops,
+                                     err)
+        partial_rec.add(ms_p, pms, None, nbytes + s * row_b + 2 * s * st_b,
+                        ops, err_p)
+        log(f"  segment_attn_sum nh {nh} pair {k}: {e} edges into {s} slots "
+            f"of {D} f32  kernel {ms:.4f} ms (partial {ms_p:.4f})  plain "
+            f"{pms:.4f}  bound {bound(nbytes + s * row_b, ops)[0]:.4f} "
+            f"(partial {bound(nbytes + s * row_b + 2 * s * st_b, ops)[0]:.4f})"
+            f"  library none  max abs err {err:.3g} (partial {err_p:.3g}); "
+            "partial numerator over its denominator vs the whole output: "
+            "bit-equal")
+        g = torch.randn((s, D), generator=gen, device=dev)
+        d_msg, d_w = K.segment_attn_bwd(h, src, off, w, g)
+        d_st, d_w_st = K.segment_attn_bwd(h, src, off, w, g, stats)
+        want_m, want_w = K.segment_attn_bwd_plain(h, src, off, w, g, stats)
+        err = max(close("segment_attn_bwd d_msg", k, d_msg, want_m),
+                  close("segment_attn_bwd d_w", k, d_w, want_w))
+        err_s = max(close("segment_attn_bwd d_msg (stats-reading)", k, d_st,
+                          want_m),
+                    close("segment_attn_bwd d_w (stats-reading)", k, d_w_st,
+                          want_w))
+        again = K.segment_attn_bwd(h, src, off, w, g)[1]
+        modes = (attn_bits(torch, d_msg, d_st), attn_bits(torch, d_w, d_w_st))
+        if any(modes) or not torch.equal(again, d_w):
+            raise AssertionError(
+                f"segment_attn_bwd (nh {nh}) at pair {k}: recomputing vs "
+                f"stats-reading differ at {modes} elements (d_msg, d_w); "
+                f"d_w again equal {torch.equal(again, d_w)}")
+        # read the distinct rows, the tables, w and g; write the (E, D)
+        # cotangent and d_w; stats-reading also reads out, mx and den
+        nbytes = (rows * row_b + e * 4 + (s + 1) * 4 + w_b + s * row_b
+                  + e * row_b + w_b)
+        ops = 2.0 * e * D * (3 * nh + 2)
+        ms = timer.ms(lambda: K.segment_attn_bwd(h, src, off, w, g))
+        ms_s = timer.ms(lambda: K.segment_attn_bwd(h, src, off, w, g, stats))
+        pms = timer.ms(lambda: K.segment_attn_bwd_plain(h, src, off, w, g))
+        extra = s * row_b + 2 * s * st_b
+        recs["segment_attn_bwd"].add(ms, pms, None, nbytes, ops, err)
+        stats_rec.add(ms_s, pms, None, nbytes + extra, ops, err_s)
+        log(f"  segment_attn_bwd nh {nh} pair {k}: {e} edges  kernel "
+            f"{ms:.4f} ms (stats-reading {ms_s:.4f})  plain {pms:.4f}  "
+            f"bound {bound(nbytes, ops)[0]:.4f} (stats-reading "
+            f"{bound(nbytes + extra, ops)[0]:.4f})  library none  max abs err "
+            f"{err:.3g} (stats-reading {err_s:.3g}; d_w of max "
+            f"{float(want_w.abs().max()):.3g}); recomputing vs stats-reading: "
+            "bit-equal, d_w deterministic")
+    return recs, [partial_rec, stats_rec]
+
+
+def segment_attn_floors(torch, graph, dev, timer, nh) -> dict:
+    """Each ``--attn`` segment kernel with ``nh`` heads timed on a
+    one-slot call (one edge), by name."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    h = torch.randn((graph.num_rows + 1, D), device=dev)
+    w = torch.randn((nh, D), device=dev)
+    src = graph.cell_src[1][:1]
+    off = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    row = torch.randn((1, D), device=dev)
+    return {"segment_attn_sum": timer.ms(
+                lambda: K.segment_attn_sum(h, src, off, w)),
+            "segment_attn_bwd": timer.ms(
+                lambda: K.segment_attn_bwd(h, src, off, w, row))}
+
+
+def check_segment_attn_edge_shapes(torch, dev):
+    """Phase 12 (a): the ``--attn`` segment kernels on the code paths the
+    headline does not reach, against their plain versions
+    (:func:`attn_close`, NaN where the plain version has it):
+    ``segment_attn_sum`` whole and ``partial``, ``segment_attn_bwd``
+    recomputing and stats-reading (the statistics of the kernel's own
+    partial call; the two modes bit for bit). Slots of 0 (an empty slot
+    gives 0: out, shift and den), 1, 2-4, 5-8 and more than 8 edges (9,
+    13, 33: the generic path, 4 rows at a time), in warps whose slots'
+    degrees differ; the heads together at 1 to 32 heads and 4 to 32
+    float4s a row (16 and 8 lanes a slot: two and four slots a warp); the
+    per-head loop at nh = 3, D = 12 (not a power of two), D / nh < 4 (a
+    float4 spanning heads), 75 float4s a row (several a lane), D % 4 != 0
+    and a misaligned h (the scalar path); a NaN on a real edge; no edges,
+    and no slots."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    mix = [0, 1, 5, 8, 9, 13, 4, 2, 3, 6, 7, 33]
+    cases = 0
+    # (degrees of the slots, D, nh, rows of h, case)
+    for degs, d, nh, r, case in (
+            (mix * 30, 128, 1, 500, "degrees"),
+            (mix * 30, 128, 4, 500, "degrees"),
+            (mix * 30, 128, 32, 500, "32 heads"),
+            ([0, 1, 3, 9] * 40, 64, 2, 300, "16 float4s a slot"),
+            ([0, 1, 3, 9] * 40, 16, 4, 300, "4 float4s a slot"),
+            (mix * 10, 12, 3, 200, "nh 3"),
+            (mix * 10, 128, 64, 200, "D/nh < 4"),
+            (mix * 3, 300, 3, 200, "75 float4s a slot"),
+            (mix * 10, 14, 2, 200, "D%4!=0"),
+            (mix * 10, 128, 4, 200, "misaligned h"),
+            ([0, 3, 9, 2] * 20, 128, 4, 200, "NaN"),
+            ([0] * 5, 128, 4, 50, "no edges"),
+            ([], 128, 4, 50, "no slots")):
+        deg = torch.tensor(degs, dtype=torch.int64)
+        off = torch.zeros(len(degs) + 1, dtype=torch.int32)
+        off[1:] = deg.cumsum(0)
+        off = off.to(dev)
+        src = torch.randint(0, r, (int(deg.sum()),), generator=gen,
+                            device=dev, dtype=torch.int32)
+        if case == "misaligned h":
+            h = torch.randn(r * d + 1, generator=gen, device=dev)[1:]
+            h = h.view(r, d)
+        else:
+            h = torch.randn((r, d), generator=gen, device=dev)
+        nan_slot = None
+        if case == "NaN":  # on the first edge of slots 1 and 2 (3, 9 edges)
+            nan_slot = [1, 2]
+            h[src[off[1:3].long()], 2] = float("nan")
+        w = attn_weights(torch, nh, gen, dev, d)
+        empty = (deg == 0).to(dev)
+        g = torch.randn((len(degs), d), generator=gen, device=dev)
+        what = f"{case}, D={d}, nh {nh}"
+        out = K.segment_attn_sum(h, src, off, w)[0]
+        part = K.segment_attn_sum(h, src, off, w, True)
+        pairs = [(out, K.segment_attn_sum_plain(h, src, off, w)[0])]
+        pairs += list(zip(part, K.segment_attn_sum_plain(h, src, off, w,
+                                                         True)))
+        ok = (all(attn_close(torch, x, y)[0] for x, y in pairs)
+              and not any(bool(t[empty].any()) for t in (out, *part)))
+        if nan_slot is not None:  # every head's score of the slot is NaN
+            ok = ok and bool(out[nan_slot].isnan().all())
+        else:
+            ok = ok and bool(torch.isfinite(out).all())
+        if not ok:
+            raise AssertionError(f"segment_attn_sum differs: {what}: max abs "
+                                 "err " + ", ".join(
+                                     f"{attn_close(torch, x, y)[1]:.3g}"
+                                     for x, y in pairs))
+        stats = (attn_stats_out(torch, part[0], part[2]), part[1], part[2])
+        if attn_bits(torch, stats[0], out):
+            raise AssertionError(f"segment_attn_sum: {what}: the partial "
+                                 "numerator over its denominator differs "
+                                 "from the whole output")
+        re = K.segment_attn_bwd(h, src, off, w, g)
+        st = K.segment_attn_bwd(h, src, off, w, g, stats)
+        want = K.segment_attn_bwd_plain(h, src, off, w, g, stats)
+        res = [attn_close(torch, x, y) for got in (re, st)
+               for x, y in zip(got, want)]
+        if not all(ok for ok, _e in res):
+            raise AssertionError(f"segment_attn_bwd differs: {what}: max abs "
+                                 "err (d_msg, d_w; recomputing, "
+                                 "stats-reading) "
+                                 + ", ".join(f"{e:.3g}" for _o, e in res))
+        differ = [attn_bits(torch, x, y) for x, y in zip(re, st)]
+        if any(differ):
+            raise AssertionError(f"segment_attn_bwd: {what}: recomputing vs "
+                                 f"stats-reading differ at {differ} elements "
+                                 "(d_msg, d_w)")
+        cases += 1
+    log(f"  segment --attn edge shapes: {cases} cases, each kernel in both "
+        "modes matches its plain version (rtol 1e-5, atol 1e-5 x max |value|"
+        ", NaN where the plain version has it, empty slots 0); the partial "
+        "numerator over its denominator bit-equal to the whole output, the "
+        "backward's modes bit-equal")
+
+
+def check_segment_attn_hazard(torch, graph, dev, early_writer, nh, pair=1):
+    """Phase 12 (a), programmatic dependent launch, at one pair's shapes
+    of ``graph`` with ``nh`` heads: ``segment_attn_sum`` (whole and
+    ``partial``) right after each writer of :func:`hazard_writers` writes
+    the NaN-filled ``h`` (the one input it reads after its wait), and
+    ``segment_attn_bwd`` (recomputing and stats-reading) right after each
+    writes the NaN-filled ``g``: each of HAZARD_REPS launches must equal
+    bit for bit a run with a synchronize between writer and kernel (a
+    read before the wait would find NaN), and the synchronized run match
+    the plain version (:func:`attn_close`)."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23 + nh)
+    src, off = graph.cell_src[pair], graph.cell_dst_off[pair]
+    s = off.shape[0] - 1
+    h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
+    g = torch.randn((s, D), generator=gen, device=dev)
+    w = attn_weights(torch, nh, gen, dev)
+    numer, mx, den = K.segment_attn_sum_plain(h, src, off, w, True)
+    stats = (attn_stats_out(torch, numer, den), mx, den)
+    writers = hazard_writers(torch, dev, early_writer)
+    h_v = torch.full_like(h, float("nan"))
+    g_v = torch.full_like(g, float("nan"))
+    calls = {}
+    for partial in (False, True):
+        calls[f"segment_attn_sum (partial={partial})"] = (
+            h_v, h,
+            lambda p=partial: [t for t in K.segment_attn_sum(h_v, src, off,
+                                                             w, p)
+                               if t is not None],
+            [t for t in K.segment_attn_sum_plain(h, src, off, w, partial)
+             if t is not None])
+    for st in (None, stats):
+        mode = "recomputing" if st is None else "stats-reading"
+        calls[f"segment_attn_bwd ({mode})"] = (
+            g_v, g, lambda st=st: list(K.segment_attn_bwd(h, src, off, w,
+                                                          g_v, st)),
+            list(K.segment_attn_bwd_plain(h, src, off, w, g, st)))
+    for name, (buf, val, call, want) in calls.items():
+        for writer, write in writers.items():
+            bad = []
+            for _ in range(HAZARD_REPS):
+                runs = []
+                for sync in (False, True):
+                    buf.fill_(float("nan"))
+                    torch.cuda._sleep(int(0.2 * SPIN_CYCLES_PER_MS))
+                    write(buf, val)
+                    if sync:
+                        torch.cuda.synchronize()
+                    runs.append(call())
+                bad.append(sum(attn_bits(torch, a, b)
+                               for a, b in zip(*runs)))
+            ok = all(attn_close(torch, a, b)[0] for a, b in zip(runs[1],
+                                                                want))
+            log(f"  programmatic launch: {name} (nh {nh}) right after "
+                f"{writer} writes its input: elements off the synchronized "
+                f"run in each of {HAZARD_REPS} launches {bad}; synchronized "
+                f"run vs plain version {'ok' if ok else 'DIFFERS'}")
+            if any(bad) or not ok:
+                raise AssertionError(f"{name} (nh {nh}) right after {writer} "
+                                     f"differs: {bad}")
+
+
+def segment_attn_phase(torch, np, dev, smi, headline, compute_mode,
+                       early_writer) -> tuple:
+    """Phase 12: ``--attn`` under the segment reduce
+    (``PathModel(gnn_reduce="segment", flag_attn=True, num_heads=nh)``)
+    at the default model's full width on the headline, float32, TF32
+    off, for nh in ATTN_HEADS (1: the recorded ``reg_fusion_attn``; 4).
+
+    (a) :func:`check_segment_attn_kernels` and each kernel's one-slot
+    floor, for each nh; :func:`check_segment_attn_edge_shapes`;
+    :func:`check_segment_attn_hazard` for each nh.
+    (b) and (c), for each nh: :func:`segment_model_checks` with
+    ``flag_attn`` and ``num_heads``, beside the mailbox ``--attn`` model
+    on the same weights: REQUESTS requests card against CPU and against
+    the mailbox model (1e-4), the forward's launches, SEG_STEPS steps
+    card against CPU by phase 6's bounds, the step timed beside the
+    mailbox ``--attn`` step; ``graph_sharded_train_step`` at (1, 1) over
+    NCCL against ``train_step`` (DP_TOL) and at (1, GP_RANKS) over gloo
+    (DP_TOL_2, a slot split, the ranks' states equal).
+    Returns ``(records of nh = ATTN_HEADS[0], launch counts of each
+    run)``."""
+    from prtp_tpu_torch.graph import pack_design
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    design = pack_design(headline, map_size=MAP_SIZE, device=dev,
+                         segment=True)
+    graph = design.graph
+    log(f"phase 12 (a): the segment --attn kernels at the headline's shapes "
+        f"({graph.num_pairs} pairs)")
+    timer = Timer(torch, dev)
+    main_recs = {}
+    for nh in ATTN_HEADS:
+        recs, modes = check_segment_attn_kernels(torch, graph, dev, timer, nh)
+        floors = segment_attn_floors(torch, graph, dev, timer, nh)
+        for rec in (*recs.values(), *modes):
+            rec.floor_ms = floors[rec.name]
+            log(f"  {rec.summary()}  [{smi}]")
+        main_recs[nh] = recs
+    del timer
+    check_segment_attn_edge_shapes(torch, dev)
+    for nh in ATTN_HEADS:
+        check_segment_attn_hazard(torch, graph, dev, early_writer, nh)
+    launches = {}
+    for nh in ATTN_HEADS:
+        launches.update(segment_model_checks(
+            torch, np, dev, smi, headline, design, compute_mode, "12",
+            dict(flag_attn=True, num_heads=nh)))
     del design
     torch.cuda.empty_cache()
-    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
-    return [recs[name] for name in SEGMENT_KERNELS], launches
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return [main_recs[ATTN_HEADS[0]][name] for name in SEGMENT_ATTN_KERNELS], \
+        launches
 
 
 def main() -> int:
@@ -4886,7 +5302,7 @@ def main() -> int:
             torch, dev, timer, empty_launch).items()) + f"  [{smi}]")
     records = []
     for name, (_src, _rep, design) in KERNEL_INFO.items():
-        if name in SEGMENT_KERNELS:  # phase 11's
+        if name in SEGMENT_KERNELS + SEGMENT_ATTN_KERNELS:  # phases 11, 12
             continue
         rec = recs[design][name]
         rec.floor_ms = floors[name]
@@ -5033,6 +5449,12 @@ def main() -> int:
         torch, np, dev, smi, parsed["headline"], compute_mode, early_writer)
     records += seg_records
     launches.update(seg_launches)
+
+    # ---- phase 12: --attn under the segment reduce ----
+    attn_records, attn_launches = segment_attn_phase(
+        torch, np, dev, smi, parsed["headline"], compute_mode, early_writer)
+    records += attn_records
+    launches.update(attn_launches)
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

@@ -98,31 +98,6 @@ __device__ __forceinline__ float slot_score(const float* h,
   return group_sum(part, group);
 }
 
-// The scores of NH heads (a power of two) from each lane's NH partial
-// scores p, reduced over the `group` lanes in one pass: on return this
-// lane holds the full score of its own head, lane / (group / NH). At
-// each xor step a lane keeps the half of the heads on its side of the
-// step's bit and adds the partner's partials of them (NH - 1 shuffles in
-// all); a butterfly over the head's group / NH lanes ends it, so every
-// lane of a head gets the same bits. Every lane of the warp must call it.
-template <int NH>
-__device__ __forceinline__ float head_scores(float (&p)[NH], int lane,
-                                             int group) {
-  int off = group >> 1;
-#pragma unroll
-  for (int cnt = NH; cnt > 1; cnt >>= 1) {
-    const bool upper = (lane & off) != 0;
-#pragma unroll
-    for (int i = 0; i < cnt / 2; ++i) {
-      const float keep = upper ? p[i + cnt / 2] : p[i];
-      const float send = upper ? p[i] : p[i + cnt / 2];
-      p[i] = keep + __shfl_xor_sync(0xffffffffu, send, off, group);
-    }
-    off >>= 1;
-  }
-  return group_sum(p[0], group / NH);
-}
-
 // The rows of the slots of one row, loaded at once (0 where not ok).
 template <int N, int KMAX>
 __device__ __forceinline__ void load_slots(const float* h,

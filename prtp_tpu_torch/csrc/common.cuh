@@ -148,6 +148,34 @@ __device__ __forceinline__ float group_sum(float v, int group) {
   return v;
 }
 
+// ---- the --attn kernels' scores (attn_sum, segment_attn_sum and its
+// backward): one function, so that all of them sum a score alike ----
+
+// The scores of NH heads (a power of two) from each lane's NH partial
+// scores p, reduced over the `group` lanes in one pass: on return this
+// lane holds the full score of its own head, lane / (group / NH). At
+// each xor step a lane keeps the half of the heads on its side of the
+// step's bit and adds the partner's partials of them (NH - 1 shuffles in
+// all); a butterfly over the head's group / NH lanes ends it, so every
+// lane of a head gets the same bits. Every lane of the warp must call it.
+template <int NH>
+__device__ __forceinline__ float head_scores(float (&p)[NH], int lane,
+                                             int group) {
+  int off = group >> 1;
+#pragma unroll
+  for (int cnt = NH; cnt > 1; cnt >>= 1) {
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < cnt / 2; ++i) {
+      const float keep = upper ? p[i + cnt / 2] : p[i];
+      const float send = upper ? p[i] : p[i + cnt / 2];
+      p[i] = keep + __shfl_xor_sync(0xffffffffu, send, off, group);
+    }
+    off >>= 1;
+  }
+  return group_sum(p[0], group / NH);
+}
+
 // ---- the segment reduce's softmax (segment_softmax_sum and its
 // backward) ----
 //
@@ -320,6 +348,219 @@ __device__ __forceinline__ int slot_edges(const int32_t* __restrict__ src,
   return deg;
 }
 
+// ---- the segment reduce's attention (segment_attn_sum and its
+// backward, --attn) ----
+//
+// A slot s owns the edges [off[s], off[s + 1]) of a destination-sorted
+// edge table; its rows are x_e = h[src[e]] in edge order. Head g of nh
+// owns the channels [g D / nh, (g + 1) D / nh). Per head, over the slot's
+// edges: the score s_eg = <x_e, w[g]> over the WHOLE row; the shift mx_g
+// (the max; NaN if any is NaN; 0 when not finite, so an empty slot's is
+// 0); den_g = sum exp(s_eg - mx_g) and, on head g's channels, num =
+// sum exp(s_eg - mx_g) x_e, each summed in edge order; the output num /
+// max(den_g, 1e-12). The forward and the backward compute these through
+// the functions below, so the backward's recomputed statistics are the
+// forward's bits.
+//
+// Two paths. Heads together (attn_heads_together: D % 4 == 0, D / 4 a
+// power of two from kSlotRows to 32 float4s, nh a power of two dividing
+// it): a lane group of exactly D / 4 lanes covers a slot, one float4 a
+// lane, head g's lanes the group / nh from g group / nh; head_scores()
+// reduces every head's score in one pass, and a slot of up to kSlotRows
+// edges keeps its rows and scores in registers. Otherwise the per-head
+// loop: per head, walks over the slot's edges, each score a full-group
+// sum, a lane's channels re-read from L1.
+//
+// A warp holds 32 / group slots whose degrees differ, and a score sums
+// over its group by shuffles in which every lane of the warp takes part,
+// so every loop over a slot's edges runs to the warp's largest degree
+// (wdeg, one __reduce_max_sync), masked by the slot's own.
+
+// Whether the heads-together path serves nh heads at vecs float4s a row.
+inline bool attn_heads_together(int vecs, int nh) {
+  const auto pow2 = [](int v) { return v > 0 && (v & (v - 1)) == 0; };
+  return pow2(vecs) && vecs >= kSlotRows && vecs <= 32 && pow2(nh) &&
+         vecs % nh == 0;
+}
+
+// Heads together: the NH scores of the float4 x of this lane's row,
+// summed over the group (head_scores: this lane gets its own head's).
+template <int NH>
+__device__ __forceinline__ float attn_score(const float (&x)[4],
+                                            const float (&w)[NH][4], int lane,
+                                            int group) {
+  float p[NH];
+#pragma unroll
+  for (int gg = 0; gg < NH; ++gg) {
+    p[gg] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[gg] += x[i] * w[gg][i];
+  }
+  return head_scores<NH>(p, lane, group);
+}
+
+// Heads together: the rows j0 + i, i < kSlotRows, of slot [begin, begin +
+// deg) at channel offset col into x (0 past the slot's last edge; chunk 0
+// from idx, slot_edges), every load issued before any use, and their
+// scores into s (those past the warp's wdeg 0). Every lane of the warp
+// calls it with the same j0.
+template <int NH, bool CG>
+__device__ __forceinline__ void attn_chunk(const float* h,
+                                           const int32_t* __restrict__ src,
+                                           const int32_t (&idx)[kSlotRows],
+                                           int32_t begin, int deg, int wdeg,
+                                           int j0, int d, int col,
+                                           const float (&w)[NH][4], int lane,
+                                           int group,
+                                           float (&x)[kSlotRows][4],
+                                           float (&s)[kSlotRows]) {
+  const int n = min(kSlotRows, deg - j0);
+  if (j0 == 0)
+    load_head<4, CG>(h, idx, deg, d, col, x);
+  else
+    load_rows<4, CG>(h, src, begin + j0, n, d, col, x);
+#pragma unroll
+  for (int i = 0; i < kSlotRows; ++i) {
+    if (i >= n) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[i][k] = 0.f;
+    }
+    s[i] = j0 + i < wdeg ? attn_score<NH>(x[i], w, lane, group) : 0.f;
+  }
+}
+
+// Heads together: the slot's shift mx, denominator den (this lane's
+// head's) and this lane's float4 of the numerator. On return x and s
+// hold chunk 0 if wdeg <= kSlotRows (the register path: each row loaded
+// once), else the last chunk (the generic path walks the edges twice,
+// kSlotRows rows at a time: the max, then the sums).
+template <int NH, bool CG>
+__device__ __forceinline__ void slot_attn(const float* h,
+                                          const int32_t* __restrict__ src,
+                                          const int32_t (&idx)[kSlotRows],
+                                          int32_t begin, int deg, int wdeg,
+                                          int d, int col,
+                                          const float (&w)[NH][4], int lane,
+                                          int group, float (&x)[kSlotRows][4],
+                                          float (&s)[kSlotRows], float& mx,
+                                          float& den, float (&num)[4]) {
+  mx = -INFINITY;
+#pragma unroll 1
+  for (int j0 = 0; j0 == 0 || j0 < wdeg; j0 += kSlotRows) {
+    attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, j0, d, col, w, lane,
+                       group, x, s);
+#pragma unroll
+    for (int i = 0; i < kSlotRows; ++i)
+      if (j0 + i < deg) mx = nan_max(mx, s[i]);
+  }
+  if (!isfinite(mx)) mx = 0.f;
+  den = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) num[k] = 0.f;
+#pragma unroll 1
+  for (int j0 = 0; j0 == 0 || j0 < wdeg; j0 += kSlotRows) {
+    if (wdeg > kSlotRows)
+      attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, j0, d, col, w, lane,
+                         group, x, s);
+#pragma unroll
+    for (int i = 0; i < kSlotRows; ++i) {
+      if (j0 + i < deg) {
+        const float e = expf(s[i] - mx);
+        den += e;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) num[k] += e * x[i][k];
+      }
+    }
+  }
+}
+
+// The per-head loop: head g's score of the row src_row (valid), this
+// lane's products over its vectors, summed over the group. Every lane of
+// the warp must call it.
+template <int N, bool CG>
+__device__ __forceinline__ float loop_score(const float* h,
+                                            const float* __restrict__ w,
+                                            int32_t src_row, bool valid,
+                                            int g, int d, int lane,
+                                            int group) {
+  float part = 0.f;
+  if (valid) {
+    for (int c = lane; c < d / N; c += group) {
+      float x[N], wv[N];
+      load_row<N, CG>(h + static_cast<int64_t>(src_row) * d + c * N, x);
+      load_vec<N>(w + static_cast<int64_t>(g) * d + c * N, wv);
+#pragma unroll
+      for (int i = 0; i < N; ++i) part += x[i] * wv[i];
+    }
+  }
+  return group_sum(part, group);
+}
+
+// The per-head loop: head g's shift mx and denominator den over the
+// slot's edges (two walks, the edges to the warp's wdeg). Every lane of
+// the warp must call it.
+template <int N, bool CG>
+__device__ __forceinline__ void loop_stats(const float* h,
+                                           const int32_t* __restrict__ src,
+                                           const float* __restrict__ w,
+                                           int32_t begin, int deg, int wdeg,
+                                           int g, int d, int lane, int group,
+                                           float& mx, float& den) {
+  mx = -INFINITY;
+#pragma unroll 1
+  for (int j = 0; j < wdeg; ++j) {
+    const bool valid = j < deg;
+    const int32_t r = valid ? __ldg(src + begin + j) : 0;
+    const float sc = loop_score<N, CG>(h, w, r, valid, g, d, lane, group);
+    if (valid) mx = nan_max(mx, sc);
+  }
+  if (!isfinite(mx)) mx = 0.f;
+  den = 0.f;
+#pragma unroll 1
+  for (int j = 0; j < wdeg; ++j) {
+    const bool valid = j < deg;
+    const int32_t r = valid ? __ldg(src + begin + j) : 0;
+    const float sc = loop_score<N, CG>(h, w, r, valid, g, d, lane, group);
+    if (valid) den += expf(sc - mx);
+  }
+}
+
+// The per-head loop: head g's numerator at vector c of the row (for
+// every channel of it: the caller keeps head g's), over the slot's
+// edges; 0 unless `mine`. Every lane of the warp must call it.
+template <int N, bool CG>
+__device__ __forceinline__ void loop_numer(const float* h,
+                                           const int32_t* __restrict__ src,
+                                           const float* __restrict__ w,
+                                           int32_t begin, int deg, int wdeg,
+                                           int g, float mx, int d, int c,
+                                           bool mine, int lane, int group,
+                                           float (&num)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) num[k] = 0.f;
+#pragma unroll 1
+  for (int j = 0; j < wdeg; ++j) {
+    const bool valid = j < deg;
+    const int32_t r = valid ? __ldg(src + begin + j) : 0;
+    const float sc = loop_score<N, CG>(h, w, r, valid, g, d, lane, group);
+    if (valid && mine) {
+      float x[N];
+      load_row<N, CG>(h + static_cast<int64_t>(r) * d + c * N, x);
+      const float e = expf(sc - mx);
+#pragma unroll
+      for (int k = 0; k < N; ++k) num[k] += e * x[k];
+    }
+  }
+}
+
+// The per-head loop: the float vectors of a row that hold channels of
+// head g: [v0, v1).
+__device__ __forceinline__ void head_vectors(int g, int dh, int n, int& v0,
+                                             int& v1) {
+  v0 = g * dh / n;
+  v1 = ((g + 1) * dh + n - 1) / n;
+}
+
 // ---- the net half's update (segment_mean's update mode) ----
 //
 // The walk's net half writes each net slot s's row of h as
@@ -357,9 +598,9 @@ __device__ __forceinline__ void keep_row(float (&x)[N]) {
 //
 // Its users: attn_sum, attn_bwd's two kernels (attn_bwd_rows,
 // attn_dw_reduce), softmax_sum_bwd, mailbox_scatter,
-// segment_softmax_sum, segment_softmax_sum_bwd and segment_mean (its
-// three modes). softmax_sum, local_mean, gather_rows and flat_adam
-// launch plainly.
+// segment_softmax_sum, segment_softmax_sum_bwd, segment_mean (its
+// three modes), segment_attn_sum and segment_attn_bwd's two kernels.
+// softmax_sum, local_mean, gather_rows and flat_adam launch plainly.
 //
 // Launched with cudaLaunchAttributeProgrammaticStreamSerialization, a
 // kernel may start while the kernel before it on the stream drains: its
@@ -367,7 +608,7 @@ __device__ __forceinline__ void keep_row(float (&x)[N]) {
 // kernel has finished and its writes are visible. Before the wait a
 // kernel reads only what no kernel in flight writes (the graph's tables,
 // the final node state hf, the weights, attn_sum's alpha in the
-// backward, the segment backward's saved slot statistics); every other
+// backward, the segment backwards' saved slot statistics); every other
 // read and every store comes after. So a caller
 // must not let the kernel just before it on the stream write what is
 // read before the wait. Launched plainly, the wait returns at once.

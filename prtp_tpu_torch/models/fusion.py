@@ -22,7 +22,8 @@ from the ``generator`` given. The port runs the regression and the
 classification heads, LayoutNet or the U-Net, and the GNN's softmax or
 ``--attn`` cell reduce; ``gnn_reduce="segment"`` (JAX's default is
 ``"mailbox"``) walks the GNN over the flat edge tables, the reduce of
-the 2-D ``(dp, gp)`` edge-sharded step (``parallel/graph_shard.py``).
+the 2-D ``(dp, gp)`` edge-sharded step (``parallel/graph_shard.py``),
+in float32, with the softmax or the ``--attn`` cell reduce.
 
 ``compute_dtype`` bfloat16 is JAX's mixed precision (flax style: the
 parameters stay float32 and are cast for the products): the walk's MLP

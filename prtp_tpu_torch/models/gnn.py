@@ -34,7 +34,9 @@ edge tables instead of its dense mailbox
 (:func:`prtp_tpu_torch.ops.segment_walk.segment_walk`): the same
 function, summed in another order; it is the reduce that the 2-D
 ``(dp, gp)`` edge-sharded step partitions (``parallel/graph_shard.py``).
-It runs in float32 without ``--attn``; those two are refused.
+With ``flag_attn`` its cell levels reduce by JAX's
+``segment_weighted_softmax_sum`` under the same ``fc_attn2`` scores. It
+runs in float32; bf16 under it is refused.
 """
 
 from __future__ import annotations
@@ -63,12 +65,11 @@ class TimeGNN(nn.Module):
         if reduce_mode not in REDUCE_MODES:
             raise ValueError(f"reduce_mode {reduce_mode!r}: one of "
                              f"{REDUCE_MODES}")
-        if reduce_mode == "segment" and (flag_attn
-                                         or self.mlp_dtype is not None):
+        if reduce_mode == "segment" and self.mlp_dtype is not None:
             raise ValueError(
-                "reduce_mode='segment' runs in float32 without --attn; its "
-                "--attn (segment_weighted_softmax_sum) and bf16 are not "
-                "ported (ROADMAP.md Queue 1, item 6)")
+                "reduce_mode='segment' runs in float32 (with or without "
+                "--attn); bf16 under the segment reduce is not ported "
+                "(ROADMAP.md Queue 1, item 6b)")
         self.reduce_mode = reduce_mode
         self.dgl_parity = dgl_parity
         self.flag_attn = flag_attn

@@ -11,16 +11,19 @@ from .fused_gnn import (attn_bwd, attn_sum, exact_gnn_forward, exact_walk,
                         softmax_sum_bwd)
 from .gather import gather_rows
 from .pool import pool_2x2
-from .segment_kernels import (segment_mean, segment_softmax_sum,
+from .segment_kernels import (segment_attn_bwd, segment_attn_sum,
+                              segment_mean, segment_softmax_sum,
                               segment_softmax_sum_bwd)
 from .segment_walk import segment_walk
 
 KERNELS = (gather_rows, softmax_sum, local_mean, softmax_sum_bwd,
            mailbox_scatter, flat_adam, attn_sum, attn_bwd,
-           segment_softmax_sum, segment_mean, segment_softmax_sum_bwd)
+           segment_softmax_sum, segment_mean, segment_softmax_sum_bwd,
+           segment_attn_sum, segment_attn_bwd)
 
 __all__ = ["KERNELS", "attn_bwd", "attn_sum", "exact_gnn_forward",
            "exact_walk", "flat_adam", "gather_rows", "local_mean",
-           "mailbox_scatter", "pool_2x2", "segment_mean",
+           "mailbox_scatter", "pool_2x2", "segment_attn_bwd",
+           "segment_attn_sum", "segment_mean",
            "segment_softmax_sum", "segment_softmax_sum_bwd", "segment_walk",
            "softmax_sum", "softmax_sum_bwd"]

@@ -26,7 +26,8 @@ BUILD_DIR = PKG_DIR / "_build"
 KERNEL_NAMES = ("gather_rows", "softmax_sum", "local_mean", "softmax_sum_bwd",
                 "mailbox_scatter", "flat_adam", "attn_sum", "attn_bwd",
                 "segment_softmax_sum", "segment_mean",
-                "segment_softmax_sum_bwd")
+                "segment_softmax_sum_bwd", "segment_attn_sum",
+                "segment_attn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

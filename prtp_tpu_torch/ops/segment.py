@@ -8,8 +8,6 @@ denominator is clamped at ``1e-12``. No model path calls them: the
 pair step under ``reduce_mode='segment'`` (:mod:`.segment_walk`) runs on
 the port's exact flat edge tables through the kernels of
 :mod:`.segment_kernels`, whose plain versions are built from these.
-(JAX's ``segment_weighted_softmax_sum``, the ``--attn`` reduce under
-the segment reduce, is not ported: ROADMAP.md Queue 1, item 6.)
 """
 
 from __future__ import annotations
@@ -70,3 +68,32 @@ def segment_softmax_sum(data, segment_ids, num_segments):
     denom = segment_sum(ex, segment_ids, num_segments)
     numer = segment_sum(ex * data, segment_ids, num_segments)
     return numer / denom.clamp_min(1e-12)
+
+
+def segment_weighted_softmax_sum(data, scores, segment_ids, num_segments):
+    """Attention-style reduce: per-edge (per-head) scores -> segment
+    softmax weights -> weighted sum of ``data``.
+
+    ``scores`` is ``(E,)``/``(E, 1)`` for single-head, or ``(E, H)``
+    multi-head, in which case each head softmax-weights its own
+    ``D/H``-wide value slice of ``data`` (GAT-style concat). For each
+    segment s (per head): ``alpha_e = softmax_{e in s}(scores[e])``,
+    ``out[s] = sum_e alpha_e * data[e]``."""
+    if scores.dim() == 2 and scores.shape[1] > 1:
+        e, d = data.shape
+        nh = scores.shape[1]
+        if d % nh:
+            raise ValueError("data dim must be divisible by num_heads")
+        _shift, ex = softmax_parts(scores, segment_ids, num_segments)
+        denom = segment_sum(ex, segment_ids, num_segments)
+        weighted = (ex[:, :, None] * data.reshape(e, nh, d // nh)).reshape(
+            e, d)
+        numer = segment_sum(weighted, segment_ids, num_segments)
+        out = (numer.reshape(num_segments, nh, d // nh)
+               / denom.clamp_min(1e-12)[:, :, None])
+        return out.reshape(num_segments, d)
+    scores = scores.reshape(-1)
+    _shift, ex = softmax_parts(scores, segment_ids, num_segments)
+    denom = segment_sum(ex, segment_ids, num_segments)
+    numer = segment_sum(ex[:, None] * data, segment_ids, num_segments)
+    return numer / denom.clamp_min(1e-12)[:, None]

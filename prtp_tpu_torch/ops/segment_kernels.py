@@ -16,7 +16,15 @@ source row for the backward), through:
   ``relu(old)``) written in place;
 - :func:`segment_softmax_sum_bwd`: the per-edge cotangent of the first,
   recomputing each slot's softmax from ``h`` or reading the combined
-  statistics the edge-sharded walk saved.
+  statistics the edge-sharded walk saved;
+- :func:`segment_attn_sum` (``--attn``): JAX's
+  ``segment_weighted_softmax_sum`` of ``h[src]`` with the scores
+  ``fc_attn2(h[src])`` (``prtp_tpu/ops/segment.py:86-127``,
+  ``prtp_tpu/models/gnn.py:178-182``), read straight from ``h``; with
+  ``partial`` the numerator and each slot's per-head shift and
+  denominator;
+- :func:`segment_attn_bwd`: its per-edge cotangent and ``fc_attn2``'s
+  gradient, in the same two modes as :func:`segment_softmax_sum_bwd`.
 
 The backward's scatter-add of per-edge (or per-slot) cotangents into
 ``dh`` by source row is the mailbox walk's ``mailbox_scatter``
@@ -36,7 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fused_gnn import _check_index, _check_rows, _stream
+from .fused_gnn import (_check_attn_w, _check_index, _check_rows,
+                        _stream)
 from .gather import device_of
 from .segment import segment_sum, softmax_parts
 
@@ -46,6 +55,13 @@ _MEAN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int64,
                   c_int, c_void_p]
 _UPDATE_ARGTYPES = [c_void_p] * 6 + [c_int64, c_int64, c_int, c_void_p]
 _SOFTMAX_BWD_ARGTYPES = [c_void_p] * 8 + [c_int64, c_int, c_void_p]
+_ATTN_ARGTYPES = [c_void_p] * 7 + [c_int64, c_int, c_int, c_int, c_void_p]
+_ATTN_BWD_ARGTYPES = [c_void_p] * 11 + [c_int64, c_int, c_int, c_int,
+                                        c_void_p]
+# segment_attn_bwd's rows kernel: at most eight blocks of four warps a
+# streaming multiprocessor of an H100 (132), each summing its slots'
+# share of d_w (attn_bwd's grid)
+_ATTN_BWD_BLOCKS = 1056
 
 
 def _segment_ids(off: torch.Tensor) -> torch.Tensor:
@@ -276,3 +292,153 @@ def segment_softmax_sum_bwd(h: torch.Tensor, src: torch.Tensor,
 
 
 segment_softmax_sum_bwd.launches = 0
+
+
+def _attn_parts_plain(h, src, off, w):
+    """``(numer, shift, den, x, seg, scores)`` of each slot by the JAX
+    expressions on ``x = h[src]`` and its scores ``x @ w.T``: the
+    numerator (S, D), each head's shift (its max, 0 where not finite) and
+    denominator (S, nh)."""
+    s, d = off.shape[0] - 1, h.shape[1]
+    nh = w.shape[0]
+    seg = _segment_ids(off)
+    x = h[src.long()]
+    e = x.shape[0]
+    scores = x @ w.t()
+    shift, ex = softmax_parts(scores, seg, s)
+    weighted = (ex[:, :, None] * x.view(e, nh, d // nh)).view(e, d)
+    return (segment_sum(weighted, seg, s), shift, segment_sum(ex, seg, s),
+            x, seg, scores)
+
+
+def _divide_heads(numer, den):
+    """``numer`` (S, D) over each head's ``max(den, 1e-12)`` (S, nh)."""
+    (s, nh), d = den.shape, numer.shape[1]
+    return (numer.view(s, nh, d // nh)
+            / den.clamp_min(1e-12)[:, :, None]).view(s, d)
+
+
+def segment_attn_sum_plain(h, src, off, w, partial=False):
+    """:func:`segment_attn_sum` by the JAX expressions on ``h[src]``."""
+    numer, shift, den = _attn_parts_plain(h, src, off, w)[:3]
+    if partial:
+        return numer, shift, den
+    return _divide_heads(numer, den), None, None
+
+
+def segment_attn_sum(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
+                     w: torch.Tensor, partial: bool = False):
+    """The ``--attn`` cell half under the segment reduce, read straight
+    from the node state: for each destination slot s (edges ``[off[s],
+    off[s+1])`` of the destination-sorted ``src``) and head g, the
+    softmax over its edges of the scores ``h[src[e]] @ w[g]`` (each over
+    the whole row) weighting head g's ``D / nh`` channels of
+    ``h[src[e]]`` (``segment_weighted_softmax_sum``). Returns ``(out, mx,
+    den)``: the result (S, D), and ``mx = den = None``. With ``partial``
+    (a rank of the edge-sharded step): the numerator, undivided, and
+    each head's shift (the max score, 0 where not finite: 0 for an empty
+    slot) and denominator (0 for an empty slot), each (S, nh). h (R, D)
+    float32 contiguous, src (E,) and off (S+1,) int32, w (nh, D) float32,
+    ``fc_attn2``'s weight (nh divides D)."""
+    _check_rows("h", h)
+    _check_csr(src, off)
+    nh = _check_attn_w(w, h.shape[1])
+    if device_of("segment_attn_sum", h, src, off, w).type == "cpu":
+        return segment_attn_sum_plain(h, src, off, w, partial)
+    s, d = off.shape[0] - 1, h.shape[1]
+    out = torch.empty((s, d), dtype=h.dtype, device=h.device)
+    mx, den = ((torch.empty((s, nh), dtype=h.dtype, device=h.device),
+                torch.empty((s, nh), dtype=h.dtype, device=h.device))
+               if partial else (None, None))
+    if s == 0:
+        return out, mx, den
+    with torch.cuda.device(h.device):
+        _build.launch("segment_attn_sum", _ATTN_ARGTYPES, h.data_ptr(),
+                      src.data_ptr(), off.data_ptr(), w.data_ptr(),
+                      out.data_ptr(), mx.data_ptr() if partial else 0,
+                      den.data_ptr() if partial else 0, s, d, nh,
+                      int(partial), _stream(h))
+    segment_attn_sum.launches += 1
+    return out, mx, den
+
+
+segment_attn_sum.launches = 0
+
+
+def segment_attn_bwd_plain(h, src, off, w, g, stats=None):
+    """``(d_msg, d_w)`` of :func:`segment_attn_bwd` by PyTorch ops: with
+    ``alpha[e, g] = exp(s[e, g] - mx[s, g]) / max(den[s, g], 1e-12)``,
+    ``da[e, g] = <g[s], x_e>`` and ``t[s, g] = <g[s], out[s]>`` over head
+    g's channels, ``ds = alpha (da - t)``; ``d_msg[e] = alpha[e, g(c)]
+    g[s, c] + (ds @ w)[e]`` and ``d_w = ds.T @ x``. ``(out, mx, den)`` is
+    ``stats``, or recomputed as :func:`segment_attn_sum_plain` computes
+    them."""
+    numer, mx, den, x, seg, scores = _attn_parts_plain(h, src, off, w)
+    out = _divide_heads(numer, den)
+    if stats is not None:
+        out, mx, den = stats
+    e, d = x.shape
+    nh = w.shape[0]
+    alpha = torch.exp(scores - mx[seg]) / den.clamp_min(1e-12)[seg]
+    gs = g[seg]
+    dh = d // nh
+    da = (gs * x).view(e, nh, dh).sum(-1)
+    t = (g * out).reshape(g.shape[0], nh, dh).sum(-1)[seg]
+    ds = alpha * (da - t)
+    d_msg = (alpha[:, :, None] * gs.view(e, nh, dh)).view(e, d) + ds @ w
+    return d_msg, ds.t() @ x
+
+
+def segment_attn_bwd(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
+                     w: torch.Tensor, g: torch.Tensor, stats=None):
+    """The cotangents of :func:`segment_attn_sum` for the output
+    cotangent ``g`` (S, D): ``(d_msg, d_w)``, the per-edge cotangent of
+    ``h[src]`` (E, D; the value path and the score path) and the gradient
+    of ``w`` (nh, D), summed over the edges in a fixed order (per-block
+    partial sums, then a fixed-order reduce: no float atomics), so a call
+    gives the same bits every time. Without ``stats`` each slot's
+    ``(out, mx, den)`` is recomputed from ``h``, as the forward computed
+    it; under the edge-sharded step, where a rank holds only a block of a
+    slot's edges, ``stats`` is the slots' combined ``(out, mx, den)``:
+    (S, D), (S, nh), (S, nh). h (R, D) float32 contiguous (the final node
+    state: every source row of a level is final once it is written), src
+    (E,) and off (S+1,) int32, w (nh, D) float32.
+
+    On the card it is two kernels, both programmatic dependent launches:
+    the first reads the tables, ``h``, ``w`` and ``stats`` while the
+    kernel before it on the stream may still run, so that kernel must
+    not write them, and ``g`` once that kernel has finished; the second
+    adds the first's per-block partial sums of ``d_w``."""
+    _check_rows("h", h)
+    _check_csr(src, off)
+    s, d = off.shape[0] - 1, h.shape[1]
+    nh = _check_attn_w(w, d)
+    named = [("g", g, d)]
+    if stats is not None:
+        named += list(zip(("out", "mx", "den"), stats, (d, nh, nh)))
+    for what, t, width in named:
+        _check_rows(what, t)
+        if t.shape != (s, width):
+            raise ValueError(f"{what} {tuple(t.shape)} must be ({s}, "
+                             f"{width})")
+    if device_of("segment_attn_bwd", h, src, off, w,
+                 *(t for _, t, _ in named)).type == "cpu":
+        return segment_attn_bwd_plain(h, src, off, w, g, stats)
+    d_msg = torch.empty((src.shape[0], d), dtype=h.dtype, device=h.device)
+    if s == 0:
+        return d_msg, torch.zeros_like(w)
+    d_w = torch.empty_like(w)
+    blocks = min(s, _ATTN_BWD_BLOCKS)
+    # workspace: each block's partial sums of d_w
+    work = torch.empty(blocks * nh * d, dtype=h.dtype, device=h.device)
+    ptrs = [0, 0, 0] if stats is None else [t.data_ptr() for t in stats]
+    with torch.cuda.device(h.device):
+        _build.launch("segment_attn_bwd", _ATTN_BWD_ARGTYPES, h.data_ptr(),
+                      src.data_ptr(), off.data_ptr(), w.data_ptr(), *ptrs,
+                      g.data_ptr(), d_msg.data_ptr(), d_w.data_ptr(),
+                      work.data_ptr(), s, d, nh, blocks, _stream(h))
+    segment_attn_bwd.launches += 1
+    return d_msg, d_w
+
+
+segment_attn_bwd.launches = 0

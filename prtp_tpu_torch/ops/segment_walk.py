@@ -9,8 +9,11 @@ edge tables (``graph.py``, ``cell_src`` ... ``net_has_in``) instead of
 its dense mailbox, with the kernels of :mod:`.segment_kernels`:
 
 - the cell half: ``segment_softmax_sum`` of ``h[cell_src]`` by
-  destination slot, read straight from ``h``; pair 0 drops the
-  neighbour term (JAX's ``gate``, :190);
+  destination slot, read straight from ``h``, or with ``--attn``
+  (``fc_attn2`` in ``params``) ``segment_attn_sum``, JAX's
+  ``segment_weighted_softmax_sum`` of ``h[cell_src]`` under the scores
+  ``fc_attn2(h[cell_src])`` (:178-182); pair 0 drops the neighbour term
+  (JAX's ``gate``, :190);
 - the net half, which reads ``h`` after the cell half's write: the
   in-edge sum over ``net_cnt``, added to the ``fc_net_self`` MLP's
   output under a ReLU; with ``dgl_parity`` a row without in-edges keeps
@@ -26,7 +29,9 @@ The pair-step MLPs are the mailbox walk's (``_mlp``, ``_mlp_grads``,
 that step: per half in reverse the ReLU split, the MLP gradients, and
 the edges' cotangents scattered into ``dh`` by source row with the
 mailbox walk's ``mailbox_scatter`` (net: ``g_n[dst] / cnt[dst]`` formed
-in the kernel; cell: ``segment_softmax_sum_bwd``'s per-edge cotangent).
+in the kernel; cell: ``segment_softmax_sum_bwd``'s per-edge cotangent,
+or ``segment_attn_bwd``'s, which also gives the pair's share of
+``fc_attn2``'s gradient).
 The net half's
 scatter comes first, since its sources include the pair's own cell
 rows, which the cell half's cotangent reads. The forward keeps each
@@ -46,16 +51,20 @@ become explicit all-reduces over the ``gp`` group:
 - cell: each rank's partial ``(numer, max, den)``; the max all-reduced
   (MAX), the local sums rescaled to it, then summed (one all-reduce of
   ``[den | numer]``); an empty slot's local max is ``-inf`` and its scale
-  0, and a slot empty on every rank gives JAX's 0;
+  0, and a slot empty on every rank gives JAX's 0. Under ``--attn`` the
+  max and den are per head, (S, nh), and each head's scale rescales its
+  own channels of the numerator;
 - net: the partial sums summed, then divided by ``net_cnt``;
 - backward: each rank scatters its own edges into a compact buffer of
   the level's distinct source rows, the buffers are summed, and the sum
   is added into ``dh`` (``mailbox_scatter`` with one entry a row), so every
-  rank's ``dh`` stays equal.
+  rank's ``dh`` stays equal; under ``--attn`` each rank's ``fc_attn2``
+  gradient (its block's share) is summed over ``gp`` once a step, at the
+  end of the backward.
 
 ``has_in`` is the whole level's, never a shard's (a row whose in-edges
 all lie on another rank must still update). Only float32 runs here:
-``--attn`` and bf16 under the segment reduce are refused by the model.
+bf16 under the segment reduce is refused by the model.
 """
 
 from __future__ import annotations
@@ -65,7 +74,8 @@ import torch.nn.functional as F
 
 from .fused_gnn import (MLP_NAMES, _flat_of, _mlp, _mlp_grads, _params_of,
                         _relu_split, mailbox_scatter)
-from .segment_kernels import (net_epilogue, net_update, segment_mean,
+from .segment_kernels import (net_epilogue, net_update, segment_attn_bwd,
+                              segment_attn_sum, segment_mean,
                               segment_softmax_sum, segment_softmax_sum_bwd)
 
 
@@ -79,31 +89,43 @@ def require_tables(graph, who: str) -> None:
 
 def combine_softmax(numer, shift, den, shard):
     """``(out, mx, den)`` of the whole level from this rank's partial
-    ``segment_softmax_sum`` (``partial=True``), by two all-reduces over
-    ``shard``'s ``gp`` group: the slots' max, then the rescaled ``[den |
-    numer]``."""
+    cell reduce (``partial=True``), by two all-reduces over ``shard``'s
+    ``gp`` group: the slots' max, then the rescaled ``[den | numer]``.
+    ``shift`` and ``den`` are (S, D) for ``segment_softmax_sum`` (a
+    softmax a channel) or (S, nh) for ``segment_attn_sum`` (a softmax a
+    head, whose scale rescales the head's D / nh channels of the (S, D)
+    numerator)."""
     top = torch.where(den > 0, shift,
                       torch.full((), -torch.inf, device=den.device))
     shard.max_(top)
     top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
     scale = torch.where(den > 0, torch.exp(shift - top),
                         torch.zeros_like(den))
-    both = torch.cat([den * scale, numer * scale], dim=1)
+    (s, heads), d = den.shape, numer.shape[1]
+    scaled = numer.view(s, heads, d // heads) * scale[:, :, None]
+    both = torch.cat([den * scale, scaled.view(s, d)], dim=1)
     shard.sum_(both)
-    den, numer = both.tensor_split(2, dim=1)
+    den, numer = both.split([heads, d], dim=1)
     den = den.contiguous()
-    return numer / den.clamp_min(1e-12), top, den
+    out = (numer.reshape(s, heads, d // heads)
+           / den.clamp_min(1e-12)[:, :, None])
+    return out.view(s, d), top, den
 
 
-def _cell_reduce(h, graph, k):
-    """``(out, mx, den)`` of pair k's cell reduce: ``mx`` and ``den``
-    None unless the graph is sharded (the combined statistics)."""
+def _cell_reduce(h, graph, k, w_attn):
+    """``(out, mx, den)`` of pair k's cell reduce, by attention when
+    ``w_attn`` (``fc_attn2``'s weight) is given: ``mx`` and ``den`` None
+    unless the graph is sharded (the combined statistics)."""
     shard = graph.shard
+    tables = shard or graph
+    args = (h, tables.cell_src[k], tables.cell_dst_off[k])
+    if w_attn is None:
+        reduce = segment_softmax_sum
+    else:
+        reduce, args = segment_attn_sum, args + (w_attn,)
     if shard is None:
-        return segment_softmax_sum(h, graph.cell_src[k],
-                                   graph.cell_dst_off[k])
-    return combine_softmax(*segment_softmax_sum(
-        h, shard.cell_src[k], shard.cell_dst_off[k], partial=True), shard)
+        return reduce(*args)
+    return combine_softmax(*reduce(*args, partial=True), shard)
 
 
 def _net_reduce(h, graph, k):
@@ -157,11 +179,13 @@ def segment_gnn_forward(params, h0: torch.Tensor, graph,
     :class:`prtp_tpu_torch.graph.LeveledGraphExact` on h0's device, with
     its ``shard`` under the edge-sharded step. ``saved``, a dict, receives
     each pair k > 0's cell reduce ``(out, mx, den)`` for the backward
-    (``mx = den = None`` unless sharded).
+    (``mx = den = None`` unless sharded). With ``"fc_attn2"`` in
+    ``params`` (``--attn``) the cell half reduces by attention.
     Differentiable by torch autograd where every tensor lies on the CPU
     and the graph is not sharded (the plain versions); :class:`SegmentWalk`
     is its hand-written backward."""
     require_tables(graph, "the segment reduce")
+    w_attn = params.get("fc_attn2")
     h = h0.clone()
     for k in range(graph.num_pairs):
         # ---- cell half (even level 2k) ----
@@ -169,7 +193,7 @@ def segment_gnn_forward(params, h0: torch.Tensor, graph,
         c0 = graph.cell_off[k]
         pre = _mlp(params["fc_cell_self"], graph.cell_feat_lvl[k])
         if k > 0:  # level 0 drops the neighbour term
-            reduced = _cell_reduce(h, graph, k)
+            reduced = _cell_reduce(h, graph, k, w_attn)
             if saved is not None:
                 saved[k] = reduced
             pre = pre + _mlp(params["fc_cell_neigh"], reduced[0])
@@ -196,10 +220,14 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     ``params``) of the walk whose final state is ``hf``, for the
     cotangent ``g`` of ``hf``; ``saved`` is what the forward kept. One
     ``dh`` carry, a copy of ``g``, updated in place pair by pair in
-    reverse."""
+    reverse. With ``"fc_attn2"`` in ``params`` its gradient is summed
+    over the pairs, and on a sharded graph over the ``gp`` group once."""
     dh = g.clone(memory_format=torch.contiguous_format)
     grads = {name: [torch.zeros_like(t) for t in params[name]]
              for name in MLP_NAMES}
+    w_attn = params.get("fc_attn2")
+    if w_attn is not None:
+        grads["fc_attn2"] = torch.zeros_like(w_attn)
     tables = graph.shard or graph
     for k in reversed(range(graph.num_pairs)):
         pn_c = graph.cell_feat_lvl[k].shape[0]
@@ -223,19 +251,26 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
             f, mx, den = saved[k]
             dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c)
             torch._foreach_add_(grads["fc_cell_neigh"], list(dp_neigh))
-            d_msg = segment_softmax_sum_bwd(
-                hf, tables.cell_src[k], tables.cell_dst_off[k], d_f,
-                None if mx is None else (f, mx, den))
+            args = (hf, tables.cell_src[k], tables.cell_dst_off[k])
+            stats = None if mx is None else (f, mx, den)
+            if w_attn is None:
+                d_msg = segment_softmax_sum_bwd(*args, d_f, stats)
+            else:
+                d_msg, d_w = segment_attn_bwd(*args, w_attn, d_f, stats)
+                grads["fc_attn2"].add_(d_w)
         dh[c0: c0 + pn_c] = 0.0 if d_old_c is None else d_old_c
         if d_msg is not None:
             _scatter(dh, graph, "cell", k, d_msg, None)
+    if w_attn is not None and graph.shard is not None:
+        graph.shard.sum_(grads["fc_attn2"])
     return dh, grads
 
 
 class SegmentWalk(torch.autograd.Function):
     """The walk under the segment reduce with its hand-written backward.
     Inputs: the graph and ``dgl_parity`` (no gradient), h0, then the
-    twelve pair-step tensors in ``MLP_NAMES`` order."""
+    twelve pair-step tensors in ``MLP_NAMES`` order and, with ``--attn``,
+    ``fc_attn2``'s weight (``fused_gnn._params_of``)."""
 
     @staticmethod
     def forward(ctx, graph, dgl_parity, h0, *flat):

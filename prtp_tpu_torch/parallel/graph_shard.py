@@ -11,7 +11,9 @@ collectives are explicit, inside the segment walk
 (:mod:`prtp_tpu_torch.ops.segment_walk`): per level pair three
 all-reduces over ``gp`` in the forward (the cell reduce's max, its
 rescaled sums, the net sums) and two in the backward (each half's
-compact source-row cotangents). The model must use
+compact source-row cotangents); with ``--attn`` (the cell reduce's max
+and denominator per head) one more a step, ``fc_attn2``'s gradient,
+of which a rank computes only its edges' share. The model must use
 ``gnn_reduce="segment"``: the mailbox reduce is node-indexed, and on a
 sharded design it simply runs replicated, as JAX's would.
 
@@ -197,7 +199,10 @@ def graph_sharded_train_step(state, design, path_ids, mask, mesh: Mesh2D,
     (``batch_axis=None``: ``trainer.train_step``, as JAX's gp-only
     mesh), the edge tables of ``design`` (:func:`shard_design`) sharded
     on ``gp``. Every rank passes the same batch and gets the metrics of
-    the whole batch; every rank's state stays equal."""
+    the whole batch; every rank's state stays equal: the walk sums each
+    level's partial reductions over ``gp``, and with ``--attn`` also
+    ``fc_attn2``'s gradient, one all-reduce a step, since each rank's
+    backward gives only its edge block's share of it."""
     if design.graph.shard is None:
         raise ValueError("graph_sharded_train_step takes a design from "
                          "shard_design")

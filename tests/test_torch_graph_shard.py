@@ -3,7 +3,8 @@
 single-process segment step and JAX's ``make_graph_sharded_train_step``
 on the same mesh shape of the virtual CPU mesh, on tiny designs of
 ``tests/test_graph_shard.py``'s generator: gp only ``(1, 2)``,
-``(2, 2)``, and merged designs on ``(2, 2)``. The port's ranks run in
+``(2, 2)``, merged designs on ``(2, 2)``, and ``--attn`` with 2 heads on
+``(2, 2)``. The port's ranks run in
 one child run (``tests/_torch_graph_shard_child.py``, gloo, at most 4
 ranks), started as soon as the inputs exist, while JAX's steps compile
 here.
@@ -60,11 +61,19 @@ MODEL_KW = dict(out_dim=16, hidden_dim=32, cnn_outdim=8, map_size=16,
                 global_dim=8, gnn_reduce="segment")
 LR, STEPS = 1e-3, 3
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3, 1e-4
+ATTN_KW = dict(MODEL_KW, flag_attn=True, num_heads=2)
 CASES = {"gp_only": ((1, 2), None), "dp_gp": ((2, 2), "dp"),
-         "merged": ((2, 2), "dp")}
+         "merged": ((2, 2), "dp"), "attn": ((2, 2), "dp")}
 # the cases whose ranks also run the walk alone: dp_gp's gp blocks are
 # gp_only's, so its walk would repeat gp_only's
-WALK_CASES = ("gp_only", "merged")
+WALK_CASES = ("gp_only", "merged", "attn")
+
+
+def _model_kw(name):
+    """The model of a case: the segment reduce, with ``--attn`` (2 heads,
+    the per-head combine over gp and fc_attn2's gradient summed over gp)
+    in the ``attn`` case."""
+    return ATTN_KW if name == "attn" else MODEL_KW
 
 
 def _case_inputs(name):
@@ -90,12 +99,12 @@ def _case_inputs(name):
     return merged, ids, mask
 
 
-def _jax_init():
-    """(JAX model, jittered init) of every case: the parameters' shapes
-    do not depend on the design, so the single design's init serves the
-    merged designs too."""
+def _jax_init(model_kw):
+    """(JAX model, jittered init) of the cases with ``model_kw``: the
+    parameters' shapes do not depend on the design, so the single
+    design's init serves the merged designs too."""
     parsed, ids, _mask = _case_inputs("gp_only")
-    model = JaxPathModel(**MODEL_KW)
+    model = JaxPathModel(**model_kw)
     design = jax_pack_design(parsed, map_size=16, align=8)
     return model, jax_params(model, design, jnp.asarray(ids))["params"]
 
@@ -124,12 +133,12 @@ def _jax_reference(model, init, parsed, ids, mask, shape, batch_axis):
     return float(mets["loss"]), params_from_flax(grads)
 
 
-def _single_steps(parsed, state_dict, ids, mask):
+def _single_steps(parsed, state_dict, ids, mask, model_kw):
     """The port's single-process segment steps (``train_step``): each
     step's loss and the first step's gradients; and first, at the init,
     the walk alone (the child's :func:`walk`)."""
     model = PathModel(parsed["cell_feat"].shape[1],
-                      parsed["net_feat"].shape[1], **MODEL_KW)
+                      parsed["net_feat"].shape[1], **model_kw)
     model.load_state_dict(state_dict)
     state = init_state(model, make_optimizer(LR), "cpu")
     design = pack_design(parsed, map_size=16, device="cpu", segment=True)
@@ -149,11 +158,14 @@ def runs(tmp_path_factory):
     and every rank's result of the one child run, which runs beside the
     first two."""
     tmp = str(tmp_path_factory.mktemp("graph_shard"))
-    model, init = _jax_init()
-    state = params_from_flax(init)
+    inits = {attn: _jax_init(ATTN_KW if attn else MODEL_KW)
+             for attn in (False, True)}
+    states = {attn: params_from_flax(init)
+              for attn, (_m, init) in inits.items()}
     inputs = {name: _case_inputs(name) for name in CASES}
-    cases = {name: dict(parsed=parsed, model_kw=MODEL_KW, lr=LR,
-                        state={k: v.numpy() for k, v in state.items()},
+    cases = {name: dict(parsed=parsed, model_kw=_model_kw(name), lr=LR,
+                        state={k: v.numpy()
+                               for k, v in states[name == "attn"].items()},
                         batch=(ids, mask), shape=shape,
                         batch_axis=batch_axis, steps=STEPS,
                         walk=name in WALK_CASES)
@@ -170,11 +182,14 @@ def runs(tmp_path_factory):
         refs, singles = {}, {}
         for name, (shape, batch_axis) in CASES.items():
             parsed, ids, mask = inputs[name]
+            attn = name == "attn"
+            model, init = inits[attn]
             loss, grads = _jax_reference(model, init, parsed, ids, mask,
                                          shape, batch_axis)
-            design = "merged" if name == "merged" else "single"
+            design = name if name in ("merged", "attn") else "single"
             if design not in singles:  # gp_only's steps are dp_gp's
-                singles[design] = _single_steps(parsed, state, ids, mask)
+                singles[design] = _single_steps(parsed, states[attn], ids,
+                                                mask, _model_kw(name))
             refs[name] = dict(jax_loss=loss, jax_grads=grads,
                               single=singles[design])
         out, err = proc.communicate(timeout=300)

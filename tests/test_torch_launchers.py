@@ -25,6 +25,8 @@ ARGTYPES = {
     "segment_softmax_sum": segment_kernels._SOFTMAX_ARGTYPES,
     "segment_mean": segment_kernels._MEAN_ARGTYPES,
     "segment_softmax_sum_bwd": segment_kernels._SOFTMAX_BWD_ARGTYPES,
+    "segment_attn_sum": segment_kernels._ATTN_ARGTYPES,
+    "segment_attn_bwd": segment_kernels._ATTN_BWD_ARGTYPES,
 }
 # launchers beyond <name>_launch, by library: (entry, argument list)
 MORE = {"segment_mean": [("net_update", segment_kernels._UPDATE_ARGTYPES)]}

@@ -586,13 +586,16 @@ def test_segment_train_steps_match_jax(tiny_case):
 
 # ---- the refusals ----
 
-@pytest.mark.parametrize("kw", [dict(flag_attn=True),
+@pytest.mark.parametrize("kw", [dict(flag_attn=True,
+                                     compute_dtype="bfloat16"),
                                 dict(compute_dtype="bfloat16")],
-                         ids=["attn", "bf16"])
+                         ids=["attn_bf16", "bf16"])
 def test_segment_refuses_attn_and_bf16(kw):
-    """``--attn`` and bf16 under the segment reduce are not ported: the
-    model refuses them by name, never running a plain or wrong path."""
-    with pytest.raises(ValueError, match="item 6"):
+    """bf16 under the segment reduce, with or without ``--attn``, is not
+    ported: the model refuses it by name (ROADMAP item 6b), never running
+    a plain or wrong path. (``--attn`` in float32 runs:
+    tests/test_torch_segment_attn.py.)"""
+    with pytest.raises(ValueError, match="item 6b"):
         PathModel(10, 3, **MODEL_KW, **kw)
     with pytest.raises(ValueError, match="reduce_mode"):
         TimeGNN(10, 3, torch.Generator(), reduce_mode="scatter")
