@@ -203,6 +203,23 @@ Phases, each failing loudly (nonzero exit) on any error:
    ``train_step`` (1e-6), and two processes sharing ``cuda:0`` over gloo
    at (1, 2) against it (1e-5; checksums equal, a destination slot split
    across the blocks), the step and its gp all-reduces timed.
+12. ``--attn`` under the segment reduce (``gnn_reduce="segment"``,
+   ``flag_attn``, :func:`segment_attn_phase`) at full width on the
+   headline, float32, TF32 off, with 1 head (``reg_fusion_attn``) and 4:
+   (a) its two kernels (``segment_attn_sum``, ``segment_attn_bwd``)
+   against their plain versions at every level's shapes, timed (median
+   of 10 cold-L2 calls) beside their bytes bound, one-slot floor and
+   plain version (no single PyTorch call computes either: no library
+   time); the forward whole and ``partial`` (its numerator over its
+   denominator bit for bit against the whole output), the backward
+   recomputing and stats-reading (bit for bit against each other,
+   ``d_w`` too, and ``d_w`` the same in two calls); the kernels on edge
+   shapes (empty slots, 1 to 33 edges, 1 to 64 heads, nh = 3 at D = 12,
+   D / nh < 4, D % 4 != 0, a misaligned h, a NaN) and launched right
+   after a writer of what they read after their wait, each bit for bit
+   against a run with a synchronize between; (b) and (c) as phase 11's,
+   for the segment ``--attn`` model beside the mailbox ``--attn`` model
+   on the same weights.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
