@@ -4854,14 +4854,6 @@ def segment_model_checks(torch, np, dev, smi, headline, design,
 
 # ---- phase 12: --attn under the segment reduce ----
 
-def attn_stats_out(torch, numer, den):
-    """The partial forward's numerator over each head's ``max(den,
-    1e-12)``: the output as the combine at one rank divides it."""
-    (s, nh), d = den.shape, numer.shape[1]
-    return (numer.view(s, nh, d // nh)
-            / den.clamp_min(1e-12)[:, :, None]).view(s, d)
-
-
 def attn_bits(torch, a, b) -> int:
     """Elements of ``a`` whose bits differ from ``b``'s (NaN equal to
     NaN)."""
@@ -4920,7 +4912,7 @@ def check_segment_attn_kernels(torch, graph, dev, timer, nh) -> tuple:
                     for got, want in zip(
                         (numer, mx, den),
                         K.segment_attn_sum_plain(h, src, off, w, True)))
-        stats = (attn_stats_out(torch, numer, den), mx, den)
+        stats = (K.divide_heads(numer, den), mx, den)
         if not torch.equal(stats[0], out):
             raise AssertionError(f"segment_attn_sum (nh {nh}) at pair {k}: "
                                  f"the partial numerator over its "
@@ -5068,7 +5060,7 @@ def check_segment_attn_edge_shapes(torch, dev):
                                  "err " + ", ".join(
                                      f"{attn_close(torch, x, y)[1]:.3g}"
                                      for x, y in pairs))
-        stats = (attn_stats_out(torch, part[0], part[2]), part[1], part[2])
+        stats = (K.divide_heads(part[0], part[2]), part[1], part[2])
         if attn_bits(torch, stats[0], out):
             raise AssertionError(f"segment_attn_sum: {what}: the partial "
                                  "numerator over its denominator differs "
@@ -5115,7 +5107,7 @@ def check_segment_attn_hazard(torch, graph, dev, early_writer, nh, pair=1):
     g = torch.randn((s, D), generator=gen, device=dev)
     w = attn_weights(torch, nh, gen, dev)
     numer, mx, den = K.segment_attn_sum_plain(h, src, off, w, True)
-    stats = (attn_stats_out(torch, numer, den), mx, den)
+    stats = (K.divide_heads(numer, den), mx, den)
     writers = hazard_writers(torch, dev, early_writer)
     h_v = torch.full_like(h, float("nan"))
     g_v = torch.full_like(g, float("nan"))

@@ -44,8 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fused_gnn import (_check_attn_w, _check_index, _check_rows,
-                        _stream)
+from .fused_gnn import _check_attn_w, _check_index, _check_rows, _stream
 from .gather import device_of
 from .segment import segment_sum, softmax_parts
 
@@ -311,8 +310,10 @@ def _attn_parts_plain(h, src, off, w):
             x, seg, scores)
 
 
-def _divide_heads(numer, den):
-    """``numer`` (S, D) over each head's ``max(den, 1e-12)`` (S, nh)."""
+def divide_heads(numer, den):
+    """``numer`` (S, D) over each head's ``max(den, 1e-12)`` (S, nh): the
+    output of :func:`segment_attn_sum` from its ``partial`` numerator and
+    denominator, as the combine over ranks divides them."""
     (s, nh), d = den.shape, numer.shape[1]
     return (numer.view(s, nh, d // nh)
             / den.clamp_min(1e-12)[:, :, None]).view(s, d)
@@ -323,7 +324,7 @@ def segment_attn_sum_plain(h, src, off, w, partial=False):
     numer, shift, den = _attn_parts_plain(h, src, off, w)[:3]
     if partial:
         return numer, shift, den
-    return _divide_heads(numer, den), None, None
+    return divide_heads(numer, den), None, None
 
 
 def segment_attn_sum(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
@@ -374,7 +375,7 @@ def segment_attn_bwd_plain(h, src, off, w, g, stats=None):
     ``stats``, or recomputed as :func:`segment_attn_sum_plain` computes
     them."""
     numer, mx, den, x, seg, scores = _attn_parts_plain(h, src, off, w)
-    out = _divide_heads(numer, den)
+    out = divide_heads(numer, den)
     if stats is not None:
         out, mx, den = stats
     e, d = x.shape

@@ -74,9 +74,10 @@ import torch.nn.functional as F
 
 from .fused_gnn import (MLP_NAMES, _flat_of, _mlp, _mlp_grads, _params_of,
                         _relu_split, mailbox_scatter)
-from .segment_kernels import (net_epilogue, net_update, segment_attn_bwd,
-                              segment_attn_sum, segment_mean,
-                              segment_softmax_sum, segment_softmax_sum_bwd)
+from .segment_kernels import (divide_heads, net_epilogue, net_update,
+                              segment_attn_bwd, segment_attn_sum,
+                              segment_mean, segment_softmax_sum,
+                              segment_softmax_sum_bwd)
 
 
 def require_tables(graph, who: str) -> None:
@@ -107,9 +108,7 @@ def combine_softmax(numer, shift, den, shard):
     shard.sum_(both)
     den, numer = both.split([heads, d], dim=1)
     den = den.contiguous()
-    out = (numer.reshape(s, heads, d // heads)
-           / den.clamp_min(1e-12)[:, :, None])
-    return out.view(s, d), top, den
+    return divide_heads(numer, den), top, den
 
 
 def _cell_reduce(h, graph, k, w_attn):
