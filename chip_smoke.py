@@ -4869,19 +4869,23 @@ def check_segment_attn_kernels(torch, graph, dev, timer, nh) -> tuple:
     ``segment_attn_bwd`` recomputing (the main path) and reading the
     statistics (an edge-sharded rank's), each tensor by
     :func:`attn_close`, the backward against the plain version on the
-    forward kernel's statistics. Bit for bit: the partial call's
-    numerator over its denominator (the combine at one rank) against the
-    whole call's output, the two backward modes given those statistics,
-    and ``d_w`` of two calls. Bytes count what a call must move: each
-    distinct source row and index once, w, and the outputs (``partial``
-    also writes the (S, nh) shift and denominator; the backward reads
-    g_out and writes the (E, D) cotangent and d_w, stats-reading also
-    reads the statistics); operations the products (2 D nh an edge for
-    the scores, 2 D for the weighted sum; the backward 2 D (3 nh + 2)).
-    No single PyTorch call computes either function: no library time.
-    Times: the median of REPS cold-L2 calls. Returns ``({name:
-    KernelRecord} of the main path's modes, [KernelRecord] of the
-    others)``."""
+    forward kernel's statistics (each call's ``d_w`` a sum of one call).
+    Bit for bit: the partial call's numerator over its denominator (the
+    combine at one rank) against the whole call's output, the two
+    backward modes given those statistics, and ``d_w`` of two calls.
+    Then the walk's backward order (pairs 9 to 1) into one
+    ``AttnGradSum`` a backward (:func:`check_attn_grad_sum`). Bytes count
+    what a call must move: each distinct source row and index once, w,
+    and the outputs (``partial`` also writes the (S, nh) shift and
+    denominator; the backward reads g_out and writes the (E, D)
+    cotangent, stats-reading also reads the statistics, and a pass
+    writes d_w once); operations the products (2 D nh an edge for the
+    scores, 2 D for the weighted sum; the backward 2 D (3 nh + 2)). No
+    single PyTorch call computes either function: no library time.
+    Times: the median of REPS cold-L2 calls; a backward pass is its
+    rows calls, each adding into a sum, and the sum's one reduce.
+    Returns ``({name: KernelRecord} of the main path's modes,
+    [KernelRecord] of the others)``."""
     from prtp_tpu_torch.ops import segment_kernels as K
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 21 + nh)
@@ -4892,6 +4896,9 @@ def check_segment_attn_kernels(torch, graph, dev, timer, nh) -> tuple:
     recs = {name: KernelRecord(name, design) for name in SEGMENT_ATTN_KERNELS}
     partial_rec = KernelRecord("segment_attn_sum", f"{design}, partial")
     stats_rec = KernelRecord("segment_attn_bwd", f"{design}, stats-reading")
+    # the timed calls' sums, one a mode
+    timed = {False: K.AttnGradSum(w), True: K.AttnGradSum(w)}
+    cots = {}
 
     def close(what, k, got, want):
         ok, err = attn_close(torch, got, want)
@@ -4937,6 +4944,7 @@ def check_segment_attn_kernels(torch, graph, dev, timer, nh) -> tuple:
             "partial numerator over its denominator vs the whole output: "
             "bit-equal")
         g = torch.randn((s, D), generator=gen, device=dev)
+        cots[k] = (src, off, g, stats)
         d_msg, d_w = K.segment_attn_bwd(h, src, off, w, g)
         d_st, d_w_st = K.segment_attn_bwd(h, src, off, w, g, stats)
         want_m, want_w = K.segment_attn_bwd_plain(h, src, off, w, g, stats)
@@ -4954,29 +4962,95 @@ def check_segment_attn_kernels(torch, graph, dev, timer, nh) -> tuple:
                 f"stats-reading differ at {modes} elements (d_msg, d_w); "
                 f"d_w again equal {torch.equal(again, d_w)}")
         # read the distinct rows, the tables, w and g; write the (E, D)
-        # cotangent and d_w; stats-reading also reads out, mx and den
+        # cotangent (and, once a pass, d_w); stats-reading also reads out,
+        # mx and den
         nbytes = (rows * row_b + e * 4 + (s + 1) * 4 + w_b + s * row_b
-                  + e * row_b + w_b)
+                  + e * row_b)
         ops = 2.0 * e * D * (3 * nh + 2)
-        ms = timer.ms(lambda: K.segment_attn_bwd(h, src, off, w, g))
-        ms_s = timer.ms(lambda: K.segment_attn_bwd(h, src, off, w, g, stats))
+        ms = timer.ms(lambda: K.segment_attn_bwd(h, src, off, w, g, None,
+                                                 timed[False]))
+        ms_s = timer.ms(lambda: K.segment_attn_bwd(h, src, off, w, g, stats,
+                                                   timed[True]))
+        ms_one = timer.ms(lambda: K.segment_attn_bwd(h, src, off, w, g))
         pms = timer.ms(lambda: K.segment_attn_bwd_plain(h, src, off, w, g))
         extra = s * row_b + 2 * s * st_b
         recs["segment_attn_bwd"].add(ms, pms, None, nbytes, ops, err)
         stats_rec.add(ms_s, pms, None, nbytes + extra, ops, err_s)
         log(f"  segment_attn_bwd nh {nh} pair {k}: {e} edges  kernel "
-            f"{ms:.4f} ms (stats-reading {ms_s:.4f})  plain {pms:.4f}  "
-            f"bound {bound(nbytes, ops)[0]:.4f} (stats-reading "
+            f"{ms:.4f} ms into a sum (stats-reading {ms_s:.4f}; a call with "
+            f"its own reduce {ms_one:.4f})  plain {pms:.4f}  bound "
+            f"{bound(nbytes, ops)[0]:.4f} (stats-reading "
             f"{bound(nbytes + extra, ops)[0]:.4f})  library none  max abs err "
             f"{err:.3g} (stats-reading {err_s:.3g}; d_w of max "
             f"{float(want_w.abs().max()):.3g}); recomputing vs stats-reading: "
             "bit-equal, d_w deterministic")
+    for rec, acc in ((recs["segment_attn_bwd"], timed[False]),
+                     (stats_rec, timed[True])):
+        red_ms = timer.ms(acc.finish)
+        rec.ms += red_ms
+        rec.bytes += w_b
+        log(f"  segment_attn_bwd nh {nh} ({rec.design}): the sum's reduce "
+            f"over {acc.filled} rows {red_ms:.4f} ms, once a pass")
+    check_attn_grad_sum(torch, h, w, cots, nh)
     return recs, [partial_rec, stats_rec]
+
+
+def check_attn_grad_sum(torch, h, w, cots, nh):
+    """Phase 12 (a): the walk's backward order over the pairs (9 to 1),
+    each ``segment_attn_bwd`` call adding into one ``AttnGradSum``
+    reduced once: ``d_w`` against the plain versions' per-call ``d_w``
+    added in that order (:func:`attn_close`); bit for bit, a second run,
+    the stats-reading mode, and a run with a synchronize after each call
+    (the calls back to back read and add to the workspace rows the call
+    before wrote: a read before the wait would miss its sums), the last
+    also for each call's ``d_msg``. ``cots``: ``{k: (src, off, g,
+    stats)}``."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    order = sorted(cots, reverse=True)
+
+    def backward(stats=False, sync=False):
+        acc = K.AttnGradSum(w)
+        d_msgs = []
+        for k in order:
+            src, off, g, st = cots[k]
+            d_msgs.append(K.segment_attn_bwd(h, src, off, w, g,
+                                             st if stats else None, acc)[0])
+            if sync:
+                torch.cuda.synchronize()
+        return d_msgs, acc.finish()
+
+    want = None
+    for k in order:
+        src, off, g, st = cots[k]
+        d_w = K.segment_attn_bwd_plain(h, src, off, w, g, st)[1]
+        want = d_w if want is None else want + d_w
+    got_m, got = backward()
+    ok, err = attn_close(torch, got, want)
+    runs = {"again": backward(), "stats-reading": backward(stats=True),
+            "synchronized": backward(sync=True)}
+    bits = {name: attn_bits(torch, run[1], got) for name, run in runs.items()}
+    bits["synchronized d_msg"] = sum(
+        attn_bits(torch, a, b) for a, b in zip(runs["synchronized"][0],
+                                               got_m))
+    if not ok or any(bits.values()):
+        raise AssertionError(f"segment_attn_bwd (nh {nh}): the backward's "
+                             f"d_w sum: max abs err {err:.3g} against the "
+                             f"plain sum; elements off: {bits}")
+    log(f"  segment_attn_bwd nh {nh}: d_w summed over the {len(order)} "
+        f"pairs in the walk's order into one sum (one reduce): max abs err "
+        f"{err:.3g} against the plain per-call sum (of max "
+        f"{float(want.abs().max()):.3g}); bit-equal to a second run, to the "
+        "stats-reading mode and to a run synchronized after each call "
+        "(d_msg too)")
 
 
 def segment_attn_floors(torch, graph, dev, timer, nh) -> dict:
     """Each ``--attn`` segment kernel with ``nh`` heads timed on a
-    one-slot call (one edge), by name."""
+    one-slot call (one edge), by name: the backward's rows kernel adding
+    into a sum (the walk's per-call cost); also, by ``(name, what)``, the
+    backward with its own reduce (a sum of one call) and the reduce of
+    one row alone."""
     from prtp_tpu_torch.ops import segment_kernels as K
 
     h = torch.randn((graph.num_rows + 1, D), device=dev)
@@ -4984,10 +5058,70 @@ def segment_attn_floors(torch, graph, dev, timer, nh) -> dict:
     src = graph.cell_src[1][:1]
     off = torch.tensor([0, 1], dtype=torch.int32, device=dev)
     row = torch.randn((1, D), device=dev)
+    acc = K.AttnGradSum(w)
     return {"segment_attn_sum": timer.ms(
                 lambda: K.segment_attn_sum(h, src, off, w)),
             "segment_attn_bwd": timer.ms(
-                lambda: K.segment_attn_bwd(h, src, off, w, row))}
+                lambda: K.segment_attn_bwd(h, src, off, w, row, None, acc)),
+            ("segment_attn_bwd", "one call"): timer.ms(
+                lambda: K.segment_attn_bwd(h, src, off, w, row)),
+            ("segment_attn_bwd", "reduce"): timer.ms(acc.finish)}
+
+
+def check_segment_attn_degree_mix(torch, graph, dev, timer, smi, nh):
+    """Phase 12 (a): the ``--attn`` segment pair with ``nh`` heads on the
+    headline's cell levels with slots of 5-8 edges mixed in
+    (:func:`degree_mixes`; a warp with a slot of more than 4 edges walks
+    its edges 4 rows at a time): the forward (whole) and the backward
+    (recomputing; a sum of one call) against their plain versions
+    (:func:`attn_close`, the backward on the plain statistics), timed
+    (the median of REPS cold-L2 calls) into ms a pass, the backward as
+    the walk runs it (each call adding into one sum, then its reduce),
+    beside each kernel's bound."""
+    from prtp_tpu_torch.ops import segment_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31 + nh)
+    h = torch.randn((graph.num_rows + 1, D), generator=gen, device=dev)
+    w = attn_weights(torch, nh, gen, dev)
+    row_b, w_b = D * 4, nh * D * 4
+    for mix, levels in degree_mixes(torch, graph, dev).items():
+        ms = {"fwd": 0.0, "bwd": 0.0}
+        nbytes = {"fwd": 0, "bwd": w_b}
+        ops = {"fwd": 0.0, "bwd": 0.0}
+        edges = slots = 0
+        err = 0.0
+        acc = K.AttnGradSum(w)
+        for src, off in levels:
+            s, e = off.shape[0] - 1, src.shape[0]
+            edges, slots = edges + e, slots + s
+            g = torch.randn((s, D), generator=gen, device=dev)
+            pairs = [(K.segment_attn_sum(h, src, off, w)[0],
+                      K.segment_attn_sum_plain(h, src, off, w)[0])]
+            pairs += list(zip(K.segment_attn_bwd(h, src, off, w, g),
+                              K.segment_attn_bwd_plain(h, src, off, w, g)))
+            for got, want in pairs:
+                ok, e_ = attn_close(torch, got, want)
+                if not (ok and bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"segment --attn pair (nh {nh}, "
+                                         f"{mix}) differs from its plain "
+                                         f"version: max abs err {e_}")
+                err = max(err, e_)
+            ms["fwd"] += timer.ms(lambda: K.segment_attn_sum(h, src, off, w))
+            ms["bwd"] += timer.ms(
+                lambda: K.segment_attn_bwd(h, src, off, w, g, None, acc))
+            read = (torch.unique(src).numel() * row_b + e * 4 + (s + 1) * 4
+                    + w_b)
+            nbytes["fwd"] += read + s * row_b
+            nbytes["bwd"] += read + s * row_b + e * row_b
+            ops["fwd"] += 2.0 * e * D * (nh + 1)
+            ops["bwd"] += 2.0 * e * D * (3 * nh + 2)
+        ms["bwd"] += timer.ms(acc.finish)
+        log(f"  degree mix {mix}, nh {nh} ({edges} edges into {slots} slots "
+            f"over {len(levels)} pairs): segment_attn_sum {ms['fwd']:.4f} ms "
+            f"a pass (bound {bound(nbytes['fwd'], ops['fwd'])[0]:.4f}), "
+            f"segment_attn_bwd {ms['bwd']:.4f} (bound "
+            f"{bound(nbytes['bwd'], ops['bwd'])[0]:.4f}); each matches its "
+            f"plain version (max abs err {err:.3g})  [{smi}]")
 
 
 def check_segment_attn_edge_shapes(torch, dev):
@@ -5094,10 +5228,13 @@ def check_segment_attn_hazard(torch, graph, dev, early_writer, nh, pair=1):
     ``partial``) right after each writer of :func:`hazard_writers` writes
     the NaN-filled ``h`` (the one input it reads after its wait), and
     ``segment_attn_bwd`` (recomputing and stats-reading) right after each
-    writes the NaN-filled ``g``: each of HAZARD_REPS launches must equal
-    bit for bit a run with a synchronize between writer and kernel (a
-    read before the wait would find NaN), and the synchronized run match
-    the plain version (:func:`attn_close`)."""
+    writes the NaN-filled ``g``, and again (both modes) into an
+    ``AttnGradSum`` whose workspace rows an earlier call wrote, right
+    after each writer writes those rows back into the NaN-filled
+    workspace: each of HAZARD_REPS launches must equal bit for bit a run
+    with a synchronize between writer and kernel (a read before the wait
+    would find NaN), and the synchronized run match the plain version
+    (:func:`attn_close`; the sum against the two calls' plain d_w)."""
     from prtp_tpu_torch.ops import segment_kernels as K
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 23 + nh)
@@ -5149,6 +5286,41 @@ def check_segment_attn_hazard(torch, graph, dev, early_writer, nh, pair=1):
             if any(bad) or not ok:
                 raise AssertionError(f"{name} (nh {nh}) right after {writer} "
                                      f"differs: {bad}")
+    # the sum's workspace: a second call right after a writer of the rows
+    # the first call left there (read before the wait, they would be NaN)
+    for st in (None, stats):
+        mode = "recomputing" if st is None else "stats-reading"
+        want_m, want_w = K.segment_attn_bwd_plain(h, src, off, w, g, st)
+        want = [want_m, want_w + want_w]
+        for writer, write in writers.items():
+            bad = []
+            for _ in range(HAZARD_REPS):
+                runs = []
+                for sync in (False, True):
+                    acc = K.AttnGradSum(w)
+                    K.segment_attn_bwd(h, src, off, w, g, st, acc)
+                    rows = acc.work.clone()
+                    acc.work.fill_(float("nan"))
+                    torch.cuda._sleep(int(0.2 * SPIN_CYCLES_PER_MS))
+                    write(acc.work, rows)
+                    if sync:
+                        torch.cuda.synchronize()
+                    d_msg = K.segment_attn_bwd(h, src, off, w, g, st, acc)[0]
+                    runs.append([d_msg, acc.finish()])
+                bad.append(sum(attn_bits(torch, a, b)
+                               for a, b in zip(*runs)))
+            ok = all(attn_close(torch, a, b)[0] for a, b in zip(runs[1],
+                                                                want))
+            log(f"  programmatic launch: segment_attn_bwd ({mode}, nh {nh}) "
+                f"into a sum, right after {writer} writes the rows an "
+                f"earlier call left in its workspace: elements off the "
+                f"synchronized run in each of {HAZARD_REPS} launches {bad}; "
+                f"synchronized run vs plain version (two calls' d_w) "
+                f"{'ok' if ok else 'DIFFERS'}")
+            if any(bad) or not ok:
+                raise AssertionError(f"segment_attn_bwd ({mode}, nh {nh}) "
+                                     f"into a sum right after {writer} "
+                                     f"differs: {bad}")
 
 
 def segment_attn_phase(torch, np, dev, smi, headline, compute_mode,
@@ -5158,8 +5330,10 @@ def segment_attn_phase(torch, np, dev, smi, headline, compute_mode,
     at the default model's full width on the headline, float32, TF32
     off, for nh in ATTN_HEADS (1: the recorded ``reg_fusion_attn``; 4).
 
-    (a) :func:`check_segment_attn_kernels` and each kernel's one-slot
-    floor, for each nh; :func:`check_segment_attn_edge_shapes`;
+    (a) :func:`check_segment_attn_kernels` (with
+    :func:`check_attn_grad_sum`), each kernel's one-slot floor and
+    :func:`check_segment_attn_degree_mix`, for each nh;
+    :func:`check_segment_attn_edge_shapes`;
     :func:`check_segment_attn_hazard` for each nh.
     (b) and (c), for each nh: :func:`segment_model_checks` with
     ``flag_attn`` and ``num_heads``, beside the mailbox ``--attn`` model
@@ -5189,6 +5363,10 @@ def segment_attn_phase(torch, np, dev, smi, headline, compute_mode,
         for rec in (*recs.values(), *modes):
             rec.floor_ms = floors[rec.name]
             log(f"  {rec.summary()}  [{smi}]")
+        log(f"  segment_attn_bwd nh {nh}: one-slot call with its own reduce "
+            f"{floors['segment_attn_bwd', 'one call']:.4f} ms, the reduce "
+            f"of one row {floors['segment_attn_bwd', 'reduce']:.4f}  [{smi}]")
+        check_segment_attn_degree_mix(torch, graph, dev, timer, smi, nh)
         main_recs[nh] = recs
     del timer
     check_segment_attn_edge_shapes(torch, dev)

@@ -85,9 +85,6 @@
 
 #include "common.cuh"
 
-constexpr int kReduceLanes = 32;  // attn_dw_reduce: partial sums an element
-constexpr int kMaxShare = 232448;  // bytes of shared memory a block may use
-
 // This lane's part of da_jg: its products of head g's channels of the
 // slot's row with d_f's row, summed over its vectors, then over the group.
 template <int N>
@@ -107,21 +104,6 @@ __device__ __forceinline__ float head_dot(const float* __restrict__ h,
     }
   }
   return group_sum(part, group);
-}
-
-// Adds the tile's rows of `share` ((rows of the tile, n): the rows'
-// shares of n elements of d_w), in row order, to the block's partial
-// sums `part` (n floats, this block's alone, in shared or global
-// memory); the tile is the block's first if `first`. Every thread of the
-// block calls it between two barriers.
-__device__ __forceinline__ void add_share(float* part,
-                                          const float* __restrict__ share,
-                                          int n, int tile_rows, bool first) {
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    float sum = first ? 0.f : part[c];
-    for (int r = 0; r < tile_rows; ++r) sum += share[r * n + c];
-    part[c] = sum;
-  }
 }
 
 // KMAX > 0: the register path for k <= KMAX and d / N <= group; NH > 0
@@ -364,28 +346,11 @@ __global__ void __launch_bounds__(kMailboxThreads)
   }
 }
 
-// Block (32 elements) x kReduceLanes: lane y sums blocks y, y + 32, ...
-// in order, then lane 0 sums the 32 partial sums in order.
+// d_w from the blocks' partial sums (common.cuh's dw_reduce).
 __global__ void attn_dw_reduce_kernel(const float* partial,
                                       float* __restrict__ d_w, int blocks,
                                       int elems) {
-  __shared__ float part[kReduceLanes][32];
-  grid_dep_wait();
-  const int e = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (e < elems) {
-#pragma unroll 8
-    for (int b = threadIdx.y; b < blocks; b += kReduceLanes)
-      acc += __ldcg(partial + static_cast<int64_t>(b) * elems + e);
-  }
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && e < elems) {
-    float sum = 0.f;
-#pragma unroll
-    for (int y = 0; y < kReduceLanes; ++y) sum += part[y][threadIdx.x];
-    d_w[e] = sum;
-  }
+  dw_reduce(partial, d_w, blocks, elems);
 }
 
 // every instantiation has the same parameters

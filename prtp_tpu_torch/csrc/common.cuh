@@ -367,7 +367,8 @@ __device__ __forceinline__ int slot_edges(const int32_t* __restrict__ src,
 // it): a lane group of exactly D / 4 lanes covers a slot, one float4 a
 // lane, head g's lanes the group / nh from g group / nh; head_scores()
 // reduces every head's score in one pass, and a slot of up to kSlotRows
-// edges keeps its rows and scores in registers. Otherwise the per-head
+// edges keeps its rows and scores in registers; a wider slot is walked
+// once, its shift a running max (slot_attn). Otherwise the per-head
 // loop: per head, walks over the slot's edges, each score a full-group
 // sum, a lane's channels re-read from L1.
 //
@@ -383,18 +384,63 @@ inline bool attn_heads_together(int vecs, int nh) {
          vecs % nh == 0;
 }
 
+// Heads together: fc_attn2's weights w (nh, d) as a lane reads them,
+// its float4 at column col of each head's row. A kernel takes them from
+// registers (RegWeights, NH x 4 a lane) or from shared memory
+// (SharedWeights, loaded once a block by load_shared_weights); both give
+// the same values to the same arithmetic, so the same bits.
+template <int NH>
+struct RegWeights {
+  float v[NH][4];
+  __device__ __forceinline__ RegWeights(const float* __restrict__ w, int d,
+                                        int col) {
+#pragma unroll
+    for (int g = 0; g < NH; ++g)
+      load_vec<4>(w + static_cast<int64_t>(g) * d + col, v[g]);
+  }
+  __device__ __forceinline__ void get(int g, float (&o)[4]) const {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) o[k] = v[g][k];
+  }
+};
+
+struct SharedWeights {
+  const float* p;  // the block's copy of w, at this lane's column
+  int d;
+  __device__ __forceinline__ void get(int g, float (&o)[4]) const {
+    const float4 t = *reinterpret_cast<const float4*>(p + g * d);
+    o[0] = t.x;
+    o[1] = t.y;
+    o[2] = t.z;
+    o[3] = t.w;
+  }
+};
+
+// Copies w (n floats, a multiple of 4, 16-byte aligned: a weight no
+// kernel of the walk writes, so it may be read before the wait) into
+// the block's shared memory ws. Every thread of the block calls it; it
+// ends in a barrier.
+__device__ __forceinline__ void load_shared_weights(
+    const float* __restrict__ w, float* ws, int n) {
+  for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4)
+    *reinterpret_cast<float4*>(ws + i) =
+        __ldg(reinterpret_cast<const float4*>(w + i));
+  __syncthreads();
+}
+
 // Heads together: the NH scores of the float4 x of this lane's row,
 // summed over the group (head_scores: this lane gets its own head's).
-template <int NH>
-__device__ __forceinline__ float attn_score(const float (&x)[4],
-                                            const float (&w)[NH][4], int lane,
-                                            int group) {
+template <int NH, class W>
+__device__ __forceinline__ float attn_score(const float (&x)[4], const W& w,
+                                            int lane, int group) {
   float p[NH];
 #pragma unroll
   for (int gg = 0; gg < NH; ++gg) {
+    float v[4];
+    w.get(gg, v);
     p[gg] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[gg] += x[i] * w[gg][i];
+    for (int i = 0; i < 4; ++i) p[gg] += x[i] * v[i];
   }
   return head_scores<NH>(p, lane, group);
 }
@@ -404,14 +450,13 @@ __device__ __forceinline__ float attn_score(const float (&x)[4],
 // from idx, slot_edges), every load issued before any use, and their
 // scores into s (those past the warp's wdeg 0). Every lane of the warp
 // calls it with the same j0.
-template <int NH, bool CG>
+template <int NH, bool CG, class W>
 __device__ __forceinline__ void attn_chunk(const float* h,
                                            const int32_t* __restrict__ src,
                                            const int32_t (&idx)[kSlotRows],
                                            int32_t begin, int deg, int wdeg,
-                                           int j0, int d, int col,
-                                           const float (&w)[NH][4], int lane,
-                                           int group,
+                                           int j0, int d, int col, const W& w,
+                                           int lane, int group,
                                            float (&x)[kSlotRows][4],
                                            float (&s)[kSlotRows]) {
   const int n = min(kSlotRows, deg - j0);
@@ -430,38 +475,46 @@ __device__ __forceinline__ void attn_chunk(const float* h,
 }
 
 // Heads together: the slot's shift mx, denominator den (this lane's
-// head's) and this lane's float4 of the numerator. On return x and s
-// hold chunk 0 if wdeg <= kSlotRows (the register path: each row loaded
-// once), else the last chunk (the generic path walks the edges twice,
-// kSlotRows rows at a time: the max, then the sums).
-template <int NH, bool CG>
+// head's) and this lane's float4 of the numerator, in one walk over its
+// edges, kSlotRows rows at a time (each row loaded and scored once).
+// The shift is the running max with JAX's guard (NaN once any score is
+// NaN, so the guard makes it 0, as for an empty slot); where a chunk
+// moves it, the sums so far are rescaled by exp(old shift - new shift)
+// before the chunk's exps are added. A slot of at most kSlotRows edges
+// (the register path) is one chunk: the two-pass max-then-sums. On
+// return x and s hold chunk 0 if wdeg <= kSlotRows, else the last chunk.
+template <int NH, bool CG, class W>
 __device__ __forceinline__ void slot_attn(const float* h,
                                           const int32_t* __restrict__ src,
                                           const int32_t (&idx)[kSlotRows],
                                           int32_t begin, int deg, int wdeg,
-                                          int d, int col,
-                                          const float (&w)[NH][4], int lane,
-                                          int group, float (&x)[kSlotRows][4],
+                                          int d, int col, const W& w,
+                                          int lane, int group,
+                                          float (&x)[kSlotRows][4],
                                           float (&s)[kSlotRows], float& mx,
                                           float& den, float (&num)[4]) {
-  mx = -INFINITY;
-#pragma unroll 1
-  for (int j0 = 0; j0 == 0 || j0 < wdeg; j0 += kSlotRows) {
-    attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, j0, d, col, w, lane,
-                       group, x, s);
-#pragma unroll
-    for (int i = 0; i < kSlotRows; ++i)
-      if (j0 + i < deg) mx = nan_max(mx, s[i]);
-  }
-  if (!isfinite(mx)) mx = 0.f;
+  float top = -INFINITY;  // the running max
+  mx = 0.f;               // its guarded value, the exps' shift
   den = 0.f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) num[k] = 0.f;
 #pragma unroll 1
   for (int j0 = 0; j0 == 0 || j0 < wdeg; j0 += kSlotRows) {
-    if (wdeg > kSlotRows)
-      attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, j0, d, col, w, lane,
-                         group, x, s);
+    attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, j0, d, col, w, lane,
+                       group, x, s);
+    float next = top;
+#pragma unroll
+    for (int i = 0; i < kSlotRows; ++i)
+      if (j0 + i < deg) next = nan_max(next, s[i]);
+    const float shift = isfinite(next) ? next : 0.f;
+    if (j0 > 0) {  // rescale the sums to the new shift (1: exact)
+      const float r = top == -INFINITY ? 0.f : expf(mx - shift);
+      den *= r;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) num[k] *= r;
+    }
+    top = next;
+    mx = shift;
 #pragma unroll
     for (int i = 0; i < kSlotRows; ++i) {
       if (j0 + i < deg) {
@@ -637,4 +690,57 @@ cudaError_t launch_programmatic(void (*kernel)(Params...), dim3 grid,
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   const cudaError_t last = cudaGetLastError();  // and clear it
   return err != cudaSuccess ? err : last;
+}
+
+// ---- fc_attn2's gradient without float atomics (attn_bwd and
+// segment_attn_bwd) ----
+//
+// Each block of the rows kernel sums its edges' (or slots') shares of
+// d_w in a fixed order into its own row of a workspace (blocks, nh, D);
+// then one small kernel adds the rows in row order (dw_reduce). Every
+// sum has a fixed order, so a call gives the same bits every time.
+
+constexpr int kReduceLanes = 32;  // dw_reduce: partial sums an element
+constexpr int kMaxShare = 232448;  // bytes of shared memory a block may use
+
+// Adds the tile's rows of `share` ((rows of the tile, n): the rows'
+// shares of n elements of d_w), in row order, to the block's partial
+// sums `part` (n floats, this block's alone, in shared or global
+// memory); `part` is overwritten if `first`. Every thread of the block
+// calls it between two barriers.
+__device__ __forceinline__ void add_share(float* part,
+                                          const float* __restrict__ share,
+                                          int n, int tile_rows, bool first) {
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    float sum = first ? 0.f : part[c];
+    for (int r = 0; r < tile_rows; ++r) sum += share[r * n + c];
+    part[c] = sum;
+  }
+}
+
+// The body of a reduce kernel launched as (elems / 32 rounded up) blocks
+// of 32 x kReduceLanes threads: d_w[e] = the partial sums partial[b, e]
+// of rows b < blocks, added in row order (lane y sums rows y, y + 32,
+// ... in order, then lane 0 sums the 32 partial sums in order), once
+// the kernel before it has finished.
+__device__ __forceinline__ void dw_reduce(const float* partial,
+                                          float* __restrict__ d_w,
+                                          int blocks, int elems) {
+  __shared__ float part[kReduceLanes][32];
+  grid_dep_wait();
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (e < elems) {
+#pragma unroll 8
+    for (int b = threadIdx.y; b < blocks; b += kReduceLanes)
+      acc += __ldcg(partial + static_cast<int64_t>(b) * elems + e);
+  }
+  part[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < elems) {
+    float sum = 0.f;
+#pragma unroll
+    for (int y = 0; y < kReduceLanes; ++y) sum += part[y][threadIdx.x];
+    d_w[e] = sum;
+  }
 }

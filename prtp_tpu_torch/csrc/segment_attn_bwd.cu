@@ -84,53 +84,43 @@
 
 #include "common.cuh"
 
-constexpr int kReduceLanes = 32;  // segment_dw_reduce: partial sums an element
-constexpr int kMaxShare = 232448;  // bytes of shared memory a block may use
-
-// Adds the tile's rows of `share` ((slots of the tile, n): the slots'
-// shares of n elements of d_w), in slot order, to the block's partial
-// sums `part` (n floats, this block's alone, in shared or global
-// memory); the tile is the block's first if `first`. Every thread of the
-// block calls it between two barriers.
-__device__ __forceinline__ void add_share(float* part,
-                                          const float* __restrict__ share,
-                                          int n, int tile_rows, bool first) {
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    float sum = first ? 0.f : part[c];
-    for (int r = 0; r < tile_rows; ++r) sum += share[r * n + c];
-    part[c] = sum;
-  }
-}
+#ifndef PRTP_BWD_MIN_BLOCKS
+#define PRTP_BWD_MIN_BLOCKS 8
+#endif
+constexpr int kBwdMinBlocks = PRTP_BWD_MIN_BLOCKS;
 
 // Heads together: NH heads, one float4 a lane, group == d / 4. STATS:
-// the stats-reading mode; else the recomputing one. partial: (gridDim.x,
-// NH, d), this block's share of d_w summed over its tiles in order.
+// the stats-reading mode; else the recomputing one. work: (>= gridDim.x,
+// NH, d): this block's d_w sums are added to its row, or written there
+// if the row is past `filled` (the rows the sum's earlier calls wrote).
 template <int NH, bool STATS>
-__global__ void __launch_bounds__(kMailboxThreads)
+__global__ void __launch_bounds__(kMailboxThreads,
+                                  NH <= 4 ? kBwdMinBlocks : 1)
     segment_attn_bwd_heads_kernel(
         const float* __restrict__ h, const int32_t* __restrict__ src,
         const int32_t* __restrict__ off, const float* __restrict__ w,
         const float* __restrict__ out, const float* __restrict__ mx_in,
         const float* __restrict__ den_in, const float* g_out,
-        float* __restrict__ d_msg, float* __restrict__ partial, int64_t segs,
-        int d, int nh, int group, int64_t tiles) {
-  // (tile slots, NH, d): the slots' shares; then the block's partial sums
-  extern __shared__ __align__(16) float share[];
-  const int tile_rows = kMailboxThreads / group;
+        float* __restrict__ d_msg, float* work, int64_t segs, int d, int nh,
+        int group, int64_t tiles, int filled) {
+  // w's copy (NH, d); then each lane group's d_w sums (groups, NH, d)
+  extern __shared__ __align__(16) float smem[];
   const int n = NH * d;
-  float* srow = share + (threadIdx.x / group) * n;  // this group's slot
-  float* part = share + tile_rows * n;
   const int c = threadIdx.x & (group - 1);  // this lane's float4
   const int lanes = group / NH;             // a head's lanes
   const int hg = c / lanes;                 // this lane's head
-  float wv[NH][4];
+  load_shared_weights(w, smem, n);
+  const SharedWeights wt{smem + c * 4, d};
+  // this lane's float4 of each head's d_w over its group's slots, in
+  // tile order, each slot's edges in order
+  float dw[NH][4];
 #pragma unroll
   for (int gg = 0; gg < NH; ++gg)
-    load_vec<4>(w + static_cast<int64_t>(gg) * d + c * 4, wv[gg]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dw[gg][k] = 0.f;
   // no lane leaves the loops early: every lane of the warp takes part in
-  // the shuffles, every thread of the block in the barriers
+  // the shuffles
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const bool first = tile == blockIdx.x;
     const RowLanes rl = row_lanes(group, tile);
     const bool row_ok = rl.row < segs;
     // ---- before the wait: the tables, hf, w and the statistics ----
@@ -148,11 +138,11 @@ __global__ void __launch_bounds__(kMailboxThreads)
         for (int k = 0; k < 4; ++k) f[k] = 0.f;
       }
       if (wdeg <= kSlotRows)
-        attn_chunk<NH, false>(h, src, idx, begin, deg, wdeg, 0, d, c * 4, wv,
+        attn_chunk<NH, false>(h, src, idx, begin, deg, wdeg, 0, d, c * 4, wt,
                               c, group, x, s);
     } else {
       float num[4];
-      slot_attn<NH, false>(h, src, idx, begin, deg, wdeg, d, c * 4, wv, c,
+      slot_attn<NH, false>(h, src, idx, begin, deg, wdeg, d, c * 4, wt, c,
                            group, x, s, mx, den, num);
 #pragma unroll
       for (int k = 0; k < 4; ++k) f[k] = softmax_out(num[k], den);
@@ -171,79 +161,67 @@ __global__ void __launch_bounds__(kMailboxThreads)
 #pragma unroll
     for (int k = 0; k < 4; ++k) tp += gs[k] * f[k];
     const float t = group_sum(tp, lanes);
-#pragma unroll
-    for (int gg = 0; gg < NH; ++gg) {
-      const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-      store_vec<4>(srow + gg * d + c * 4, zero);
-    }
 #pragma unroll 1
     for (int j0 = 0; j0 == 0 || j0 < wdeg; j0 += kSlotRows) {
       if (wdeg > kSlotRows)
-        attn_chunk<NH, false>(h, src, idx, begin, deg, wdeg, j0, d, c * 4, wv,
+        attn_chunk<NH, false>(h, src, idx, begin, deg, wdeg, j0, d, c * 4, wt,
                               c, group, x, s);
-      float a[kSlotRows], ds[kSlotRows];
 #pragma unroll
       for (int i = 0; i < kSlotRows; ++i) {
-        a[i] = ds[i] = 0.f;
-        if (j0 + i < wdeg) {  // the same in every lane of the warp
-          const bool valid = j0 + i < deg;
-          float p = 0.f;
+        if (j0 + i >= wdeg) continue;  // the same in every lane of the warp
+        const bool valid = j0 + i < deg;
+        float p = 0.f;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) p += gs[k] * x[i][k];
-          const float da = group_sum(p, lanes);
-          if (valid) {
-            a[i] = expf(s[i] - mx) / dd;
-            ds[i] = a[i] * (da - t);
+        for (int k = 0; k < 4; ++k) p += gs[k] * x[i][k];
+        const float da = group_sum(p, lanes);
+        const float a = valid ? expf(s[i] - mx) / dd : 0.f;
+        const float ds = valid ? a * (da - t) : 0.f;
+        // every head's ds: the score path and d_w; then the edge's store
+        float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int gg = 0; gg < NH; ++gg) {
+          const float dsg = __shfl_sync(0xffffffffu, ds, gg * lanes, group);
+          float v[4];
+          wt.get(gg, v);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            sc[k] += dsg * v[k];
+            dw[gg][k] += dsg * x[i][k];
           }
         }
-      }
-      float sc[kSlotRows][4];
-#pragma unroll
-      for (int i = 0; i < kSlotRows; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) sc[i][k] = 0.f;
-#pragma unroll
-      for (int gg = 0; gg < NH; ++gg) {
-        float* sh = srow + gg * d + c * 4;
-        float dw[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) dw[k] = sh[k];
-#pragma unroll
-        for (int i = 0; i < kSlotRows; ++i) {
-          if (j0 + i < wdeg) {
-            const float dsg = __shfl_sync(0xffffffffu, ds[i], gg * lanes,
-                                          group);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              sc[i][k] += dsg * wv[gg][k];
-              dw[k] += dsg * x[i][k];
-            }
-          }
-        }
-        store_vec<4>(sh, dw);
-      }
-#pragma unroll
-      for (int i = 0; i < kSlotRows; ++i) {
-        if (j0 + i < deg) {
+        if (valid) {
           float o[4];
 #pragma unroll
-          for (int k = 0; k < 4; ++k) o[k] = a[i] * gs[k] + sc[i][k];
+          for (int k = 0; k < 4; ++k) o[k] = a * gs[k] + sc[k];
           store_vec<4>(d_msg + static_cast<int64_t>(begin + j0 + i) * d +
                            c * 4,
                        o);
         }
       }
     }
-    __syncthreads();
-    add_share(part, share, n, tile_rows, first);
-    __syncthreads();
   }
-  float* row = partial + static_cast<int64_t>(blockIdx.x) * n;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) row[e] = part[e];
+  // the lane groups' sums into the block's row, in group order, after
+  // the row's earlier sums (the previous call's rows kernel wrote them)
+  float* gsum = smem + n;
+#pragma unroll
+  for (int gg = 0; gg < NH; ++gg)
+    store_vec<4>(gsum + (threadIdx.x / group) * n + gg * d + c * 4, dw[gg]);
+  __syncthreads();
+  grid_dep_wait();
+  float* row = work + static_cast<int64_t>(blockIdx.x) * n;
+  const bool fresh = static_cast<int>(blockIdx.x) >= filled;
+  const int groups = kMailboxThreads / group;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    float sum = fresh ? 0.f : __ldcg(row + e);
+    for (int r = 0; r < groups; ++r) sum += gsum[r * n + e];
+    row[e] = sum;
+  }
 }
 
 // The per-head loop: any nh dividing d, N floats a vector. share: (tile
-// slots, d), a head's shares at a time; partial: (gridDim.x, nh, d).
+// slots, d), a head's shares at a time, then the block's sums (nh, d)
+// over its tiles in order, added to its row of work at the end as the
+// heads kernel adds them.
 template <int N, bool STATS>
 __global__ void __launch_bounds__(kMailboxThreads)
     segment_attn_bwd_loop_kernel(
@@ -251,12 +229,12 @@ __global__ void __launch_bounds__(kMailboxThreads)
         const int32_t* __restrict__ off, const float* __restrict__ w,
         const float* __restrict__ out, const float* __restrict__ mx_in,
         const float* __restrict__ den_in, const float* g_out,
-        float* __restrict__ d_msg, float* __restrict__ partial, int64_t segs,
-        int d, int nh, int group, int64_t tiles) {
+        float* __restrict__ d_msg, float* work, int64_t segs, int d, int nh,
+        int group, int64_t tiles, int filled) {
   extern __shared__ __align__(16) float share[];
   const int tile_rows = kMailboxThreads / group;
   float* srow = share + (threadIdx.x / group) * d;  // this group's slot
-  float* part = partial + static_cast<int64_t>(blockIdx.x) * nh * d;
+  float* part = share + tile_rows * d;
   const int dh = d / nh;
   grid_dep_wait();
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -333,35 +311,22 @@ __global__ void __launch_bounds__(kMailboxThreads)
         }
       }
       __syncthreads();
-      add_share(part + static_cast<int64_t>(hg) * d, share, d, tile_rows,
-                first);
+      add_share(part + hg * d, share, d, tile_rows, first);
       __syncthreads();
     }
   }
+  // every block has a tile (the grid is at most the tiles)
+  float* row = work + static_cast<int64_t>(blockIdx.x) * nh * d;
+  const bool fresh = static_cast<int>(blockIdx.x) >= filled;
+  for (int e = threadIdx.x; e < nh * d; e += blockDim.x)
+    row[e] = (fresh ? 0.f : __ldcg(row + e)) + part[e];
 }
 
-// Block (32 elements) x kReduceLanes: lane y sums blocks y, y + 32, ...
-// in order, then lane 0 sums the 32 partial sums in order.
-__global__ void segment_dw_reduce_kernel(const float* partial,
+// d_w from the blocks' rows of the workspace (common.cuh's dw_reduce).
+__global__ void segment_dw_reduce_kernel(const float* work,
                                          float* __restrict__ d_w, int blocks,
                                          int elems) {
-  __shared__ float part[kReduceLanes][32];
-  grid_dep_wait();
-  const int e = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (e < elems) {
-#pragma unroll 8
-    for (int b = threadIdx.y; b < blocks; b += kReduceLanes)
-      acc += __ldcg(partial + static_cast<int64_t>(b) * elems + e);
-  }
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && e < elems) {
-    float sum = 0.f;
-#pragma unroll
-    for (int y = 0; y < kReduceLanes; ++y) sum += part[y][threadIdx.x];
-    d_w[e] = sum;
-  }
+  dw_reduce(work, d_w, blocks, elems);
 }
 
 // every rows kernel has the same parameters
@@ -379,15 +344,16 @@ static SegmentAttnBwdKernel heads_kernel(int nh) {
   }
 }
 
-// Launches segment_attn_bwd_rows on at most `blocks` blocks; *grid gets
-// the number launched.
+// Launches the rows kernel on min(tiles, blocks) blocks, each with at
+// least one tile; *grid gets the number launched.
 template <int N>
 static cudaError_t launch_rows(const float* h, const int32_t* src,
                                const int32_t* off, const float* w,
                                const float* out, const float* mx,
                                const float* den, const float* g, float* d_msg,
-                               float* partial, int64_t segs, int d, int nh,
-                               int blocks, unsigned* grid, cudaStream_t s) {
+                               float* work, int64_t segs, int d, int nh,
+                               int blocks, int filled, int* grid,
+                               cudaStream_t s) {
   const int vecs = d / N;
   const int group = lane_group(vecs > kSlotRows ? vecs : kSlotRows);
   const int tile_rows = kMailboxThreads / group;
@@ -398,10 +364,10 @@ static cudaError_t launch_rows(const float* h, const int32_t* src,
       together ? (stats ? heads_kernel<true>(nh) : heads_kernel<false>(nh))
       : stats  ? &segment_attn_bwd_loop_kernel<N, true>
                : &segment_attn_bwd_loop_kernel<N, false>;
-  // the tile's shares, and with the heads together the block's partial
-  // sums after them
+  // heads together: w's copy and the lane groups' sums; the per-head
+  // loop: the tile's shares and the block's sums
   const size_t smem = sizeof(float) * d *
-                      (together ? (tile_rows + 1) * nh : tile_rows);
+                      (together ? (tile_rows + 1) * nh : tile_rows + nh);
   if (smem > kMaxShare) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -409,25 +375,27 @@ static cudaError_t launch_rows(const float* h, const int32_t* src,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  *grid = static_cast<unsigned>(tiles < blocks ? tiles : blocks);
+  *grid = static_cast<int>(tiles < blocks ? tiles : blocks);
   return launch_programmatic(kernel, *grid, kMailboxThreads, smem, s, h, src,
-                             off, w, out, mx, den, g, d_msg, partial, segs, d,
-                             nh, group, tiles);
+                             off, w, out, mx, den, g, d_msg, work, segs, d,
+                             nh, group, tiles, filled);
 }
 
-// h: (> max(src), d) float32, src: (off[segs],) int32, off: (segs + 1,)
-// int32 ascending, w: (nh, d) float32 with nh dividing d, g: (segs, d)
-// float32, d_msg: (off[segs], d) float32, d_w: (nh, d) float32; out:
+// One call of a d_w sum. h: (> max(src), d) float32, src: (off[segs],)
+// int32, off: (segs + 1,) int32 ascending, w: (nh, d) float32 with nh
+// dividing d, g: (segs, d) float32, d_msg: (off[segs], d) float32; out:
 // (segs, d), mx, den: (segs, nh) float32 all three (stats-reading), or
-// all null (recomputing); work: blocks * nh * d floats of workspace
-// (blocks >= 1).
+// all null (recomputing); work: blocks * nh * d floats (blocks >= 1),
+// whose rows below `filled` hold the sum's earlier calls' sums. Adds
+// this call's to rows [0, *grid) (writing those at or past `filled`).
 PRTP_EXPORT int segment_attn_bwd_launch(const void* h, const void* src,
                                         const void* off, const void* w,
                                         const void* out, const void* mx,
                                         const void* den, const void* g,
-                                        void* d_msg, void* d_w, void* work,
-                                        int64_t segs, int d, int nh,
-                                        int blocks, void* stream) {
+                                        void* d_msg, void* work, int64_t segs,
+                                        int d, int nh, int blocks, int filled,
+                                        int* grid, void* stream) {
+  *grid = 0;
   if (segs == 0 || d == 0) return 0;
   if (nh < 1 || d % nh != 0 || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -441,22 +409,29 @@ PRTP_EXPORT int segment_attn_bwd_launch(const void* h, const void* src,
   const float* dp = static_cast<const float*>(den);
   const float* gp = static_cast<const float*>(g);
   float* rp = static_cast<float*>(d_msg);
-  float* partial = static_cast<float*>(work);
+  float* wk = static_cast<float*>(work);
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w) |
       reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(g) |
       reinterpret_cast<uintptr_t>(d_msg);
-  unsigned grid = 0;
   const cudaError_t err =
       d % 4 == 0 && align % 16 == 0
-          ? launch_rows<4>(hp, sp, op, wp, fp, mp, dp, gp, rp, partial, segs,
-                           d, nh, blocks, &grid, s)
-          : launch_rows<1>(hp, sp, op, wp, fp, mp, dp, gp, rp, partial, segs,
-                           d, nh, blocks, &grid, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int elems = nh * d;
+          ? launch_rows<4>(hp, sp, op, wp, fp, mp, dp, gp, rp, wk, segs, d,
+                           nh, blocks, filled, grid, s)
+          : launch_rows<1>(hp, sp, op, wp, fp, mp, dp, gp, rp, wk, segs, d,
+                           nh, blocks, filled, grid, s);
+  return static_cast<int>(err);
+}
+
+// The end of a d_w sum: d_w[e] = the rows [0, blocks) of work ((blocks,
+// elems) floats) added in row order; blocks >= 1.
+PRTP_EXPORT int segment_dw_reduce_launch(const void* work, void* d_w,
+                                         int blocks, int elems,
+                                         void* stream) {
+  if (elems == 0) return 0;
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_programmatic(
       segment_dw_reduce_kernel, (elems + 31) / 32, dim3(32, kReduceLanes), 0,
-      s, static_cast<const float*>(partial), static_cast<float*>(d_w),
-      static_cast<int>(grid), elems));
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(work),
+      static_cast<float*>(d_w), blocks, elems));
 }

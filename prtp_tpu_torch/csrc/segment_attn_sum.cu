@@ -64,7 +64,8 @@
 
 #include "common.cuh"
 
-// Heads together: NH heads, one float4 a lane, group == d / 4.
+// Heads together: NH heads, one float4 a lane, group == d / 4; w's
+// (NH, d) copy in shared memory.
 template <int NH>
 __global__ void __launch_bounds__(kMailboxThreads)
     segment_attn_heads_kernel(const float* h, const int32_t* __restrict__ src,
@@ -74,6 +75,7 @@ __global__ void __launch_bounds__(kMailboxThreads)
                               float* __restrict__ mx_out,
                               float* __restrict__ den_out, int64_t segs,
                               int d, int nh, int partial, int group) {
+  extern __shared__ __align__(16) float ws[];
   const RowLanes rl = row_lanes(group);
   const bool row_ok = rl.row < segs;
   // ---- before the wait: off, src and w only ----
@@ -82,14 +84,16 @@ __global__ void __launch_bounds__(kMailboxThreads)
   const int wdeg = __reduce_max_sync(0xffffffffu, deg);
   const int c = rl.lane;          // this lane's float4 of channels
   const int lanes = group / NH;   // a head's lanes
-  float wv[NH][4];
-#pragma unroll
-  for (int gg = 0; gg < NH; ++gg)
-    load_vec<4>(w + static_cast<int64_t>(gg) * d + c * 4, wv[gg]);
+#ifdef PRTP_ATTN_REG_WEIGHTS
+  const RegWeights<NH> wt(w, d, c * 4);
+#else
+  load_shared_weights(w, ws, NH * d);
+  const SharedWeights wt{ws + c * 4, d};
+#endif
   // ---- after the wait: h, then the stores ----
   grid_dep_wait();
   float x[kSlotRows][4], s[kSlotRows], mx, den, num[4];
-  slot_attn<NH, true>(h, src, idx, begin, deg, wdeg, d, c * 4, wv, c, group,
+  slot_attn<NH, true>(h, src, idx, begin, deg, wdeg, d, c * 4, wt, c, group,
                       x, s, mx, den, num);
   if (!row_ok) return;
   float res[4];
@@ -172,11 +176,14 @@ static cudaError_t launch(const float* h, const int32_t* src,
   const int vecs = d / N;
   const int group = lane_group(vecs > kSlotRows ? vecs : kSlotRows);
   const unsigned grid = mailbox_grid(segs, group);
+  const bool together = N == 4 && attn_heads_together(vecs, nh);
   const SegmentAttnKernel kernel =
-      N == 4 && attn_heads_together(vecs, nh) ? heads_kernel(nh)
-                                              : &segment_attn_loop_kernel<N>;
-  return launch_programmatic(kernel, grid, kMailboxThreads, 0, s, h, src, off,
-                             w, out, mx, den, segs, d, nh, partial, group);
+      together ? heads_kernel(nh) : &segment_attn_loop_kernel<N>;
+  // heads together: w's copy (at most 32 x 128 floats, 16 KB)
+  const size_t smem = together ? sizeof(float) * nh * d : 0;
+  return launch_programmatic(kernel, grid, kMailboxThreads, smem, s, h, src,
+                             off, w, out, mx, den, segs, d, nh, partial,
+                             group);
 }
 
 // h: (> max(src), d) float32, src: (off[segs],) int32, off: (segs + 1,)

@@ -38,7 +38,7 @@ for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
-from ctypes import c_int, c_int64, c_void_p
+from ctypes import addressof, c_int, c_int64, c_void_p
 
 import torch
 import torch.nn.functional as F
@@ -55,12 +55,12 @@ _MEAN_ARGTYPES = [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int64,
 _UPDATE_ARGTYPES = [c_void_p] * 6 + [c_int64, c_int64, c_int, c_void_p]
 _SOFTMAX_BWD_ARGTYPES = [c_void_p] * 8 + [c_int64, c_int, c_void_p]
 _ATTN_ARGTYPES = [c_void_p] * 7 + [c_int64, c_int, c_int, c_int, c_void_p]
-_ATTN_BWD_ARGTYPES = [c_void_p] * 11 + [c_int64, c_int, c_int, c_int,
-                                        c_void_p]
-# segment_attn_bwd's rows kernel: at most eight blocks of four warps a
-# streaming multiprocessor of an H100 (132), each summing its slots'
-# share of d_w (attn_bwd's grid)
-_ATTN_BWD_BLOCKS = 1056
+_ATTN_BWD_ARGTYPES = [c_void_p] * 10 + [c_int64, c_int, c_int, c_int, c_int,
+                                        c_void_p, c_void_p]
+_DW_REDUCE_ARGTYPES = [c_void_p, c_void_p, c_int, c_int, c_void_p]
+# segment_attn_bwd's rows kernel: eight blocks of four warps a streaming
+# multiprocessor (its launch bounds), so that its grid is one wave
+_ATTN_BWD_BLOCKS_PER_SM = 8
 
 
 def _segment_ids(off: torch.Tensor) -> torch.Tensor:
@@ -390,26 +390,77 @@ def segment_attn_bwd_plain(h, src, off, w, g, stats=None):
     return d_msg, ds.t() @ x
 
 
+class AttnGradSum:
+    """``fc_attn2``'s gradient summed over the :func:`segment_attn_bwd`
+    calls of one backward, in a fixed order, without float atomics: the
+    same bits on every run. Each call adds its share; :meth:`finish`
+    returns the sum, once, after the last call.
+
+    For CPU tensors it is the plain sum: each call's ``ds.T @ x`` added
+    in call order. On the card each call's rows kernel adds its blocks'
+    sums into their rows of one workspace (``blocks`` x (nh, D) floats,
+    allocated at the first call), written by the first call that reaches
+    a row and added to by the later ones, in call order; :meth:`finish`
+    launches one fixed-order reduce of the rows. A call's kernel reads
+    and writes its rows after its wait, once the kernel before it on the
+    stream has finished: the previous call's rows kernel precedes it on
+    the stream. Counted under :func:`segment_attn_bwd` (its reduce is
+    one launch a sum)."""
+
+    def __init__(self, w: torch.Tensor):
+        self.w = w
+        self.total = None  # the plain sum
+        self.work = None   # the card's workspace
+        self.filled = 0    # its rows that hold sums
+
+    def add_plain(self, d_w: torch.Tensor) -> None:
+        self.total = d_w if self.total is None else self.total + d_w
+
+    def workspace(self) -> torch.Tensor:
+        if self.work is None:
+            sms = torch.cuda.get_device_properties(
+                self.w.device).multi_processor_count
+            self.work = torch.empty(
+                (_ATTN_BWD_BLOCKS_PER_SM * sms, *self.w.shape),
+                dtype=self.w.dtype, device=self.w.device)
+        return self.work
+
+    def finish(self) -> torch.Tensor:
+        """The sum of every call's gradient of w (zeros if none)."""
+        if self.filled == 0:
+            return (torch.zeros_like(self.w) if self.total is None
+                    else self.total)
+        d_w = torch.empty_like(self.w)
+        with torch.cuda.device(d_w.device):
+            _build.launch("segment_attn_bwd", _DW_REDUCE_ARGTYPES,
+                          self.work.data_ptr(), d_w.data_ptr(), self.filled,
+                          d_w.numel(), _stream(d_w),
+                          entry="segment_dw_reduce")
+        return d_w
+
+
 def segment_attn_bwd(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
-                     w: torch.Tensor, g: torch.Tensor, stats=None):
+                     w: torch.Tensor, g: torch.Tensor, stats=None,
+                     dw_sum: AttnGradSum | None = None):
     """The cotangents of :func:`segment_attn_sum` for the output
     cotangent ``g`` (S, D): ``(d_msg, d_w)``, the per-edge cotangent of
     ``h[src]`` (E, D; the value path and the score path) and the gradient
-    of ``w`` (nh, D), summed over the edges in a fixed order (per-block
-    partial sums, then a fixed-order reduce: no float atomics), so a call
-    gives the same bits every time. Without ``stats`` each slot's
-    ``(out, mx, den)`` is recomputed from ``h``, as the forward computed
-    it; under the edge-sharded step, where a rank holds only a block of a
-    slot's edges, ``stats`` is the slots' combined ``(out, mx, den)``:
-    (S, D), (S, nh), (S, nh). h (R, D) float32 contiguous (the final node
+    of ``w`` (nh, D). With ``dw_sum`` (an :class:`AttnGradSum` of ``w``,
+    one a backward) the call adds its gradient of ``w`` to it and
+    ``d_w`` is None; without it ``d_w`` is this call's alone (a sum of one
+    call). Without ``stats`` each slot's ``(out, mx, den)`` is recomputed
+    from ``h``, as the forward computed it; under the edge-sharded step,
+    where a rank holds only a block of a slot's edges, ``stats`` is the
+    slots' combined ``(out, mx, den)``: (S, D), (S, nh), (S, nh). The two
+    give the same bits. h (R, D) float32 contiguous (the final node
     state: every source row of a level is final once it is written), src
     (E,) and off (S+1,) int32, w (nh, D) float32.
 
-    On the card it is two kernels, both programmatic dependent launches:
-    the first reads the tables, ``h``, ``w`` and ``stats`` while the
-    kernel before it on the stream may still run, so that kernel must
-    not write them, and ``g`` once that kernel has finished; the second
-    adds the first's per-block partial sums of ``d_w``."""
+    On the card it is one kernel a call, a programmatic dependent launch:
+    it reads the tables, ``h``, ``w`` and ``stats`` while the kernel
+    before it on the stream may still run, so that kernel must not write
+    them, and ``g`` and the sum's workspace once that kernel has
+    finished."""
     _check_rows("h", h)
     _check_csr(src, off)
     s, d = off.shape[0] - 1, h.shape[1]
@@ -422,24 +473,34 @@ def segment_attn_bwd(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
         if t.shape != (s, width):
             raise ValueError(f"{what} {tuple(t.shape)} must be ({s}, "
                              f"{width})")
+    alone = dw_sum is None
+    if alone:
+        dw_sum = AttnGradSum(w)
+    elif dw_sum.w.shape != w.shape:
+        raise ValueError(f"dw_sum sums a gradient of shape "
+                         f"{tuple(dw_sum.w.shape)}, not {tuple(w.shape)}")
     if device_of("segment_attn_bwd", h, src, off, w,
                  *(t for _, t, _ in named)).type == "cpu":
-        return segment_attn_bwd_plain(h, src, off, w, g, stats)
-    d_msg = torch.empty((src.shape[0], d), dtype=h.dtype, device=h.device)
-    if s == 0:
-        return d_msg, torch.zeros_like(w)
-    d_w = torch.empty_like(w)
-    blocks = min(s, _ATTN_BWD_BLOCKS)
-    # workspace: each block's partial sums of d_w
-    work = torch.empty(blocks * nh * d, dtype=h.dtype, device=h.device)
-    ptrs = [0, 0, 0] if stats is None else [t.data_ptr() for t in stats]
-    with torch.cuda.device(h.device):
-        _build.launch("segment_attn_bwd", _ATTN_BWD_ARGTYPES, h.data_ptr(),
-                      src.data_ptr(), off.data_ptr(), w.data_ptr(), *ptrs,
-                      g.data_ptr(), d_msg.data_ptr(), d_w.data_ptr(),
-                      work.data_ptr(), s, d, nh, blocks, _stream(h))
-    segment_attn_bwd.launches += 1
-    return d_msg, d_w
+        d_msg, d_w = segment_attn_bwd_plain(h, src, off, w, g, stats)
+        dw_sum.add_plain(d_w)
+    else:
+        d_msg = torch.empty((src.shape[0], d), dtype=h.dtype,
+                            device=h.device)
+        if s > 0:
+            work = dw_sum.workspace()
+            grid = c_int(0)
+            ptrs = [0, 0, 0] if stats is None else [t.data_ptr()
+                                                    for t in stats]
+            with torch.cuda.device(h.device):
+                _build.launch("segment_attn_bwd", _ATTN_BWD_ARGTYPES,
+                              h.data_ptr(), src.data_ptr(), off.data_ptr(),
+                              w.data_ptr(), *ptrs, g.data_ptr(),
+                              d_msg.data_ptr(), work.data_ptr(), s, d, nh,
+                              work.shape[0], dw_sum.filled,
+                              addressof(grid), _stream(h))
+            dw_sum.filled = max(dw_sum.filled, grid.value)
+            segment_attn_bwd.launches += 1
+    return d_msg, (dw_sum.finish() if alone else None)
 
 
 segment_attn_bwd.launches = 0

@@ -30,8 +30,9 @@ that step: per half in reverse the ReLU split, the MLP gradients, and
 the edges' cotangents scattered into ``dh`` by source row with the
 mailbox walk's ``mailbox_scatter`` (net: ``g_n[dst] / cnt[dst]`` formed
 in the kernel; cell: ``segment_softmax_sum_bwd``'s per-edge cotangent,
-or ``segment_attn_bwd``'s, which also gives the pair's share of
-``fc_attn2``'s gradient).
+or ``segment_attn_bwd``'s, which also adds the pair's share of
+``fc_attn2``'s gradient to one sum a backward, reduced after the last
+pair).
 The net half's
 scatter comes first, since its sources include the pair's own cell
 rows, which the cell half's cotangent reads. The forward keeps each
@@ -74,8 +75,8 @@ import torch.nn.functional as F
 
 from .fused_gnn import (MLP_NAMES, _flat_of, _mlp, _mlp_grads, _params_of,
                         _relu_split, mailbox_scatter)
-from .segment_kernels import (divide_heads, net_epilogue, net_update,
-                              segment_attn_bwd, segment_attn_sum,
+from .segment_kernels import (AttnGradSum, divide_heads, net_epilogue,
+                              net_update, segment_attn_bwd, segment_attn_sum,
                               segment_mean, segment_softmax_sum,
                               segment_softmax_sum_bwd)
 
@@ -220,13 +221,13 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     cotangent ``g`` of ``hf``; ``saved`` is what the forward kept. One
     ``dh`` carry, a copy of ``g``, updated in place pair by pair in
     reverse. With ``"fc_attn2"`` in ``params`` its gradient is summed
-    over the pairs, and on a sharded graph over the ``gp`` group once."""
+    over the pairs (an :class:`AttnGradSum`: on the card one reduce a
+    backward), and on a sharded graph over the ``gp`` group once."""
     dh = g.clone(memory_format=torch.contiguous_format)
     grads = {name: [torch.zeros_like(t) for t in params[name]]
              for name in MLP_NAMES}
     w_attn = params.get("fc_attn2")
-    if w_attn is not None:
-        grads["fc_attn2"] = torch.zeros_like(w_attn)
+    dw_sum = None if w_attn is None else AttnGradSum(w_attn)
     tables = graph.shard or graph
     for k in reversed(range(graph.num_pairs)):
         pn_c = graph.cell_feat_lvl[k].shape[0]
@@ -255,13 +256,14 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
             if w_attn is None:
                 d_msg = segment_softmax_sum_bwd(*args, d_f, stats)
             else:
-                d_msg, d_w = segment_attn_bwd(*args, w_attn, d_f, stats)
-                grads["fc_attn2"].add_(d_w)
+                d_msg, _ = segment_attn_bwd(*args, w_attn, d_f, stats, dw_sum)
         dh[c0: c0 + pn_c] = 0.0 if d_old_c is None else d_old_c
         if d_msg is not None:
             _scatter(dh, graph, "cell", k, d_msg, None)
-    if w_attn is not None and graph.shard is not None:
-        graph.shard.sum_(grads["fc_attn2"])
+    if dw_sum is not None:
+        grads["fc_attn2"] = dw_sum.finish()
+        if graph.shard is not None:
+            graph.shard.sum_(grads["fc_attn2"])
     return dh, grads
 
 
