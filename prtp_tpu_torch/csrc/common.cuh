@@ -447,10 +447,10 @@ __device__ __forceinline__ float attn_score(const float (&x)[4], const W& w,
 
 // Heads together: the rows j0 + i, i < kSlotRows, of slot [begin, begin +
 // deg) at channel offset col into x (0 past the slot's last edge; chunk 0
-// from idx, slot_edges), every load issued before any use, and their
-// scores into s (those past the warp's wdeg 0). Every lane of the warp
-// calls it with the same j0.
-template <int NH, bool CG, class W>
+// from idx, slot_edges, unless FROM_SRC), every load issued before any
+// use, and their scores into s (those past the warp's wdeg 0). Every
+// lane of the warp calls it with the same j0.
+template <int NH, bool CG, bool FROM_SRC = false, class W>
 __device__ __forceinline__ void attn_chunk(const float* h,
                                            const int32_t* __restrict__ src,
                                            const int32_t (&idx)[kSlotRows],
@@ -460,7 +460,7 @@ __device__ __forceinline__ void attn_chunk(const float* h,
                                            float (&x)[kSlotRows][4],
                                            float (&s)[kSlotRows]) {
   const int n = min(kSlotRows, deg - j0);
-  if (j0 == 0)
+  if (j0 == 0 && !FROM_SRC)
     load_head<4, CG>(h, idx, deg, d, col, x);
   else
     load_rows<4, CG>(h, src, begin + j0, n, d, col, x);
@@ -493,6 +493,61 @@ __device__ __forceinline__ void slot_attn(const float* h,
                                           float (&x)[kSlotRows][4],
                                           float (&s)[kSlotRows], float& mx,
                                           float& den, float (&num)[4]) {
+#if defined(PRTP_SLOT_TWO_PASS)
+  mx = -INFINITY;
+#pragma unroll 1
+  for (int j0 = 0; j0 == 0 || j0 < wdeg; j0 += kSlotRows) {
+    attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, j0, d, col, w, lane,
+                       group, x, s);
+#pragma unroll
+    for (int i = 0; i < kSlotRows; ++i)
+      if (j0 + i < deg) mx = nan_max(mx, s[i]);
+  }
+  if (!isfinite(mx)) mx = 0.f;
+  den = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) num[k] = 0.f;
+#pragma unroll 1
+  for (int j0 = 0; j0 == 0 || j0 < wdeg; j0 += kSlotRows) {
+    if (wdeg > kSlotRows)
+      attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, j0, d, col, w, lane,
+                         group, x, s);
+#pragma unroll
+    for (int i = 0; i < kSlotRows; ++i) {
+      if (j0 + i < deg) {
+        const float e = expf(s[i] - mx);
+        den += e;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) num[k] += e * x[i][k];
+      }
+    }
+  }
+  return;
+#endif
+#if defined(PRTP_SLOT_SPLIT)
+  if (wdeg <= kSlotRows) {  // the register path: one chunk
+    attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, 0, d, col, w, lane,
+                       group, x, s);
+    mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kSlotRows; ++i)
+      if (i < deg) mx = nan_max(mx, s[i]);
+    if (!isfinite(mx)) mx = 0.f;
+    den = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) num[k] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSlotRows; ++i) {
+      if (i < deg) {
+        const float e = expf(s[i] - mx);
+        den += e;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) num[k] += e * x[i][k];
+      }
+    }
+    return;
+  }
+#endif
   float top = -INFINITY;  // the running max
   mx = 0.f;               // its guarded value, the exps' shift
   den = 0.f;
@@ -699,6 +754,26 @@ cudaError_t launch_programmatic(void (*kernel)(Params...), dim3 grid,
 // d_w in a fixed order into its own row of a workspace (blocks, nh, D);
 // then one small kernel adds the rows in row order (dw_reduce). Every
 // sum has a fixed order, so a call gives the same bits every time.
+
+// Starts copying n floats (a multiple of 4, both ends 16-byte aligned)
+// from src in device memory to dst in shared memory, by the block's
+// threads, through L2 (cp.async.cg: never a line in L1 from before the
+// writer finished), without holding registers; copy_async_wait() waits
+// for this thread's copies (a barrier then makes all of them visible).
+__device__ __forceinline__ void copy_async(const float* src, float* dst,
+                                           int n) {
+  for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4) {
+    const unsigned to =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(to),
+                 "l"(src + i)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
 
 constexpr int kReduceLanes = 32;  // dw_reduce: partial sums an element
 constexpr int kMaxShare = 232448;  // bytes of shared memory a block may use

@@ -82,6 +82,8 @@
 // store. The per-head loop waits first. segment_dw_reduce reads nothing
 // before its wait.
 
+#include <mutex>
+
 #include "common.cuh"
 
 #ifndef PRTP_BWD_MIN_BLOCKS
@@ -103,14 +105,23 @@ __global__ void __launch_bounds__(kMailboxThreads,
         const float* __restrict__ den_in, const float* g_out,
         float* __restrict__ d_msg, float* work, int64_t segs, int d, int nh,
         int group, int64_t tiles, int filled) {
-  // w's copy (NH, d); then each lane group's d_w sums (groups, NH, d)
+  // w's copy (NH, d); each lane group's d_w sums (groups, NH, d); the
+  // block's row of work as the sum's earlier calls left it (NH, d)
   extern __shared__ __align__(16) float smem[];
   const int n = NH * d;
+  const int groups = kMailboxThreads / group;
   const int c = threadIdx.x & (group - 1);  // this lane's float4
   const int lanes = group / NH;             // a head's lanes
   const int hg = c / lanes;                 // this lane's head
+  const bool fresh = static_cast<int>(blockIdx.x) >= filled;
+  float* row = work + static_cast<int64_t>(blockIdx.x) * n;
+  float* prev = smem + (groups + 1) * n;
+#ifdef PRTP_BWD_REG_W
+  const RegWeights<NH> wt(w, d, c * 4);
+#else
   load_shared_weights(w, smem, n);
   const SharedWeights wt{smem + c * 4, d};
+#endif
   // this lane's float4 of each head's d_w over its group's slots, in
   // tile order, each slot's edges in order
   float dw[NH][4];
@@ -148,8 +159,9 @@ __global__ void __launch_bounds__(kMailboxThreads,
       for (int k = 0; k < 4; ++k) f[k] = softmax_out(num[k], den);
     }
     const float dd = fmaxf(den, 1e-12f);
-    // ---- after the wait: g_out, then the stores ----
+    // ---- after the wait: g_out and the row of work, then the stores ----
     grid_dep_wait();
+    if (!fresh && tile == blockIdx.x) copy_async(row, prev, n);
     float gs[4];
     if (row_ok) {
       load_vec_cg<4>(g_out + rl.row * d + c * 4, gs);
@@ -163,9 +175,9 @@ __global__ void __launch_bounds__(kMailboxThreads,
     const float t = group_sum(tp, lanes);
 #pragma unroll 1
     for (int j0 = 0; j0 == 0 || j0 < wdeg; j0 += kSlotRows) {
-      if (wdeg > kSlotRows)
-        attn_chunk<NH, false>(h, src, idx, begin, deg, wdeg, j0, d, c * 4, wt,
-                              c, group, x, s);
+      if (wdeg > kSlotRows)  // chunk 0 too from src: idx is not kept
+        attn_chunk<NH, false, true>(h, src, idx, begin, deg, wdeg, j0, d,
+                                    c * 4, wt, c, group, x, s);
 #pragma unroll
       for (int i = 0; i < kSlotRows; ++i) {
         if (j0 + i >= wdeg) continue;  // the same in every lane of the warp
@@ -176,8 +188,16 @@ __global__ void __launch_bounds__(kMailboxThreads,
         const float da = group_sum(p, lanes);
         const float a = valid ? expf(s[i] - mx) / dd : 0.f;
         const float ds = valid ? a * (da - t) : 0.f;
-        // every head's ds: the score path and d_w; then the edge's store
-        float sc[4] = {0.f, 0.f, 0.f, 0.f};
+        // the value path, then every head's ds: the score path and d_w;
+        // then the edge's store
+        float o[4];
+#ifdef PRTP_BWD_KEEP_SC
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = 0.f;
+#else
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = a * gs[k];
+#endif
 #pragma unroll
         for (int gg = 0; gg < NH; ++gg) {
           const float dsg = __shfl_sync(0xffffffffu, ds, gg * lanes, group);
@@ -185,18 +205,18 @@ __global__ void __launch_bounds__(kMailboxThreads,
           wt.get(gg, v);
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            sc[k] += dsg * v[k];
+            o[k] += dsg * v[k];
             dw[gg][k] += dsg * x[i][k];
           }
         }
-        if (valid) {
-          float o[4];
+#ifdef PRTP_BWD_KEEP_SC
 #pragma unroll
-          for (int k = 0; k < 4; ++k) o[k] = a * gs[k] + sc[k];
+        for (int k = 0; k < 4; ++k) o[k] = a * gs[k] + o[k];
+#endif
+        if (valid)
           store_vec<4>(d_msg + static_cast<int64_t>(begin + j0 + i) * d +
                            c * 4,
                        o);
-        }
       }
     }
   }
@@ -206,13 +226,10 @@ __global__ void __launch_bounds__(kMailboxThreads,
 #pragma unroll
   for (int gg = 0; gg < NH; ++gg)
     store_vec<4>(gsum + (threadIdx.x / group) * n + gg * d + c * 4, dw[gg]);
+  copy_async_wait();
   __syncthreads();
-  grid_dep_wait();
-  float* row = work + static_cast<int64_t>(blockIdx.x) * n;
-  const bool fresh = static_cast<int>(blockIdx.x) >= filled;
-  const int groups = kMailboxThreads / group;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    float sum = fresh ? 0.f : __ldcg(row + e);
+    float sum = fresh ? 0.f : prev[e];
     for (int r = 0; r < groups; ++r) sum += gsum[r * n + e];
     row[e] = sum;
   }
@@ -344,8 +361,49 @@ static SegmentAttnBwdKernel heads_kernel(int nh) {
   }
 }
 
-// Launches the rows kernel on min(tiles, blocks) blocks, each with at
-// least one tile; *grid gets the number launched.
+// The blocks of both modes' kernels that the card holds at once (the
+// lesser of the two), so that a call's grid is one wave and both modes
+// sum d_w in the same order. Asked once a kernel, shared memory size and
+// device.
+static cudaError_t resident_blocks(SegmentAttnBwdKernel a,
+                                   SegmentAttnBwdKernel b, size_t smem,
+                                   int* blocks) {
+  struct Seen {
+    SegmentAttnBwdKernel kernel;
+    size_t smem;
+    int device, blocks;
+  };
+  static std::mutex lock;
+  static Seen seen[32];
+  static int used = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  for (int i = 0; i < used; ++i) {
+    if (seen[i].kernel == a && seen[i].smem == smem &&
+        seen[i].device == device) {
+      *blocks = seen[i].blocks;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, on_a = 0, on_b = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&on_a, a,
+                                                        kMailboxThreads, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&on_b, b,
+                                                        kMailboxThreads, smem);
+  if (err != cudaSuccess) return err;
+  *blocks = (on_a < on_b ? on_a : on_b) * sms;
+  if (*blocks < 1) return cudaErrorInvalidConfiguration;
+  if (used < 32) seen[used++] = {a, smem, device, *blocks};
+  return cudaSuccess;
+}
+
+// Launches the rows kernel on min(tiles, resident blocks, blocks)
+// blocks, each with at least one tile; *grid gets the number launched.
 template <int N>
 static cudaError_t launch_rows(const float* h, const int32_t* src,
                                const int32_t* off, const float* w,
@@ -360,21 +418,29 @@ static cudaError_t launch_rows(const float* h, const int32_t* src,
   const int64_t tiles = mailbox_grid(segs, group);
   const bool stats = out != nullptr;
   const bool together = N == 4 && attn_heads_together(vecs, nh);
-  const SegmentAttnBwdKernel kernel =
-      together ? (stats ? heads_kernel<true>(nh) : heads_kernel<false>(nh))
-      : stats  ? &segment_attn_bwd_loop_kernel<N, true>
-               : &segment_attn_bwd_loop_kernel<N, false>;
+  // the kernels of the two modes
+  const SegmentAttnBwdKernel modes[2] = {
+      together ? heads_kernel<false>(nh) : &segment_attn_bwd_loop_kernel<N, false>,
+      together ? heads_kernel<true>(nh) : &segment_attn_bwd_loop_kernel<N, true>};
+  const SegmentAttnBwdKernel kernel = modes[stats];
   // heads together: w's copy and the lane groups' sums; the per-head
   // loop: the tile's shares and the block's sums
   const size_t smem = sizeof(float) * d *
-                      (together ? (tile_rows + 1) * nh : tile_rows + nh);
+                      (together ? (tile_rows + 2) * nh : tile_rows + nh);
   if (smem > kMaxShare) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+    for (const SegmentAttnBwdKernel k : modes) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
   }
+  int resident = 0;
+  const cudaError_t err = resident_blocks(modes[0], modes[1], smem,
+                                          &resident);
+  if (err != cudaSuccess) return err;
+  if (resident < blocks) blocks = resident;
   *grid = static_cast<int>(tiles < blocks ? tiles : blocks);
   return launch_programmatic(kernel, *grid, kMailboxThreads, smem, s, h, src,
                              off, w, out, mx, den, g, d_msg, work, segs, d,

@@ -84,7 +84,7 @@ __global__ void __launch_bounds__(kMailboxThreads)
   const int wdeg = __reduce_max_sync(0xffffffffu, deg);
   const int c = rl.lane;          // this lane's float4 of channels
   const int lanes = group / NH;   // a head's lanes
-#ifdef PRTP_ATTN_REG_WEIGHTS
+#ifndef PRTP_FWD_SHARED_W
   const RegWeights<NH> wt(w, d, c * 4);
 #else
   load_shared_weights(w, ws, NH * d);

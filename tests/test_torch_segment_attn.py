@@ -157,6 +157,47 @@ def test_segment_attn_bwd_plain_matches_jax_vjp(nh, mode):
                                atol=1e-5 * np.abs(want_wk).max())
 
 
+@pytest.mark.parametrize("mode", ["recompute", "stats"])
+@pytest.mark.parametrize("nh", [1, 2, 4])
+def test_attn_grad_sum_adds_the_calls_in_order(nh, mode):
+    """One ``AttnGradSum`` over three ``segment_attn_bwd`` calls (three
+    pairs' tables, one h and w, as the walk's backward makes them): each
+    call returns its per-edge cotangent, equal to the plain version's,
+    and no ``d_w``; ``finish()`` equals the calls' plain ``d_w`` added in
+    call order, bit for bit (each call's plain ``d_w`` is held against
+    ``jax.vjp`` by test_segment_attn_bwd_plain_matches_jax_vjp).
+    Recomputing or reading the statistics of the partial forward, as
+    there. An empty sum finishes as zeros; a sum of another w's shape is
+    refused."""
+    h, _src, _slot, _off, w = _attn_case(nh, seed=5)
+    d = h.shape[1]
+    rng = np.random.default_rng(20 + nh)
+    t_h, t_w = torch.from_numpy(h), torch.from_numpy(w)
+    dw_sum = kern.AttnGradSum(t_w)
+    assert not dw_sum.finish().any()
+    want = None
+    for seed in (6, 7, 8):
+        _h, src, _slot, off = _csr_case(seed=seed, d=d)
+        s = off.shape[0] - 1
+        g = rng.normal(size=(s, d)).astype(np.float32)
+        t = [torch.from_numpy(x) for x in (src, off)]
+        stats = None
+        if mode == "stats":
+            numer, mx, den = kern.segment_attn_sum(t_h, *t, t_w, partial=True)
+            stats = (kern.divide_heads(numer, den), mx, den)
+        d_msg, none = kern.segment_attn_bwd(t_h, *t, t_w, torch.from_numpy(g),
+                                            stats, dw_sum)
+        assert none is None
+        want_m, want_w = kern.segment_attn_bwd_plain(
+            t_h, *t, t_w, torch.from_numpy(g), stats)
+        np.testing.assert_array_equal(d_msg.numpy(), want_m.numpy())
+        want = want_w if want is None else want + want_w
+    np.testing.assert_array_equal(dw_sum.finish().numpy(), want.numpy())
+    with pytest.raises(ValueError, match="shape"):  # 2 nh heads
+        kern.segment_attn_bwd(t_h, *t, torch.zeros((2 * nh, d)),
+                              torch.from_numpy(g), None, dw_sum)
+
+
 # ---- the walk against JAX's segment TimeGNN on the padded pack ----
 
 def _attn_gnn(cell_feat_dim, nh, reduce_mode="segment", seed=0):
