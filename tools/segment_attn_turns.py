@@ -35,6 +35,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -68,10 +69,7 @@ def build(src_dir: Path, out_dir: Path, tag: str, flags: list) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{tag} {name}: nvcc failed\n{log}")
-        usage = [ln.strip() for ln in log.splitlines()
-                 if "entry function" in ln or "registers" in ln
-                 or "spill" in ln]
-        cs.log(f"  {tag} {name}: " + " | ".join(usage))
+        cs.log(f"  {tag} {name}: " + "; ".join(ptxas_usage(log)))
         lib = ctypes.CDLL(str(target))
         fns[name] = lib
     entries = {FWD: (fns[FWD].segment_attn_sum_launch, K._ATTN_ARGTYPES)}
@@ -87,6 +85,27 @@ def build(src_dir: Path, out_dir: Path, tag: str, flags: list) -> dict:
         fn.argtypes = types
         fn.restype = c_int
         out[entry] = fn
+    return out
+
+
+def ptxas_usage(log: str) -> list:
+    """``kernel<args>: N registers, spill stores/loads B`` of each entry
+    function in ``nvcc -Xptxas -v``'s report."""
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
+        if m:  # the mangled name: its length, itself, template args
+            size, rest = int(m.group(1)), m.group(2)
+            t = re.match(r"I((?:L[a-z]+\d+E)+)E", rest[size:])
+            args = re.findall(r"(\d+)E", t.group(1)) if t else []
+            name = rest[:size] + (f"<{','.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers, spill {spill} B")
     return out
 
 
