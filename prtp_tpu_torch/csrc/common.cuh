@@ -8,6 +8,7 @@
 #include <math.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #define PRTP_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -415,6 +416,17 @@ struct SharedWeights {
     o[3] = t.w;
   }
 };
+
+// A kernel's weights: RegWeights loads this lane's slices itself;
+// SharedWeights reads the block's copy at ws.
+template <class W>
+__device__ __forceinline__ W make_weights(const float* __restrict__ w,
+                                          const float* ws, int d, int col) {
+  if constexpr (std::is_same<W, SharedWeights>::value)
+    return SharedWeights{ws + col, d};
+  else
+    return W(w, d, col);
+}
 
 // Copies w (n floats, a multiple of 4, 16-byte aligned: a weight no
 // kernel of the walk writes, so it may be read before the wait) into

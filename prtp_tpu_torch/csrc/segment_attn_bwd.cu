@@ -83,21 +83,16 @@
 // before its wait.
 
 #include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
-
-#ifndef PRTP_BWD_MIN_BLOCKS
-#define PRTP_BWD_MIN_BLOCKS 8
-#endif
-constexpr int kBwdMinBlocks = PRTP_BWD_MIN_BLOCKS;
 
 // Heads together: NH heads, one float4 a lane, group == d / 4. STATS:
 // the stats-reading mode; else the recomputing one. work: (>= gridDim.x,
 // NH, d): this block's d_w sums are added to its row, or written there
 // if the row is past `filled` (the rows the sum's earlier calls wrote).
 template <int NH, bool STATS>
-__global__ void __launch_bounds__(kMailboxThreads,
-                                  NH <= 4 ? kBwdMinBlocks : 1)
+__global__ void __launch_bounds__(kMailboxThreads)
     segment_attn_bwd_heads_kernel(
         const float* __restrict__ h, const int32_t* __restrict__ src,
         const int32_t* __restrict__ off, const float* __restrict__ w,
@@ -116,12 +111,18 @@ __global__ void __launch_bounds__(kMailboxThreads,
   const bool fresh = static_cast<int>(blockIdx.x) >= filled;
   float* row = work + static_cast<int64_t>(blockIdx.x) * n;
   float* prev = smem + (groups + 1) * n;
-#ifdef PRTP_BWD_REG_W
-  const RegWeights<NH> wt(w, d, c * 4);
+#if defined(PRTP_BWD_REG_W1)
+  using Weights = typename std::conditional<NH == 1, RegWeights<NH>,
+                                            SharedWeights>::type;
+  const bool shared_w = NH != 1;
 #else
-  load_shared_weights(w, smem, n);
-  const SharedWeights wt{smem + c * 4, d};
+  using Weights = SharedWeights;
+  const bool shared_w = true;
 #endif
+  // w into shared memory, waited for in the first tile once its slots'
+  // edges are known
+  if (shared_w) copy_async(w, smem, n);
+  const Weights wt = make_weights<Weights>(w, smem, d, c * 4);
   // this lane's float4 of each head's d_w over its group's slots, in
   // tile order, each slot's edges in order
   float dw[NH][4];
@@ -138,6 +139,10 @@ __global__ void __launch_bounds__(kMailboxThreads,
     int32_t begin, idx[kSlotRows];
     const int deg = slot_edges(src, off, rl, row_ok, group, begin, idx);
     const int wdeg = __reduce_max_sync(0xffffffffu, deg);
+    if (shared_w && tile == blockIdx.x) {
+      copy_async_wait();
+      __syncthreads();
+    }
     float x[kSlotRows][4], s[kSlotRows], mx, den, f[4];
     if (STATS) {
       mx = row_ok ? __ldg(mx_in + rl.row * NH + hg) : 0.f;
@@ -188,16 +193,9 @@ __global__ void __launch_bounds__(kMailboxThreads,
         const float da = group_sum(p, lanes);
         const float a = valid ? expf(s[i] - mx) / dd : 0.f;
         const float ds = valid ? a * (da - t) : 0.f;
-        // the value path, then every head's ds: the score path and d_w;
-        // then the edge's store
-        float o[4];
-#ifdef PRTP_BWD_KEEP_SC
-#pragma unroll
-        for (int k = 0; k < 4; ++k) o[k] = 0.f;
-#else
-#pragma unroll
-        for (int k = 0; k < 4; ++k) o[k] = a * gs[k];
-#endif
+        // every head's ds: the score path and d_w; then the value path
+        // and the edge's store
+        float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int gg = 0; gg < NH; ++gg) {
           const float dsg = __shfl_sync(0xffffffffu, ds, gg * lanes, group);
@@ -209,10 +207,8 @@ __global__ void __launch_bounds__(kMailboxThreads,
             dw[gg][k] += dsg * x[i][k];
           }
         }
-#ifdef PRTP_BWD_KEEP_SC
 #pragma unroll
         for (int k = 0; k < 4; ++k) o[k] = a * gs[k] + o[k];
-#endif
         if (valid)
           store_vec<4>(d_msg + static_cast<int64_t>(begin + j0 + i) * d +
                            c * 4,

@@ -66,8 +66,17 @@
 
 // Heads together: NH heads, one float4 a lane, group == d / 4; w's
 // (NH, d) copy in shared memory.
+#ifdef PRTP_FWD_LB
+// the parent design's blocks an SM (55, 64 and 72 registers a thread)
 template <int NH>
-__global__ void __launch_bounds__(kMailboxThreads)
+constexpr int kFwdMinBlocks = NH == 1 ? 9 : NH == 2 ? 8 : NH == 4 ? 7 : 1;
+#else
+template <int NH>
+constexpr int kFwdMinBlocks = 1;
+#endif
+
+template <int NH>
+__global__ void __launch_bounds__(kMailboxThreads, kFwdMinBlocks<NH>)
     segment_attn_heads_kernel(const float* h, const int32_t* __restrict__ src,
                               const int32_t* __restrict__ off,
                               const float* __restrict__ w,
