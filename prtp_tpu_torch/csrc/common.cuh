@@ -8,7 +8,6 @@
 #include <math.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #define PRTP_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -386,10 +385,11 @@ inline bool attn_heads_together(int vecs, int nh) {
 }
 
 // Heads together: fc_attn2's weights w (nh, d) as a lane reads them,
-// its float4 at column col of each head's row. A kernel takes them from
-// registers (RegWeights, NH x 4 a lane) or from shared memory
-// (SharedWeights, loaded once a block by load_shared_weights); both give
-// the same values to the same arithmetic, so the same bits.
+// its float4 at column col of each head's row. The forward keeps them in
+// registers (RegWeights, NH x 4 a lane: fewer instructions a score,
+// measured faster); the backward, which holds d_w's NH x 4 a lane too,
+// reads the block's copy in shared memory (SharedWeights). Both give the
+// same values to the same arithmetic, so the same bits.
 template <int NH>
 struct RegWeights {
   float v[NH][4];
@@ -416,29 +416,6 @@ struct SharedWeights {
     o[3] = t.w;
   }
 };
-
-// A kernel's weights: RegWeights loads this lane's slices itself;
-// SharedWeights reads the block's copy at ws.
-template <class W>
-__device__ __forceinline__ W make_weights(const float* __restrict__ w,
-                                          const float* ws, int d, int col) {
-  if constexpr (std::is_same<W, SharedWeights>::value)
-    return SharedWeights{ws + col, d};
-  else
-    return W(w, d, col);
-}
-
-// Copies w (n floats, a multiple of 4, 16-byte aligned: a weight no
-// kernel of the walk writes, so it may be read before the wait) into
-// the block's shared memory ws. Every thread of the block calls it; it
-// ends in a barrier.
-__device__ __forceinline__ void load_shared_weights(
-    const float* __restrict__ w, float* ws, int n) {
-  for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4)
-    *reinterpret_cast<float4*>(ws + i) =
-        __ldg(reinterpret_cast<const float4*>(w + i));
-  __syncthreads();
-}
 
 // Heads together: the NH scores of the float4 x of this lane's row,
 // summed over the group (head_scores: this lane gets its own head's).
@@ -505,61 +482,6 @@ __device__ __forceinline__ void slot_attn(const float* h,
                                           float (&x)[kSlotRows][4],
                                           float (&s)[kSlotRows], float& mx,
                                           float& den, float (&num)[4]) {
-#if defined(PRTP_SLOT_TWO_PASS)
-  mx = -INFINITY;
-#pragma unroll 1
-  for (int j0 = 0; j0 == 0 || j0 < wdeg; j0 += kSlotRows) {
-    attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, j0, d, col, w, lane,
-                       group, x, s);
-#pragma unroll
-    for (int i = 0; i < kSlotRows; ++i)
-      if (j0 + i < deg) mx = nan_max(mx, s[i]);
-  }
-  if (!isfinite(mx)) mx = 0.f;
-  den = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) num[k] = 0.f;
-#pragma unroll 1
-  for (int j0 = 0; j0 == 0 || j0 < wdeg; j0 += kSlotRows) {
-    if (wdeg > kSlotRows)
-      attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, j0, d, col, w, lane,
-                         group, x, s);
-#pragma unroll
-    for (int i = 0; i < kSlotRows; ++i) {
-      if (j0 + i < deg) {
-        const float e = expf(s[i] - mx);
-        den += e;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) num[k] += e * x[i][k];
-      }
-    }
-  }
-  return;
-#endif
-#if defined(PRTP_SLOT_SPLIT)
-  if (wdeg <= kSlotRows) {  // the register path: one chunk
-    attn_chunk<NH, CG>(h, src, idx, begin, deg, wdeg, 0, d, col, w, lane,
-                       group, x, s);
-    mx = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kSlotRows; ++i)
-      if (i < deg) mx = nan_max(mx, s[i]);
-    if (!isfinite(mx)) mx = 0.f;
-    den = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) num[k] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kSlotRows; ++i) {
-      if (i < deg) {
-        const float e = expf(s[i] - mx);
-        den += e;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) num[k] += e * x[i][k];
-      }
-    }
-    return;
-  }
-#endif
   float top = -INFINITY;  // the running max
   mx = 0.f;               // its guarded value, the exps' shift
   den = 0.f;

@@ -83,7 +83,6 @@
 // before its wait.
 
 #include <mutex>
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -91,8 +90,15 @@
 // the stats-reading mode; else the recomputing one. work: (>= gridDim.x,
 // NH, d): this block's d_w sums are added to its row, or written there
 // if the row is past `filled` (the rows the sum's earlier calls wrote).
+#ifdef PRTP_BWD_LB
+template <int NH>
+constexpr int kBwdMinBlocks = NH == 1 ? 7 : NH == 2 ? 7 : NH == 4 ? 5 : 1;
+template <int NH, bool STATS>
+__global__ void __launch_bounds__(kMailboxThreads, kBwdMinBlocks<NH>)
+#else
 template <int NH, bool STATS>
 __global__ void __launch_bounds__(kMailboxThreads)
+#endif
     segment_attn_bwd_heads_kernel(
         const float* __restrict__ h, const int32_t* __restrict__ src,
         const int32_t* __restrict__ off, const float* __restrict__ w,
@@ -111,18 +117,10 @@ __global__ void __launch_bounds__(kMailboxThreads)
   const bool fresh = static_cast<int>(blockIdx.x) >= filled;
   float* row = work + static_cast<int64_t>(blockIdx.x) * n;
   float* prev = smem + (groups + 1) * n;
-#if defined(PRTP_BWD_REG_W1)
-  using Weights = typename std::conditional<NH == 1, RegWeights<NH>,
-                                            SharedWeights>::type;
-  const bool shared_w = NH != 1;
-#else
-  using Weights = SharedWeights;
-  const bool shared_w = true;
-#endif
   // w into shared memory, waited for in the first tile once its slots'
   // edges are known
-  if (shared_w) copy_async(w, smem, n);
-  const Weights wt = make_weights<Weights>(w, smem, d, c * 4);
+  copy_async(w, smem, n);
+  const SharedWeights wt{smem + c * 4, d};
   // this lane's float4 of each head's d_w over its group's slots, in
   // tile order, each slot's edges in order
   float dw[NH][4];
@@ -139,7 +137,7 @@ __global__ void __launch_bounds__(kMailboxThreads)
     int32_t begin, idx[kSlotRows];
     const int deg = slot_edges(src, off, rl, row_ok, group, begin, idx);
     const int wdeg = __reduce_max_sync(0xffffffffu, deg);
-    if (shared_w && tile == blockIdx.x) {
+    if (tile == blockIdx.x) {
       copy_async_wait();
       __syncthreads();
     }

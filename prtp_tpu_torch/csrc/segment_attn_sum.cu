@@ -64,19 +64,18 @@
 
 #include "common.cuh"
 
-// Heads together: NH heads, one float4 a lane, group == d / 4; w's
-// (NH, d) copy in shared memory.
-#ifdef PRTP_FWD_LB
-// the parent design's blocks an SM (55, 64 and 72 registers a thread)
+// Heads together: NH heads, one float4 a lane, group == d / 4.
+// Blocks an SM that the heads-together kernel must fit: as many as PR
+// 16's design held at 1, 2 and 4 heads (55, 64 and 72 registers a
+// thread). The running max of slot_attn needs more registers than its
+// two passes did (58 / 76 / 80 unbounded: one block an SM fewer, about
+// 2% slower at the headline); bounded, ptxas fits 56 / 64 / 72 with no
+// spill.
 template <int NH>
-constexpr int kFwdMinBlocks = NH == 1 ? 9 : NH == 2 ? 8 : NH == 4 ? 7 : 1;
-#else
-template <int NH>
-constexpr int kFwdMinBlocks = 1;
-#endif
+constexpr int kHeadsMinBlocks = NH == 1 ? 9 : NH == 2 ? 8 : NH == 4 ? 7 : 1;
 
 template <int NH>
-__global__ void __launch_bounds__(kMailboxThreads, kFwdMinBlocks<NH>)
+__global__ void __launch_bounds__(kMailboxThreads, kHeadsMinBlocks<NH>)
     segment_attn_heads_kernel(const float* h, const int32_t* __restrict__ src,
                               const int32_t* __restrict__ off,
                               const float* __restrict__ w,
@@ -84,7 +83,6 @@ __global__ void __launch_bounds__(kMailboxThreads, kFwdMinBlocks<NH>)
                               float* __restrict__ mx_out,
                               float* __restrict__ den_out, int64_t segs,
                               int d, int nh, int partial, int group) {
-  extern __shared__ __align__(16) float ws[];
   const RowLanes rl = row_lanes(group);
   const bool row_ok = rl.row < segs;
   // ---- before the wait: off, src and w only ----
@@ -93,12 +91,7 @@ __global__ void __launch_bounds__(kMailboxThreads, kFwdMinBlocks<NH>)
   const int wdeg = __reduce_max_sync(0xffffffffu, deg);
   const int c = rl.lane;          // this lane's float4 of channels
   const int lanes = group / NH;   // a head's lanes
-#ifndef PRTP_FWD_SHARED_W
   const RegWeights<NH> wt(w, d, c * 4);
-#else
-  load_shared_weights(w, ws, NH * d);
-  const SharedWeights wt{ws + c * 4, d};
-#endif
   // ---- after the wait: h, then the stores ----
   grid_dep_wait();
   float x[kSlotRows][4], s[kSlotRows], mx, den, num[4];
@@ -185,14 +178,11 @@ static cudaError_t launch(const float* h, const int32_t* src,
   const int vecs = d / N;
   const int group = lane_group(vecs > kSlotRows ? vecs : kSlotRows);
   const unsigned grid = mailbox_grid(segs, group);
-  const bool together = N == 4 && attn_heads_together(vecs, nh);
   const SegmentAttnKernel kernel =
-      together ? heads_kernel(nh) : &segment_attn_loop_kernel<N>;
-  // heads together: w's copy (at most 32 x 128 floats, 16 KB)
-  const size_t smem = together ? sizeof(float) * nh * d : 0;
-  return launch_programmatic(kernel, grid, kMailboxThreads, smem, s, h, src,
-                             off, w, out, mx, den, segs, d, nh, partial,
-                             group);
+      N == 4 && attn_heads_together(vecs, nh) ? heads_kernel(nh)
+                                              : &segment_attn_loop_kernel<N>;
+  return launch_programmatic(kernel, grid, kMailboxThreads, 0, s, h, src, off,
+                             w, out, mx, den, segs, d, nh, partial, group);
 }
 
 // h: (> max(src), d) float32, src: (off[segs],) int32, off: (segs + 1,)
