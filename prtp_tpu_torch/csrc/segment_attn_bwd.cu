@@ -86,19 +86,19 @@
 
 #include "common.cuh"
 
+// Blocks an SM that the heads-together kernel must fit, both modes: as
+// many as the recomputing one holds unbounded at 1 and 4 heads (72 and 92
+// registers a thread), where ptxas then spilled 16 B of the
+// stats-reading one at 4 heads; bounded, neither spills.
+template <int NH>
+constexpr int kHeadsMinBlocks = NH == 1 ? 7 : NH == 2 ? 6 : NH == 4 ? 5 : 1;
+
 // Heads together: NH heads, one float4 a lane, group == d / 4. STATS:
 // the stats-reading mode; else the recomputing one. work: (>= gridDim.x,
 // NH, d): this block's d_w sums are added to its row, or written there
 // if the row is past `filled` (the rows the sum's earlier calls wrote).
-#ifdef PRTP_BWD_LB
-template <int NH>
-constexpr int kBwdMinBlocks = NH == 1 ? 7 : NH == 2 ? 7 : NH == 4 ? 5 : 1;
 template <int NH, bool STATS>
-__global__ void __launch_bounds__(kMailboxThreads, kBwdMinBlocks<NH>)
-#else
-template <int NH, bool STATS>
-__global__ void __launch_bounds__(kMailboxThreads)
-#endif
+__global__ void __launch_bounds__(kMailboxThreads, kHeadsMinBlocks<NH>)
     segment_attn_bwd_heads_kernel(
         const float* __restrict__ h, const int32_t* __restrict__ src,
         const int32_t* __restrict__ off, const float* __restrict__ w,
