@@ -710,6 +710,10 @@ __device__ __forceinline__ void copy_async_wait() {
 }
 
 constexpr int kReduceLanes = 32;  // dw_reduce: partial sums an element
+#ifndef PRTP_REDUCE_UNROLL
+#define PRTP_REDUCE_UNROLL 8
+#endif
+constexpr int kReduceUnroll = PRTP_REDUCE_UNROLL;
 constexpr int kMaxShare = 232448;  // bytes of shared memory a block may use
 
 // Adds the tile's rows of `share` ((rows of the tile, n): the rows'
@@ -740,7 +744,7 @@ __device__ __forceinline__ void dw_reduce(const float* partial,
   const int e = blockIdx.x * 32 + threadIdx.x;
   float acc = 0.f;
   if (e < elems) {
-#pragma unroll 8
+#pragma unroll kReduceUnroll
     for (int b = threadIdx.y; b < blocks; b += kReduceLanes)
       acc += __ldcg(partial + static_cast<int64_t>(b) * elems + e);
   }
