@@ -641,7 +641,8 @@ __device__ __forceinline__ void keep_row(float (&x)[N]) {
 // Its users: attn_sum, attn_bwd's two kernels (attn_bwd_rows,
 // attn_dw_reduce), softmax_sum_bwd, mailbox_scatter,
 // segment_softmax_sum, segment_softmax_sum_bwd, segment_mean (its
-// three modes), segment_attn_sum and segment_attn_bwd's two kernels.
+// three modes), segment_attn_sum and segment_attn_bwd's two kernels (its
+// rows kernel a pair, its d_w reduce once a backward).
 // softmax_sum, local_mean, gather_rows and flat_adam launch plainly.
 //
 // Launched with cudaLaunchAttributeProgrammaticStreamSerialization, a
@@ -710,10 +711,6 @@ __device__ __forceinline__ void copy_async_wait() {
 }
 
 constexpr int kReduceLanes = 32;  // dw_reduce: partial sums an element
-#ifndef PRTP_REDUCE_UNROLL
-#define PRTP_REDUCE_UNROLL 8
-#endif
-constexpr int kReduceUnroll = PRTP_REDUCE_UNROLL;
 constexpr int kMaxShare = 232448;  // bytes of shared memory a block may use
 
 // Adds the tile's rows of `share` ((rows of the tile, n): the rows'
@@ -744,7 +741,7 @@ __device__ __forceinline__ void dw_reduce(const float* partial,
   const int e = blockIdx.x * 32 + threadIdx.x;
   float acc = 0.f;
   if (e < elems) {
-#pragma unroll kReduceUnroll
+#pragma unroll 8
     for (int b = threadIdx.y; b < blocks; b += kReduceLanes)
       acc += __ldcg(partial + static_cast<int64_t>(b) * elems + e);
   }

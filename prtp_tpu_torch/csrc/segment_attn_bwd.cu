@@ -32,45 +32,52 @@
 //   with the slots' combined out (S, D), mx and den (S, nh), which the
 //   kernel reads.
 //
-// d_w sums every edge of the pair: it is summed in a fixed order, without
-// float atomics, so that a call gives the same bits every time, as
-// attn_bwd.cu sums it. Two kernels, both programmatic dependent launches:
-//   1. segment_attn_bwd_rows: d_msg, and each block's share of d_w. A
-//      block loops over tiles of kMailboxThreads / group slots (tile b,
-//      b + grid, ...; the grid is at most `blocks`, 1,056 from the
-//      wrapper: eight an SM of an H100), adds each tile's slots' shares
-//      in slot order to its own partial sums, and leaves them in its row
-//      of the workspace (blocks, nh, D);
-//   2. segment_dw_reduce: d_w[g, c] = the blocks' partial sums added in
-//      block order (32 interleaved partial sums, then those in order),
-//      once the rows kernel has finished (attn_bwd.cu's attn_dw_reduce).
+// d_w sums every edge of every pair of a backward: it is summed in a
+// fixed order, without float atomics, so that a backward gives the same
+// bits every time. One sum a backward (ops/segment_kernels.py::
+// AttnGradSum), two kernels, both programmatic dependent launches:
+//   1. segment_attn_bwd_rows, once a pair: d_msg, and its blocks' sums of
+//      d_w. The grid is the blocks the card holds at once (the lesser of
+//      the two modes' kernels, so that both sum in the same order; at
+//      most the workspace's rows and the call's tiles): block b loops over
+//      the tiles b, b + grid, ... of kMailboxThreads / group slots and
+//      adds its sums to row b of one workspace (rows, nh, D), which the
+//      first call to reach the row writes instead;
+//   2. segment_dw_reduce, once a backward after the last pair: d_w[g, c]
+//      = the rows added in row order (common.cuh's dw_reduce, which
+//      attn_bwd.cu's reduce shares).
 //
 // Bound on Hopper: bytes: each distinct source row read once, the edge
 // table, the offsets, w and the (S, D) cotangent g_out read
-// (stats-reading: also out, mx and den), the (E, D) cotangent and d_w
-// written, over 3.35 TB/s. At the headline design (pairs 1-9) that is
-// about 81 MB, 0.024 ms a backward, as segment_softmax_sum_bwd's; the
-// blocks' partial sums stay in L2 (at most 0.54 MB a head). The products
-// are about 2 D (3 nh + 1) flop an edge (scores, da, the score path,
-// d_w), far below the f32 rate (chip_smoke.py, phase 12 (a), prints each
-// beside the kernel's time and its one-slot floor).
+// (stats-reading: also out, mx and den), the (E, D) cotangent written,
+// and d_w written once a backward, over 3.35 TB/s. At the headline design
+// (pairs 1-9) that is about 81 MB, 0.024 ms a backward, as
+// segment_softmax_sum_bwd's; the workspace stays in L2 (at most 0.54 MB
+// a head). The products are about 2 D (3 nh + 1) flop an edge (scores,
+// da, the score path, d_w), far below the f32 rate (chip_smoke.py, phase
+// 12 (a), prints each beside the kernel's time and its one-slot floor).
 //
 // Design: segment_attn_sum's two paths (common.cuh). Heads together: a
-// lane group of D / 4 lanes covers a slot, one float4 a lane; a slot of
-// up to 4 edges keeps its rows and scores in registers from the
-// recompute (or, stats-reading, from one load before the wait), a wider
-// one walks its edges 4 rows at a time. For each chunk: each lane's own
-// head's alpha, da (a butterfly over the head's lanes) and ds; then for
-// each head g in turn each lane takes ds_eg from the head's first lane
-// and adds ds_eg w[g] into its score-path sums and ds_eg x_e into the
-// slot's share of d_w[g] in shared memory, (tile slots, nh, D); last the
-// value path alpha g_out is added and each edge's float4 stored. The
-// tile's shares go into the block's partial sums (shared memory, nh x D)
-// in one pass: two barriers a tile. The per-head loop (the other shapes,
-// and N = 1 for D % 4 != 0 or a pointer off 16-byte alignment): per head,
-// walks over the slot's edges, the score path summed in d_msg itself
-// (each lane its own channels) and the share in shared memory, then
-// into the block's row of the workspace, a head at a time.
+// lane group of D / 4 lanes covers a slot, one float4 a lane, w's (nh, D)
+// copy in shared memory (started by cp.async at the block's start and
+// waited for once the first tile's tables are loaded); a slot of up to 4
+// edges keeps its rows and scores in registers from the recompute (or,
+// stats-reading, from one load before the wait), a wider one walks its
+// edges 4 rows at a time (the recompute walked it once already, with a
+// running max). For each chunk and edge: each lane's own head's alpha, da
+// (a butterfly over the head's lanes) and ds; then for each head g in
+// turn each lane takes ds_eg from the head's first lane and adds ds_eg
+// w[g] into the edge's score path and ds_eg x_e into its own float4 of
+// d_w[g], kept in registers over its group's slots (NH x 4 floats); the
+// value path alpha g_out is added and the edge's float4 stored at once.
+// At the block's end the lane groups' sums go through shared memory into
+// the block's row, in group order, after the row's earlier sums (fetched
+// by cp.async right after the wait): one barrier. The per-head loop (the
+// other shapes, and N = 1 for D % 4 != 0 or a pointer off 16-byte
+// alignment): per head, walks over the slot's edges, the score path
+// summed in d_msg itself (each lane its own channels) and the slot's
+// share in shared memory, added a tile and a head at a time to the
+// block's sums (shared memory), added to its row at the end.
 //
 // segment_attn_bwd_rows is a programmatic dependent launch (common.cuh):
 // with the heads together, before grid_dep_wait() it reads off, src, w,
@@ -78,7 +85,8 @@
 // (the graph's tables, a weight, and tensors written before the kernel
 // just before it: hf by the forward, the statistics by its combine), and
 // recomputes the slot's softmax there; after it g_out (d_f, which the
-// fc_cell_neigh gradients just before this kernel write), then every
+// fc_cell_neigh gradients just before this kernel write) and the
+// workspace row (which the previous pair's call wrote), then every
 // store. The per-head loop waits first. segment_dw_reduce reads nothing
 // before its wait.
 
@@ -412,13 +420,16 @@ static cudaError_t launch_rows(const float* h, const int32_t* src,
   const int64_t tiles = mailbox_grid(segs, group);
   const bool stats = out != nullptr;
   const bool together = N == 4 && attn_heads_together(vecs, nh);
-  // the kernels of the two modes
+  // the two modes' kernels: recomputing, stats-reading
   const SegmentAttnBwdKernel modes[2] = {
-      together ? heads_kernel<false>(nh) : &segment_attn_bwd_loop_kernel<N, false>,
-      together ? heads_kernel<true>(nh) : &segment_attn_bwd_loop_kernel<N, true>};
+      together ? heads_kernel<false>(nh)
+               : &segment_attn_bwd_loop_kernel<N, false>,
+      together ? heads_kernel<true>(nh)
+               : &segment_attn_bwd_loop_kernel<N, true>};
   const SegmentAttnBwdKernel kernel = modes[stats];
-  // heads together: w's copy and the lane groups' sums; the per-head
-  // loop: the tile's shares and the block's sums
+  // heads together: w's copy, the lane groups' sums and the row's
+  // earlier sums; the per-head loop: the tile's shares and the block's
+  // sums
   const size_t smem = sizeof(float) * d *
                       (together ? (tile_rows + 2) * nh : tile_rows + nh);
   if (smem > kMaxShare) return cudaErrorInvalidValue;

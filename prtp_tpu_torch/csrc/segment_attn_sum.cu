@@ -47,7 +47,8 @@
 // nh scores in one pass; every row load of a slot of up to 4 edges is
 // issued before any arithmetic and kept in registers with its score, so
 // each row is read once; a slot of more than 4 edges takes the generic
-// path, 4 rows at a time, twice (the max, then the sums). The other
+// path, 4 rows at a time, once: its shift is a running max, and the sums
+// are rescaled where a chunk raises it (slot_attn). The other
 // shapes take the per-head loop: for each head, walks over the slot's
 // edges, a full-group sum a score, the lane's vectors re-read from L1;
 // D % 4 != 0 or a pointer off 16-byte alignment takes it with scalar
@@ -64,16 +65,16 @@
 
 #include "common.cuh"
 
-// Heads together: NH heads, one float4 a lane, group == d / 4.
-// Blocks an SM that the heads-together kernel must fit: as many as PR
-// 16's design held at 1, 2 and 4 heads (55, 64 and 72 registers a
-// thread). The running max of slot_attn needs more registers than its
-// two passes did (58 / 76 / 80 unbounded: one block an SM fewer, about
-// 2% slower at the headline); bounded, ptxas fits 56 / 64 / 72 with no
+// Blocks an SM that the heads-together kernel must fit at 1, 2 and 4
+// heads: as many as it held when slot_attn took two passes over a slot
+// (55, 64 and 72 registers a thread). The running max needs more
+// registers unbounded (58, 76 and 80: a block an SM fewer, about 2%
+// slower at the headline); bounded, ptxas fits 56, 64 and 72 with no
 // spill.
 template <int NH>
 constexpr int kHeadsMinBlocks = NH == 1 ? 9 : NH == 2 ? 8 : NH == 4 ? 7 : 1;
 
+// Heads together: NH heads, one float4 a lane, group == d / 4.
 template <int NH>
 __global__ void __launch_bounds__(kMailboxThreads, kHeadsMinBlocks<NH>)
     segment_attn_heads_kernel(const float* h, const int32_t* __restrict__ src,

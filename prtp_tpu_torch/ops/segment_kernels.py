@@ -24,7 +24,9 @@ source row for the backward), through:
   ``partial`` the numerator and each slot's per-head shift and
   denominator;
 - :func:`segment_attn_bwd`: its per-edge cotangent and ``fc_attn2``'s
-  gradient, in the same two modes as :func:`segment_softmax_sum_bwd`.
+  gradient, in the same two modes as :func:`segment_softmax_sum_bwd`;
+  the walk adds each pair's gradient into one :class:`AttnGradSum` a
+  backward, reduced once after the last pair.
 
 The backward's scatter-add of per-edge (or per-slot) cotangents into
 ``dh`` by source row is the mailbox walk's ``mailbox_scatter``
@@ -58,8 +60,10 @@ _ATTN_ARGTYPES = [c_void_p] * 7 + [c_int64, c_int, c_int, c_int, c_void_p]
 _ATTN_BWD_ARGTYPES = [c_void_p] * 10 + [c_int64, c_int, c_int, c_int, c_int,
                                         c_void_p, c_void_p]
 _DW_REDUCE_ARGTYPES = [c_void_p, c_void_p, c_int, c_int, c_void_p]
-# segment_attn_bwd's rows kernel: eight blocks of four warps a streaming
-# multiprocessor (its launch bounds), so that its grid is one wave
+# AttnGradSum's workspace rows a streaming multiprocessor: a row a block
+# of segment_attn_bwd's rows kernel, whose grid is the blocks resident at
+# once (7 an SM at 1 head, 5 at 4 on an H100: its launch bounds) and at
+# most the rows
 _ATTN_BWD_BLOCKS_PER_SM = 8
 
 
@@ -394,7 +398,7 @@ class AttnGradSum:
     """``fc_attn2``'s gradient summed over the :func:`segment_attn_bwd`
     calls of one backward, in a fixed order, without float atomics: the
     same bits on every run. Each call adds its share; :meth:`finish`
-    returns the sum, once, after the last call.
+    returns the sum after the last call.
 
     For CPU tensors it is the plain sum: each call's ``ds.T @ x`` added
     in call order. On the card each call's rows kernel adds its blocks'

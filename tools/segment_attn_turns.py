@@ -24,10 +24,11 @@ and cotangent a level:
   reduce, this tree's calls adding into one sum, then its one reduce;
   and each kernel's one-slot call.
 
-The other tree's backward launcher is PR 16's, ``(h, src, off, w, out,
-mx, den, g, d_msg, d_w, work, segs, d, nh, blocks, stream)``; its
-forward launcher is this tree's. Needs a card; prints the card's name
-and power limit and ends with one JSON line of the numbers.
+The other tree's backward launcher is the one that reduced ``d_w`` in
+every call, ``(h, src, off, w, out, mx, den, g, d_msg, d_w, work, segs,
+d, nh, blocks, stream)``; its forward launcher is this tree's. Needs a
+card; prints the card's name and power limit and ends with one JSON line
+of the numbers.
 """
 
 from __future__ import annotations
