@@ -3709,7 +3709,8 @@ def launches_per_forward_segment(graph, attn=False) -> dict:
 def launches_per_step_segment(graph, sharded=False, attn=False) -> dict:
     """Each kernel's launches in one train step of the segment walk on
     ``graph``: the forward's, the cell cotangent for pairs k > 0
-    (``segment_attn_bwd`` with ``--attn``), a ``mailbox_scatter`` for
+    (``segment_attn_bwd`` with ``--attn``: a rows call a pair and one
+    reduce of ``fc_attn2``'s gradient a step), a ``mailbox_scatter`` for
     each level with edges (two under the edge-sharded step: into the
     compact buffer, then into dh) and one flat Adam update."""
     p = graph.num_pairs
@@ -3718,7 +3719,7 @@ def launches_per_step_segment(graph, sharded=False, attn=False) -> dict:
                    for k in range(p))
     return {**launches_per_forward_segment(graph, attn),
             "segment_softmax_sum_bwd": 0 if attn else p - 1,
-            "segment_attn_bwd": p - 1 if attn else 0,
+            "segment_attn_bwd": p - 1 + (p > 1) if attn else 0,
             "mailbox_scatter": scatters * (2 if sharded else 1),
             "flat_adam": 1}
 

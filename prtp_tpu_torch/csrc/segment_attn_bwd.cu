@@ -37,12 +37,13 @@
 // bits every time. One sum a backward (ops/segment_kernels.py::
 // AttnGradSum), two kernels, both programmatic dependent launches:
 //   1. segment_attn_bwd_rows, once a pair: d_msg, and its blocks' sums of
-//      d_w. The grid is the blocks the card holds at once (the lesser of
-//      the two modes' kernels, so that both sum in the same order; at
-//      most the workspace's rows and the call's tiles): block b loops over
-//      the tiles b, b + grid, ... of kMailboxThreads / group slots and
-//      adds its sums to row b of one workspace (rows, nh, D), which the
-//      first call to reach the row writes instead;
+//      d_w. The grid is the workspace's rows, or the call's tiles if
+//      fewer; the rows are the blocks the card holds at once, the lesser
+//      of the two modes' kernels (segment_attn_bwd_grid_launch), so that
+//      both sum in the same order. Block b loops over the tiles b, b +
+//      grid, ... of kMailboxThreads / group slots and adds its sums to
+//      row b of one workspace (rows, nh, D), which the first call to
+//      reach the row writes instead;
 //   2. segment_dw_reduce, once a backward after the last pair: d_w[g, c]
 //      = the rows added in row order (common.cuh's dw_reduce, which
 //      attn_bwd.cu's reduce shares).
@@ -89,8 +90,6 @@
 // workspace row (which the previous pair's call wrote), then every
 // store. The per-head loop waits first. segment_dw_reduce reads nothing
 // before its wait.
-
-#include <mutex>
 
 #include "common.cuh"
 
@@ -363,49 +362,43 @@ static SegmentAttnBwdKernel heads_kernel(int nh) {
   }
 }
 
-// The blocks of both modes' kernels that the card holds at once (the
-// lesser of the two), so that a call's grid is one wave and both modes
-// sum d_w in the same order. Asked once a kernel, shared memory size and
-// device.
-static cudaError_t resident_blocks(SegmentAttnBwdKernel a,
-                                   SegmentAttnBwdKernel b, size_t smem,
-                                   int* blocks) {
-  struct Seen {
-    SegmentAttnBwdKernel kernel;
-    size_t smem;
-    int device, blocks;
-  };
-  static std::mutex lock;
-  static Seen seen[32];
-  static int used = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> hold(lock);
-  for (int i = 0; i < used; ++i) {
-    if (seen[i].kernel == a && seen[i].smem == smem &&
-        seen[i].device == device) {
-      *blocks = seen[i].blocks;
-      return cudaSuccess;
+// A width's rows kernels: the two modes' (recomputing, stats-reading),
+// their shared memory and lane group.
+struct RowsPlan {
+  SegmentAttnBwdKernel modes[2];
+  size_t smem;
+  int group;
+};
+
+template <int N>
+static cudaError_t plan_rows(int d, int nh, RowsPlan* plan) {
+  const int vecs = d / N;
+  plan->group = lane_group(vecs > kSlotRows ? vecs : kSlotRows);
+  const int tile_rows = kMailboxThreads / plan->group;
+  const bool together = N == 4 && attn_heads_together(vecs, nh);
+  plan->modes[0] = together ? heads_kernel<false>(nh)
+                            : &segment_attn_bwd_loop_kernel<N, false>;
+  plan->modes[1] = together ? heads_kernel<true>(nh)
+                            : &segment_attn_bwd_loop_kernel<N, true>;
+  // heads together: w's copy, the lane groups' sums and the row's
+  // earlier sums; the per-head loop: the tile's shares and the block's
+  // sums
+  plan->smem = sizeof(float) * d *
+               (together ? (tile_rows + 2) * nh : tile_rows + nh);
+  if (plan->smem > kMaxShare) return cudaErrorInvalidValue;
+  if (plan->smem > 48 * 1024) {
+    for (const SegmentAttnBwdKernel k : plan->modes) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(plan->smem));
+      if (err != cudaSuccess) return err;
     }
   }
-  int sms = 0, on_a = 0, on_b = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&on_a, a,
-                                                        kMailboxThreads, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&on_b, b,
-                                                        kMailboxThreads, smem);
-  if (err != cudaSuccess) return err;
-  *blocks = (on_a < on_b ? on_a : on_b) * sms;
-  if (*blocks < 1) return cudaErrorInvalidConfiguration;
-  if (used < 32) seen[used++] = {a, smem, device, *blocks};
   return cudaSuccess;
 }
 
-// Launches the rows kernel on min(tiles, resident blocks, blocks)
-// blocks, each with at least one tile; *grid gets the number launched.
+// Launches the rows kernel on min(tiles, blocks) blocks, each with at
+// least one tile; *grid gets the number launched.
 template <int N>
 static cudaError_t launch_rows(const float* h, const int32_t* src,
                                const int32_t* off, const float* w,
@@ -414,51 +407,53 @@ static cudaError_t launch_rows(const float* h, const int32_t* src,
                                float* work, int64_t segs, int d, int nh,
                                int blocks, int filled, int* grid,
                                cudaStream_t s) {
-  const int vecs = d / N;
-  const int group = lane_group(vecs > kSlotRows ? vecs : kSlotRows);
-  const int tile_rows = kMailboxThreads / group;
-  const int64_t tiles = mailbox_grid(segs, group);
-  const bool stats = out != nullptr;
-  const bool together = N == 4 && attn_heads_together(vecs, nh);
-  // the two modes' kernels: recomputing, stats-reading
-  const SegmentAttnBwdKernel modes[2] = {
-      together ? heads_kernel<false>(nh)
-               : &segment_attn_bwd_loop_kernel<N, false>,
-      together ? heads_kernel<true>(nh)
-               : &segment_attn_bwd_loop_kernel<N, true>};
-  const SegmentAttnBwdKernel kernel = modes[stats];
-  // heads together: w's copy, the lane groups' sums and the row's
-  // earlier sums; the per-head loop: the tile's shares and the block's
-  // sums
-  const size_t smem = sizeof(float) * d *
-                      (together ? (tile_rows + 2) * nh : tile_rows + nh);
-  if (smem > kMaxShare) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    for (const SegmentAttnBwdKernel k : modes) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-    }
-  }
-  int resident = 0;
-  const cudaError_t err = resident_blocks(modes[0], modes[1], smem,
-                                          &resident);
+  RowsPlan plan;
+  const cudaError_t err = plan_rows<N>(d, nh, &plan);
   if (err != cudaSuccess) return err;
-  if (resident < blocks) blocks = resident;
+  const int64_t tiles = mailbox_grid(segs, plan.group);
   *grid = static_cast<int>(tiles < blocks ? tiles : blocks);
-  return launch_programmatic(kernel, *grid, kMailboxThreads, smem, s, h, src,
-                             off, w, out, mx, den, g, d_msg, work, segs, d,
-                             nh, group, tiles, filled);
+  return launch_programmatic(plan.modes[out != nullptr], *grid,
+                             kMailboxThreads, plan.smem, s, h, src, off, w,
+                             out, mx, den, g, d_msg, work, segs, d, nh,
+                             plan.group, tiles, filled);
+}
+
+// The rows of a d_w sum's workspace for width d and nh heads: the blocks
+// of both modes' rows kernels (16-byte aligned pointers) that the card
+// holds at once, the lesser of the two, so that each call is one wave
+// and both modes sum d_w in the same order. Not a launch.
+PRTP_EXPORT int segment_attn_bwd_grid_launch(int d, int nh, int* blocks) {
+  *blocks = 0;
+  if (d < 1 || nh < 1 || d % nh != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  RowsPlan plan;
+  cudaError_t err = d % 4 == 0 ? plan_rows<4>(d, nh, &plan)
+                               : plan_rows<1>(d, nh, &plan);
+  int device = 0, sms = 0, on_a = 0, on_b = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &on_a, plan.modes[0], kMailboxThreads, plan.smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &on_b, plan.modes[1], kMailboxThreads, plan.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = (on_a < on_b ? on_a : on_b) * sms;
+  return static_cast<int>(*blocks < 1 ? cudaErrorInvalidConfiguration
+                                      : cudaSuccess);
 }
 
 // One call of a d_w sum. h: (> max(src), d) float32, src: (off[segs],)
 // int32, off: (segs + 1,) int32 ascending, w: (nh, d) float32 with nh
 // dividing d, g: (segs, d) float32, d_msg: (off[segs], d) float32; out:
 // (segs, d), mx, den: (segs, nh) float32 all three (stats-reading), or
-// all null (recomputing); work: blocks * nh * d floats (blocks >= 1),
-// whose rows below `filled` hold the sum's earlier calls' sums. Adds
-// this call's to rows [0, *grid) (writing those at or past `filled`).
+// all null (recomputing); work: blocks * nh * d floats (blocks >= 1:
+// segment_attn_bwd_grid_launch's rows), whose rows below `filled` hold
+// the sum's earlier calls' sums. Adds this call's to rows [0, *grid)
+// (writing those at or past `filled`).
 PRTP_EXPORT int segment_attn_bwd_launch(const void* h, const void* src,
                                         const void* off, const void* w,
                                         const void* out, const void* mx,

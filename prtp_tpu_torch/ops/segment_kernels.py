@@ -60,11 +60,7 @@ _ATTN_ARGTYPES = [c_void_p] * 7 + [c_int64, c_int, c_int, c_int, c_void_p]
 _ATTN_BWD_ARGTYPES = [c_void_p] * 10 + [c_int64, c_int, c_int, c_int, c_int,
                                         c_void_p, c_void_p]
 _DW_REDUCE_ARGTYPES = [c_void_p, c_void_p, c_int, c_int, c_void_p]
-# AttnGradSum's workspace rows a streaming multiprocessor: a row a block
-# of segment_attn_bwd's rows kernel, whose grid is the blocks resident at
-# once (7 an SM at 1 head, 5 at 4 on an H100: its launch bounds) and at
-# most the rows
-_ATTN_BWD_BLOCKS_PER_SM = 8
+_ATTN_GRID_ARGTYPES = [c_int, c_int, c_void_p]
 
 
 def _segment_ids(off: torch.Tensor) -> torch.Tensor:
@@ -402,14 +398,15 @@ class AttnGradSum:
 
     For CPU tensors it is the plain sum: each call's ``ds.T @ x`` added
     in call order. On the card each call's rows kernel adds its blocks'
-    sums into their rows of one workspace (``blocks`` x (nh, D) floats,
-    allocated at the first call), written by the first call that reaches
-    a row and added to by the later ones, in call order; :meth:`finish`
-    launches one fixed-order reduce of the rows. A call's kernel reads
-    and writes its rows after its wait, once the kernel before it on the
-    stream has finished: the previous call's rows kernel precedes it on
-    the stream. Counted under :func:`segment_attn_bwd` (its reduce is
-    one launch a sum)."""
+    sums into their rows of one workspace, written by the first call that
+    reaches a row and added to by the later ones, in call order;
+    :meth:`finish` launches one fixed-order reduce of the rows. The
+    workspace, allocated at the first call, has a row a block of the rows
+    kernel's grid, which the kernel's library gives (the blocks the card
+    holds at once). A call's kernel reads and writes its rows after its
+    wait, once the kernel before it on the stream has finished: the
+    previous call's rows kernel precedes it on the stream. The reduce
+    counts as a launch of :func:`segment_attn_bwd`."""
 
     def __init__(self, w: torch.Tensor):
         self.w = w
@@ -422,11 +419,13 @@ class AttnGradSum:
 
     def workspace(self) -> torch.Tensor:
         if self.work is None:
-            sms = torch.cuda.get_device_properties(
-                self.w.device).multi_processor_count
-            self.work = torch.empty(
-                (_ATTN_BWD_BLOCKS_PER_SM * sms, *self.w.shape),
-                dtype=self.w.dtype, device=self.w.device)
+            nh, d = self.w.shape
+            rows = c_int(0)
+            with torch.cuda.device(self.w.device):
+                _build.launch("segment_attn_bwd", _ATTN_GRID_ARGTYPES, d, nh,
+                              addressof(rows), entry="segment_attn_bwd_grid")
+            self.work = torch.empty((rows.value, nh, d), dtype=self.w.dtype,
+                                    device=self.w.device)
         return self.work
 
     def finish(self) -> torch.Tensor:
@@ -440,6 +439,7 @@ class AttnGradSum:
                           self.work.data_ptr(), d_w.data_ptr(), self.filled,
                           d_w.numel(), _stream(d_w),
                           entry="segment_dw_reduce")
+        segment_attn_bwd.launches += 1
         return d_w
 
 
@@ -460,7 +460,8 @@ def segment_attn_bwd(h: torch.Tensor, src: torch.Tensor, off: torch.Tensor,
     state: every source row of a level is final once it is written), src
     (E,) and off (S+1,) int32, w (nh, D) float32.
 
-    On the card it is one kernel a call, a programmatic dependent launch:
+    On the card it is one kernel a call (and, without ``dw_sum``, the
+    sum's reduce after it), a programmatic dependent launch:
     it reads the tables, ``h``, ``w`` and ``stats`` while the kernel
     before it on the stream may still run, so that kernel must not write
     them, and ``g`` and the sum's workspace once that kernel has

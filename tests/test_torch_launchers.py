@@ -31,7 +31,9 @@ ARGTYPES = {
 # launchers beyond <name>_launch, by library: (entry, argument list)
 MORE = {"segment_mean": [("net_update", segment_kernels._UPDATE_ARGTYPES)],
         "segment_attn_bwd": [("segment_dw_reduce",
-                              segment_kernels._DW_REDUCE_ARGTYPES)]}
+                              segment_kernels._DW_REDUCE_ARGTYPES),
+                             ("segment_attn_bwd_grid",
+                              segment_kernels._ATTN_GRID_ARGTYPES)]}
 LAUNCHERS = ([(name, name, ARGTYPES[name]) for name in _build.KERNEL_NAMES]
              + [(name, entry, types) for name, more in MORE.items()
                 for entry, types in more])
