@@ -7,7 +7,7 @@ Phases, each failing loudly (nonzero exit) on any error:
 
 1. Print the card (``nvidia-smi`` name, power limit and compute mode),
    the torch and CUDA versions; turn TF32 off for matmuls and convolutions (the port's
-   float32, as the CLIs set it themselves) for phases 2-6 and 8.
+   float32, as the CLIs set it themselves) for phases 2-6 and 8-13.
 2. Build every CUDA kernel of the path from ``prtp_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once.
 3. Build and pack two designs: the bench headline (80k nodes, 20
@@ -220,6 +220,24 @@ Phases, each failing loudly (nonzero exit) on any error:
    against a run with a synchronize between; (b) and (c) as phase 11's,
    for the segment ``--attn`` model beside the mailbox ``--attn`` model
    on the same weights.
+13. bf16 under the segment reduce (``gnn_reduce="segment"``,
+   ``compute_dtype`` bfloat16, :func:`segment_bf16_phase`) at full width
+   on the headline, TF32 off: the walk rounds as JAX's padded scan does
+   (the only rounding JAX has for the segment reduce), at every entry
+   point's default; its kernels are the float32 segment walk's, on the
+   same float32 inputs. (b) The reg model: 3 requests card against CPU
+   and against the card's bf16 mailbox model in the padded scan's
+   rounding on the same weights, by phase 8's bf16 bounds (BF16_ULPS,
+   REL_GAP x the distance from the float32 twin measured in the run),
+   the forward's launches against the segment walk's tables, 3 paired
+   steps card against CPU (BF16_GRAD_TOL, BF16_LOSS_RTOL, REL_GAP) with
+   the step's launches, the first step against the mailbox model's,
+   one step timed beside the mailbox ``bf16_scan`` step in turns
+   (pre-filled, busy, as launched, idle share, launches); (c) the (1, 1)
+   NCCL step bit-equal to ``train_step``, and two gloo processes at (1,
+   2) within DP_TOL_2 with the ranks' checksums equal. Then ``--attn``
+   with 4 heads: 3 requests, 2 paired steps and the (1, 1) bit check.
+   (The 1-head float32 ``--attn`` cell stays in phase 12.)
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -2099,7 +2117,7 @@ def _grads(state):
 
 
 def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
-                 attn=False, card=None, rounding="fused"):
+                 attn=False, card=None, rounding=None):
     """Phase 8: the same steps through ``trainer.train_step`` on the CPU
     and on the card, each card step from the CPU's state before it (its
     parameters, buffers and Adam moments), so that each step's loss is
@@ -2111,7 +2129,8 @@ def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
     zeroed just before the card's steps and read just after: each kernel
     must have run ``len(batches)`` x its per-step count. The CPU's first
     step takes the card's branches ``card`` (:func:`card_branches`). The
-    walk runs in the bf16 ``rounding`` (``trainer.train_step``).
+    walk runs in the bf16 ``rounding`` (``trainer.train_step``; None: the
+    model's reduce's).
     Returns ``{where:
     (losses, the first step's gradients, counts, the buffers after each
     step, the state_dict after the last)}``, all on the CPU."""
@@ -3712,7 +3731,9 @@ def launches_per_step_segment(graph, sharded=False, attn=False) -> dict:
     (``segment_attn_bwd`` with ``--attn``: a rows call a pair and one
     reduce of ``fc_attn2``'s gradient a step), a ``mailbox_scatter`` for
     each level with edges (two under the edge-sharded step: into the
-    compact buffer, then into dh) and one flat Adam update."""
+    compact buffer, then into dh) and one flat Adam update. The same in
+    bf16: the walk's bf16 products are library GEMMs and its bias sums
+    plain PyTorch ops."""
     p = graph.num_pairs
     scatters = sum((graph.net_src_rows[k].numel() > 0)
                    + (k > 0 and graph.cell_src_rows[k].numel() > 0)
@@ -4623,11 +4644,19 @@ def heads_of(model_kw):
 
 
 def segment_model_checks(torch, np, dev, smi, headline, design,
-                         compute_mode, phase, model_kw) -> dict:
-    """Phases 11 and 12, (b) and (c), for the headline segment model with
-    ``model_kw`` (phase 12: ``flag_attn`` and ``num_heads``), on
-    ``design`` (the headline packed with ``segment=True``), its mailbox
-    twin on the same weights beside it; see :func:`segment_phase`.
+                         compute_mode, phase, model_kw, brief=False) -> dict:
+    """Phases 11, 12 and 13, (b) and (c), for the headline segment model
+    with ``model_kw`` (phase 12: ``flag_attn`` and ``num_heads``; phase
+    13: ``compute_dtype`` bfloat16 too), on ``design`` (the headline
+    packed with ``segment=True``), its mailbox twin on the same weights
+    beside it; see :func:`segment_phase`. A bf16 model (``low``) is held
+    by phase 8's bf16 bounds (:func:`check_bf16`,
+    :func:`compare_bf16_runs`) against the CPU and its mailbox twin, whose
+    walk rounds as its own does, JAX's padded scan's (``rounding="scan"``;
+    the segment model's default); its float32 twin (the same weights, the
+    segment reduce) gives the bf16 rounding's own distance, and its (1,
+    1) step must equal ``train_step``'s bit for bit. ``brief``: the
+    requests, SHORT_STEPS paired steps and the (1, 1) step only.
     Returns the launch counts of each run."""
     import pickle
     import tempfile
@@ -4647,7 +4676,9 @@ def segment_model_checks(torch, np, dev, smi, headline, design,
     graph = design.graph
     nh = heads_of(model_kw)
     attn = nh is not None
-    name_of = "segment" if not attn else f"segment --attn nh {nh}"
+    low = model_kw.get("compute_dtype") is not None
+    name_of = ("segment" + (" bf16" if low else "")
+               + (f" --attn nh {nh}" if attn else ""))
     kw = dict(map_size=MAP_SIZE, generator=torch.Generator().manual_seed(SEED))
     model_cpu = PathModel(CELL_FEAT, NET_FEAT, gnn_reduce="segment", **kw,
                           **model_kw)
@@ -4656,26 +4687,45 @@ def segment_model_checks(torch, np, dev, smi, headline, design,
                         map_size=MAP_SIZE, **model_kw)
     mailbox.load_state_dict(model_cpu.state_dict())
     mailbox.to(dev)
+    # each model's walk rounding: a bf16 mailbox model in the padded
+    # scan's, as the bf16 segment model always rounds
+    rounding_of = {"segment": None, "mailbox": "scan" if low else None}
+    twin = None
+    if low:  # the same weights in float32, on the card
+        twin = PathModel(CELL_FEAT, NET_FEAT, gnn_reduce="segment", **kw,
+                         **{k: v for k, v in model_kw.items()
+                            if k != "compute_dtype"})
+        twin.load_state_dict(model_cpu.state_dict())
+        twin.to(dev)
     launches = {}
     what = f"serve headline {name_of}"
     model = copy.deepcopy(model_cpu).to(dev)
     launches[what] = serve(torch, np, model, model_cpu, headline,
                            f"headline {name_of}",
                            launches_per_forward_segment(graph, attn),
-                           REQUESTS, attn=attn)
+                           REQUESTS, attn=attn, f32_model=twin)
     with contextlib.redirect_stdout(io.StringIO()):
         p_seg, _m = evaluate_design(model, headline, DEVICE)
-        p_box, _m = evaluate_design(mailbox, headline, DEVICE)
-    diff = float(np.abs(p_seg - p_box).max())
-    np.testing.assert_allclose(p_seg, p_box, rtol=1e-4, atol=1e-4,
-                               err_msg=f"{name_of} vs mailbox on the card")
-    log(f"  headline {name_of} vs mailbox, both on the card, same weights: "
-        f"predictions within {diff:.3g} (rtol/atol 1e-4): ok")
+        p_box, _m = evaluate_design(mailbox, headline, DEVICE,
+                                    rounding=rounding_of["mailbox"] or "scan")
+        if low:
+            p_f32, _m = evaluate_design(twin, headline, DEVICE)
+    if low:
+        check_bf16(np, f"headline {name_of} vs the mailbox model in the "
+                   "padded scan's rounding, both on the card, same weights",
+                   p_seg, p_box, p_f32)
+    else:
+        diff = float(np.abs(p_seg - p_box).max())
+        np.testing.assert_allclose(p_seg, p_box, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{name_of} vs mailbox on the card")
+        log(f"  headline {name_of} vs mailbox, both on the card, same "
+            f"weights: predictions within {diff:.3g} (rtol/atol 1e-4): ok")
     num_paths = int(headline["num_paths"])
     pids, _m = pad_batch(np.arange(num_paths), num_paths, dev)
     for name, m in (("segment", model), ("mailbox", mailbox)):
         with torch.no_grad():
-            by_name = device_kernels(torch, lambda: m(design, pids))
+            by_name = device_kernels(torch, lambda: m(
+                design, pids, rounding=rounding_of[name]))
         log(f"phase {phase} (b): {name} model forward ({num_paths} paths"
             f"{', --attn nh %d' % nh if attn else ''}): "
             f"{sum(c for _, c in by_name.values())} kernel launches, device "
@@ -4684,62 +4734,86 @@ def segment_model_checks(torch, np, dev, smi, headline, design,
     cpu_design = pack_design(headline, map_size=MAP_SIZE, device="cpu",
                              segment=True)
     designs = {DEVICE: design, "cpu": cpu_design}
+    steps = SHORT_STEPS if brief else SEG_STEPS
     batches = {where: list(iterate_batches(
         np.arange(num_paths), TRAIN_BATCH, np.random.default_rng(EPOCH_SEED),
-        device=where))[:SEG_STEPS] for where in designs}
+        device=where))[:steps] for where in designs}
     flips = pool_winner_flips(torch, model_cpu.cnn, cpu_design.cnn_input, dev)
-    card, signs = card_branches(torch, model_cpu.cnn, cpu_design.cnn_input,
-                                dev)
-    log(f"  {name_of}: max-pool windows whose winner differs, card vs cpu, at "
-        f"the init: {flips}; conv outputs whose sign differs: {signs}")
-    what = f"train headline {name_of}, the epoch's first {SEG_STEPS} steps"
+    if low:  # the cpu's first step takes the card's bf16 CNN values
+        log(f"  {name_of}: max-pool windows whose winner differs, card vs "
+            f"cpu, at the init: {flips} (the cpu's first step takes the "
+            "card's values)")
+        card, _d = card_layers(torch, np, model_cpu.cnn, cpu_design.cnn_input,
+                               dev)
+    else:
+        card, signs = card_branches(torch, model_cpu.cnn,
+                                    cpu_design.cnn_input, dev)
+        log(f"  {name_of}: max-pool windows whose winner differs, card vs "
+            f"cpu, at the init: {flips}; conv outputs whose sign differs: "
+            f"{signs}")
+    what = f"train headline {name_of}, the epoch's first {steps} steps"
+    f32_first = (float32_first_step(torch, twin, design, batches[DEVICE][0],
+                                    "reg") if low else None)
     runs = paired_steps(torch, model_cpu, designs, batches, what,
                         launches_per_step_segment(graph, attn=attn), "reg",
                         attn=attn, card=card)
     launches[what] = runs[DEVICE][2]
-    compare_runs(torch, what, runs[DEVICE], runs["cpu"], flips)
+    if low:
+        compare_bf16_runs(torch, what, runs[DEVICE], runs["cpu"], f32_first)
+    else:
+        compare_runs(torch, what, runs[DEVICE], runs["cpu"], flips)
     del runs, cpu_design
-    # the same first step on the card, segment and mailbox
-    first = {}
-    for name, m in (("segment", model_cpu), ("mailbox", mailbox)):
-        state = init_state(copy.deepcopy(m).cpu(), make_optimizer(LR), dev)
-        loss = float(train_step(state, design, *batches[DEVICE][0])["loss"])
-        first[name] = ([loss], _grads(state))
-    (l_seg, g_seg), (l_box, g_box) = first["segment"], first["mailbox"]
-    worst = max((float((g_seg[k] - g).abs().max() / g.abs().max()), k)
-                for k, g in g_box.items() if g.abs().max() > 0)
-    rel = abs(l_seg[0] - l_box[0]) / abs(l_box[0])
-    if worst[0] > GRAD_TOL or rel > LOSS_RTOL:
-        raise AssertionError(f"{name_of} vs mailbox first step on the card: "
-                             f"loss rtol {rel}, gradients {worst} x max |g|")
-    log(f"  train headline {name_of} vs mailbox, first step, both on the "
-        f"card: loss within rtol {rel:.3g} (allowed {LOSS_RTOL}), gradients "
-        f"within {worst[0]:.3g} x each leaf's max |g| ({worst[1]}; allowed "
-        f"{GRAD_TOL}): ok")
     ids, mask = pad_batch(np.random.default_rng(0).permutation(num_paths),
                           num_paths, dev)
-    for name in ("mailbox", "segment", "segment", "mailbox"):
-        state = init_state(copy.deepcopy(
-            model_cpu if name == "segment" else mailbox).cpu(),
-            make_optimizer(LR), dev)
-        tm = step_timing(torch, dev, lambda: train_step(state, design, ids,
-                                                        mask), 200)
-        log(f"phase {phase} (b): {name} train step ({num_paths} paths"
-            f"{', --attn nh %d' % nh if attn else ''}): device "
-            f"time {tm['device_ms']:.3f} ms; as launched "
-            f"{tm['launched_ms']:.3f} ms; wall {tm['wall_ms']:.3f} ms, "
-            f"device busy {tm['busy_ms']:.3f} ms, idle share "
-            f"{tm['idle']:.3f}; {tm['launches']} kernel launches  [{smi}]")
-        if name == "segment":
-            log_port_kernels(tm["by_name"], f"{name_of} train step")
-    del mailbox, model, state
+    if not brief:
+        # the same first step on the card, segment and mailbox
+        first = {}
+        for name, m in (("segment", model_cpu), ("mailbox", mailbox)):
+            state = init_state(copy.deepcopy(m).cpu(), make_optimizer(LR),
+                               dev)
+            loss = float(train_step(state, design, *batches[DEVICE][0],
+                                    rounding=rounding_of[name])["loss"])
+            first[name] = ([loss], _grads(state))
+        (l_seg, g_seg), (l_box, g_box) = first["segment"], first["mailbox"]
+        worst = max((float((g_seg[k] - g).abs().max() / g.abs().max()), k)
+                    for k, g in g_box.items() if g.abs().max() > 0)
+        rel = abs(l_seg[0] - l_box[0]) / abs(l_box[0])
+        grad_tol, loss_rtol = ((BF16_GRAD_TOL, BF16_LOSS_RTOL) if low
+                               else (GRAD_TOL, LOSS_RTOL))
+        if worst[0] > grad_tol or rel > loss_rtol:
+            raise AssertionError(f"{name_of} vs mailbox first step on the "
+                                 f"card: loss rtol {rel}, gradients {worst} "
+                                 "x max |g|")
+        log(f"  train headline {name_of} vs mailbox, first step, both on "
+            f"the card: loss within rtol {rel:.3g} (allowed {loss_rtol}), "
+            f"gradients within {worst[0]:.3g} x each leaf's max |g| "
+            f"({worst[1]}; allowed {grad_tol}): ok")
+        for name in ("mailbox", "segment", "segment", "mailbox"):
+            state = init_state(copy.deepcopy(
+                model_cpu if name == "segment" else mailbox).cpu(),
+                make_optimizer(LR), dev)
+            tm = step_timing(torch, dev, lambda: train_step(
+                state, design, ids, mask, rounding=rounding_of[name]), 200)
+            log(f"phase {phase} (b): {name}{' bf16' if low else ''} train "
+                f"step ({num_paths} paths"
+                f"{', --attn nh %d' % nh if attn else ''}"
+                f"{', the padded scan rounding' if low else ''}): device "
+                f"time {tm['device_ms']:.3f} ms; as launched "
+                f"{tm['launched_ms']:.3f} ms; wall {tm['wall_ms']:.3f} ms, "
+                f"device busy {tm['busy_ms']:.3f} ms, idle share "
+                f"{tm['idle']:.3f}; {tm['launches']} kernel launches  "
+                f"[{smi}]")
+            if name == "segment":
+                log_port_kernels(tm["by_name"], f"{name_of} train step")
+        del state
+    del mailbox, model, twin
     torch.cuda.empty_cache()
 
     # ---- (c) the edge-sharded step ----
     torch.backends.cudnn.deterministic = True
     ref = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), dev)
     snaps, ref_losses, ref_grads = [], [], None
-    for t in range(SEG_STEPS):
+    for t in range(steps):
         snaps.append(_state_snapshot(ref))
         ref_losses.append(float(train_step(ref, design, ids, mask)["loss"]))
         if t == 0:
@@ -4771,11 +4845,11 @@ def segment_model_checks(torch, np, dev, smi, headline, design,
         sharded = shard_design(mesh, design)
         state = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), dev)
         what = (f"phase {phase} (c): {name_of} graph-sharded, (1, 1) mesh "
-                f"(NCCL), {SEG_STEPS} steps")
+                f"(NCCL), {steps} steps")
         losses, grads = [], None
         torch.cuda.synchronize()
         _zero_launches()
-        for t in range(SEG_STEPS):
+        for t in range(steps):
             _state_restore(state, snaps[t])
             losses.append(float(graph_sharded_train_step(
                 state, sharded, ids, mask, mesh)["loss"]))
@@ -4784,9 +4858,9 @@ def segment_model_checks(torch, np, dev, smi, headline, design,
         torch.cuda.synchronize()
         launches[what] = _read_launches()
         check_launches(what, launches[what],
-                       launches_per_step_segment(graph, True, attn),
-                       SEG_STEPS)
-        check(what, losses, grads, DP_TOL)
+                       launches_per_step_segment(graph, True, attn), steps)
+        # bf16: bit for bit (one rank's all-reduces change nothing)
+        check(what, losses, grads, 0.0 if low else DP_TOL)
         torch.backends.cudnn.deterministic = False
         tm = step_timing(torch, dev, lambda: graph_sharded_train_step(
             state, sharded, ids, mask, mesh), 200)
@@ -4804,7 +4878,10 @@ def segment_model_checks(torch, np, dev, smi, headline, design,
     finally:
         dist.destroy_process_group()
 
-    if "exclusive" in compute_mode.lower():
+    if brief:
+        log(f"phase {phase} (c): {name_of}: the (1, {GP_RANKS}) mesh is "
+            "not run for this model (the reg model's is)")
+    elif "exclusive" in compute_mode.lower():
         log(f"phase {phase} (c): the card's compute mode is {compute_mode}: it "
             "admits one process, so two ranks cannot share it; the (1, 2) "
             "mesh not run")
@@ -5385,6 +5462,50 @@ def segment_attn_phase(torch, np, dev, smi, headline, compute_mode,
         launches
 
 
+def segment_bf16_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
+    """Phase 13: bf16 under the segment reduce
+    (``PathModel(gnn_reduce="segment", compute_dtype="bfloat16")``, the
+    walk in JAX's padded scan's rounding, every entry point at its
+    default) at the default model's full width on the headline, TF32
+    off. The kernels are the float32 segment walk's (phases 11 and 12
+    hold them), on the same float32 inputs.
+
+    (b) and (c) of :func:`segment_model_checks` for the reg model, by
+    phase 8's bf16 bounds: REQUESTS requests card against CPU and against
+    the card's bf16 mailbox model in the same rounding on the same
+    weights (:func:`check_bf16`, the float32 twin's distance measured in
+    the run), the forward's launches, SEG_STEPS paired steps card against
+    CPU (:func:`compare_bf16_runs`) with the segment walk's launch
+    counts, the first step against the mailbox model's on the card
+    (BF16_GRAD_TOL, BF16_LOSS_RTOL), one step timed beside the bf16
+    mailbox step in the padded scan's rounding (``bf16_scan``), in turns;
+    the (1, 1) NCCL step bit-equal to ``train_step``; GP_RANKS gloo
+    processes at (1, GP_RANKS) within DP_TOL_2, the ranks' checksums
+    equal. Then the ``--attn`` model with 4 heads (``brief``): the
+    requests, SHORT_STEPS paired steps and the (1, 1) bit check.
+    Returns the launch counts of each run."""
+    from prtp_tpu_torch.graph import pack_design
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    design = pack_design(headline, map_size=MAP_SIZE, device=dev,
+                         segment=True)
+    launches = {}
+    for model_kw, brief in (
+            (dict(compute_dtype="bfloat16"), False),
+            (dict(compute_dtype="bfloat16", flag_attn=True,
+                  num_heads=ATTN_HEADS[-1]), True)):
+        log(f"phase 13: segment PathModel({model_kw}) on the headline")
+        launches.update(segment_model_checks(
+            torch, np, dev, smi, headline, design, compute_mode, "13",
+            model_kw, brief=brief))
+    del design
+    torch.cuda.empty_cache()
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5643,6 +5764,10 @@ def main() -> int:
         torch, np, dev, smi, parsed["headline"], compute_mode, early_writer)
     records += attn_records
     launches.update(attn_launches)
+
+    # ---- phase 13: bf16 under the segment reduce ----
+    launches.update(segment_bf16_phase(torch, np, dev, smi,
+                                       parsed["headline"], compute_mode))
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

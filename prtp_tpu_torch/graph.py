@@ -77,10 +77,11 @@ class LeveledGraphExact:
     cell_off: tuple       # P ints
     net_off: tuple        # P ints
     num_rows: int
-    # the rows of a cell and of a net level in JAX's padded scan
-    # (:func:`scan_level_rows`): its bf16 bias gradients sum that many
-    # rows, the zeros of the padding included (ops.fused_gnn, "scan")
-    scan_rows: tuple = (1, 1)
+    # per pair, the rows of its cell and its net level in JAX's padded or
+    # grouped scan (:func:`scan_pair_rows`): its bf16 bias gradients sum
+    # that many rows, the zeros of the padding included (the walks' "scan"
+    # rounding)
+    scan_rows: tuple = ()
     # this rank's block of the edge tables under the 2-D (dp, gp) mesh
     # (parallel.graph_shard.shard_design); None: the whole level
     shard: object = None
@@ -301,6 +302,20 @@ def _pack_exact_numpy(parsed, segment=False):
 SCAN_ALIGN = 128
 
 
+def _round_up(x: int, m: int) -> int:
+    return ((max(int(x), 1) + m - 1) // m) * m
+
+
+def _pair_sizes(parsed) -> tuple:
+    """Each level pair's cell and net level sizes (0 for a missing last
+    net level)."""
+    levels = parsed["levels"]
+    n_pairs = (len(levels) + 1) // 2
+    return ([len(levels[2 * k][0]) for k in range(n_pairs)],
+            [len(levels[2 * k + 1][0]) if 2 * k + 1 < len(levels) else 0
+             for k in range(n_pairs)])
+
+
 def scan_level_rows(parsed_list, align: int = SCAN_ALIGN) -> tuple:
     """``(pn_c, pn_n)``: the rows of every cell and every net level in
     JAX's padded scan over the designs of ``parsed_list`` (full parsed
@@ -309,12 +324,92 @@ def scan_level_rows(parsed_list, align: int = SCAN_ALIGN) -> tuple:
     ``prtp_tpu/graph.py::bucket_shape`` and ``_level_layout`` pad them."""
     rows = [1, 1]
     for parsed in parsed_list:
-        levels = parsed["levels"]
-        for parity in (0, 1):
-            n = max((len(levels[li][0])
-                     for li in range(parity, len(levels), 2)), default=1)
+        for parity, sizes in enumerate(_pair_sizes(parsed)):
             rows[parity] = max(rows[parity],
-                               -(-max(n, 1) // align) * align)
+                               _round_up(max(sizes, default=1), align))
+    return tuple(rows)
+
+
+def choose_pair_groups(cell_sizes, net_sizes, num_groups):
+    """Contiguous partition of level pairs into <= ``num_groups`` groups
+    minimizing the padded compute sum_g P_g * (max_cell_g + max_net_g)
+    (exact DP). A copy of ``prtp_tpu/graph.py::choose_pair_groups``:
+    JAX's grouped scan pads each group's levels to the group's largest."""
+    p = len(cell_sizes)
+    assert p >= 1
+    num_groups = max(1, min(int(num_groups), p))
+    cost = {}
+
+    def seg_cost(i, j):  # pairs [i, j)
+        if (i, j) not in cost:
+            cost[(i, j)] = (j - i) * (max(cell_sizes[i:j])
+                                      + max(net_sizes[i:j]))
+        return cost[(i, j)]
+
+    inf = float("inf")
+    dp = [[inf] * (p + 1) for _ in range(num_groups + 1)]
+    back = [[0] * (p + 1) for _ in range(num_groups + 1)]
+    dp[0][0] = 0.0
+    for k in range(1, num_groups + 1):
+        for j in range(1, p + 1):
+            for i in range(k - 1, j):
+                if dp[k - 1][i] is inf:
+                    continue
+                c = dp[k - 1][i] + seg_cost(i, j)
+                if c < dp[k][j]:
+                    dp[k][j], back[k][j] = c, i
+    k_best = min(range(1, num_groups + 1), key=lambda k: (dp[k][p], k))
+    bounds, j, k = [], p, k_best
+    while k:
+        i = back[k][j]
+        bounds.append((i, j))
+        j, k = i, k - 1
+    return list(reversed(bounds))
+
+
+def auto_scan_groups(cell_sizes, net_sizes, max_groups=8, overhead=1.15,
+                     align=1):
+    """The smallest group count whose padded compute is within
+    ``overhead`` of the best any aligned grouping can achieve, the level
+    sizes rounded up to ``align`` first: what ``--scan_groups 0``
+    resolves to. A copy of ``prtp_tpu/graph.py::auto_scan_groups``."""
+    cell_sizes = [_round_up(c, align) for c in cell_sizes]
+    net_sizes = [_round_up(n, align) for n in net_sizes]
+    p = len(cell_sizes)
+    ideal = float(sum(cell_sizes) + sum(net_sizes))
+    if ideal <= 0 or p <= 1:
+        return 1
+    for g in range(1, min(max_groups, p) + 1):
+        bounds = choose_pair_groups(cell_sizes, net_sizes, g)
+        cost = sum((j - i) * (max(cell_sizes[i:j]) + max(net_sizes[i:j]))
+                   for i, j in bounds)
+        if cost <= overhead * ideal:
+            return g
+    return min(max_groups, p)
+
+
+def scan_pair_rows(parsed, scan_groups: int = 1, align: int = SCAN_ALIGN,
+                   bucket=None) -> tuple:
+    """Per level pair of ``parsed``, ``(pn_c, pn_n)``: the rows of its
+    cell and its net level in the scan JAX packs it for. With
+    ``scan_groups`` N > 1, or 0 (``auto_scan_groups``) resolving to more
+    than 1, that is the grouped scan (``prtp_tpu/graph.py::
+    pack_leveled_graph_grouped``), whose pairs' levels are padded to
+    their group's largest, rounded up to ``align``; else the padded scan,
+    every pair's levels padded to ``bucket`` (a ``(pn_c, pn_n)`` from
+    :func:`scan_level_rows`, the train CLI's bucket over its designs) or,
+    without one, to this design's largest."""
+    cells, nets = _pair_sizes(parsed)
+    if scan_groups == 0:
+        scan_groups = auto_scan_groups(cells, nets, align=align)
+    if scan_groups <= 1:
+        return (tuple(bucket or scan_level_rows([parsed], align)),) * len(cells)
+    rows = []
+    for k0, k1 in choose_pair_groups([_round_up(c, align) for c in cells],
+                                     [_round_up(n, align) for n in nets],
+                                     scan_groups):
+        rows += [(_round_up(max(cells[k0:k1]), align),
+                  _round_up(max(nets[k0:k1]), align))] * (k1 - k0)
     return tuple(rows)
 
 
@@ -323,10 +418,11 @@ def pack_leveled_graph_exact(parsed, device="cuda",
                              segment=False):
     """Exact-shape packer. Returns ``(graph, node_row, num_rows)``. The
     feature tables are ``compute_dtype``, as JAX packs them.
-    ``scan_rows`` (default: :func:`scan_level_rows` of this design) are
-    the level rows of JAX's padded scan, which the walk's bf16 backward
-    in the scan's rounding reads. ``segment`` adds the flat edge tables
-    of the segment reduce (``gnn_reduce="segment"``)."""
+    ``scan_rows`` are the level rows of JAX's scan, which the walks'
+    bf16 backward in the scan's rounding reads: one ``(pn_c, pn_n)`` a
+    level pair (:func:`scan_pair_rows`), or one for every pair (default:
+    :func:`scan_level_rows` of this design). ``segment`` adds the flat
+    edge tables of the segment reduce (``gnn_reduce="segment"``)."""
     dev = resolve_device(device)
     tables, node_row, num_rows = _pack_exact_numpy(parsed, segment)
     fields = {}
@@ -338,10 +434,17 @@ def pack_leveled_graph_exact(parsed, device="cuda",
                   else None)
             fields[key] = tuple(torch.from_numpy(np.ascontiguousarray(a))
                                 .to(dev, dt) for a in arrs)
+    n_pairs = len(fields["cell_off"])
     if scan_rows is None:
         scan_rows = scan_level_rows([parsed])
+    if len(scan_rows) == 2 and isinstance(scan_rows[0], int):
+        scan_rows = (tuple(scan_rows),) * n_pairs
+    if len(scan_rows) != n_pairs:
+        raise ValueError(f"scan_rows gives {len(scan_rows)} level pairs, "
+                         f"the design has {n_pairs}")
     return (LeveledGraphExact(num_rows=num_rows,
-                              scan_rows=tuple(scan_rows), **fields),
+                              scan_rows=tuple(map(tuple, scan_rows)),
+                              **fields),
             node_row, num_rows)
 
 

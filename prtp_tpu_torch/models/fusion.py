@@ -23,7 +23,7 @@ classification heads, LayoutNet or the U-Net, and the GNN's softmax or
 ``--attn`` cell reduce; ``gnn_reduce="segment"`` (JAX's default is
 ``"mailbox"``) walks the GNN over the flat edge tables, the reduce of
 the 2-D ``(dp, gp)`` edge-sharded step (``parallel/graph_shard.py``),
-in float32, with the softmax or the ``--attn`` cell reduce.
+with the softmax or the ``--attn`` cell reduce, in float32 or bf16.
 
 ``compute_dtype`` bfloat16 is JAX's mixed precision (flax style: the
 parameters stay float32 and are cast for the products): the walk's MLP
@@ -33,8 +33,19 @@ the layout CNN runs in bf16, the fcn head rounds ``f ⊙ W``, then
 bias sum to bf16, ``mlp_alpha`` and
 ``mlp_fuse`` are flax's bf16 ``Dense`` (``mlp.dense_bf16``), every part
 is cast to bf16 before the concatenation, and the output back to
-float32. An evaluation may ask for the walk's other bf16 rounding,
-JAX's padded scan's (``rounding="scan"``, ``models/gnn.py``).
+float32.
+
+The walk has two bf16 roundings (``models/gnn.py``): JAX's fused exact
+walk's (``rounding="fused"``) and its padded scan's (``"scan"``).
+``forward``'s ``rounding`` picks one; its default, None, which every
+entry point (``trainer.train_step``, ``train_steps``,
+``parallel.dp.dp_train_step``, ``parallel.graph_shard.
+graph_sharded_train_step``, ``test.evaluate``) passes on unless told
+otherwise, lets the GNN pick by its reduce: the fused walk's under the
+mailbox reduce, the scan's under the segment reduce, the only rounding
+JAX has for it (a bf16 segment model refuses ``"fused"``).
+``test.evaluate_design`` defaults to ``"scan"``, as JAX's test CLI
+evaluates through its padded scan.
 """
 
 from __future__ import annotations
@@ -94,11 +105,12 @@ class PathModel(nn.Module):
         self.mlp_fuse = MLP(fuse_in, (fuse_in * 2, nlabels), generator, dt)
 
     def forward(self, design, path_ids: torch.Tensor,
-                rounding: str = "fused") -> torch.Tensor:
+                rounding: str | None = None) -> torch.Tensor:
         """Predict for a batch of path ids (any integer dtype): ``(B,)``,
         or ``(K, Bk)`` on a merged super-graph of K designs, row k holding
         only design k's path ids. ``rounding``: the walk's bf16 rounding
-        (``"fused"`` or ``"scan"``, :class:`TimeGNN`).
+        (``"fused"``, ``"scan"`` or None, the reduce's:
+        :meth:`TimeGNN.resolve_rounding`).
 
         Returns an output shaped like ``path_ids`` for ``nlabels == 1``,
         else ``path_ids.shape + (nlabels,)``."""

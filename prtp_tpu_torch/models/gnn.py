@@ -35,8 +35,16 @@ edge tables instead of its dense mailbox
 function, summed in another order; it is the reduce that the 2-D
 ``(dp, gp)`` edge-sharded step partitions (``parallel/graph_shard.py``).
 With ``flag_attn`` its cell levels reduce by JAX's
-``segment_weighted_softmax_sum`` under the same ``fc_attn2`` scores. It
-runs in float32; bf16 under it is refused.
+``segment_weighted_softmax_sum`` under the same ``fc_attn2`` scores. In
+bf16 it rounds as JAX's padded scan, the only path on which JAX runs the
+segment reduce: its exact walk asserts the mailbox reduce
+(``prtp_tpu/models/gnn.py:311-312``), so ``rounding="fused"`` is refused
+there.
+
+``rounding=None`` (every entry point's default) resolves by the reduce:
+``"fused"`` under the mailbox reduce, ``"scan"`` under the segment
+reduce (:meth:`TimeGNN.resolve_rounding`). In float32 the two roundings
+are one function.
 """
 
 from __future__ import annotations
@@ -65,11 +73,6 @@ class TimeGNN(nn.Module):
         if reduce_mode not in REDUCE_MODES:
             raise ValueError(f"reduce_mode {reduce_mode!r}: one of "
                              f"{REDUCE_MODES}")
-        if reduce_mode == "segment" and self.mlp_dtype is not None:
-            raise ValueError(
-                "reduce_mode='segment' runs in float32 (with or without "
-                "--attn); bf16 under the segment reduce is not ported "
-                "(ROADMAP.md Queue 1, item 6b)")
         self.reduce_mode = reduce_mode
         self.dgl_parity = dgl_parity
         self.flag_attn = flag_attn
@@ -89,8 +92,25 @@ class TimeGNN(nn.Module):
                                                bias=False)
             lecun_normal_(self.fc_attn2.weight, out_dim, generator)
 
+    def resolve_rounding(self, rounding: str | None) -> str:
+        """The walk's bf16 rounding for ``rounding``: None gives
+        ``"scan"`` under the segment reduce, else ``"fused"``; a bf16
+        segment walk refuses ``"fused"``, a function JAX does not have."""
+        segment = self.reduce_mode == "segment"
+        if rounding is None:
+            return "scan" if segment else "fused"
+        check_rounding(rounding)
+        if segment and rounding == "fused" and self.mlp_dtype is not None:
+            raise ValueError(
+                "rounding='fused' under reduce_mode='segment' in bf16: JAX "
+                "runs the segment reduce only through its padded scan; its "
+                "exact walk asserts 'exact-levels mode supports the mailbox "
+                "reduce' (prtp_tpu/models/gnn.py:311-312). Use "
+                "rounding='scan' or None")
+        return rounding
+
     def forward(self, g, h0: torch.Tensor | None = None,
-                rounding: str = "fused") -> torch.Tensor:
+                rounding: str | None = None) -> torch.Tensor:
         if h0 is None:
             dev = g.cell_feat_lvl[0].device
             h0 = torch.zeros((g.num_rows + 1, self.out_dim),
@@ -102,8 +122,8 @@ class TimeGNN(nn.Module):
                             mlp.fc1.bias)
         if self.flag_attn:
             params["fc_attn2"] = self.fc_attn2.weight
-        if self.reduce_mode == "segment":  # float32: one rounding
-            check_rounding(rounding)
-            return segment_walk(params, h0, g, self.dgl_parity)
-        return exact_walk(params, h0, g, self.dgl_parity,
-                          self.mlp_dtype is not None, rounding)
+        rounding = self.resolve_rounding(rounding)
+        bf16 = self.mlp_dtype is not None
+        if self.reduce_mode == "segment":  # the scan's rounding
+            return segment_walk(params, h0, g, self.dgl_parity, bf16)
+        return exact_walk(params, h0, g, self.dgl_parity, bf16, rounding)

@@ -668,12 +668,9 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     projection's gradient. With ``w16`` and ``rounding="scan"`` the
     MLPs' gradients are those of JAX's padded scan (:func:`_mlp_grads`
     with ``scan``); the reduces' backward stays float32, as the scan's
-    mailbox softmax and ``fc_attn2`` run on the float32 carry. Each
-    pair's bias gradients are then summed once the walk is done, all in
-    one :func:`column_sums_bf16` call, and added pair by pair in the
-    walk's reverse order, as the scan's backward accumulates them; each
-    sums as many rows as the padded scan's level has (``graph.scan_rows``),
-    since the zero rows of the padding move XLA's summation windows.
+    mailbox softmax and ``fc_attn2`` run on the float32 carry; the bias
+    gradients are summed as :class:`MlpGradSums` says, over the rows of
+    the padded or grouped scan's levels (``graph.scan_rows``).
 
     One ``dh`` carry, a copy of ``g``, is updated in place pair by pair
     in reverse. The intra-pair net->cell-block sum goes straight into
@@ -693,26 +690,14 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     scan = w16 is not None and check_rounding(rounding) == "scan"
     num_rows = graph.num_rows
     dh = g.clone(memory_format=torch.contiguous_format)
-    grads = {name: [torch.zeros_like(t) for t in params[name]]
-             for name in MLP_NAMES}
+    acc = MlpGradSums(params, graph, scan)
+    grads = acc.grads
     w_attn = params.get("fc_attn2")
     if w_attn is not None:
         grads["fc_attn2"] = torch.zeros_like(w_attn)
-    # scan: per pair, the bias gradients, the bf16 cotangents they sum
-    # and the rows of the padded scan's level that those sums run over
-    bias_acc, bias_cot, bias_rows = [], [], []
-
-    def acc(name, dp):  # one multi-tensor launch for the four tensors
-        if not scan:
-            torch._foreach_add_(grads[name], list(dp))
-            return
-        torch._foreach_add_(grads[name][0::2], [dp[0], dp[2]])
-        bias_acc[-1] += grads[name][1::2]
-        bias_cot.extend((dp[1], dp[3]))
-        bias_rows.extend([graph.scan_rows[name == "fc_net_self"]] * 2)
 
     for k in reversed(range(graph.num_pairs)):
-        bias_acc.append([])
+        acc.pair(k)
         cell_mail, net_mail = graph.cell_mail[k], graph.net_mail[k]
         pn_c, md_c = cell_mail.shape
         pn_n, md_n = net_mail.shape
@@ -721,7 +706,7 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         d_pre_n, d_old_n = _relu_split(dh[n0: n0 + pn_n],
                                        hf[n0: n0 + pn_n],
                                        graph.net_has_in[k], dgl_parity)
-        acc("fc_net_self", _mlp_grads(params["fc_net_self"],
+        acc.add("fc_net_self", _mlp_grads(params["fc_net_self"],
                                       graph.net_feat_lvl[k], d_pre_n,
                                       False, _w(w16, "fc_net_self"),
                                       scan)[0])
@@ -733,7 +718,7 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         # ---- cell half ----
         d_pre_c, d_old_c = _relu_split(g_c, hf[c0: c0 + pn_c],
                                        graph.cell_has_in[k], dgl_parity)
-        acc("fc_cell_self", _mlp_grads(params["fc_cell_self"],
+        acc.add("fc_cell_self", _mlp_grads(params["fc_cell_self"],
                                        graph.cell_feat_lvl[k], d_pre_c,
                                        False, _w(w16, "fc_cell_self"),
                                        scan)[0])
@@ -746,7 +731,7 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                                     with_alpha=True)
             dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c,
                                        True, _w(w16, "fc_cell_neigh"), scan)
-            acc("fc_cell_neigh", dp_neigh)
+            acc.add("fc_cell_neigh", dp_neigh)
             if w_attn is None:
                 d_mail_c = softmax_sum_bwd(hf, cell_mail, num_rows, f, d_f)
             else:
@@ -763,11 +748,60 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         mailbox_scatter(dh, graph.merged_rows[k], graph.merged_seg_off[k],
                         graph.merged_pos[k], d_mail_c, d_pre_n, cnt_n, md_n,
                         pn_c * md_c)
-    if scan:
-        sums = iter(column_sums_bf16(bias_cot, bias_rows))
-        for targets in bias_acc:
-            torch._foreach_add_(targets, [next(sums) for _ in targets])
+    acc.finish()
     return dh, grads
+
+
+class MlpGradSums:
+    """The pair-step MLPs' gradients over a walk's backward (``grads``: a
+    dict like ``params`` of float32 tensors), added pair by pair as the
+    walk reverses. Both walks' backwards use it.
+
+    In the scan's bf16 rounding (``scan``) each pair's two bias gradients
+    are bf16 sums whose every partial sum rounds: :meth:`add` keeps the
+    bf16 cotangents they sum, and :meth:`finish` sums them all in one
+    :func:`column_sums_bf16` call and adds them pair by pair in the order
+    the pairs came, as the scan's backward accumulates them. Each sums as
+    many rows as its level has in JAX's padded or grouped scan
+    (``graph.scan_rows[k]``), since the zero rows of the padding move
+    XLA's summation windows."""
+
+    def __init__(self, params, graph, scan: bool):
+        self.grads = {name: [torch.zeros_like(t) for t in params[name]]
+                      for name in MLP_NAMES}
+        self._scan, self._scan_rows = scan, graph.scan_rows
+        # per pair, the bias gradients; then the bf16 cotangents they sum
+        # and the rows that those sums run over
+        self._acc, self._cot, self._rows = [], [], []
+        self._k = None
+
+    def pair(self, k: int) -> None:
+        """Start pair k: :meth:`add` adds its gradients."""
+        self._k = k
+        self._acc.append([])
+
+    def add(self, name: str, dp) -> None:
+        """Add one MLP's ``dp`` (:func:`_mlp_grads`' first result): one
+        multi-tensor launch for the four tensors, or in the scan's
+        rounding for the two weights."""
+        grads = self.grads[name]
+        if not self._scan:
+            torch._foreach_add_(grads, list(dp))
+            return
+        torch._foreach_add_(grads[0::2], [dp[0], dp[2]])
+        self._acc[-1] += grads[1::2]
+        self._cot.extend((dp[1], dp[3]))
+        self._rows.extend(
+            [self._scan_rows[self._k][name == "fc_net_self"]] * 2)
+
+    def finish(self) -> None:
+        """Add the bias gradients of the scan's rounding."""
+        if not self._cot:
+            return
+        sums = iter(column_sums_bf16(self._cot, self._rows))
+        for targets in self._acc:
+            if targets:
+                torch._foreach_add_(targets, [next(sums) for _ in targets])
 
 
 def _w(w16, name):
@@ -799,6 +833,25 @@ def _flat_of(params):
     return flat
 
 
+def save_walk(ctx, hf, flat, w16) -> None:
+    """Save a walk's final state, its flat parameters and its bf16
+    weights (``w16``, or None) for its backward."""
+    ctx.bf16 = w16 is not None
+    low = [t for name in MLP_NAMES for t in w16[name]] if ctx.bf16 else []
+    ctx.save_for_backward(hf, *flat, *low)
+
+
+def restore_walk(ctx):
+    """``(hf, flat, w16)`` as :func:`save_walk` saved them."""
+    hf, *flat = ctx.saved_tensors
+    if not ctx.bf16:
+        return hf, flat, None
+    n = 2 * len(MLP_NAMES)
+    flat, low = flat[:-n], flat[-n:]
+    return hf, flat, {name: tuple(low[2 * i: 2 * i + 2])
+                      for i, name in enumerate(MLP_NAMES)}
+
+
 class ExactWalk(torch.autograd.Function):
     """The walk with JAX's hand-written backward (``fused_exact_gnn``).
     Inputs: the graph, ``dgl_parity``, whether the MLPs' products are
@@ -814,21 +867,14 @@ class ExactWalk(torch.autograd.Function):
         params = _params_of(flat)
         w16 = bf16_weights(params) if bf16 else None
         hf = exact_gnn_forward(params, h0, graph, dgl_parity, w16, rounding)
-        ctx.graph, ctx.dgl_parity, ctx.bf16 = graph, dgl_parity, bf16
-        ctx.rounding = rounding
-        low = [t for name in MLP_NAMES for t in w16[name]] if bf16 else []
-        ctx.save_for_backward(hf, *flat, *low)
+        ctx.graph, ctx.dgl_parity, ctx.rounding = graph, dgl_parity, rounding
+        save_walk(ctx, hf, flat, w16)
         return hf
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        hf, *flat = ctx.saved_tensors
-        w16 = None
-        if ctx.bf16:
-            flat, low = flat[:-2 * len(MLP_NAMES)], flat[-2 * len(MLP_NAMES):]
-            w16 = {name: tuple(low[2 * i: 2 * i + 2])
-                   for i, name in enumerate(MLP_NAMES)}
+        hf, flat, w16 = restore_walk(ctx)
         dh, grads = exact_gnn_backward(_params_of(flat), hf, g, ctx.graph,
                                        ctx.dgl_parity, w16, ctx.rounding)
         dflat = _flat_of(grads)

@@ -64,8 +64,21 @@ become explicit all-reduces over the ``gp`` group:
   end of the backward.
 
 ``has_in`` is the whole level's, never a shard's (a row whose in-edges
-all lie on another rank must still update). Only float32 runs here:
-bf16 under the segment reduce is refused by the model.
+all lie on another rank must still update).
+
+Under ``--compute_dtype bfloat16`` (``w16``, :func:`fused_gnn.
+bf16_weights`) the walk rounds as JAX's padded scan, the only path JAX
+runs the segment reduce on (its exact walk asserts the mailbox reduce,
+``prtp_tpu/models/gnn.py:311-312``): the three MLPs are
+``_mlp(..., scan=True)`` and their gradients ``_mlp_grads(...,
+scan=True)``, with the bias gradients summed by
+:class:`~prtp_tpu_torch.ops.fused_gnn.MlpGradSums` over the scan's
+level rows (``graph.scan_rows``), as the mailbox walk's are. The carry,
+the scores, each MLP's float32 output and every reduce, scatter and
+all-reduce stay float32, so the kernels take the same inputs as in
+float32. The MLPs run replicated under sharding and read only the
+whole level's ``dh`` rows, equal on every rank, so their bf16
+gradients are too, and need no collective.
 """
 
 from __future__ import annotations
@@ -73,8 +86,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .fused_gnn import (MLP_NAMES, _flat_of, _mlp, _mlp_grads, _params_of,
-                        _relu_split, mailbox_scatter)
+from .fused_gnn import (MlpGradSums, _flat_of, _mlp, _mlp_grads, _params_of,
+                        _relu_split, _w, bf16_weights, mailbox_scatter,
+                        restore_walk, save_walk)
 from .segment_kernels import (AttnGradSum, divide_heads, net_epilogue,
                               net_update, segment_attn_bwd, segment_attn_sum,
                               segment_mean, segment_softmax_sum,
@@ -172,7 +186,8 @@ def _scatter(dh, graph, half, k, val, cnt):
 
 
 def segment_gnn_forward(params, h0: torch.Tensor, graph,
-                        dgl_parity: bool = True, saved=None) -> torch.Tensor:
+                        dgl_parity: bool = True, saved=None,
+                        w16=None) -> torch.Tensor:
     """h_final of the walk under the segment reduce. ``params`` maps each
     name of ``MLP_NAMES`` to that MLP's ``(w0, b0, w1, b1)``; h0 (num_rows
     + 1, D) float32 is not modified (the walk writes a copy); graph: a
@@ -180,30 +195,35 @@ def segment_gnn_forward(params, h0: torch.Tensor, graph,
     its ``shard`` under the edge-sharded step. ``saved``, a dict, receives
     each pair k > 0's cell reduce ``(out, mx, den)`` for the backward
     (``mx = den = None`` unless sharded). With ``"fc_attn2"`` in
-    ``params`` (``--attn``) the cell half reduces by attention.
-    Differentiable by torch autograd where every tensor lies on the CPU
-    and the graph is not sharded (the plain versions); :class:`SegmentWalk`
-    is its hand-written backward."""
+    ``params`` (``--attn``) the cell half reduces by attention. ``w16``
+    (:func:`fused_gnn.bf16_weights`): the MLPs in bf16, rounded as JAX's
+    padded scan rounds them. Differentiable by torch autograd where every
+    tensor lies on the CPU and the graph is not sharded (the plain
+    versions); :class:`SegmentWalk` is its hand-written backward."""
     require_tables(graph, "the segment reduce")
     w_attn = params.get("fc_attn2")
+    scan = w16 is not None
     h = h0.clone()
     for k in range(graph.num_pairs):
         # ---- cell half (even level 2k) ----
         pn_c = graph.cell_feat_lvl[k].shape[0]
         c0 = graph.cell_off[k]
-        pre = _mlp(params["fc_cell_self"], graph.cell_feat_lvl[k])
+        pre = _mlp(params["fc_cell_self"], graph.cell_feat_lvl[k],
+                   _w(w16, "fc_cell_self"), scan)
         if k > 0:  # level 0 drops the neighbour term
             reduced = _cell_reduce(h, graph, k, w_attn)
             if saved is not None:
                 saved[k] = reduced
-            pre = pre + _mlp(params["fc_cell_neigh"], reduced[0])
+            pre = pre + _mlp(params["fc_cell_neigh"], reduced[0],
+                             _w(w16, "fc_cell_neigh"), scan)
         new = F.relu(pre)
         if dgl_parity:
             new = torch.where(graph.cell_has_in[k], new,
                               F.relu(h[c0: c0 + pn_c]))
         h[c0: c0 + pn_c] = new
         # ---- net half (odd level 2k+1), after the cell half's write ----
-        pre = _mlp(params["fc_net_self"], graph.net_feat_lvl[k])
+        pre = _mlp(params["fc_net_self"], graph.net_feat_lvl[k],
+                   _w(w16, "fc_net_self"), scan)
         has_in = graph.net_has_in[k] if dgl_parity else None
         if graph.shard is None:  # the mean and the update in one launch
             net_update(h, graph.net_src[k], graph.net_dst_off[k],
@@ -215,42 +235,47 @@ def segment_gnn_forward(params, h0: torch.Tensor, graph,
 
 
 def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
-                         saved, dgl_parity: bool = True):
+                         saved, dgl_parity: bool = True, w16=None):
     """The cotangent of h0 and the MLPs' gradients (a dict like
     ``params``) of the walk whose final state is ``hf``, for the
-    cotangent ``g`` of ``hf``; ``saved`` is what the forward kept. One
-    ``dh`` carry, a copy of ``g``, updated in place pair by pair in
-    reverse. With ``"fc_attn2"`` in ``params`` its gradient is summed
-    over the pairs (an :class:`AttnGradSum`: on the card one reduce a
-    backward), and on a sharded graph over the ``gp`` group once."""
+    cotangent ``g`` of ``hf``; ``saved`` is what the forward kept, ``w16``
+    the forward's bf16 weights (None in float32). One ``dh`` carry, a
+    copy of ``g``, updated in place pair by pair in reverse. With
+    ``"fc_attn2"`` in ``params`` its gradient is summed over the pairs (an
+    :class:`AttnGradSum`: on the card one reduce a backward), and on a
+    sharded graph over the ``gp`` group once."""
     dh = g.clone(memory_format=torch.contiguous_format)
-    grads = {name: [torch.zeros_like(t) for t in params[name]]
-             for name in MLP_NAMES}
+    scan = w16 is not None
+    acc = MlpGradSums(params, graph, scan)
+    grads = acc.grads
     w_attn = params.get("fc_attn2")
     dw_sum = None if w_attn is None else AttnGradSum(w_attn)
     tables = graph.shard or graph
     for k in reversed(range(graph.num_pairs)):
+        acc.pair(k)
         pn_c = graph.cell_feat_lvl[k].shape[0]
         pn_n = graph.net_feat_lvl[k].shape[0]
         c0, n0 = graph.cell_off[k], graph.net_off[k]
         # ---- net half: its block's carry, then its edges' scatter ----
         d_pre_n, d_old_n = _relu_split(dh[n0: n0 + pn_n], hf[n0: n0 + pn_n],
                                        graph.net_has_in[k], dgl_parity)
-        torch._foreach_add_(grads["fc_net_self"], list(_mlp_grads(
-            params["fc_net_self"], graph.net_feat_lvl[k], d_pre_n, False)[0]))
+        acc.add("fc_net_self", _mlp_grads(
+            params["fc_net_self"], graph.net_feat_lvl[k], d_pre_n, False,
+            _w(w16, "fc_net_self"), scan)[0])
         dh[n0: n0 + pn_n] = 0.0 if d_old_n is None else d_old_n
         _scatter(dh, graph, "net", k, d_pre_n, graph.net_cnt[k])
         # ---- cell half ----
         d_pre_c, d_old_c = _relu_split(dh[c0: c0 + pn_c], hf[c0: c0 + pn_c],
                                        graph.cell_has_in[k], dgl_parity)
-        torch._foreach_add_(grads["fc_cell_self"], list(_mlp_grads(
-            params["fc_cell_self"], graph.cell_feat_lvl[k], d_pre_c,
-            False)[0]))
+        acc.add("fc_cell_self", _mlp_grads(
+            params["fc_cell_self"], graph.cell_feat_lvl[k], d_pre_c, False,
+            _w(w16, "fc_cell_self"), scan)[0])
         d_msg = None
         if k > 0:
             f, mx, den = saved[k]
-            dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c)
-            torch._foreach_add_(grads["fc_cell_neigh"], list(dp_neigh))
+            dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c,
+                                       True, _w(w16, "fc_cell_neigh"), scan)
+            acc.add("fc_cell_neigh", dp_neigh)
             args = (hf, tables.cell_src[k], tables.cell_dst_off[k])
             stats = None if mx is None else (f, mx, den)
             if w_attn is None:
@@ -260,6 +285,7 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         dh[c0: c0 + pn_c] = 0.0 if d_old_c is None else d_old_c
         if d_msg is not None:
             _scatter(dh, graph, "cell", k, d_msg, None)
+    acc.finish()
     if dw_sum is not None:
         grads["fc_attn2"] = dw_sum.finish()
         if graph.shard is not None:
@@ -269,35 +295,39 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
 
 class SegmentWalk(torch.autograd.Function):
     """The walk under the segment reduce with its hand-written backward.
-    Inputs: the graph and ``dgl_parity`` (no gradient), h0, then the
-    twelve pair-step tensors in ``MLP_NAMES`` order and, with ``--attn``,
-    ``fc_attn2``'s weight (``fused_gnn._params_of``)."""
+    Inputs: the graph, ``dgl_parity`` and whether the MLPs run in bf16
+    (no gradient), h0, then the twelve pair-step tensors in ``MLP_NAMES``
+    order and, with ``--attn``, ``fc_attn2``'s weight
+    (``fused_gnn._params_of``). The bf16 weights made for the forward are
+    saved for the backward."""
 
     @staticmethod
-    def forward(ctx, graph, dgl_parity, h0, *flat):
+    def forward(ctx, graph, dgl_parity, bf16, h0, *flat):
+        params = _params_of(flat)
+        w16 = bf16_weights(params) if bf16 else None
         saved = {} if any(ctx.needs_input_grad) else None
-        hf = segment_gnn_forward(_params_of(flat), h0, graph, dgl_parity,
-                                 saved)
+        hf = segment_gnn_forward(params, h0, graph, dgl_parity, saved, w16)
         ctx.graph, ctx.dgl_parity, ctx.reduced = graph, dgl_parity, saved
-        ctx.save_for_backward(hf, *flat)
+        save_walk(ctx, hf, flat, w16)
         return hf
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        hf, *flat = ctx.saved_tensors
+        hf, flat, w16 = restore_walk(ctx)
         dh, grads = segment_gnn_backward(_params_of(flat), hf, g, ctx.graph,
-                                         ctx.reduced, ctx.dgl_parity)
+                                         ctx.reduced, ctx.dgl_parity, w16)
         ctx.reduced = None
         need = ctx.needs_input_grad
-        return (None, None, dh if need[2] else None,
-                *(t if need[3 + i] else None
+        return (None, None, None, dh if need[3] else None,
+                *(t if need[4 + i] else None
                   for i, t in enumerate(_flat_of(grads))))
 
 
-def segment_walk(params, h0: torch.Tensor, graph,
-                 dgl_parity: bool = True) -> torch.Tensor:
+def segment_walk(params, h0: torch.Tensor, graph, dgl_parity: bool = True,
+                 bf16: bool = False) -> torch.Tensor:
     """:func:`segment_gnn_forward` through :class:`SegmentWalk`: the
     forward launches the same kernels, and autograd takes the
-    hand-written backward."""
-    return SegmentWalk.apply(graph, dgl_parity, h0, *_flat_of(params))
+    hand-written backward. ``bf16``: the MLPs in bf16, rounded as JAX's
+    padded scan, forward and backward."""
+    return SegmentWalk.apply(graph, dgl_parity, bf16, h0, *_flat_of(params))

@@ -12,7 +12,9 @@ Flags fall in two groups here:
   packs exact levels; with bf16 it picks the train steps' rounding, and
   with the validation design count validation's, as in JAX:
   ``train.train_rounding``, ``train.eval_rounding``),
-  ``--scan_groups``, ``--gnn_unroll``,
+  ``--scan_groups`` (in the bf16 scan rounding it picks the rows that
+  the train steps' bias gradients sum, JAX's grouped scan's:
+  ``graph.scan_pair_rows``), ``--gnn_unroll``,
   ``--compile_cache_dir``, ``--pallas`` and ``--flat_adam`` (flat Adam is
   the port's only optimizer); and, as in the JAX package, the
   reference's commented-out ``--balanced``, ``--data_info_txt`` and
@@ -144,8 +146,9 @@ def get_options(args=None):
                      help="no-op: the port always packs each design with "
                           "its true per-level shapes")
     ext.add_argument("--scan_groups", type=int, default=1,
-                     help="no-op: groups of lax.scan over level pairs; the "
-                          "port walks the levels eagerly")
+                     help="groups of lax.scan over level pairs; the port "
+                          "walks the levels eagerly, and in bf16 sums the "
+                          "bias gradients over the grouped scan's rows")
     ext.add_argument("--flat_adam", action="store_true",
                      help="no-op: Adam over one flat parameter vector is "
                           "the port's only optimizer")

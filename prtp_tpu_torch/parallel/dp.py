@@ -54,7 +54,7 @@ def _all_reduce(t, mesh):
 
 
 def dp_train_step(state, design, path_ids, mask, mesh, task: str = "reg",
-                  rounding: str = "fused") -> dict:
+                  rounding: str | None = None) -> dict:
     """One data-parallel optimizer step: ``trainer.train_step`` on this
     rank's block of the batch (:func:`shard_batch`), the gradients summed
     over the ranks, then the update. Every rank passes the same batch and
@@ -97,7 +97,7 @@ def dp_train_step(state, design, path_ids, mask, mesh, task: str = "reg",
 
 
 def dp_train_steps(state, design, batches, mesh, task: str = "reg",
-                   rounding: str = "fused") -> dict:
+                   rounding: str | None = None) -> dict:
     """:func:`dp_train_step` for each batch, in order
     (``trainer.train_steps``'s counterpart). Returns each metric stacked
     over the steps."""
@@ -110,7 +110,7 @@ def dp_train_steps(state, design, batches, mesh, task: str = "reg",
 
 @torch.no_grad()
 def dp_evaluate(model, design, path_ids, mask, mesh, task: str = "reg",
-                rounding: str = "fused"):
+                rounding: str | None = None):
     """``test.evaluate`` sharded: each rank predicts its block, the
     blocks are gathered, and the metrics are those of the whole batch,
     on every rank. Returns ``(preds, metrics)`` shaped as ``evaluate``'s."""

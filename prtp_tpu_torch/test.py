@@ -58,7 +58,7 @@ __all__ = ["evaluate", "evaluate_design", "load_model_state", "main",
 
 @torch.no_grad()
 def evaluate(model, design, path_ids, mask, task: str = "reg",
-             rounding: str = "fused"):
+             rounding: str | None = None):
     """(preds, metrics) of ``task`` for a batch of path ids, the model in
     eval mode, its walk in bf16 ``rounding`` (:class:`~prtp_tpu_torch.
     models.fusion.PathModel`); metrics are 0-d tensors."""

@@ -45,7 +45,8 @@ import torch.distributed as dist
 from . import resolve_device
 from .data.dataset import (get_design_list, load_design_shapes,
                            load_single_design)
-from .graph import merge_parsed_designs, pack_design, scan_level_rows
+from .graph import (merge_parsed_designs, pack_design, scan_level_rows,
+                    scan_pair_rows)
 from .models.fusion import model_from_options
 from .options import get_options
 from .parallel import is_main_process, maybe_initialize, requested_ranks
@@ -104,6 +105,19 @@ def train_rounding(options) -> str:
     round, forward and backward, as flax's ``MLP(dtype=bfloat16)``
     compiled (``"scan"``). In float32 the two are one function."""
     return "fused" if options.exact_levels else "scan"
+
+
+def train_scan_rows(options, parsed, bucket=None):
+    """The level rows of the scan JAX's train steps run ``parsed``
+    through, which the bf16 bias gradients of the scan rounding sum
+    (``graph.scan_pair_rows``): under ``--scan_groups`` N > 1, or 0
+    (auto), the design's own grouped scan; else its padded scan, at
+    ``bucket`` (the padded rows of every design, JAX's bucket) or its own
+    rows. None (the packer's default) when the steps take the fused
+    rounding, which reads none."""
+    if train_rounding(options) != "scan":
+        return None
+    return scan_pair_rows(parsed, max(0, options.scan_groups), bucket=bucket)
 
 
 def validate(options, val_designs, cache_val, model, device):
@@ -180,18 +194,20 @@ def train(options, seed, device="cuda", mesh=None):
                   else torch.float32)
     rounding = train_rounding(options)
     # JAX pads every design's levels to one bucket for its padded scan
-    # (prtp_tpu/train.py:162-176); the scan rounding's bf16 bias
-    # gradients sum the padded rows (graph.scan_level_rows)
-    scan_rows = None
-    if rounding == "scan" and not options.merge_designs:
-        scan_rows = scan_level_rows(
+    # unless --scan_groups (prtp_tpu/train.py:154-176); a merged
+    # super-graph is packed alone
+    bucket = None
+    if (rounding == "scan" and options.scan_groups == 1
+            and not options.merge_designs):
+        bucket = scan_level_rows(
             [load_design_shapes(os.path.join(options.data_save_path,
                                              f"{d}.npz"))
              for d in sorted(set(train_designs) | set(val_designs))])
 
-    def packer(parsed, scan_rows=scan_rows):
+    def packer(parsed, bucket=bucket):
         return pack_design(parsed, map_size=options.map_size, device=dev,
-                           compute_dtype=pack_dtype, scan_rows=scan_rows)
+                           compute_dtype=pack_dtype,
+                           scan_rows=train_scan_rows(options, parsed, bucket))
 
     cache_tr = DesignCache(packer)
     cache_val = DesignCache(packer)

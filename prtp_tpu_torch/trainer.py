@@ -158,14 +158,15 @@ def task_loss_and_metrics(task, preds, design, path_ids, mask):
 
 
 def train_step(state: TrainState, design, path_ids, mask,
-               task: str = "reg", rounding: str = "fused") -> dict:
+               task: str = "reg", rounding: str | None = None) -> dict:
     """One optimizer step on a batch: forward (BatchNorm in train mode:
     batch statistics, running averages updated), the task's loss,
     backward, update. Returns the step's metrics (0-d tensors on the
     device; reading them waits for the device). The parameters' ``.grad``
     keep this step's gradients until the next step. ``rounding``: the
     walk's bf16 rounding, forward and backward (``"fused"``, JAX's fused
-    exact walk, or ``"scan"``, its padded scan; ``models/gnn.py``)."""
+    exact walk, or ``"scan"``, its padded scan; None, the default, the
+    model's reduce's: ``models/gnn.py``)."""
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad()
@@ -178,7 +179,7 @@ def train_step(state: TrainState, design, path_ids, mask,
 
 
 def train_steps(state: TrainState, design, batches,
-                task: str = "reg", rounding: str = "fused") -> dict:
+                task: str = "reg", rounding: str | None = None) -> dict:
     """One step per ``(path_ids, mask)`` of ``batches``, in order: the
     eager counterpart of JAX's ``make_scan_train_step``. Returns each
     metric stacked over the steps, shape ``(n_steps,)``."""

@@ -6,7 +6,8 @@ Usage:
 
 ``<dir>/cases.pkl`` maps each case's name to its parsed design, the
 model's keyword arguments and initial parameters (a state dict of numpy
-arrays), the padded batch ``(ids, mask)``, the mesh shape ``(n_dp,
+arrays), ``pack_design``'s extra keyword arguments (``pack``), the
+padded batch ``(ids, mask)``, the mesh shape ``(n_dp,
 n_gp)``, the batch axis and the number of steps. For each world size
 the cases need, this process forks that many ranks (after importing the
 port once, so no rank imports it again); each rank runs
@@ -69,7 +70,7 @@ def run_rank(rank, world, port, cases, out_dir):
             state = init_state(model, make_optimizer(case["lr"]), "cpu")
             design = shard_design(mesh, pack_design(
                 parsed, map_size=case["model_kw"]["map_size"], device="cpu",
-                segment=True))
+                segment=True, **case["pack"]))
             ids, mask = (torch.from_numpy(np.asarray(x))
                          for x in case["batch"])
             out = {"losses": [], "checksums": [], "grads": None,

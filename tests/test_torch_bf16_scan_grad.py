@@ -34,15 +34,19 @@ import numpy as np
 import pytest
 import torch
 
+from prtp_tpu.graph import auto_scan_groups as jax_auto_scan_groups
 from prtp_tpu.graph import bucket_shape
+from prtp_tpu.graph import pack_design as jax_pack_design
 from prtp_tpu.graph import pack_leveled_graph as jax_pack_padded
 from prtp_tpu.graph import pack_leveled_graph_exact as jax_pack_exact
+from prtp_tpu.graph import pack_leveled_graph_grouped as jax_pack_grouped
 from prtp_tpu.models.gnn import TimeGNN as JaxTimeGNN
 from prtp_tpu_torch.data.random_design import make_random_design
-from prtp_tpu_torch.graph import pack_leveled_graph_exact, scan_level_rows
+from prtp_tpu_torch.graph import (pack_leveled_graph_exact, scan_level_rows,
+                                  scan_pair_rows)
 from prtp_tpu_torch.models import TimeGNN
 from prtp_tpu_torch.ops.bf16 import BF16, column_sums_bf16
-from prtp_tpu_torch.train import train_rounding
+from prtp_tpu_torch.train import train_rounding, train_scan_rows
 from prtp_tpu_torch.utils.convert import params_from_flax
 
 from test_torch_bf16 import REL_GAP, _grid
@@ -91,12 +95,16 @@ def _to_rows(per_node, rows, num_rows):
     return out
 
 
-def _jax_grads(parsed, params, h0n, cot, fused, nh=0):
+def _jax_grads(parsed, params, h0n, cot, fused, nh=0, scan_groups=1):
     """JAX's gradients of ``sum(TimeGNN(bf16)(h0) * cot)``: the padded
-    scan (``fused=False``, on a pack aligned to ALIGN) or the fused exact
-    walk, ``jax.jit(jax.grad(...))``; h0 and its cotangent per node."""
+    scan (``fused=False``, on a pack aligned to ALIGN), with
+    ``scan_groups`` > 1 its grouped scan, or the fused exact walk,
+    ``jax.jit(jax.grad(...))``; h0 and its cotangent per node."""
     if fused:
         g, rows, num_rows = jax_pack_exact(parsed)
+    elif scan_groups > 1:
+        g, rows, num_rows = jax_pack_grouped(parsed, num_groups=scan_groups,
+                                             align=ALIGN)
     else:
         g, rows, num_rows = jax_pack_padded(parsed, align=ALIGN)
     model = JaxTimeGNN(out_dim=OUT, hidden_dim=HID, fused_vjp=fused,
@@ -115,11 +123,12 @@ def _jax_grads(parsed, params, h0n, cot, fused, nh=0):
     return out
 
 
-def _port_grads(parsed, params, h0n, cot, rounding, nh=0):
+def _port_grads(parsed, params, h0n, cot, rounding, nh=0, scan_rows=None):
     """The port's gradients of the same sum, its walk in ``rounding``,
-    its design packed with JAX's padded level rows."""
+    its design packed with ``scan_rows`` (default: JAX's padded level
+    rows)."""
     graph, rows, num_rows = pack_leveled_graph_exact(
-        parsed, "cpu", scan_rows=scan_level_rows([parsed], ALIGN))
+        parsed, "cpu", scan_rows=scan_rows or scan_level_rows([parsed], ALIGN))
     gnn = TimeGNN(parsed["cell_feat"].shape[1], parsed["net_feat"].shape[1],
                   torch.Generator().manual_seed(0), out_dim=OUT,
                   hidden_dim=HID, flag_attn=nh > 0, num_heads=max(nh, 1),
@@ -157,6 +166,72 @@ def test_grid_walk_scan_grads_are_jax_bit_for_bit():
         assert got[key].dtype == np.float32
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     assert sum((fused[k] != want[k]).any() for k in want) >= 6
+
+
+def grid_levels_design(sizes, seed=3):
+    """A design of the level ``sizes`` (an even count) whose every cell
+    and net input comes from a level-0 node, as in ``_grid_design``: each
+    mailbox holds one grid-valued source, so every float32 sum of the
+    walk and its backward is exact; grid-valued features."""
+    rng = np.random.default_rng(seed)
+    ids = np.split(np.arange(sum(sizes)), np.cumsum(sizes)[:-1])
+    empty = np.zeros(0, np.int64)
+    n = sum(sizes)
+    src = [rng.integers(0, sizes[0], len(i)) for i in ids]
+    return {
+        "num_nodes": n,
+        "levels": [(i, empty, empty) for i in ids],
+        "cell_feat": _grid(rng, (n, 10), 32, 1 / 8),
+        "net_feat": _grid(rng, (n, 3), 32, 1 / 8),
+        "cell_edges": (np.concatenate(src[2::2]), np.concatenate(ids[2::2])),
+        "net_edges": (np.concatenate(src[1::2]), np.concatenate(ids[1::2])),
+    }
+
+
+def grid_params(rng):
+    """The walk's grid-valued MLPs (``_grid_mlp``), as a flax tree."""
+    return jax.tree_util.tree_map(jnp.asarray, {"pair_step": {
+        name: _grid_mlp(rng, din) for name, din in (
+            ("fc_cell_self", 10), ("fc_cell_neigh", OUT),
+            ("fc_net_self", 3))}})
+
+
+# levels padded to 8 rows: cells 40, 64, 48, nets 80, 64, 48; JAX's best
+# two groups are pair 0 and pairs 1-2, whose nets pad to 64, not 80
+GROUPED_LEVELS = [40, 80, 64, 60, 44, 42]
+
+
+@pytest.mark.parametrize("scan_groups", [2, 0])
+def test_grouped_scan_grads_are_jax_bit_for_bit(scan_groups):
+    """``--scan_groups 2`` and ``0`` (auto): JAX packs its grouped scan,
+    whose levels pad to their group's largest, so its bias gradients sum
+    other rows than one bucket for the whole design. On a grid design
+    whose groups pad differently from the whole, the port's gradients
+    with ``scan_pair_rows`` against JAX's grouped scan: 0 elements
+    different in the twelve MLP tensors and h0's cotangent; with the
+    whole design's bucket, a bias gradient differs."""
+    parsed = grid_levels_design(GROUPED_LEVELS)
+    groups = scan_groups or jax_auto_scan_groups(
+        *[[len(parsed["levels"][li][0]) for li in range(p, 6, 2)]
+          for p in (0, 1)], align=ALIGN)
+    assert groups == 2
+    rows = scan_pair_rows(parsed, scan_groups, ALIGN)
+    bucket = scan_level_rows([parsed], ALIGN)
+    assert rows == ((40, 80), (64, 64), (64, 64)) and bucket == (64, 80)
+    rng = np.random.default_rng(4)
+    params = grid_params(rng)
+    n = parsed["num_nodes"]
+    h0n = _grid(rng, (n + 1, OUT), 32, 1 / 8)
+    cot = _grid(rng, (n + 1, OUT), 32, 1 / 8)
+    want = _jax_grads(parsed, params, h0n, cot, fused=False,
+                      scan_groups=groups)
+    got = _port_grads(parsed, params, h0n, cot, "scan", scan_rows=rows)
+    one_bucket = _port_grads(parsed, params, h0n, cot, "scan")
+    assert sorted(got) == sorted(want) and len(want) == 13
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    differ = [k for k in want if (one_bucket[k] != want[k]).any()]
+    assert differ and all(k.endswith(".bias") for k in differ), differ
 
 
 @pytest.mark.parametrize("nh", [0, 2])
@@ -212,6 +287,45 @@ def test_scan_level_rows_are_jax_bucket():
         want = bucket_shape(designs, align=align)
         assert scan_level_rows(designs, align) == (want["pn_c"],
                                                    want["pn_n"])
+
+
+@pytest.mark.parametrize("scan_groups", [1, 2, 3, 0])
+def test_scan_pair_rows_are_jax_packs(scan_groups):
+    """``scan_pair_rows`` against the level rows of JAX's ``pack_design``
+    at ``--scan_groups`` 1, 2, 3 and 0 (auto), at its default alignment
+    and at 8: per pair, its group's padded cell and net rows (the grouped
+    scan's ``pn_c``, ``pn_n``), or the padded scan's for every pair."""
+    parsed = make_random_design([12, 150, 9, 30, 70, 40, 5, 8],
+                                cell_feat_dim=10, net_feat_dim=3,
+                                map_size=16, cnn_hw=64, seed=1)
+    for align in (128, 8):
+        g = jax_pack_design(parsed, map_size=16, align=align,
+                            scan_groups=scan_groups, cnn_patches=False).graph
+        want = [(sub.pn_c, sub.pn_n) for sub in getattr(g, "groups", [g])
+                for _ in range(sub.num_pairs)]
+        assert scan_pair_rows(parsed, scan_groups, align) == tuple(want)
+    assert len(set(scan_pair_rows(parsed, 3, 8))) > 1
+
+
+def test_train_scan_rows_follow_jax_packing():
+    """The train CLI's packer sums the bias gradients over the rows of
+    the scan JAX's train steps run: the bucket unless ``--scan_groups``,
+    the design's grouped scan under ``--scan_groups 2`` or ``0`` (the
+    rows that ``test_grouped_scan_grads_are_jax_bit_for_bit`` holds),
+    none under ``--exact_levels``."""
+    parsed = make_random_design([40, 300, 64, 60, 44, 42], cell_feat_dim=10,
+                                net_feat_dim=3, map_size=16, cnn_hw=64,
+                                seed=3)
+
+    def rows(**kw):
+        options = argparse.Namespace(**dict(
+            dict(exact_levels=False, scan_groups=1), **kw))
+        return train_scan_rows(options, parsed, bucket=(128, 512))
+
+    assert rows() == ((128, 512),) * 3
+    grouped = ((128, 384), (128, 128), (128, 128))
+    assert rows(scan_groups=2) == rows(scan_groups=0) == grouped
+    assert rows(exact_levels=True, scan_groups=2) is None
 
 
 @pytest.mark.parametrize("exact_levels,scan_groups,want", [

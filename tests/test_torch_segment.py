@@ -586,21 +586,6 @@ def test_segment_train_steps_match_jax(tiny_case):
 
 # ---- the refusals ----
 
-@pytest.mark.parametrize("kw", [dict(flag_attn=True,
-                                     compute_dtype="bfloat16"),
-                                dict(compute_dtype="bfloat16")],
-                         ids=["attn_bf16", "bf16"])
-def test_segment_refuses_attn_and_bf16(kw):
-    """bf16 under the segment reduce, with or without ``--attn``, is not
-    ported: the model refuses it by name (ROADMAP item 6b), never running
-    a plain or wrong path. (``--attn`` in float32 runs:
-    tests/test_torch_segment_attn.py.)"""
-    with pytest.raises(ValueError, match="item 6b"):
-        PathModel(10, 3, **MODEL_KW, **kw)
-    with pytest.raises(ValueError, match="reduce_mode"):
-        TimeGNN(10, 3, torch.Generator(), reduce_mode="scatter")
-
-
 def test_segment_walk_needs_the_segment_pack():
     """The packer builds the flat edge tables only on request (the
     mailbox walk reads none of them, only ``has_in``): a segment model on
