@@ -403,7 +403,8 @@ def scan_pair_rows(parsed, scan_groups: int = 1, align: int = SCAN_ALIGN,
     if scan_groups == 0:
         scan_groups = auto_scan_groups(cells, nets, align=align)
     if scan_groups <= 1:
-        return (tuple(bucket or scan_level_rows([parsed], align)),) * len(cells)
+        rows = tuple(bucket or scan_level_rows([parsed], align))
+        return (rows,) * len(cells)
     rows = []
     for k0, k1 in choose_pair_groups([_round_up(c, align) for c in cells],
                                      [_round_up(n, align) for n in nets],
@@ -420,9 +421,9 @@ def pack_leveled_graph_exact(parsed, device="cuda",
     feature tables are ``compute_dtype``, as JAX packs them.
     ``scan_rows`` are the level rows of JAX's scan, which the walks'
     bf16 backward in the scan's rounding reads: one ``(pn_c, pn_n)`` a
-    level pair (:func:`scan_pair_rows`), or one for every pair (default:
-    :func:`scan_level_rows` of this design). ``segment`` adds the flat
-    edge tables of the segment reduce (``gnn_reduce="segment"``)."""
+    level pair (default: :func:`scan_pair_rows` of this design, its
+    padded scan). ``segment`` adds the flat edge tables of the segment
+    reduce (``gnn_reduce="segment"``)."""
     dev = resolve_device(device)
     tables, node_row, num_rows = _pack_exact_numpy(parsed, segment)
     fields = {}
@@ -436,9 +437,7 @@ def pack_leveled_graph_exact(parsed, device="cuda",
                                 .to(dev, dt) for a in arrs)
     n_pairs = len(fields["cell_off"])
     if scan_rows is None:
-        scan_rows = scan_level_rows([parsed])
-    if len(scan_rows) == 2 and isinstance(scan_rows[0], int):
-        scan_rows = (tuple(scan_rows),) * n_pairs
+        scan_rows = scan_pair_rows(parsed)
     if len(scan_rows) != n_pairs:
         raise ValueError(f"scan_rows gives {len(scan_rows)} level pairs, "
                          f"the design has {n_pairs}")

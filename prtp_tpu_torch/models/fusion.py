@@ -37,13 +37,13 @@ float32.
 
 The walk has two bf16 roundings (``models/gnn.py``): JAX's fused exact
 walk's (``rounding="fused"``) and its padded scan's (``"scan"``).
-``forward``'s ``rounding`` picks one; its default, None, which every
-entry point (``trainer.train_step``, ``train_steps``,
-``parallel.dp.dp_train_step``, ``parallel.graph_shard.
-graph_sharded_train_step``, ``test.evaluate``) passes on unless told
-otherwise, lets the GNN pick by its reduce: the fused walk's under the
-mailbox reduce, the scan's under the segment reduce, the only rounding
-JAX has for it (a bf16 segment model refuses ``"fused"``).
+``forward``'s ``rounding`` picks one; its default, None, which
+``trainer.train_step``, ``train_steps``, ``parallel.dp.dp_train_step``
+and ``test.evaluate`` pass on unless told otherwise and
+``parallel.graph_shard.graph_sharded_train_step`` always, lets the GNN
+pick by its reduce: the fused walk's under the mailbox reduce, the
+scan's under the segment reduce, the only rounding JAX has for it (a
+bf16 segment model refuses ``"fused"``).
 ``test.evaluate_design`` defaults to ``"scan"``, as JAX's test CLI
 evaluates through its padded scan.
 """

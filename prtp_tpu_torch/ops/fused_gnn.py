@@ -706,10 +706,9 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         d_pre_n, d_old_n = _relu_split(dh[n0: n0 + pn_n],
                                        hf[n0: n0 + pn_n],
                                        graph.net_has_in[k], dgl_parity)
-        acc.add("fc_net_self", _mlp_grads(params["fc_net_self"],
-                                      graph.net_feat_lvl[k], d_pre_n,
-                                      False, _w(w16, "fc_net_self"),
-                                      scan)[0])
+        acc.add("fc_net_self", _mlp_grads(
+            params["fc_net_self"], graph.net_feat_lvl[k], d_pre_n, False,
+            _w(w16, "fc_net_self"), scan)[0])
         cnt_n = graph.net_cnt[k]
         # ---- intra-pair net -> cell-block contributions ----
         g_c = dh[c0: c0 + pn_c]
@@ -718,10 +717,9 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         # ---- cell half ----
         d_pre_c, d_old_c = _relu_split(g_c, hf[c0: c0 + pn_c],
                                        graph.cell_has_in[k], dgl_parity)
-        acc.add("fc_cell_self", _mlp_grads(params["fc_cell_self"],
-                                       graph.cell_feat_lvl[k], d_pre_c,
-                                       False, _w(w16, "fc_cell_self"),
-                                       scan)[0])
+        acc.add("fc_cell_self", _mlp_grads(
+            params["fc_cell_self"], graph.cell_feat_lvl[k], d_pre_c, False,
+            _w(w16, "fc_cell_self"), scan)[0])
         d_mail_c = None
         if k > 0:
             if w_attn is None:
@@ -800,8 +798,7 @@ class MlpGradSums:
             return
         sums = iter(column_sums_bf16(self._cot, self._rows))
         for targets in self._acc:
-            if targets:
-                torch._foreach_add_(targets, [next(sums) for _ in targets])
+            torch._foreach_add_(targets, [next(sums) for _ in targets])
 
 
 def _w(w16, name):

@@ -191,8 +191,7 @@ def shard_design(mesh: Mesh2D, design):
 
 def graph_sharded_train_step(state, design, path_ids, mask, mesh: Mesh2D,
                              task: str = "reg",
-                             batch_axis: str | None = DP_AXIS,
-                             rounding: str | None = None) -> dict:
+                             batch_axis: str | None = DP_AXIS) -> dict:
     """One optimizer step over the ``(dp, gp)`` mesh: the path batch
     sharded on ``dp`` (``batch_axis="dp"``: :func:`parallel.dp.
     dp_train_step` over this rank's column, the loss over the global
@@ -203,15 +202,14 @@ def graph_sharded_train_step(state, design, path_ids, mask, mesh: Mesh2D,
     the whole batch; every rank's state stays equal: the walk sums each
     level's partial reductions over ``gp``, and with ``--attn`` also
     ``fc_attn2``'s gradient, one all-reduce a step, since each rank's
-    backward gives only its edge block's share of it. ``rounding``: as
-    for ``trainer.train_step``; a bf16 segment model's default is JAX's
-    padded scan's, the rounding of JAX's sharded step."""
+    backward gives only its edge block's share of it. A bf16 segment
+    model rounds as JAX's padded scan, the rounding of JAX's sharded
+    step (the model's default)."""
     if design.graph.shard is None:
         raise ValueError("graph_sharded_train_step takes a design from "
                          "shard_design")
     if batch_axis == DP_AXIS:
-        return dp_train_step(state, design, path_ids, mask, mesh.dp, task,
-                             rounding)
+        return dp_train_step(state, design, path_ids, mask, mesh.dp, task)
     if batch_axis is None:
-        return train_step(state, design, path_ids, mask, task, rounding)
+        return train_step(state, design, path_ids, mask, task)
     raise ValueError(f"batch_axis {batch_axis!r}: {DP_AXIS!r} or None")

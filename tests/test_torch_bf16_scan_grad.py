@@ -128,7 +128,8 @@ def _port_grads(parsed, params, h0n, cot, rounding, nh=0, scan_rows=None):
     its design packed with ``scan_rows`` (default: JAX's padded level
     rows)."""
     graph, rows, num_rows = pack_leveled_graph_exact(
-        parsed, "cpu", scan_rows=scan_rows or scan_level_rows([parsed], ALIGN))
+        parsed, "cpu",
+        scan_rows=scan_rows or scan_pair_rows(parsed, align=ALIGN))
     gnn = TimeGNN(parsed["cell_feat"].shape[1], parsed["net_feat"].shape[1],
                   torch.Generator().manual_seed(0), out_dim=OUT,
                   hidden_dim=HID, flag_attn=nh > 0, num_heads=max(nh, 1),

@@ -3,11 +3,12 @@
 single-process segment step and JAX's ``make_graph_sharded_train_step``
 on the same mesh shape of the virtual CPU mesh, on tiny designs of
 ``tests/test_graph_shard.py``'s generator: gp only ``(1, 2)``,
-``(2, 2)``, merged designs on ``(2, 2)``, and ``--attn`` with 2 heads on
-``(2, 2)``. The port's ranks run in
-one child run (``tests/_torch_graph_shard_child.py``, gloo, at most 4
-ranks), started as soon as the inputs exist, while JAX's steps compile
-here.
+``(2, 2)``, merged designs on ``(2, 2)``, ``--attn`` with 2 heads on
+``(2, 2)``, and the bf16 model (JAX's padded scan's rounding) on
+``(2, 2)``, held by the bf16 bounds its tests state. The port's ranks
+run in one child run (``tests/_torch_graph_shard_child.py``, gloo, at
+most 4 ranks), started as soon as the inputs exist, while JAX's steps
+compile here.
 
 A sharded step sums each level's partial reductions over ``gp`` and the
 gradients over ``dp``, in another order than one process, so values
@@ -41,7 +42,7 @@ from prtp_tpu.graph import pack_design as jax_pack_design
 from prtp_tpu.models import PathModel as JaxPathModel
 from prtp_tpu.parallel import graph_shard as jgs
 from prtp_tpu_torch.graph import (merge_parsed_designs, pack_design,
-                                  scan_level_rows)
+                                  scan_pair_rows)
 from prtp_tpu_torch.models import PathModel
 from prtp_tpu_torch.ops import KERNELS
 from prtp_tpu_torch.parallel import requested_ranks
@@ -95,7 +96,7 @@ def _pack_kw(name, parsed):
     if name != "bf16":
         return {}
     return dict(compute_dtype=torch.bfloat16,
-                scan_rows=scan_level_rows([parsed], 8))
+                scan_rows=scan_pair_rows(parsed, align=8))
 
 
 def _case_inputs(name):

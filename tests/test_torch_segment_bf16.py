@@ -28,7 +28,8 @@ level rows, and the carry, the scores and every reduce float32.
   super-graph) against
   JAX's ``make_train_step``, at ``tests/test_torch_bf16_model.py``'s
   bounds; every entry point's default rounding is the scan's.
-- ``rounding="fused"`` under the segment reduce in bf16 raises.
+- The bf16 pack with the flat edge tables against JAX's bf16 padded
+  pack; ``rounding="fused"`` under the segment reduce in bf16 raises.
 """
 
 import functools
@@ -49,7 +50,7 @@ from prtp_tpu_torch import test as port_test
 from prtp_tpu_torch import trainer
 from prtp_tpu_torch.data.random_design import make_random_design
 from prtp_tpu_torch.graph import (merge_parsed_designs, pack_design,
-                                  pack_leveled_graph_exact, scan_level_rows)
+                                  pack_leveled_graph_exact, scan_pair_rows)
 from prtp_tpu_torch.models import PathModel, TimeGNN
 from prtp_tpu_torch.utils.convert import params_from_flax
 
@@ -109,7 +110,7 @@ def _port_walk(parsed, params, h0n, cot, nh=0, dtype="bfloat16"):
     """The port's segment walk on its exact pack, with JAX's padded level
     rows, at the model's default rounding: as :func:`_jax_walk`."""
     graph, rows, num_rows = pack_leveled_graph_exact(
-        parsed, "cpu", scan_rows=scan_level_rows([parsed], ALIGN),
+        parsed, "cpu", scan_rows=scan_pair_rows(parsed, align=ALIGN),
         segment=True)
     gnn = _port_gnn(params, parsed["cell_feat"].shape[1], nh, dtype)
     h0 = torch.tensor(_to_rows(h0n, rows, num_rows), requires_grad=True)
@@ -189,6 +190,29 @@ def test_segment_walk_matches_jax_padded_scan(nh):
     for key in got:
         assert_near_jax_bf16(got[key], want[jnp.bfloat16][key],
                              want[None][key], key)
+
+
+def test_segment_bf16_pack_is_jax_padded_pack():
+    """``pack_design(..., segment=True, compute_dtype=bfloat16)`` packs
+    the feature tables and the raster in bf16, as JAX's padded pack does
+    (its ``compute_dtype``): each level's feature rows equal JAX's bit for
+    bit, and the flat edge tables are packed beside them."""
+    parsed = _wide_parsed()
+    design = pack_design(parsed, map_size=16, device="cpu",
+                         compute_dtype=BF, segment=True)
+    jg = jax_pack_design(parsed, map_size=16, align=ALIGN,
+                         compute_dtype=jnp.bfloat16, cnn_patches=False)
+    g = design.graph
+    assert g.cell_src is not None and design.cnn_input.dtype == BF
+    np.testing.assert_array_equal(
+        _np(design.cnn_input), np.asarray(jg.cnn_input, np.float32)
+        .transpose(0, 3, 1, 2))
+    for half in ("cell", "net"):
+        want = np.asarray(getattr(jg.graph, f"{half}_feat_lvl"), np.float32)
+        for k, got in enumerate(getattr(g, f"{half}_feat_lvl")):
+            assert got.dtype == BF
+            np.testing.assert_array_equal(_np(got), want[k, :got.shape[0]],
+                                          err_msg=f"{half} level pair {k}")
 
 
 # ---- the model ----
@@ -326,7 +350,7 @@ def test_segment_bf16_train_steps_match_jax(name):
     state = trainer.init_state(model, trainer.make_optimizer(LR), "cpu")
     design = pack_design(parsed, map_size=kw["map_size"], device="cpu",
                          compute_dtype=BF, segment=True,
-                         scan_rows=scan_level_rows([parsed], ALIGN))
+                         scan_rows=scan_pair_rows(parsed, align=ALIGN))
     jstate = _jax_state(variables["params"], tx)
     to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
     assert len(batches) >= STEPS
