@@ -4506,9 +4506,9 @@ def check_segment_hazard(torch, graph, dev, early_writer, pair=1):
 
 
 def gp_rank(rank, tmp, port, model_kw):
-    """Phases 11 and 12 (c), one of GP_RANKS processes on cuda:0 joined
-    over gloo in a (1, GP_RANKS) mesh: the headline segment model (with
-    ``model_kw``: phase 12's ``--attn``) from the
+    """Phases 11, 12 and 13 (c), one of GP_RANKS processes on cuda:0
+    joined over gloo in a (1, GP_RANKS) mesh: the headline segment model
+    (with ``model_kw``: phase 12's ``--attn``, phase 13's bf16) from the
     parent's state before each step, SEG_STEPS graph-sharded steps on all
     597 paths (cuDNN deterministic, as the parent's); then one step
     timed, and the step's all-reduces alone. Writes its losses,
