@@ -315,11 +315,20 @@ SCAN_STEPS = 3  # phase 8: the bf16 steps in the padded scan's rounding
 # steps card vs cpu
 MERGED_K, MERGED_NODES, MERGED_SEED, MERGED_BATCH = 8, 20_000, 100, 256
 MERGED_STEPS = 3
+# phase 14: the multi-design step on phase 9's designs, MULTI_STEPS train
+# steps card vs cpu; its predictions against phase 9's merged evaluate of
+# the same super-graph within MULTI_TOL x their largest |value| (the same
+# kernels on the same tables)
+MULTI_STEPS, MULTI_TOL = 3, 1e-6
 # phase 10: data parallelism, DP_STEPS steps a run; (a) one rank against
 # train_step within DP_TOL, (b) DP_RANKS ranks on one card within DP_TOL_2
 DP_STEPS, DP_RANKS = 3, 2
 DP_TOL, DP_TOL_2 = 1e-6, 1e-5
 DP_CLI_RTOL = 1e-5  # (c): the --dp CLIs' printed values against without
+# (b), F4: a bf16 dp step's gradients against one rank's, each leaf within
+# F4_MEAN x its bf16-to-float32 distance in mean distance and F4_MAX x its
+# max |g| (tests/test_torch_graph_shard.py's bound)
+F4_MEAN, F4_MAX = 1e-3, 1e-4
 # phase 11: the segment reduce's train steps a run, and the ranks of its
 # (1, GP_RANKS) edge-sharded mesh on one card
 SEG_STEPS, GP_RANKS = 3, 2
@@ -1835,9 +1844,10 @@ def serve(torch, np, model, model_cpu, parsed, design, per_forward,
 
 
 def train_run(torch, state, design, batches, what, per_step=None,
-              card=None):
+              card=None, step=None):
     """Phase 6: one run of train steps through ``train_step`` (the first,
-    whose gradients stay in ``.grad``) and ``train_steps`` (the rest).
+    whose gradients stay in ``.grad``) and ``train_steps`` (the rest), or
+    through ``step(state, design, ids, mask)`` (phase 14's).
     With ``per_step`` (on the card) the launch counters are zeroed just
     before the run and read just after, and each kernel must have run
     ``len(batches)`` x its per-step count. With ``card`` (on the CPU,
@@ -1852,12 +1862,16 @@ def train_run(torch, state, design, batches, what, per_step=None,
         _zero_launches()
     t0 = time.perf_counter()
     with take_card_branches(torch, state.model, card or {}) as taken:
-        first = train_step(state, design, *batches[0])
+        first = (step or train_step)(state, design, *batches[0])
     if card:
         log(f"  {what} (cpu): first step took the card's branch at {taken}")
     grads = {k: p.grad.detach().to("cpu", copy=True)
              for k, p in state.model.named_parameters()}
-    rest = train_steps(state, design, batches[1:]) if len(batches) > 1 else {}
+    if step is not None:
+        rest = {"loss": [step(state, design, *b)["loss"] for b in batches[1:]]}
+    else:
+        rest = (train_steps(state, design, batches[1:]) if len(batches) > 1
+                else {})
     losses = [float(first["loss"])] + [float(x) for x in rest.get("loss", [])]
     wall = time.perf_counter() - t0
     counts = _read_launches()
@@ -2117,7 +2131,7 @@ def _grads(state):
 
 
 def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
-                 attn=False, card=None, rounding=None):
+                 attn=False, card=None, rounding=None, step=None):
     """Phase 8: the same steps through ``trainer.train_step`` on the CPU
     and on the card, each card step from the CPU's state before it (its
     parameters, buffers and Adam moments), so that each step's loss is
@@ -2130,7 +2144,8 @@ def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
     must have run ``len(batches)`` x its per-step count. The CPU's first
     step takes the card's branches ``card`` (:func:`card_branches`). The
     walk runs in the bf16 ``rounding`` (``trainer.train_step``; None: the
-    model's reduce's).
+    model's reduce's). ``step(state, design, ids, mask)`` replaces
+    ``train_step`` (phase 14's).
     Returns ``{where:
     (losses, the first step's gradients, counts, the buffers after each
     step, the state_dict after the last)}``, all on the CPU."""
@@ -2153,8 +2168,10 @@ def paired_steps(torch, model_cpu, designs, batches, what, per_step, task,
             branches = card if where == "cpu" and t == 0 else None
             with take_card_branches(torch, state.model,
                                     branches or {}) as taken:
-                losses.append(float(train_step(state, designs[where], ids,
-                                               mask, task, rounding)["loss"]))
+                mets = (step(state, designs[where], ids, mask) if step
+                        else train_step(state, designs[where], ids, mask,
+                                        task, rounding))
+                losses.append(float(mets["loss"]))
             if branches:
                 log(f"  {what} (cpu): first step took the card's branch at "
                     f"{taken}")
@@ -3353,6 +3370,10 @@ def merged_phase(torch, np, dev, smi) -> dict:
         f"{a['busy_ms'] / b['busy_ms']:.3f}, as launched "
         f"{a['launched_ms'] / b['launched_ms']:.3f}, launches "
         f"{a['launches'] / b['launches']:.3f}  [{smi}]")
+    shared = {"parsed": parsed, "ids": ids_np, "mask": mask_np,
+              "rounds": rounds, "timing": {
+                  name: {k: v for k, v in t.items() if k != "by_name"}
+                  for name, t in runs.items()}}
     del state, runs, singles
 
     # ---- bf16: one forward in the test CLI's rounding ----
@@ -3405,7 +3426,7 @@ def merged_phase(torch, np, dev, smi) -> dict:
                  f32_err, rasters=MERGED_K)
     check_running_averages(torch, what, runs[DEVICE][3], runs["cpu"][3])
     log(f"phase 9: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
-    return launches
+    return launches, shared
 
 
 def _host_ms(torch, fn, reps):
@@ -3476,6 +3497,19 @@ def dp_rank(rank, tmp, port):
                 out["grads"] = _grads(state)
         torch.cuda.synchronize()
         out["counts"] = _read_launches()
+        # F4: the first step of the same weights in bf16, in the padded
+        # scan's rounding (the --dp train CLI's)
+        low = init_state(PathModel(
+            CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+            compute_dtype=torch.bfloat16), make_optimizer(LR), dev)
+        _state_restore(low, (snaps["model"][0], snaps["opt"][0]))
+        dp_train_step(low, pack_design(parsed, map_size=MAP_SIZE, device=dev,
+                                       compute_dtype=torch.bfloat16),
+                      ids, mask, mesh, rounding="scan")
+        out["bf16_checksum"] = float(low.optimizer.flat.double().abs().sum())
+        if rank == 0:
+            out["bf16_grads"] = _grads(low)
+        del low
         torch.backends.cudnn.deterministic = False
         out["step_ms"] = _host_ms(
             torch, lambda: dp_train_step(state, design, ids, mask, mesh), 3)
@@ -3546,6 +3580,34 @@ def dp_cli_runs(torch, np, smi, tmp) -> dict:
     return launches
 
 
+def check_f4(what, outs, ref16, ref32):
+    """F4 on the card: the dp ranks' first bf16 step (``bf16_grads`` of
+    rank 0, every rank's ``bf16_checksum`` equal) against ``train_step``'s
+    on one rank (``ref16``), each leaf within F4_MEAN x its bf16-to-float32
+    distance (from ``ref32``, the float32 first step of the same weights)
+    in mean distance and within F4_MAX x its max |g|."""
+    if any(o["bf16_checksum"] != outs[0]["bf16_checksum"] for o in outs):
+        raise AssertionError(f"{what}: the ranks' parameters differ")
+    worst_mean, worst_max = (0.0, ""), (0.0, "")
+    for key, want in ref16.items():
+        got = outs[0]["bf16_grads"][key]
+        gap = float((want - ref32[key]).abs().mean())
+        mean, top = float((got - want).abs().mean()), float(
+            (got - want).abs().max())
+        scale = float(want.abs().max()) or 1.0
+        worst_mean = max(worst_mean, (mean / gap if gap else mean, key))
+        worst_max = max(worst_max, (top / scale, key))
+        if mean > F4_MEAN * gap or top > F4_MAX * scale:
+            raise AssertionError(f"{what}: gradient of {key}: mean distance "
+                                 f"{mean} ({mean / (gap or 1):.3g} x its bf16"
+                                 f"-to-float32 {gap}), max {top / scale:.3g}"
+                                 " x max |g|")
+    log(f"  {what} vs train_step's: mean distance at most {worst_mean[0]:.3g}"
+        f" x the leaf's bf16-to-float32 distance ({worst_mean[1]}; allowed "
+        f"{F4_MEAN}), max at most {worst_max[0]:.3g} x max |g| "
+        f"({worst_max[1]}; allowed {F4_MAX}); checksums equal: ok")
+
+
 def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
     """Phase 10: data parallelism (``--dp``) at the default model's full
     width on the headline (all 597 paths a step), float32, TF32 off.
@@ -3608,6 +3670,17 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
         ref_losses.append(float(train_step(ref, design, ids, mask)["loss"]))
         if t == 0:
             ref_grads = _grads(ref)
+    # F4's reference: the first step of the same weights in bf16, in the
+    # padded scan's rounding (the --dp train CLI's), on one rank
+    low = init_state(PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+                               compute_dtype=torch.bfloat16),
+                     make_optimizer(LR), dev)
+    _state_restore(low, snaps[0])
+    train_step(low, pack_design(headline, map_size=MAP_SIZE, device=dev,
+                                compute_dtype=torch.bfloat16), ids, mask,
+               rounding="scan")
+    ref16 = _grads(low)
+    del low
     launches = {}
 
     def check(what, losses, grads, tol):
@@ -3696,6 +3769,8 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
         log(f"  {what}: parameter checksums equal on every rank after each "
             f"step ({outs[0]['checksums']}); {wall:.1f} s with the "
             "processes' start")
+        check_f4(f"phase 10 (b): F4, {DP_RANKS} ranks' first bf16 step",
+                 outs, ref16, ref_grads)
         log(f"phase 10 (b): dp step, {DP_RANKS} ranks on one card, host "
             "time between synchronizes (median of 3): "
             + ", ".join(f"rank {r} {o['step_ms']:.3f} ms"
@@ -5506,6 +5581,360 @@ def segment_bf16_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
     return launches
 
 
+def _multi_snapshots(torch, model_cpu, stacked, batches, step_fn):
+    """The one-rank multi-design run of phase 14 (d) on the card: from the
+    init, a step a batch, the state before each kept; returns (snapshots,
+    losses, the first step's gradients on the CPU)."""
+    from prtp_tpu_torch.trainer import init_state, make_optimizer
+
+    state = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), DEVICE)
+    snaps, losses, grads = [], [], None
+    for t, (ids, mask) in enumerate(batches):
+        snaps.append(_state_snapshot(state))
+        losses.append(float(step_fn(state, stacked, ids, mask)["loss"]))
+        if t == 0:
+            grads = _grads(state)
+    return snaps, losses, grads
+
+
+def multi_rank(rank, tmp, port):
+    """Phase 14 (d), one of DP_RANKS processes on cuda:0, joined over
+    gloo: the MERGED_K designs packed on the card and stacked, and
+    MULTI_STEPS design-sharded multi-design steps, each from the one-rank
+    run's state before it (cuDNN deterministic); rank r owns designs
+    r x MERGED_K / DP_RANKS onward. Writes its losses, parameter
+    checksums, first-step gradients (rank 0) and launch counts to
+    ``rank<r>.pt`` in ``tmp``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from prtp_tpu_torch.graph import pack_design, stack_designs
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.parallel import Mesh
+    from prtp_tpu_torch.parallel.multi import multidesign_train_step
+    from prtp_tpu_torch.trainer import init_state, make_optimizer
+
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=DP_RANKS, rank=rank)
+    try:
+        mesh = Mesh.of_group()
+        with open(os.path.join(tmp, "multi.pkl"), "rb") as f:
+            parsed, batches = pickle.load(f)
+        snaps = torch.load(os.path.join(tmp, "multi_states.pt"),
+                           weights_only=True)
+        stacked = stack_designs([pack_design(p, map_size=MAP_SIZE, device=dev)
+                                 for p in parsed])
+        state = init_state(PathModel(
+            CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+            generator=torch.Generator().manual_seed(SEED)),
+            make_optimizer(LR), dev)
+        out = {"losses": [], "checksums": [], "grads": None}
+        per = len(parsed) // DP_RANKS
+        stacked.block(rank * per, (rank + 1) * per)  # packed before the run
+        torch.cuda.synchronize()
+        _zero_launches()
+        for t, (ids, mask) in enumerate(batches):
+            _state_restore(state, (snaps["model"][t], snaps["opt"][t]))
+            out["losses"].append(float(multidesign_train_step(
+                state, stacked, ids.to(dev), mask.to(dev), mesh=mesh)["loss"]))
+            out["checksums"].append(
+                float(state.optimizer.flat.double().abs().sum()))
+            if t == 0 and rank == 0:
+                out["grads"] = _grads(state)
+        torch.cuda.synchronize()
+        out["counts"] = _read_launches()
+        out["graph"] = launches_per_step(
+            stacked.block(rank * per, (rank + 1) * per)[0].graph)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
+    """Phase 14: the multi-design step (``parallel/multi.py``,
+    ``graph.stack_designs``) at the default model's full width, TF32 off,
+    on phase 9's MERGED_K designs (the same parsed designs, weights and
+    batches; each design packed alone, then stacked, whose super-graph
+    is packed once for the stack). The per-design ids are phase 9's
+    merged batch and grouped rounds read back in each design's own
+    numbering.
+    (a) REQUESTS evaluations (``multidesign_eval_step``), card against
+    CPU at rtol/atol 1e-4, and against phase 9's merged ``evaluate`` of
+    the stack's super-graph on the same weights and path rows: the same
+    walk and head on the same tables, so the predictions must agree
+    within MULTI_TOL x their largest |value|.
+    (b) MULTI_STEPS steps on phase 9's rounds, card against CPU by phase
+    6's rules (MAX_FLIPS a pool and raster); the step timed beside phase
+    9's merged step and MERGED_K single steps (same run, same paths).
+    (c) The model in bf16: REQUESTS evaluations and SHORT_STEPS paired
+    steps, card against CPU by phase 8's bf16 bounds.
+    (d) Design-sharded: one NCCL rank against the unsharded step
+    (losses and first gradients within DP_TOL); DP_RANKS gloo processes
+    on cuda:0, MERGED_K / DP_RANKS designs a rank, MULTI_STEPS steps
+    each from the one-rank run's state, within DP_TOL_2, the ranks'
+    parameter checksums equal (not run, and said so, where the card's
+    compute mode admits one process). Every run's launch counters are
+    zeroed just before it and checked just after against the stack's
+    super-graph. Returns each run's launch counts."""
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+    from prtp_tpu_torch.graph import pack_design, stack_designs
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.parallel import Mesh
+    from prtp_tpu_torch.parallel.distributed import free_port
+    from prtp_tpu_torch.parallel.multi import (multidesign_eval_step,
+                                               multidesign_train_step)
+    from prtp_tpu_torch.test import evaluate
+    from prtp_tpu_torch.trainer import init_state, make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    parsed = shared["parsed"]
+    first = np.cumsum([0] + [int(p["num_paths"]) for p in parsed])[:-1, None]
+
+    def local(ids, mask):  # a merged (K, B) batch in each design's own ids
+        ids, mask = np.asarray(ids), np.asarray(mask)
+        return np.where(mask > 0, ids - first, 0), mask
+
+    def on(where, ids, mask):
+        return (torch.from_numpy(ids).to(where),
+                torch.from_numpy(mask).to(where))
+
+    ids_np, mask_np = local(shared["ids"], shared["mask"])
+    rounds = [local(i.numpy(), m.numpy()) for i, m in shared["rounds"]]
+    t0 = time.perf_counter()
+    stacks = {where: stack_designs([pack_design(p, map_size=MAP_SIZE,
+                                                device=where) for p in parsed])
+              for where in ("cpu", DEVICE)}
+    blocks = {where: s.block(0, MERGED_K)[0] for where, s in stacks.items()}
+    graph = blocks[DEVICE].graph
+    log(f"phase 14: {MERGED_K} designs packed alone and stacked (bucket "
+        f"{stacks[DEVICE].bucket}, {stacks[DEVICE].num_pairs} level pairs), "
+        f"their super-graph packed once, on the cpu and the card, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = {where: on(where, ids_np, mask_np) for where in stacks}
+    model_cpu = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+                          generator=torch.Generator().manual_seed(SEED))
+    model = copy.deepcopy(model_cpu).to(dev)
+    per_forward, per_step = launches_per_forward(graph), launches_per_step(
+        graph)
+    launches = {}
+
+    def multi_step(state, stacked, ids, mask):
+        return multidesign_train_step(state, stacked, ids, mask)
+
+    # ---- (a) evaluation ----
+    what = "serve multi-design"
+    torch.cuda.synchronize()
+    _zero_launches()
+    outs = []
+    for req in range(REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds, mets = multidesign_eval_step(model, stacks[DEVICE],
+                                            *batch[DEVICE])
+        outs.append(preds.cpu().numpy())
+        log(f"  multi-design request {req}: wall "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms  loss "
+            f"{float(mets['loss']):.6f}  r2 {float(mets['r2']):.6f}")
+    launches[what] = _read_launches()
+    check_launches(what, launches[what], per_forward, REQUESTS)
+    want = multidesign_eval_step(model_cpu, stacks["cpu"],
+                                 *batch["cpu"])[0].numpy()
+    for req, got in enumerate(outs):
+        if got.shape != ids_np.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"multi-design request {req}: bad "
+                                 f"predictions {got.shape}")
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"multi-design request {req} vs "
+                                   "cpu")
+    rows = torch.from_numpy(shared["ids"]).to(dev)
+    merged = evaluate(model, blocks[DEVICE], rows,
+                      torch.from_numpy(shared["mask"]).to(dev))[0].cpu().numpy()
+    off = float(np.abs(outs[0] - merged).max())
+    if off > MULTI_TOL * float(np.abs(merged).max()):
+        raise AssertionError(f"multi-design request vs the merged evaluate: "
+                             f"{off} apart")
+    log(f"  multi-design requests vs cpu: max abs diff "
+        f"{max(float(np.abs(o - want).max()) for o in outs):.3g} (rtol/atol "
+        f"1e-4); vs phase 9's merged evaluate of the same super-graph: "
+        f"{off:.3g} (allowed {MULTI_TOL} x max |pred|): ok")
+
+    # ---- (b) training ----
+    what = f"train multi-design, {MULTI_STEPS} steps"
+    cpu_in = blocks["cpu"].cnn_input
+    flips = pool_winner_flips(torch, model_cpu.cnn, cpu_in, dev)
+    cards, signs = card_branches(torch, model_cpu.cnn, cpu_in, dev)
+    log(f"  multi-design LayoutNet at the init, card vs cpu: max-pool "
+        f"windows whose winner differs {flips}; conv outputs whose sign "
+        f"differs {signs}")
+    steps = rounds[:MULTI_STEPS]
+    card = train_run(torch, init_state(copy.deepcopy(model_cpu),
+                                       make_optimizer(LR), DEVICE),
+                     stacks[DEVICE], [on(dev, *b) for b in steps], what,
+                     per_step, step=multi_step)
+    launches[what] = card[2]
+    cpu = train_run(torch, init_state(copy.deepcopy(model_cpu),
+                                      make_optimizer(LR), "cpu"),
+                    stacks["cpu"], [on("cpu", *b) for b in steps], what,
+                    card=cards, step=multi_step)
+    compare_runs(torch, what, card, cpu, flips, rasters=MERGED_K)
+    del card, cpu, cards
+    state = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), DEVICE)
+    t = step_timing(torch, dev, lambda: multi_step(state, stacks[DEVICE],
+                                                   *batch[DEVICE]), 300)
+    log(f"phase 14: one multi-design step ({MERGED_K} x {MERGED_BATCH} ids, "
+        f"{int(mask_np.sum())} valid): device time {t['device_ms']:.3f} ms; "
+        f"as launched {t['launched_ms']:.3f} ms; wall {t['wall_ms']:.3f} ms,"
+        f" device busy {t['busy_ms']:.3f} ms (torch.profiler), idle share "
+        f"{t['idle']:.3f}; {t['launches']} kernel launches  [{smi}]")
+    for kname, (tot, cnt) in sorted(t["by_name"].items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+        log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {kname[:90]}")
+    log_port_kernels(t["by_name"], "one multi-design step")
+    for name, other in shared["timing"].items():
+        log(f"phase 14: the multi-design step / phase 9's {name}: device "
+            f"busy {t['busy_ms'] / other['busy_ms']:.3f}, as launched "
+            f"{t['launched_ms'] / other['launched_ms']:.3f}, launches "
+            f"{t['launches'] / other['launches']:.3f} ({other['busy_ms']:.3f}"
+            f" ms busy, {other['launched_ms']:.3f} ms as launched, "
+            f"{other['launches']} launches)  [{smi}]")
+    del state, t
+
+    # ---- (c) bf16 ----
+    low = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+                    compute_dtype=torch.bfloat16)
+    low.load_state_dict(model_cpu.state_dict())
+    low_card = copy.deepcopy(low).to(dev)
+    stacks16 = {where: stack_designs([pack_design(
+        p, map_size=MAP_SIZE, device=where, compute_dtype=torch.bfloat16)
+        for p in parsed]) for where in ("cpu", DEVICE)}
+    what = "serve multi-design bf16"
+    torch.cuda.synchronize()
+    _zero_launches()
+    outs16 = [multidesign_eval_step(low_card, stacks16[DEVICE],
+                                    *batch[DEVICE])[0].cpu().numpy()
+              for _ in range(REQUESTS)]
+    launches[what] = _read_launches()
+    check_launches(what, launches[what], per_forward, REQUESTS)
+    want16 = multidesign_eval_step(low, stacks16["cpu"],
+                                   *batch["cpu"])[0].numpy()
+    for req, got in enumerate(outs16):
+        check_bf16(np, f"multi-design bf16 request {req}", got, want16,
+                   outs[0])
+    what = f"train multi-design bf16, {SHORT_STEPS} steps"
+    card, _d = card_layers(torch, np, low.cnn,
+                           stacks16["cpu"].block(0, MERGED_K)[0].cnn_input,
+                           dev)
+    batches = {where: [on(where, *b) for b in rounds[:SHORT_STEPS]]
+               for where in stacks16}
+    twin = init_state(copy.deepcopy(model_cpu), make_optimizer(LR), DEVICE)
+    f32_first = (float(multi_step(twin, stacks[DEVICE],
+                                  *batches[DEVICE][0])["loss"]),
+                 _grads(twin))
+    del twin
+    runs = paired_steps(torch, low, stacks16, batches, what, per_step, "reg",
+                        card=card, step=multi_step)
+    launches[what] = runs[DEVICE][2]
+    compare_bf16_runs(torch, what, runs[DEVICE], runs["cpu"], f32_first)
+    del low, low_card, stacks16, runs, card
+    torch.cuda.empty_cache()
+
+    # ---- (d) the design-sharded step ----
+    torch.backends.cudnn.deterministic = True
+    steps_card = [on(dev, *b) for b in steps]
+    snaps, ref_losses, ref_grads = _multi_snapshots(
+        torch, model_cpu, stacks[DEVICE], steps_card, multi_step)
+
+    def check(what, losses, grads, tol):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        worst = (0.0, "")
+        for key, w in ref_grads.items():
+            scale = float(w.abs().max())
+            diff = float((grads[key] - w).abs().max())
+            worst = max(worst, (diff / scale if scale else diff, key))
+            if diff > tol * scale:
+                raise AssertionError(f"{what}: gradient of {key} differs by "
+                                     f"{diff} (max |g| {scale}, allowed "
+                                     f"{tol} x)")
+        if rel > tol:
+            raise AssertionError(f"{what}: losses {losses} against one "
+                                 f"rank's {ref_losses}")
+        log(f"  {what} vs the unsharded step: losses {losses} within rtol "
+            f"{rel:.3g}, first-step gradients within {worst[0]:.3g} x the "
+            f"leaf's max |g| ({worst[1]}; allowed {tol} each): ok")
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = Mesh.of_group()
+        what = f"phase 14 (d): multi-design, 1 rank (NCCL), {MULTI_STEPS} steps"
+        state = init_state(copy.deepcopy(model_cpu), make_optimizer(LR),
+                           DEVICE)
+        losses, grads = [], None
+        torch.cuda.synchronize()
+        _zero_launches()
+        for step_t, (ids, mask) in enumerate(steps_card):
+            _state_restore(state, snaps[step_t])
+            losses.append(float(multidesign_train_step(
+                state, stacks[DEVICE], ids, mask, mesh=mesh)["loss"]))
+            if step_t == 0:
+                grads = _grads(state)
+        torch.cuda.synchronize()
+        launches[what] = _read_launches()
+        check_launches(what, launches[what], per_step, MULTI_STEPS)
+        check(what, losses, grads, DP_TOL)
+        del state
+    finally:
+        dist.destroy_process_group()
+    torch.backends.cudnn.deterministic = False
+    if "exclusive" in compute_mode.lower():
+        log(f"phase 14 (d): the card's compute mode is {compute_mode}: it "
+            "admits one process, so two ranks cannot share it; not run")
+    else:
+        with tempfile.TemporaryDirectory(prefix="prtp_multi_") as tmp:
+            with open(os.path.join(tmp, "multi.pkl"), "wb") as f:
+                pickle.dump((parsed, [on("cpu", *b) for b in steps]), f)
+            torch.save({"model": [s[0] for s in snaps],
+                        "opt": [s[1] for s in snaps]},
+                       os.path.join(tmp, "multi_states.pt"))
+            t0 = time.perf_counter()
+            torch.multiprocessing.start_processes(
+                multi_rank, args=(tmp, free_port()), nprocs=DP_RANKS,
+                join=True, start_method="spawn")
+            wall = time.perf_counter() - t0
+            outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                               weights_only=True) for r in range(DP_RANKS)]
+        what = (f"phase 14 (d): multi-design, {DP_RANKS} ranks on {DEVICE} "
+                f"(gloo), {MERGED_K // DP_RANKS} designs a rank, "
+                f"{MULTI_STEPS} steps")
+        for r, out in enumerate(outs):
+            launches[f"{what}, rank {r}"] = out["counts"]
+            check_launches(f"{what}, rank {r}", out["counts"], out["graph"],
+                           MULTI_STEPS)
+        if any(o["checksums"] != outs[0]["checksums"]
+               or o["losses"] != outs[0]["losses"] for o in outs):
+            raise AssertionError(f"{what}: the ranks' parameters or losses "
+                                 f"differ: {[o['checksums'] for o in outs]}")
+        check(what, outs[0]["losses"], outs[0]["grads"], DP_TOL_2)
+        log(f"  {what}: parameter checksums equal on every rank after each "
+            f"step ({outs[0]['checksums']}); {wall:.1f} s with the "
+            "processes' start")
+    del stacks, blocks, model
+    torch.cuda.empty_cache()
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5747,7 +6176,8 @@ def main() -> int:
     precision_turns(torch, np, parsed["headline"], dev, smi)
 
     # ---- phase 9: the merged super-graph ----
-    launches.update(merged_phase(torch, np, dev, smi))
+    merged_launches, merged_shared = merged_phase(torch, np, dev, smi)
+    launches.update(merged_launches)
 
     # ---- phase 10: data parallelism ----
     launches.update(dp_phase(torch, np, dev, smi, parsed["headline"],
@@ -5768,6 +6198,10 @@ def main() -> int:
     # ---- phase 13: bf16 under the segment reduce ----
     launches.update(segment_bf16_phase(torch, np, dev, smi,
                                        parsed["headline"], compute_mode))
+
+    # ---- phase 14: the multi-design step ----
+    launches.update(multi_phase(torch, np, dev, smi, merged_shared,
+                                compute_mode))
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

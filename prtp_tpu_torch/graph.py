@@ -23,7 +23,8 @@ l; the packer takes it as one bigger design, with its K rasters stacked.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -82,6 +83,14 @@ class LeveledGraphExact:
     # that many rows, the zeros of the padding included (the walks' "scan"
     # rounding)
     scan_rows: tuple = ()
+    # the super-graph of designs that JAX stacks and vmaps
+    # (StackedDesigns): XLA rounds the scan's cotangents there as it
+    # compiles the vmapped scan (ops.fused_gnn._mlp_grads' round_dx)
+    stacked: bool = False
+    # a design-sharded rank's stack (parallel.multi): sums a flat float32
+    # tensor over the ranks in place; the scan's bf16 MLP gradients are
+    # summed pair by pair with it (ops.fused_gnn.MlpGradSums)
+    pair_sum: object = None
     # this rank's block of the edge tables under the 2-D (dp, gp) mesh
     # (parallel.graph_shard.shard_design); None: the whole level
     shard: object = None
@@ -127,6 +136,9 @@ class DesignData:
     # (K, C, H, W) float32 (or bf16), NCHW: K = 1, or a merged
     # super-graph's K designs
     cnn_input: torch.Tensor
+    # the parsed dict pack_design packed (host arrays, not copied), which
+    # stack_designs merges
+    source: dict | None = field(default=None, repr=False, compare=False)
 
     @property
     def num_paths(self) -> int:
@@ -498,6 +510,7 @@ def pack_design(parsed, map_size=128, device="cuda",
         path_masks=torch.from_numpy(masks).to(dev),
         cnn_input=torch.from_numpy(np.ascontiguousarray(cnn_input))
         .to(dev, compute_dtype),
+        source=parsed,
     )
 
 
@@ -595,3 +608,126 @@ def merge_parsed_designs(parsed_list):
     if num_ctypes:
         merged["num_ctypes"] = num_ctypes.pop()
     return merged
+
+
+def stack_level_rows(parsed_list, bucket) -> tuple:
+    """Per level pair of the super-graph that :func:`merge_parsed_designs`
+    makes of ``parsed_list``, the rows its bf16 bias sums run over in
+    JAX's stack of those designs on one bucket (``bucket``: a ``(pn_c,
+    pn_n)`` of :func:`scan_level_rows`): ``((pn_c, cell counts), (pn_n,
+    net counts))``, a count per design, its level's size (0 where it has
+    no such level). ``ops.bf16.column_sums_bf16`` places each design's
+    rows at the start of its own block of the bucket's rows, as
+    ``jax.vmap`` flattens the stacked ``(K, pn)`` rows into one reduce."""
+    sizes = [_pair_sizes(p) for p in parsed_list]
+    n_pairs = max(len(cells) for cells, _nets in sizes)
+    return tuple(
+        tuple((bucket[h], tuple(s[h][k] if k < len(s[h]) else 0
+                                for s in sizes)) for h in (0, 1))
+        for k in range(n_pairs))
+
+
+@dataclass
+class StackedDesigns:
+    """K packed designs stacked for the multi-design step
+    (``parallel/multi.py``), from :func:`stack_designs`.
+
+    JAX pads every design to one bucket, stacks them on a leading axis
+    and ``vmap``s the step over it. The port packs exact levels only, so
+    its stacked form is its own: the super-graph of
+    :func:`merge_parsed_designs` over a block of the designs (all K, or
+    a design-sharded rank's contiguous block), whose level L is the
+    union of the designs' level L, walked once. The other candidate, K
+    walks in turn, would launch K times the kernels (about K x 1,000 a
+    step) and cannot round as JAX does in bf16: under ``vmap`` XLA
+    computes each pair's weight gradients as one product over all the
+    designs' rows and its bias gradients as one bf16 reduce over them
+    (read from the compiled HLO), which on the super-graph is one
+    product over the merged level and one :func:`~prtp_tpu_torch.ops.
+    bf16.column_sums_bf16` over the rows laid out as the bucket's
+    (:func:`stack_level_rows`). ``bucket`` is that ``(pn_c, pn_n)``,
+    over all K designs. A block's super-graph is packed once, as its
+    designs were packed (device, dtype, map size, segment tables), and
+    kept."""
+
+    designs: tuple
+    bucket: tuple
+    _blocks: dict = field(default_factory=dict, repr=False)
+
+    def __len__(self) -> int:
+        return len(self.designs)
+
+    @property
+    def num_pairs(self) -> int:
+        """The level pairs of the bucket: the most any design has."""
+        return max((len(d.source["levels"]) + 1) // 2 for d in self.designs)
+
+    def block(self, lo: int, hi: int):
+        """``(design, first_path)``: the packed super-graph of designs
+        ``lo`` to ``hi - 1``, and each one's first path row in it (an
+        int64 tensor ``(hi - lo,)`` on its device)."""
+        if (lo, hi) not in self._blocks:
+            first = self.designs[0]
+            g = first.graph
+            sources = [d.source for d in self.designs[lo:hi]]
+            design = pack_design(
+                merge_parsed_designs(sources),
+                map_size=int(round(first.path_masks.shape[1] ** 0.5)),
+                device=g.cell_feat_lvl[0].device,
+                compute_dtype=g.cell_feat_lvl[0].dtype,
+                scan_rows=stack_level_rows(sources, self.bucket),
+                segment=g.cell_src is not None)
+            design = dataclasses.replace(design, graph=dataclasses.replace(
+                design.graph, stacked=True))
+            first_path = np.cumsum([0] + [int(p["num_paths"])
+                                          for p in sources[:-1]])
+            self._blocks[(lo, hi)] = (design, torch.from_numpy(
+                first_path).to(design.path_endpoint.device))
+        return self._blocks[(lo, hi)]
+
+    def rows(self, lo: int, hi: int, path_ids: torch.Tensor):
+        """``(design, ids)``: :meth:`block` ``(lo, hi)`` and ``path_ids``
+        ``(hi - lo, B)``, row k holding design ``lo + k``'s own path ids,
+        as the super-graph's path rows (JAX's pad id 0 reads the design's
+        own path 0)."""
+        design, first_path = self.block(lo, hi)
+        return design, path_ids.long() + first_path[:, None]
+
+
+def stack_designs(designs, align: int = SCAN_ALIGN) -> StackedDesigns:
+    """Stack K designs packed by :func:`pack_design` for the multi-design
+    step (``prtp_tpu/graph.py::stack_designs``): a
+    :class:`StackedDesigns` whose bucket is JAX's padded scan's level
+    rows over all of them (:func:`scan_level_rows` at ``align``, as
+    ``bucket_shape`` and ``pack_design(pad_to=...)`` pad them). Designs
+    that JAX cannot stack are refused: other feature widths, raster
+    shape, dtype or map size, segment tables in some only, a merged
+    super-graph or an edge-sharded design, or another device."""
+    designs = tuple(designs)
+    if not designs:
+        raise ValueError("stack_designs got no designs")
+    if any(d.source is None for d in designs):
+        raise ValueError("stack_designs takes designs packed by pack_design")
+
+    def key(d):
+        g = d.graph
+        return {"feature widths": (g.cell_feat_lvl[0].shape[1],
+                                   g.net_feat_lvl[0].shape[1]),
+                "raster shape": tuple(d.cnn_input.shape[1:]),
+                "dtype": g.cell_feat_lvl[0].dtype,
+                "map size": d.path_masks.shape[1],
+                "segment tables": g.cell_src is not None,
+                "device": d.path_endpoint.device}
+
+    want = key(designs[0])
+    for i, d in enumerate(designs):
+        if d.cnn_input.shape[0] != 1 or d.graph.shard is not None:
+            raise ValueError(f"design {i} is a merged super-graph or edge-"
+                             "sharded: stack designs packed alone")
+        for what, value in key(d).items():
+            if value != want[what]:
+                raise ValueError(
+                    f"designs must share a treedef and shapes: design {i}'s"
+                    f" {what} {value} differ from design 0's {want[what]}")
+    bucket = scan_level_rows([d.source for d in designs], align)
+    return StackedDesigns(designs, bucket)

@@ -86,6 +86,56 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 XLA_REDUCE_WINDOW = 32
 
 
+def stacked_rows(v: torch.Tensor, pn: int, counts) -> torch.Tensor:
+    """The rows of ``v`` (the designs' rows one after another, design d's
+    ``counts[d]`` rows) as JAX's ``(K, pn, C)`` stack of the designs
+    padded to one bucket of ``pn`` rows: each design's at the start of
+    its own block of zeros. A level that no design has is packed as one
+    empty row (``graph.py``), which lands nowhere."""
+    out = v.new_zeros(len(counts) * pn, v.shape[1])
+    if sum(counts):
+        at = torch.cat([torch.arange(d * pn, d * pn + c)
+                        for d, c in enumerate(counts)]).to(v.device)
+        out[at] = v
+    return out.view(len(counts), pn, v.shape[1])
+
+
+def _add_in_order(acc, terms):
+    for t in terms:
+        acc = acc + t  # a bf16 add: float32, then rounded
+    return acc
+
+
+def _stacked_sums(z: torch.Tensor) -> torch.Tensor:
+    """The bf16 sums over the two middle axes of ``z`` ``(G, K, R, C)``,
+    as XLA's CPU compiler sums a bf16 reduce over two dimensions: where
+    neither exceeds a window, in order, k-major; else each dimension cut
+    into windows of 32 with its padding centered, each window summed in
+    order (k-major) from 0, then the windows' sums reduced by the same
+    rule. The zero rows of K's padding are skipped (adding 0 changes no
+    sum). Returns ``(G, C)``."""
+    win = XLA_REDUCE_WINDOW
+    g, k, r, c = z.shape
+    acc = z.new_zeros(g, c)
+    if k <= win and r <= win:
+        return _add_in_order(acc, (z[:, i, j] for i in range(k)
+                                   for j in range(r)))
+    pads = []
+    for n in (k, r):
+        padded = max(-(-n // win), 1) * win
+        pads.append(((padded - n) // 2, padded))
+    (lo_k, pk), (lo_r, pr) = pads
+    full = z.new_zeros(g, pk, pr, c)
+    full[:, lo_k:lo_k + k, lo_r:lo_r + r] = z
+    w = full.view(g, pk // win, win, pr // win, win, c)
+    rows_a = [a for a in range(win)
+              if any(lo_k <= i * win + a < lo_k + k for i in range(pk // win))]
+    acc = z.new_zeros(g, pk // win, pr // win, c)
+    parts = _add_in_order(acc, (w[:, :, a, :, b] for a in rows_a
+                                for b in range(win)))
+    return _stacked_sums(parts)
+
+
 def column_sums_bf16(vs, rows=None):
     """The column sums of each bf16 (n_i, C_i) tensor of ``vs``, as XLA's
     CPU compiler sums a bf16 ``reduce_sum`` over the rows: every partial
@@ -95,15 +145,29 @@ def column_sums_bf16(vs, rows=None):
     and each window of 32 is summed in order, then the windows' sums are
     reduced the same way. ``rows[i]`` (at least n_i) sums tensor i as if
     zero rows followed it up to that many, as a padded table's are: the
-    windows then fall elsewhere. Returns float32 (C_i,) tensors holding
-    bf16 values.
+    windows then fall elsewhere. ``rows[i]`` may also be ``(pn,
+    counts)``: tensor i holds the rows of ``len(counts)`` designs that
+    JAX stacks on a bucket of ``pn`` rows (:func:`stacked_rows`), and
+    ``jax.vmap`` sums them as one reduce over the design and the row
+    dimension, windowed in each (:func:`_stacked_sums`, read from the
+    compiled HLO and held against XLA by ``tests/test_torch_multi.py``).
+    Returns float32 (C_i,) tensors holding bf16 values.
 
-    One pass of the tree serves every tensor of ``vs`` of one width at
-    once, so a call launches about 32 additions a level and width, not a
-    tensor."""
+    One pass of the tree serves every tensor of ``vs`` of one width (or
+    stacked shape) at once, so a call launches about 32 additions a level
+    and width, not a tensor."""
     win = XLA_REDUCE_WINDOW
     out = [None] * len(vs)
-    cur = dict(enumerate(vs))
+    stacked = {}
+    for i, r in enumerate(rows or ()):
+        if isinstance(r, tuple):
+            z = stacked_rows(vs[i], *r)
+            stacked.setdefault(tuple(z.shape), []).append((i, z))
+    for items in stacked.values():
+        sums = _stacked_sums(torch.stack([z for _i, z in items]))
+        for (i, _z), part in zip(items, sums):
+            out[i] = part.float()
+    cur = {i: v for i, v in enumerate(vs) if out[i] is None}
     # the rows each tensor is summed as: its own, or rows[i] with zeros
     n_sum = {i: max(len(v), 0 if rows is None else rows[i])
              for i, v in cur.items()}

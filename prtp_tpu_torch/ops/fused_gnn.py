@@ -544,7 +544,8 @@ def _mlp(p, x: torch.Tensor, w16=None, scan: bool = False) -> torch.Tensor:
     return mm_f32(F.relu(a).to(BF16), w16[1].t()) + p[3]
 
 
-def _mlp_grads(p, x, d_out, need_dx=True, w16=None, scan=False):
+def _mlp_grads(p, x, d_out, need_dx=True, w16=None, scan=False,
+               round_dx=False):
     """Port of ``prtp_tpu/ops/fused_gnn.py::_mlp_grads``: the gradients
     of ``(w0, b0, w1, b1)`` and the input cotangent (None unless
     ``need_dx``) of :func:`_mlp` at ``x`` for the output cotangent
@@ -565,7 +566,9 @@ def _mlp_grads(p, x, d_out, need_dx=True, w16=None, scan=False):
     convert back to float32). The two bias gradients are bf16 column
     sums whose every partial sum rounds (:func:`column_sums_bf16`), so
     in their place this returns the bf16 cotangents they sum, for the
-    caller to sum in one batch."""
+    caller to sum in one batch. ``round_dx``: the input cotangent
+    rounded to bf16 too, as XLA compiles the scan vmapped over a stack of
+    designs (``graph.stacked``), where it keeps that rounding."""
     w0, b0, w1, _b1 = p
     if w16 is None:
         a = F.linear(x, w0, b0)
@@ -580,7 +583,10 @@ def _mlp_grads(p, x, d_out, need_dx=True, w16=None, scan=False):
                             torch.zeros((), dtype=BF16, device=a.device))
         grads = (mm_f32(d_a16.t(), x16).to(BF16).float(), d_a16,
                  mm_f32(d_out16.t(), F.relu(a)).to(BF16).float(), d_out16)
-        return grads, (mm_f32(d_a16, w16[0]) if need_dx else None)
+        if not need_dx:
+            return grads, None
+        dx = mm_f32(d_a16, w16[0])
+        return grads, (dx.to(BF16).float() if round_dx else dx)
     a = mm_f32(x16, w16[0].t()) + b0
     d_a = mm_f32(d_out16, w16[1]) * (a > 0)
     d_a16 = d_a.to(BF16)
@@ -728,7 +734,8 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                 f, alpha = attn_sum(hf, cell_mail, num_rows, w_attn,
                                     with_alpha=True)
             dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c,
-                                       True, _w(w16, "fc_cell_neigh"), scan)
+                                       True, _w(w16, "fc_cell_neigh"), scan,
+                                       graph.stacked)
             acc.add("fc_cell_neigh", dp_neigh)
             if w_attn is None:
                 d_mail_c = softmax_sum_bwd(hf, cell_mail, num_rows, f, d_f)
@@ -762,14 +769,30 @@ class MlpGradSums:
     the pairs came, as the scan's backward accumulates them. Each sums as
     many rows as its level has in JAX's padded or grouped scan
     (``graph.scan_rows[k]``), since the zero rows of the padding move
-    XLA's summation windows."""
+    XLA's summation windows.
+
+    With ``graph.pair_sum`` (a design-sharded rank's stack,
+    ``parallel/multi.py``) each pair's gradients, this rank's bf16 sums
+    over its designs' rows, are summed over the ranks and rounded to bf16
+    again before they are added, as XLA's partitioner sums the vmapped
+    scan's bf16 gradients inside the scan: :meth:`finish` sums every
+    pair's in one call of ``pair_sum`` on a flat float32 tensor. JAX's
+    scan runs the bucket's ``pair_sum.pairs`` pairs on every rank, so a
+    rank whose designs have fewer adds zeros for the pairs it lacks (the
+    last, which its backward meets first), laid out as every pair's: the
+    MLPs in :attr:`PAIR_ORDER`, each its weights, then its biases."""
+
+    # the order in which both walks' backwards add a pair's MLPs
+    PAIR_ORDER = ("fc_net_self", "fc_cell_self", "fc_cell_neigh")
 
     def __init__(self, params, graph, scan: bool):
         self.grads = {name: [torch.zeros_like(t) for t in params[name]]
                       for name in MLP_NAMES}
         self._scan, self._scan_rows = scan, graph.scan_rows
-        # per pair, the bias gradients; then the bf16 cotangents they sum
-        # and the rows that those sums run over
+        self._pair_sum = graph.pair_sum if scan else None
+        # per pair, the bias gradients (or, summed over ranks, the
+        # weights' and the biases' (target, value) pairs); then the bf16
+        # cotangents the bias sums add and the rows that they run over
         self._acc, self._cot, self._rows = [], [], []
         self._k = None
 
@@ -786,19 +809,41 @@ class MlpGradSums:
         if not self._scan:
             torch._foreach_add_(grads, list(dp))
             return
-        torch._foreach_add_(grads[0::2], [dp[0], dp[2]])
-        self._acc[-1] += grads[1::2]
+        if self._pair_sum is None:
+            torch._foreach_add_(grads[0::2], [dp[0], dp[2]])
+            self._acc[-1] += grads[1::2]
+        else:
+            self._acc[-1] += [(grads[0], dp[0]), (grads[2], dp[2]),
+                              (grads[1], None), (grads[3], None)]
         self._cot.extend((dp[1], dp[3]))
         self._rows.extend(
             [self._scan_rows[self._k][name == "fc_net_self"]] * 2)
 
     def finish(self) -> None:
-        """Add the bias gradients of the scan's rounding."""
+        """Add the bias gradients of the scan's rounding (and, summed over
+        ranks, every pair's gradients)."""
         if not self._cot:
             return
         sums = iter(column_sums_bf16(self._cot, self._rows))
-        for targets in self._acc:
-            torch._foreach_add_(targets, [next(sums) for _ in targets])
+        if self._pair_sum is None:
+            for targets in self._acc:
+                torch._foreach_add_(targets, [next(sums) for _ in targets])
+            return
+        lacking = [[(t, torch.zeros_like(t)) for name in self.PAIR_ORDER
+                    for t in (self.grads[name][i] for i in (0, 2, 1, 3))]
+                   for _ in range(self._pair_sum.pairs - len(self._acc))]
+        pairs = lacking + [[(t, next(sums) if v is None else v)
+                            for t, v in acc] for acc in self._acc]
+        values = [v for acc in pairs for _t, v in acc]
+        flat = torch.cat([v.reshape(-1) for v in values])
+        self._pair_sum(flat)
+        flat = flat.to(BF16).float()
+        for acc in pairs:
+            parts = []
+            for t, _v in acc:
+                parts.append(flat[:t.numel()].view_as(t))
+                flat = flat[t.numel():]
+            torch._foreach_add_([t for t, _v in acc], parts)
 
 
 def _w(w16, name):

@@ -274,7 +274,8 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
         if k > 0:
             f, mx, den = saved[k]
             dp_neigh, d_f = _mlp_grads(params["fc_cell_neigh"], f, d_pre_c,
-                                       True, _w(w16, "fc_cell_neigh"), scan)
+                                       True, _w(w16, "fc_cell_neigh"), scan,
+                                       graph.stacked)
             acc.add("fc_cell_neigh", dp_neigh)
             args = (hf, tables.cell_src[k], tables.cell_dst_off[k])
             stats = None if mx is None else (f, mx, den)

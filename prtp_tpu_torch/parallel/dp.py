@@ -1,17 +1,32 @@
 """Data-parallel training and evaluation over the path batch.
 
-Port of ``prtp_tpu/parallel/dp.py``: the math of
-``make_shard_map_train_step`` and of ``make_dp_eval_step``. Every rank
-holds the whole design and the whole state; only the batch is split
-(:func:`shard_batch`). A rank runs the full level walk, the layout CNN
-and their backward, and the head on its block. The loss is the rank's
-masked sum over the global count of valid entries, so the ranks'
-gradients sum to the one-rank gradient; FlatAdam keeps every gradient in
-one flat buffer (``trainer.FlatAdam``), so the sum is one all-reduce a
-step, then the ``flat_adam`` kernel runs on every rank alike. The
-metrics are reduced: the loss's sum and count, R² from the reduced
-target sums (its squares around the global mean in a second reduce),
-the confusion counts summed.
+Port of ``prtp_tpu/parallel/dp.py``: the step of ``make_dp_train_step``
+(the single-chip step jitted with the batch sharded over ``dp``) and of
+``make_dp_eval_step``. Every rank holds the whole design and the whole
+state, and every rank passes the whole batch; a rank's loss is its
+block's (:func:`shard_batch`): the masked sum over the block divided by
+the global count of valid entries, so the ranks' losses sum to the
+one-rank loss.
+
+Where the dp sum sits decides a bf16 step's bits. XLA's partitioner
+(read from the compiled HLO of JAX's bf16 step on the CPU mesh) sums
+float32 values before every bf16 rounding of the backward: the walk's
+output cotangent (the scatter of the batch's rows), the fcn product's
+float32 weight cotangent and the head's float32 weight and bias
+products, each all-reduced and only then rounded, so its sharded step's
+gradients equal its one-device step's to float32 rounding. The
+cheapest place that gives the same sum is before the head: every rank
+runs the model on the whole batch (the walk and the layout CNN read only
+the design, which every rank holds, so they ran whole on every rank
+before too; the head's rows are a few hundred), takes its block of the
+predictions for its loss (:class:`_Block`), and the backward gathers the
+blocks' cotangents (B floats, or B x nlabels) into the whole batch's, so
+every rank backpropagates the one-rank step's cotangent and computes
+the one-rank step's gradients. No gradient is then summed: rank 0's is
+broadcast, because on a card the replicated backward may add in another
+order on each rank (atomic ``index_add_``, cuDNN's weight gradients),
+and the broadcast keeps every rank's flat Adam state bit-equal. The
+metrics are the whole batch's, computed on every rank.
 """
 
 from __future__ import annotations
@@ -39,61 +54,82 @@ def shard_batch(path_ids, mask, mesh):
     return path_ids[..., block], mask[..., block]
 
 
+def root_rank(mesh) -> int:
+    """The global rank of the mesh's rank 0 (its group's first)."""
+    return 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
+
+
 def broadcast_state(state, mesh) -> None:
     """Rank 0's parameters (FlatAdam's flat buffer) and module buffers on
     every rank, as JAX's ``device_put(state, replicated(mesh))``
     replicates its state."""
-    dist.broadcast(state.optimizer.flat, 0, group=mesh.group)
+    src = root_rank(mesh)
+    dist.broadcast(state.optimizer.flat, src, group=mesh.group)
     for buf in state.model.buffers():
-        dist.broadcast(buf, 0, group=mesh.group)
+        dist.broadcast(buf, src, group=mesh.group)
 
 
-def _all_reduce(t, mesh):
-    dist.all_reduce(t, group=mesh.group)
-    return t
+class _Block(torch.autograd.Function):
+    """This rank's block of the whole batch's predictions along the
+    batch axis ``axis``, zero-padded to ``per`` entries (the padded
+    entries of :func:`shard_batch`). The backward gathers the ranks'
+    block cotangents over the mesh, in rank order, into the cotangent of
+    the whole batch, the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, preds, mesh, axis, per):
+        b = preds.shape[axis]
+        ctx.mesh, ctx.axis, ctx.b = mesh, axis, b
+        lo = min(mesh.rank * per, b)
+        n = min(per, b - lo)
+        block = preds.narrow(axis, lo, n)
+        if n < per:
+            shape = list(preds.shape)
+            shape[axis] = per - n
+            block = torch.cat([block, preds.new_zeros(shape)], dim=axis)
+        return block.contiguous()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        g = g.contiguous()
+        parts = [torch.empty_like(g) for _ in range(ctx.mesh.size)]
+        dist.all_gather(parts, g, group=ctx.mesh.group)
+        whole = torch.cat(parts, dim=ctx.axis).narrow(ctx.axis, 0, ctx.b)
+        return whole, None, None, None
+
+
+def entry_losses(task, preds, design, path_ids):
+    """The task's loss of each entry, flat: ``task="cls"`` the
+    cross-entropy (``metrics.nll``) against the endpoints' labels, any
+    other task the squared error against their arrival times."""
+    endpoints = design.path_endpoint[path_ids.reshape(-1)].long()
+    if task == "cls":
+        return M.nll(preds, design.is_critical[endpoints])
+    return (preds.reshape(-1) - design.arrival_time[endpoints]) ** 2
 
 
 def dp_train_step(state, design, path_ids, mask, mesh, task: str = "reg",
                   rounding: str | None = None) -> dict:
-    """One data-parallel optimizer step: ``trainer.train_step`` on this
-    rank's block of the batch (:func:`shard_batch`), the gradients summed
-    over the ranks, then the update. Every rank passes the same batch and
-    gets the same metrics, those of the whole batch."""
+    """One data-parallel optimizer step. Every rank passes the same batch,
+    computes the model on all of it and the loss on its block, and gets
+    the same gradients and metrics: those of ``trainer.train_step`` on
+    the whole batch (module doc)."""
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad()
+    preds = model(design, path_ids, rounding=rounding)
+    _loss, mets = task_loss_and_metrics(task, preds.detach(), design,
+                                        path_ids, mask)
     ids, m = shard_batch(path_ids, mask, mesh)
-    preds = model(design, ids, rounding=rounding)
-    endpoints = design.path_endpoint[ids.reshape(-1)].long()
-    labels = design.is_critical[endpoints]
-    valid = m.reshape(-1).float()
-    if task == "cls":
-        per = M.nll(preds, labels)
-        pred_labels = preds.detach().reshape(-1, preds.shape[-1]).argmax(-1)
-        target = valid.new_zeros(valid.shape)
-    else:
-        target = design.arrival_time[endpoints]
-        per = (preds.reshape(-1) - target) ** 2
-        pred_labels = M.judge_critical(preds.detach().reshape(-1),
-                                       design.required_time[endpoints])
-    local = (per * valid).sum()
-    # the global count (and target sum) before the loss can be formed
-    count, t_sum = _all_reduce(torch.stack([valid.sum(),
-                                            (target * valid).sum()]), mesh)
-    n = count.clamp_min(1.0)
-    (local / n).backward()
-    mean = t_sum / n
-    sums = _all_reduce(torch.stack([
-        local.detach(), (((target - mean) ** 2) * valid).sum(),
-        *M.confusion_counts(pred_labels, labels, valid)]), mesh)
-    _all_reduce(opt.grad, mesh)
+    block = _Block.apply(preds, mesh, path_ids.dim() - 1, ids.shape[-1])
+    count = mask.reshape(-1).float().sum().clamp_min(1.0)
+    local = (entry_losses(task, block, design, ids) * m.reshape(-1)).sum()
+    (local / count).backward()
+    dist.broadcast(opt.grad, root_rank(mesh), group=mesh.group)
     opt.step()
     state.step += 1
-    loss, ss_tot, tp, fp, tn, fn = sums.unbind()
-    r2 = (1.0 - loss / ss_tot.clamp_min(1e-12) if task != "cls"
-          else loss.new_zeros(()))
-    return {"loss": loss / n, "r2": r2, "tp": tp, "fp": fp, "tn": tn,
-            "fn": fn}
+    return mets
 
 
 def dp_train_steps(state, design, batches, mesh, task: str = "reg",

@@ -141,16 +141,22 @@ def task_loss_and_metrics(task, preds, design, path_ids, mask):
     labels, r2 0. Any other task is regression: the masked MSE against
     the arrival times, labels where the predicted slack is negative."""
     endpoints = design.path_endpoint[path_ids].long()
-    labels = design.is_critical[endpoints]
+    return loss_and_metrics(task, preds, design.is_critical[endpoints],
+                            design.arrival_time[endpoints],
+                            design.required_time[endpoints], mask)
+
+
+def loss_and_metrics(task, preds, labels, arrival, required, mask):
+    """:func:`task_loss_and_metrics` given each entry's endpoint label,
+    arrival and required time, shaped as the batch."""
     p = preds.detach()
     if task == "cls":
         loss = M.cross_entropy_loss(preds, labels, mask)
         r2, pred_labels = p.new_zeros(()), p.argmax(dim=-1)
     else:
-        arrival = design.arrival_time[endpoints]
         loss = M.mse_loss(preds, arrival, mask)
         r2 = M.r2_score(p, arrival, mask)
-        pred_labels = M.judge_critical(p, design.required_time[endpoints])
+        pred_labels = M.judge_critical(p, required)
     tp, fp, tn, fn = M.confusion_counts(pred_labels, labels, mask)
     mets = {"loss": loss.detach(), "r2": r2, "tp": tp, "fp": fp, "tn": tn,
             "fn": fn}

@@ -330,11 +330,51 @@ def _parse(out):
     return int(m.group(2)), float(m.group(3)), float(m.group(4))
 
 
-def test_two_coordinated_processes(tmp_path):
-    """Two processes joined by ``PRTP_COORDINATOR`` (gloo, the CPU) run
-    one data-parallel step: identical losses and parameter checksums (the
-    gradients' sum crossed the process boundary), equal to one process's
-    ``train_step`` at rtol 1e-5 (loss) and 1e-6 (checksum)."""
+def _jax_dp_grads(compute_dtype):
+    """JAX's ``make_dp_train_step`` on a 2-device mesh of the virtual CPU
+    mesh, from the children's init (converted): the first step's
+    gradients (an SGD(1) step's parameter change), on the padded pack
+    (align 8) of the children's design, bf16 in a bf16 model."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from prtp_tpu import trainer as jtrainer
+    from prtp_tpu.graph import pack_design as jax_pack_design
+    from prtp_tpu.models import PathModel as JaxPathModel
+    from prtp_tpu.parallel.dp import make_dp_train_step
+    from prtp_tpu.parallel.mesh import make_mesh
+    from prtp_tpu_torch.utils.convert import params_from_flax, params_to_flax
+
+    from _torch_dp_child import tiny_inputs
+
+    parsed, _design, model, ids, mask = tiny_inputs()
+    jdt = jnp.bfloat16 if compute_dtype else jnp.float32
+    design = jax_pack_design(parsed, map_size=16, align=8, compute_dtype=jdt)
+    params = jax.tree_util.tree_map(jnp.asarray,
+                                    params_to_flax(model.state_dict()))
+    jmodel = JaxPathModel(out_dim=16, hidden_dim=32, cnn_outdim=8,
+                          map_size=16, global_dim=8,
+                          compute_dtype=jdt if compute_dtype else None)
+    tx = optax.sgd(1.0)
+    state = jtrainer.TrainState(
+        params=params, batch_stats={}, opt_state=tx.init(params),
+        step=jnp.zeros((), jnp.int32), best_f1=jnp.zeros(()),
+        best_r2=jnp.zeros(()))
+    step = make_dp_train_step(jmodel, tx, make_mesh(2), donate=False)
+    new, _mets = step(state, design, jnp.asarray(ids.numpy()),
+                      jnp.asarray(mask.numpy()))
+    return params_from_flax(jax.tree_util.tree_map(
+        lambda a, b: np.asarray(a, np.float64) - np.asarray(b, np.float64),
+        params, new.params))
+
+
+@pytest.fixture(scope="module")
+def coordinated(tmp_path_factory):
+    """One run of two processes joined by ``PRTP_COORDINATOR`` (gloo, the
+    CPU) and of one process alone (``_torch_dp_child.py``): each RESULT
+    line, and each bf16 step's output; JAX's 2-device dp step's first
+    gradients in bf16 and float32, computed here while they run."""
+    out_dir = str(tmp_path_factory.mktemp("coordinated"))
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("PRTP_")}
     env["PYTHONPATH"] = REPO
@@ -344,19 +384,80 @@ def test_two_coordinated_processes(tmp_path):
     procs = [subprocess.Popen([sys.executable, CHILD, *args], env=env,
                               cwd=REPO, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for args in (("0", str(port)), ("1", str(port)), ("ref",))]
-    outs = []
-    for p in procs:
-        try:
+             for args in (("0", str(port), out_dir),
+                          ("1", str(port), out_dir), ("ref", out_dir))]
+    try:
+        jax_grads = {dt: _jax_dp_grads(dt) for dt in ("bfloat16", None)}
+        outs = []
+        for p in procs:
             out, err = p.communicate(timeout=180)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            pytest.fail("a coordinated child timed out")
-        assert p.returncode == 0, err[-2000:]
-        outs.append(_parse(out))
+            assert p.returncode == 0, err[-2000:]
+            outs.append(_parse(out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bf16 = [torch.load(os.path.join(out_dir, f"bf16_{tag}.pt"))
+            for tag in (0, 1, "ref")]
+    return outs, bf16, jax_grads
+
+
+def test_two_coordinated_processes(coordinated):
+    """Two processes joined by ``PRTP_COORDINATOR`` (gloo, the CPU) run
+    one data-parallel step: identical losses and parameter checksums (the
+    cotangents crossed the process boundary), equal to one process's
+    ``train_step`` at rtol 1e-5 (loss) and 1e-6 (checksum)."""
+    outs = coordinated[0]
     assert outs[0] == outs[1] and outs[0][0] == 2, outs
     world, loss, checksum = outs[2]
     assert world == 1
     np.testing.assert_allclose(outs[0][1], loss, rtol=1e-5)
     np.testing.assert_allclose(outs[0][2], checksum, rtol=1e-6)
+
+
+# F4's bound (tests/test_torch_graph_shard.py): a bf16 dp step's
+# gradients within this x JAX's bf16-to-float32 distance in mean
+# distance, and this x each leaf's max |g|
+F4_MEAN, F4_MAX = 1e-3, 1e-4
+
+
+def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
+    """F4: the two ranks' bf16 step (the mailbox model in JAX's padded
+    scan's rounding) against JAX's ``make_dp_train_step`` on a 2-device
+    mesh and against one process's ``train_step``. JAX's partitioner
+    sums the ranks' float32 cotangents before any bf16 rounding, and so
+    does the port (it gathers them before the backward): every leaf's
+    gradient lies within F4_MEAN x JAX's bf16-to-float32 distance of the
+    one-process step in mean distance and within F4_MAX x its max |g|, as
+    do the walk's and the head's weights of JAX's (the other leaves are
+    not JAX's in one process either: tests/test_torch_graph_shard.py's
+    ``_tight_vs_jax``; held at 0.1 x max |g|). The ranks' losses,
+    gradients and checksums are equal."""
+    from test_torch_graph_shard import _tight_vs_jax
+
+    _outs, (rank0, rank1, ref), jax_grads = coordinated
+    assert rank0["checksum"] == rank1["checksum"]
+    assert rank0["loss"] == rank1["loss"]
+    np.testing.assert_allclose(rank0["loss"], ref["loss"], rtol=1e-5)
+    for key, g in rank0["grads"].items():
+        assert torch.equal(g, rank1["grads"][key]), key
+    j16, j32 = jax_grads["bfloat16"], jax_grads[None]
+    for want, tight, what in ((ref["grads"], lambda key: True, "one process"),
+                              (j16, _tight_vs_jax, "JAX's dp step")):
+        for key, w in want.items():
+            w = np.asarray(w, np.float64)
+            g = rank0["grads"][key].double().numpy()
+            scale = np.abs(w).max() or 1.0
+            if not tight(key):
+                np.testing.assert_allclose(g, w, rtol=0, atol=0.1 * scale,
+                                           err_msg=f"{what} {key}")
+                continue
+            gap = float(np.abs(np.asarray(j16[key], np.float64)
+                               - np.asarray(j32[key], np.float64)).mean())
+            mean = float(np.abs(g - w).mean())
+            worst = float(np.abs(g - w).max())
+            assert mean <= F4_MEAN * gap and worst <= F4_MAX * scale, (
+                f"{what} {key}: mean distance {mean:.3g} (JAX's bf16-to-"
+                f"float32 {gap:.3g}, allowed {F4_MEAN} x), max "
+                f"{worst / scale:.3g} x max |g| (allowed {F4_MAX} x)")
