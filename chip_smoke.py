@@ -169,13 +169,16 @@ Phases, each failing loudly (nonzero exit) on any error:
    headline, all 597 paths a step, float32, TF32 off: (a) a process
    group of one rank over NCCL, 3 data-parallel steps against
    ``train_step`` (losses and first-step gradients within 1e-6), its
-   step and the 2,727,202-float gradient all-reduce timed; (b) two
+   step and the 2,727,202-float gradient broadcast timed; (b) two
    processes on ``cuda:0`` over gloo (NCCL refuses two ranks on one
    card), the ids padded to 598, 299 a rank, 3 steps against one rank's
    (1e-5), the ranks' parameter checksums equal after each step, each
-   rank's launch counts its own, a step and the all-reduce timed on the
-   host; not run, and said so, where the card's compute mode (phase 1)
-   is exclusive; (c) the train and test CLIs with ``--dp`` on the reg
+   rank's launch counts its own, a step and the broadcast timed on the
+   host, then one bf16 step of the same weights (the padded scan's
+   rounding) against ``train_step``'s within F4_MEAN x each leaf's
+   bf16-to-float32 distance and F4_MAX x its max |g| (F4: the ranks'
+   cotangents gathered before any bf16 rounding); not run, and said so,
+   where the card's compute mode (phase 1) is exclusive; (c) the train and test CLIs with ``--dp`` on the reg
    corpus against the same runs without it (each printed number within
    a unit of its last digit plus rtol 1e-5). One card shows no speed-up
    over cards, and none is claimed.
@@ -238,6 +241,16 @@ Phases, each failing loudly (nonzero exit) on any error:
    2) within DP_TOL_2 with the ranks' checksums equal. Then ``--attn``
    with 4 heads: 3 requests, 2 paired steps and the (1, 1) bit check.
    (The 1-head float32 ``--attn`` cell stays in phase 12.)
+14. The multi-design step (``parallel/multi.py``, ``graph.
+   stack_designs``, :func:`multi_phase`) at full width on phase 9's
+   designs and weights, TF32 off: (a) 3 requests card against CPU
+   (1e-4) and against phase 9's merged ``evaluate`` of the stack's
+   super-graph (MULTI_TOL); (b) 3 steps card against CPU by phase 6's
+   rules, the step timed beside phase 9's merged and single steps; (c)
+   in bf16, 3 requests and 2 paired steps by phase 8's bf16 bounds; (d)
+   design-sharded: one NCCL rank against the unsharded step (DP_TOL),
+   two gloo processes on ``cuda:0`` with 4 designs each (DP_TOL_2, the
+   ranks' checksums equal).
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -3448,7 +3461,7 @@ def dp_rank(rank, tmp, port):
     gloo: the headline model from the parent's state before each step,
     DP_STEPS data-parallel steps on its 299 of the 598 padded ids (cuDNN
     deterministic, as the parent's); then one step timed, and the
-    gradient all-reduce alone. Writes its losses,
+    gradient broadcast alone. Writes its losses,
     parameter checksums, first-step gradients (rank 0), launch counts and
     times to ``rank<r>.pt`` in ``tmp``."""
     import pickle
@@ -3515,7 +3528,7 @@ def dp_rank(rank, tmp, port):
             torch, lambda: dp_train_step(state, design, ids, mask, mesh), 3)
         buf = torch.ones(state.optimizer.grad.numel(), device=dev)
         out["allreduce_ms"] = _host_ms(
-            torch, lambda: dist.all_reduce(buf, group=mesh.group), 5)
+            torch, lambda: dist.broadcast(buf, 0, group=mesh.group), 5)
         out["allreduce_numel"] = buf.numel()
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
@@ -3620,7 +3633,7 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
     started its step from, against ``train_step``: losses at rtol DP_TOL
     and first-step gradients within DP_TOL x each leaf's max |g|; one dp
     step timed as phase 8 times a step (:func:`step_timing`), and the
-    gradient all-reduce (2,727,202 float32) alone.
+    gradient broadcast (2,727,202 float32) alone.
     (b) DP_RANKS processes on cuda:0 over gloo (NCCL refuses two ranks on
     one card), :func:`dp_rank`: the 597 ids padded to 598, 299 a rank,
     each step from the one-rank run's state before it: losses at rtol
@@ -3628,7 +3641,7 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
     (both processes run the raster's forward with the same kernels on
     the same inputs, so no max-pool winner can differ), the ranks'
     parameter checksums equal after each step; each rank's step and the
-    all-reduce timed on the host. Not run, and said so, where the card's
+    broadcast timed on the host. Not run, and said so, where the card's
     compute mode admits one process.
     (c) :func:`dp_cli_runs`.
 
@@ -3726,13 +3739,13 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
         tm = step_timing(torch, dev, lambda: dp_train_step(
             state, design, ids, mask, mesh), 200)
         buf = torch.ones(state.optimizer.grad.numel(), device=dev)
-        ar_ms = Timer(torch, dev).ms(lambda: dist.all_reduce(buf))
+        ar_ms = Timer(torch, dev).ms(lambda: dist.broadcast(buf, 0))
         log(f"phase 10 (a): dp step, 1 rank ({n} paths): device time "
             f"{tm['device_ms']:.3f} ms; as launched {tm['launched_ms']:.3f} "
             f"ms; wall {tm['wall_ms']:.3f} ms, device busy "
             f"{tm['busy_ms']:.3f} ms, idle share {tm['idle']:.3f}; "
             f"{tm['launches']} kernel launches; the {buf.numel():,} float32"
-            f" gradient all-reduce (NCCL, 1 rank) {ar_ms:.4f} ms  [{smi}]")
+            f" gradient broadcast (NCCL, 1 rank) {ar_ms:.4f} ms  [{smi}]")
         del state, buf
     finally:
         dist.destroy_process_group()
@@ -3776,7 +3789,7 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
             + ", ".join(f"rank {r} {o['step_ms']:.3f} ms"
                         for r, o in enumerate(outs))
             + f"; the {outs[0]['allreduce_numel']:,} float32 gradient "
-            "all-reduce alone (gloo, through the host; median of 5): "
+            "broadcast alone (gloo, through the host; median of 5): "
             + ", ".join(f"{o['allreduce_ms']:.3f}" for o in outs)
             + f" ms  [{smi}]")
     del design
@@ -5651,6 +5664,10 @@ def multi_rank(rank, tmp, port):
         out["counts"] = _read_launches()
         out["graph"] = launches_per_step(
             stacked.block(rank * per, (rank + 1) * per)[0].graph)
+        torch.backends.cudnn.deterministic = False
+        ids, mask = (x.to(dev) for x in batches[0])
+        out["step_ms"] = _host_ms(torch, lambda: multidesign_train_step(
+            state, stacked, ids, mask, mesh=mesh), 3)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -5667,18 +5684,20 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
     (a) REQUESTS evaluations (``multidesign_eval_step``), card against
     CPU at rtol/atol 1e-4, and against phase 9's merged ``evaluate`` of
     the stack's super-graph on the same weights and path rows: the same
-    walk and head on the same tables, so the predictions must agree
-    within MULTI_TOL x their largest |value|.
+    walk and head on the same tables, so the valid entries' predictions
+    must agree within MULTI_TOL x their largest |value| (a padded entry
+    reads its own design's path 0 here, design 0's there).
     (b) MULTI_STEPS steps on phase 9's rounds, card against CPU by phase
     6's rules (MAX_FLIPS a pool and raster); the step timed beside phase
     9's merged step and MERGED_K single steps (same run, same paths).
     (c) The model in bf16: REQUESTS evaluations and SHORT_STEPS paired
     steps, card against CPU by phase 8's bf16 bounds.
     (d) Design-sharded: one NCCL rank against the unsharded step
-    (losses and first gradients within DP_TOL); DP_RANKS gloo processes
-    on cuda:0, MERGED_K / DP_RANKS designs a rank, MULTI_STEPS steps
-    each from the one-rank run's state, within DP_TOL_2, the ranks'
-    parameter checksums equal (not run, and said so, where the card's
+    (losses and first gradients within DP_TOL), its step timed as phase
+    10 (a) times one; DP_RANKS gloo processes on cuda:0, MERGED_K /
+    DP_RANKS designs a rank, MULTI_STEPS steps each from the one-rank
+    run's state, within DP_TOL_2, the ranks' parameter checksums equal,
+    a step timed on the host (not run, and said so, where the card's
     compute mode admits one process). Every run's launch counters are
     zeroed just before it and checked just after against the stack's
     super-graph. Returns each run's launch counts."""
@@ -5760,8 +5779,11 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
     rows = torch.from_numpy(shared["ids"]).to(dev)
     merged = evaluate(model, blocks[DEVICE], rows,
                       torch.from_numpy(shared["mask"]).to(dev))[0].cpu().numpy()
-    off = float(np.abs(outs[0] - merged).max())
-    if off > MULTI_TOL * float(np.abs(merged).max()):
+    # a padded entry (mask 0) reads path 0 of its own design here and of
+    # design 0 in phase 9's batch: the valid entries are compared
+    valid = mask_np > 0
+    off = float(np.abs(outs[0][valid] - merged[valid]).max())
+    if off > MULTI_TOL * float(np.abs(merged[valid]).max()):
         raise AssertionError(f"multi-design request vs the merged evaluate: "
                              f"{off} apart")
     log(f"  multi-design requests vs cpu: max abs diff "
@@ -5893,7 +5915,15 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
         launches[what] = _read_launches()
         check_launches(what, launches[what], per_step, MULTI_STEPS)
         check(what, losses, grads, DP_TOL)
-        del state
+        torch.backends.cudnn.deterministic = False
+        t = step_timing(torch, dev, lambda: multidesign_train_step(
+            state, stacks[DEVICE], *steps_card[0], mesh=mesh), 300)
+        log(f"phase 14 (d): design-sharded step, 1 rank (NCCL): device time "
+            f"{t['device_ms']:.3f} ms; as launched {t['launched_ms']:.3f} ms;"
+            f" wall {t['wall_ms']:.3f} ms, device busy {t['busy_ms']:.3f} ms,"
+            f" idle share {t['idle']:.3f}; {t['launches']} kernel launches  "
+            f"[{smi}]")
+        del state, t
     finally:
         dist.destroy_process_group()
     torch.backends.cudnn.deterministic = False
@@ -5929,6 +5959,10 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
         log(f"  {what}: parameter checksums equal on every rank after each "
             f"step ({outs[0]['checksums']}); {wall:.1f} s with the "
             "processes' start")
+        log(f"phase 14 (d): design-sharded step, {DP_RANKS} ranks on one "
+            "card (gloo), host time between synchronizes (median of 3): "
+            + ", ".join(f"rank {r} {o['step_ms']:.3f} ms"
+                        for r, o in enumerate(outs)) + f"  [{smi}]")
     del stacks, blocks, model
     torch.cuda.empty_cache()
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s  [{smi}]")

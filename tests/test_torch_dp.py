@@ -416,25 +416,19 @@ def test_two_coordinated_processes(coordinated):
     np.testing.assert_allclose(outs[0][2], checksum, rtol=1e-6)
 
 
-# F4's bound (tests/test_torch_graph_shard.py): a bf16 dp step's
-# gradients within this x JAX's bf16-to-float32 distance in mean
-# distance, and this x each leaf's max |g|
-F4_MEAN, F4_MAX = 1e-3, 1e-4
-
-
 def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
     """F4: the two ranks' bf16 step (the mailbox model in JAX's padded
     scan's rounding) against JAX's ``make_dp_train_step`` on a 2-device
     mesh and against one process's ``train_step``. JAX's partitioner
     sums the ranks' float32 cotangents before any bf16 rounding, and so
     does the port (it gathers them before the backward): every leaf's
-    gradient lies within F4_MEAN x JAX's bf16-to-float32 distance of the
-    one-process step in mean distance and within F4_MAX x its max |g|, as
+    gradient lies within 1e-3 x JAX's bf16-to-float32 distance of the
+    one-process step in mean distance and within 1e-4 x its max |g|, as
     do the walk's and the head's weights of JAX's (the other leaves are
-    not JAX's in one process either: tests/test_torch_graph_shard.py's
-    ``_tight_vs_jax``; held at 0.1 x max |g|). The ranks' losses,
-    gradients and checksums are equal."""
-    from test_torch_graph_shard import _tight_vs_jax
+    not JAX's in one process either: held at 0.1 x max |g|; both by
+    ``tests/test_torch_graph_shard.py::_assert_bf16_grads``). The ranks'
+    losses, gradients and checksums are equal."""
+    from test_torch_graph_shard import _assert_bf16_grads, _tight_vs_jax
 
     _outs, (rank0, rank1, ref), jax_grads = coordinated
     assert rank0["checksum"] == rank1["checksum"]
@@ -443,21 +437,9 @@ def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
     for key, g in rank0["grads"].items():
         assert torch.equal(g, rank1["grads"][key]), key
     j16, j32 = jax_grads["bfloat16"], jax_grads[None]
-    for want, tight, what in ((ref["grads"], lambda key: True, "one process"),
-                              (j16, _tight_vs_jax, "JAX's dp step")):
-        for key, w in want.items():
-            w = np.asarray(w, np.float64)
-            g = rank0["grads"][key].double().numpy()
-            scale = np.abs(w).max() or 1.0
-            if not tight(key):
-                np.testing.assert_allclose(g, w, rtol=0, atol=0.1 * scale,
-                                           err_msg=f"{what} {key}")
-                continue
-            gap = float(np.abs(np.asarray(j16[key], np.float64)
-                               - np.asarray(j32[key], np.float64)).mean())
-            mean = float(np.abs(g - w).mean())
-            worst = float(np.abs(g - w).max())
-            assert mean <= F4_MEAN * gap and worst <= F4_MAX * scale, (
-                f"{what} {key}: mean distance {mean:.3g} (JAX's bf16-to-"
-                f"float32 {gap:.3g}, allowed {F4_MEAN} x), max "
-                f"{worst / scale:.3g} x max |g| (allowed {F4_MAX} x)")
+    gaps = {key: float(np.abs(np.asarray(w, np.float64)
+                              - np.asarray(j32[key], np.float64)).mean())
+            for key, w in j16.items()}
+    _assert_bf16_grads(rank0["grads"], ref["grads"], gaps, "one process")
+    _assert_bf16_grads(rank0["grads"], j16, gaps, "JAX's dp step",
+                       _tight_vs_jax)

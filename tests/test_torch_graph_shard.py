@@ -55,7 +55,6 @@ from prtp_tpu_torch.utils.convert import params_from_flax
 
 from _torch_graph_shard_child import walk
 from test_models import _tiny_parsed_design
-from test_torch_bf16 import assert_near_jax_bf16
 from test_torch_convert import jax_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

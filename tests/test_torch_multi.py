@@ -74,13 +74,13 @@ from prtp_tpu_torch.trainer import init_state, make_optimizer, train_step
 from prtp_tpu_torch.utils.convert import params_from_flax
 
 from helpers import make_random_leveled_graph
-from test_torch_bf16 import REL_GAP, _grid, assert_near_jax_bf16
+from test_torch_bf16 import _grid, assert_near_jax_bf16
 from test_torch_bf16_eval import OUT
 from test_torch_bf16_model import _jax_state, _port_flat
 from test_torch_bf16_scan_grad import (_on_rows, _to_rows,
                                        grid_levels_design, grid_params)
 from test_torch_convert import jax_params
-from test_torch_graph_shard import F4_MAX, F4_MEAN, _tight_vs_jax
+from test_torch_graph_shard import _assert_bf16_grads, _tight_vs_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "_torch_multi_child.py")
@@ -537,38 +537,6 @@ def _load_jax_state(model, state, jstate):
         "count": int(opt["count"])})
 
 
-def _assert_bf16_leaves(got, want16, what):
-    """Every leaf of a bf16 step's gradients within 0.1 x its max |g| of
-    JAX's bf16 (``tests/test_torch_bf16_model.py``'s bound for a leaf;
-    its 0.02 for a product's weight holds only where the predictions are
-    JAX's bit for bit, and with the layout CNN 2 of these are an ulp
-    apart: Conv_1's weight moves by 0.034 x)."""
-    for key, g in got.items():
-        w16 = np.asarray(want16[key], np.float64)
-        np.testing.assert_allclose(np.asarray(g, np.float64), w16, rtol=0,
-                                   atol=0.1 * np.abs(w16).max(),
-                                   err_msg=f"{what} {key}")
-
-
-def _assert_bf16_tight(got, want16, gaps, what):
-    """The walk's leaves and the head's weights (``_tight_vs_jax``) within
-    F4_MEAN x JAX's bf16-to-float32 distance ``gaps[key]`` in mean
-    distance and F4_MAX x max |g|; every other leaf within 0.1 x max
-    |g|."""
-    for key, g in got.items():
-        w = np.asarray(want16[key], np.float64)
-        g = np.asarray(g, np.float64)
-        scale = np.abs(w).max() or 1.0
-        if not _tight_vs_jax(key):
-            np.testing.assert_allclose(g, w, rtol=0, atol=0.1 * scale,
-                                       err_msg=f"{what} {key}")
-            continue
-        mean, worst = float(np.abs(g - w).mean()), float(np.abs(g - w).max())
-        assert mean <= F4_MEAN * gaps[key] and worst <= F4_MAX * scale, (
-            f"{what} {key}: mean distance {mean:.3g} (JAX's bf16-to-float32 "
-            f"{gaps[key]:.3g}), max {worst / scale:.3g} x max |g|")
-
-
 def _f32_gaps(want16):
     """JAX's bf16-to-float32 distance of each leaf of the ``no_cnn``
     model's first gradients (its float32 twin: the design-sharded run's,
@@ -586,12 +554,15 @@ def test_bf16_multidesign_matches_jax(name):
     sign would compound). ``no_cnn`` (the model without its layout CNN):
     the evaluation's predictions equal to JAX's, the losses at rtol 1e-5,
     the first step's gradients at F4's bound on the walk's leaves and the
-    head's weights (:func:`_assert_bf16_tight`; measured 0) and 0.1 x max
+    head's weights (``_assert_bf16_grads``; measured 0) and 0.1 x max
     |g| on the head's biases. ``reg``: with the layout CNN, whose bf16
     under ``jax.jit`` is not the port's, the predictions within 4 bf16
     ulps of max |out| of JAX's and within REL_GAP x JAX's float32
     distance, the losses at rtol BF16_LOSS_RTOL, every leaf within 0.1 x
-    max |g| (:func:`_assert_bf16_leaves`)."""
+    max |g| (``tests/test_torch_bf16_model.py``'s bound for a leaf; its
+    0.02 for a product's weight holds only where the predictions are
+    JAX's bit for bit, and here 2 of 32 are an ulp apart: Conv_1's
+    weight moves by 0.034 x)."""
     from test_torch_bf16_model import _bf16_ulp
 
     model, state, stacked, ids, mask = _port(name, "bfloat16")
@@ -616,9 +587,10 @@ def test_bf16_multidesign_matches_jax(name):
             continue
         grads = {k: p.grad.numpy() for k, p in model.named_parameters()}
         if name == "no_cnn":
-            _assert_bf16_tight(grads, want16, _f32_gaps(want16), name)
+            _assert_bf16_grads(grads, want16, _f32_gaps(want16), name,
+                               _tight_vs_jax)
         else:
-            _assert_bf16_leaves(grads, want16, name)
+            _assert_bf16_grads(grads, want16, {}, name, lambda key: False)
 
 
 # ---- the design-sharded step at dp 2 ----
@@ -697,8 +669,8 @@ def test_design_sharded_step_matches_jax_sharded_step(sharded):
     for out in sharded["ranks"]["bf16"]:
         np.testing.assert_allclose(out["losses"][0], mets16[0]["loss"],
                                    rtol=1e-5)
-        _assert_bf16_tight(out["grads"], want16, _f32_gaps(want16),
-                           "sharded bf16")
+        _assert_bf16_grads(out["grads"], want16, _f32_gaps(want16),
+                           "sharded bf16", _tight_vs_jax)
 
 
 @pytest.mark.parametrize("name", list(SHARDED))
