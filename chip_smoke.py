@@ -5622,7 +5622,7 @@ def multi_rank(rank, tmp, port):
 
     import torch
     import torch.distributed as dist
-    from prtp_tpu_torch.graph import pack_design, stack_designs
+    from prtp_tpu_torch.graph import stack_designs
     from prtp_tpu_torch.models import PathModel
     from prtp_tpu_torch.parallel import Mesh
     from prtp_tpu_torch.parallel.multi import multidesign_train_step
@@ -5641,8 +5641,7 @@ def multi_rank(rank, tmp, port):
             parsed, batches = pickle.load(f)
         snaps = torch.load(os.path.join(tmp, "multi_states.pt"),
                            weights_only=True)
-        stacked = stack_designs([pack_design(p, map_size=MAP_SIZE, device=dev)
-                                 for p in parsed])
+        stacked = stack_designs(parsed, map_size=MAP_SIZE, device=dev)
         state = init_state(PathModel(
             CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
             generator=torch.Generator().manual_seed(SEED)),
@@ -5677,8 +5676,7 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
     """Phase 14: the multi-design step (``parallel/multi.py``,
     ``graph.stack_designs``) at the default model's full width, TF32 off,
     on phase 9's MERGED_K designs (the same parsed designs, weights and
-    batches; each design packed alone, then stacked, whose super-graph
-    is packed once for the stack). The per-design ids are phase 9's
+    batches, stacked; their super-graph is packed once for the stack). The per-design ids are phase 9's
     merged batch and grouped rounds read back in each design's own
     numbering.
     (a) REQUESTS evaluations (``multidesign_eval_step``), card against
@@ -5694,7 +5692,9 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
     steps, card against CPU by phase 8's bf16 bounds.
     (d) Design-sharded: one NCCL rank against the unsharded step
     (losses and first gradients within DP_TOL), its step timed as phase
-    10 (a) times one; DP_RANKS gloo processes on cuda:0, MERGED_K /
+    10 (a) times one, and in bf16 (the walk's per-pair sums and the other
+    leaves' rounding after the sum) one step against the unsharded bf16
+    step (loss equal, gradients within DP_TOL); DP_RANKS gloo processes on cuda:0, MERGED_K /
     DP_RANKS designs a rank, MULTI_STEPS steps each from the one-rank
     run's state, within DP_TOL_2, the ranks' parameter checksums equal,
     a step timed on the host (not run, and said so, where the card's
@@ -5705,7 +5705,7 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
     import tempfile
 
     import torch.distributed as dist
-    from prtp_tpu_torch.graph import pack_design, stack_designs
+    from prtp_tpu_torch.graph import stack_designs
     from prtp_tpu_torch.models import PathModel
     from prtp_tpu_torch.parallel import Mesh
     from prtp_tpu_torch.parallel.distributed import free_port
@@ -5731,12 +5731,11 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
     ids_np, mask_np = local(shared["ids"], shared["mask"])
     rounds = [local(i.numpy(), m.numpy()) for i, m in shared["rounds"]]
     t0 = time.perf_counter()
-    stacks = {where: stack_designs([pack_design(p, map_size=MAP_SIZE,
-                                                device=where) for p in parsed])
+    stacks = {where: stack_designs(parsed, map_size=MAP_SIZE, device=where)
               for where in ("cpu", DEVICE)}
     blocks = {where: s.block(0, MERGED_K)[0] for where, s in stacks.items()}
     graph = blocks[DEVICE].graph
-    log(f"phase 14: {MERGED_K} designs packed alone and stacked (bucket "
+    log(f"phase 14: {MERGED_K} designs stacked (bucket "
         f"{stacks[DEVICE].bucket}, {stacks[DEVICE].num_pairs} level pairs), "
         f"their super-graph packed once, on the cpu and the card, in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -5837,9 +5836,9 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
                     compute_dtype=torch.bfloat16)
     low.load_state_dict(model_cpu.state_dict())
     low_card = copy.deepcopy(low).to(dev)
-    stacks16 = {where: stack_designs([pack_design(
-        p, map_size=MAP_SIZE, device=where, compute_dtype=torch.bfloat16)
-        for p in parsed]) for where in ("cpu", DEVICE)}
+    stacks16 = {where: stack_designs(parsed, map_size=MAP_SIZE, device=where,
+                                     compute_dtype=torch.bfloat16)
+                for where in ("cpu", DEVICE)}
     what = "serve multi-design bf16"
     torch.cuda.synchronize()
     _zero_launches()
@@ -5868,7 +5867,8 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
                         card=card, step=multi_step)
     launches[what] = runs[DEVICE][2]
     compare_bf16_runs(torch, what, runs[DEVICE], runs["cpu"], f32_first)
-    del low, low_card, stacks16, runs, card
+    stack16 = stacks16[DEVICE]
+    del low_card, stacks16, runs, card
     torch.cuda.empty_cache()
 
     # ---- (d) the design-sharded step ----
@@ -5924,8 +5924,34 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
             f" idle share {t['idle']:.3f}; {t['launches']} kernel launches  "
             f"[{smi}]")
         del state, t
+        # the bf16 model: the walk's per-pair sums and the other leaves'
+        # sum and rounding, over one rank, change no bit of its gradients
+        what = "phase 14 (d): multi-design bf16, 1 rank (NCCL), 1 step"
+        torch.backends.cudnn.deterministic = True
+        runs16 = []
+        for on_mesh in (None, mesh):
+            state = init_state(copy.deepcopy(low), make_optimizer(LR), DEVICE)
+            _zero_launches()
+            loss = float(multidesign_train_step(
+                state, stack16, *steps_card[0], mesh=on_mesh)["loss"])
+            torch.cuda.synchronize()
+            runs16.append((loss, _grads(state), _read_launches()))
+        launches[what] = runs16[1][2]
+        check_launches(what, launches[what], per_step, 1)
+        worst = (0.0, "")
+        for key, w in runs16[0][1].items():
+            diff = float((runs16[1][1][key] - w).abs().max())
+            worst = max(worst, (diff / (float(w.abs().max()) or 1.0), key))
+        if worst[0] > DP_TOL or runs16[1][0] != runs16[0][0]:
+            raise AssertionError(f"{what}: loss {runs16[1][0]} against "
+                                 f"{runs16[0][0]}, gradients {worst}")
+        log(f"  {what} vs the unsharded bf16 step: losses equal, first-step "
+            f"gradients within {worst[0]:.3g} x the leaf's max |g| "
+            f"({worst[1] or 'every leaf'}; allowed {DP_TOL}): ok")
+        del state, runs16
     finally:
         dist.destroy_process_group()
+    del low, stack16
     torch.backends.cudnn.deterministic = False
     if "exclusive" in compute_mode.lower():
         log(f"phase 14 (d): the card's compute mode is {compute_mode}: it "

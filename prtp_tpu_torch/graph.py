@@ -23,7 +23,6 @@ l; the packer takes it as one bigger design, with its K rasters stacked.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -83,14 +82,6 @@ class LeveledGraphExact:
     # that many rows, the zeros of the padding included (the walks' "scan"
     # rounding)
     scan_rows: tuple = ()
-    # the super-graph of designs that JAX stacks and vmaps
-    # (StackedDesigns): XLA rounds the scan's cotangents there as it
-    # compiles the vmapped scan (ops.fused_gnn._mlp_grads' round_dx)
-    stacked: bool = False
-    # a design-sharded rank's stack (parallel.multi): sums a flat float32
-    # tensor over the ranks in place; the scan's bf16 MLP gradients are
-    # summed pair by pair with it (ops.fused_gnn.MlpGradSums)
-    pair_sum: object = None
     # this rank's block of the edge tables under the 2-D (dp, gp) mesh
     # (parallel.graph_shard.shard_design); None: the whole level
     shard: object = None
@@ -120,6 +111,14 @@ class LeveledGraphExact:
     def num_pairs(self) -> int:
         return len(self.cell_feat_lvl)
 
+    @property
+    def stacked(self) -> bool:
+        """Whether :attr:`scan_rows` lay the levels out as a stack of
+        designs on one bucket (:func:`stack_level_rows`): the super-graph
+        of designs that JAX stacks and vmaps, whose scan XLA compiles with
+        one more rounding (``ops.fused_gnn._mlp_grads``' ``round_dx``)."""
+        return bool(self.scan_rows) and isinstance(self.scan_rows[0][0], tuple)
+
 
 @dataclass
 class DesignData:
@@ -136,9 +135,6 @@ class DesignData:
     # (K, C, H, W) float32 (or bf16), NCHW: K = 1, or a merged
     # super-graph's K designs
     cnn_input: torch.Tensor
-    # the parsed dict pack_design packed (host arrays, not copied), which
-    # stack_designs merges
-    source: dict | None = field(default=None, repr=False, compare=False)
 
     @property
     def num_paths(self) -> int:
@@ -510,7 +506,6 @@ def pack_design(parsed, map_size=128, device="cuda",
         path_masks=torch.from_numpy(masks).to(dev),
         cnn_input=torch.from_numpy(np.ascontiguousarray(cnn_input))
         .to(dev, compute_dtype),
-        source=parsed,
     )
 
 
@@ -629,7 +624,7 @@ def stack_level_rows(parsed_list, bucket) -> tuple:
 
 @dataclass
 class StackedDesigns:
-    """K packed designs stacked for the multi-design step
+    """K parsed designs stacked for the multi-design step
     (``parallel/multi.py``), from :func:`stack_designs`.
 
     JAX pads every design to one bucket, stacks them on a leading axis
@@ -646,41 +641,35 @@ class StackedDesigns:
     product over the merged level and one :func:`~prtp_tpu_torch.ops.
     bf16.column_sums_bf16` over the rows laid out as the bucket's
     (:func:`stack_level_rows`). ``bucket`` is that ``(pn_c, pn_n)``,
-    over all K designs. A block's super-graph is packed once, as its
-    designs were packed (device, dtype, map size, segment tables), and
-    kept."""
+    over all K designs. The designs stay host dicts; a block's
+    super-graph is packed with ``pack`` (:func:`pack_design`'s keywords)
+    when a step first asks for it, and kept."""
 
-    designs: tuple
+    parsed: tuple
     bucket: tuple
+    pack: dict
     _blocks: dict = field(default_factory=dict, repr=False)
 
     def __len__(self) -> int:
-        return len(self.designs)
+        return len(self.parsed)
 
     @property
     def num_pairs(self) -> int:
         """The level pairs of the bucket: the most any design has."""
-        return max((len(d.source["levels"]) + 1) // 2 for d in self.designs)
+        return max((len(p["levels"]) + 1) // 2 for p in self.parsed)
 
     def block(self, lo: int, hi: int):
         """``(design, first_path)``: the packed super-graph of designs
         ``lo`` to ``hi - 1``, and each one's first path row in it (an
         int64 tensor ``(hi - lo,)`` on its device)."""
         if (lo, hi) not in self._blocks:
-            first = self.designs[0]
-            g = first.graph
-            sources = [d.source for d in self.designs[lo:hi]]
-            design = pack_design(
-                merge_parsed_designs(sources),
-                map_size=int(round(first.path_masks.shape[1] ** 0.5)),
-                device=g.cell_feat_lvl[0].device,
-                compute_dtype=g.cell_feat_lvl[0].dtype,
-                scan_rows=stack_level_rows(sources, self.bucket),
-                segment=g.cell_src is not None)
-            design = dataclasses.replace(design, graph=dataclasses.replace(
-                design.graph, stacked=True))
+            parsed = self.parsed[lo:hi]
+            design = pack_design(merge_parsed_designs(parsed),
+                                 scan_rows=stack_level_rows(parsed,
+                                                            self.bucket),
+                                 **self.pack)
             first_path = np.cumsum([0] + [int(p["num_paths"])
-                                          for p in sources[:-1]])
+                                          for p in parsed[:-1]])
             self._blocks[(lo, hi)] = (design, torch.from_numpy(
                 first_path).to(design.path_endpoint.device))
         return self._blocks[(lo, hi)]
@@ -694,40 +683,37 @@ class StackedDesigns:
         return design, path_ids.long() + first_path[:, None]
 
 
-def stack_designs(designs, align: int = SCAN_ALIGN) -> StackedDesigns:
-    """Stack K designs packed by :func:`pack_design` for the multi-design
-    step (``prtp_tpu/graph.py::stack_designs``): a
-    :class:`StackedDesigns` whose bucket is JAX's padded scan's level
-    rows over all of them (:func:`scan_level_rows` at ``align``, as
-    ``bucket_shape`` and ``pack_design(pad_to=...)`` pad them). Designs
-    that JAX cannot stack are refused: other feature widths, raster
-    shape, dtype or map size, segment tables in some only, a merged
-    super-graph or an edge-sharded design, or another device."""
-    designs = tuple(designs)
-    if not designs:
+def stack_designs(parsed_list, align: int = SCAN_ALIGN, map_size=128,
+                  device="cuda", compute_dtype=torch.float32,
+                  segment=False) -> StackedDesigns:
+    """Stack K parsed designs for the multi-design step
+    (``prtp_tpu/graph.py::stack_designs`` of the designs packed on
+    ``bucket_shape(parsed_list, align)``): a :class:`StackedDesigns`
+    whose bucket is JAX's padded scan's level rows over all of them
+    (:func:`scan_level_rows` at ``align``), its blocks packed as
+    :func:`pack_design` packs with the other keywords. Designs that JAX
+    cannot stack are refused: other feature widths or raster shape, or a
+    merged super-graph."""
+    parsed_list = tuple(parsed_list)
+    if not parsed_list:
         raise ValueError("stack_designs got no designs")
-    if any(d.source is None for d in designs):
-        raise ValueError("stack_designs takes designs packed by pack_design")
 
-    def key(d):
-        g = d.graph
-        return {"feature widths": (g.cell_feat_lvl[0].shape[1],
-                                   g.net_feat_lvl[0].shape[1]),
-                "raster shape": tuple(d.cnn_input.shape[1:]),
-                "dtype": g.cell_feat_lvl[0].dtype,
-                "map size": d.path_masks.shape[1],
-                "segment tables": g.cell_src is not None,
-                "device": d.path_endpoint.device}
+    def key(p):
+        return {"feature widths": (np.shape(p["cell_feat"])[1],
+                                   np.shape(p["net_feat"])[1]),
+                "raster shape": np.shape(p["cnn_input"])}
 
-    want = key(designs[0])
-    for i, d in enumerate(designs):
-        if d.cnn_input.shape[0] != 1 or d.graph.shard is not None:
-            raise ValueError(f"design {i} is a merged super-graph or edge-"
-                             "sharded: stack designs packed alone")
-        for what, value in key(d).items():
+    want = key(parsed_list[0])
+    for i, p in enumerate(parsed_list):
+        if "path_design" in p or np.ndim(p["cnn_input"]) != 3:
+            raise ValueError(f"design {i} is a merged super-graph: stack "
+                             "designs parsed alone")
+        for what, value in key(p).items():
             if value != want[what]:
                 raise ValueError(
                     f"designs must share a treedef and shapes: design {i}'s"
                     f" {what} {value} differ from design 0's {want[what]}")
-    bucket = scan_level_rows([d.source for d in designs], align)
-    return StackedDesigns(designs, bucket)
+    return StackedDesigns(
+        parsed_list, scan_level_rows(parsed_list, align),
+        dict(map_size=map_size, device=resolve_device(device),
+             compute_dtype=compute_dtype, segment=segment))

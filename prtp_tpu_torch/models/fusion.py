@@ -105,19 +105,20 @@ class PathModel(nn.Module):
         self.mlp_fuse = MLP(fuse_in, (fuse_in * 2, nlabels), generator, dt)
 
     def forward(self, design, path_ids: torch.Tensor,
-                rounding: str | None = None) -> torch.Tensor:
+                rounding: str | None = None, pair_sum=None) -> torch.Tensor:
         """Predict for a batch of path ids (any integer dtype): ``(B,)``,
         or ``(K, Bk)`` on a merged super-graph of K designs, row k holding
         only design k's path ids. ``rounding``: the walk's bf16 rounding
         (``"fused"``, ``"scan"`` or None, the reduce's:
-        :meth:`TimeGNN.resolve_rounding`).
+        :meth:`TimeGNN.resolve_rounding`); ``pair_sum``: the walk's
+        (:meth:`TimeGNN.forward`).
 
         Returns an output shaped like ``path_ids`` for ``nlabels == 1``,
         else ``path_ids.shape + (nlabels,)``."""
         flat_ids = path_ids.reshape(-1)
         parts = []
         if self.use_gnn:
-            h = self.gnn(design.graph, rounding=rounding)
+            h = self.gnn(design.graph, rounding=rounding, pair_sum=pair_sum)
             parts.append(h.index_select(0, design.path_endpoint[flat_ids]))
         if self.use_cnn:
             parts.append(self._fcn(design, path_ids))

@@ -110,7 +110,11 @@ class TimeGNN(nn.Module):
         return rounding
 
     def forward(self, g, h0: torch.Tensor | None = None,
-                rounding: str | None = None) -> torch.Tensor:
+                rounding: str | None = None, pair_sum=None) -> torch.Tensor:
+        """The walk's final state ``(num_rows + 1, out_dim)`` from ``h0``
+        (zeros if None). ``pair_sum``: a design-sharded rank's sum of its
+        bf16 MLP gradients over the ranks (``ops.fused_gnn.
+        MlpGradSums``)."""
         if h0 is None:
             dev = g.cell_feat_lvl[0].device
             h0 = torch.zeros((g.num_rows + 1, self.out_dim),
@@ -125,5 +129,7 @@ class TimeGNN(nn.Module):
         rounding = self.resolve_rounding(rounding)
         bf16 = self.mlp_dtype is not None
         if self.reduce_mode == "segment":  # the scan's rounding
-            return segment_walk(params, h0, g, self.dgl_parity, bf16)
-        return exact_walk(params, h0, g, self.dgl_parity, bf16, rounding)
+            return segment_walk(params, h0, g, self.dgl_parity, bf16,
+                                pair_sum)
+        return exact_walk(params, h0, g, self.dgl_parity, bf16, rounding,
+                          pair_sum)

@@ -664,7 +664,7 @@ def exact_gnn_forward(params, h0: torch.Tensor, graph,
 
 def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
                        dgl_parity: bool = True, w16=None,
-                       rounding: str = "fused"):
+                       rounding: str = "fused", pair_sum=None):
     """Port of ``prtp_tpu/ops/fused_gnn.py::_bwd``: the cotangent of h0
     and the parameter gradients (a dict like ``params``) of the walk
     whose final state is ``hf``, for the cotangent ``g`` of ``hf``. With
@@ -676,7 +676,8 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     with ``scan``); the reduces' backward stays float32, as the scan's
     mailbox softmax and ``fc_attn2`` run on the float32 carry; the bias
     gradients are summed as :class:`MlpGradSums` says, over the rows of
-    the padded or grouped scan's levels (``graph.scan_rows``).
+    the padded or grouped scan's levels (``graph.scan_rows``), and with
+    ``pair_sum`` summed over a design-sharded mesh's ranks pair by pair.
 
     One ``dh`` carry, a copy of ``g``, is updated in place pair by pair
     in reverse. The intra-pair net->cell-block sum goes straight into
@@ -696,7 +697,7 @@ def exact_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     scan = w16 is not None and check_rounding(rounding) == "scan"
     num_rows = graph.num_rows
     dh = g.clone(memory_format=torch.contiguous_format)
-    acc = MlpGradSums(params, graph, scan)
+    acc = MlpGradSums(params, graph, scan, pair_sum)
     grads = acc.grads
     w_attn = params.get("fc_attn2")
     if w_attn is not None:
@@ -771,8 +772,9 @@ class MlpGradSums:
     (``graph.scan_rows[k]``), since the zero rows of the padding move
     XLA's summation windows.
 
-    With ``graph.pair_sum`` (a design-sharded rank's stack,
-    ``parallel/multi.py``) each pair's gradients, this rank's bf16 sums
+    With ``pair_sum`` (a design-sharded rank's, ``parallel/multi.py``:
+    sums a flat float32 tensor over the ranks in place) each pair's
+    gradients, this rank's bf16 sums
     over its designs' rows, are summed over the ranks and rounded to bf16
     again before they are added, as XLA's partitioner sums the vmapped
     scan's bf16 gradients inside the scan: :meth:`finish` sums every
@@ -785,11 +787,11 @@ class MlpGradSums:
     # the order in which both walks' backwards add a pair's MLPs
     PAIR_ORDER = ("fc_net_self", "fc_cell_self", "fc_cell_neigh")
 
-    def __init__(self, params, graph, scan: bool):
+    def __init__(self, params, graph, scan: bool, pair_sum=None):
         self.grads = {name: [torch.zeros_like(t) for t in params[name]]
                       for name in MLP_NAMES}
         self._scan, self._scan_rows = scan, graph.scan_rows
-        self._pair_sum = graph.pair_sum if scan else None
+        self._pair_sum = pair_sum if scan else None
         # per pair, the bias gradients (or, summed over ranks, the
         # weights' and the biases' (target, value) pairs); then the bf16
         # cotangents the bias sums add and the rows that they run over
@@ -897,7 +899,7 @@ def restore_walk(ctx):
 class ExactWalk(torch.autograd.Function):
     """The walk with JAX's hand-written backward (``fused_exact_gnn``).
     Inputs: the graph, ``dgl_parity``, whether the MLPs' products are
-    bf16 and the ``rounding`` (no gradient), h0, then the twelve
+    bf16, the ``rounding`` and ``pair_sum`` (no gradient), h0, then the twelve
     pair-step tensors in ``MLP_NAMES`` order and, with ``--attn``,
     ``fc_attn2``'s weight. The bf16 weights made for the forward are
     saved for the backward. The backward is ``_bwd``'s; in bf16 with
@@ -905,11 +907,12 @@ class ExactWalk(torch.autograd.Function):
     scan (:func:`exact_gnn_backward`)."""
 
     @staticmethod
-    def forward(ctx, graph, dgl_parity, bf16, rounding, h0, *flat):
+    def forward(ctx, graph, dgl_parity, bf16, rounding, pair_sum, h0, *flat):
         params = _params_of(flat)
         w16 = bf16_weights(params) if bf16 else None
         hf = exact_gnn_forward(params, h0, graph, dgl_parity, w16, rounding)
         ctx.graph, ctx.dgl_parity, ctx.rounding = graph, dgl_parity, rounding
+        ctx.pair_sum = pair_sum
         save_walk(ctx, hf, flat, w16)
         return hf
 
@@ -918,19 +921,22 @@ class ExactWalk(torch.autograd.Function):
     def backward(ctx, g):
         hf, flat, w16 = restore_walk(ctx)
         dh, grads = exact_gnn_backward(_params_of(flat), hf, g, ctx.graph,
-                                       ctx.dgl_parity, w16, ctx.rounding)
+                                       ctx.dgl_parity, w16, ctx.rounding,
+                                       ctx.pair_sum)
         dflat = _flat_of(grads)
         need = ctx.needs_input_grad
-        return (None, None, None, None, dh if need[4] else None,
-                *(t if need[5 + i] else None for i, t in enumerate(dflat)))
+        return (None, None, None, None, None, dh if need[5] else None,
+                *(t if need[6 + i] else None for i, t in enumerate(dflat)))
 
 
 def exact_walk(params, h0: torch.Tensor, graph, dgl_parity: bool = True,
-               bf16: bool = False, rounding: str = "fused") -> torch.Tensor:
+               bf16: bool = False, rounding: str = "fused",
+               pair_sum=None) -> torch.Tensor:
     """:func:`exact_gnn_forward` through :class:`ExactWalk`: the forward
     launches the same kernels, and autograd takes the hand-written
     backward. ``bf16``: the MLPs' products in bf16, rounded as JAX's
     fused walk (``rounding="fused"``: float32 results) or as its padded
-    scan (``"scan"``), forward and backward."""
+    scan (``"scan"``), forward and backward; ``pair_sum``: as for
+    :class:`MlpGradSums`."""
     return ExactWalk.apply(graph, dgl_parity, bf16, check_rounding(rounding),
-                           h0, *_flat_of(params))
+                           pair_sum, h0, *_flat_of(params))

@@ -235,7 +235,8 @@ def segment_gnn_forward(params, h0: torch.Tensor, graph,
 
 
 def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
-                         saved, dgl_parity: bool = True, w16=None):
+                         saved, dgl_parity: bool = True, w16=None,
+                         pair_sum=None):
     """The cotangent of h0 and the MLPs' gradients (a dict like
     ``params``) of the walk whose final state is ``hf``, for the
     cotangent ``g`` of ``hf``; ``saved`` is what the forward kept, ``w16``
@@ -243,10 +244,11 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
     copy of ``g``, updated in place pair by pair in reverse. With
     ``"fc_attn2"`` in ``params`` its gradient is summed over the pairs (an
     :class:`AttnGradSum`: on the card one reduce a backward), and on a
-    sharded graph over the ``gp`` group once."""
+    sharded graph over the ``gp`` group once. ``pair_sum``: as for
+    :class:`MlpGradSums`."""
     dh = g.clone(memory_format=torch.contiguous_format)
     scan = w16 is not None
-    acc = MlpGradSums(params, graph, scan)
+    acc = MlpGradSums(params, graph, scan, pair_sum)
     grads = acc.grads
     w_attn = params.get("fc_attn2")
     dw_sum = None if w_attn is None else AttnGradSum(w_attn)
@@ -296,19 +298,20 @@ def segment_gnn_backward(params, hf: torch.Tensor, g: torch.Tensor, graph,
 
 class SegmentWalk(torch.autograd.Function):
     """The walk under the segment reduce with its hand-written backward.
-    Inputs: the graph, ``dgl_parity`` and whether the MLPs run in bf16
-    (no gradient), h0, then the twelve pair-step tensors in ``MLP_NAMES``
-    order and, with ``--attn``, ``fc_attn2``'s weight
+    Inputs: the graph, ``dgl_parity``, whether the MLPs run in bf16 and
+    ``pair_sum`` (no gradient), h0, then the twelve pair-step tensors in
+    ``MLP_NAMES`` order and, with ``--attn``, ``fc_attn2``'s weight
     (``fused_gnn._params_of``). The bf16 weights made for the forward are
     saved for the backward."""
 
     @staticmethod
-    def forward(ctx, graph, dgl_parity, bf16, h0, *flat):
+    def forward(ctx, graph, dgl_parity, bf16, pair_sum, h0, *flat):
         params = _params_of(flat)
         w16 = bf16_weights(params) if bf16 else None
         saved = {} if any(ctx.needs_input_grad) else None
         hf = segment_gnn_forward(params, h0, graph, dgl_parity, saved, w16)
         ctx.graph, ctx.dgl_parity, ctx.reduced = graph, dgl_parity, saved
+        ctx.pair_sum = pair_sum
         save_walk(ctx, hf, flat, w16)
         return hf
 
@@ -317,18 +320,21 @@ class SegmentWalk(torch.autograd.Function):
     def backward(ctx, g):
         hf, flat, w16 = restore_walk(ctx)
         dh, grads = segment_gnn_backward(_params_of(flat), hf, g, ctx.graph,
-                                         ctx.reduced, ctx.dgl_parity, w16)
+                                         ctx.reduced, ctx.dgl_parity, w16,
+                                         ctx.pair_sum)
         ctx.reduced = None
         need = ctx.needs_input_grad
-        return (None, None, None, dh if need[3] else None,
-                *(t if need[4 + i] else None
+        return (None, None, None, None, dh if need[4] else None,
+                *(t if need[5 + i] else None
                   for i, t in enumerate(_flat_of(grads))))
 
 
 def segment_walk(params, h0: torch.Tensor, graph, dgl_parity: bool = True,
-                 bf16: bool = False) -> torch.Tensor:
+                 bf16: bool = False, pair_sum=None) -> torch.Tensor:
     """:func:`segment_gnn_forward` through :class:`SegmentWalk`: the
     forward launches the same kernels, and autograd takes the
     hand-written backward. ``bf16``: the MLPs in bf16, rounded as JAX's
-    padded scan, forward and backward."""
-    return SegmentWalk.apply(graph, dgl_parity, bf16, h0, *_flat_of(params))
+    padded scan, forward and backward; ``pair_sum``: as for
+    ``fused_gnn.MlpGradSums``."""
+    return SegmentWalk.apply(graph, dgl_parity, bf16, pair_sum, h0,
+                             *_flat_of(params))

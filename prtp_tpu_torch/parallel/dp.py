@@ -3,30 +3,27 @@
 Port of ``prtp_tpu/parallel/dp.py``: the step of ``make_dp_train_step``
 (the single-chip step jitted with the batch sharded over ``dp``) and of
 ``make_dp_eval_step``. Every rank holds the whole design and the whole
-state, and every rank passes the whole batch; a rank's loss is its
-block's (:func:`shard_batch`): the masked sum over the block divided by
-the global count of valid entries, so the ranks' losses sum to the
-one-rank loss.
+state, and every rank passes the whole batch.
 
-Where the dp sum sits decides a bf16 step's bits. XLA's partitioner
-(read from the compiled HLO of JAX's bf16 step on the CPU mesh) sums
-float32 values before every bf16 rounding of the backward: the walk's
-output cotangent (the scatter of the batch's rows), the fcn product's
-float32 weight cotangent and the head's float32 weight and bias
-products, each all-reduced and only then rounded, so its sharded step's
-gradients equal its one-device step's to float32 rounding. The
-cheapest place that gives the same sum is before the head: every rank
-runs the model on the whole batch (the walk and the layout CNN read only
-the design, which every rank holds, so they ran whole on every rank
-before too; the head's rows are a few hundred), takes its block of the
-predictions for its loss (:class:`_Block`), and the backward gathers the
-blocks' cotangents (B floats, or B x nlabels) into the whole batch's, so
-every rank backpropagates the one-rank step's cotangent and computes
-the one-rank step's gradients. No gradient is then summed: rank 0's is
-broadcast, because on a card the replicated backward may add in another
-order on each rank (atomic ``index_add_``, cuDNN's weight gradients),
-and the broadcast keeps every rank's flat Adam state bit-equal. The
-metrics are the whole batch's, computed on every rank.
+The training step replicates the compute: every rank runs
+``trainer.train_step``'s forward, loss and backward on the whole batch
+(``trainer.loss_backward``), then takes rank 0's flat gradient
+(broadcast) and updates. Where the dp sum sits decides a bf16 step's
+bits. XLA's partitioner (read from the compiled HLO of JAX's bf16 step
+on the CPU mesh) sums float32 values before every bf16 rounding of the
+backward: the walk's output cotangent, the fcn product's float32 weight
+cotangent and the head's float32 weight and bias products, each
+all-reduced and only then rounded, so its sharded step's gradients
+equal its one-device step's to float32 rounding. A rank that
+backpropagates the whole batch's loss computes exactly those gradients
+with no sum at all: the walk and the layout CNN read only the design,
+which every rank holds, so they ran whole on every rank anyway, and the
+head's rows are a few hundred. The broadcast keeps every rank's flat
+Adam state bit-equal, since on a card the replicated backward may add
+in another order on each rank (atomic ``index_add_``, cuDNN's weight
+gradients). The metrics are the whole batch's, computed on every rank.
+Evaluation is sharded: each rank predicts its block of the batch
+(:func:`shard_batch`) and the blocks are gathered.
 """
 
 from __future__ import annotations
@@ -35,8 +32,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..trainer import task_loss_and_metrics
-from ..utils import metrics as M
+from ..trainer import loss_backward, task_loss_and_metrics
 
 
 def shard_batch(path_ids, mask, mesh):
@@ -69,65 +65,15 @@ def broadcast_state(state, mesh) -> None:
         dist.broadcast(buf, src, group=mesh.group)
 
 
-class _Block(torch.autograd.Function):
-    """This rank's block of the whole batch's predictions along the
-    batch axis ``axis``, zero-padded to ``per`` entries (the padded
-    entries of :func:`shard_batch`). The backward gathers the ranks'
-    block cotangents over the mesh, in rank order, into the cotangent of
-    the whole batch, the same on every rank."""
-
-    @staticmethod
-    def forward(ctx, preds, mesh, axis, per):
-        b = preds.shape[axis]
-        ctx.mesh, ctx.axis, ctx.b = mesh, axis, b
-        lo = min(mesh.rank * per, b)
-        n = min(per, b - lo)
-        block = preds.narrow(axis, lo, n)
-        if n < per:
-            shape = list(preds.shape)
-            shape[axis] = per - n
-            block = torch.cat([block, preds.new_zeros(shape)], dim=axis)
-        return block.contiguous()
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        g = g.contiguous()
-        parts = [torch.empty_like(g) for _ in range(ctx.mesh.size)]
-        dist.all_gather(parts, g, group=ctx.mesh.group)
-        whole = torch.cat(parts, dim=ctx.axis).narrow(ctx.axis, 0, ctx.b)
-        return whole, None, None, None
-
-
-def entry_losses(task, preds, design, path_ids):
-    """The task's loss of each entry, flat: ``task="cls"`` the
-    cross-entropy (``metrics.nll``) against the endpoints' labels, any
-    other task the squared error against their arrival times."""
-    endpoints = design.path_endpoint[path_ids.reshape(-1)].long()
-    if task == "cls":
-        return M.nll(preds, design.is_critical[endpoints])
-    return (preds.reshape(-1) - design.arrival_time[endpoints]) ** 2
-
-
 def dp_train_step(state, design, path_ids, mask, mesh, task: str = "reg",
                   rounding: str | None = None) -> dict:
-    """One data-parallel optimizer step. Every rank passes the same batch,
-    computes the model on all of it and the loss on its block, and gets
-    the same gradients and metrics: those of ``trainer.train_step`` on
-    the whole batch (module doc)."""
-    model, opt = state.model, state.optimizer
-    model.train()
-    opt.zero_grad()
-    preds = model(design, path_ids, rounding=rounding)
-    _loss, mets = task_loss_and_metrics(task, preds.detach(), design,
-                                        path_ids, mask)
-    ids, m = shard_batch(path_ids, mask, mesh)
-    block = _Block.apply(preds, mesh, path_ids.dim() - 1, ids.shape[-1])
-    count = mask.reshape(-1).float().sum().clamp_min(1.0)
-    local = (entry_losses(task, block, design, ids) * m.reshape(-1)).sum()
-    (local / count).backward()
-    dist.broadcast(opt.grad, root_rank(mesh), group=mesh.group)
-    opt.step()
+    """One data-parallel optimizer step. Every rank passes the same batch
+    and gets the same gradients, state and metrics: those of
+    ``trainer.train_step`` on the whole batch, rank 0's gradient
+    broadcast before the update (module doc)."""
+    mets = loss_backward(state, design, path_ids, mask, task, rounding)
+    dist.broadcast(state.optimizer.grad, root_rank(mesh), group=mesh.group)
+    state.optimizer.step()
     state.step += 1
     return mets
 

@@ -20,11 +20,9 @@ sharded design it simply runs replicated, as JAX's would.
 :func:`make_2d_mesh` builds the mesh over an initialized world of
 ``n_dp * n_gp`` ranks, :func:`shard_design` gives a rank its edge
 blocks, and :func:`graph_sharded_train_step` is
-``make_graph_sharded_train_step``'s step: the dp ranks' loss cotangents
-combined before the backward as ``parallel.dp.dp_train_step`` combines
-them, so every rank of a gp row backpropagates the whole batch and the
-gp ranks hold equal gradients: every rank's flat Adam state stays the
-same.
+``make_graph_sharded_train_step``'s step: every rank backpropagates the
+whole batch, as ``parallel.dp.dp_train_step`` does, so the gp ranks hold
+equal gradients and every rank's flat Adam state stays the same.
 """
 
 from __future__ import annotations
@@ -195,10 +193,10 @@ def graph_sharded_train_step(state, design, path_ids, mask, mesh: Mesh2D,
                              batch_axis: str | None = DP_AXIS) -> dict:
     """One optimizer step over the ``(dp, gp)`` mesh: the path batch
     sharded on ``dp`` (``batch_axis="dp"``: :func:`parallel.dp.
-    dp_train_step` over this rank's column: the loss of this rank's block
-    over the global count, the blocks' cotangents gathered over ``dp``
-    before the backward, as JAX's partitioner sums the dp ranks'
-    cotangents before the bf16 roundings) or replicated
+    dp_train_step` over this rank's column: the whole batch's step,
+    which gives what JAX's partitioner gives by summing the dp ranks'
+    cotangents before the bf16 roundings, the gradient of the column's
+    first rank broadcast) or replicated
     (``batch_axis=None``: ``trainer.train_step``, as JAX's gp-only
     mesh), the edge tables of ``design`` (:func:`shard_design`) sharded
     on ``gp``. Every rank passes the same batch and gets the metrics of

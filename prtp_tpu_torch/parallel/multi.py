@@ -21,11 +21,12 @@ sum cannot come before the walk's roundings as in ``parallel.dp``; the
 compiled HLO of JAX's design-sharded bf16 step shows where it sits
 instead: every bf16 gradient is this rank's bf16 sum over its designs,
 summed over the ranks (in float32) and rounded to bf16 again, the walk's
-pair by pair inside its scan (``graph.pair_sum``, :class:`~prtp_tpu_torch.
-ops.fused_gnn.MlpGradSums`), every other parameter's once, after the
-backward; float32 gradients (a float32 model's, ``fc_attn2``'s) are
-summed once. The predictions are gathered onto every rank, and the
-metrics are the whole stack's.
+pair by pair inside its scan (the model's ``pair_sum``,
+:class:`~prtp_tpu_torch.ops.fused_gnn.MlpGradSums`), every other
+parameter's once, after the backward; float32 gradients (a float32
+model's, ``fc_attn2``'s) are summed once. A rank packs only its own
+block of designs; its predictions and their targets are gathered onto
+every rank, and the metrics are the whole stack's.
 
 The U-Net is refused, as JAX refuses it: its BatchNorm statistics are
 undefined per vmapped design.
@@ -33,15 +34,13 @@ undefined per vmapped design.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 import torch.distributed as dist
 
 from ..models.gnn import PAIR_STEP_MLPS
 from ..ops.bf16 import BF16
 from ..trainer import loss_and_metrics
-from .dp import entry_losses
+from ..utils import metrics as M
 
 
 def _reject_unet(model):
@@ -74,8 +73,8 @@ def design_block(stacked, path_ids, mesh=None) -> tuple:
 
 
 def _gather(block, mesh):
-    """The ranks' blocks of predictions, in rank order: ``(K, B[,
-    nlabels])`` on every rank."""
+    """The ranks' blocks along the design axis, in rank order: ``(K,
+    ...)`` on every rank."""
     if mesh is None:
         return block
     parts = [torch.empty_like(block) for _ in range(mesh.size)]
@@ -84,7 +83,7 @@ def _gather(block, mesh):
 
 
 class _PairSum:
-    """``graph.pair_sum`` of a design-sharded rank: sums a flat float32
+    """The walk's ``pair_sum`` on a design-sharded rank: sums a flat float32
     tensor over the mesh in place; ``pairs``, the level pairs of JAX's
     bucket (every rank's scan runs them all)."""
 
@@ -98,38 +97,44 @@ class _PairSum:
 def _sum_gradients(model, opt, mesh) -> None:
     """Sum the ranks' gradients (module doc): a float32 model's in one
     all-reduce; a bf16 model's walk MLPs were summed in its backward, and
-    every other parameter's is summed once and rounded to bf16, but
-    ``fc_attn2``'s (float32 in the scan)."""
+    every other parameter's is summed in one all-reduce and rounded to
+    bf16, but ``fc_attn2``'s (float32 in the scan)."""
     if model.compute_dtype is None:
         dist.all_reduce(opt.grad, group=mesh.group)
         return
-    walk = ([p for name in PAIR_STEP_MLPS
-             for p in getattr(model.gnn, name).parameters()]
-            if model.use_gnn else [])
-    n = sum(p.numel() for p in walk)
-    # FlatAdam lays the gradients out in parameter order: the walk's first
-    assert not walk or walk[0].grad.data_ptr() == opt.grad.data_ptr()
-    dist.all_reduce(opt.grad[n:], group=mesh.group)
-    keep = {id(p) for p in walk}
-    if getattr(model, "use_gnn", False) and model.gnn.flag_attn:
-        keep.add(id(model.gnn.fc_attn2.weight))
-    for p in model.parameters():
-        if id(p) not in keep:
-            p.grad.copy_(p.grad.to(BF16))
+    walk = ({id(p) for name in PAIR_STEP_MLPS
+             for p in getattr(model.gnn, name).parameters()}
+            if model.use_gnn else set())
+    rest = [p for p in model.parameters() if id(p) not in walk]
+    flat = torch.cat([p.grad.reshape(-1) for p in rest])
+    dist.all_reduce(flat, group=mesh.group)
+    attn = (model.gnn.fc_attn2.weight
+            if model.use_gnn and model.gnn.flag_attn else None)
+    for p, g in zip(rest, flat.split([p.numel() for p in rest])):
+        g = g.view_as(p)
+        p.grad.copy_(g if p is attn else g.to(BF16))
 
 
-def _metrics(task, preds, stacked, path_ids, mask) -> dict:
-    """The metrics of ``preds`` ``(K, B[, nlabels])``, each entry's
-    targets read in its own design."""
-    labels, arrival, required = ([] for _ in range(3))
-    for design, ids in zip(stacked.designs, path_ids):
-        endpoints = design.path_endpoint[ids].long()
-        labels.append(design.is_critical[endpoints])
-        arrival.append(design.arrival_time[endpoints])
-        required.append(design.required_time[endpoints])
-    return loss_and_metrics(task, preds, torch.stack(labels),
-                            torch.stack(arrival), torch.stack(required),
-                            mask)[1]
+def entry_losses(task, preds, design, path_ids):
+    """The task's loss of each entry, flat: ``task="cls"`` the
+    cross-entropy (``metrics.nll``) against the endpoints' labels, any
+    other task the squared error against their arrival times."""
+    endpoints = design.path_endpoint[path_ids.reshape(-1)].long()
+    if task == "cls":
+        return M.nll(preds, design.is_critical[endpoints])
+    return (preds.reshape(-1) - design.arrival_time[endpoints]) ** 2
+
+
+def _metrics(task, preds, design, ids, mask, mesh) -> tuple:
+    """``(preds, metrics)``: this rank's block of predictions ``(K / n,
+    B[, nlabels])`` on ``design``'s path rows ``ids`` and their targets
+    gathered onto every rank, and the metrics of all ``(K, B)``."""
+    endpoints = design.path_endpoint[ids].long()
+    preds, labels, arrival, required = (_gather(t, mesh) for t in (
+        preds, design.is_critical[endpoints], design.arrival_time[endpoints],
+        design.required_time[endpoints]))
+    return preds, loss_and_metrics(task, preds, labels, arrival, required,
+                                   mask)[1]
 
 
 def multidesign_train_step(state, stacked, path_ids, mask, task: str = "reg",
@@ -143,12 +148,11 @@ def multidesign_train_step(state, stacked, path_ids, mask, task: str = "reg",
     _reject_unet(model)
     lo, hi = design_block(stacked, path_ids, mesh)
     design, ids = stacked.rows(lo, hi, path_ids[lo:hi])
-    if mesh is not None and model.compute_dtype is not None:
-        design = dataclasses.replace(design, graph=dataclasses.replace(
-            design.graph, pair_sum=_PairSum(mesh, stacked.num_pairs)))
+    pair_sum = (None if mesh is None or model.compute_dtype is None
+                else _PairSum(mesh, stacked.num_pairs))
     model.train()
     opt.zero_grad()
-    preds = model(design, ids, rounding="scan")
+    preds = model(design, ids, rounding="scan", pair_sum=pair_sum)
     count = mask.reshape(-1).float().sum().clamp_min(1.0)
     local = (entry_losses(task, preds, design, ids)
              * mask[lo:hi].reshape(-1).float()).sum()
@@ -157,8 +161,7 @@ def multidesign_train_step(state, stacked, path_ids, mask, task: str = "reg",
         _sum_gradients(model, opt, mesh)
     opt.step()
     state.step += 1
-    return _metrics(task, _gather(preds.detach(), mesh), stacked, path_ids,
-                    mask)
+    return _metrics(task, preds.detach(), design, ids, mask, mesh)[1]
 
 
 @torch.no_grad()
@@ -171,5 +174,5 @@ def multidesign_eval_step(model, stacked, path_ids, mask, task: str = "reg",
     lo, hi = design_block(stacked, path_ids, mesh)
     design, ids = stacked.rows(lo, hi, path_ids[lo:hi])
     model.eval()
-    preds = _gather(model(design, ids, rounding="scan"), mesh)
-    return preds, _metrics(task, preds, stacked, path_ids, mask)
+    return _metrics(task, model(design, ids, rounding="scan"), design, ids,
+                    mask, mesh)

@@ -163,6 +163,21 @@ def loss_and_metrics(task, preds, labels, arrival, required, mask):
     return loss, mets
 
 
+def loss_backward(state: TrainState, design, path_ids, mask,
+                  task: str = "reg", rounding: str | None = None) -> dict:
+    """:func:`train_step` without its update: the forward, the task's
+    loss and its backward, after which the parameters' ``.grad``
+    (FlatAdam's flat gradient) hold the batch's gradients. Returns the
+    metrics."""
+    model, opt = state.model, state.optimizer
+    model.train()
+    opt.zero_grad()
+    preds = model(design, path_ids, rounding=rounding)
+    loss, mets = task_loss_and_metrics(task, preds, design, path_ids, mask)
+    loss.backward()
+    return mets
+
+
 def train_step(state: TrainState, design, path_ids, mask,
                task: str = "reg", rounding: str | None = None) -> dict:
     """One optimizer step on a batch: forward (BatchNorm in train mode:
@@ -173,13 +188,8 @@ def train_step(state: TrainState, design, path_ids, mask,
     walk's bf16 rounding, forward and backward (``"fused"``, JAX's fused
     exact walk, or ``"scan"``, its padded scan; None, the default, the
     model's reduce's: ``models/gnn.py``)."""
-    model, opt = state.model, state.optimizer
-    model.train()
-    opt.zero_grad()
-    preds = model(design, path_ids, rounding=rounding)
-    loss, mets = task_loss_and_metrics(task, preds, design, path_ids, mask)
-    loss.backward()
-    opt.step()
+    mets = loss_backward(state, design, path_ids, mask, task, rounding)
+    state.optimizer.step()
     state.step += 1
     return mets
 

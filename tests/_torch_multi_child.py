@@ -26,7 +26,7 @@ def run_rank(rank, world, port, cases, out_dir):
     import torch
     import torch.distributed as dist
 
-    from prtp_tpu_torch.graph import pack_design, stack_designs
+    from prtp_tpu_torch.graph import stack_designs
     from prtp_tpu_torch.models import PathModel
     from prtp_tpu_torch.parallel import Mesh
     from prtp_tpu_torch.parallel.multi import (multidesign_eval_step,
@@ -48,10 +48,9 @@ def run_rank(rank, world, port, cases, out_dir):
                                    for k, v in case["state"].items()})
             state = init_state(model, make_optimizer(case["lr"]), "cpu")
             stacked = stack_designs(
-                [pack_design(p, map_size=kw["map_size"], device="cpu",
-                             compute_dtype=torch.bfloat16 if dtype
-                             else torch.float32) for p in parsed],
-                align=case["align"])
+                parsed, align=case["align"], map_size=kw["map_size"],
+                device="cpu",
+                compute_dtype=torch.bfloat16 if dtype else torch.float32)
             ids, mask = (torch.from_numpy(np.asarray(x))
                          for x in case["batch"])
             preds, mets = multidesign_eval_step(model, stacked, ids, mask,

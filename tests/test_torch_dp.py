@@ -405,8 +405,8 @@ def coordinated(tmp_path_factory):
 
 def test_two_coordinated_processes(coordinated):
     """Two processes joined by ``PRTP_COORDINATOR`` (gloo, the CPU) run
-    one data-parallel step: identical losses and parameter checksums (the
-    cotangents crossed the process boundary), equal to one process's
+    one data-parallel step: identical losses and parameter checksums (rank
+    0's gradient crossed the process boundary), equal to one process's
     ``train_step`` at rtol 1e-5 (loss) and 1e-6 (checksum)."""
     outs = coordinated[0]
     assert outs[0] == outs[1] and outs[0][0] == 2, outs
@@ -421,9 +421,9 @@ def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
     scan's rounding) against JAX's ``make_dp_train_step`` on a 2-device
     mesh and against one process's ``train_step``. JAX's partitioner
     sums the ranks' float32 cotangents before any bf16 rounding, and so
-    does the port (it gathers them before the backward): every leaf's
-    gradient lies within 1e-3 x JAX's bf16-to-float32 distance of the
-    one-process step in mean distance and within 1e-4 x its max |g|, as
+    does the port (every rank backpropagates the whole batch): every
+    leaf's gradient lies within 1e-3 x JAX's bf16-to-float32 distance of
+    the one-process step in mean distance and within 1e-4 x its max |g|, as
     do the walk's and the head's weights of JAX's (the other leaves are
     not JAX's in one process either: held at 0.1 x max |g|; both by
     ``tests/test_torch_graph_shard.py::_assert_bf16_grads``). The ranks'

@@ -299,9 +299,9 @@ def test_sharded_step_matches_jax_sharded_step(runs, name):
     1e-4 x max |g|. In bf16 (JAX's padded scan's rounding) the gradients
     are held by :func:`_assert_bf16_grads` against JAX's bf16 sharded
     step: JAX's partitioner sums the dp ranks' float32 cotangents before
-    the bf16 roundings, and the port's ``dp_train_step`` gathers them
-    before the backward (F4), so the walk's leaves and the head's weights
-    are held at F4's bound; before that repair each rank rounded its own
+    the bf16 roundings, and the port's ``dp_train_step`` backpropagates
+    the whole batch on every rank (F4), so the walk's leaves and the
+    head's weights are held at F4's bound; before that repair each rank rounded its own
     cotangents, which moved the walk's leaves by up to 5% and
     ``mlp_fuse``'s second weight by 21% of JAX's bf16-to-float32
     distance."""

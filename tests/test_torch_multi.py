@@ -31,13 +31,14 @@ batch row holds a design's own path ids, padded with id 0 and mask 0.
 - The design-sharded step at dp 2 (two gloo ranks in one child run,
   ``tests/_torch_multi_child.py``, started while JAX compiles) against
   JAX's step with ``mesh=make_mesh(2)``: float32 at the bounds above and
-  against the port's unsharded step, bf16 at the bf16 bounds; every
-  rank's parameters stay equal.
+  against the port's unsharded step, bf16 at the bf16 bounds, without
+  and with the layout CNN (every gradient outside the walk the ranks'
+  bf16 gradients summed and rounded again, as JAX's); every rank's
+  parameters stay equal.
 - The U-Net refused with JAX's message; K not divisible by the mesh, and
   designs JAX cannot stack, refused.
 """
 
-import dataclasses
 import functools
 import os
 import pickle
@@ -68,7 +69,8 @@ from prtp_tpu_torch.models import PathModel, TimeGNN
 from prtp_tpu_torch.ops import KERNELS
 from prtp_tpu_torch.ops.bf16 import BF16, column_sums_bf16
 from prtp_tpu_torch.parallel import Mesh
-from prtp_tpu_torch.parallel.multi import (multidesign_eval_step,
+from prtp_tpu_torch.parallel.multi import (entry_losses,
+                                           multidesign_eval_step,
                                            multidesign_train_step)
 from prtp_tpu_torch.trainer import init_state, make_optimizer, train_step
 from prtp_tpu_torch.utils.convert import params_from_flax
@@ -227,13 +229,13 @@ def _mesh(sharded):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_eval(name, dtype=None, sharded=False):
+def _jax_eval(name, dtype=None):
     """JAX's ``make_multidesign_eval_step`` at the init: ``(preds,
     metrics)`` as numpy values."""
     params = jax.tree_util.tree_map(jnp.asarray, _init(name))
     ids, mask = (jnp.asarray(x) for x in _batch(_designs()))
     step = jmulti.make_multidesign_eval_step(_jax_model(name, dtype),
-                                             _task(name), _mesh(sharded))
+                                             _task(name))
     preds, mets = step(_jax_state(params, optax.sgd(1.0)), _jax_stack(dtype),
                        ids, mask)
     return np.asarray(preds), {k: float(v) for k, v in mets.items()}
@@ -276,10 +278,9 @@ def _port(name, dtype=None):
     model.load_state_dict(params_from_flax(_init(name)))
     state = init_state(model, make_optimizer(LR), "cpu")
     stacked = stack_designs(
-        [pack_design(p, map_size=16, device="cpu",
-                     compute_dtype=torch.bfloat16 if dtype else torch.float32,
-                     segment=kw.get("gnn_reduce") == "segment")
-         for p in _designs()], align=ALIGN)
+        _designs(), align=ALIGN, map_size=16, device="cpu",
+        compute_dtype=torch.bfloat16 if dtype else torch.float32,
+        segment=kw.get("gnn_reduce") == "segment")
     ids, mask = (torch.from_numpy(x) for x in _batch(_designs()))
     return model, state, stacked, ids, mask
 
@@ -360,7 +361,8 @@ def test_multidesign_loss_is_the_designs_masked_mean():
     model, state, stacked, ids, mask = _port("reg")
     _preds, mets = multidesign_eval_step(model, stacked, ids, mask)
     total = 0.0
-    for design, row, m in zip(stacked.designs, ids, mask):
+    for parsed, row, m in zip(_designs(), ids, mask):
+        design = pack_design(parsed, map_size=16, device="cpu")
         total += float(port_test.evaluate(model, design, row, m)[1]["loss"]) \
             * float(m.sum())
     np.testing.assert_allclose(float(mets["loss"]),
@@ -439,7 +441,7 @@ def test_grid_stacked_walk_is_jax_vmapped_scan_bit_for_bit(block, reduce):
     fewer pairs runs padded pairs there): h, the twelve MLP gradients and
     h0's cotangent, 0 elements different. Where the bucket's levels are
     longer than a window, summing the bias gradients over the
-    super-graph's levels as one design's differs. ``segment``: the same
+    super-graph's levels as one design's (on its own bucket) differs. ``segment``: the same
     with the segment reduce (JAX's ``reduce_mode="segment"``)."""
     levels, align = GRID_BLOCKS[block]
     designs = _grid_designs(levels)
@@ -483,7 +485,7 @@ def test_grid_stacked_walk_is_jax_vmapped_scan_bit_for_bit(block, reduce):
         graph, rows, n_rows = pack_leveled_graph_exact(
             merged, "cpu", compute_dtype=torch.bfloat16, scan_rows=scan_rows,
             segment=reduce == "segment")
-        graph = dataclasses.replace(graph, stacked=True)  # StackedDesigns'
+        assert graph.stacked
         model = TimeGNN(10, 3, torch.Generator().manual_seed(0),
                         out_dim=OUT, hidden_dim=32, mlp_dtype="bfloat16",
                         reduce_mode=reduce)
@@ -515,7 +517,8 @@ def test_grid_stacked_walk_is_jax_vmapped_scan_bit_for_bit(block, reduce):
     for key in want:
         np.testing.assert_array_equal(grads[key], want[key], err_msg=key)
     if max(rows_pn) > 32:  # the windows cut each design's rows
-        _h, _d, unpadded = port(None)
+        _h, _d, unpadded = port(stack_level_rows(
+            [merged], scan_level_rows([merged], align)))
         assert any((unpadded[key] != want[key]).any()
                    for key in want if key.endswith("bias"))
 
@@ -537,11 +540,25 @@ def _load_jax_state(model, state, jstate):
         "count": int(opt["count"])})
 
 
+@functools.lru_cache(maxsize=None)
+def _no_cnn_f32_grads():
+    """The first gradients of the ``no_cnn`` model's float32 multi-design
+    step, the port's: within 6.3e-7 x max |g| of JAX's (measured; the
+    same walk and head as ``reg``'s, held against JAX in
+    :func:`test_multidesign_steps_match_jax`), which moves a leaf's
+    bf16-to-float32 distance by 2.5e-5 of itself."""
+    _model, state, stacked, ids, mask = _port("no_cnn")
+    multidesign_train_step(state, stacked, ids, mask)
+    return {k: p.grad.numpy().copy()
+            for k, p in state.model.named_parameters()}
+
+
 def _f32_gaps(want16):
     """JAX's bf16-to-float32 distance of each leaf of the ``no_cnn``
-    model's first gradients (its float32 twin: the design-sharded run's,
-    equal to one device's to float32 rounding)."""
-    want32 = _jax_steps("no_cnn", None, True, 1)[2]
+    model's first gradients, its float32 side the float32 step's
+    (:func:`_no_cnn_f32_grads`; one device's and the design-sharded
+    step's agree to float32 rounding)."""
+    want32 = _no_cnn_f32_grads()
     return {key: float(np.abs(np.asarray(w, np.float64) - np.asarray(
         want32[key], np.float64)).mean()) for key, w in want16.items()}
 
@@ -596,15 +613,70 @@ def test_bf16_multidesign_matches_jax(name):
 # ---- the design-sharded step at dp 2 ----
 
 # per case: the model and its compute dtype
-SHARDED = {"f32": ("reg", None), "bf16": ("no_cnn", "bfloat16")}
+SHARDED = {"f32": ("reg", None), "bf16": ("no_cnn", "bfloat16"),
+           "bf16_cnn": ("reg", "bfloat16")}
+# each design-sharded rank's designs at dp 2
+BLOCKS = ((0, 2), (2, 4))
+
+
+def _jax_block_grads(name, dtype):
+    """``jax.jit(jax.grad(...))`` of each block's share of JAX's
+    multi-design loss at the init, a design-sharded device's gradient
+    before the sum: its designs' masked squared errors (vmapped, as
+    ``prtp_tpu/parallel/multi.py`` runs them) over the global count, as
+    ``metrics.mse_loss`` divides."""
+    model = _jax_model(name, dtype)
+    params = jax.tree_util.tree_map(jnp.asarray, _init(name))
+    stack = _jax_stack(dtype)
+    ids, mask = (jnp.asarray(x) for x in _batch(_designs()))
+    count = jnp.maximum(mask.sum(), 1.0)
+
+    def share(p, designs, ids, mask):
+        preds = jmulti._batched_forward(model, p, designs, ids)
+        endpoints = jax.vmap(lambda d, i: d.path_endpoint[i])(designs, ids)
+        arrival = jax.vmap(lambda d, e: d.arrival_time[e])(designs,
+                                                           endpoints)
+        return (((preds.reshape(-1) - arrival.reshape(-1)) ** 2)
+                * mask.reshape(-1)).sum() / count
+
+    grad = jax.jit(jax.grad(share))
+    return [params_from_flax(to_np(grad(
+        params, jax.tree_util.tree_map(lambda a: a[lo:hi], stack),
+        ids[lo:hi], mask[lo:hi]))) for lo, hi in BLOCKS]
+
+
+def _port_block_grads(name, dtype):
+    """The port's counterpart of :func:`_jax_block_grads`: each block's
+    share of the loss, as ``multidesign_train_step`` forms it on a rank
+    (the block's super-graph, the global count), backpropagated alone on
+    one thread, as the child's ranks run (the CPU's convolution weight
+    gradients add in another order on more)."""
+    model, state, stacked, ids, mask = _port(name, dtype)
+    count = mask.reshape(-1).float().sum().clamp_min(1.0)
+    grads, threads = [], torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for lo, hi in BLOCKS:
+            state.optimizer.zero_grad()
+            design, rows = stacked.rows(lo, hi, ids[lo:hi])
+            preds = model(design, rows, rounding="scan")
+            local = (entry_losses("reg", preds, design, rows)
+                     * mask[lo:hi].reshape(-1).float()).sum()
+            (local / count).backward()
+            grads.append({k: p.grad.clone()
+                          for k, p in model.named_parameters()})
+    finally:
+        torch.set_num_threads(threads)
+    return grads
 
 
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
-    """The child run of both cases (two gloo ranks, started first) and,
+    """The child run of every case (two gloo ranks, started first) and,
     computed here meanwhile, JAX's design-sharded step on a 2-device mesh
     (first gradients in float32 and bf16, the float32 steps and the
-    evaluation) and the port's unsharded float32 steps."""
+    evaluation), the port's unsharded float32 steps, and JAX's and the
+    port's per-block bf16 gradients of the model with its layout CNN."""
     tmp = str(tmp_path_factory.mktemp("multi"))
     cases = {name: dict(parsed=list(_designs()), task="reg", lr=LR,
                         model_kw=dict(_kw(model), compute_dtype=dtype),
@@ -622,7 +694,10 @@ def sharded(tmp_path_factory):
     try:
         ref = {"f32": _jax_steps("reg", sharded=True),
                "bf16": _jax_steps("no_cnn", jnp.bfloat16, True, 1),
-               "eval": _jax_eval("reg", sharded=True)}
+               "bf16_cnn": _jax_steps("reg", jnp.bfloat16, True, 1),
+               "eval": _jax_eval("reg"),
+               "jax_blocks": _jax_block_grads("reg", jnp.bfloat16),
+               "port_blocks": _port_block_grads("reg", "bfloat16")}
         _m, single, _s, ids, mask = _port("reg")
         ref["single"] = [float(multidesign_train_step(
             single, _s, ids, mask)["loss"]) for _ in range(STEPS)]
@@ -642,7 +717,8 @@ def sharded(tmp_path_factory):
 def test_design_sharded_step_matches_jax_sharded_step(sharded):
     """Each rank at dp 2 (2 designs a rank) against JAX's step with
     ``mesh=make_mesh(2)``: float32, the evaluation's predictions and
-    metrics (1e-5), the first gradients (2e-4 x max |g|), STEPS steps'
+    metrics (1e-5, against JAX's unsharded eval step, whose sharded run
+    equals it to float32 rounding), the first gradients (2e-4 x max |g|), STEPS steps'
     losses and metrics and the final parameters; bf16 (the model without
     its layout CNN, ``NO_CNN``), the first step's loss (rtol 1e-5) and
     gradients, against JAX's design-sharded bf16 step, which sums each
@@ -671,6 +747,44 @@ def test_design_sharded_step_matches_jax_sharded_step(sharded):
                                    rtol=1e-5)
         _assert_bf16_grads(out["grads"], want16, _f32_gaps(want16),
                            "sharded bf16", _tight_vs_jax)
+
+
+def test_design_sharded_bf16_rounds_the_ranks_sum(sharded):
+    """The bf16 model with its layout CNN (``reg``) at dp 2: every
+    gradient outside the walk (the layout CNN, ``fcn``, ``mlp_alpha``,
+    ``mlp_fuse``) is the sum over the ranks of each rank's bf16 gradient
+    of its designs' share of the loss, rounded to bf16 again. JAX's
+    ``mesh=make_mesh(2)`` step computes that: within 1e-6 x max |g| of
+    the rounded sum of its per-block gradients (:func:`_jax_block_grads`;
+    the first-moment readback errs by 1e-7), while the unrounded sum
+    lies over 100 x that bound away (3e-4 to 3e-3 x, measured). The port
+    computes it bit for bit from its own per-block gradients. The walk's
+    leaves are summed pair by pair inside the scan (held on the CNN-free
+    model above). Against JAX's step, whose compiled bf16 CNN is not the
+    port's, every leaf within 0.1 x max |g| and the loss at
+    BF16_LOSS_RTOL, :func:`test_bf16_multidesign_matches_jax`'s bounds
+    for this model."""
+    want_mets, _states, want = sharded["bf16_cnn"]
+    jax_blocks, port_blocks = sharded["jax_blocks"], sharded["port_blocks"]
+    ranks = sharded["ranks"]["bf16_cnn"]
+    for key, w in want.items():
+        if key.startswith("gnn."):
+            continue
+        w = np.asarray(w, np.float64)
+        bound = 1e-6 * (np.abs(w).max() or 1.0)
+        total = jax_blocks[0][key] + jax_blocks[1][key]
+        np.testing.assert_allclose(total.to(BF16).double().numpy(), w,
+                                   rtol=0, atol=bound, err_msg=f"JAX {key}")
+        assert np.abs(total.double().numpy() - w).max() > 100 * bound, key
+        mine = (port_blocks[0][key] + port_blocks[1][key]).to(BF16).float()
+        for out in ranks:
+            np.testing.assert_array_equal(out["grads"][key], mine.numpy(),
+                                          err_msg=f"port {key}")
+    for out in ranks:
+        np.testing.assert_allclose(out["losses"][0], want_mets[0]["loss"],
+                                   rtol=BF16_LOSS_RTOL)
+        _assert_bf16_grads(out["grads"], want, {}, "sharded bf16 cnn",
+                           lambda key: False)
 
 
 @pytest.mark.parametrize("name", list(SHARDED))
@@ -722,30 +836,24 @@ def test_design_axis_not_divisible_by_the_mesh_is_refused():
 
 
 def _refused(what):
-    """Two designs JAX cannot stack, packed by the port."""
+    """Two parsed designs JAX cannot stack."""
     a, b = _designs()[:2]
-    pack = functools.partial(pack_design, map_size=16, device="cpu")
     if what == "feature widths":
         b = dict(b, cell_feat=np.concatenate(
             [b["cell_feat"], b["cell_feat"][:, :1]], axis=1))
     if what == "raster shape":
         b = dict(b, cnn_input=b["cnn_input"][:, :32, :32])
-    if what == "segment tables":
-        return [pack(a), pack(b, segment=True)]
-    if what == "dtype":
-        return [pack(a), pack(b, compute_dtype=torch.bfloat16)]
     if what == "merged":
-        return [pack(a), pack(merge_parsed_designs([a, b]))]
-    return [pack(a), pack(b)]
+        b = merge_parsed_designs([a, b])
+    return [a, b]
 
 
 @pytest.mark.parametrize("what", ["feature widths", "raster shape",
-                                  "segment tables", "dtype", "merged"])
+                                  "merged"])
 def test_stack_designs_refuses_what_jax_cannot_stack(what):
-    """``stack_designs`` refuses designs of other feature widths, raster
-    shapes, compute dtypes, segment tables in one only (JAX: "designs
-    must share a treedef", or ``jnp.stack``'s shape error), and a merged
-    super-graph."""
+    """``stack_designs`` refuses designs of other feature widths or raster
+    shapes (JAX: "designs must share a treedef", or ``jnp.stack``'s shape
+    error) and a merged super-graph."""
     with pytest.raises(ValueError, match="merged super-graph" if
                        what == "merged" else what):
-        stack_designs(_refused(what))
+        stack_designs(_refused(what), device="cpu")
