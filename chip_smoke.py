@@ -7,7 +7,7 @@ Phases, each failing loudly (nonzero exit) on any error:
 
 1. Print the card (``nvidia-smi`` name, power limit and compute mode),
    the torch and CUDA versions; turn TF32 off for matmuls and convolutions (the port's
-   float32, as the CLIs set it themselves) for phases 2-6 and 8-13.
+   float32, as the CLIs set it themselves) for phases 2-6 and 8-15.
 2. Build every CUDA kernel of the path from ``prtp_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once.
 3. Build and pack two designs: the bench headline (80k nodes, 20
@@ -251,6 +251,22 @@ Phases, each failing loudly (nonzero exit) on any error:
    design-sharded: one NCCL rank against the unsharded step (DP_TOL),
    two gloo processes on ``cuda:0`` with 4 designs each (DP_TOL_2, the
    ranks' checksums equal).
+15. The graft-style entry and the results pack (:func:`entry_phase`):
+   (a) ``__graft_entry_torch__.entry()``'s forward (the small flagship
+   at full width, 32 paths) and the full flagship's
+   (``_flagship(small=False)``: 38,912 nodes in 8 levels, 1,350 paths,
+   a 2 x 512 x 512 raster), each on the card with the launch counters
+   zeroed just before and read just after (each kernel as the walk's
+   tables say) and on the CPU (plain versions) at rtol/atol
+   FLAGSHIP_TOL, each forward timed (device time, and as launched); (b)
+   ``dryrun_multichip(DRYRUN_RANKS)``: on one card a ``(4, 2)`` mesh of
+   gloo ranks sharing it, its segment step held against ``train_step``
+   on every rank (its match line printed), timed with the processes'
+   start; not run, and said so, where the card's compute mode is
+   exclusive; (c) ``scripts/results_pack_torch.py --epochs PACK_EPOCHS
+   --configs`` PACK_CONFIGS into a temporary directory: every summary
+   must parse, with finite losses and metrics, and RESULTS.md must be
+   written; timed.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -342,6 +358,9 @@ DP_CLI_RTOL = 1e-5  # (c): the --dp CLIs' printed values against without
 # F4_MEAN x its bf16-to-float32 distance in mean distance and F4_MAX x its
 # max |g| (tests/test_torch_graph_shard.py's bound)
 F4_MEAN, F4_MAX = 1e-3, 1e-4
+FLAGSHIP_TOL = 1e-4  # phase 15 (a): the flagship forwards, card vs cpu
+DRYRUN_RANKS = 8  # phase 15 (b): a (4, 2) mesh
+PACK_EPOCHS, PACK_CONFIGS = 3, ("reg_fusion", "reg_fusion_unet")
 # phase 11: the segment reduce's train steps a run, and the ranks of its
 # (1, GP_RANKS) edge-sharded mesh on one card
 SEG_STEPS, GP_RANKS = 3, 2
@@ -6004,6 +6023,127 @@ def multi_phase(torch, np, dev, smi, shared, compute_mode) -> dict:
     return launches
 
 
+def flagship_forward(torch, graft, small, device):
+    """Phase 15 (a)'s forward on ``device``: ``entry()``'s (the small
+    flagship, its first 32 paths), or the full flagship's over all its
+    paths, in eval mode. Returns ``(forward, graph)``."""
+    if small:
+        fn, args = graft.entry(device=device)
+        return (lambda: fn(*args)), args[1].graph
+    model, design, _parsed = graft._flagship(small=False, device=device)
+    model.eval()
+    ids = torch.arange(design.num_paths, device=design.path_endpoint.device)
+
+    def forward():
+        with torch.no_grad():
+            return model(design, ids)
+
+    return forward, design.graph
+
+
+def entry_phase(torch, np, dev, smi, compute_mode) -> dict:
+    """Phase 15: ``__graft_entry_torch__``'s forwards and dry run, and a
+    short run of ``scripts/results_pack_torch.py`` (module doc). Returns
+    the forwards' launch counts."""
+    import tempfile
+
+    import __graft_entry_torch__ as graft
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {}
+    timer = Timer(torch, dev)
+    for small, what in ((True, "serve flagship entry()"),
+                        (False, "serve flagship full")):
+        t0 = time.perf_counter()
+        forward, graph = flagship_forward(torch, graft, small, DEVICE)
+        build_s = time.perf_counter() - t0
+        per = launches_per_forward(graph)
+        torch.cuda.synchronize()
+        _zero_launches()
+        got = forward()
+        torch.cuda.synchronize()
+        launches[what] = _read_launches()
+        check_launches(f"phase 15 (a): {what}", launches[what], per, 1)
+        got = got.cpu().numpy()
+        forward_cpu, _g = flagship_forward(torch, graft, small, "cpu")
+        t0 = time.perf_counter()
+        want = forward_cpu().numpy()
+        cpu_s = time.perf_counter() - t0
+        del forward_cpu, _g
+        if got.shape != want.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"phase 15 (a): {what}: {got.shape} "
+                                 f"against {want.shape}, finite "
+                                 f"{np.isfinite(got).all()}")
+        diff = float(np.abs(got - want).max())
+        np.testing.assert_allclose(got, want, rtol=FLAGSHIP_TOL,
+                                   atol=FLAGSHIP_TOL,
+                                   err_msg=f"phase 15 (a): {what} vs cpu")
+        dev_ms = timer.ms(forward, queue_ms=50)
+        launched_ms = timer.ms(forward, queue_ms=0)
+        log(f"phase 15 (a): {what}: {graph.num_pairs} level pairs, "
+            f"{got.shape[0]} paths; built and packed in {build_s:.2f} s; "
+            f"card vs cpu max abs diff {diff:.3g} (rtol/atol "
+            f"{FLAGSHIP_TOL}): ok; forward device time {dev_ms:.3f} ms, as "
+            f"launched {launched_ms:.3f} ms (cpu {cpu_s * 1e3:.1f} ms)  "
+            f"[{smi}]")
+        del forward, graph, got
+    del timer
+    torch.cuda.empty_cache()
+
+    if ("exclusive" in compute_mode.lower()
+            and torch.cuda.device_count() < DRYRUN_RANKS):
+        log(f"phase 15 (b): the card's compute mode is {compute_mode}: it "
+            f"admits one process, so {DRYRUN_RANKS} ranks cannot share it; "
+            "not run")
+    else:
+        t0 = time.perf_counter()
+        result = graft.dryrun_multichip(DRYRUN_RANKS)
+        wall = time.perf_counter() - t0
+        if not result["matched"]:
+            raise AssertionError(f"phase 15 (b): no 2-D step: {result}")
+        log(f"phase 15 (b): dryrun_multichip({DRYRUN_RANKS}): mesh "
+            f"{result['mesh']} over {result['backend']}, loss "
+            f"{result['loss']:.6f}, gradients within {result['grad_gap'][0]:.3g}"
+            f" x their allowance ({result['grad_gap'][1] or 'every leaf equal'}"
+            f"); {wall:.1f} s with the processes' start  [{smi}]")
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="prtp_pack_") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(repo, "scripts",
+                                          "results_pack_torch.py"),
+             "--epochs", str(PACK_EPOCHS), "--configs", *PACK_CONFIGS,
+             "--work", os.path.join(tmp, "work"), "--out",
+             os.path.join(tmp, "out")],
+            capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 15 (c): the pack exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        for name in PACK_CONFIGS:
+            with open(os.path.join(tmp, "out", name, "summary.json")) as f:
+                summ = json.load(f)
+            nums = [summ["first_loss"], summ["last_loss"],
+                    *summ["final"].values()]
+            if (summ["epochs"] != PACK_EPOCHS or not summ["steps"]
+                    or not np.all(np.isfinite(nums))):
+                raise AssertionError(f"phase 15 (c): {name}: {summ}")
+            log(f"phase 15 (c): pack {name}, {PACK_EPOCHS} epochs: "
+                f"{summ['steps']} batches, loss {summ['first_loss']} -> "
+                f"{summ['last_loss']}, final {summ['final']}; train "
+                f"{summ['train_s']} s, eval {summ['eval_s']} s "
+                f"[{summ['device']}]")
+        if not os.path.exists(os.path.join(tmp, "out", "RESULTS.md")):
+            raise AssertionError("phase 15 (c): no RESULTS.md")
+    log(f"phase 15 (c): the pack of {len(PACK_CONFIGS)} configs, corpora "
+        f"built, in {wall:.1f} s  [{smi}]")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6271,6 +6411,9 @@ def main() -> int:
     # ---- phase 14: the multi-design step ----
     launches.update(multi_phase(torch, np, dev, smi, merged_shared,
                                 compute_mode))
+
+    # ---- phase 15: the graft-style entry and the results pack ----
+    launches.update(entry_phase(torch, np, dev, smi, compute_mode))
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

@@ -1,0 +1,363 @@
+"""Train-to-convergence results pack of the PyTorch/CUDA port.
+
+The counterpart of ``scripts/results_pack.py`` on ``prtp_tpu_torch``:
+the same seven configurations (``CONFIGS``), corpora (``CORPORA``),
+flags (``BASE``) and 150-epoch default, driven through the port's CLIs
+(``prtp_tpu_torch.train`` / ``prtp_tpu_torch.test``, each in a clean
+child process with the device passed to its ``main(argv, device=...)``)
+on synthetic corpora built by the port's ``data.synthetic`` and
+``data.generate``. Writes ``<out>/<config>/{summary.json, predict.txt,
+config.json, visual/}`` and ``<out>/RESULTS.md``, which sets each
+config's final row beside the JAX package's committed one
+(``results/<config>/summary.json``, read as data) and names the device
+and its power limit beside every time. Each config's summary is also
+printed on stdout, one JSON line.
+
+Usage:  python scripts/results_pack_torch.py [--device cuda|cpu]
+        [--work DIR] [--out DIR] [--epochs N] [--configs NAME ...]
+
+The default device is ``cuda``: without a card the pack raises.
+"""
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_RESULTS = os.path.join(REPO, "results")
+
+BASE = ["--cnn_outdim", "8", "--out_dim", "16", "--hidden_dim", "32",
+        "--batch_size", "64", "--learning_rate", "3e-3",
+        "--cell_feat_dim", "13", "--net_feat_dim", "3"]
+
+# the reference's 14-design corpus names ('ae18' is 'ae18core': the
+# generate CLI skips a raw directory named 'ae18', as the reference does)
+TOP14 = ("darkriscv", "sha3", "smallboom", "rocket", "xgate", "ae18core",
+         "or1200", "hwacha", "steelcore", "tinyrocket", "chacha",
+         "arm9", "r8051", "jpeg")
+
+# (name, corpus, extra CLI flags). Corpus 'L': 2-channel 64px rasters ->
+# LayoutNet's /4 pooling gives 16x16 maps. Corpus 'U': 3-channel 128px
+# rasters -> the U-Net's /2 gives 64x64 maps. Corpus 'L14': the 14
+# reference design names at different sizes.
+CONFIGS = [
+    ("reg_fusion", "L", []),
+    ("reg_gnn_only", "L", ["--no_cnn"]),
+    ("reg_cnn_only", "L", ["--no_gnn"]),
+    ("reg_fusion_attn", "L", ["--attn"]),
+    ("reg_fusion_unet", "U", ["--unet"]),
+    ("cls_fusion", "L", ["--task", "cls", "--nlabels", "2"]),
+    ("reg_fusion_14", "L14", []),
+]
+
+CORPORA = {
+    "L": dict(cnn_channels=2, cnn_hw=64, map_size=16),
+    "U": dict(cnn_channels=3, cnn_hw=128, map_size=64),
+    "L14": dict(cnn_channels=2, cnn_hw=64, map_size=16, designs=TOP14),
+}
+
+# a config misses convergence where (its findings, RESULTS.md):
+R2_SLACK = 0.05      # a reg config's final R2 below the JAX package's less this
+LOSS_SHARE = 0.01    # its last per-batch loss not below this x its first
+
+METRICS = ("loss", "r2", "acc", "recall", "precision", "f1")
+
+_CHILD = ("import sys\nfrom prtp_tpu_torch import {mod}\n"
+          "{mod}.main(sys.argv[1:], device={device!r})\n")
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def device_line(device) -> str:
+    """The device every time of the pack was taken on: a card's name and
+    power limit as ``nvidia-smi`` gives them, or the CPU."""
+    if not device.startswith("cuda"):
+        return "CPU (plain PyTorch versions)"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _run(cmd, timeout):
+    proc = subprocess.run(cmd, env=_env(), cwd=REPO, timeout=timeout,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{' '.join(cmd[:3])} ... failed rc={proc.returncode}:\n"
+            + proc.stdout.decode()[-3000:])
+    return proc.stdout.decode()
+
+
+def run_cli(mod, args, device, timeout):
+    """The port's ``train`` or ``test`` CLI in a child process on
+    ``device``; returns its output."""
+    code = _CHILD.format(mod=mod, device=device)
+    return _run([sys.executable, "-c", code] + args, timeout)
+
+
+def build_corpus(work, kind):
+    from prtp_tpu_torch.data import synthetic
+
+    raw = os.path.join(work, f"raw_{kind}")
+    data = os.path.join(work, f"data_{kind}")
+    if os.path.exists(os.path.join(data, "traindata_list.txt")):
+        return data
+    cfg = CORPORA[kind]
+    # >= 30 paths a design: every 3rd synthetic path is critical and the
+    # val split takes 1/5 of each class, so val keeps some criticals
+    # (the cls task's best-F1 checkpoint needs them)
+    synthetic.generate_corpus(
+        raw, designs=cfg.get("designs", ("syn_a", "syn_b", "syn_c")),
+        num_paths=30, depth=5,
+        cnn_channels=cfg["cnn_channels"], cnn_hw=cfg["cnn_hw"])
+    _run([sys.executable, "-m", "prtp_tpu_torch.data.generate",
+          "--rawdata_path", raw, "--data_save_path", data,
+          "--map_size", str(cfg["map_size"])], timeout=600)
+    return data
+
+
+_VAL_RE = re.compile(r"\toverall r2:([-\d.]+), rc:([-\d.]+), F1:([-\d.]+)")
+_BATCH_RE = re.compile(
+    r"e(\d+),\S+,b\d+/\d+, l:([-\d.]+), r2:([-\d.]+), r:[-\d.]+, "
+    r"F1:([-\d.]+)")
+_BATCH_LINE = re.compile(r"^e\d+,\S+,b\d+/\d+, ", re.M)
+
+
+def parse_curve(stdout_log):
+    """(batch lines, val rows) from a train ``stdout.log``: each batch
+    line ``(epoch, loss, r2)``, each validation ``(r2, recall, F1)``.
+    Raises where a batch line does not parse (a diverged run prints
+    ``l:nan``) or there is none."""
+    with open(stdout_log) as f:
+        text = f.read()
+    batches = [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
+               for m in _BATCH_RE.finditer(text)]
+    lines = len(_BATCH_LINE.findall(text))
+    if not batches or len(batches) != lines:
+        raise ValueError(f"{stdout_log}: {len(batches)} of {lines} batch "
+                         "lines hold numbers")
+    vals = [(float(m.group(1)), float(m.group(2)), float(m.group(3)))
+            for m in _VAL_RE.finditer(text)]
+    return batches, vals
+
+
+def run_config(name, data, map_size, extra, epochs, out_root, device):
+    mdl = os.path.join(out_root, name)
+    shutil.rmtree(mdl, ignore_errors=True)
+    args = (["--data_save_path", data, "--model_saving_dir", mdl,
+             "--map_size", str(map_size), "--num_epoch", str(epochs),
+             "--val_interval", "50"] + BASE + extra)
+    t0 = time.time()
+    log(f"--- {name}: train ({epochs} epochs) on {device}")
+    run_cli("train", args, device, timeout=7200)
+    t_train = time.time() - t0
+    t0 = time.time()
+    log(f"--- {name}: eval on {device}")
+    eval_out = run_cli("test", args, device, timeout=1200)
+    t_eval = time.time() - t0
+    runtimes = [float(m) for m in
+                re.findall(r"case \d+, runtime: ([\d.e-]+)", eval_out)]
+    batches, vals = parse_curve(os.path.join(mdl, "stdout.log"))
+    with open(os.path.join(mdl, "predict.txt")) as f:
+        final = [float(x) for x in f.read().strip().splitlines()[-1].split()]
+    return dict(name=name, flags=" ".join(extra) or "(default)",
+                steps=len(batches), train_s=round(t_train, 1),
+                eval_s=round(t_eval, 1),
+                eval_runtimes=[round(t, 4) for t in runtimes],
+                first_loss=batches[0][1], last_loss=batches[-1][1],
+                curve=vals, final=dict(zip(METRICS, final)),
+                model_dir=mdl)
+
+
+def jax_row(name):
+    """The JAX package's committed summary of ``name``, or None."""
+    path = os.path.join(JAX_RESULTS, name, "summary.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def findings(r, jax) -> list:
+    """Where a config misses convergence: a reg config's final R2 more
+    than R2_SLACK below JAX's, its last per-batch loss not below
+    LOSS_SHARE x its first, ``cls`` F1 below JAX's."""
+    out = []
+    f = r["final"]
+    if not r["last_loss"] < LOSS_SHARE * r["first_loss"]:
+        out.append(f"per-batch loss {r['first_loss']:.3f} -> "
+                   f"{r['last_loss']:.3f}, not below {LOSS_SHARE:g} x the "
+                   "first")
+    if jax is None:
+        return out
+    if r["name"].startswith("reg") and not (
+            f["r2"] >= jax["final"]["r2"] - R2_SLACK):
+        out.append(f"R2 {f['r2']:.3f} against JAX's "
+                   f"{jax['final']['r2']:.3f}")
+    if r["name"].startswith("cls") and not f["f1"] >= jax["final"]["f1"]:
+        out.append(f"F1 {f['f1']:.3f} against JAX's "
+                   f"{jax['final']['f1']:.3f}")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--work", default=os.path.join(
+        tempfile.gettempdir(), "prtp_results_torch_work"))
+    ap.add_argument("--out", default=os.path.join(REPO, "results_torch"))
+    ap.add_argument("--epochs", type=int, default=150)
+    ap.add_argument("--configs", nargs="+", default=None,
+                    help="subset of config names to run")
+    args = ap.parse_args(argv)
+    known = {name for name, _k, _e in CONFIGS}
+    if args.configs and set(args.configs) - known:
+        raise SystemExit(f"unknown configs {set(args.configs) - known}")
+    sys.path.insert(0, REPO)
+    from prtp_tpu_torch import resolve_device
+    resolve_device(args.device)
+    where = device_line(args.device)
+    os.makedirs(args.work, exist_ok=True)
+    os.makedirs(args.out, exist_ok=True)
+
+    for name, kind, extra in CONFIGS:
+        if args.configs and name not in args.configs:
+            continue
+        data = build_corpus(args.work, kind)
+        r = run_config(name, data, CORPORA[kind]["map_size"], extra,
+                       args.epochs, args.work, args.device)
+        r.update(epochs=args.epochs, device=where)
+        keep = os.path.join(args.out, name)
+        shutil.rmtree(keep, ignore_errors=True)
+        os.makedirs(keep, exist_ok=True)
+        for art in ("predict.txt", "config.json"):
+            src = os.path.join(r["model_dir"], art)
+            if os.path.exists(src):
+                shutil.copy(src, keep)
+        vis = os.path.join(r["model_dir"], "visual")
+        if os.path.isdir(vis):
+            shutil.copytree(vis, os.path.join(keep, "visual"))
+        summary = {k: v for k, v in r.items() if k != "model_dir"}
+        with open(os.path.join(keep, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        print(json.dumps(summary), flush=True)
+        log(f"--- {name}: final {r['final']}")
+
+    rows = []
+    for name, _kind, _extra in CONFIGS:
+        summ = os.path.join(args.out, name, "summary.json")
+        if os.path.exists(summ):
+            with open(summ) as f:
+                rows.append(json.load(f))
+    write_results_md(args.out, rows)
+    print(json.dumps({r["name"]: r["final"] for r in rows}), flush=True)
+
+
+def _row(label, f):
+    return (f"| {label} | {f['loss']:.3f} | {f['r2']:.3f} | {f['acc']:.3f} "
+            f"| {f['recall']:.3f} | {f['precision']:.3f} | {f['f1']:.3f} |")
+
+
+def write_results_md(out, rows):
+    lines = [
+        "# RESULTS (port) — train-to-convergence pack on prtp_tpu_torch",
+        "",
+        "Produced by `python scripts/results_pack_torch.py`, which drives",
+        "the port's CLIs (`prtp_tpu_torch.train` / `prtp_tpu_torch.test`,",
+        "each in a clean child process) on the synthetic corpora of",
+        "`scripts/results_pack.py` (`prtp_tpu_torch.data.synthetic`),",
+        "with its flags, configs and epochs. Each config's final row is",
+        "set beside the JAX package's committed one",
+        "(`results/<config>/summary.json`); the two start from different",
+        "random weights (a torch `Generator` against a JAX `PRNGKey`), so",
+        "their curves differ. Every time here is the port's, on the device",
+        "named beside it. This file is regenerated from the",
+        "`summary.json` files next to it; do not edit it by hand.",
+        "",
+        "## Final eval metrics (the `predict.txt` row of each config)",
+        "",
+        "| config, side | loss | R2 | acc | recall | precision | F1 |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    for r in rows:
+        jax = jax_row(r["name"])
+        lines.append(_row(f"{r['name']} `{r['flags']}`, port", r["final"]))
+        lines.append(_row(f"{r['name']}, JAX (results/)", jax["final"])
+                     if jax else f"| {r['name']}, JAX | no committed row "
+                     "| | | | | |")
+    lines += [
+        "",
+        "## Convergence",
+        "",
+        f"A config misses it where a reg config's final R2 lies more than "
+        f"{R2_SLACK} below JAX's, its last per-batch loss is not below "
+        f"{LOSS_SHARE} x its first, or `cls` has an F1 below JAX's.",
+        "",
+        "| config | epochs | batches | per-batch loss, first -> last | "
+        "misses |",
+        "|---|---|---|---|---|",
+    ]
+    for r in rows:
+        miss = findings(r, jax_row(r["name"]))
+        lines.append(f"| {r['name']} | {r.get('epochs', '?')} | "
+                     f"{r['steps']} | {r['first_loss']:.3f} -> "
+                     f"{r['last_loss']:.3f} | "
+                     f"{'; '.join(miss) or 'none'} |")
+    lines += [
+        "",
+        "## Times and learning curves",
+        "",
+        "Validation fires every 50 train batches and at each design's",
+        "last (`--val_interval 50`); its rows are (R2, recall, F1)",
+        "averaged over the designs' val splits.",
+        "",
+    ]
+    for r in rows:
+        lines.append(f"### {r['name']}  (`{r['flags']}`)")
+        lines.append("")
+        lines.append(f"- train: {r['steps']} batches"
+                     f" ({r.get('epochs', '?')} epochs) in {r['train_s']} s,"
+                     f" eval {r['eval_s']} s (each a child process, its"
+                     f" start included), on {r['device']}")
+        rts = r.get("eval_runtimes") or []
+        if rts:
+            lines.append(
+                f"- per-design eval runtime over {len(rts)} designs: "
+                f"mean {sum(rts) / len(rts):.4f} s, max {max(rts):.4f} s, "
+                f"min {min(rts):.4f} s, on {r['device']}")
+        lines.append("")
+        lines.append("| val # | R2 | recall | F1 |")
+        lines.append("|---|---|---|---|")
+        curve = r["curve"]
+        # first 3, every 5th, last 3
+        idx = sorted(set(list(range(min(3, len(curve))))
+                         + list(range(0, len(curve), 5))
+                         + list(range(max(0, len(curve) - 3), len(curve)))))
+        for i in idx:
+            v = curve[i]
+            lines.append(f"| {i} | {v[0]:.3f} | {v[1]:.3f} | {v[2]:.3f} |")
+        lines.append("")
+    with open(os.path.join(out, "RESULTS.md"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    log(f"wrote {os.path.join(out, 'RESULTS.md')}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,81 @@
+"""The port's results pack (``scripts/results_pack_torch.py``) on the CPU:
+a short run of one config writes its summary, predictions and a
+RESULTS.md row beside the JAX package's committed row; its log parser
+finds every batch line and refuses a log without numbers."""
+
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACK = os.path.join(REPO, "scripts", "results_pack_torch.py")
+EPOCHS, CONFIG = 2, "reg_fusion"
+
+_spec = importlib.util.spec_from_file_location("results_pack_torch", PACK)
+pack = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(pack)
+
+
+@pytest.fixture(scope="module")
+def pack_run(tmp_path_factory):
+    root = tmp_path_factory.mktemp("pack")
+    proc = subprocess.run(
+        [sys.executable, PACK, "--device", "cpu", "--epochs", str(EPOCHS),
+         "--configs", CONFIG, "--work", str(root / "work"), "--out",
+         str(root / "out")], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    return root, proc.stdout
+
+
+def test_pack_writes_summary_predictions_and_row_beside_jax(pack_run):
+    root, stdout = pack_run
+    keep = root / "out" / CONFIG
+    with open(keep / "summary.json") as f:
+        summary = json.load(f)
+    assert summary["name"] == CONFIG and summary["epochs"] == EPOCHS
+    assert summary["device"] == "CPU (plain PyTorch versions)"
+    assert sorted(summary["final"]) == sorted(pack.METRICS)
+    assert len(summary["eval_runtimes"]) == 3  # the corpus's 3 designs
+    assert json.loads(stdout.splitlines()[0]) == summary
+    rows = (keep / "predict.txt").read_text().strip().splitlines()
+    assert [float(x) for x in rows[-1].split()] == [
+        summary["final"][k] for k in pack.METRICS]
+    assert (keep / "config.json").exists()
+    md = (root / "out" / "RESULTS.md").read_text()
+    with open(os.path.join(REPO, "results", CONFIG, "summary.json")) as f:
+        jax = json.load(f)["final"]
+    assert pack._row(f"{CONFIG} `(default)`, port", summary["final"]) in md
+    assert pack._row(f"{CONFIG}, JAX (results/)", jax) in md
+    assert f"on {summary['device']}" in md
+
+
+def test_parse_curve_finds_every_batch_line(pack_run):
+    root, _stdout = pack_run
+    log = root / "work" / CONFIG / "stdout.log"
+    batches, vals = pack.parse_curve(str(log))
+    text = log.read_text()
+    per_epoch = sum(int(n) for n in re.findall(r"^e0,\S+,b0/(\d+), ", text,
+                                               re.M))
+    assert per_epoch >= 3  # a batch or more a design
+    assert len(batches) == EPOCHS * per_epoch
+    assert sorted({e for e, _l, _r in batches}) == list(range(EPOCHS))
+    assert vals and all(len(v) == 3 for v in vals)
+
+
+@pytest.mark.parametrize("text", [
+    "e0,syn_a,b0/1, l:nan, r2:nan, r:0.000, F1:0.000\n",
+    "e0,syn_a,b0/1, l:1.000, r2:0.500, r:0.000, F1:0.000\n"
+    "e1,syn_a,b0/1, l:nan, r2:nan, r:0.000, F1:0.000\n",
+    "----------------Start training---------------\n",
+], ids=["nan", "nan_after_numbers", "no_batch_line"])
+def test_parse_curve_raises_without_numeric_batch_lines(tmp_path, text):
+    log = tmp_path / "stdout.log"
+    log.write_text(text)
+    with pytest.raises(ValueError, match="batch lines hold numbers"):
+        pack.parse_curve(str(log))
