@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (prtp_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases N [N ...]]
 
-Phases, each failing loudly (nonzero exit) on any error:
+Without ``--phases`` every phase runs. With it, phases 1 and 2 run, then
+only the phases named (3-15; phase 14 steps phase 9's designs, so it
+brings 9), then the kernels line, of the records of the phases run, and
+the last line. Phases, each failing loudly (nonzero exit) on any error:
 
 1. Print the card (``nvidia-smi`` name, power limit and compute mode),
    the torch and CUDA versions; turn TF32 off for matmuls and convolutions (the port's
@@ -263,10 +266,14 @@ Phases, each failing loudly (nonzero exit) on any error:
    gloo ranks sharing it, its segment step held against ``train_step``
    on every rank (its match line printed), timed with the processes'
    start; not run, and said so, where the card's compute mode is
-   exclusive; (c) ``scripts/results_pack_torch.py --epochs PACK_EPOCHS
-   --configs`` PACK_CONFIGS into a temporary directory: every summary
-   must parse, with finite losses and metrics, and RESULTS.md must be
-   written; timed.
+   exclusive; (c) :func:`pack_parity`: the train CLI of each of the
+   seven configs of ``scripts/results_pack_torch.py`` for PACK_EPOCHS
+   epoch, as the pack runs it (a child process), on the card and on the
+   CPU from the same corpus (built once a config's kind): the weights
+   each run starts from (the checkpoint the CLI writes at creation)
+   bit-equal, every step's loss and r2 within LOSS_RTOL (r2 as ``1 -
+   r2``), a ``cls`` run's F1s equal; each config's first and last loss
+   on both devices printed; timed.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -360,7 +367,9 @@ DP_CLI_RTOL = 1e-5  # (c): the --dp CLIs' printed values against without
 F4_MEAN, F4_MAX = 1e-3, 1e-4
 FLAGSHIP_TOL = 1e-4  # phase 15 (a): the flagship forwards, card vs cpu
 DRYRUN_RANKS = 8  # phase 15 (b): a (4, 2) mesh
-PACK_EPOCHS, PACK_CONFIGS = 3, ("reg_fusion", "reg_fusion_unet")
+# phase 15 (c): each pack config's train CLI for PACK_EPOCHS, card and
+# cpu, PACK_WORKERS child processes at once
+PACK_EPOCHS, PACK_WORKERS = 1, 4
 # phase 11: the segment reduce's train steps a run, and the ranks of its
 # (1, GP_RANKS) edge-sharded mesh on one card
 SEG_STEPS, GP_RANKS = 3, 2
@@ -6042,11 +6051,10 @@ def flagship_forward(torch, graft, small, device):
 
 
 def entry_phase(torch, np, dev, smi, compute_mode) -> dict:
-    """Phase 15: ``__graft_entry_torch__``'s forwards and dry run, and a
-    short run of ``scripts/results_pack_torch.py`` (module doc). Returns
-    the forwards' launch counts."""
-    import tempfile
-
+    """Phase 15: ``__graft_entry_torch__``'s forwards and dry run, and the
+    train CLI of every config of ``scripts/results_pack_torch.py``, card
+    against CPU (module doc, :func:`pack_parity`). Returns the forwards'
+    launch counts."""
     import __graft_entry_torch__ as graft
 
     t_phase = time.perf_counter()
@@ -6109,42 +6117,166 @@ def entry_phase(torch, np, dev, smi, compute_mode) -> dict:
             f" x their allowance ({result['grad_gap'][1] or 'every leaf equal'}"
             f"); {wall:.1f} s with the processes' start  [{smi}]")
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="prtp_pack_") as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, os.path.join(repo, "scripts",
-                                          "results_pack_torch.py"),
-             "--epochs", str(PACK_EPOCHS), "--configs", *PACK_CONFIGS,
-             "--work", os.path.join(tmp, "work"), "--out",
-             os.path.join(tmp, "out")],
-            capture_output=True, text=True, timeout=900)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"phase 15 (c): the pack exited "
-                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-        for name in PACK_CONFIGS:
-            with open(os.path.join(tmp, "out", name, "summary.json")) as f:
-                summ = json.load(f)
-            nums = [summ["first_loss"], summ["last_loss"],
-                    *summ["final"].values()]
-            if (summ["epochs"] != PACK_EPOCHS or not summ["steps"]
-                    or not np.all(np.isfinite(nums))):
-                raise AssertionError(f"phase 15 (c): {name}: {summ}")
-            log(f"phase 15 (c): pack {name}, {PACK_EPOCHS} epochs: "
-                f"{summ['steps']} batches, loss {summ['first_loss']} -> "
-                f"{summ['last_loss']}, final {summ['final']}; train "
-                f"{summ['train_s']} s, eval {summ['eval_s']} s "
-                f"[{summ['device']}]")
-        if not os.path.exists(os.path.join(tmp, "out", "RESULTS.md")):
-            raise AssertionError("phase 15 (c): no RESULTS.md")
-    log(f"phase 15 (c): the pack of {len(PACK_CONFIGS)} configs, corpora "
-        f"built, in {wall:.1f} s  [{smi}]")
+    pack_parity(smi)
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
     return launches
 
 
-def main() -> int:
+def _pack_module():
+    """``scripts/results_pack_torch.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "results_pack_torch.py")
+    spec = importlib.util.spec_from_file_location("results_pack_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_PACK_LINE = re.compile(r"^(e\d+,\S+,b\d+/\d+), l:\S+, r2:\S+, r:\S+, "
+                        r"F1:(\S+)$", re.M)
+
+
+def _pack_gaps(name, task, card, cpu) -> tuple:
+    """Phase 15 (c): one config's train CLI on the card against on the
+    CPU. ``card`` and ``cpu`` are ``(state_dict, steps, printed)``: the
+    weights the CLI started from, its steps' metrics at full precision
+    and its printed batch lines ``(label, F1)``. Returns (mismatches, the
+    worst loss gap, the worst r2 gap), each gap relative: the loss's to
+    the larger loss, r2's to the larger ``1 - r2``, the residual's share
+    of the targets' variance, which the loss's rtol bounds."""
+    import torch
+
+    bad = []
+    w_card, w_cpu = card[0], cpu[0]
+    if sorted(w_card) != sorted(w_cpu):
+        bad.append(f"{name}: starting weights name other tensors: "
+                   f"{sorted(set(w_card) ^ set(w_cpu))}")
+    for key in sorted(set(w_card) & set(w_cpu)):
+        if not torch.equal(w_card[key], w_cpu[key]):
+            diff = (w_card[key].double() - w_cpu[key].double()).abs().max()
+            bad.append(f"{name}: starting weight {key} differs, card vs "
+                       f"cpu, by up to {float(diff):.6g}")
+    labels = [[lab for lab, _f1 in run[2]] for run in (card, cpu)]
+    if labels[0] != labels[1] or len(card[1]) != len(labels[0]) \
+            or len(cpu[1]) != len(labels[1]):
+        bad.append(f"{name}: batch lines differ: card {len(card[1])} steps "
+                   f"{labels[0]}, cpu {len(cpu[1])} steps {labels[1]}")
+        return bad, float("inf"), float("inf")
+    loss_gap = r2_gap = 0.0
+    for label, a, b, pa, pb in zip(labels[0], card[1], cpu[1], card[2],
+                                   cpu[2]):
+        gap = abs(a["loss"] - b["loss"]) / max(abs(a["loss"]),
+                                                abs(b["loss"]), 1e-30)
+        loss_gap = max(loss_gap, gap)
+        if gap > LOSS_RTOL:
+            bad.append(f"{name}: batch {label}: loss card {a['loss']!r} cpu "
+                       f"{b['loss']!r}, {gap:.3g} apart (rtol {LOSS_RTOL})")
+        gap = abs(a["r2"] - b["r2"]) / max(abs(1 - a["r2"]),
+                                            abs(1 - b["r2"]), 1e-30)
+        r2_gap = max(r2_gap, gap)
+        if gap > LOSS_RTOL:
+            bad.append(f"{name}: batch {label}: r2 card {a['r2']!r} cpu "
+                       f"{b['r2']!r}, {gap:.3g} of 1 - r2 apart (rtol "
+                       f"{LOSS_RTOL})")
+        counts = [[run[k] for k in ("tp", "fp", "tn", "fn")]
+                  for run in (a, b)]
+        if task == "cls" and (pa[1] != pb[1] or counts[0] != counts[1]):
+            bad.append(f"{name}: batch {label}: F1 card {pa[1]} cpu {pb[1]}"
+                       f" (tp, fp, tn, fn card {counts[0]}, cpu "
+                       f"{counts[1]})")
+    return bad, loss_gap, r2_gap
+
+
+def pack_parity(smi):
+    """Phase 15 (c): the train CLI of every config of
+    ``scripts/results_pack_torch.py`` (``CONFIGS``) for PACK_EPOCHS
+    epoch, as the pack runs it (a child process, ``run_train``), once on
+    the card and once on the CPU, each in a fresh model directory on the
+    config's corpus (``build_corpus``, each built once). The weights each
+    run starts from (its checkpoint at creation) must be bit-equal, and
+    every step's loss and r2 agree within LOSS_RTOL (r2 as ``1 - r2``),
+    a ``cls`` run's confusion counts and printed F1s equal. Raises on any
+    mismatch, naming the config, the batch and the two values."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    pack = _pack_module()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="prtp_pack_") as work:
+        kinds = sorted({kind for _n, kind, _e in pack.CONFIGS})
+        with ThreadPoolExecutor(len(kinds)) as pool:
+            data = dict(zip(kinds, pool.map(
+                lambda kind: pack.build_corpus(work, kind), kinds)))
+        corpora_s = time.perf_counter() - t0
+
+        def run(job):
+            name, kind, extra, device = job
+            mdl = os.path.join(work, f"{name}_{device}")
+            t1 = time.perf_counter()
+            trace = pack.run_train(mdl, pack.train_args(
+                data[kind], mdl, pack.CORPORA[kind]["map_size"], extra,
+                PACK_EPOCHS), device, timeout=900)
+            weights, steps = pack.read_trace(trace)
+            with open(os.path.join(mdl, "stdout.log")) as f:
+                printed = _PACK_LINE.findall(f.read())
+            return weights, steps, printed, time.perf_counter() - t1
+
+        # the longest runs (most designs) first
+        jobs = sorted(((name, kind, extra, device)
+                       for name, kind, extra in pack.CONFIGS
+                       for device in (DEVICE, "cpu")),
+                      key=lambda j: -len(pack.CORPORA[j[1]].get(
+                          "designs", ())))
+        with ThreadPoolExecutor(PACK_WORKERS) as pool:
+            runs = dict(zip(((j[0], j[3]) for j in jobs), pool.map(run, jobs)))
+    wall = time.perf_counter() - t0
+    bad = []
+    for name, _kind, extra in pack.CONFIGS:
+        card, cpu = runs[(name, DEVICE)], runs[(name, "cpu")]
+        task = "cls" if "cls" in extra else "reg"
+        found, loss_gap, r2_gap = _pack_gaps(name, task, card, cpu)
+        bad += found
+        n_w = sum(w.numel() for w in card[0].values())
+        start = ("DIFFER" if any("starting weight" in b for b in found)
+                 else "bit-equal")
+        log(f"phase 15 (c): {name}: {len(card[0])} starting tensors "
+            f"({n_w} values) {start}"
+            f"; {len(card[1])} steps; loss card {card[1][0]['loss']:.6g} -> "
+            f"{card[1][-1]['loss']:.6g}, cpu {cpu[1][0]['loss']:.6g} -> "
+            f"{cpu[1][-1]['loss']:.6g}; worst gap loss {loss_gap:.3g}, r2 "
+            f"{r2_gap:.3g} (rtol {LOSS_RTOL}); runs card {card[3]:.1f} s, "
+            f"cpu {cpu[3]:.1f} s; {len(found)} mismatches  [{smi}]")
+    for b in bad:
+        log(f"phase 15 (c): MISMATCH {b}")
+    if bad:
+        raise AssertionError(f"phase 15 (c): {len(bad)} mismatches, card vs "
+                             f"cpu; the first: {bad[0]}")
+    log(f"phase 15 (c): {len(pack.CONFIGS)} configs' train CLIs, card and "
+        f"cpu, {PACK_EPOCHS} epoch, {PACK_WORKERS} at once, corpora built "
+        f"in {corpora_s:.1f} s; {wall:.1f} s  [{smi}]")
+
+
+def parse_args(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Drive the PyTorch/CUDA port on one card (module doc).")
+    ap.add_argument(
+        "--phases", type=int, nargs="+", choices=range(3, 16),
+        metavar="N", help="run only these phases (3-15) after the build "
+        "(phase 2), then the kernels line and the last line; phase 14 "
+        "runs on phase 9's designs, so naming 14 runs 9. Without it every "
+        "phase runs")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    phases = set(range(3, 16) if args.phases is None else args.phases)
+    if 14 in phases:
+        phases.add(9)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6153,16 +6285,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
     import torch.nn.functional as F
-    from prtp_tpu_torch.data.random_design import (bench_level_sizes,
-                                                   make_random_design,
-                                                   with_prior_net_drivers)
-    from prtp_tpu_torch.graph import pack_design
-    from prtp_tpu_torch.models import PathModel
     from prtp_tpu_torch.ops import _build
-    from prtp_tpu_torch.test import evaluate
-    from prtp_tpu_torch.trainer import (batch_count, init_state,
-                                        iterate_batches, make_optimizer,
-                                        pad_batch)
+    from prtp_tpu_torch.trainer import make_optimizer
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -6200,6 +6324,40 @@ def main() -> int:
                  or "spill" in ln]
         log(f"  {name}: {info['seconds']:.1f} s; " + " | ".join(usage))
 
+    records, launches = [], {}
+    if phases & set(range(3, 15)):
+        records, launches = headline_phases(
+            torch, F, np, dev, tx, smi, compute_mode, early_writer,
+            empty_launch, phases)
+
+    # ---- phase 15: the graft-style entry and the results pack ----
+    if 15 in phases:
+        launches.update(entry_phase(torch, np, dev, smi, compute_mode))
+    for rec in records:
+        rec.launches = {what: c[rec.name] for what, c in launches.items()}
+    for rec in records:
+        log(f"  {rec.name}: launches {rec.launches}; {rec.summary()}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+
+    log(json.dumps({"kernels": [rec.as_json() for rec in records]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def headline_phases(torch, F, np, dev, tx, smi, compute_mode, early_writer,
+                    empty_launch, phases) -> tuple:
+    """Phases 3-14 of ``phases`` (module doc), which share the headline
+    and prior-row designs and the model built from seed 7. Returns the
+    kernels line's records and each run's launch counts."""
+    from prtp_tpu_torch.data.random_design import (bench_level_sizes,
+                                                   make_random_design,
+                                                   with_prior_net_drivers)
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.models import PathModel
+
+    records, launches = [], {}
     # ---- phase 3: designs, pack, kernels against plain versions ----
     t0 = time.perf_counter()
     sizes = bench_level_sizes(NODES, LEVELS, decay=DECAY)
@@ -6225,6 +6383,92 @@ def main() -> int:
     per_step = {name: launches_per_step(g) for name, g in graphs.items()}
     model_cpu = PathModel(CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
                           generator=torch.Generator().manual_seed(SEED))
+    num_paths = int(p0["num_paths"])
+    if 3 in phases:
+        records = kernels_phase(torch, F, dev, graphs, model_cpu, smi,
+                                early_writer, empty_launch)
+    del graphs
+
+    # ---- phase 4: the slice ----
+    if 4 in phases:
+        log("phase 4: full-width PathModel, 3 evaluation requests on the "
+            "headline and 1 on the prior-row design")
+        model = copy.deepcopy(model_cpu).to(dev)
+        launches.update({
+            f"serve {name}": serve(torch, np, model, model_cpu, p, name,
+                                   per_forward[name],
+                                   REQUESTS if name == "headline" else 1)
+            for name, p in parsed.items()})
+        del model
+        torch.cuda.empty_cache()
+
+    # ---- phase 5: where one request's and one train step's time goes ----
+    if 5 in phases:
+        profile_phase(torch, np, dev, parsed, model_cpu, num_paths)
+        torch.cuda.empty_cache()
+
+    # ---- phase 6: training ----
+    if 6 in phases:
+        launches.update(train_phase(torch, np, dev, tx, parsed, model_cpu,
+                                    per_step, num_paths))
+        torch.cuda.empty_cache()
+
+    # ---- phase 7: the CLIs ----
+    if 7 in phases:
+        launches.update(cli_phase(torch, np, dev, smi))
+
+    # ---- phase 8: the variants ----
+    if 8 in phases:
+        launches.update(variants_phase(torch, np, dev, smi,
+                                       parsed["headline"], sizes))
+        precision_turns(torch, np, parsed["headline"], dev, smi)
+
+    # ---- phase 9: the merged super-graph ----
+    if 9 in phases:
+        merged_launches, merged_shared = merged_phase(torch, np, dev, smi)
+        launches.update(merged_launches)
+
+    # ---- phase 10: data parallelism ----
+    if 10 in phases:
+        launches.update(dp_phase(torch, np, dev, smi, parsed["headline"],
+                                 compute_mode))
+
+    # ---- phase 11: the segment reduce and the (dp, gp) sharded step ----
+    if 11 in phases:
+        seg_records, seg_launches = segment_phase(
+            torch, np, dev, smi, parsed["headline"], compute_mode,
+            early_writer)
+        records += seg_records
+        launches.update(seg_launches)
+
+    # ---- phase 12: --attn under the segment reduce ----
+    if 12 in phases:
+        attn_records, attn_launches = segment_attn_phase(
+            torch, np, dev, smi, parsed["headline"], compute_mode,
+            early_writer)
+        records += attn_records
+        launches.update(attn_launches)
+
+    # ---- phase 13: bf16 under the segment reduce ----
+    if 13 in phases:
+        launches.update(segment_bf16_phase(torch, np, dev, smi,
+                                           parsed["headline"], compute_mode))
+
+    # ---- phase 14: the multi-design step ----
+    if 14 in phases:
+        launches.update(multi_phase(torch, np, dev, smi, merged_shared,
+                                    compute_mode))
+
+    return records, launches
+
+
+
+
+def kernels_phase(torch, F, dev, graphs, model_cpu, smi, early_writer,
+                  empty_launch) -> list:
+    """Phase 3's checks of every kernel against its plain version on the
+    headline and prior-row designs (module doc). Returns the JSON line's
+    records of the mailbox walk's kernels and ``flat_adam``."""
     timer = Timer(torch, dev)
     recs = {}
     for name, g in graphs.items():
@@ -6268,22 +6512,21 @@ def main() -> int:
     check_programmatic_hazard(torch, graphs["headline"], dev, early_writer)
     check_attn_hazard(torch, graphs["headline"], dev, early_writer)
     gather_probe(torch, dev, timer)
-    del timer, graphs
+    del timer
+    return records
 
-    # ---- phase 4: the slice ----
-    log("phase 4: full-width PathModel, 3 evaluation requests on the "
-        "headline and 1 on the prior-row design")
+
+def profile_phase(torch, np, dev, parsed, model_cpu, num_paths):
+    """Phase 5: where one request's and one train step's time goes
+    (module doc), on a copy of ``model_cpu`` on the card."""
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.test import evaluate
+    from prtp_tpu_torch.trainer import pad_batch
+
     model = copy.deepcopy(model_cpu).to(dev)
-    launches = {f"serve {name}": serve(torch, np, model, model_cpu, p, name,
-                                       per_forward[name],
-                                       REQUESTS if name == "headline" else 1)
-                for name, p in parsed.items()}
-
-    # ---- phase 5: where one request's and one train step's time goes ----
     designs = {name: pack_design(p, map_size=MAP_SIZE, device=dev)
                for name, p in parsed.items()}
     design = designs["headline"]
-    num_paths = int(p0["num_paths"])
     pids, mask = pad_batch(np.arange(num_paths), num_paths, dev)
     timer = Timer(torch, dev)
     with torch.no_grad():
@@ -6324,11 +6567,18 @@ def main() -> int:
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     time_train_step(torch, model_cpu, design, dev)
 
-    # ---- phase 6: training ----
+
+def train_phase(torch, np, dev, tx, parsed, model_cpu, per_step,
+                num_paths) -> dict:
+    """Phase 6: training from one init on the card and on the CPU
+    (module doc). Returns each run's launch counts."""
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.trainer import (batch_count, init_state,
+                                        iterate_batches, pad_batch)
+
+    launches = {}
     log(f"phase 6: full-width PathModel from the same init (seed {SEED}), "
         f"flat Adam at lr {LR}, on the card and on the cpu")
-    del designs, design, model
-    torch.cuda.empty_cache()
     cpu_designs = {name: pack_design(p, map_size=MAP_SIZE, device="cpu")
                    for name, p in parsed.items()}
     card_designs = {name: pack_design(p, map_size=MAP_SIZE, device=dev)
@@ -6373,58 +6623,7 @@ def main() -> int:
         compare_runs(torch, what, card, cpu, flips[name])
         if what.endswith("fixed batch") and not card[0][-1] < card[0][0]:
             raise AssertionError(f"{what}: the loss did not fall: {card[0]}")
-
-    # ---- phase 7: the CLIs ----
-    del cpu_designs, card_designs
-    torch.cuda.empty_cache()
-    launches.update(cli_phase(torch, np, dev, smi))
-
-    # ---- phase 8: the variants ----
-    launches.update(variants_phase(torch, np, dev, smi, parsed["headline"],
-                                   sizes))
-    precision_turns(torch, np, parsed["headline"], dev, smi)
-
-    # ---- phase 9: the merged super-graph ----
-    merged_launches, merged_shared = merged_phase(torch, np, dev, smi)
-    launches.update(merged_launches)
-
-    # ---- phase 10: data parallelism ----
-    launches.update(dp_phase(torch, np, dev, smi, parsed["headline"],
-                             compute_mode))
-
-    # ---- phase 11: the segment reduce and the (dp, gp) sharded step ----
-    seg_records, seg_launches = segment_phase(
-        torch, np, dev, smi, parsed["headline"], compute_mode, early_writer)
-    records += seg_records
-    launches.update(seg_launches)
-
-    # ---- phase 12: --attn under the segment reduce ----
-    attn_records, attn_launches = segment_attn_phase(
-        torch, np, dev, smi, parsed["headline"], compute_mode, early_writer)
-    records += attn_records
-    launches.update(attn_launches)
-
-    # ---- phase 13: bf16 under the segment reduce ----
-    launches.update(segment_bf16_phase(torch, np, dev, smi,
-                                       parsed["headline"], compute_mode))
-
-    # ---- phase 14: the multi-design step ----
-    launches.update(multi_phase(torch, np, dev, smi, merged_shared,
-                                compute_mode))
-
-    # ---- phase 15: the graft-style entry and the results pack ----
-    launches.update(entry_phase(torch, np, dev, smi, compute_mode))
-    for rec in records:
-        rec.launches = {what: c[rec.name] for what, c in launches.items()}
-    for rec in records:
-        log(f"  {rec.name}: launches {rec.launches}; {rec.summary()}")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-
-    log(json.dumps({"kernels": [rec.as_json() for rec in records]}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return launches
 
 
 if __name__ == "__main__":

@@ -29,12 +29,25 @@ from ..ops.bf16 import compute_dtype_of, dense_bf16
 _TRUNC_STD = 0.87962566103423978
 
 
+def _norm_cdf(x: float) -> float:
+    return (1.0 + math.erf(x / math.sqrt(2.0))) / 2.0
+
+
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
                   generator: torch.Generator) -> torch.Tensor:
+    """Fill ``weight`` with flax's lecun-normal draw: a normal of std
+    sqrt(1 / fan_in) / _TRUNC_STD truncated at two of it, by the inverse
+    CDF (``jax.random.truncated_normal``'s method): one uniform draw from
+    ``generator`` an element, through ``erfinv``. So a seed gives the same
+    weights whatever ``nn.init.trunc_normal_`` does: PyTorch 2.11's
+    computes exactly this, 2.13's redraws the normals that fall outside
+    the bounds, another use of the generator's stream."""
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     with torch.no_grad():
-        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std,
-                                     2.0 * std, generator=generator)
+        weight.uniform_(2 * _norm_cdf(-2.0) - 1, 2 * _norm_cdf(2.0) - 1,
+                        generator=generator)
+        weight.erfinv_().mul_(std * math.sqrt(2.0))
+        return weight.clamp_(-2.0 * std, 2.0 * std)
 
 
 def linear(in_dim: int, out_dim: int,

@@ -71,6 +71,37 @@ METRICS = ("loss", "r2", "acc", "recall", "precision", "f1")
 _CHILD = ("import sys\nfrom prtp_tpu_torch import {mod}\n"
           "{mod}.main(sys.argv[1:], device={device!r})\n")
 
+# the train CLI as _CHILD runs it, which also keeps, in the directory
+# given first, the checkpoint it writes at creation (INITIAL, before a
+# save overwrites it) and every train step's metrics at full precision
+# (STEPS: one dict a step)
+INITIAL, STEPS = "initial.pt", "steps.json"
+_TRACED_TRAIN = """
+import json, os, shutil, sys
+from prtp_tpu_torch import train
+from prtp_tpu_torch.utils import checkpoint
+trace = sys.argv.pop(1)
+save, train_steps, steps = checkpoint.save_checkpoint, train.train_steps, []
+
+def save_checkpoint(save_dir, *args, **kwargs):
+    path = save(save_dir, *args, **kwargs)
+    if not os.path.exists(os.path.join(trace, {initial!r})):
+        shutil.copy(path, os.path.join(trace, {initial!r}))
+    return path
+
+def traced_steps(*args, **kwargs):
+    mets = train_steps(*args, **kwargs)
+    cols = {{k: v.tolist() for k, v in mets.items()}}
+    steps.extend(dict(zip(cols, row)) for row in zip(*cols.values()))
+    return mets
+
+checkpoint.save_checkpoint, train.train_steps = save_checkpoint, traced_steps
+os.makedirs(trace, exist_ok=True)
+train.main(sys.argv[1:], device={device!r})
+with open(os.path.join(trace, {steps!r}), "w") as f:
+    json.dump(steps, f)
+"""
+
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
@@ -110,6 +141,37 @@ def run_cli(mod, args, device, timeout):
     ``device``; returns its output."""
     code = _CHILD.format(mod=mod, device=device)
     return _run([sys.executable, "-c", code] + args, timeout)
+
+
+def run_train(mdl, args, device, timeout):
+    """The train CLI as :func:`run_cli` runs it, in a fresh ``mdl`` (its
+    ``--model_saving_dir``), traced into a fresh ``mdl + "_trace"``;
+    returns the trace's directory (:func:`read_trace`)."""
+    trace = mdl + "_trace"
+    for path in (mdl, trace):
+        shutil.rmtree(path, ignore_errors=True)
+    code = _TRACED_TRAIN.format(device=device, initial=INITIAL, steps=STEPS)
+    _run([sys.executable, "-c", code, trace] + args, timeout)
+    return trace
+
+
+def read_trace(trace):
+    """``(state_dict, steps)`` of a :func:`run_train` trace: the model's
+    weights as the train CLI started (on the host), and one dict of
+    ``loss, r2, tp, fp, tn, fn`` a train step, in order."""
+    import torch
+
+    blob = torch.load(os.path.join(trace, INITIAL), map_location="cpu",
+                      weights_only=True)
+    with open(os.path.join(trace, STEPS)) as f:
+        return blob["model"], json.load(f)
+
+
+def train_args(data, mdl, map_size, extra, epochs):
+    """The train and test CLIs' arguments for one config of the pack."""
+    return (["--data_save_path", data, "--model_saving_dir", mdl,
+             "--map_size", str(map_size), "--num_epoch", str(epochs),
+             "--val_interval", "50"] + BASE + extra)
 
 
 def build_corpus(work, kind):
@@ -160,13 +222,10 @@ def parse_curve(stdout_log):
 
 def run_config(name, data, map_size, extra, epochs, out_root, device):
     mdl = os.path.join(out_root, name)
-    shutil.rmtree(mdl, ignore_errors=True)
-    args = (["--data_save_path", data, "--model_saving_dir", mdl,
-             "--map_size", str(map_size), "--num_epoch", str(epochs),
-             "--val_interval", "50"] + BASE + extra)
+    args = train_args(data, mdl, map_size, extra, epochs)
     t0 = time.time()
     log(f"--- {name}: train ({epochs} epochs) on {device}")
-    run_cli("train", args, device, timeout=7200)
+    trace = run_train(mdl, args, device, timeout=7200)
     t_train = time.time() - t0
     t0 = time.time()
     log(f"--- {name}: eval on {device}")
@@ -183,7 +242,25 @@ def run_config(name, data, map_size, extra, epochs, out_root, device):
                 eval_runtimes=[round(t, 4) for t in runtimes],
                 first_loss=batches[0][1], last_loss=batches[-1][1],
                 curve=vals, final=dict(zip(METRICS, final)),
-                model_dir=mdl)
+                model_dir=mdl, trace=trace)
+
+
+def cpu_start(name, data, map_size, extra, out_root, trace):
+    """The config's train CLI for one epoch on the CPU, beside a run on a
+    card whose trace is ``trace``: the CPU run's first per-batch loss
+    (``cpu_first_loss``, as printed) and whether the two runs started
+    from bit-equal weights (``cpu_start_equal``)."""
+    import torch
+
+    mdl = os.path.join(out_root, f"{name}_cpu")
+    log(f"--- {name}: train (1 epoch) on cpu, the start beside the card's")
+    cpu_trace = run_train(mdl, train_args(data, mdl, map_size, extra, 1),
+                          "cpu", timeout=1200)
+    card, cpu = read_trace(trace)[0], read_trace(cpu_trace)[0]
+    batches, _vals = parse_curve(os.path.join(mdl, "stdout.log"))
+    return dict(cpu_first_loss=batches[0][1],
+                cpu_start_equal=sorted(card) == sorted(cpu) and all(
+                    torch.equal(card[k], cpu[k]) for k in card))
 
 
 def jax_row(name):
@@ -231,6 +308,8 @@ def main(argv=None):
     if args.configs and set(args.configs) - known:
         raise SystemExit(f"unknown configs {set(args.configs) - known}")
     sys.path.insert(0, REPO)
+    import torch
+
     from prtp_tpu_torch import resolve_device
     resolve_device(args.device)
     where = device_line(args.device)
@@ -243,7 +322,10 @@ def main(argv=None):
         data = build_corpus(args.work, kind)
         r = run_config(name, data, CORPORA[kind]["map_size"], extra,
                        args.epochs, args.work, args.device)
-        r.update(epochs=args.epochs, device=where)
+        r.update(epochs=args.epochs, device=where, torch=torch.__version__)
+        if args.device != "cpu":
+            r.update(cpu_start(name, data, CORPORA[kind]["map_size"], extra,
+                               args.work, r["trace"]))
         keep = os.path.join(args.out, name)
         shutil.rmtree(keep, ignore_errors=True)
         os.makedirs(keep, exist_ok=True)
@@ -254,7 +336,8 @@ def main(argv=None):
         vis = os.path.join(r["model_dir"], "visual")
         if os.path.isdir(vis):
             shutil.copytree(vis, os.path.join(keep, "visual"))
-        summary = {k: v for k, v in r.items() if k != "model_dir"}
+        summary = {k: v for k, v in r.items()
+                   if k not in ("model_dir", "trace")}
         with open(os.path.join(keep, "summary.json"), "w") as f:
             json.dump(summary, f, indent=1)
         print(json.dumps(summary), flush=True)
@@ -287,8 +370,11 @@ def write_results_md(out, rows):
         "set beside the JAX package's committed one",
         "(`results/<config>/summary.json`); the two start from different",
         "random weights (a torch `Generator` against a JAX `PRNGKey`), so",
-        "their curves differ. Every time here is the port's, on the device",
-        "named beside it. This file is regenerated from the",
+        "their curves differ. On a card each config's train CLI also runs",
+        "one epoch on the CPU of the same machine: its first loss stands",
+        "beside the card's, both from the same weights (`models/mlp.py`",
+        "draws them from the seed alone). Every time here is the port's,",
+        "on the device named beside it. This file is regenerated from the",
         "`summary.json` files next to it; do not edit it by hand.",
         "",
         "## Final eval metrics (the `predict.txt` row of each config)",
@@ -311,14 +397,22 @@ def write_results_md(out, rows):
         f"{LOSS_SHARE} x its first, or `cls` has an F1 below JAX's.",
         "",
         "| config | epochs | batches | per-batch loss, first -> last | "
+        "CPU's first loss (1 epoch, same start) | JAX's first -> last | "
         "misses |",
-        "|---|---|---|---|---|",
+        "|---|---|---|---|---|---|---|",
     ]
     for r in rows:
-        miss = findings(r, jax_row(r["name"]))
+        jax = jax_row(r["name"])
+        miss = findings(r, jax)
+        cpu = ("not run" if "cpu_first_loss" not in r else
+               f"{r['cpu_first_loss']:.3f}" + (
+                   "" if r["cpu_start_equal"] else
+                   " (other starting weights)"))
+        jax_curve = (f"{jax['first_loss']:.3f} -> {jax['last_loss']:.3f}"
+                     if jax else "no committed row")
         lines.append(f"| {r['name']} | {r.get('epochs', '?')} | "
                      f"{r['steps']} | {r['first_loss']:.3f} -> "
-                     f"{r['last_loss']:.3f} | "
+                     f"{r['last_loss']:.3f} | {cpu} | {jax_curve} | "
                      f"{'; '.join(miss) or 'none'} |")
     lines += [
         "",
@@ -335,7 +429,8 @@ def write_results_md(out, rows):
         lines.append(f"- train: {r['steps']} batches"
                      f" ({r.get('epochs', '?')} epochs) in {r['train_s']} s,"
                      f" eval {r['eval_s']} s (each a child process, its"
-                     f" start included), on {r['device']}")
+                     f" start included), on {r['device']}, PyTorch "
+                     f"{r.get('torch', 'not recorded')}")
         rts = r.get("eval_runtimes") or []
         if rts:
             lines.append(

@@ -416,6 +416,28 @@ def test_two_coordinated_processes(coordinated):
     np.testing.assert_allclose(outs[0][2], checksum, rtol=1e-6)
 
 
+# the head's first layer reads the layout branch's output in its columns
+# out_dim .. out_dim + cnn_outdim (_torch_dp_child.tiny_inputs: 16, 8)
+HEAD, HEAD_CNN_COLUMNS = "mlp_fuse.fc0.weight", np.arange(16, 24)
+
+
+def _head_cnn_columns_apart(grads):
+    """``grads`` as float64 arrays, the head's first weight split in two
+    leaves: its columns that read the layout branch (``HEAD + "[cnn]"``)
+    and the others (``HEAD``)."""
+    out = {k: np.asarray(g, np.float64) for k, g in grads.items()}
+    head = out.pop(HEAD)
+    out[HEAD + "[cnn]"] = head[:, HEAD_CNN_COLUMNS]
+    out[HEAD] = np.delete(head, HEAD_CNN_COLUMNS, axis=1)
+    return out
+
+
+def _gaps(j16, j32):
+    return {key: float(np.abs(np.asarray(w, np.float64)
+                              - np.asarray(j32[key], np.float64)).mean())
+            for key, w in j16.items()}
+
+
 def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
     """F4: the two ranks' bf16 step (the mailbox model in JAX's padded
     scan's rounding) against JAX's ``make_dp_train_step`` on a 2-device
@@ -426,8 +448,13 @@ def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
     the one-process step in mean distance and within 1e-4 x its max |g|, as
     do the walk's and the head's weights of JAX's (the other leaves are
     not JAX's in one process either: held at 0.1 x max |g|; both by
-    ``tests/test_torch_graph_shard.py::_assert_bf16_grads``). The ranks'
-    losses, gradients and checksums are equal."""
+    ``tests/test_torch_graph_shard.py::_assert_bf16_grads``). The head's
+    first weight is held against JAX's in two parts: its columns that
+    multiply the layout branch's output carry that branch's bf16 values,
+    which are not JAX's compiled CNN's bit for bit (ulps apart at some
+    draws of the weights), and are held as the branch's own leaves are;
+    its other columns stay at F4's bound. The ranks' losses, gradients
+    and checksums are equal."""
     from test_torch_graph_shard import _assert_bf16_grads, _tight_vs_jax
 
     _outs, (rank0, rank1, ref), jax_grads = coordinated
@@ -437,9 +464,8 @@ def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
     for key, g in rank0["grads"].items():
         assert torch.equal(g, rank1["grads"][key]), key
     j16, j32 = jax_grads["bfloat16"], jax_grads[None]
-    gaps = {key: float(np.abs(np.asarray(w, np.float64)
-                              - np.asarray(j32[key], np.float64)).mean())
-            for key, w in j16.items()}
-    _assert_bf16_grads(rank0["grads"], ref["grads"], gaps, "one process")
-    _assert_bf16_grads(rank0["grads"], j16, gaps, "JAX's dp step",
-                       _tight_vs_jax)
+    _assert_bf16_grads(rank0["grads"], ref["grads"], _gaps(j16, j32),
+                       "one process")
+    j16, j32 = _head_cnn_columns_apart(j16), _head_cnn_columns_apart(j32)
+    _assert_bf16_grads(_head_cnn_columns_apart(rank0["grads"]), j16,
+                       _gaps(j16, j32), "JAX's dp step", _tight_vs_jax)

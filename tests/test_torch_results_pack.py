@@ -1,7 +1,9 @@
 """The port's results pack (``scripts/results_pack_torch.py``) on the CPU:
 a short run of one config writes its summary, predictions and a
-RESULTS.md row beside the JAX package's committed row; its log parser
-finds every batch line and refuses a log without numbers."""
+RESULTS.md row beside the JAX package's committed row; its train CLI
+starts from ``model_from_options(--seed)``'s weights, where the
+committed card pack started; its log parser finds every batch line and
+refuses a log without numbers."""
 
 import importlib.util
 import json
@@ -11,6 +13,11 @@ import subprocess
 import sys
 
 import pytest
+import torch
+
+from prtp_tpu_torch.data.dataset import load_single_design
+from prtp_tpu_torch.models.fusion import model_from_options
+from prtp_tpu_torch.options import get_options
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACK = os.path.join(REPO, "scripts", "results_pack_torch.py")
@@ -53,6 +60,36 @@ def test_pack_writes_summary_predictions_and_row_beside_jax(pack_run):
     assert pack._row(f"{CONFIG} `(default)`, port", summary["final"]) in md
     assert pack._row(f"{CONFIG}, JAX (results/)", jax) in md
     assert f"on {summary['device']}" in md
+
+
+def test_train_cli_starts_from_the_seed_where_the_card_started(pack_run):
+    """The train CLI's starting weights, read back from the checkpoint it
+    writes at creation (the pack's trace), are ``model_from_options
+    (--seed)``'s; and its first loss, on batch 0 before any update, is the
+    committed card pack's (``results_torch/``, drawn under another
+    PyTorch), within the rtol phase 15 of chip_smoke.py holds the card to
+    and the half unit of its 3-decimal print. A seed's weights must not
+    depend on PyTorch's own truncated-normal sampler, which draws other
+    values from 2.13 on (``models/mlp.py::lecun_normal_``)."""
+    root, _stdout = pack_run
+    work = root / "work"
+    weights, steps = pack.read_trace(str(work / f"{CONFIG}_trace"))
+    options = get_options(pack.train_args(str(work / "data_L"), "-", 16, [],
+                                          EPOCHS))
+    parsed = load_single_design("train", str(work / "data_L"), "syn_a",
+                                feat_reduce=options.feat_reduce)
+    want = model_from_options(options, parsed["cell_feat"].shape[1],
+                              parsed["net_feat"].shape[1],
+                              parsed["cnn_input"].shape[-3]).state_dict()
+    assert sorted(weights) == sorted(want)
+    for key in want:
+        assert torch.equal(weights[key], want[key]), key
+    with open(os.path.join(REPO, "results_torch", CONFIG,
+                           "summary.json")) as f:
+        card = json.load(f)
+    assert card["device"].startswith("NVIDIA")
+    assert abs(steps[0]["loss"] - card["first_loss"]) <= (
+        1e-3 * abs(card["first_loss"]) + 5e-4), (steps[0], card["first_loss"])
 
 
 def test_parse_curve_finds_every_batch_line(pack_run):
