@@ -6138,7 +6138,7 @@ _PACK_LINE = re.compile(r"^(e\d+,\S+,b\d+/\d+), l:\S+, r2:\S+, r:\S+, "
                         r"F1:(\S+)$", re.M)
 
 
-def _pack_gaps(name, task, card, cpu) -> tuple:
+def _pack_gaps(pack, name, task, card, cpu) -> tuple:
     """Phase 15 (c): one config's train CLI on the card against on the
     CPU. ``card`` and ``cpu`` are ``(state_dict, steps, printed)``: the
     weights the CLI started from, its steps' metrics at full precision
@@ -6146,18 +6146,8 @@ def _pack_gaps(name, task, card, cpu) -> tuple:
     worst loss gap, the worst r2 gap), each gap relative: the loss's to
     the larger loss, r2's to the larger ``1 - r2``, the residual's share
     of the targets' variance, which the loss's rtol bounds."""
-    import torch
-
-    bad = []
-    w_card, w_cpu = card[0], cpu[0]
-    if sorted(w_card) != sorted(w_cpu):
-        bad.append(f"{name}: starting weights name other tensors: "
-                   f"{sorted(set(w_card) ^ set(w_cpu))}")
-    for key in sorted(set(w_card) & set(w_cpu)):
-        if not torch.equal(w_card[key], w_cpu[key]):
-            diff = (w_card[key].double() - w_cpu[key].double()).abs().max()
-            bad.append(f"{name}: starting weight {key} differs, card vs "
-                       f"cpu, by up to {float(diff):.6g}")
+    bad = [f"{name}: {d}, card vs cpu"
+           for d in pack.start_diffs(card[0], cpu[0])]
     labels = [[lab for lab, _f1 in run[2]] for run in (card, cpu)]
     if labels[0] != labels[1] or len(card[1]) != len(labels[0]) \
             or len(cpu[1]) != len(labels[1]):
@@ -6236,7 +6226,8 @@ def pack_parity(smi):
     for name, _kind, extra in pack.CONFIGS:
         card, cpu = runs[(name, DEVICE)], runs[(name, "cpu")]
         task = "cls" if "cls" in extra else "reg"
-        found, loss_gap, r2_gap = _pack_gaps(name, task, card, cpu)
+        found, loss_gap, r2_gap = _pack_gaps(pack, name, task, card,
+                                             cpu)
         bad += found
         n_w = sum(w.numel() for w in card[0].values())
         start = ("DIFFER" if any("starting weight" in b for b in found)

@@ -245,22 +245,35 @@ def run_config(name, data, map_size, extra, epochs, out_root, device):
                 model_dir=mdl, trace=trace)
 
 
+def start_diffs(a, b):
+    """How two train runs' starting weights (:func:`read_trace`'s state
+    dicts) differ: one line a tensor that only one names or that is not
+    bit-equal in both; empty when they are bit-equal."""
+    import torch
+
+    out = ([] if sorted(a) == sorted(b) else
+           [f"starting weights name other tensors: "
+            f"{sorted(set(a) ^ set(b))}"])
+    for key in sorted(set(a) & set(b)):
+        if not torch.equal(a[key], b[key]):
+            diff = (a[key].double() - b[key].double()).abs().max()
+            out.append(f"starting weight {key} differs by up to "
+                       f"{float(diff):.6g}")
+    return out
+
+
 def cpu_start(name, data, map_size, extra, out_root, trace):
     """The config's train CLI for one epoch on the CPU, beside a run on a
     card whose trace is ``trace``: the CPU run's first per-batch loss
     (``cpu_first_loss``, as printed) and whether the two runs started
-    from bit-equal weights (``cpu_start_equal``)."""
-    import torch
-
+    from bit-equal weights (``cpu_start_equal``, :func:`start_diffs`)."""
     mdl = os.path.join(out_root, f"{name}_cpu")
     log(f"--- {name}: train (1 epoch) on cpu, the start beside the card's")
     cpu_trace = run_train(mdl, train_args(data, mdl, map_size, extra, 1),
                           "cpu", timeout=1200)
-    card, cpu = read_trace(trace)[0], read_trace(cpu_trace)[0]
     batches, _vals = parse_curve(os.path.join(mdl, "stdout.log"))
-    return dict(cpu_first_loss=batches[0][1],
-                cpu_start_equal=sorted(card) == sorted(cpu) and all(
-                    torch.equal(card[k], cpu[k]) for k in card))
+    return dict(cpu_first_loss=batches[0][1], cpu_start_equal=not start_diffs(
+        read_trace(trace)[0], read_trace(cpu_trace)[0]))
 
 
 def jax_row(name):

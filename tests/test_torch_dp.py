@@ -330,17 +330,23 @@ def _parse(out):
     return int(m.group(2)), float(m.group(3)), float(m.group(4))
 
 
-def _jax_dp_grads(compute_dtype):
+def _jax_dp_grads(compute_dtype, layout=None):
     """JAX's ``make_dp_train_step`` on a 2-device mesh of the virtual CPU
     mesh, from the children's init (converted): the first step's
     gradients (an SGD(1) step's parameter change), on the padded pack
-    (align 8) of the children's design, bf16 in a bf16 model."""
+    (align 8) of the children's design, bf16 in a bf16 model. With
+    ``layout`` (a tensor of the layout CNN's output) JAX's ``LayoutNet``
+    returns those values instead of its own."""
+    import contextlib
+
+    import flax.linen as nn
     import jax
     import jax.numpy as jnp
     import optax
     from prtp_tpu import trainer as jtrainer
     from prtp_tpu.graph import pack_design as jax_pack_design
     from prtp_tpu.models import PathModel as JaxPathModel
+    from prtp_tpu.models.layoutnet import LayoutNet
     from prtp_tpu.parallel.dp import make_dp_train_step
     from prtp_tpu.parallel.mesh import make_mesh
     from prtp_tpu_torch.utils.convert import params_from_flax, params_to_flax
@@ -361,8 +367,19 @@ def _jax_dp_grads(compute_dtype):
         step=jnp.zeros((), jnp.int32), best_f1=jnp.zeros(()),
         best_r2=jnp.zeros(()))
     step = make_dp_train_step(jmodel, tx, make_mesh(2), donate=False)
-    new, _mets = step(state, design, jnp.asarray(ids.numpy()),
-                      jnp.asarray(mask.numpy()))
+
+    def port_layout(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if not (isinstance(context.module, LayoutNet)
+                and context.method_name == "__call__"):
+            return out
+        return jnp.asarray(layout.float().numpy()).astype(
+            out.dtype).reshape(out.shape)
+
+    with (contextlib.nullcontext() if layout is None
+          else nn.intercept_methods(port_layout)):
+        new, _mets = step(state, design, jnp.asarray(ids.numpy()),
+                          jnp.asarray(mask.numpy()))
     return params_from_flax(jax.tree_util.tree_map(
         lambda a, b: np.asarray(a, np.float64) - np.asarray(b, np.float64),
         params, new.params))
@@ -373,7 +390,8 @@ def coordinated(tmp_path_factory):
     """One run of two processes joined by ``PRTP_COORDINATOR`` (gloo, the
     CPU) and of one process alone (``_torch_dp_child.py``): each RESULT
     line, and each bf16 step's output; JAX's 2-device dp step's first
-    gradients in bf16 and float32, computed here while they run."""
+    gradients in bf16 and float32, and in bf16 with the port's layout CNN
+    output (``"port_layout"``), computed here while they run."""
     out_dir = str(tmp_path_factory.mktemp("coordinated"))
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("PRTP_")}
@@ -388,6 +406,8 @@ def coordinated(tmp_path_factory):
                           ("1", str(port), out_dir), ("ref", out_dir))]
     try:
         jax_grads = {dt: _jax_dp_grads(dt) for dt in ("bfloat16", None)}
+        jax_grads["port_layout"] = _jax_dp_grads("bfloat16",
+                                                 _port_layout_output())
         outs = []
         for p in procs:
             out, err = p.communicate(timeout=180)
@@ -421,21 +441,13 @@ def test_two_coordinated_processes(coordinated):
 HEAD, HEAD_CNN_COLUMNS = "mlp_fuse.fc0.weight", np.arange(16, 24)
 
 
-def _head_cnn_columns_apart(grads):
-    """``grads`` as float64 arrays, the head's first weight split in two
-    leaves: its columns that read the layout branch (``HEAD + "[cnn]"``)
-    and the others (``HEAD``)."""
-    out = {k: np.asarray(g, np.float64) for k, g in grads.items()}
-    head = out.pop(HEAD)
-    out[HEAD + "[cnn]"] = head[:, HEAD_CNN_COLUMNS]
-    out[HEAD] = np.delete(head, HEAD_CNN_COLUMNS, axis=1)
-    return out
+def _port_layout_output():
+    """The port's bf16 layout CNN output on the children's design."""
+    from _torch_dp_child import tiny_inputs
 
-
-def _gaps(j16, j32):
-    return {key: float(np.abs(np.asarray(w, np.float64)
-                              - np.asarray(j32[key], np.float64)).mean())
-            for key, w in j16.items()}
+    _parsed, design, model, _ids, _mask = tiny_inputs("bfloat16")
+    with torch.no_grad():
+        return model.cnn(design.cnn_input)
 
 
 def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
@@ -449,12 +461,12 @@ def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
     do the walk's and the head's weights of JAX's (the other leaves are
     not JAX's in one process either: held at 0.1 x max |g|; both by
     ``tests/test_torch_graph_shard.py::_assert_bf16_grads``). The head's
-    first weight is held against JAX's in two parts: its columns that
-    multiply the layout branch's output carry that branch's bf16 values,
-    which are not JAX's compiled CNN's bit for bit (ulps apart at some
-    draws of the weights), and are held as the branch's own leaves are;
-    its other columns stay at F4's bound. The ranks' losses, gradients
-    and checksums are equal."""
+    first weight's columns that multiply the layout branch's output are
+    JAX's cotangent times that output, and JAX's compiled bf16 CNN is
+    not the port's bit for bit (some of its outputs an ulp apart at this
+    draw of the weights); so JAX's reference for those columns is its dp
+    step with its ``LayoutNet`` returning the port's output, the whole
+    leaf at F4's bound. The ranks' losses, gradients and checksums are equal."""
     from test_torch_graph_shard import _assert_bf16_grads, _tight_vs_jax
 
     _outs, (rank0, rank1, ref), jax_grads = coordinated
@@ -464,8 +476,13 @@ def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
     for key, g in rank0["grads"].items():
         assert torch.equal(g, rank1["grads"][key]), key
     j16, j32 = jax_grads["bfloat16"], jax_grads[None]
-    _assert_bf16_grads(rank0["grads"], ref["grads"], _gaps(j16, j32),
-                       "one process")
-    j16, j32 = _head_cnn_columns_apart(j16), _head_cnn_columns_apart(j32)
-    _assert_bf16_grads(_head_cnn_columns_apart(rank0["grads"]), j16,
-                       _gaps(j16, j32), "JAX's dp step", _tight_vs_jax)
+    gaps = {key: float(np.abs(np.asarray(w, np.float64)
+                              - np.asarray(j32[key], np.float64)).mean())
+            for key, w in j16.items()}
+    _assert_bf16_grads(rank0["grads"], ref["grads"], gaps, "one process")
+    want = dict(j16)
+    want[HEAD] = np.array(j16[HEAD], np.float64)
+    want[HEAD][:, HEAD_CNN_COLUMNS] = np.asarray(
+        jax_grads["port_layout"][HEAD], np.float64)[:, HEAD_CNN_COLUMNS]
+    _assert_bf16_grads(rank0["grads"], want, gaps, "JAX's dp step",
+                       _tight_vs_jax)
