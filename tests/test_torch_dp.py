@@ -466,7 +466,8 @@ def test_bf16_dp_step_matches_jax_dp_step_and_one_process(coordinated):
     not the port's bit for bit (some of its outputs an ulp apart at this
     draw of the weights); so JAX's reference for those columns is its dp
     step with its ``LayoutNet`` returning the port's output, the whole
-    leaf at F4's bound. The ranks' losses, gradients and checksums are equal."""
+    leaf at F4's bound. The ranks' losses, gradients and checksums are
+    equal."""
     from test_torch_graph_shard import _assert_bf16_grads, _tight_vs_jax
 
     _outs, (rank0, rank1, ref), jax_grads = coordinated
