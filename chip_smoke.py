@@ -4,13 +4,16 @@
     python3 chip_smoke.py [--phases N [N ...]]
 
 Without ``--phases`` every phase runs. With it, phases 1 and 2 run, then
-only the phases named (3-15; phase 14 steps phase 9's designs, so it
+only the phases named (3-16; phase 14 steps phase 9's designs, so it
 brings 9), then the kernels line, of the records of the phases run, and
 the last line. Phases, each failing loudly (nonzero exit) on any error:
 
 1. Print the card (``nvidia-smi`` name, power limit and compute mode),
    the torch and CUDA versions; turn TF32 off for matmuls and convolutions (the port's
-   float32, as the CLIs set it themselves) for phases 2-6 and 8-15.
+   float32, as the CLIs set it themselves) for phases 2-6 and 8-16; set
+   cuBLAS's deterministic workspace (``CUBLAS_WORKSPACE_CONFIG``) for
+   the run, which the CLIs' deterministic scope needs before a
+   process's first cuBLAS call.
 2. Build every CUDA kernel of the path from ``prtp_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once.
 3. Build and pack two designs: the bench headline (80k nodes, 20
@@ -274,6 +277,20 @@ the last line. Phases, each failing loudly (nonzero exit) on any error:
    bit-equal, every step's loss and r2 within LOSS_RTOL (r2 as ``1 -
    r2``), a ``cls`` run's F1s equal; each config's first and last loss
    on both devices printed; timed.
+16. The train CLI's runs repeat bit for bit (:func:`repeat_phase`): (a)
+   the train CLI of each of the seven pack configs twice on the card,
+   REPEAT_EPOCHS epochs, as the pack runs it (a child process,
+   PACK_WORKERS at once): every step's loss and metrics at full
+   precision, the printed batch and validation lines, the final weights
+   and flat Adam's moments by their bytes must be equal; a difference
+   names the config, the first step and line that differ and the first
+   leaf whose bytes differ with its largest gap relative to its max |x|.
+   With ``--bisect`` each config's first batch first runs BISECT_REPS
+   times in this process, in the CLIs' deterministic scope and without
+   it, and the outputs, cotangents and gradients that differ between
+   passes are logged. (b) What the scope costs at full width
+   (:func:`deterministic_cost`): the headline reg and U-Net train steps
+   and LayoutNet's forward + backward, in turns with and without it.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Without a card, or without the package beside it,
@@ -370,6 +387,9 @@ DRYRUN_RANKS = 8  # phase 15 (b): a (4, 2) mesh
 # phase 15 (c): each pack config's train CLI for PACK_EPOCHS, card and
 # cpu, PACK_WORKERS child processes at once
 PACK_EPOCHS, PACK_WORKERS = 1, 4
+# phase 16: each pack config's train CLI twice on the card, REPEAT_EPOCHS
+# epochs; --bisect: BISECT_REPS forward and backward passes of a batch
+REPEAT_EPOCHS, BISECT_REPS = 3, 5
 # phase 11: the segment reduce's train steps a run, and the ranks of its
 # (1, GP_RANKS) edge-sharded mesh on one card
 SEG_STEPS, GP_RANKS = 3, 2
@@ -3487,11 +3507,11 @@ def _host_ms(torch, fn, reps):
 def dp_rank(rank, tmp, port):
     """Phase 10 (b), one of DP_RANKS processes on cuda:0, joined over
     gloo: the headline model from the parent's state before each step,
-    DP_STEPS data-parallel steps on its 299 of the 598 padded ids (cuDNN
-    deterministic, as the parent's); then one step timed, and the
-    gradient broadcast alone. Writes its losses,
-    parameter checksums, first-step gradients (rank 0), launch counts and
-    times to ``rank<r>.pt`` in ``tmp``."""
+    DP_STEPS data-parallel steps on its 299 of the 598 padded ids (in the
+    CLIs' deterministic scope, as the parent's); then one step timed, and
+    the gradient broadcast alone. Writes its losses, parameter checksums,
+    first-step gradients (rank 0), launch counts and times to
+    ``rank<r>.pt`` in ``tmp``."""
     import pickle
 
     import numpy as np
@@ -3501,13 +3521,15 @@ def dp_rank(rank, tmp, port):
     from prtp_tpu_torch.models import PathModel
     from prtp_tpu_torch.parallel import Mesh
     from prtp_tpu_torch.parallel.dp import broadcast_state, dp_train_step
+    from prtp_tpu_torch.train import use_deterministic
     from prtp_tpu_torch.trainer import init_state, make_optimizer, pad_batch
 
     dev = torch.device(DEVICE)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
+    deterministic = contextlib.ExitStack()
+    deterministic.enter_context(use_deterministic())
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=DP_RANKS, rank=rank)
     try:
@@ -3551,7 +3573,7 @@ def dp_rank(rank, tmp, port):
         if rank == 0:
             out["bf16_grads"] = _grads(low)
         del low
-        torch.backends.cudnn.deterministic = False
+        deterministic.close()
         out["step_ms"] = _host_ms(
             torch, lambda: dp_train_step(state, design, ids, mask, mesh), 3)
         buf = torch.ones(state.optimizer.grad.numel(), device=dev)
@@ -3653,9 +3675,10 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
     """Phase 10: data parallelism (``--dp``) at the default model's full
     width on the headline (all 597 paths a step), float32, TF32 off.
 
-    The compared steps run cuDNN's deterministic algorithms: its default
-    weight gradients add in another order from call to call, by up to
-    1.1e-6 of Conv_0's max |g| between two equal steps (PR 12).
+    The compared steps run in the CLIs' deterministic scope
+    (``train.use_deterministic``): cuDNN's default weight gradients add
+    in another order from call to call, by up to 1.1e-6 of Conv_0's max
+    |g| between two equal steps (PR 12).
     (a) A process group of one rank, NCCL: DP_STEPS data-parallel steps
     (``parallel.dp.dp_train_step``), each from the state ``train_step``
     started its step from, against ``train_step``: losses at rtol DP_TOL
@@ -3684,16 +3707,18 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
     from prtp_tpu_torch.parallel import Mesh
     from prtp_tpu_torch.parallel.distributed import free_port
     from prtp_tpu_torch.parallel.dp import dp_train_step
+    from prtp_tpu_torch.train import use_deterministic
     from prtp_tpu_torch.trainer import (init_state, make_optimizer,
                                         pad_batch, train_step)
 
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the compared steps with cuDNN's deterministic algorithms: its
+    # the compared steps in the CLIs' deterministic scope: cuDNN's
     # default weight gradients add in another order from call to call
     # (1e-6 of Conv_0's max |g| apart between two equal steps)
-    torch.backends.cudnn.deterministic = True
+    deterministic = contextlib.ExitStack()
+    deterministic.enter_context(use_deterministic())
     design = pack_design(headline, map_size=MAP_SIZE, device=dev)
     n = design.num_paths
     ids, mask = pad_batch(np.random.default_rng(0).permutation(n), n, dev)
@@ -3763,7 +3788,7 @@ def dp_phase(torch, np, dev, smi, headline, compute_mode) -> dict:
         check_launches(what, launches[what],
                        launches_per_step(design.graph), DP_STEPS)
         check(what, losses, grads, DP_TOL)
-        torch.backends.cudnn.deterministic = False
+        deterministic.close()
         tm = step_timing(torch, dev, lambda: dp_train_step(
             state, design, ids, mask, mesh), 200)
         buf = torch.ones(state.optimizer.grad.numel(), device=dev)
@@ -6249,23 +6274,280 @@ def pack_parity(smi):
         f"in {corpora_s:.1f} s; {wall:.1f} s  [{smi}]")
 
 
+_PACK_VAL = re.compile(r"^\toverall r2:.*$", re.M)
+_BATCH_TEXT = re.compile(r"^e\d+,\S+,b\d+/\d+, .*$", re.M)
+
+
+def _repeat_run(pack, work, data, job):
+    """Phase 16: one run of a pack config's train CLI on the card for
+    REPEAT_EPOCHS epochs, as the pack runs it (a child process). Returns
+    its steps' metrics at full precision, its printed batch and
+    validation lines, the state it ended in and its wall seconds."""
+    name, kind, extra, run = job
+    mdl = os.path.join(work, f"{name}_run{run}")
+    t0 = time.perf_counter()
+    trace = pack.run_train(mdl, pack.train_args(
+        data[kind], mdl, pack.CORPORA[kind]["map_size"], extra,
+        REPEAT_EPOCHS), DEVICE, timeout=900)
+    with open(os.path.join(mdl, "stdout.log")) as f:
+        text = f.read()
+    printed = (_BATCH_TEXT.findall(text), _PACK_VAL.findall(text))
+    return (pack.read_trace(trace)[1], printed, pack.read_final(trace),
+            time.perf_counter() - t0)
+
+
+def _leaf_gap(torch, a, b) -> float:
+    """max |a - b| over the larger max |x| of the two (inf where a NaN or
+    an infinity sits in one and not the other)."""
+    a, b = a.double(), b.double()
+    scale = max(float(a.abs().max()), float(b.abs().max()), 1e-30)
+    return float((a - b).abs().nan_to_num(float("inf")).max()) / scale
+
+
+def repeat_diffs(torch, name, a, b) -> list:
+    """Phase 16: how two runs of one config (:func:`_repeat_run`) differ:
+    the first step whose full-precision metrics differ, the first printed
+    line that differs, the first weight or Adam moment whose bytes
+    differ (with its largest gap relative to its max |x|) and how many
+    do; empty when the runs are bit-equal."""
+    out = []
+    steps = (a[0], b[0])
+    if len(steps[0]) != len(steps[1]):
+        out.append(f"{name}: {len(steps[0])} and {len(steps[1])} steps")
+    for i, (sa, sb) in enumerate(zip(*steps)):
+        if json.dumps(sa) != json.dumps(sb):
+            out.append(f"{name}: step {i} of {len(steps[0])} differs first: "
+                       f"{sa} against {sb}")
+            break
+    for what, la, lb in zip(("batch line", "validation line"), a[1], b[1]):
+        if la != lb:
+            i = next((i for i, (x, y) in enumerate(zip(la, lb)) if x != y),
+                     min(len(la), len(lb)))
+            out.append(f"{name}: {what} {i} of {len(la)} differs first: "
+                       f"{la[i:i + 1]} against {lb[i:i + 1]}")
+    leaves = [(f"weight {k}", v, b[2]["model"][k])
+              for k, v in a[2]["model"].items()]
+    leaves += [(f"Adam {k} (flat)", a[2]["optimizer"][k],
+                b[2]["optimizer"][k]) for k in ("mu", "nu")]
+    differ = [(what, x, y) for what, x, y in leaves
+              if x.shape != y.shape or not torch.equal(
+                  x.contiguous().view(-1).view(torch.uint8),
+                  y.contiguous().view(-1).view(torch.uint8))]
+    if differ:
+        what, x, y = differ[0]
+        gap = (_leaf_gap(torch, x, y) if x.shape == y.shape
+               else float("inf"))
+        out.append(f"{name}: {len(differ)} of {len(leaves)} final leaves "
+                   f"differ in their bytes, the first {what} by up to "
+                   f"{gap:.3g} of its max |x|; all: "
+                   f"{[w for w, _x, _y in differ]}")
+    if a[2]["optimizer"]["count"] != b[2]["optimizer"]["count"]:
+        out.append(f"{name}: Adam's step counts {a[2]['optimizer']['count']}"
+                   f" and {b[2]['optimizer']['count']}")
+    return out
+
+
+def repeat_phase(torch, np, dev, smi, bisect=False):
+    """Phase 16: (a) the train CLI of every config of
+    ``scripts/results_pack_torch.py`` twice on the card, REPEAT_EPOCHS
+    epochs, each run a child process (PACK_WORKERS at once) in a fresh
+    model directory on the config's corpus. The two runs must be bit
+    for bit equal: every step's loss and metrics at full precision, the
+    printed batch and validation lines, the final weights and flat
+    Adam's moments by their bytes. Raises on a difference, naming the
+    config, the first step and line that differ and the first leaf whose
+    bytes differ. ``bisect``: first :func:`bisect_step` on each config.
+    (b) :func:`deterministic_cost`."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    pack = _pack_module()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="prtp_repeat_") as work:
+        kinds = sorted({kind for _n, kind, _e in pack.CONFIGS})
+        with ThreadPoolExecutor(len(kinds)) as pool:
+            data = dict(zip(kinds, pool.map(
+                lambda kind: pack.build_corpus(work, kind), kinds)))
+        if bisect:
+            for name, kind, extra in pack.CONFIGS:
+                bisect_step(torch, pack, name, data[kind], kind, extra, smi)
+        t1 = time.perf_counter()
+        jobs = sorted(((name, kind, extra, run)
+                       for name, kind, extra in pack.CONFIGS
+                       for run in range(2)),
+                      key=lambda j: -len(pack.CORPORA[j[1]].get(
+                          "designs", ())))
+        with ThreadPoolExecutor(PACK_WORKERS) as pool:
+            runs = dict(zip(((j[0], j[3]) for j in jobs), pool.map(
+                lambda job: _repeat_run(pack, work, data, job), jobs)))
+    bad = []
+    for name, _kind, _extra in pack.CONFIGS:
+        a, b = runs[(name, 0)], runs[(name, 1)]
+        found = repeat_diffs(torch, name, a, b)
+        bad += found
+        log(f"phase 16: {name}: {len(a[0])} steps, loss "
+            f"{a[0][0]['loss']!r} -> {a[0][-1]['loss']!r} and "
+            f"{b[0][0]['loss']!r} -> {b[0][-1]['loss']!r}; "
+            f"{'bit-equal' if not found else 'DIFFER'}; runs "
+            f"{a[3]:.1f} s, {b[3]:.1f} s  [{smi}]")
+    for b in bad:
+        log(f"phase 16: DIFFERS {b}")
+    if bad:
+        raise AssertionError(f"phase 16: {len(bad)} differences between two "
+                             f"runs on the card; the first: {bad[0]}")
+    log(f"phase 16: {len(pack.CONFIGS)} configs' train CLIs twice on the "
+        f"card, {REPEAT_EPOCHS} epochs, {PACK_WORKERS} at once, bit-equal; "
+        f"runs {time.perf_counter() - t1:.1f} s, (a) "
+        f"{time.perf_counter() - t0:.1f} s  [{smi}]")
+    t0 = time.perf_counter()
+    deterministic_cost(torch, np, dev, smi)
+    log(f"phase 16 (b): {time.perf_counter() - t0:.1f} s  [{smi}]")
+
+
+def deterministic_cost(torch, np, dev, smi):
+    """Phase 16 (b): what the CLIs' deterministic scope
+    (``train.use_deterministic``) costs at full width, float32, TF32
+    off, in turns (default, deterministic, deterministic, default): the
+    headline reg train step and the U-Net's (the headline graph with a
+    3 x UNET_HW x UNET_HW raster), each at all 597 paths (device time,
+    queue pre-filled, and as launched; busy, idle share and launches
+    under torch.profiler), and LayoutNet's forward + backward alone."""
+    from prtp_tpu_torch.data.random_design import (bench_level_sizes,
+                                                   make_random_design)
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.train import use_deterministic
+    from prtp_tpu_torch.trainer import (init_state, make_optimizer,
+                                        pad_batch, train_step)
+
+    sizes = bench_level_sizes(NODES, LEVELS, decay=DECAY)
+    kw = dict(cell_feat_dim=CELL_FEAT, net_feat_dim=NET_FEAT,
+              map_size=MAP_SIZE, mask_nnz_per_path=MASK_NNZ, seed=SEED)
+    rasters = {"reg": dict(cnn_hw=CNN_HW),
+               "U-Net": dict(cnn_channels=UNET_CHANNELS, cnn_hw=UNET_HW)}
+    models = {"reg": {}, "U-Net": dict(unet=True, cnn_channels=UNET_CHANNELS)}
+    designs = {what: pack_design(make_random_design(sizes, **raster, **kw),
+                                 map_size=MAP_SIZE, device=dev)
+               for what, raster in rasters.items()}
+    states = {what: init_state(PathModel(
+        CELL_FEAT, NET_FEAT, map_size=MAP_SIZE,
+        generator=torch.Generator().manual_seed(SEED), **extra),
+        make_optimizer(LR), DEVICE) for what, extra in models.items()}
+    n = designs["reg"].num_paths
+    ids, mask = pad_batch(np.random.default_rng(0).permutation(n), n, dev)
+    cnn, x = states["reg"].model.cnn, designs["reg"].cnn_input
+    params = list(cnn.parameters())
+    cot = torch.randn(cnn(x).shape, device=dev)
+    timer = Timer(torch, dev)
+    scopes = {"default": contextlib.nullcontext,
+              "deterministic": use_deterministic}
+    for turn, scope in enumerate(("default", "deterministic",
+                                  "deterministic", "default")):
+        with scopes[scope]():
+            for what, state in states.items():
+                t = step_timing(torch, dev, lambda: train_step(
+                    state, designs[what], ids, mask), 200)
+                log(f"phase 16 (b): turn {turn}, {scope}: {what} train step "
+                    f"({n} paths) device time {t['device_ms']:.3f} ms; as "
+                    f"launched {t['launched_ms']:.3f} ms; wall "
+                    f"{t['wall_ms']:.3f} ms, device busy {t['busy_ms']:.3f} "
+                    f"ms, idle share {t['idle']:.3f}; {t['launches']} kernel "
+                    f"launches  [{smi}]")
+                for name, (tot, cnt) in sorted(t["by_name"].items(),
+                                               key=lambda kv: -kv[1][0])[:4]:
+                    log(f"    {tot / 1e3:8.3f} ms  x{cnt:<4d} {name[:90]}")
+            fb = timer.ms(lambda: torch.autograd.grad(cnn(x), params, cot),
+                          queue_ms=20)
+            log(f"phase 16 (b): turn {turn}, {scope}: LayoutNet forward + "
+                f"backward {fb:.3f} ms  [{smi}]")
+
+
+def bisect_step(torch, pack, name, data, kind, extra, smi):
+    """Phase 16 ``--bisect``: one config's first train batch, forward and
+    backward from the train CLI's starting weights, BISECT_REPS times in
+    this process, under the CLIs' deterministic scope
+    (``train.use_deterministic``) and without it
+    (cuDNN's and PyTorch's defaults, TF32 off). Logs which
+    of the walk's, the layout CNN's and the head's outputs, the
+    cotangents reaching the walk's and the CNN's outputs, and the
+    parameters' gradients differ in their bytes from the first rep."""
+    from prtp_tpu_torch import train as cli
+    from prtp_tpu_torch.data.dataset import get_design_list
+    from prtp_tpu_torch.graph import pack_design
+    from prtp_tpu_torch.models.fusion import model_from_options
+    from prtp_tpu_torch.options import get_options
+    from prtp_tpu_torch.trainer import (init_state, loss_backward,
+                                        make_optimizer, pad_batch)
+
+    options = get_options(pack.train_args(
+        data, "-", pack.CORPORA[kind]["map_size"], extra, 1))
+    parsed = cli._load("train", options, get_design_list(data, "train")[0])
+    design = pack_design(parsed, map_size=options.map_size, device=DEVICE)
+    model = model_from_options(options, parsed["cell_feat"].shape[1],
+                               parsed["net_feat"].shape[1],
+                               parsed["cnn_input"].shape[-3])
+    state = init_state(model, make_optimizer(options.learning_rate), DEVICE)
+    ids, mask = pad_batch(parsed["path_ids"][:options.batch_size],
+                          options.batch_size, DEVICE)
+    seen = {}
+
+    def keep(what):
+        def hook(_module, _inputs, out):
+            seen[what] = out.detach().clone()
+            if out.requires_grad:
+                out.register_hook(
+                    lambda g: seen.__setitem__(f"d {what}", g.clone()))
+        return hook
+
+    for what in ("gnn", "cnn", "mlp_fuse"):
+        if hasattr(model, what):
+            getattr(model, what).register_forward_hook(keep(what))
+    for scope, enter in (("deterministic", cli.use_deterministic),
+                         ("default", contextlib.nullcontext)):
+        reps = []
+        with enter():
+            for _ in range(BISECT_REPS):
+                seen.clear()
+                loss_backward(state, design, ids, mask, options.task)
+                torch.cuda.synchronize()
+                got = dict(seen)
+                got.update((f"grad {k}", p.grad.detach().clone())
+                           for k, p in model.named_parameters())
+                reps.append(got)
+        differ = {}
+        for rep in reps[1:]:
+            for k, v in rep.items():
+                if not torch.equal(v.view(-1).view(torch.uint8),
+                                   reps[0][k].view(-1).view(torch.uint8)):
+                    differ[k] = max(differ.get(k, 0.0),
+                                    _leaf_gap(torch, v, reps[0][k]))
+        log(f"phase 16 (bisect): {name} [{scope}]: {BISECT_REPS} reps of "
+            f"batch 0; differ from the first: "
+            f"{ {k: f'{g:.3g}' for k, g in differ.items()} or 'none'}  "
+            f"[{smi}]")
+
+
 def parse_args(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(
         description="Drive the PyTorch/CUDA port on one card (module doc).")
     ap.add_argument(
-        "--phases", type=int, nargs="+", choices=range(3, 16),
-        metavar="N", help="run only these phases (3-15) after the build "
+        "--phases", type=int, nargs="+", choices=range(3, 17),
+        metavar="N", help="run only these phases (3-16) after the build "
         "(phase 2), then the kernels line and the last line; phase 14 "
         "runs on phase 9's designs, so naming 14 runs 9. Without it every "
         "phase runs")
+    ap.add_argument(
+        "--bisect", action="store_true", help="phase 16 first runs each "
+        "config's first batch several times in this process and logs "
+        "which outputs, cotangents and gradients differ between passes")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    phases = set(range(3, 16) if args.phases is None else args.phases)
+    phases = set(range(3, 17) if args.phases is None else args.phases)
     if 14 in phases:
         phases.add(9)
     import torch
@@ -6277,6 +6559,12 @@ def main(argv=None) -> int:
     import numpy as np
     import torch.nn.functional as F
     from prtp_tpu_torch.ops import _build
+    from prtp_tpu_torch.train import CUBLAS_WORKSPACE_CONFIG
+
+    # PyTorch reads cuBLAS's workspace setting at the process's first
+    # cuBLAS call, and phases 7, 10 and 16 enter the CLIs' deterministic
+    # scope after earlier phases' matmuls: set it for the whole run
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE_CONFIG
     from prtp_tpu_torch.trainer import make_optimizer
 
     t_start = time.perf_counter()
@@ -6324,6 +6612,9 @@ def main(argv=None) -> int:
     # ---- phase 15: the graft-style entry and the results pack ----
     if 15 in phases:
         launches.update(entry_phase(torch, np, dev, smi, compute_mode))
+    # ---- phase 16: the train CLI's runs repeat bit for bit ----
+    if 16 in phases:
+        repeat_phase(torch, np, dev, smi, args.bisect)
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

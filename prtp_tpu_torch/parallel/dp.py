@@ -19,9 +19,11 @@ backpropagates the whole batch's loss computes exactly those gradients
 with no sum at all: the walk and the layout CNN read only the design,
 which every rank holds, so they ran whole on every rank anyway, and the
 head's rows are a few hundred. The broadcast keeps every rank's flat
-Adam state bit-equal, since on a card the replicated backward may add
-in another order on each rank (atomic ``index_add_``, cuDNN's weight
-gradients). The metrics are the whole batch's, computed on every rank.
+Adam state bit-equal: outside the CLIs' deterministic scope
+(``train.use_deterministic``) the replicated backward adds in another
+order on each rank (cuDNN's default weight gradients), and within it
+no run has yet shown that two cards choose the same algorithms. The
+metrics are the whole batch's, computed on every rank.
 Evaluation is sharded: each rank predicts its block of the batch
 (:func:`shard_batch`) and the blocks are gathered.
 """

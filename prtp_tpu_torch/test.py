@@ -239,20 +239,21 @@ def _plot_relative_error(options, case_idx, levels, preds, arrival):
 
 
 def _run(options, mesh, dev):
-    """One process's evaluation CLI on ``dev``, in float32; only rank 0
-    prints."""
-    from .train import use_float32
+    """One process's evaluation CLI on ``dev``, in float32 and
+    deterministic algorithms; only rank 0 prints."""
+    from .train import use_deterministic, use_float32
 
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     use_float32()
     designs = get_design_list(options.data_save_path, "test")
-    with main_process_stdout():
+    with use_deterministic(), main_process_stdout():
         return test(options, designs, dev, mesh)
 
 
 def main(argv=None, device="cuda", backend=None):
-    """The evaluation CLI, in float32 (TF32 off for the process); returns
+    """The evaluation CLI, in float32 (TF32 off for the process) and
+    deterministic algorithms (``train.use_deterministic``); returns
     :func:`test`'s result, or None where it started its data-parallel
     ranks (``--dp`` / ``--mesh_shape``, as the train CLI does) as
     processes of their own."""

@@ -26,7 +26,9 @@ Usage:
 
 ``main(argv, device="cuda")`` runs on the card (``--gpu`` picks which)
 in float32: it turns TF32 off for the process (:func:`use_float32`), as
-the JAX reference computes. ``--compute_dtype bfloat16`` runs the model
+the JAX reference computes; and it runs deterministic algorithms
+(:func:`use_deterministic`), so that a run repeats bit for bit from its
+``--seed``, as the reference's do. ``--compute_dtype bfloat16`` runs the model
 in JAX's mixed precision (``models/fusion.py``) on designs packed in
 bf16; the parameters, Adam's moments, the loss and the metrics stay
 float32. Tests pass ``device="cpu"``. Without a card it raises.
@@ -34,6 +36,7 @@ float32. Tests pass ``device="cpu"``. Without a card it raises.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import sys
@@ -382,6 +385,46 @@ def use_float32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+# cuBLAS's deterministic workspace setting (one 4 MiB workspace a handle
+# and stream), which torch.use_deterministic_algorithms requires
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
+
+
+@contextlib.contextmanager
+def use_deterministic():
+    """Run every PyTorch op of the block by a deterministic algorithm, so
+    that a run repeats bit for bit from its ``--seed`` as the JAX
+    reference's runs do: cuDNN's deterministic convolution algorithms
+    (its default weight gradients add in another order from call to
+    call) and no autotuning, ``torch.use_deterministic_algorithms(True)``
+    (an op with no deterministic implementation raises), and cuBLAS's
+    deterministic workspace. PyTorch reads that last setting at the
+    process's first cuBLAS call: a CLI run as a program makes none before
+    the scope, and a process that ran matmuls on a card before calling a
+    CLI must set ``CUBLAS_WORKSPACE_CONFIG`` itself first, or its matmuls
+    raise here. The port's own kernels sum in fixed orders. On exit every
+    setting is the caller's again, so an in-process CLI run leaves its
+    caller as it found it."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE_CONFIG
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved[:2]
+        # the caller's own mode back, as it was
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+        if saved[4] is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[4]
+
+
 def _profiled_train(options, seed, dev, mesh=None):
     """``train`` under torch.profiler; the trace goes to
     ``<profile_dir>/trace.json`` (rank 0's under ``--dp``)."""
@@ -400,8 +443,8 @@ def _profiled_train(options, seed, dev, mesh=None):
 
 
 def _run(options, mesh, dev):
-    """One process's train CLI on ``dev``: float32, the seeds, the
-    logs (rank 0's), the loop."""
+    """One process's train CLI on ``dev``: float32, deterministic
+    algorithms, the seeds, the logs (rank 0's), the loop."""
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     use_float32()
@@ -412,8 +455,8 @@ def _run(options, mesh, dev):
     stdout_f = os.path.join(options.model_saving_dir, "stdout.log")
     stderr_f = os.path.join(options.model_saving_dir, "stderr.log")
     # analogue of th.autograd.set_detect_anomaly(True) (src/train.py:452);
-    # restored on exit
-    with StdoutTee(stdout_f), StderrTee(stderr_f), \
+    # restored on exit, as the deterministic scope is
+    with use_deterministic(), StdoutTee(stdout_f), StderrTee(stderr_f), \
             torch.autograd.set_detect_anomaly(options.debug_nans):
         if options.profile_dir:
             return _profiled_train(options, seed, dev, mesh)

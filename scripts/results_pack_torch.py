@@ -13,13 +13,19 @@ config's final row beside the JAX package's committed one
 and its power limit beside every time. Each config's summary is also
 printed on stdout, one JSON line.
 
+Each summary also holds the digests of every train step's metrics at
+full precision and of the final weights and Adam moments, by which
+``--compare`` says whether two packs repeat bit for bit.
+
 Usage:  python scripts/results_pack_torch.py [--device cuda|cpu]
         [--work DIR] [--out DIR] [--epochs N] [--configs NAME ...]
+        python scripts/results_pack_torch.py --compare OUT_A OUT_B
 
 The default device is ``cuda``: without a card the pack raises.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -73,11 +79,13 @@ _CHILD = ("import sys\nfrom prtp_tpu_torch import {mod}\n"
 
 # the train CLI as _CHILD runs it, which also keeps, in the directory
 # given first, the checkpoint it writes at creation (INITIAL, before a
-# save overwrites it) and every train step's metrics at full precision
-# (STEPS: one dict a step)
-INITIAL, STEPS = "initial.pt", "steps.json"
+# save overwrites it), every train step's metrics at full precision
+# (STEPS: one dict a step) and the state it returns (FINAL: the weights
+# and flat Adam's moments after the last step)
+INITIAL, STEPS, FINAL = "initial.pt", "steps.json", "final.pt"
 _TRACED_TRAIN = """
 import json, os, shutil, sys
+import torch
 from prtp_tpu_torch import train
 from prtp_tpu_torch.utils import checkpoint
 trace = sys.argv.pop(1)
@@ -97,9 +105,12 @@ def traced_steps(*args, **kwargs):
 
 checkpoint.save_checkpoint, train.train_steps = save_checkpoint, traced_steps
 os.makedirs(trace, exist_ok=True)
-train.main(sys.argv[1:], device={device!r})
+state = train.main(sys.argv[1:], device={device!r})
 with open(os.path.join(trace, {steps!r}), "w") as f:
     json.dump(steps, f)
+torch.save({{"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict()}},
+           os.path.join(trace, {final!r}))
 """
 
 
@@ -150,7 +161,8 @@ def run_train(mdl, args, device, timeout):
     trace = mdl + "_trace"
     for path in (mdl, trace):
         shutil.rmtree(path, ignore_errors=True)
-    code = _TRACED_TRAIN.format(device=device, initial=INITIAL, steps=STEPS)
+    code = _TRACED_TRAIN.format(device=device, initial=INITIAL, steps=STEPS,
+                                final=FINAL)
     _run([sys.executable, "-c", code, trace] + args, timeout)
     return trace
 
@@ -165,6 +177,15 @@ def read_trace(trace):
                       weights_only=True)
     with open(os.path.join(trace, STEPS)) as f:
         return blob["model"], json.load(f)
+
+
+def read_final(trace):
+    """The state a :func:`run_train` trace's CLI returned, on the host:
+    ``{"model": state_dict, "optimizer": {"mu", "nu", "count"}}``."""
+    import torch
+
+    return torch.load(os.path.join(trace, FINAL), map_location="cpu",
+                      weights_only=True)
 
 
 def train_args(data, mdl, map_size, extra, epochs):
@@ -236,13 +257,63 @@ def run_config(name, data, map_size, extra, epochs, out_root, device):
     batches, vals = parse_curve(os.path.join(mdl, "stdout.log"))
     with open(os.path.join(mdl, "predict.txt")) as f:
         final = [float(x) for x in f.read().strip().splitlines()[-1].split()]
+    _weights, steps = read_trace(trace)
     return dict(name=name, flags=" ".join(extra) or "(default)",
                 steps=len(batches), train_s=round(t_train, 1),
                 eval_s=round(t_eval, 1),
                 eval_runtimes=[round(t, 4) for t in runtimes],
                 first_loss=batches[0][1], last_loss=batches[-1][1],
-                curve=vals, final=dict(zip(METRICS, final)),
+                last_loss_exact=steps[-1]["loss"], curve=vals,
+                final=dict(zip(METRICS, final)),
+                steps_sha256=steps_digest(steps),
+                final_sha256=state_digest(read_final(trace)),
                 model_dir=mdl, trace=trace)
+
+
+def steps_digest(steps) -> str:
+    """SHA-256 of a trace's steps (:func:`read_trace`): every train step's
+    loss and metrics at full precision, in order."""
+    return hashlib.sha256(json.dumps(steps).encode()).hexdigest()
+
+
+def state_digest(blob) -> str:
+    """SHA-256 of a :func:`read_final` state's bytes: every weight, by
+    name, then flat Adam's two moments and its step count."""
+    import torch
+
+    h = hashlib.sha256()
+    tensors = sorted(blob["model"].items()) + [
+        (k, blob["optimizer"][k]) for k in ("mu", "nu")]
+    for key, t in tensors:
+        h.update(key.encode())
+        h.update(t.contiguous().view(-1).view(torch.uint8).numpy())
+    h.update(str(blob["optimizer"]["count"]).encode())
+    return h.hexdigest()
+
+
+def repeat_diffs(out_a, out_b) -> list:
+    """How two packs written to ``out_a`` and ``out_b`` differ: one line a
+    config that only one ran, or whose steps (:func:`steps_digest`) or
+    final state (:func:`state_digest`) are not bit-equal in both; empty
+    when every config repeats."""
+    names = [[n for n, _k, _e in CONFIGS if os.path.exists(
+        os.path.join(out, n, "summary.json"))] for out in (out_a, out_b)]
+    out = ([] if names[0] == names[1] else
+           [f"the packs ran other configs: {names[0]} and {names[1]}"])
+    for name in names[0]:
+        if name not in names[1]:
+            continue
+        rows = []
+        for root in (out_a, out_b):
+            with open(os.path.join(root, name, "summary.json")) as f:
+                rows.append(json.load(f))
+        for key in ("steps_sha256", "final_sha256"):
+            if rows[0].get(key) is None or rows[0].get(key) != rows[1].get(
+                    key):
+                out.append(f"{name}: {key} differs, last loss "
+                           f"{rows[0].get('last_loss_exact')!r} and "
+                           f"{rows[1].get('last_loss_exact')!r}")
+    return out
 
 
 def start_diffs(a, b):
@@ -316,7 +387,16 @@ def main(argv=None):
     ap.add_argument("--epochs", type=int, default=150)
     ap.add_argument("--configs", nargs="+", default=None,
                     help="subset of config names to run")
+    ap.add_argument("--compare", nargs=2, metavar="OUT",
+                    help="train nothing: say whether the packs written to "
+                    "these two --out directories repeat bit for bit")
     args = ap.parse_args(argv)
+    if args.compare:
+        diffs = repeat_diffs(*args.compare)
+        for d in diffs:
+            log(f"--- differs: {d}")
+        print(json.dumps({"repeat": not diffs, "differ": diffs}), flush=True)
+        return 1 if diffs else 0
     known = {name for name, _k, _e in CONFIGS}
     if args.configs and set(args.configs) - known:
         raise SystemExit(f"unknown configs {set(args.configs) - known}")
@@ -329,9 +409,11 @@ def main(argv=None):
     os.makedirs(args.work, exist_ok=True)
     os.makedirs(args.out, exist_ok=True)
 
+    t_pack, ran = time.time(), 0
     for name, kind, extra in CONFIGS:
         if args.configs and name not in args.configs:
             continue
+        ran += 1
         data = build_corpus(args.work, kind)
         r = run_config(name, data, CORPORA[kind]["map_size"], extra,
                        args.epochs, args.work, args.device)
@@ -363,6 +445,9 @@ def main(argv=None):
             with open(summ) as f:
                 rows.append(json.load(f))
     write_results_md(args.out, rows)
+    log(f"--- pack: {ran} configs in {time.time() - t_pack:.1f} s on {where}"
+        " (the corpora, the train and eval runs and, on a card, each "
+        "config's CPU epoch)")
     print(json.dumps({r["name"]: r["final"] for r in rows}), flush=True)
 
 
@@ -468,4 +553,4 @@ def write_results_md(out, rows):
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

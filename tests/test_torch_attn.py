@@ -34,6 +34,8 @@ from test_torch_gnn import HID, OUT, _grad_case
 from test_torch_model import MAP_SIZE, MODEL_KW
 from test_torch_train import assert_steps_match_jax, golden_train  # noqa: F401
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 NUM_ROWS, P, K, D = 70, 31, 5, 16
 
 

@@ -52,6 +52,8 @@ from prtp_tpu_torch.utils.convert import params_from_flax
 from test_torch_convert import small_parsed
 from test_torch_gnn import HID, OUT, _grad_case
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 BF = torch.bfloat16
 # the port's distance from JAX's bf16, at most this share of JAX's own
 # bf16-to-float32 distance

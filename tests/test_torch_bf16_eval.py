@@ -53,6 +53,8 @@ from test_torch_bf16 import (REL_GAP, _differ, _grid, _np,  # noqa: F401
 from test_torch_bf16_model import MODEL_KW, _wide_parsed
 from test_torch_convert import jax_params
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 OUT, HID = 16, 32
 
 

@@ -39,6 +39,8 @@ from test_torch_bf16 import (BF, _differ, _nchw, _nhwc, _np,
                              assert_near_jax_bf16, no_launches)  # noqa: F401
 from test_torch_convert import jax_params
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 LR, STEPS, BATCH = 1e-3, 5, 4
 MODEL_KW = dict(out_dim=16, hidden_dim=32, cnn_outdim=8, map_size=16,
                 global_dim=8)

@@ -52,6 +52,8 @@ from prtp_tpu_torch.utils.convert import params_from_flax
 from test_torch_bf16 import REL_GAP, _grid
 from test_torch_bf16_eval import HID, OUT, _grid_design, _grid_mlp
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 # the JAX padded pack's alignment: levels of 40-70 rows pad to 48-72,
 # which moves XLA's summation windows against the port's 40-70 rows
 ALIGN = 8

@@ -27,6 +27,8 @@ from prtp_tpu_torch.trainer import (init_state, make_optimizer, pad_batch,
                                     train_step)
 from prtp_tpu_torch.utils import checkpoint as ckpt
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # tests/test_e2e.py's widths
 MAP_ARGS = ["--map_size", "16", "--cnn_outdim", "8", "--out_dim", "16",
@@ -254,29 +256,67 @@ def test_resume_keeps_the_saved_learning_rate_unless_changed(flow, tmp_path,
     assert state.optimizer.lr == (0.5 if change_lr else 1e-3)
 
 
-def test_clis_turn_tf32_off(flow, tmp_path):
+def test_clis_turn_tf32_off(flow, tmp_path, monkeypatch):
     """train.main and test.main compute in float32, whatever the caller's
     TF32 settings: both flags are False after each CLI ran with them True
-    (cuDNN's is True by PyTorch's default)."""
+    (cuDNN's is True by PyTorch's default). And each runs in the
+    deterministic scope (``train.use_deterministic``): inside the run
+    cuDNN is deterministic and does not autotune, PyTorch's deterministic
+    algorithms are on (raising, not warning) and cuBLAS has its
+    deterministic workspace; after it, the caller's own settings are back,
+    whichever they were."""
     mdl = str(tmp_path / "mdl")
     shutil.copytree(flow["mdl"], mdl)
     args = [a if a != flow["mdl"] else mdl for a in flow["args"]]
     flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
-    saved = [f.allow_tf32 for f in flags]
+    cudnn = torch.backends.cudnn
+    key = "CUBLAS_WORKSPACE_CONFIG"
+
+    def settings():
+        return (cudnn.deterministic, cudnn.benchmark,
+                torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+                os.environ.get(key))
+
+    inside = []
+    for module, name in ((train_mod, "train"), (test_mod, "test")):
+        real = getattr(module, name)
+
+        def spy(*a, real=real, **kw):
+            inside.append(settings())
+            return real(*a, **kw)
+
+        monkeypatch.setattr(module, name, spy)
+    saved = [f.allow_tf32 for f in flags], settings()
+    callers = [(False, True, False, False, None),
+               (True, False, True, True, ":16:8")]
     try:
-        for run in (
-                lambda: train_mod.main(args + ["--max_steps", "1"],
-                                       device="cpu"),
-                lambda: test_mod.main(["--data_save_path", flow["data"],
-                                       "--model_saving_dir", mdl] + MAP_ARGS,
-                                      device="cpu")):
-            for f in flags:
-                f.allow_tf32 = True
-            run()
-            assert [f.allow_tf32 for f in flags] == [False, False]
+        for caller in callers:
+            for run in (
+                    lambda: train_mod.main(args + ["--max_steps", "1"],
+                                           device="cpu"),
+                    lambda: test_mod.main(
+                        ["--data_save_path", flow["data"],
+                         "--model_saving_dir", mdl] + MAP_ARGS,
+                        device="cpu")):
+                for f in flags:
+                    f.allow_tf32 = True
+                cudnn.deterministic, cudnn.benchmark = caller[:2]
+                torch.use_deterministic_algorithms(caller[2],
+                                                   warn_only=caller[3])
+                monkeypatch.delenv(key, raising=False)
+                if caller[4] is not None:
+                    monkeypatch.setenv(key, caller[4])
+                run()
+                assert [f.allow_tf32 for f in flags] == [False, False]
+                assert inside.pop() == (True, False, True, False, ":4096:8")
+                assert settings() == caller
     finally:
-        for f, v in zip(flags, saved):
+        for f, v in zip(flags, saved[0]):
             f.allow_tf32 = v
+        cudnn.deterministic, cudnn.benchmark = saved[1][:2]
+        torch.use_deterministic_algorithms(saved[1][2], warn_only=saved[1][3])
+    assert not inside
 
 
 # ---- the checkpoint format ----

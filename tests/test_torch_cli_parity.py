@@ -33,6 +33,8 @@ from _cli_parity import (CORPUS_ARGS, cli_runs_fixture,  # noqa: F401
                          test_train_cli_prints_jax_values,
                          test_train_cli_saves_jax_config)
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 cli_runs = cli_runs_fixture(["default", "attn", "merged", "bf16_default"])
 BIG_KW = dict(num_paths=8, stages=4, grps=2)
 

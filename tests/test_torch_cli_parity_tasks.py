@@ -9,4 +9,6 @@ from _cli_parity import (cli_runs_fixture, corpus_data,  # noqa: F401
                          test_train_cli_prints_jax_values,
                          test_train_cli_saves_jax_config, unet_data)
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 cli_runs = cli_runs_fixture(['cls', 'unet'])

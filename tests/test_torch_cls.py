@@ -27,6 +27,8 @@ from test_torch_convert import golden_variables, jax_params
 from test_torch_model import MAP_SIZE, MODEL_KW
 from test_torch_train import assert_steps_match_jax, golden_train  # noqa: F401
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 CLS_KW = tvg.CLS_KW
 
 

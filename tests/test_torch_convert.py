@@ -15,6 +15,8 @@ from prtp_tpu_torch.data.random_design import make_random_design
 from prtp_tpu_torch.models import PathModel
 from prtp_tpu_torch.utils.convert import params_from_flax, params_to_flax
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 SMALL_KW = dict(out_dim=16, hidden_dim=32, cnn_outdim=8, map_size=16,
                 global_dim=8)
 

@@ -45,6 +45,8 @@ from prtp_tpu_torch.trainer import (init_state, make_optimizer, pad_batch,
 from test_torch_cli import MAP_ARGS
 from _cli_parity import save_initial_states
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "_torch_dp_child.py")
 # test_dp_cli.py's run: 4 steps, validation only at the designs' ends

@@ -19,6 +19,8 @@ from prtp_tpu_torch.utils.convert import params_from_flax
 from helpers import make_random_leveled_graph
 from test_torch_convert import small_parsed
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 OUT, HID = 16, 32
 
 

@@ -20,6 +20,8 @@ import __graft_entry__ as jax_entry
 import __graft_entry_torch__ as port_entry
 from prtp_tpu_torch.utils.convert import params_from_flax
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRYRUNS = (4, 3)  # the (2, 2) segment mesh, and the odd count's 1-D dp
 DRYRUN_TIMEOUT = 300

@@ -17,6 +17,8 @@ from prtp_tpu_torch.graph import pack_design, pack_leveled_graph_exact
 
 from helpers import make_random_leveled_graph
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
 

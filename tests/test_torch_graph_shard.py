@@ -57,6 +57,8 @@ from _torch_graph_shard_child import walk
 from test_models import _tiny_parsed_design
 from test_torch_convert import jax_params
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "_torch_graph_shard_child.py")
 MODEL_KW = dict(out_dim=16, hidden_dim=32, cnn_outdim=8, map_size=16,

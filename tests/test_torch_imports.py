@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "prtp_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "prtp_tpu")

@@ -24,6 +24,8 @@ from prtp_tpu_torch.models.fusion import model_from_options
 from prtp_tpu_torch.options import get_options
 from prtp_tpu_torch.utils.convert import params_from_flax
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 SEEDS = 16
 STD_SIGMAS = 5.0
 # a float32 draw clamped at a float64 bound may round past it by an ulp

@@ -10,6 +10,8 @@ import pytest
 
 from prtp_tpu_torch.ops import _build, adam, fused_gnn, gather, segment_kernels
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 C_TYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,
            "float": ctypes.c_float}
 # each launcher's ctypes argument list, as its wrapper passes it

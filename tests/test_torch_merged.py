@@ -31,6 +31,8 @@ from test_torch_bf16_model import _bf16_ulp, _Fixed
 from test_torch_convert import jax_params
 from test_torch_train import assert_steps_match_jax
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 K_DESIGNS = 3
 
 

@@ -8,6 +8,8 @@ import torch
 from prtp_tpu.utils import metrics as JM
 from prtp_tpu_torch.utils import metrics as M
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 
 def _inputs(seed, n=64):
     rng = np.random.default_rng(seed)

@@ -22,6 +22,8 @@ from prtp_tpu_torch.utils.convert import params_from_flax
 from test_torch_convert import jax_params
 from test_torch_graph import FIXTURES, golden_parsed
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 # tests/test_reference_parity.py's small configuration
 MAP_SIZE = 16
 MODEL_KW = dict(out_dim=16, hidden_dim=32, cnn_outdim=8, map_size=16,

@@ -84,6 +84,8 @@ from test_torch_bf16_scan_grad import (_on_rows, _to_rows,
 from test_torch_convert import jax_params
 from test_torch_graph_shard import _assert_bf16_grads, _tight_vs_jax
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "_torch_multi_child.py")
 MODEL_KW = dict(out_dim=16, hidden_dim=32, cnn_outdim=8, map_size=16,

@@ -23,6 +23,8 @@ from prtp_tpu_torch.ops.fused_gnn import (local_mean_plain,
 from prtp_tpu_torch.ops.gather import gather_rows_plain
 from prtp_tpu_torch.ops.pool import pool_2x2
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 
 @pytest.fixture(autouse=True)
 def no_launches():

@@ -9,6 +9,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -18,6 +19,8 @@ import torch
 from prtp_tpu_torch.data.dataset import load_single_design
 from prtp_tpu_torch.models.fusion import model_from_options
 from prtp_tpu_torch.options import get_options
+
+import _torch_threads  # noqa: F401  (one torch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACK = os.path.join(REPO, "scripts", "results_pack_torch.py")
@@ -90,6 +93,53 @@ def test_train_cli_starts_from_the_seed_where_the_card_started(pack_run):
     assert card["device"].startswith("NVIDIA")
     assert abs(steps[0]["loss"] - card["first_loss"]) <= (
         1e-3 * abs(card["first_loss"]) + 5e-4), (steps[0], card["first_loss"])
+
+
+def test_pack_keeps_the_final_state_and_its_digests(pack_run):
+    """The trace keeps the state the train CLI ended in (the weights and
+    flat Adam's moments after its last step), and the summary the
+    digests of every step's metrics and of that state, by which two
+    packs are compared bit for bit."""
+    root, _stdout = pack_run
+    trace = str(root / "work" / f"{CONFIG}_trace")
+    start, steps = pack.read_trace(trace)
+    final = pack.read_final(trace)
+    with open(root / "out" / CONFIG / "summary.json") as f:
+        summary = json.load(f)
+    assert sorted(final["model"]) == sorted(start)
+    assert not all(torch.equal(final["model"][k], start[k]) for k in start)
+    n = sum(v.numel() for k, v in final["model"].items()
+            if not k.endswith(("running_mean", "running_var")))
+    assert final["optimizer"]["mu"].shape == (n,)
+    assert final["optimizer"]["count"] == len(steps) == summary["steps"]
+    assert summary["last_loss_exact"] == steps[-1]["loss"]
+    assert summary["steps_sha256"] == pack.steps_digest(steps)
+    assert summary["final_sha256"] == pack.state_digest(final)
+    final["optimizer"]["nu"][0] += 1.0
+    assert pack.state_digest(final) != summary["final_sha256"]
+
+
+@pytest.mark.parametrize("change", [None, "steps_sha256", "final_sha256"])
+def test_compare_says_whether_two_packs_repeat(pack_run, tmp_path, change):
+    """``--compare A B`` trains nothing: exit 0 and ``"repeat": true``
+    where every config's digests agree, else exit 1 naming the config
+    and the digest that differs."""
+    root, _stdout = pack_run
+    other = tmp_path / "other"
+    shutil.copytree(root / "out", other)
+    if change:
+        path = other / CONFIG / "summary.json"
+        summary = json.loads(path.read_text())
+        summary[change] = "0" * 64
+        path.write_text(json.dumps(summary))
+    proc = subprocess.run(
+        [sys.executable, PACK, "--compare", str(root / "out"), str(other)],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    said = json.loads(proc.stdout.splitlines()[-1])
+    assert proc.returncode == (1 if change else 0), proc.stderr
+    assert said["repeat"] is (change is None)
+    assert [d.split(",")[0] for d in said["differ"]] == (
+        [f"{CONFIG}: {change} differs"] if change else [])
 
 
 def test_parse_curve_finds_every_batch_line(pack_run):

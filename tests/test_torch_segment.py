@@ -45,6 +45,8 @@ from test_models import _tiny_parsed_design
 from test_torch_convert import jax_params, small_parsed
 from test_torch_train import assert_steps_match_jax
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 OUT, HID = 16, 32
 MODEL_KW = dict(out_dim=16, hidden_dim=32, cnn_outdim=8, map_size=16,
                 global_dim=8, gnn_reduce="segment")

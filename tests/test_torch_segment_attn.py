@@ -40,6 +40,8 @@ from test_torch_segment import (HID, OUT, _csr_case, _segment_case,
                                 _walk_case)
 from test_torch_train import assert_steps_match_jax
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 MODEL_KW = dict(out_dim=16, hidden_dim=32, cnn_outdim=8, map_size=16,
                 global_dim=8, gnn_reduce="segment", flag_attn=True,
                 num_heads=2)

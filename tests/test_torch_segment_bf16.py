@@ -63,6 +63,8 @@ from test_torch_bf16_scan_grad import (GROUPED_LEVELS, _on_rows, _to_rows,
                                        grid_levels_design, grid_params)
 from test_torch_convert import jax_params
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 # JAX's padded pack's alignment: its levels pad to multiples of 8 rows,
 # which the bias gradients' bf16 sums count
 ALIGN = 8

@@ -26,6 +26,8 @@ from test_torch_convert import jax_params
 from test_torch_graph import golden_parsed
 from test_torch_model import MAP_SIZE, MODEL_KW
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 LR = 1e-3
 STEPS = 5
 BATCH = 4

@@ -27,6 +27,8 @@ from prtp_tpu_torch.utils.convert import (batch_stats_to_flax,
 
 from test_torch_convert import jax_params
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 TOL = 1e-5
 MAP = 8  # the U-Net halves the raster: a 16 x 16 raster gives an 8 x 8 map
 KW = dict(out_dim=16, hidden_dim=32, cnn_outdim=8, map_size=MAP,
