@@ -40,12 +40,14 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4  # atol: x the leaf's largest |g|
 
 def _flagship(small=True, map_size=128, cnn_hw=512, seed=0,
               gnn_reduce="mailbox", device="cuda"):
-    """The full multimodal PathModel (weights from a ``torch.Generator``
-    seeded with ``seed``) on ``device``, a random design packed there,
-    and the parsed design: ``(model, design, parsed)``."""
+    """The full multimodal PathModel (the JAX package's weights for
+    ``jax.random.PRNGKey(seed)``, ``utils/convert.py::init_from_seed``)
+    on ``device``, a random design packed there, and the parsed design:
+    ``(model, design, parsed)``."""
     from prtp_tpu_torch.data.random_design import make_random_design
     from prtp_tpu_torch.graph import pack_design
     from prtp_tpu_torch.models import PathModel
+    from prtp_tpu_torch.utils.convert import init_from_seed
 
     dev = resolve_device(device)
     level_sizes = ([64, 96, 80, 96, 64, 64] if small
@@ -55,9 +57,9 @@ def _flagship(small=True, map_size=128, cnn_hw=512, seed=0,
         map_size=map_size, cnn_hw=cnn_hw, seed=seed)
     design = pack_design(parsed, map_size=map_size, device=dev,
                          segment=gnn_reduce == "segment")
-    model = PathModel(36, 3, out_dim=128, hidden_dim=256, cnn_outdim=128,
-                      map_size=map_size, gnn_reduce=gnn_reduce,
-                      generator=torch.Generator().manual_seed(seed))
+    model = init_from_seed(
+        PathModel(36, 3, out_dim=128, hidden_dim=256, cnn_outdim=128,
+                  map_size=map_size, gnn_reduce=gnn_reduce), seed)
     return model.to(dev), design, parsed
 
 

@@ -5,8 +5,9 @@
 
 Without ``--phases`` every phase runs. With it, phases 1 and 2 run, then
 only the phases named (3-16; phase 14 steps phase 9's designs, so it
-brings 9), then the kernels line, of the records of the phases run, and
-the last line. Phases, each failing loudly (nonzero exit) on any error:
+brings 9; phase 15 (c) reads phase 16 (a)'s first card runs, so it
+brings those), then the kernels line, of the records of the phases run,
+and the last line. Phases, each failing loudly (nonzero exit) on any error:
 
 1. Print the card (``nvidia-smi`` name, power limit and compute mode),
    the torch and CUDA versions; turn TF32 off for matmuls and convolutions (the port's
@@ -271,16 +272,22 @@ the last line. Phases, each failing loudly (nonzero exit) on any error:
    start; not run, and said so, where the card's compute mode is
    exclusive; (c) :func:`pack_parity`: the train CLI of each of the
    seven configs of ``scripts/results_pack_torch.py`` for PACK_EPOCHS
-   epoch, as the pack runs it (a child process), on the card and on the
-   CPU from the same corpus (built once a config's kind): the weights
-   each run starts from (the checkpoint the CLI writes at creation)
-   bit-equal, every step's loss and r2 within LOSS_RTOL (r2 as ``1 -
-   r2``), a ``cls`` run's F1s equal; each config's first and last loss
-   on both devices printed; timed.
+   epoch on the CPU, as the pack runs it (a child process), against the
+   first epoch of phase 16 (a)'s first card run of the config, from the
+   same corpus (built once a config's kind; naming phase 15 alone runs
+   that card run alone): the weights each run starts from (the
+   checkpoint the CLI writes at creation) bit-equal, every step's loss
+   and r2 within LOSS_RTOL (r2 as ``1 - r2``), a ``cls`` run's F1s
+   equal, and the card's first loss the JAX pack's committed one
+   (``results/<config>/summary.json``, read as data: the CLI draws the
+   JAX package's weights for ``--seed``), within
+   ``results_pack_torch.start_gap``'s rtol; each config's first and last
+   loss on both devices printed; the CPU runs timed.
 16. The train CLI's runs repeat bit for bit (:func:`repeat_phase`): (a)
    the train CLI of each of the seven pack configs twice on the card,
-   REPEAT_EPOCHS epochs, as the pack runs it (a child process,
-   PACK_WORKERS at once): every step's loss and metrics at full
+   REPEAT_EPOCHS epochs, as the pack runs it (a child process; these
+   runs and phase 15 (c)'s CPU runs are one pool of PACK_WORKERS,
+   :func:`pack_runs`): every step's loss and metrics at full
    precision, the printed batch and validation lines, the final weights
    and flat Adam's moments by their bytes must be equal; a difference
    names the config, the first step and line that differ and the first
@@ -384,11 +391,12 @@ DP_CLI_RTOL = 1e-5  # (c): the --dp CLIs' printed values against without
 F4_MEAN, F4_MAX = 1e-3, 1e-4
 FLAGSHIP_TOL = 1e-4  # phase 15 (a): the flagship forwards, card vs cpu
 DRYRUN_RANKS = 8  # phase 15 (b): a (4, 2) mesh
-# phase 15 (c): each pack config's train CLI for PACK_EPOCHS, card and
-# cpu, PACK_WORKERS child processes at once
+# phase 15 (c): each pack config's train CLI for PACK_EPOCHS on the cpu;
+# phases 15 (c) and 16 (a): PACK_WORKERS child processes at once
 PACK_EPOCHS, PACK_WORKERS = 1, 4
 # phase 16: each pack config's train CLI twice on the card, REPEAT_EPOCHS
-# epochs; --bisect: BISECT_REPS forward and backward passes of a batch
+# epochs (15 (c) reads run 0's first epoch); --bisect: BISECT_REPS
+# forward and backward passes of a batch
 REPEAT_EPOCHS, BISECT_REPS = 3, 5
 # phase 11: the segment reduce's train steps a run, and the ranks of its
 # (1, GP_RANKS) edge-sharded mesh on one card
@@ -6076,9 +6084,8 @@ def flagship_forward(torch, graft, small, device):
 
 
 def entry_phase(torch, np, dev, smi, compute_mode) -> dict:
-    """Phase 15: ``__graft_entry_torch__``'s forwards and dry run, and the
-    train CLI of every config of ``scripts/results_pack_torch.py``, card
-    against CPU (module doc, :func:`pack_parity`). Returns the forwards'
+    """Phase 15 (a), (b): ``__graft_entry_torch__``'s forwards and dry run
+    (module doc; (c) is :func:`pack_parity`). Returns the forwards'
     launch counts."""
     import __graft_entry_torch__ as graft
 
@@ -6142,8 +6149,8 @@ def entry_phase(torch, np, dev, smi, compute_mode) -> dict:
             f" x their allowance ({result['grad_gap'][1] or 'every leaf equal'}"
             f"); {wall:.1f} s with the processes' start  [{smi}]")
 
-    pack_parity(smi)
-    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    log(f"phase 15 (a), (b): {time.perf_counter() - t_phase:.1f} s  "
+        f"[{smi}]")
     return launches
 
 
@@ -6204,96 +6211,80 @@ def _pack_gaps(pack, name, task, card, cpu) -> tuple:
     return bad, loss_gap, r2_gap
 
 
-def pack_parity(smi):
+def pack_parity(pack, runs, smi):
     """Phase 15 (c): the train CLI of every config of
-    ``scripts/results_pack_torch.py`` (``CONFIGS``) for PACK_EPOCHS
-    epoch, as the pack runs it (a child process, ``run_train``), once on
-    the card and once on the CPU, each in a fresh model directory on the
-    config's corpus (``build_corpus``, each built once). The weights each
-    run starts from (its checkpoint at creation) must be bit-equal, and
-    every step's loss and r2 agree within LOSS_RTOL (r2 as ``1 - r2``),
-    a ``cls`` run's confusion counts and printed F1s equal. Raises on any
-    mismatch, naming the config, the batch and the two values."""
-    import tempfile
-    from concurrent.futures import ThreadPoolExecutor
-
-    pack = _pack_module()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="prtp_pack_") as work:
-        kinds = sorted({kind for _n, kind, _e in pack.CONFIGS})
-        with ThreadPoolExecutor(len(kinds)) as pool:
-            data = dict(zip(kinds, pool.map(
-                lambda kind: pack.build_corpus(work, kind), kinds)))
-        corpora_s = time.perf_counter() - t0
-
-        def run(job):
-            name, kind, extra, device = job
-            mdl = os.path.join(work, f"{name}_{device}")
-            t1 = time.perf_counter()
-            trace = pack.run_train(mdl, pack.train_args(
-                data[kind], mdl, pack.CORPORA[kind]["map_size"], extra,
-                PACK_EPOCHS), device, timeout=900)
-            weights, steps = pack.read_trace(trace)
-            with open(os.path.join(mdl, "stdout.log")) as f:
-                printed = _PACK_LINE.findall(f.read())
-            return weights, steps, printed, time.perf_counter() - t1
-
-        # the longest runs (most designs) first
-        jobs = sorted(((name, kind, extra, device)
-                       for name, kind, extra in pack.CONFIGS
-                       for device in (DEVICE, "cpu")),
-                      key=lambda j: -len(pack.CORPORA[j[1]].get(
-                          "designs", ())))
-        with ThreadPoolExecutor(PACK_WORKERS) as pool:
-            runs = dict(zip(((j[0], j[3]) for j in jobs), pool.map(run, jobs)))
-    wall = time.perf_counter() - t0
+    ``scripts/results_pack_torch.py`` (``CONFIGS``) on the CPU for
+    PACK_EPOCHS epoch, against the first PACK_EPOCHS epoch of phase 16
+    (a)'s first card run of the config (``runs``: :func:`pack_runs`),
+    both as the pack runs it (a child process, ``run_train``) on the
+    same corpus. The weights each run starts from (its checkpoint at
+    creation) must be bit-equal, every step's loss and r2 agree within
+    LOSS_RTOL (r2 as ``1 - r2``), a ``cls`` run's confusion counts and
+    printed F1s equal, and the card's first loss must be the JAX pack's
+    committed one (``results/<config>/summary.json``, read as data;
+    ``results_pack_torch.start_gap``). Raises on any mismatch, naming
+    the config, the batch and the two values."""
     bad = []
     for name, _kind, extra in pack.CONFIGS:
-        card, cpu = runs[(name, DEVICE)], runs[(name, "cpu")]
+        card, cpu = runs[(name, 0)], runs[(name, "cpu")]
+        n = len(cpu["steps"])
+        card_epoch = (card["weights"], card["steps"][:n], card["labels"][:n])
         task = "cls" if "cls" in extra else "reg"
-        found, loss_gap, r2_gap = _pack_gaps(pack, name, task, card,
-                                             cpu)
+        found, loss_gap, r2_gap = _pack_gaps(
+            pack, name, task, card_epoch,
+            (cpu["weights"], cpu["steps"], cpu["labels"]))
+        jax = pack.jax_row(name)
+        first = card["steps"][0]["loss"]
+        found += [f"{name}: {gap}" for gap in [pack.start_gap(first, jax)]
+                  if gap]
         bad += found
-        n_w = sum(w.numel() for w in card[0].values())
+        n_w = sum(w.numel() for w in card["weights"].values())
         start = ("DIFFER" if any("starting weight" in b for b in found)
                  else "bit-equal")
-        log(f"phase 15 (c): {name}: {len(card[0])} starting tensors "
-            f"({n_w} values) {start}"
-            f"; {len(card[1])} steps; loss card {card[1][0]['loss']:.6g} -> "
-            f"{card[1][-1]['loss']:.6g}, cpu {cpu[1][0]['loss']:.6g} -> "
-            f"{cpu[1][-1]['loss']:.6g}; worst gap loss {loss_gap:.3g}, r2 "
-            f"{r2_gap:.3g} (rtol {LOSS_RTOL}); runs card {card[3]:.1f} s, "
-            f"cpu {cpu[3]:.1f} s; {len(found)} mismatches  [{smi}]")
+        log(f"phase 15 (c): {name}: {len(card['weights'])} starting tensors "
+            f"({n_w} values) {start}; {n} steps; loss card {first:.6g} -> "
+            f"{card_epoch[1][-1]['loss']:.6g} (the JAX pack's first "
+            f"{jax['first_loss']}), cpu {cpu['steps'][0]['loss']:.6g} -> "
+            f"{cpu['steps'][-1]['loss']:.6g}; worst gap loss {loss_gap:.3g},"
+            f" r2 {r2_gap:.3g} (rtol {LOSS_RTOL}); cpu run "
+            f"{cpu['seconds']:.1f} s; {len(found)} mismatches  [{smi}]")
     for b in bad:
         log(f"phase 15 (c): MISMATCH {b}")
     if bad:
         raise AssertionError(f"phase 15 (c): {len(bad)} mismatches, card vs "
-                             f"cpu; the first: {bad[0]}")
-    log(f"phase 15 (c): {len(pack.CONFIGS)} configs' train CLIs, card and "
-        f"cpu, {PACK_EPOCHS} epoch, {PACK_WORKERS} at once, corpora built "
-        f"in {corpora_s:.1f} s; {wall:.1f} s  [{smi}]")
+                             f"cpu and JAX's first losses; the first: "
+                             f"{bad[0]}")
+    log(f"phase 15 (c): {len(pack.CONFIGS)} configs' train CLIs on the cpu, "
+        f"{PACK_EPOCHS} epoch, against the card's first epoch: ok  [{smi}]")
 
 
 _PACK_VAL = re.compile(r"^\toverall r2:.*$", re.M)
 _BATCH_TEXT = re.compile(r"^e\d+,\S+,b\d+/\d+, .*$", re.M)
 
 
-def _repeat_run(pack, work, data, job):
-    """Phase 16: one run of a pack config's train CLI on the card for
-    REPEAT_EPOCHS epochs, as the pack runs it (a child process). Returns
-    its steps' metrics at full precision, its printed batch and
+def _pack_run(pack, work, data, job):
+    """Phases 15 (c) and 16 (a): one run of a pack config's train CLI, as
+    the pack runs it (a child process): ``run`` 0 or 1 on the card for
+    REPEAT_EPOCHS epochs, ``"cpu"`` on the CPU for PACK_EPOCHS. Returns
+    the weights it started from, its steps' metrics at full precision,
+    its printed batch lines as ``(label, F1)``, its printed batch and
     validation lines, the state it ended in and its wall seconds."""
     name, kind, extra, run = job
+    device, epochs = (("cpu", PACK_EPOCHS) if run == "cpu"
+                      else (DEVICE, REPEAT_EPOCHS))
     mdl = os.path.join(work, f"{name}_run{run}")
     t0 = time.perf_counter()
     trace = pack.run_train(mdl, pack.train_args(
-        data[kind], mdl, pack.CORPORA[kind]["map_size"], extra,
-        REPEAT_EPOCHS), DEVICE, timeout=900)
+        data[kind], mdl, pack.CORPORA[kind]["map_size"], extra, epochs),
+        device, timeout=900)
     with open(os.path.join(mdl, "stdout.log")) as f:
         text = f.read()
-    printed = (_BATCH_TEXT.findall(text), _PACK_VAL.findall(text))
-    return (pack.read_trace(trace)[1], printed, pack.read_final(trace),
-            time.perf_counter() - t0)
+    weights, steps = pack.read_trace(trace)
+    return dict(weights=weights, steps=steps,
+                labels=_PACK_LINE.findall(text),
+                printed=(_BATCH_TEXT.findall(text), _PACK_VAL.findall(text)),
+                final=pack.read_final(trace),
+                seconds=time.perf_counter() - t0)
 
 
 def _leaf_gap(torch, a, b) -> float:
@@ -6305,13 +6296,13 @@ def _leaf_gap(torch, a, b) -> float:
 
 
 def repeat_diffs(torch, name, a, b) -> list:
-    """Phase 16: how two runs of one config (:func:`_repeat_run`) differ:
+    """Phase 16: how two runs of one config (:func:`_pack_run`) differ:
     the first step whose full-precision metrics differ, the first printed
     line that differs, the first weight or Adam moment whose bytes
     differ (with its largest gap relative to its max |x|) and how many
     do; empty when the runs are bit-equal."""
     out = []
-    steps = (a[0], b[0])
+    steps = (a["steps"], b["steps"])
     if len(steps[0]) != len(steps[1]):
         out.append(f"{name}: {len(steps[0])} and {len(steps[1])} steps")
     for i, (sa, sb) in enumerate(zip(*steps)):
@@ -6319,16 +6310,18 @@ def repeat_diffs(torch, name, a, b) -> list:
             out.append(f"{name}: step {i} of {len(steps[0])} differs first: "
                        f"{sa} against {sb}")
             break
-    for what, la, lb in zip(("batch line", "validation line"), a[1], b[1]):
+    for what, la, lb in zip(("batch line", "validation line"),
+                            a["printed"], b["printed"]):
         if la != lb:
             i = next((i for i, (x, y) in enumerate(zip(la, lb)) if x != y),
                      min(len(la), len(lb)))
             out.append(f"{name}: {what} {i} of {len(la)} differs first: "
                        f"{la[i:i + 1]} against {lb[i:i + 1]}")
-    leaves = [(f"weight {k}", v, b[2]["model"][k])
-              for k, v in a[2]["model"].items()]
-    leaves += [(f"Adam {k} (flat)", a[2]["optimizer"][k],
-                b[2]["optimizer"][k]) for k in ("mu", "nu")]
+    fa, fb = a["final"], b["final"]
+    leaves = [(f"weight {k}", v, fb["model"][k])
+              for k, v in fa["model"].items()]
+    leaves += [(f"Adam {k} (flat)", fa["optimizer"][k], fb["optimizer"][k])
+               for k in ("mu", "nu")]
     differ = [(what, x, y) for what, x, y in leaves
               if x.shape != y.shape or not torch.equal(
                   x.contiguous().view(-1).view(torch.uint8),
@@ -6341,64 +6334,79 @@ def repeat_diffs(torch, name, a, b) -> list:
                    f"differ in their bytes, the first {what} by up to "
                    f"{gap:.3g} of its max |x|; all: "
                    f"{[w for w, _x, _y in differ]}")
-    if a[2]["optimizer"]["count"] != b[2]["optimizer"]["count"]:
-        out.append(f"{name}: Adam's step counts {a[2]['optimizer']['count']}"
-                   f" and {b[2]['optimizer']['count']}")
+    if fa["optimizer"]["count"] != fb["optimizer"]["count"]:
+        out.append(f"{name}: Adam's step counts {fa['optimizer']['count']}"
+                   f" and {fb['optimizer']['count']}")
     return out
 
 
-def repeat_phase(torch, np, dev, smi, bisect=False):
-    """Phase 16: (a) the train CLI of every config of
-    ``scripts/results_pack_torch.py`` twice on the card, REPEAT_EPOCHS
-    epochs, each run a child process (PACK_WORKERS at once) in a fresh
-    model directory on the config's corpus. The two runs must be bit
-    for bit equal: every step's loss and metrics at full precision, the
-    printed batch and validation lines, the final weights and flat
-    Adam's moments by their bytes. Raises on a difference, naming the
-    config, the first step and line that differ and the first leaf whose
-    bytes differ. ``bisect``: first :func:`bisect_step` on each config.
-    (b) :func:`deterministic_cost`."""
+def pack_runs(torch, pack, phases, smi, bisect=False) -> dict:
+    """The train CLI runs of phases 15 (c) and 16 (a), as one pool of
+    PACK_WORKERS child processes (:func:`_pack_run`) on the pack's
+    corpora (``build_corpus``, each built once): each config's card run
+    0 (both phases), run 1 (phase 16) and CPU run (phase 15). ``bisect``
+    (phase 16): first :func:`bisect_step` on each config. Returns the
+    runs by ``(config, run)``."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
-    pack = _pack_module()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="prtp_repeat_") as work:
-        kinds = sorted({kind for _n, kind, _e in pack.CONFIGS})
+    kinds = sorted({kind for _n, kind, _e in pack.CONFIGS})
+    card_runs = (0, 1) if 16 in phases else (0,)
+    cpu_runs = ("cpu",) if 15 in phases else ()
+    with tempfile.TemporaryDirectory(prefix="prtp_pack_") as work:
         with ThreadPoolExecutor(len(kinds)) as pool:
             data = dict(zip(kinds, pool.map(
                 lambda kind: pack.build_corpus(work, kind), kinds)))
-        if bisect:
+        corpora_s = time.perf_counter() - t0
+        if bisect and 16 in phases:
             for name, kind, extra in pack.CONFIGS:
-                bisect_step(torch, pack, name, data[kind], kind, extra, smi)
+                bisect_step(torch, pack, name, data[kind], kind, extra,
+                            smi)
         t1 = time.perf_counter()
+        # the longest runs (most designs, most epochs) first
         jobs = sorted(((name, kind, extra, run)
                        for name, kind, extra in pack.CONFIGS
-                       for run in range(2)),
-                      key=lambda j: -len(pack.CORPORA[j[1]].get(
-                          "designs", ())))
+                       for run in card_runs + cpu_runs),
+                      key=lambda j: (-len(pack.CORPORA[j[1]].get(
+                          "designs", ())), j[3] == "cpu"))
         with ThreadPoolExecutor(PACK_WORKERS) as pool:
             runs = dict(zip(((j[0], j[3]) for j in jobs), pool.map(
-                lambda job: _repeat_run(pack, work, data, job), jobs)))
+                lambda job: _pack_run(pack, work, data, job), jobs)))
+    log(f"phases 15 (c) and 16 (a): {len(jobs)} train CLI runs "
+        f"({len(card_runs)} a config on the card, {REPEAT_EPOCHS} epochs; "
+        f"{len(cpu_runs)} on the cpu, {PACK_EPOCHS} epoch), "
+        f"{PACK_WORKERS} at once, in {time.perf_counter() - t1:.1f} s; "
+        f"corpora built in {corpora_s:.1f} s  [{smi}]")
+    return runs
+
+
+def repeat_phase(torch, np, dev, pack, runs, smi):
+    """Phase 16: (a) the train CLI of every config of
+    ``scripts/results_pack_torch.py`` twice on the card, REPEAT_EPOCHS
+    epochs (``runs``: :func:`pack_runs`). The two runs must be bit for
+    bit equal: every step's loss and metrics at full precision, the
+    printed batch and validation lines, the final weights and flat
+    Adam's moments by their bytes. Raises on a difference, naming the
+    config, the first step and line that differ and the first leaf whose
+    bytes differ. (b) :func:`deterministic_cost`."""
     bad = []
     for name, _kind, _extra in pack.CONFIGS:
         a, b = runs[(name, 0)], runs[(name, 1)]
         found = repeat_diffs(torch, name, a, b)
         bad += found
-        log(f"phase 16: {name}: {len(a[0])} steps, loss "
-            f"{a[0][0]['loss']!r} -> {a[0][-1]['loss']!r} and "
-            f"{b[0][0]['loss']!r} -> {b[0][-1]['loss']!r}; "
+        log(f"phase 16: {name}: {len(a['steps'])} steps, loss "
+            f"{a['steps'][0]['loss']!r} -> {a['steps'][-1]['loss']!r} and "
+            f"{b['steps'][0]['loss']!r} -> {b['steps'][-1]['loss']!r}; "
             f"{'bit-equal' if not found else 'DIFFER'}; runs "
-            f"{a[3]:.1f} s, {b[3]:.1f} s  [{smi}]")
+            f"{a['seconds']:.1f} s, {b['seconds']:.1f} s  [{smi}]")
     for b in bad:
         log(f"phase 16: DIFFERS {b}")
     if bad:
         raise AssertionError(f"phase 16: {len(bad)} differences between two "
                              f"runs on the card; the first: {bad[0]}")
     log(f"phase 16: {len(pack.CONFIGS)} configs' train CLIs twice on the "
-        f"card, {REPEAT_EPOCHS} epochs, {PACK_WORKERS} at once, bit-equal; "
-        f"runs {time.perf_counter() - t1:.1f} s, (a) "
-        f"{time.perf_counter() - t0:.1f} s  [{smi}]")
+        f"card, {REPEAT_EPOCHS} epochs, bit-equal  [{smi}]")
     t0 = time.perf_counter()
     deterministic_cost(torch, np, dev, smi)
     log(f"phase 16 (b): {time.perf_counter() - t0:.1f} s  [{smi}]")
@@ -6536,8 +6544,9 @@ def parse_args(argv=None):
         "--phases", type=int, nargs="+", choices=range(3, 17),
         metavar="N", help="run only these phases (3-16) after the build "
         "(phase 2), then the kernels line and the last line; phase 14 "
-        "runs on phase 9's designs, so naming 14 runs 9. Without it every "
-        "phase runs")
+        "runs on phase 9's designs, so naming 14 runs 9; phase 15 (c) "
+        "reads the first epoch of phase 16 (a)'s first card runs, so "
+        "naming 15 runs those. Without it every phase runs")
     ap.add_argument(
         "--bisect", action="store_true", help="phase 16 first runs each "
         "config's first batch several times in this process and logs "
@@ -6612,9 +6621,17 @@ def main(argv=None) -> int:
     # ---- phase 15: the graft-style entry and the results pack ----
     if 15 in phases:
         launches.update(entry_phase(torch, np, dev, smi, compute_mode))
-    # ---- phase 16: the train CLI's runs repeat bit for bit ----
-    if 16 in phases:
-        repeat_phase(torch, np, dev, smi, args.bisect)
+    # ---- phases 15 (c), 16: the pack configs' train CLI runs ----
+    if phases & {15, 16}:
+        t0 = time.perf_counter()
+        pack = _pack_module()
+        runs = pack_runs(torch, pack, phases, smi, args.bisect)
+        if 15 in phases:
+            pack_parity(pack, runs, smi)
+        # ---- phase 16: the train CLI's runs repeat bit for bit ----
+        if 16 in phases:
+            repeat_phase(torch, np, dev, pack, runs, smi)
+        log(f"phases 15 (c), 16: {time.perf_counter() - t0:.1f} s  [{smi}]")
     for rec in records:
         rec.launches = {what: c[rec.name] for what, c in launches.items()}
     for rec in records:

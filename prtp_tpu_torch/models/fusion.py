@@ -16,9 +16,11 @@ holding design k's paths only: the K rasters run as one batched
 convolution (the U-Net's BatchNorm takes its statistics over the K
 rasters together) and row k reads feature map k, ``rows_k @ (f_k ⊙ W)
 + b`` (JAX's grouped head, ``prtp_tpu/models/fusion.py:97-150``).
-Parameters follow flax's initialisers (lecun
-normal kernels, zero biases, a xavier-uniform ``fcn_kernel``), drawn
-from the ``generator`` given. The port runs the regression and the
+The constructor draws the parameters with flax's initialisers (lecun
+normal kernels, zero biases, a xavier-uniform ``fcn_kernel``) from the
+``torch.Generator`` given; :func:`model_from_options` then draws the
+JAX package's own weights for ``--seed`` (``utils/convert.py::
+init_from_seed``). The port runs the regression and the
 classification heads, LayoutNet or the U-Net, and the GNN's softmax or
 ``--attn`` cell reduce; ``gnn_reduce="segment"`` (JAX's default is
 ``"mailbox"``) walks the GNN over the flat edge tables, the reduce of
@@ -54,6 +56,7 @@ import torch
 from torch import nn
 
 from ..ops.bf16 import BF16, compute_dtype_of, dense_bf16
+from ..utils.convert import init_from_seed
 from .gnn import TimeGNN
 from .layoutnet import LayoutNet
 from .mlp import MLP
@@ -169,21 +172,25 @@ class PathModel(nn.Module):
 
 
 def model_from_options(options, cell_feat_dim: int, net_feat_dim: int,
-                       cnn_channels: int):
+                       cnn_channels: int, draw: bool = True):
     """Build a PathModel from the parity CLI options (src/train.py:34-81).
 
     flax infers the feature widths and the U-Net's input channels at
     init, and JAX's ``model_from_options`` never reads
     ``--cell_feat_dim``; so here the caller passes the widths of the
     loaded design (after ``--feat_reduce``) and its raster's channel
-    count. The weights are drawn from a ``torch.Generator``
-    seeded with ``--seed``."""
+    count. The weights are the JAX package's
+    ``jax.jit(model.init)(PRNGKey(--seed), ...)``, bit for bit
+    (``utils/convert.py::init_from_seed``). ``draw=False`` leaves the
+    constructor's placeholder weights for a caller that loads a
+    checkpoint over them, as JAX's ``init_state_abstract`` computes
+    none."""
     nh = options.num_heads
     if nh > 1 and options.out_dim % nh != 0:
         raise ValueError(
             f"--num_heads {nh} must divide --out_dim {options.out_dim} "
             "(heads read disjoint out_dim/num_heads value slices)")
-    return PathModel(
+    model = PathModel(
         cell_feat_dim, net_feat_dim,
         compute_dtype=options.compute_dtype,
         use_gnn=not options.no_gnn,
@@ -198,5 +205,5 @@ def model_from_options(options, cell_feat_dim: int, net_feat_dim: int,
         flag_attn=options.attn,
         num_heads=options.num_heads,
         cnn_channels=cnn_channels,
-        generator=torch.Generator().manual_seed(options.seed),
     )
+    return init_from_seed(model, options.seed) if draw else model

@@ -8,7 +8,9 @@ them by name.
 
 Parameters are created uninitialised and drawn from an explicit
 ``torch.Generator`` with flax's distributions (lecun-normal kernels,
-zero biases), never from the global RNG. They stay float32; with a
+zero biases), never from the global RNG; the CLIs then draw the JAX
+package's own weights for ``--seed`` over them
+(``utils/convert.py::init_from_seed``). They stay float32; with a
 bfloat16 compute dtype each layer is flax's ``Dense(dtype=bfloat16)``
 (:func:`dense_bf16`).
 """

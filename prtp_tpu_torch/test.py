@@ -141,7 +141,8 @@ def load_model_state(options, sample_parsed, device="cuda"):
         raise FileNotFoundError(f"no checkpoint in {options.model_saving_dir}")
     model = model_from_options(options, sample_parsed["cell_feat"].shape[1],
                                sample_parsed["net_feat"].shape[1],
-                               sample_parsed["cnn_input"].shape[0])
+                               sample_parsed["cnn_input"].shape[0],
+                               draw=False)
     state = init_state(model, make_optimizer(options.learning_rate,
                                              options.weight_decay), device)
     state, config = ckpt.load_checkpoint(options.model_saving_dir, state)

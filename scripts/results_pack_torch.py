@@ -71,6 +71,10 @@ CORPORA = {
 # a config misses convergence where (its findings, RESULTS.md):
 R2_SLACK = 0.05      # a reg config's final R2 below the JAX package's less this
 LOSS_SHARE = 0.01    # its last per-batch loss not below this x its first
+# both packages draw a seed's weights alike, so a config's first
+# per-batch loss (on batch 0, before any update) must be the JAX pack's:
+# within FIRST_RTOL of it and half the unit of its 3-decimal print
+FIRST_RTOL, PRINT_HALF = 1e-3, 5e-4
 
 METRICS = ("loss", "r2", "acc", "recall", "precision", "f1")
 
@@ -356,11 +360,23 @@ def jax_row(name):
         return json.load(f)
 
 
+def start_gap(first_loss, jax) -> str:
+    """Where a run's first per-batch loss is not the JAX pack's committed
+    one (``jax``: :func:`jax_row`) within FIRST_RTOL and PRINT_HALF: a
+    line saying so; empty where it is, or where JAX has no row."""
+    if jax is None or abs(first_loss - jax["first_loss"]) <= (
+            FIRST_RTOL * abs(jax["first_loss"]) + PRINT_HALF):
+        return ""
+    return (f"first loss {first_loss:.3f} against the JAX pack's "
+            f"{jax['first_loss']:.3f}")
+
+
 def findings(r, jax) -> list:
-    """Where a config misses convergence: a reg config's final R2 more
-    than R2_SLACK below JAX's, its last per-batch loss not below
-    LOSS_SHARE x its first, ``cls`` F1 below JAX's."""
-    out = []
+    """Where a config misses convergence or starts elsewhere than JAX: a
+    reg config's final R2 more than R2_SLACK below JAX's, its last
+    per-batch loss not below LOSS_SHARE x its first, ``cls`` F1 below
+    JAX's, its first loss not JAX's (:func:`start_gap`)."""
+    out = [gap for gap in [start_gap(r["first_loss"], jax)] if gap]
     f = r["final"]
     if not r["last_loss"] < LOSS_SHARE * r["first_loss"]:
         out.append(f"per-batch loss {r['first_loss']:.3f} -> "
@@ -466,14 +482,17 @@ def write_results_md(out, rows):
         "`scripts/results_pack.py` (`prtp_tpu_torch.data.synthetic`),",
         "with its flags, configs and epochs. Each config's final row is",
         "set beside the JAX package's committed one",
-        "(`results/<config>/summary.json`); the two start from different",
-        "random weights (a torch `Generator` against a JAX `PRNGKey`), so",
-        "their curves differ. On a card each config's train CLI also runs",
-        "one epoch on the CPU of the same machine: its first loss stands",
-        "beside the card's, both from the same weights (`models/mlp.py`",
-        "draws them from the seed alone). Every time here is the port's,",
-        "on the device named beside it. This file is regenerated from the",
-        "`summary.json` files next to it; do not edit it by hand.",
+        "(`results/<config>/summary.json`). Both start from the same",
+        "weights: the port draws the JAX package's `model.init` for",
+        "`--seed` (`prtp_tpu_torch/utils/convert.py::init_from_seed`), so",
+        "each first loss is JAX's; the curves then part where float32",
+        "sums taken in another order (the card's, JAX's CPU's) turn a",
+        "step. On a card each config's train CLI also runs one epoch on",
+        "the CPU of the same machine: its first loss stands beside the",
+        "card's, both from the same weights. Every time here is the",
+        "port's, on the device named beside it. This file is regenerated",
+        "from the `summary.json` files next to it; do not edit it by",
+        "hand.",
         "",
         "## Final eval metrics (the `predict.txt` row of each config)",
         "",
@@ -492,7 +511,9 @@ def write_results_md(out, rows):
         "",
         f"A config misses it where a reg config's final R2 lies more than "
         f"{R2_SLACK} below JAX's, its last per-batch loss is not below "
-        f"{LOSS_SHARE} x its first, or `cls` has an F1 below JAX's.",
+        f"{LOSS_SHARE} x its first, or `cls` has an F1 below JAX's; and "
+        f"it starts elsewhere than JAX where its first loss is not JAX's "
+        f"within {FIRST_RTOL:g} relative and {PRINT_HALF:g}.",
         "",
         "| config | epochs | batches | per-batch loss, first -> last | "
         "CPU's first loss (1 epoch, same start) | JAX's first -> last | "

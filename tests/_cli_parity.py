@@ -2,7 +2,9 @@
 from one initial state, converted from JAX's, both packages' train CLIs
 must print the same per-batch and validation values and both test CLIs
 the same ``predict.txt`` row and ``predict_critical`` lists, for each
-flag set of CLI_FLAGS. Each test file runs some of the flag sets
+flag set of CLI_FLAGS; the SEEDED flag sets give no state, and each
+package draws its own from ``--seed`` (the port by
+``utils/convert.py::init_from_seed``) and trains one whole epoch. Each test file runs some of the flag sets
 (:func:`cli_runs_fixture`), so that pytest-xdist's ``--dist loadfile``
 spreads them over its workers.
 
@@ -61,7 +63,14 @@ CLI_FLAGS = {
     # take its padded scan, and the port's the scan's rounding
     "bf16_default": (["--compute_dtype", "bfloat16"], "corpus"),
     "merged": (["--merge_designs"], "corpus"),
+    # each package's own weights for the default --seed, and the U-Net's
+    # (BatchNorm scales and running averages) for another
+    "seeded": ([], "corpus"),
+    "seeded_unet": (["--unet", "--seed", "3"], "unet"),
 }
+SEEDED = ("seeded", "seeded_unet")
+# the corpus's train batches in one epoch: syn_a 2, syn_b 3
+EPOCH_BATCHES = 5
 # printed values: 3 decimals, and float32 sums taken in another order
 RTOL, ATOL = 1e-4, 2e-3
 # bf16 evaluations (validation lines, the test CLI's row): both packages
@@ -111,7 +120,7 @@ def cli_runs_fixture(names):
             "corpus_data" if corpus == "corpus" else "unet_data")
         dirs = {"jax": str(tmp_path_factory.mktemp("jax_mdl")),
                 "port": str(tmp_path_factory.mktemp("port_mdl"))}
-        run_clis(data, flags, dirs)
+        run_clis(data, flags, dirs, seeded=request.param in SEEDED)
         return dirs, request.param
 
     return cli_runs
@@ -136,7 +145,8 @@ def test_train_cli_prints_jax_values(cli_runs):
     dirs, run = cli_runs
     want, got = _train_lines(dirs["jax"]), _train_lines(dirs["port"])
     assert [s for s, _ in got] == [s for s, _ in want]
-    assert sum(s.startswith("e0,") for s, _ in want) == 3
+    assert sum(s.startswith("e0,") for s, _ in want) == (
+        EPOCH_BATCHES if run in SEEDED else 3)
     assert sum(s == "validate:" for s, _ in want) >= 2
     for (line, a), (_s, b) in zip(got, want):
         rtol = (BF16_EVAL_RTOL if run in BF16_RUNS and not line.startswith("e")
@@ -206,23 +216,26 @@ def save_initial_states(data, args, dirs):
         popts.net_feat_dim -= popts.feat_reduce[1]
         model = model_from_options(popts, parsed["cell_feat"].shape[1],
                                    parsed["net_feat"].shape[1],
-                                   parsed["cnn_input"].shape[0])
+                                   parsed["cnn_input"].shape[0], draw=False)
         model.load_state_dict(params_from_flax(to_np(jstate.params),
                                                to_np(jstate.batch_stats)))
         state = init_state(model, make_optimizer(popts.learning_rate), "cpu")
         ckpt.save_checkpoint(mdl, state, dict(vars(popts)))
 
 
-def run_clis(data, flags, dirs):
+def run_clis(data, flags, dirs, seeded=False):
     """JAX's init_state saved by JAX, converted (running averages too)
     and saved by the port (:func:`save_initial_states`); then both train
     CLIs resume on ONE data directory (the first writes the validation
-    split files, the second reads them) and both test CLIs evaluate.
-    ``dirs`` maps ``"jax"`` and ``"port"`` to a model directory each."""
-    args = (["--data_save_path", data, "--num_epoch", "1", "--max_steps",
-             "3", "--val_interval", "2", "--steps_per_dispatch", "1"]
-            + MAP_ARGS + flags)
-    save_initial_states(data, args, dirs)
+    split files, the second reads them) for 3 steps, and both test CLIs
+    evaluate. ``seeded``: no state is saved, each train CLI draws its
+    own weights from ``--seed`` and trains one whole epoch. ``dirs``
+    maps ``"jax"`` and ``"port"`` to a model directory each."""
+    args = (["--data_save_path", data, "--num_epoch", "1", "--val_interval",
+             "2", "--steps_per_dispatch", "1"] + MAP_ARGS + flags)
+    if not seeded:
+        args += ["--max_steps", "3"]
+        save_initial_states(data, args, dirs)
     jax_train.main(args + ["--model_saving_dir", dirs["jax"]])
     train_mod.main(args + ["--model_saving_dir", dirs["port"]], device="cpu")
     test_args = ["--data_save_path", data] + MAP_ARGS + flags

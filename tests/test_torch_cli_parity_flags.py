@@ -4,7 +4,9 @@ CPU, from one initial state converted from JAX's
 --pooling avg --droplast --os_rate 2 --weight_decay 1e-4``) and with
 ``--compute_dtype bfloat16 --exact_levels`` (JAX's train steps take its
 fused exact walk, the port's; validations and the test CLI its padded
-scan, which the port's evaluations round as)."""
+scan, which the port's evaluations round as); and from ``--seed`` alone,
+each package drawing its own weights, for one epoch with the default
+flags and with ``--unet --seed 3``."""
 
 from _cli_parity import (cli_runs_fixture, corpus_data,  # noqa: F401
                          test_test_cli_writes_jax_predictions,
@@ -13,4 +15,4 @@ from _cli_parity import (cli_runs_fixture, corpus_data,  # noqa: F401
 
 import _torch_threads  # noqa: F401  (one torch thread a worker)
 
-cli_runs = cli_runs_fixture(['flags', 'bf16'])
+cli_runs = cli_runs_fixture(['flags', 'bf16', 'seeded', 'seeded_unet'])

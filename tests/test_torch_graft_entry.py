@@ -74,12 +74,36 @@ def test_flagship_design_equals_jax(jax_flagship):
     assert int(got["num_nodes"]) == 464
 
 
-def test_entry_forward_matches_jax(jax_flagship):
+@pytest.fixture(scope="module")
+def jax_entry_init(jax_flagship):
+    """JAX's ``entry()`` weights (its init jitted) and ids."""
+    model, design, _parsed = jax_flagship
+    path_ids = jnp.arange(min(32, design.num_paths), dtype=jnp.int32)
+    return jax.jit(model.init)(jax.random.PRNGKey(0), design,
+                               path_ids), path_ids
+
+
+def test_entry_draws_jax_entry_weights(jax_entry_init):
+    """``entry()``'s model starts from ``PRNGKey(0)``'s weights, as
+    ``__graft_entry__.entry`` does: JAX's init, bit for bit, under the
+    port's names."""
+    variables, _ids = jax_entry_init
+    want = params_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                   variables["params"]))
+    _fn, (port, _design, _ids) = port_entry.entry(device="cpu")
+    got = port.state_dict()
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key].numpy().view(np.uint32),
+                                      want[key].numpy().view(np.uint32),
+                                      err_msg=key)
+
+
+def test_entry_forward_matches_jax(jax_flagship, jax_entry_init):
     """``entry(device="cpu")`` on JAX's ``entry()`` weights (its init
     jitted) against ``jax.jit(fn)(*args)``."""
     model, design, _parsed = jax_flagship
-    path_ids = jnp.arange(min(32, design.num_paths), dtype=jnp.int32)
-    variables = jax.jit(model.init)(jax.random.PRNGKey(0), design, path_ids)
+    variables, path_ids = jax_entry_init
     want = np.asarray(jax.jit(model.apply)(variables, design, path_ids))
     fn, (port, port_design, port_ids) = port_entry.entry(device="cpu")
     port.load_state_dict(params_from_flax(variables["params"]))

@@ -1,6 +1,12 @@
-"""The port's init against flax's, in distribution: the train CLI's
-``model_from_options(--seed s)`` and JAX's ``model.init(PRNGKey(s))``
-over SEEDS seeds each, leaf by leaf (JAX's leaves under the port's names,
+"""The port's init against flax's. Bit for bit: the train CLI's
+``model_from_options(--seed s)`` is JAX's ``jax.jit(model.init)
+(PRNGKey(s))`` (``utils/convert.py::init_from_seed``), every leaf under
+the same name and shape with the same bits, for each variant of
+EXACT_VARIANTS at EXACT_SEEDS, the U-Net's running averages too. In
+distribution: the port's constructor's own draw from a
+``torch.Generator`` (the weights of every model the CLIs do not build),
+against JAX's ``model.init(PRNGKey(s))`` over SEEDS seeds each, leaf by
+leaf (JAX's leaves under the port's names,
 ``utils/convert.py::params_from_flax``). Every random leaf's standard
 deviation within STD_SIGMAS / sqrt(2 n) of JAX's, relative (n its
 elements over the seeds); its largest |w| within its initializer's
@@ -9,17 +15,22 @@ lecun-normal kernels (flax's ``fan_in``: a kernel's elements over its
 output features, k * k * cin for a conv), sqrt(6 / (fan_in + fan_out))
 for the xavier-uniform ``fcn_kernel``; every constant leaf (the biases
 zero, the U-Net's BatchNorm scales one) equal to JAX's, exactly. No
-other test holds the init: the parity tests convert JAX's weights."""
+other test holds the constructor's draw: the parity tests convert JAX's
+weights or draw them from the seed."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from prtp_tpu.graph import pack_design as jax_pack_design
 from prtp_tpu.models.fusion import model_from_options as jax_model_from_options
 from prtp_tpu.options import get_options as jax_get_options
 from prtp_tpu_torch.data.random_design import make_random_design
+from prtp_tpu_torch.models import PathModel
 from prtp_tpu_torch.models.fusion import model_from_options
 from prtp_tpu_torch.options import get_options
 from prtp_tpu_torch.utils.convert import params_from_flax
@@ -42,11 +53,21 @@ VARIANTS = {
     "default": ["--map_size", "16"],
     "unet": ["--map_size", "8", "--unet"],
 }
+EXACT_VARIANTS = {
+    **VARIANTS,
+    "attn": ["--map_size", "16", "--attn", "--num_heads", "4"],
+    "cls": ["--map_size", "16", "--task", "cls", "--nlabels", "2"],
+    "no_gnn": ["--map_size", "16", "--no_gnn"],
+    "no_cnn": ["--map_size", "16", "--no_cnn"],
+}
+EXACT_SEEDS = (0, 9294, 2**31 - 1)
 
 
-def _draws(argv):
-    """``(jax, port)``: each package's SEEDS draws of every leaf, stacked
-    on a leading axis under the port's names."""
+def _jax_init(argv, seeds, compiler_options=None, **pack_kw):
+    """``(jopts, parsed, params)``: JAX's ``model_from_options(argv)``
+    initialised by ``jax.jit(model.init)`` under ``PRNGKey(s)`` for each
+    of ``seeds`` (one vmapped compile; ``params`` has a leading seed
+    axis), on a random design of two level pairs at the init's widths."""
     jopts = jax_get_options(argv)
     # the init reads only the widths: a design of two level pairs keeps
     # the traced forward short (a U-Net raster's side is 2 x map_size)
@@ -57,21 +78,40 @@ def _draws(argv):
                                 cnn_channels=3 if jopts.unet else 2,
                                 cnn_hw=side, mask_nnz_per_path=4, seed=0)
     design = jax_pack_design(parsed, map_size=jopts.map_size, align=8,
-                             cnn_patches=False)
+                             **pack_kw)
     pids = jnp.arange(design.num_paths, dtype=jnp.int32)
     model = jax_model_from_options(jopts)
-    keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(SEEDS))
-    init = jax.jit(jax.vmap(lambda k: model.init(k, design, pids)["params"]))
-    # the draws are the same at any optimization level; this compiles
-    # several times faster
-    params = init.lower(keys).compile(compiler_options=FAST_COMPILE)(keys)
-    params = jax.tree_util.tree_map(np.asarray, params)
+    keys = jax.vmap(jax.random.PRNGKey)(jnp.asarray(seeds, jnp.uint32))
+    init = jax.jit(jax.vmap(lambda k: model.init(k, design, pids)))
+    params = init.lower(keys).compile(compiler_options=compiler_options)(
+        keys)
+    return jopts, parsed, jax.tree_util.tree_map(np.asarray, params)
+
+
+def _widths(parsed):
+    """The design's cell and net feature widths and raster channels."""
+    return (parsed["cell_feat"].shape[1], parsed["net_feat"].shape[1],
+            parsed["cnn_input"].shape[0])
+
+
+def _draws(argv):
+    """``(jax, port)``: each package's SEEDS draws of every leaf, stacked
+    on a leading axis under the port's names (the port's from its
+    constructor's ``torch.Generator`` seeded with s)."""
+    # the draws' distribution is the same at any optimization level; this
+    # compiles several times faster (their bits are not: XLA contracts
+    # other multiply-adds)
+    jopts, parsed, variables = _jax_init(argv, range(SEEDS), FAST_COMPILE,
+                                         cnn_patches=False)
+    params = variables["params"]
     per_seed = [params_from_flax(jax.tree_util.tree_map(
         lambda x, s=s: x[s], params)) for s in range(SEEDS)]
-    cnn_channels = parsed["cnn_input"].shape[0]
-    port = [model_from_options(
-        get_options(argv + ["--seed", str(s)]), parsed["cell_feat"].shape[1],
-        parsed["net_feat"].shape[1], cnn_channels).state_dict()
+    cell, net, channels = _widths(parsed)
+    port = [PathModel(
+        cell, net, out_dim=jopts.out_dim, hidden_dim=jopts.hidden_dim,
+        cnn_outdim=jopts.cnn_outdim, map_size=jopts.map_size,
+        unet=jopts.unet, cnn_channels=channels,
+        generator=torch.Generator().manual_seed(s)).state_dict()
         for s in range(SEEDS)]
     jax_leaves = {k: np.stack([d[k].numpy() for d in per_seed])
                   for k in per_seed[0]}
@@ -120,3 +160,32 @@ def test_init_matches_flax_in_distribution(draws):
         assert abs(ratio - 1) <= STD_SIGMAS / np.sqrt(2 * n), (
             key, variant, got.std(), want.std(), n)
     assert random >= 8, (variant, random)
+
+
+@pytest.fixture(scope="module", params=sorted(EXACT_VARIANTS))
+def jax_inits(request):
+    """One variant's JAX init at every seed of EXACT_SEEDS, compiled as
+    the train CLI's ``init_state`` compiles it (the default options: the
+    bits of its multiply-adds depend on them), on the packed design's
+    default layout (LayoutNet's ``StaticInputConv`` on its patch table)."""
+    argv = WIDTHS + EXACT_VARIANTS[request.param]
+    return argv, _jax_init(argv, EXACT_SEEDS)
+
+
+@pytest.mark.parametrize("seed", range(len(EXACT_SEEDS)),
+                         ids=[str(s) for s in EXACT_SEEDS])
+def test_model_from_options_draws_jax_init_bit_for_bit(jax_inits, seed):
+    argv, (_jopts, parsed, variables) = jax_inits
+    pick = functools.partial(jax.tree_util.tree_map, lambda x: x[seed])
+    want = params_from_flax(pick(variables["params"]),
+                            pick(variables.get("batch_stats", {})))
+    got = model_from_options(
+        get_options(argv + ["--seed", str(EXACT_SEEDS[seed])]),
+        *_widths(parsed)).state_dict()
+    got = {k: v for k, v in got.items() if v.is_floating_point()}
+    assert sorted(got) == sorted(want), set(got) ^ set(want)
+    for key in want:
+        assert got[key].shape == want[key].shape, key
+        np.testing.assert_array_equal(
+            got[key].numpy().view(np.uint32),
+            want[key].numpy().view(np.uint32), err_msg=key)

@@ -2,8 +2,10 @@
 a short run of one config writes its summary, predictions and a
 RESULTS.md row beside the JAX package's committed row; its train CLI
 starts from ``model_from_options(--seed)``'s weights, where the
-committed card pack started; its log parser finds every batch line and
-refuses a log without numbers."""
+committed card pack started; every committed config of the card pack
+(``results_torch/``) starts where the JAX package's committed pack
+(``results/``) does, since both draw a seed's weights alike; its log
+parser finds every batch line and refuses a log without numbers."""
 
 import importlib.util
 import json
@@ -69,11 +71,11 @@ def test_train_cli_starts_from_the_seed_where_the_card_started(pack_run):
     """The train CLI's starting weights, read back from the checkpoint it
     writes at creation (the pack's trace), are ``model_from_options
     (--seed)``'s; and its first loss, on batch 0 before any update, is the
-    committed card pack's (``results_torch/``, drawn under another
+    committed card pack's (``results_torch/``, run under another
     PyTorch), within the rtol phase 15 of chip_smoke.py holds the card to
     and the half unit of its 3-decimal print. A seed's weights must not
-    depend on PyTorch's own truncated-normal sampler, which draws other
-    values from 2.13 on (``models/mlp.py::lecun_normal_``)."""
+    depend on PyTorch or on the device: they are the JAX package's,
+    drawn on the host (``utils/convert.py::init_from_seed``)."""
     root, _stdout = pack_run
     work = root / "work"
     weights, steps = pack.read_trace(str(work / f"{CONFIG}_trace"))
@@ -93,6 +95,42 @@ def test_train_cli_starts_from_the_seed_where_the_card_started(pack_run):
     assert card["device"].startswith("NVIDIA")
     assert abs(steps[0]["loss"] - card["first_loss"]) <= (
         1e-3 * abs(card["first_loss"]) + 5e-4), (steps[0], card["first_loss"])
+
+
+@pytest.mark.parametrize("config", [c[0] for c in pack.CONFIGS])
+def test_committed_card_pack_starts_where_the_jax_pack_does(config):
+    """Each config of the committed card pack (``results_torch/``) has the
+    JAX package's committed pack's first per-batch loss (``results/``),
+    within rtol 1e-3 and half the unit of the 3-decimal print: both train
+    CLIs draw ``--seed``'s weights alike and see the same first batch."""
+    rows = []
+    for root in ("results_torch", "results"):
+        with open(os.path.join(REPO, root, config, "summary.json")) as f:
+            rows.append(json.load(f))
+    card, jax = rows
+    assert card["device"].startswith("NVIDIA") and card["epochs"] == 150
+    assert abs(card["first_loss"] - jax["first_loss"]) <= (
+        1e-3 * abs(jax["first_loss"]) + 5e-4), (card["first_loss"],
+                                                jax["first_loss"])
+
+
+@pytest.mark.parametrize("first, jax_first, misses", [
+    (18.902944564819336, 18.903, False),   # the print's rounding
+    (505.97, 505.47, False),               # within 1e-3 of it
+    (0.0005, 0.001, False),                # within half the print's unit
+    (506.0, 505.47, True),
+    (1.101, 18.903, True),                 # another init's first loss
+    (1.101, None, False),                  # JAX has no row
+])
+def test_start_gap_names_a_first_loss_not_jax(first, jax_first, misses):
+    jax = None if jax_first is None else {
+        "first_loss": jax_first, "final": {"r2": 1.0, "f1": 1.0}}
+    gap = pack.start_gap(first, jax)
+    assert bool(gap) == misses, gap
+    row = {"first_loss": first, "last_loss": 0.0, "name": "reg_x",
+           "final": {"r2": 1.0, "f1": 1.0}}
+    assert (gap in pack.findings(row, jax)) if misses else not any(
+        "first loss" in f for f in pack.findings(row, jax))
 
 
 def test_pack_keeps_the_final_state_and_its_digests(pack_run):
